@@ -7,7 +7,8 @@ Phases, each printing one line with its seconds:
   1. device: the card's name and power limit (nvidia-smi), torch / CUDA;
   2. build: nvcc builds the kernels from super_rag_tpu_torch/csrc;
   3. kernel vs plain version at small shapes, every mode (int8 x int8 must
-     match bit for bit, the float modes within a stated tolerance);
+     match bit for bit, the float modes within a stated tolerance), for
+     the dense top-k and both IVF kernels;
   4. full size: 1M x 768 int8 corpus + 64-slot zipfian BM25 table made on
      the card from a seed, DeviceIndex + compact_lexical, then
      search_hybrid at batch 512 (kernel held against its plain version,
@@ -18,8 +19,21 @@ Phases, each printing one line with its seconds:
   5. serving: >= 256 concurrent text requests through QueryBatcher over
      a CollectionEngine on that index, each checked against a direct
      search_batch of the same query;
-  6. a ``{"kernels": [...]}`` JSON line;
-  7. last line: ``{"ok": true, "device": {...}}``.
+  6. IVF tier: a clustered 1M x 768 int8 corpus made on the card,
+     DeviceIndex + compact_lexical + compact_dense(nlist 1024, nprobe 16)
+     (timed streaming build), search_hybrid at batch 32 (the union
+     kernel) and search_dense at batch 512 (the per-query kernel) with
+     their launches counted, each kernel held against its plain version
+     at those calls' inputs, the batch-32 hybrid result against the same
+     path on the plain versions, recall@10 against an exact f32 search,
+     and timings of the calls, the kernels, the plain versions and a
+     library yardstick;
+  7. IVF serving: >= 128 concurrent requests through
+     QueryBatcher(max_batch=32) on the IVF index, each answer equal to a
+     direct search_batch of its dispatch's batch, one union-kernel launch
+     per dispatch;
+  8. a ``{"kernels": [...]}`` JSON line;
+  9. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  There is no CPU path: without a
 CUDA device, or without the package beside it, it exits non-zero and
@@ -56,10 +70,21 @@ SERVE_REQUESTS = 256
 SEED = 0
 TIMED_REPS = 20
 DEVICE = "cuda"
+# the IVF tier: the reference's own IVF setting at 1M x 768 int8
+# (scripts/bench_p50.py: compact_dense(nlist=1024, nprobe=16) over 2048
+# clustered centres); B = 32 hybrid takes the union kernel, B = 512
+# search_dense the per-query kernel
+IVF_CENTERS = 2048
+IVF_NLIST = 1024
+IVF_NPROBE = 16
+IVF_HYBRID_BATCH = 32
+IVF_DENSE_BATCH = 512
+IVF_SERVE_REQUESTS = 128
 
-# H100 SXM published peaks (dense): HBM bytes/s and int8 operations/s
+# H100 SXM published peaks (dense): HBM bytes/s, int8 and bf16 operations/s
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_OPS_PER_S = 989e12
 
 
 def log(msg: str) -> None:
@@ -194,11 +219,13 @@ def _zipf(gen, a: float, shape) -> torch.Tensor:
     return torch.clamp(x.to(torch.int64), min=1)
 
 
-def make_corpus(n: int, gen: torch.Generator):
+def make_corpus(n: int, gen: torch.Generator, centers=None):
     """Codes, scales and a zipfian doc-term table on the card, plus the
     host state a DeviceIndex snapshot carries.  Term buckets are the
     analyzer's hashes of the words ``t<rank>``, so text queries made of
-    those words hit the same buckets."""
+    those words hit the same buckets.  Rows are iid Gaussian, or, given
+    ``centers``, a random centre plus N(0, 1) noise (the repo's clustered
+    IVF recipe); build_corpus L2-normalises and quantizes them."""
     from super_rag_tpu_torch.ops.dense import build_corpus
     from super_rag_tpu_torch.tokenize.analyzer import fnv1a32
 
@@ -208,6 +235,9 @@ def make_corpus(n: int, gen: torch.Generator):
     for lo in range(0, n, step):
         hi = min(n, lo + step)
         x = torch.randn(hi - lo, DIM, device=DEVICE, generator=gen)
+        if centers is not None:
+            x += centers[torch.randint(0, centers.shape[0], (hi - lo,),
+                                       device=DEVICE, generator=gen)]
         c = build_corpus(x, dtype=torch.int8)
         codes[lo:hi], scales[lo:hi] = c.values, c.scales
 
@@ -294,11 +324,35 @@ def library_topk(q_i8, q_scale, codes, scales, mask, n, tile, kt):
     return out_v
 
 
+def exact_topk(queries, corpus, mask, n: int) -> torch.Tensor:
+    """Ids of the exact f32 top-TOP_K over the stored rows (codes x
+    scales) of the first ``n`` rows, for cosine queries."""
+    from super_rag_tpu_torch.ops.dense import normalize_queries
+
+    qn = normalize_queries(queries, "cosine")
+    b = qn.shape[0]
+    gold = torch.empty((b, 0), device=DEVICE)
+    gold_i = torch.empty((b, 0), dtype=torch.int64, device=DEVICE)
+    for lo in range(0, n, 131072):
+        hi = min(n, lo + 131072)
+        s = qn @ (corpus.values[lo:hi].to(torch.float32) * corpus.scales[lo:hi, None]).T
+        s = torch.where(mask[None, lo:hi], s, float("-inf"))
+        v, i = torch.topk(torch.cat([gold, s], 1), TOP_K)
+        gold_i = torch.gather(torch.cat([gold_i, torch.arange(lo, hi, device=DEVICE)
+                                         .expand(b, -1)], 1), 1, i)
+        gold = v
+    return gold_i
+
+
+def recall_at_k(got: torch.Tensor, gold: torch.Tensor) -> float:
+    return float(np.mean([len(set(a[:TOP_K]) & set(b)) / TOP_K for a, b in
+                          zip(got.cpu().tolist(), gold.cpu().tolist())]))
+
+
 def phase_full(results: dict):
     from super_rag_tpu_torch.engine.index import DeviceIndex
     from super_rag_tpu_torch.models.hash_embedder import HashEmbedder
     from super_rag_tpu_torch.ops import dense_topk as dt
-    from super_rag_tpu_torch.ops.dense import normalize_queries
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     t0 = time.perf_counter()
@@ -383,19 +437,7 @@ def phase_full(results: dict):
     _, got = dt.dense_topk(sample, corpus, TOP_K, mask=mask, tile=tile,
                            int8_queries=True, per_tile_k=idx._per_tile_k,
                            device=DEVICE)
-    qn = normalize_queries(sample, "cosine")
-    gold = torch.empty((64, 0), device=DEVICE)
-    gold_i = torch.empty((64, 0), dtype=torch.int64, device=DEVICE)
-    for lo in range(0, n, 131072):
-        hi = min(n, lo + 131072)
-        s = qn @ (corpus.values[lo:hi].to(torch.float32) * corpus.scales[lo:hi, None]).T
-        s = torch.where(mask[None, lo:hi], s, float("-inf"))
-        v, i = torch.topk(torch.cat([gold, s], 1), TOP_K)
-        gold_i = torch.gather(torch.cat([gold_i, torch.arange(lo, hi, device=DEVICE)
-                                         .expand(64, -1)], 1), 1, i)
-        gold = v
-    recall = float(np.mean([len(set(a) & set(b)) / TOP_K for a, b in
-                            zip(got.cpu().tolist(), gold_i.cpu().tolist())]))
+    recall = recall_at_k(got, exact_topk(sample, corpus, mask, n))
     log(f"[full] dense recall@{TOP_K} vs exact f32 over the stored rows "
         f"(64 queries): {recall:.4f}")
     if recall < 0.9:
@@ -485,6 +527,362 @@ def phase_serve(idx, texts, embedder) -> dict:
     return stats
 
 
+# -- the IVF dense tier ------------------------------------------------------
+
+def _scores_err(got: torch.Tensor, ref: torch.Tensor, d: int) -> tuple[float, float]:
+    """Raise unless two raw candidate-score arrays agree: the same -inf
+    slots, finite values within ``_tolerance`` (sums of exact products,
+    or of f32 products, in other orders).  Returns (max |diff|, tol)."""
+    fin = torch.isfinite(ref)
+    if not torch.equal(fin, torch.isfinite(got)):
+        raise AssertionError("kernel and plain version disagree on -inf slots")
+    tol = _tolerance(d, ref)
+    diff = (got - ref).abs()[fin]
+    err = float(diff.max()) if diff.numel() else 0.0
+    if err > tol:
+        raise AssertionError(f"scores differ by {err} > tolerance {tol}")
+    return err, tol
+
+
+def _compare_candidates(got: torch.Tensor, ref: torch.Tensor, d: int, k: int) -> float:
+    """Kernel vs plain candidate scores ``[B, ...]``: the raw arrays within
+    tolerance, then their top-k as the glue takes it (stable_topk), ids
+    equal up to near-ties (``_compare``).  Returns max |diff|."""
+    from super_rag_tpu_torch.ops.topk import stable_topk
+
+    err, tol = _scores_err(got, ref, d)
+    b = ref.shape[0]
+    gv, gi = stable_topk(got.reshape(b, -1), k)
+    rv, ri = stable_topk(ref.reshape(b, -1), k)
+    _compare(gv[None], gi[None], rv[None], ri[None], exact=False, tol=tol,
+             scores=ref.reshape(b, -1))
+    return err
+
+
+def phase_small_ivf() -> int:
+    """Both IVF kernels against their plain versions at small shapes:
+    every values mode, a ragged capacity (200) and a 128-multiple one,
+    empty slots, with and without a keep-mask and the residual add-back,
+    and probe lists that cover every tile (nprobe = nlist)."""
+    from super_rag_tpu_torch.ops import ivf_topk as it
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    nlist, d, b = 12, 96, 20
+    cases = 0
+    for dtype in (torch.int8, torch.bfloat16, torch.float32):
+        for cap in (200, 256):
+            x = torch.randn(nlist, cap, d, device=DEVICE, generator=gen)
+            if dtype == torch.int8:
+                values = torch.clamp(torch.round(x * 40), -127, 127).to(torch.int8)
+                scales = torch.rand(nlist, cap, device=DEVICE, generator=gen) * 0.01
+            else:
+                values, scales = x.to(dtype), None
+            row_ids = torch.randperm(nlist * cap, device=DEVICE, generator=gen).to(
+                torch.int32).reshape(nlist, cap)
+            row_ids[torch.rand(nlist, cap, device=DEVICE, generator=gen) < 0.2] = -1
+            q = torch.randn(b, d, device=DEVICE, generator=gen).to(
+                torch.float32 if dtype == torch.float32 else torch.bfloat16)
+            cs_all = torch.randn(b, nlist, device=DEVICE, generator=gen)
+            keep = torch.rand(nlist * cap, device=DEVICE, generator=gen) < 0.7
+            union_sets = [torch.tensor([3, 0, 11, 7], dtype=torch.int32, device=DEVICE),
+                          torch.arange(nlist, dtype=torch.int32, device=DEVICE)]
+            probe_sets = [torch.randint(0, nlist, (b, 5), device=DEVICE, generator=gen,
+                                        dtype=torch.int32),
+                          torch.stack([torch.randperm(nlist, device=DEVICE, generator=gen)
+                                       for _ in range(b)]).to(torch.int32)]
+            for residual in (False, True):
+                for mask in (None, keep):
+                    cs = cs_all if residual else None
+                    for tiles in union_sets:
+                        args = (q, tiles, values, scales, cs, row_ids, mask)
+                        _compare_candidates(it.union_scores(*args),
+                                            it.union_scores_plain(*args), d, 10)
+                        cases += 1
+                    for probes in probe_sets:
+                        args = (q, probes, values, scales, cs, row_ids, mask)
+                        _compare_candidates(it.probe_scores(*args),
+                                            it.probe_scores_plain(*args), d, 10)
+                        cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
+def _reset_counts() -> None:
+    from super_rag_tpu_torch.ops import dense_topk as dt
+    from super_rag_tpu_torch.ops import ivf_topk as it
+
+    dt.launches.count = 0
+    it.union_launches.count = 0
+    it.probe_launches.count = 0
+
+
+def _counts() -> dict:
+    from super_rag_tpu_torch.ops import dense_topk as dt
+    from super_rag_tpu_torch.ops import ivf_topk as it
+
+    return {"dense_topk": dt.launches.count, "ivf_union": it.union_launches.count,
+            "ivf_probe": it.probe_launches.count}
+
+
+def _recording(calls: dict, name: str, fn):
+    """``fn`` that keeps the arguments of its last call in ``calls``."""
+    def wrapped(*args):
+        calls[name] = args
+        return fn(*args)
+    return wrapped
+
+
+def phase_ivf(results: dict):
+    """The IVF tier at full size: clustered 1M x 768 int8 corpus made on
+    the card, DeviceIndex + compact_lexical + compact_dense(nlist 1024,
+    nprobe 16) (the streaming build), then search_hybrid at B = 32 (union
+    kernel) and search_dense at B = 512 (per-query kernel), each kernel
+    held against its plain version at those calls' inputs."""
+    from super_rag_tpu_torch.engine.index import DeviceIndex
+    from super_rag_tpu_torch.ops import ivf_topk as it
+    from super_rag_tpu_torch.ops.bm25_inverted import inverted_bm25_search
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    t0 = time.perf_counter()
+    centers = torch.randn(IVF_CENTERS, DIM, device=DEVICE, generator=gen) * 3.0
+    arrays, host, ranks, df_host = make_corpus(N_ROWS, gen, centers=centers)
+    idx = DeviceIndex.from_snapshot(arrays, host, device=DEVICE)
+    del arrays
+    idx.compact_lexical(postings_per_term=max(256, N_ROWS // 500))
+    torch.cuda.synchronize()
+    t_make = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx.compact_dense(nlist=IVF_NLIST, nprobe=IVF_NPROBE)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    ivf = idx._ivf
+    of_rows = 0 if ivf.overflow is None else ivf.overflow.size
+    log(f"[ivf] clustered corpus {N_ROWS} x {DIM} int8 ({IVF_CENTERS} centres x 3.0 "
+        f"+ N(0,1), normalised) + DeviceIndex + compact_lexical in {t_make:.2f} s; "
+        f"compact_dense(nlist={IVF_NLIST}, nprobe={IVF_NPROBE}) streaming build in "
+        f"{t_build:.2f} s: capacity C={ivf.capacity}, overflow rows {of_rows}, "
+        f"residual {ivf.residual}, sign plane {ivf.sign_plane is not None}")
+    t0 = time.perf_counter()
+    calibrated = idx._calibrate_nprobe(IVF_NPROBE, 0.95, 32, TOP_K)
+    log(f"[ivf] _calibrate_nprobe(from {IVF_NPROBE}, recall target 0.95) would pick "
+        f"nprobe {calibrated} ({time.perf_counter() - t0:.2f} s; printed only, "
+        f"the index keeps {idx._ivf_nprobe})")
+
+    qa = centers[torch.randint(0, IVF_CENTERS, (IVF_DENSE_BATCH,), device=DEVICE,
+                               generator=gen)]
+    qa = qa + torch.randn(IVF_DENSE_BATCH, DIM, device=DEVICE, generator=gen)
+    texts = make_query_texts(ranks, df_host, gen, IVF_DENSE_BATCH)
+    del ranks
+    q32, t32 = qa[:IVF_HYBRID_BATCH], texts[:IVF_HYBRID_BATCH]
+
+    # main path 1: search_hybrid at B = 32, the union kernel's tier; the
+    # wrappers' operands are kept to hold each kernel against its plain
+    # version at exactly these inputs
+    calls: dict = {}
+    _reset_counts()
+    with mock.patch.object(it, "union_scores",
+                           _recording(calls, "union", it.union_scores)):
+        res = idx.search_hybrid(q32, t32, k=TOP_K, candidates=CANDIDATES)
+    torch.cuda.synchronize()
+    hyb_counts = _counts()
+    if hyb_counts["ivf_union"] < 1:
+        raise AssertionError(f"search_hybrid B={IVF_HYBRID_BATCH} launched no union "
+                             f"kernel: {hyb_counts}")
+    ids = res.indices.cpu().numpy()
+    if (ids.shape != (IVF_HYBRID_BATCH, TOP_K) or ids.min() < 0
+            or not np.isfinite(res.scores.cpu().numpy()).all()):
+        raise AssertionError("IVF hybrid result has the wrong shape or empty slots")
+    # main path 2: search_dense at B = 512, the per-query kernel's tier
+    _reset_counts()
+    with mock.patch.object(it, "probe_scores",
+                           _recording(calls, "probe", it.probe_scores)):
+        dv, di = idx.search_dense(qa, k=TOP_K)
+    torch.cuda.synchronize()
+    dense_counts = _counts()
+    if dense_counts["ivf_probe"] < 1:
+        raise AssertionError(f"search_dense B={IVF_DENSE_BATCH} launched no "
+                             f"per-query kernel: {dense_counts}")
+    if tuple(di.shape) != (IVF_DENSE_BATCH, TOP_K) or int(di.min()) < 0:
+        raise AssertionError("IVF search_dense result has the wrong shape")
+    log(f"[ivf] launches: search_hybrid B={IVF_HYBRID_BATCH} {hyb_counts}; "
+        f"search_dense B={IVF_DENSE_BATCH} {dense_counts}")
+
+    # the whole B = 32 hybrid result against the same path on the plain versions
+    with mock.patch.object(it, "union_scores", it.union_scores_plain), \
+            mock.patch.object(it, "probe_scores", it.probe_scores_plain):
+        res_plain = idx.search_hybrid(q32, t32, k=TOP_K, candidates=CANDIDATES)
+    if not torch.equal(res.indices, res_plain.indices):
+        raise AssertionError("IVF hybrid ids differ between kernel and plain version")
+    hyb_err = float((res.scores - res_plain.scores).abs().max())
+    dense_err = float((res.dense_scores - res_plain.dense_scores).abs().max())
+    if hyb_err > 0 or dense_err > 1e-6:
+        raise AssertionError(f"IVF hybrid scores differ: rrf {hyb_err}, dense {dense_err}")
+    log(f"[ivf] hybrid B={IVF_HYBRID_BATCH} on the kernels equals the plain versions' "
+        f"ids and RRF scores (dense branch scores max |diff| {dense_err}, limit 1e-6: "
+        f"the sign-plane refine re-scores the pool from the codes)")
+
+    mask = idx._mask(None)
+    cap = ivf.capacity
+    # union kernel vs plain at the B = 32 call's inputs
+    uargs = calls["union"]
+    q_in, union = uargs[0], uargs[1]
+    uk, up = it.union_scores(*uargs), it.union_scores_plain(*uargs)
+    union_err = _compare_candidates(uk, up, DIM, CANDIDATES)
+    n_union = union.shape[0]
+    del uk, up
+    # per-query kernel vs plain at the B = 512 call's inputs
+    pargs = calls["probe"]
+    probes_a = pargs[1]
+    pk, pp = it.probe_scores(*pargs), it.probe_scores_plain(*pargs)
+    probe_err = _compare_candidates(pk, pp, DIM, TOP_K)
+    del pk, pp
+    log(f"[ivf] union kernel vs plain [B={IVF_HYBRID_BATCH}, U={n_union}, C={cap}]: "
+        f"max |diff| {union_err:.3g}; per-query kernel vs plain [B={IVF_DENSE_BATCH}, "
+        f"nprobe={IVF_NPROBE}, C={cap}]: max |diff| {probe_err:.3g} (tolerance "
+        f"D * 2^-23 * (max|s| + 1); top-k ids equal up to near-ties)")
+
+    # recall@10 of the IVF tier against an exact f32 search of the stored rows
+    n = idx.size
+    gold = exact_topk(qa[:64], idx.dense_corpus(), mask, n)
+    recall_probe = recall_at_k(di[:64], gold)
+    got_union = torch.cat([idx.search_dense(qa[lo:lo + IVF_HYBRID_BATCH], k=TOP_K)[1]
+                           for lo in (0, IVF_HYBRID_BATCH)])
+    recall_union = recall_at_k(got_union, gold)
+    log(f"[ivf] dense recall@{TOP_K} at nprobe {IVF_NPROBE} vs exact f32 over the "
+        f"stored rows (64 queries): {recall_probe:.4f} (per-query route, "
+        f"B={IVF_DENSE_BATCH}: own probes), {recall_union:.4f} (union route, "
+        f"B={IVF_HYBRID_BATCH}: the batch's probe union)")
+    if recall_probe < 0.5:
+        raise AssertionError(f"IVF recall@{TOP_K} {recall_probe} < 0.5")
+
+    # timings
+    qa32 = qa[:IVF_HYBRID_BATCH]
+    hyb32_ms = host_ms(lambda: idx.search_hybrid(q32, t32, k=TOP_K, candidates=CANDIDATES))
+    # where the B = 32 hybrid batch's time goes, stage by stage (each alone)
+    t0 = time.perf_counter()
+    qt, qi = idx._query_arrays(t32, 16)
+    analyze32_ms = (time.perf_counter() - t0) * 1e3
+    dense32_branch_ms = cuda_ms(lambda: it.ivf_topk(q32, ivf, CANDIDATES,
+                                                    nprobe=idx._ivf_nprobe, mask=mask,
+                                                    device=DEVICE))
+    lex32_ms = cuda_ms(lambda: inverted_bm25_search(
+        qt, qi, idx._inverted, k=2 * CANDIDATES, mask=mask, postings_per_query_term=768))
+    _reset_counts()
+    idx.search_hybrid(qa, texts, k=TOP_K, candidates=CANDIDATES)
+    big_counts = _counts()
+    hyb512_ms = host_ms(lambda: idx.search_hybrid(qa, texts, k=TOP_K,
+                                                  candidates=CANDIDATES), reps=10)
+    dense512_ms = host_ms(lambda: idx.search_dense(qa, k=TOP_K), reps=10)
+    dense32_ms = host_ms(lambda: idx.search_dense(qa32, k=TOP_K))
+    union_ms = cuda_ms(lambda: it.union_scores(*uargs))
+    union_plain_ms = cuda_ms(lambda: it.union_scores_plain(*uargs), reps=5)
+    # library yardstick: one cuBLAS bf16 matmul of the query block against
+    # the union tiles, gathered beforehand (the gather is not timed)
+    tiles_bf16 = ivf.values[union.long()].reshape(n_union * cap, DIM).to(torch.bfloat16)
+    union_lib_ms = cuda_ms(lambda: q_in @ tiles_bf16.T)
+    del tiles_bf16
+    probe_ms = cuda_ms(lambda: it.probe_scores(*pargs), reps=10)
+    probe_plain_ms = cuda_ms(lambda: it.probe_scores_plain(*pargs), reps=3, warmup=1)
+    b32, b512 = IVF_HYBRID_BATCH, IVF_DENSE_BATCH
+    u_bytes = (n_union * cap * (DIM + 4 + 4 + 1) + b32 * DIM * 2 + n_union * 4
+               + b32 * n_union * 4 + b32 * n_union * cap * 4)
+    u_bound, u_by = bound_ms(u_bytes, 2.0 * b32 * n_union * cap * DIM, BF16_OPS_PER_S)
+    distinct = int(torch.unique(probes_a).numel())
+    p_bytes = (distinct * cap * (DIM + 4 + 4 + 1) + b512 * DIM * 2
+               + b512 * IVF_NPROBE * (4 + 4) + b512 * IVF_NPROBE * cap * 4)
+    p_bound, p_by = bound_ms(p_bytes, 2.0 * b512 * IVF_NPROBE * cap * DIM, BF16_OPS_PER_S)
+    per_query_reads_ms = b512 * IVF_NPROBE * cap * DIM / HBM_BYTES_PER_S * 1e3
+    log(f"[ivf] breakdown of search_hybrid B={b32}: host query analysis "
+        f"{analyze32_ms:.3f} ms, dense branch (ivf_topk: probes + union kernel + "
+        f"top-{CANDIDATES} + overflow scan + sign-plane refine) {dense32_branch_ms:.3f} ms, "
+        f"inverted BM25 generation {lex32_ms:.3f} ms, rest (rescore + RRF) "
+        f"{hyb32_ms - analyze32_ms - dense32_branch_ms - lex32_ms:.3f} ms")
+    log(f"[ivf] search_hybrid B={b32} (union tier) {hyb32_ms:.3f} ms; B={b512} "
+        f"(whole-index scan tier, launches {big_counts}) {hyb512_ms:.3f} ms; "
+        f"search_dense B={b512} (per-query tier) {dense512_ms:.3f} ms, B={b32} "
+        f"(union tier) {dense32_ms:.3f} ms")
+    log(f"[ivf] union kernel {union_ms:.3f} ms, plain {union_plain_ms:.3f} ms, library "
+        f"(cuBLAS bf16 matmul over the pre-gathered {n_union} tiles, gather not timed) "
+        f"{union_lib_ms:.3f} ms, bound {u_bound:.3f} ms ({u_by}: {u_bytes / 1e9:.3f} GB)")
+    log(f"[ivf] per-query kernel {probe_ms:.3f} ms, plain {probe_plain_ms:.3f} ms, "
+        f"library none (no single PyTorch call scores each query against only its own "
+        f"probed tiles: a bmm needs the [{b512},{IVF_NPROBE},{cap},{DIM}] gather first), "
+        f"bound {p_bound:.3f} ms ({p_by}: {distinct} distinct tiles read once, "
+        f"{p_bytes / 1e9:.3f} GB); reading each query's own tiles moves "
+        f"{b512 * IVF_NPROBE * cap * DIM / 1e9:.2f} GB, {per_query_reads_ms:.3f} ms")
+    results["ivf_union"] = {
+        "launches": hyb_counts["ivf_union"], "max_abs_err": union_err, "ms": union_ms,
+        "plain_ms": union_plain_ms, "bound_ms": u_bound, "bound_by": u_by,
+        "library_ms": union_lib_ms,
+    }
+    results["ivf_probe"] = {
+        "launches": dense_counts["ivf_probe"], "max_abs_err": probe_err, "ms": probe_ms,
+        "plain_ms": probe_plain_ms, "bound_ms": p_bound, "bound_by": p_by,
+        "library_ms": None,
+    }
+    return idx, texts
+
+
+def phase_ivf_serve(idx, texts) -> dict:
+    """>= 128 concurrent text requests through QueryBatcher(max_batch=32)
+    over a CollectionEngine on the IVF index.  The union tier scores each
+    query against its batch's probe union (the reference's semantics), so
+    each answer is held against a direct search_batch of the batch it was
+    dispatched in; every dispatch must launch the union kernel once."""
+    from super_rag_tpu_torch.engine.batcher import QueryBatcher
+    from super_rag_tpu_torch.engine.collection import CollectionEngine
+    from super_rag_tpu_torch.engine.index import IndexSpec
+    from super_rag_tpu_torch.models.hash_embedder import HashEmbedder
+    from super_rag_tpu_torch.ops import ivf_topk as it
+
+    engine = CollectionEngine(
+        IndexSpec(dim=DIM, dtype=torch.int8, bm25_slots=SLOTS, vocab_size=VOCAB,
+                  min_capacity=4096),
+        embedder=HashEmbedder(dim=DIM, device=DEVICE), device=DEVICE)
+    engine.index = idx
+    requests = list(dict.fromkeys(texts))[:IVF_SERVE_REQUESTS]
+    if len(requests) < IVF_SERVE_REQUESTS:
+        raise AssertionError(f"only {len(requests)} distinct query texts")
+    dispatched = []
+    direct = engine.search_batch
+
+    def recording(queries, **kw):
+        dispatched.append((list(queries), kw))
+        return direct(queries, **kw)
+
+    engine.search_batch = recording
+    batcher = QueryBatcher(max_batch=IVF_HYBRID_BATCH)
+
+    async def serve():
+        return await asyncio.gather(*(batcher.search(engine, t, top_k=TOP_K)
+                                      for t in requests))
+
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        answers = asyncio.run(serve())
+        wall = time.perf_counter() - t0
+        counts = _counts()
+    finally:
+        batcher.close()
+    stats = batcher.stats()
+    if counts["ivf_union"] != stats["dispatches"] or stats["dispatches"] != len(dispatched):
+        raise AssertionError(f"union launches {counts} != dispatches {stats['dispatches']}")
+    served = dict(zip(requests, answers))
+    for queries, kw in dispatched:
+        for text, want in zip(queries, direct(queries, **kw)):
+            got = served[text]
+            if ([(h.row, h.score) for h in got] != [(h.row, h.score) for h in want]
+                    or len(got) != TOP_K):
+                raise AssertionError(f"served answer differs for {text!r}")
+    sizes = sorted(len(q) for q, _ in dispatched)
+    log(f"[ivf-serve] {len(requests)} concurrent requests in {wall:.3f} s: "
+        f"{stats['dispatches']} dispatches (sizes {sizes}), union kernel launches "
+        f"{counts['ivf_union']} (all launches {counts}); every answer equals a direct "
+        f"search_batch of its dispatch's batch")
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script has no CPU path",
@@ -511,17 +909,21 @@ def main() -> int:
     from super_rag_tpu_torch import _build
 
     t0 = time.perf_counter()
-    took = _build.build(["dense_topk"])
-    ptxas = [ln.strip() for ln in _build.build_logs.get("dense_topk", "").splitlines()
-             if "registers" in ln or "spill" in ln]
-    for ln in ptxas:
-        log(f"[build] ptxas: {ln}")
+    took = _build.build(["dense_topk", "ivf_scan"])  # one nvcc each, together
+    for name in ("dense_topk", "ivf_scan"):
+        for ln in _build.build_logs.get(name, "").splitlines():
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
+                log(f"[build] {name} ptxas: {ln.strip()}")
     log(f"[build] nvcc {took} in {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     cases = phase_small()
-    log(f"[small] kernel vs plain version: {cases} cases agree "
+    log(f"[small] dense_topk kernel vs plain version: {cases} cases agree "
         f"(int8 x int8 bit-equal) in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    cases = phase_small_ivf()
+    log(f"[small] IVF kernels vs plain versions: {cases} cases agree in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     results: dict = {}
     t0 = time.perf_counter()
@@ -531,15 +933,25 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_serve(idx, texts, embedder)
     log(f"[serve] phase in {time.perf_counter() - t0:.2f} s")
+    del idx, texts, embedder
+    torch.cuda.empty_cache()
 
-    k = results["dense_topk"]
-    kernels = {"kernels": [{
-        "name": "dense_topk",
-        "route": "cuda",
-        "source": "super_rag_tpu_torch/csrc/dense_topk.cu",
-        "replaces": "super_rag_tpu/ops/pallas_topk.py:36",
-        **k,
-    }]}
+    t0 = time.perf_counter()
+    idx, texts = phase_ivf(results)
+    log(f"[ivf] phase in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_ivf_serve(idx, texts)
+    log(f"[ivf-serve] phase in {time.perf_counter() - t0:.2f} s")
+
+    source = "super_rag_tpu_torch/csrc/"
+    kernels = {"kernels": [
+        {"name": "dense_topk", "route": "cuda", "source": source + "dense_topk.cu",
+         "replaces": "super_rag_tpu/ops/pallas_topk.py:36", **results["dense_topk"]},
+        {"name": "ivf_union", "route": "cuda", "source": source + "ivf_scan.cu",
+         "replaces": "super_rag_tpu/ops/pallas_ivf.py:93", **results["ivf_union"]},
+        {"name": "ivf_probe", "route": "cuda", "source": source + "ivf_scan.cu",
+         "replaces": "super_rag_tpu/ops/pallas_ivf.py:48", **results["ivf_probe"]},
+    ]}
     log(f"[done] wall {time.perf_counter() - t_start:.2f} s")
     log(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

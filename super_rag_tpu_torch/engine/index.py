@@ -1,5 +1,5 @@
 """Mutable device-resident hybrid index: dense + BM25 + filter columns
-(port of the JAX package's engine/index.py, flat dense tier).
+(port of the JAX package's engine/index.py).
 
   * capacity-class tensors — embeddings, the BM25 doc-term table and the
     filter columns are allocated in power-of-two capacities and grown by
@@ -8,7 +8,9 @@
   * a write cursor + validity bitmap — inserts write at the cursor in
     place, deletes clear validity bits, and every query masks by validity;
   * filter columns as masked scoring — indexer-type codes and a chat hash
-    compile to one boolean mask fed to the same search ops.
+    compile to one boolean mask fed to the same search ops;
+  * an optional IVF snapshot of the dense rows (``compact_dense``), the
+    tier for large collections, re-clustered once churn passes 20 %.
 
 Row metadata (chunk text, ids) stays on the host, keyed by row number.
 """
@@ -30,6 +32,9 @@ from super_rag_tpu_torch.ops.bm25_inverted import (
 from super_rag_tpu_torch.ops.dense import DenseCorpus, Metric, dense_search
 from super_rag_tpu_torch.ops.dense_topk import dense_topk
 from super_rag_tpu_torch.ops.hybrid import HybridResult, hybrid_search
+from super_rag_tpu_torch.ops.ivf import (
+    build_ivf, build_ivf_streaming, ivf_search)
+from super_rag_tpu_torch.ops.ivf_topk import ivf_topk
 from super_rag_tpu_torch.ops.quant import quantize_int8
 from super_rag_tpu_torch.ops.topk import merge_topk
 from super_rag_tpu_torch.tokenize.analyzer import Analyzer, DocFrequency, fnv1a32
@@ -39,6 +44,10 @@ INDEXER_CODES = {"vector": 0, "summary": 1, "vision": 2, "graph": 3}
 # capacity headroom each insert reserves (the JAX package pads its device
 # writes to this many rows; keeping the same headroom keeps capacities equal)
 WRITE_BLOCK = 256
+
+# above this f32-corpus size, compact_dense streams the IVF build through
+# host chunks instead of holding the f32 matrix on the device
+IVF_STREAM_BUILD_BYTES = 2 << 30
 
 # storage dtype <-> the name snapshots carry (numpy / JAX dtype names)
 DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float32: "float32",
@@ -132,6 +141,13 @@ class DeviceIndex:
         # per-tile extraction cap of the fused dense top-k, widened by
         # calibrate_per_tile_k where a corpus concentrates winners
         self._per_tile_k = 2
+        # IVF snapshot of the dense rows [0, _ivf_upto) (compact_dense)
+        self._ivf = None
+        self._ivf_upto = 0
+        self._ivf_nprobe = 16
+        self._ivf_nlist = None
+        self._ivf_recall_target = None
+        self._ivf_churn = 0  # inserts + deletes since the IVF snapshot
         self._mutex = threading.RLock()
         self._alloc(spec.min_capacity)
 
@@ -234,6 +250,7 @@ class DeviceIndex:
         start = self.size
         self.row_meta.extend({"text": t, **md} for t, md in zip(texts, metadata))
         self.size = start + m
+        self._ivf_churn += m
         return list(range(start, start + m))
 
     @_locked
@@ -253,6 +270,7 @@ class DeviceIndex:
                 self.df.remove_doc(row_terms.tolist(), int(dl))
                 self.row_meta[r] = None
         _clear_rows(self.valid, rows)
+        self._ivf_churn += len(rows)
 
     # -- query ---------------------------------------------------------------
 
@@ -277,6 +295,93 @@ class DeviceIndex:
     def dense_corpus(self) -> DenseCorpus:
         return DenseCorpus(values=self.emb, scales=self.scales,
                            norms_sq=self.norms_sq, live_rows=self.size)
+
+    def _dense_rows_f32(self, rows) -> torch.Tensor:
+        """Stored rows as f32 (int8 codes times their scales)."""
+        emb = self.emb[rows].to(torch.float32)
+        if self.scales is not None:
+            emb = emb * self.scales[rows][:, None]
+        return emb
+
+    @_locked
+    def compact_dense(self, nlist: Optional[int] = None, nprobe: int = 16,
+                      kmeans_iters: int = 8,
+                      recall_target: Optional[float] = None,
+                      calib_sample: int = 32, calib_k: int = 10) -> None:
+        """Build / refresh the IVF snapshot over the live rows (opt-in: the
+        tier for large collections).  Corpora over
+        ``IVF_STREAM_BUILD_BYTES`` as f32 stream through host chunks.
+
+        ``recall_target`` tunes nprobe: sampled live rows are queried at
+        doubling nprobe until recall@``calib_k`` against the exact flat
+        search reaches it.  Churn (inserts + deletes) past 20 % of the
+        snapshot re-clusters with the same settings."""
+        n = self.size
+        if n == 0:
+            return
+        if nlist is None:
+            nlist = max(16, int(np.sqrt(n)))
+        # build over LIVE rows only: dead rows would hold cluster capacity
+        # and probe bandwidth until the next build
+        valid_np = self.valid[:n].cpu().numpy()
+        live = np.flatnonzero(valid_np).astype(np.int32)
+        if live.size == 0:
+            return
+        all_live = live.size == n
+        ids = None if all_live else live
+        if n * self.spec.dim * 4 > IVF_STREAM_BUILD_BYTES:
+            step = 262_144
+
+            def chunks():
+                for lo in range(0, n, step):
+                    hi = min(lo + step, n)
+                    block = self._dense_rows_f32(slice(lo, hi)).cpu().numpy()
+                    if not all_live:
+                        block = block[valid_np[lo:hi]]
+                    if len(block):
+                        yield block
+
+            self._ivf = build_ivf_streaming(
+                chunks, nlist=nlist, dtype=self.spec.dtype,
+                metric=self.spec.metric, kmeans_iters=kmeans_iters, ids=ids,
+                device=self.device)
+        else:
+            rows = (slice(0, n) if all_live
+                    else torch.from_numpy(live).long().to(self.device))
+            self._ivf = build_ivf(
+                self._dense_rows_f32(rows), nlist=nlist, dtype=self.spec.dtype,
+                metric=self.spec.metric, kmeans_iters=kmeans_iters, ids=ids)
+        self._ivf_upto = n
+        self._ivf_nprobe = nprobe
+        self._ivf_nlist = nlist
+        self._ivf_recall_target = recall_target
+        self._ivf_churn = 0
+        if recall_target is not None:
+            self._ivf_nprobe = self._calibrate_nprobe(
+                nprobe, recall_target, calib_sample, calib_k)
+
+    def _calibrate_nprobe(self, nprobe: int, target: float, sample: int,
+                          k: int) -> int:
+        """Smallest nprobe (doubling from ``nprobe``) whose sampled
+        recall@k against the exact flat search reaches ``target``."""
+        if self.size < 2 * k:
+            return nprobe
+        q = self._sample_queries(sample)
+        mask = self._mask(None)
+        _, gold = dense_search(q, self.dense_corpus(), k=k,
+                               metric=self.spec.metric, mask=mask)
+        gold = gold.cpu().numpy()
+        np_ = nprobe
+        while True:
+            _, got = ivf_search(q, self._ivf, k=k, nprobe=np_, mask=mask,
+                                metric=self.spec.metric)
+            recall = float(np.mean([
+                len(set(a.tolist()) & set(b.tolist())) / k
+                for a, b in zip(got.cpu().numpy(), gold)
+            ]))
+            if recall >= target or np_ >= self._ivf.nlist:
+                return min(np_, self._ivf.nlist)
+            np_ *= 2
 
     def _sample_queries(self, sample: int, seed: int = 0) -> torch.Tensor:
         """Live rows, slightly perturbed, as calibration queries."""
@@ -326,9 +431,33 @@ class DeviceIndex:
     @_locked
     def search_dense(self, query_emb: torch.Tensor, k: int,
                      flt: Optional[FilterSpec] = None,
-                     use_kernel: Optional[bool] = None):
+                     use_kernel: Optional[bool] = None,
+                     nprobe: Optional[int] = None):
+        """Dense top-k.  With an IVF snapshot: the probe-streaming kernels
+        on the card (``ivf_topk``), the plain gather tier elsewhere, and
+        rows added since the snapshot scanned flat and merged in."""
         mask = self._mask(flt)
         query_emb = query_emb.to(self.device)
+        if self._ivf is not None and self._ivf_upto > 0:
+            if use_kernel is None:
+                use_kernel = self.device.type == "cuda"
+            np_ = nprobe or self._ivf_nprobe
+            if use_kernel:
+                iv, ii = ivf_topk(query_emb, self._ivf, k=k, nprobe=np_,
+                                  mask=mask, metric=self.spec.metric,
+                                  device=self.device)
+            else:
+                iv, ii = ivf_search(query_emb, self._ivf, k=k, nprobe=np_,
+                                    mask=mask, metric=self.spec.metric)
+            if self._ivf_upto == self.size:
+                return iv, ii
+            # fresh tail scored flat, the snapshot's rows masked out
+            rows = torch.arange(self._capacity, device=self.device)
+            tail_mask = mask & (rows >= self._ivf_upto)
+            tv, ti = dense_search(query_emb, self.dense_corpus(), k=k,
+                                  metric=self.spec.metric, mask=tail_mask)
+            return merge_topk(torch.cat([iv, tv], 1), torch.cat([ii, ti], 1),
+                              k)
         if use_kernel is None:
             use_kernel = self._kernel_default(1024)
         if use_kernel:
@@ -372,6 +501,13 @@ class DeviceIndex:
                 self.compact_lexical()
         elif tail >= self.auto_compact_rows:
             self.compact_lexical()
+        # churn past 20 % of the IVF snapshot (or the tail budget) leaves its
+        # centroids stale and fresh rows to the flat scan: re-cluster
+        if (self._ivf is not None
+                and self._ivf_churn >= max(self.auto_compact_rows,
+                                           self._ivf_upto // 5)):
+            self.compact_dense(nlist=self._ivf_nlist, nprobe=self._ivf_nprobe,
+                               recall_target=self._ivf_recall_target)
 
     def _query_arrays(self, queries: Sequence[str], max_terms: int):
         qt = np.full((len(queries), max_terms), self.analyzer.pad_id, np.int32)
@@ -437,10 +573,11 @@ class DeviceIndex:
         lex_deep_postings: Optional[int] = None,
     ) -> HybridResult:
         """Dense + BM25 + RRF over the whole index (ops/hybrid.py); uses the
-        inverted snapshot plus a doc-major fresh tail once compacted.  On
-        the card (capacity >= 2048) the dense branch is the fused kernel
-        with int8 queries for int8 storage and the calibrated per-tile
-        cap for deep candidate lists."""
+        inverted snapshot plus a doc-major fresh tail once compacted, and
+        the IVF snapshot when it covers every row.  On the card (capacity
+        >= 2048) the dense branch runs the kernels, with int8 queries for
+        int8 storage and the calibrated per-tile cap for deep candidate
+        lists."""
         self._maybe_autocompact()
         qt, qi = self._query_arrays(queries, max_terms)
         if use_kernel is None:
@@ -450,6 +587,8 @@ class DeviceIndex:
         tail_offset = 0
         if self._inverted is not None and self._inverted_upto < self.size:
             tail_offset, _, tail_lex, tail_mask = self._tail_slice(mask)
+        ivf = (self._ivf if self._ivf is not None
+               and self._ivf_upto == self.size else None)
         return hybrid_search(
             query_emb.to(self.device), qt, qi, self.dense_corpus(),
             self._lexical(), self.df.avgdl,
@@ -460,6 +599,7 @@ class DeviceIndex:
             use_kernel=use_kernel,
             per_tile_k=(self._per_tile_k
                         if (use_kernel and candidates >= 32) else None),
+            ivf=ivf, nprobe=self._ivf_nprobe,
             rescore=rescore, postings_per_query_term=postings_per_query_term,
             lex_deep_terms=lex_deep_terms,
             lex_deep_postings=lex_deep_postings,

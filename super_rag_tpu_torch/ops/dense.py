@@ -35,12 +35,16 @@ class DenseCorpus(NamedTuple):
     live_rows  rows at and past it are padding that no mask keeps (an
                index's rows past its write cursor); the fused top-k
                does not read them.  None: every row may be live.
+    sign_plane [N, D//8] uint8 bit-packed signs of the int8 quantization
+               error (``ops/ivf.py pack_error_signs`` semantics), for
+               ``hybrid_search(dense_refine=...)``; else None
     """
 
     values: torch.Tensor
     scales: Optional[torch.Tensor] = None
     norms_sq: Optional[torch.Tensor] = None
     live_rows: Optional[int] = None
+    sign_plane: Optional[torch.Tensor] = None
 
     @property
     def size(self) -> int:
@@ -86,9 +90,13 @@ def build_corpus(
     embeddings: torch.Tensor,
     metric: Metric = Metric.COSINE,
     dtype: torch.dtype = torch.bfloat16,
+    error_signs: bool = False,
 ) -> DenseCorpus:
     """Prepare embeddings for device residence: cosine rows are
-    L2-normalised once; ``dtype=torch.int8`` quantizes per row."""
+    L2-normalised once; ``dtype=torch.int8`` quantizes per row.
+    ``error_signs=True`` (int8, D % 8 == 0) also packs the 1-bit
+    quantization-error plane that ``hybrid_search(dense_refine=...)``
+    re-scores with."""
     x = embeddings.to(torch.float32)
     if Metric(metric) == Metric.COSINE:
         n = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
@@ -96,8 +104,23 @@ def build_corpus(
     norms_sq = (x * x).sum(-1) if Metric(metric) == Metric.L2 else None
     if dtype == torch.int8:
         q, scales = quantize_int8(x)
-        return DenseCorpus(values=q, scales=scales, norms_sq=norms_sq)
+        sign_plane = None
+        if error_signs and x.shape[-1] % 8 == 0:
+            safe = torch.where(scales > 0, scales, torch.ones_like(scales))
+            err = x / safe[:, None] - q.to(torch.float32)
+            sign_plane = pack_bits(err > 0)
+        return DenseCorpus(values=q, scales=scales, norms_sq=norms_sq,
+                           sign_plane=sign_plane)
     return DenseCorpus(values=x.to(dtype), scales=None, norms_sq=norms_sq)
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """``[..., D]`` bool -> ``[..., D//8]`` uint8, little bit order (bit b
+    of byte j is element 8j + b), as ``np.packbits(bitorder="little")``."""
+    w = torch.tensor([1 << b for b in range(8)], dtype=torch.uint8,
+                     device=bits.device)
+    b8 = bits.reshape(*bits.shape[:-1], bits.shape[-1] // 8, 8)
+    return (b8.to(torch.uint8) * w).sum(-1, dtype=torch.uint8)
 
 
 def _block_scores(

@@ -1,8 +1,10 @@
 """Fused hybrid search: dense + BM25 + RRF (port of
-the JAX package's ops/hybrid.py, flat dense tier).
+the JAX package's ops/hybrid.py).
 
-    dense scores  -> per-tile top-K (CUDA kernel, ops/dense_topk.py) or
-                     the blocked exact search (ops/dense.py)
+    dense scores  -> IVF tier (ops/ivf.py, ops/ivf_topk.py), per-tile
+                     top-K (CUDA kernel, ops/dense_topk.py) or the
+                     blocked exact search (ops/dense.py); optional
+                     sign-plane refinement of the flat int8 pool
     bm25          -> inverted postings (+ doc-major fresh tail), or a
                      doc-major scan when there is no inverted snapshot
     rescore       -> exact BM25 of the fused candidate pool
@@ -22,8 +24,12 @@ from super_rag_tpu_torch.ops.bm25 import (
     LexicalCorpus, _bm25_block, _blocked_topk, _idf_table, _sat, clamp_avgdl)
 from super_rag_tpu_torch.ops.bm25_inverted import (
     InvertedIndex, inverted_bm25_search)
-from super_rag_tpu_torch.ops.dense import DenseCorpus, Metric, dense_search
+from super_rag_tpu_torch.ops.dense import (
+    DenseCorpus, Metric, dense_search, normalize_queries)
 from super_rag_tpu_torch.ops.dense_topk import dense_topk
+from super_rag_tpu_torch.ops.ivf import (
+    IVFIndex, ivf_flat_topk, ivf_search, unpack_signs)
+from super_rag_tpu_torch.ops.ivf_topk import ivf_topk
 from super_rag_tpu_torch.ops.topk import NEG_INF, stable_topk
 
 INT32_MAX = 2**31 - 1
@@ -122,7 +128,7 @@ def hybrid_search(
     lexical: Optional[LexicalCorpus],
     avgdl,
     inverted: Optional[InvertedIndex] = None,
-    ivf=None,
+    ivf: Optional[IVFIndex] = None,
     tail_lexical: Optional[LexicalCorpus] = None,
     tail_mask: Optional[torch.Tensor] = None,
     tail_offset: int = 0,
@@ -142,6 +148,7 @@ def hybrid_search(
     postings_per_query_term: Optional[int] = None,
     int8_queries: bool = False,
     per_tile_k: Optional[int] = None,
+    nprobe: int = 32,
     rescore: bool = True,
     lex_gen: Optional[int] = None,
     dense_gen: Optional[int] = None,
@@ -151,33 +158,62 @@ def hybrid_search(
     device: DeviceLike = None,
 ) -> HybridResult:
     """Hybrid top-k.  ``candidates`` is the per-branch recall depth
-    feeding RRF.  ``use_kernel`` serves the dense branch with the fused
-    per-tile top-k (``ops/dense_topk.py``: the CUDA kernel for CUDA
-    tensors), else the blocked exact search.  ``rescore`` (inverted path)
-    re-scores the fused pool with exact BM25 before fusion; ``lex_gen``
-    deepens the lexical generation (default ``2 * candidates``).
+    feeding RRF.
+
+    Dense branch tiers: IVF (``ivf`` given; bytes per query ~ nprobe /
+    nlist) > fused per-tile top-k (``use_kernel``: ``ops/dense_topk.py``,
+    the CUDA kernel for CUDA tensors) > blocked exact search.  Within the
+    IVF tier, as in the reference: a batch whose probes could cover the
+    index (B * nprobe >= nlist) scans every tile (``ivf_flat_topk``);
+    otherwise ``use_kernel`` takes the probe-streaming kernels
+    (``ivf_topk``), else the plain gather tier (``ivf_search``).
+    ``dense_refine`` re-scores a deeper flat int8 pool with the corpus's
+    error sign plane.  ``rescore`` (inverted path) re-scores the fused
+    pool with exact BM25 before fusion; ``lex_gen`` deepens the lexical
+    generation (default ``2 * candidates``).
 
     ``device`` (default CUDA) is where it runs; the corpora must already
-    live there.  The IVF tier and the sign-plane refinement are not
-    ported yet."""
+    live there."""
     dev = check_device(dense.values, device)
-    if ivf is not None:
-        raise NotImplementedError(
-            "IVF dense tier: ROADMAP.md A7 (ops/ivf.py, pallas_ivf.py)")
-    if dense_refine:
-        raise NotImplementedError(
-            "dense_refine (sign-plane refinement): ROADMAP.md A3")
     metric = Metric(metric)
     n = dense.size
     kc = min(candidates, n)
     kd = min(max(kc, dense_gen), n) if dense_gen is not None else kc
-    if use_kernel:
+    # sign-plane refinement: phase-1 int8 ranks only have to keep the true
+    # winners inside the refine pool
+    do_refine = (dense_refine > 0 and dense.sign_plane is not None
+                 and metric in (Metric.COSINE, Metric.DOT))
+    if do_refine:
+        kd = min(max(kd, dense_refine), n)
+    if ivf is not None:
+        if query_emb.shape[0] * nprobe >= ivf.nlist:
+            dv, di = ivf_flat_topk(query_emb, ivf, k=kd, metric=metric,
+                                   mask=mask, int8_queries=int8_queries)
+        elif use_kernel:
+            dv, di = ivf_topk(query_emb, ivf, k=kd, nprobe=nprobe, mask=mask,
+                              metric=metric, device=dev)
+        else:
+            dv, di = ivf_search(query_emb, ivf, k=kd, nprobe=nprobe,
+                                mask=mask, metric=metric)
+    elif use_kernel:
         dv, di = dense_topk(query_emb, dense, k=kd, metric=metric, mask=mask,
                             tile=dense_tile, int8_queries=int8_queries,
                             per_tile_k=per_tile_k, device=dev)
     else:
         dv, di = dense_search(query_emb, dense, k=kd, metric=metric,
                               mask=mask, block_size=block_size)
+    if do_refine:
+        # codes + 0.25 * sign at full f32 query precision (refine_candidates
+        # semantics): half the int8 quantization noise
+        qf = normalize_queries(query_emb, metric)
+        safe = di.clamp(min=0).long()
+        codes = dense.values[safe].to(torch.float32)
+        sgn = unpack_signs(dense.sign_plane[safe])
+        scl = dense.scales[safe].to(torch.float32)
+        dots = torch.einsum("bkd,bd->bk", codes + 0.25 * sgn, qf) * scl
+        refined = torch.where(torch.isfinite(dv), dots, NEG_INF)
+        dv, pos = stable_topk(refined, refined.shape[1])
+        di = torch.gather(di, -1, pos)
     dv_pool, di_pool = dv, di
     if kd > kc:
         dv, di = dv[:, :kc], di[:, :kc]

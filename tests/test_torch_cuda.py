@@ -1,10 +1,12 @@
-"""Card-only tests of the PyTorch port: the CUDA kernel against its plain
-PyTorch version, and the engine on the card against the same engine on the
-CPU.  They skip without a CUDA card.  This file imports no JAX, so it runs
+"""Card-only tests of the PyTorch port: the CUDA kernels against their
+plain PyTorch versions, and the engine on the card (flat and IVF tiers)
+against the same engine on the CPU.  They skip without a CUDA card.  This file imports no JAX, so it runs
 on a machine that has none:
 
     python -m pytest -m cuda --noconftest tests/test_torch_cuda.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -93,3 +95,116 @@ def test_hash_embedder_on_card_equals_cpu(card):
     cpu = HashEmbedder(dim=768, device="cpu").embed(texts)
     gpu = HashEmbedder(dim=768, device=card).embed(texts)
     assert torch.equal(cpu, gpu.cpu())
+
+
+IVF_MODES = {"int8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def _ivf_operands(card, dtype, residual, masked, seed=0):
+    """A ragged tile layout (C = 200, not a multiple of 128), empty slots,
+    a keep-mask and probe scores to add back."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    nlist, cap, d, b = 12, 200, 96, 20
+    x = torch.randn(nlist, cap, d, device=card, generator=gen)
+    if dtype == torch.int8:
+        values = torch.clamp(torch.round(x * 40), -127, 127).to(torch.int8)
+        scales = torch.rand(nlist, cap, device=card, generator=gen) * 0.01
+    else:
+        values, scales = x.to(dtype), None
+    row_ids = torch.randperm(nlist * cap, device=card, generator=gen).to(
+        torch.int32).reshape(nlist, cap)
+    row_ids[torch.rand(nlist, cap, device=card, generator=gen) < 0.2] = -1
+    q = torch.randn(b, d, device=card, generator=gen)
+    q = q.to(torch.float32 if dtype == torch.float32 else torch.bfloat16)
+    cs = (torch.randn(b, nlist, device=card, generator=gen) if residual
+          else None)
+    mask = (torch.rand(nlist * cap, device=card, generator=gen) < 0.7
+            if masked else None)
+    return q, values, scales, cs, row_ids, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(IVF_MODES))
+@pytest.mark.parametrize("route", ["union", "probe"])
+def test_ivf_kernels_match_plain_versions(card, mode, route):
+    """Both IVF kernels against their plain versions, residual on and off,
+    with and without a mask: -inf slots equal, values within
+    D * 2^-23 * (max|score| + 1) (sums of exact products, or of f32
+    products, in other orders); nprobe >= nlist is one of the cases."""
+    from super_rag_tpu_torch.ops import ivf_topk as it
+
+    for residual in (False, True):
+        for masked in (False, True):
+            q, values, scales, cs, row_ids, mask = _ivf_operands(
+                card, IVF_MODES[mode], residual, masked)
+            b = q.shape[0]
+            if route == "union":
+                ids = torch.tensor([3, 0, 11, 7, 5], dtype=torch.int32,
+                                   device=card)
+                fn, counter = it.union_scores, it.union_launches
+                plain = it.union_scores_plain
+            else:
+                ids = torch.randint(0, 12, (b, 14), device=card,
+                                    dtype=torch.int32)
+                fn, counter = it.probe_scores, it.probe_launches
+                plain = it.probe_scores_plain
+            before = counter.count
+            got = fn(q, ids, values, scales, cs, row_ids, mask)
+            assert counter.count == before + 1
+            ref = plain(q, ids, values, scales, cs, row_ids, mask)
+            torch.cuda.synchronize()
+            fin = torch.isfinite(ref)
+            assert torch.equal(fin, torch.isfinite(got))
+            tol = 96 * 2.0 ** -23 * (float(ref[fin].abs().max()) + 1.0)
+            assert float((got - ref)[fin].abs().max()) <= tol
+
+
+def _ivf_to(ivf, device):
+    """A copy of an IVFIndex with every tensor on ``device``."""
+    def mv(t):
+        return None if t is None else t.to(device)
+
+    of = ivf.overflow
+    return dataclasses.replace(
+        ivf, centroids=mv(ivf.centroids), values=mv(ivf.values),
+        scales=mv(ivf.scales), row_ids=mv(ivf.row_ids),
+        overflow=None if of is None else of._replace(
+            values=mv(of.values), scales=mv(of.scales)),
+        overflow_rows=mv(ivf.overflow_rows), sign_plane=mv(ivf.sign_plane),
+        of_sign_plane=mv(ivf.of_sign_plane), of_assign=mv(ivf.of_assign))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nprobe", [2, 4])  # union route; whole-index scan
+def test_ivf_engine_on_card_answers_as_on_cpu(card, nprobe):
+    """A small engine's IVF hybrid query: the card (the union kernel, or
+    the whole-index scan) ranks as the CPU (plain versions) does; scores
+    within 1e-5 (the kernels sum in another order)."""
+    from super_rag_tpu_torch.ops import ivf_topk as it
+
+    rng = np.random.default_rng(1)
+    words = [f"w{i}" for i in range(400)]
+    texts = [" ".join(rng.choice(words, rng.integers(4, 14))) for _ in range(3000)]
+    queries = [" ".join(t.split()[:3]) for t in texts[::375]]  # 8 queries
+    emb = HashEmbedder(dim=64, device="cpu").embed(texts)
+    out = {}
+    ivf = None
+    for dev in ("cpu", "cuda"):
+        eng = CollectionEngine(IndexSpec(dim=64, dtype=torch.int8,
+                                         vocab_size=1 << 12, min_capacity=256),
+                               device=dev)
+        eng.ingest(texts, embeddings=emb)
+        eng.index.compact_lexical()
+        eng.index.compact_dense(nlist=32, nprobe=nprobe)
+        # one snapshot for both: k-means on the card sums in another order
+        ivf = eng.index._ivf if ivf is None else ivf
+        eng.index._ivf = _ivf_to(ivf, dev)
+        before = it.union_launches.count
+        res = eng.index.search_hybrid(eng._embed(queries), queries, k=10,
+                                      candidates=40, use_kernel=True)
+        launched = it.union_launches.count - before
+        out[dev] = (res.indices.cpu(), res.dense_scores.cpu(), launched)
+    assert out["cuda"][2] == (1 if 8 * nprobe < 32 else 0)
+    assert torch.equal(out["cpu"][0], out["cuda"][0])
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-5,
+                               atol=1e-5)

@@ -18,7 +18,8 @@ from super_rag_tpu_torch.engine import snapshot as tsnap
 from super_rag_tpu_torch.engine.batcher import QueryBatcher
 from super_rag_tpu_torch.engine.collection import CollectionEngine
 from super_rag_tpu_torch.models.hash_embedder import HashEmbedder
-from torch_parity import all_scores, assert_topk_match, n
+from super_rag_tpu_torch.ops import ivf_topk as tit
+from torch_parity import all_scores, assert_topk_match, ivf_arrays, n
 
 V = 1 << 12
 DIM = 32
@@ -274,3 +275,145 @@ def test_hash_embedder_is_batch_invariant(i):
     assert torch.equal(emb.embed([EMBED_TEXTS[i]])[0], batch[i])
     assert torch.equal(emb.embed(EMBED_TEXTS[::-1])[len(EMBED_TEXTS) - 1 - i],
                        batch[i])
+
+
+# -- the IVF tier ------------------------------------------------------------------
+
+
+def _ivf_pair(dtype="int8", nlist=8, nprobe=1, seed=60, **kw):
+    """``_pair`` plus ``compact_dense`` in both packages."""
+    j, p, texts, emb, rng = _pair(dtype, seed=seed)
+    for idx in (j, p):
+        idx.compact_dense(nlist=nlist, nprobe=nprobe, kmeans_iters=4, **kw)
+    return j, p, texts, emb, rng
+
+
+def _use_jax_build(j, p):
+    """Search parity on one index: the port's snapshot becomes the JAX
+    build, converted (build noise is held by its own test)."""
+    p._ivf = convert.ivf_from_jax(*ivf_arrays(j._ivf), device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bf16", "f32"])
+def test_compact_dense_builds_alike(dtype):
+    """Live rows only (the deleted ones are left out), the same placement;
+    stored numbers within the build tolerances of test_torch_ivf.py."""
+    j, p, *_ = _ivf_pair(dtype)
+    assert p._ivf_upto == j._ivf_upto == p.size and p._ivf_churn == 0
+    placed = n(p._ivf.row_ids)
+    np.testing.assert_array_equal(placed, np.asarray(j._ivf.row_ids))
+    assert not np.isin([5, 17, 33, 450], placed).any()
+    np.testing.assert_allclose(n(p._ivf.centroids),
+                               np.asarray(j._ivf.centroids), atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bf16"])
+@pytest.mark.parametrize("fresh_tail", [False, True])
+@pytest.mark.parametrize("flt", [None, "indexer"])
+def test_ivf_search_dense_matches(dtype, fresh_tail, flt):
+    """search_dense through the IVF (plain gather tier off the card), with
+    rows added after the snapshot scanned flat and merged in."""
+    j, p, texts, emb, rng = _ivf_pair(dtype, nprobe=2)
+    _use_jax_build(j, p)
+    if fresh_tail:
+        extra = rng.standard_normal((30, DIM)).astype(np.float32)
+        for idx in (j, p):
+            idx.add(extra, texts[:30], indexer="summary")
+        assert p._ivf_upto < p.size
+    jf = pf = None
+    if flt == "indexer":
+        jf = jindex.FilterSpec(indexers=frozenset({1}))
+        pf = tindex.FilterSpec(indexers=frozenset({1}))
+    q = (emb[::61] + 0.1 * rng.standard_normal((len(emb[::61]), DIM))).astype(
+        np.float32)
+    assert_topk_match(*j.search_dense(jnp.asarray(q), 10, flt=jf),
+                      *p.search_dense(torch.from_numpy(q), 10, flt=pf),
+                      rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("nprobe", [1, 2])  # gather tier; whole-index scan
+@pytest.mark.parametrize("fresh_tail", [False, True])
+def test_ivf_search_hybrid_matches(nprobe, fresh_tail):
+    """search_hybrid hands the IVF to the dense branch only while it covers
+    every row; fused ids equal, RRF scores within 1e-6."""
+    j, p, texts, emb, rng = _ivf_pair("int8", nprobe=nprobe)
+    _use_jax_build(j, p)
+    if fresh_tail:
+        for idx in (j, p):
+            idx.add(emb[:20] + 0.01, texts[:20])
+    queries = [" ".join(t.split()[:3]) for t in texts[::97]]
+    q = (emb[::97] + 0.2 * rng.standard_normal((len(queries), DIM))).astype(
+        np.float32)
+    jr = j.search_hybrid(jnp.asarray(q), queries, k=8, candidates=24)
+    tr = p.search_hybrid(torch.from_numpy(q), queries, k=8, candidates=24)
+    np.testing.assert_array_equal(n(tr.indices), np.asarray(jr.indices))
+    np.testing.assert_allclose(n(tr.scores), np.asarray(jr.scores), rtol=1e-6)
+    np.testing.assert_allclose(n(tr.dense_scores), np.asarray(jr.dense_scores),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_churn_reclusters_alike():
+    """Inserts + deletes past max(auto_compact_rows, 20 % of the snapshot)
+    re-cluster at the next query, with the same settings, in both."""
+    j, p, texts, emb, rng = _ivf_pair("int8", nprobe=2)
+    for idx in (j, p):
+        idx.auto_compact_rows = 100
+        idx.delete(list(range(40, 100)))
+        idx.add(emb[:60] * 1.1, texts[:60])
+    assert p._ivf_churn == j._ivf_churn == 120 and p._ivf_upto < p.size
+    for idx in (j, p):
+        idx.search_bm25(["w1"], 3)
+    assert p._ivf_churn == j._ivf_churn == 0
+    assert p._ivf_upto == j._ivf_upto == p.size
+    assert p._ivf_nlist == j._ivf_nlist == 8
+    np.testing.assert_array_equal(n(p._ivf.row_ids),
+                                  np.asarray(j._ivf.row_ids))
+
+
+@pytest.mark.parametrize("target", [0.5, 0.99])
+def test_calibrate_nprobe_matches(target):
+    """The recall-target search doubles nprobe from 1 to the same choice."""
+    j, p, *_ = _ivf_pair("int8", nprobe=1, recall_target=target,
+                         calib_sample=16, calib_k=5)
+    assert p._ivf_nprobe == j._ivf_nprobe
+
+
+def test_batcher_on_the_ivf_tier_answers_as_direct_calls_of_its_batches():
+    """The union route (``use_kernel``: its plain version on the CPU;
+    B * nprobe < nlist) scores each query against its batch's probe union
+    (the reference's semantics), so a served answer is compared with a
+    direct search_batch of the batch it was dispatched in."""
+    rng = np.random.default_rng(61)
+    texts = _texts(rng, 400)
+    eng = CollectionEngine(tindex.IndexSpec(dim=DIM, dtype=torch.int8,
+                                            vocab_size=V, min_capacity=256),
+                           hybrid_opts={"use_kernel": True}, device="cpu")
+    eng.ingest(texts)
+    eng.index.compact_lexical()
+    eng.index.compact_dense(nlist=16, nprobe=1)
+    batches = []
+    direct = eng.search_batch
+
+    def recording(queries, **kw):
+        batches.append((list(queries), kw))
+        return direct(queries, **kw)
+
+    eng.search_batch = recording
+    queries = list(dict.fromkeys(" ".join(t.split()[:3]) for t in texts))[:40]
+    batcher = QueryBatcher(max_batch=8)
+
+    async def many():
+        return await asyncio.gather(*(batcher.search(eng, q, top_k=5)
+                                      for q in queries))
+
+    before = tit.union_launches.count
+    try:
+        got = dict(zip(queries, asyncio.run(many())))
+    finally:
+        batcher.close()
+    assert tit.union_launches.count == before  # plain versions on the CPU
+    assert 1 < len(batches) < 40 and sum(len(b) for b, _ in batches) == 40
+    for qs, kw in batches:
+        for q, want in zip(qs, direct(qs, **kw)):
+            assert ([(h.row, h.score) for h in got[q]]
+                    == [(h.row, h.score) for h in want])

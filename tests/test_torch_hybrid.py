@@ -1,22 +1,29 @@
 """The PyTorch port's hybrid_search against the JAX package's
 (``use_pallas=False``: the blocked dense branch, as its own tests run it
 on the CPU) over the same corpora: the inverted path with and without
-exact rescoring, with a fresh doc-major tail, and the doc-major fallback."""
+exact rescoring, with a fresh doc-major tail, the doc-major fallback, the
+three IVF tiers (the reference's IVF kernel in interpret mode) and the
+sign-plane refinement."""
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import super_rag_tpu.ops.pallas_ivf as jpivf
 from super_rag_tpu.ops import bm25 as jbm25
 from super_rag_tpu.ops import bm25_inverted as jinv
 from super_rag_tpu.ops import dense as jdense
+from super_rag_tpu.ops import ivf as jivf
 from super_rag_tpu.ops.hybrid import hybrid_search as j_hybrid
+from super_rag_tpu_torch import convert
 from super_rag_tpu_torch.ops import bm25 as tbm25
 from super_rag_tpu_torch.ops import bm25_inverted as tinv
 from super_rag_tpu_torch.ops.dense import DenseCorpus
 from super_rag_tpu_torch.ops.hybrid import hybrid_search
-from torch_parity import n, t
+from torch_parity import ivf_arrays, n, t
 
 V = 1 << 10
 ROWS, DIM, SLOTS = 900, 32, 10
@@ -191,9 +198,87 @@ def test_kernel_path_matches_blocked_path_when_exact():
 
 
 def test_unported_tiers_raise():
-    s = _setup("int8")
-    args = (t(s["q"]), t(s["qt"]), t(s["qi"]), s["td"], s["tl"], s["avgdl"])
-    with pytest.raises(NotImplementedError, match="A7"):
-        hybrid_search(*args, ivf=object(), vocab_size=V, k=5, device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        hybrid_search(*args, dense_refine=64, vocab_size=V, k=5, device="cpu")
+    """The IVF tier and dense_refine are ported (the tests below); the CSR
+    lexical tier is not yet, and its compaction says so."""
+    from super_rag_tpu_torch.engine.index import DeviceIndex, IndexSpec
+
+    idx = DeviceIndex(IndexSpec(dim=DIM, vocab_size=V, lex_tier="csr",
+                                min_capacity=256), device="cpu")
+    idx.add(np.zeros((3, DIM), np.float32), ["a b", "b c", "c d"])
+    with pytest.raises(NotImplementedError, match="A2"):
+        idx.compact_lexical()
+
+
+def _ivf_pair(s, dtype, seed=35):
+    """The JAX IVF over the setup's rows and its port conversion."""
+    rng = np.random.default_rng(seed)
+    emb = np.asarray(s["jd"].values.astype(jnp.float32))
+    if s["jd"].scales is not None:
+        emb = emb * np.asarray(s["jd"].scales)[:, None]
+    j = jivf.build_ivf(jnp.asarray(emb), nlist=16, dtype=DTYPES[dtype][0],
+                       kmeans_iters=3, capacity_factor=1.2, seed=seed)
+    return j, convert.ivf_from_jax(*ivf_arrays(j), device="cpu"), rng
+
+
+@pytest.fixture
+def interpret_pallas_ivf(monkeypatch):
+    """The reference's IVF kernel in interpret mode (its CPU form); its
+    hybrid_search imports the function inside its body, so the patch
+    takes."""
+    monkeypatch.setattr(jpivf, "pallas_ivf_topk",
+                        functools.partial(jpivf.pallas_ivf_topk,
+                                          interpret=True))
+
+
+@pytest.mark.parametrize("tier", ["flat_scan", "kernel", "gather"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("masked", [False, True])
+def test_ivf_tiers_match(tier, dtype, masked, interpret_pallas_ivf):
+    """B = 6 queries, nlist 16: nprobe 3 reaches the whole-index scan
+    (ivf_flat_topk, B * nprobe >= nlist); nprobe 2 takes the kernels
+    (use_kernel / use_pallas: the plain versions / interpret mode) or the
+    plain gather tier."""
+    s = _setup(dtype, seed=36)
+    j, p, _ = _ivf_pair(s, dtype)
+    nprobe = 3 if tier == "flat_scan" else 2
+    kernel = tier != "gather"
+    jmask, tmask = ((jnp.asarray(s["mask"]), t(s["mask"])) if masked
+                    else (None, None))
+    jinv_ = jinv.build_inverted(s["terms"], s["tfs"], s["dl"], V,
+                                postings_per_term=16, avgdl=s["avgdl"])
+    tinv_ = tinv.build_inverted(t(s["terms"]), t(s["tfs"]), t(s["dl"]), V,
+                                postings_per_term=16, avgdl=s["avgdl"])
+    common = dict(vocab_size=V, k=8, candidates=20, nprobe=nprobe)
+    jr = j_hybrid(jnp.asarray(s["q"]), jnp.asarray(s["qt"]), jnp.asarray(s["qi"]),
+                  s["jd"], s["jl"], jnp.float32(s["avgdl"]), inverted=jinv_,
+                  ivf=j, mask=jmask, use_pallas=kernel, **common)
+    tr = hybrid_search(t(s["q"]), t(s["qt"]), t(s["qi"]), s["td"], s["tl"],
+                       s["avgdl"], inverted=tinv_, ivf=p, mask=tmask,
+                       use_kernel=kernel, device="cpu", **common)
+    _assert_same(jr, tr)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("kernel", [False, True])
+def test_dense_refine_matches(masked, kernel):
+    """The flat int8 pool re-scored with the corpus's error sign plane
+    (dense_refine deepens the pool to 40)."""
+    s = _setup("int8", seed=37)
+    emb = np.random.default_rng(37).standard_normal((ROWS, DIM)).astype(
+        np.float32)
+    jd = jdense.build_corpus(jnp.asarray(emb), metric=jdense.Metric.DOT,
+                             dtype=jnp.int8, error_signs=True)
+    td = DenseCorpus(values=t(np.asarray(jd.values)),
+                     scales=t(np.asarray(jd.scales)),
+                     sign_plane=t(np.asarray(jd.sign_plane)))
+    jmask, tmask = ((jnp.asarray(s["mask"]), t(s["mask"])) if masked
+                    else (None, None))
+    common = dict(vocab_size=V, k=8, candidates=20, dense_refine=40,
+                  metric="ip")
+    jr = j_hybrid(jnp.asarray(s["q"]), jnp.asarray(s["qt"]), jnp.asarray(s["qi"]),
+                  jd, s["jl"], jnp.float32(s["avgdl"]), mask=jmask,
+                  use_pallas=False, block_size=256, **common)
+    tr = hybrid_search(t(s["q"]), t(s["qt"]), t(s["qi"]), td, s["tl"],
+                       s["avgdl"], mask=tmask, use_kernel=kernel,
+                       dense_tile=256, block_size=256, device="cpu", **common)
+    _assert_same(jr, tr)

@@ -15,6 +15,7 @@ PORT = os.path.join(ROOT, "super_rag_tpu_torch")
 MODULES = [
     "super_rag_tpu_torch", "super_rag_tpu_torch.convert",
     "super_rag_tpu_torch.ops.dense_topk", "super_rag_tpu_torch.ops.hybrid",
+    "super_rag_tpu_torch.ops.ivf", "super_rag_tpu_torch.ops.ivf_topk",
     "super_rag_tpu_torch.engine", "super_rag_tpu_torch.engine.batcher",
     "super_rag_tpu_torch.engine.snapshot", "super_rag_tpu_torch.models",
     "super_rag_tpu_torch.tokenize", "chip_smoke",
@@ -50,12 +51,13 @@ def test_source_names_no_jax_import_or_jax_package_path():
                     hits = pattern.findall(fh.read())
                 assert not hits, f"{f}: {hits}"
                 scanned += 1
-    assert scanned >= 15
+    assert scanned >= 18
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "DeviceIndex",
                                    "CollectionEngine", "HashEmbedder",
-                                   "dense_topk", "hybrid_search"])
+                                   "dense_topk", "hybrid_search", "ivf_topk",
+                                   "build_ivf_streaming"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, monkeypatch):
     from super_rag_tpu_torch import resolve_device
     from super_rag_tpu_torch.engine import CollectionEngine, DeviceIndex, IndexSpec
@@ -63,12 +65,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, monkeypatch):
     from super_rag_tpu_torch.ops.dense import build_corpus
     from super_rag_tpu_torch.ops.dense_topk import dense_topk
     from super_rag_tpu_torch.ops.hybrid import hybrid_search
+    from super_rag_tpu_torch.ops.ivf import build_ivf, build_ivf_streaming
+    from super_rag_tpu_torch.ops.ivf_topk import ivf_topk
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     spec = IndexSpec(dim=16, vocab_size=1 << 10, min_capacity=256)
     corpus = build_corpus(torch.randn(40, 16))
     q = torch.randn(2, 16)
     qt = torch.full((2, 4), 1 << 10, dtype=torch.int32)
+    ivf = build_ivf(torch.randn(40, 16), nlist=4, kmeans_iters=1)
     calls = {
         "resolve_device": lambda: resolve_device(),
         "DeviceIndex": lambda: DeviceIndex(spec),
@@ -78,6 +83,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, monkeypatch):
         "hybrid_search": lambda: hybrid_search(
             q, qt, torch.zeros(2, 4), corpus, None, 1.0,
             vocab_size=1 << 10, k=3),
+        "ivf_topk": lambda: ivf_topk(q, ivf, k=3),
+        "build_ivf_streaming": lambda: build_ivf_streaming(
+            lambda: iter([torch.randn(40, 16).numpy()]), nlist=4),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

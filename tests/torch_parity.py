@@ -67,3 +67,27 @@ def assert_topk_match(ref_v, ref_i, got_v, got_i, rtol=RTOL, atol=ATOL,
     assert not bad.any(), (
         f"ids differ away from ties at {np.argwhere(bad)[:5].tolist()}: "
         f"ref {ref_i[bad][:5]} got {got_i[bad][:5]}")
+
+
+def ivf_arrays(index):
+    """A JAX ``IVFIndex`` as ``convert.ivf_from_jax`` takes it:
+    ``(numpy arrays by field name, residual, storage dtype name)``; bf16
+    arrays go over as f32 (exact)."""
+    def host(a):
+        if a is None:
+            return None
+        a = np.asarray(a)
+        return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+    of = index.overflow
+    arrays = {
+        "centroids": host(index.centroids), "values": host(index.values),
+        "scales": host(index.scales), "row_ids": host(index.row_ids),
+        "overflow_values": host(of.values) if of is not None else None,
+        "overflow_scales": host(of.scales) if of is not None else None,
+        "overflow_rows": host(index.overflow_rows),
+        "sign_plane": host(index.sign_plane),
+        "of_sign_plane": host(index.of_sign_plane),
+        "of_assign": host(index.of_assign),
+    }
+    return arrays, index.residual, np.asarray(index.values).dtype.name
