@@ -8,14 +8,17 @@ Phases, each printing one line with its seconds:
   2. build: nvcc builds the kernels from super_rag_tpu_torch/csrc;
   3. kernel vs plain version at small shapes, every mode (int8 x int8 must
      match bit for bit, the float modes within a stated tolerance), for
-     the dense top-k and both IVF kernels;
+     the dense top-k (both variants: int8 tensor cores at kt <= 8, SIMT
+     above and for float queries) and both IVF kernels; prints the ptxas
+     report (registers, shared memory, spills) of every kernel built;
   4. full size: 1M x 768 int8 corpus + 64-slot zipfian BM25 table made on
      the card from a seed, DeviceIndex + compact_lexical, then
-     search_hybrid at batch 512 (kernel held against its plain version,
-     the hybrid result against the same path on the plain version, the
-     dense top-10 against an exact f32 search: recall >= 0.9), and
-     timings of the kernel, the plain version, a library yardstick, the
-     whole search_hybrid batch and its stages;
+     search_hybrid at batch 512 (the tensor-core kernel launched and held
+     bit for bit against its plain version, the hybrid result against the
+     same path on the plain version, the dense top-10 against an exact
+     f32 search: recall >= 0.9), and timings of the kernel, the SIMT
+     kernel on the same inputs, the plain version, a library yardstick,
+     the whole search_hybrid batch and its stages;
   5. serving: >= 256 concurrent text requests through QueryBatcher over
      a CollectionEngine on that index, each checked against a direct
      search_batch of the same query;
@@ -25,9 +28,12 @@ Phases, each printing one line with its seconds:
      kernel) and search_dense at batch 512 (the per-query kernel) with
      their launches counted, each kernel held against its plain version
      at those calls' inputs, the batch-32 hybrid result against the same
-     path on the plain versions, recall@10 against an exact f32 search,
-     and timings of the calls, the kernels, the plain versions and a
-     library yardstick;
+     path on the plain versions (bit for bit for every query whose union
+     candidate list matches the plain version's; RRF scores equal where
+     ids agree for the others, which differ at near-ties of the tensor
+     cores' sums), recall@10 against an exact f32 dot (gated) and cosine
+     search, and timings of the calls, the kernels, the plain versions
+     and a library yardstick;
   7. IVF serving: >= 128 concurrent requests through
      QueryBatcher(max_batch=32) on the IVF index, each answer equal to a
      direct search_batch of its dispatch's batch, one union-kernel launch
@@ -204,6 +210,37 @@ def phase_small() -> int:
                                  tol=_tolerance(d, ref[0]),
                                  scores=dt.plain_scores(*args[:6], 0, n))
                         cases += 1
+    # int8 x int8 at every register-list depth of the tensor-core variant
+    # and one above its cap (the SIMT variant), ragged B and D, a mask
+    # with an all-masked tile, duplicate rows (ties)
+    for bq, dq in ((1, 16), (17, 48), (130, 768)):
+        codes = torch.randint(-127, 128, (n, dq), device=DEVICE, generator=gen,
+                              dtype=torch.int8)
+        codes[64:96] = codes[:32]
+        row_scale = torch.rand(n, device=DEVICE, generator=gen) * 0.01 + 0.001
+        row_scale[64:96] = row_scale[:32]
+        q8 = torch.randint(-127, 128, (bq, dq), device=DEVICE, generator=gen,
+                           dtype=torch.int8)
+        qs8 = torch.rand(bq, device=DEVICE, generator=gen) * 0.01 + 0.001
+        keep = torch.rand(n, device=DEVICE, generator=gen) < 0.7
+        keep[2048:4096] = False
+        for kt in (1, 2, 3, 8, 9):
+            want = "tc" if kt <= dt.TC_MAX_KT else "simt"
+            if dt.kernel_variant(dt.MODE_INT8, kt, dq) != want:
+                raise AssertionError(f"kt={kt}, D={dq} did not take the {want} variant")
+            counter = dt.tc_launches if want == "tc" else dt.simt_launches
+            for mask in (None, keep):
+                args = (q8, qs8, codes, row_scale, None, mask, n, 2048, kt)
+                before = counter.count
+                got = dt.tile_topk(*args)
+                if counter.count != before + 1:
+                    raise AssertionError(f"the {want} variant was not launched")
+                ref = dt.tile_topk_plain(*args)
+                torch.cuda.synchronize()
+                if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+                    raise AssertionError(f"int8 {want} kernel differs from plain at "
+                                         f"B={bq}, D={dq}, kt={kt}")
+                cases += 1
     return cases
 
 
@@ -324,9 +361,11 @@ def library_topk(q_i8, q_scale, codes, scales, mask, n, tile, kt):
     return out_v
 
 
-def exact_topk(queries, corpus, mask, n: int) -> torch.Tensor:
+def exact_topk(queries, corpus, mask, n: int, cosine: bool = False) -> torch.Tensor:
     """Ids of the exact f32 top-TOP_K over the stored rows (codes x
-    scales) of the first ``n`` rows, for cosine queries."""
+    scales) of the first ``n`` rows, for cosine queries: the dot with the
+    stored rows, or with ``cosine`` the cosine (the rows renormalised, as
+    the IVF build renormalises them)."""
     from super_rag_tpu_torch.ops.dense import normalize_queries
 
     qn = normalize_queries(queries, "cosine")
@@ -335,7 +374,10 @@ def exact_topk(queries, corpus, mask, n: int) -> torch.Tensor:
     gold_i = torch.empty((b, 0), dtype=torch.int64, device=DEVICE)
     for lo in range(0, n, 131072):
         hi = min(n, lo + 131072)
-        s = qn @ (corpus.values[lo:hi].to(torch.float32) * corpus.scales[lo:hi, None]).T
+        rows = corpus.values[lo:hi].to(torch.float32) * corpus.scales[lo:hi, None]
+        if cosine:
+            rows = normalize_queries(rows, "cosine")
+        s = qn @ rows.T
         s = torch.where(mask[None, lo:hi], s, float("-inf"))
         v, i = torch.topk(torch.cat([gold, s], 1), TOP_K)
         gold_i = torch.gather(torch.cat([gold_i, torch.arange(lo, hi, device=DEVICE)
@@ -378,15 +420,16 @@ def phase_full(results: dict):
     del ranks
 
     # the main path, counted
-    dt.launches.count = 0
+    _reset_counts()
     t0 = time.perf_counter()
     res = idx.search_hybrid(q_emb, texts, k=TOP_K, candidates=CANDIDATES)
     torch.cuda.synchronize()
-    launches = dt.launches.count
+    counts = _counts()
+    launches = counts["dense_topk_tc"]
     log(f"[full] search_hybrid batch {BATCH}: first call {time.perf_counter() - t0:.3f} s, "
-        f"dense_topk launches {launches}")
+        f"launches {counts}")
     if launches < 1:
-        raise AssertionError("search_hybrid did not launch the dense_topk kernel")
+        raise AssertionError("search_hybrid did not launch the tensor-core dense_topk kernel")
     ids = res.indices.cpu().numpy()
     if ids.shape != (BATCH, TOP_K) or not np.isfinite(res.scores.cpu().numpy()).all():
         raise AssertionError("hybrid result has the wrong shape or non-finite scores")
@@ -416,7 +459,14 @@ def phase_full(results: dict):
     log(f"[full] kernel vs plain [num_tiles={kv.shape[0]}, B={BATCH}, kt={kt}]: "
         f"bit-equal (max |diff| {err})")
 
+    if dt.kernel_variant(dt.MODE_INT8, kt, DIM) != "tc":
+        raise AssertionError(f"the main path's kt={kt} is outside the tensor-core variant")
     kernel_ms = cuda_ms(lambda: dt.tile_topk(*args))
+    # the earlier (SIMT dp4a) kernel on the same inputs, for the record
+    with mock.patch.object(dt, "kernel_variant", lambda *a: "simt"):
+        sv, si = dt.tile_topk(*args)
+        _compare(sv, si, pv, pi, exact=True, tol=0.0)
+        simt_ms = cuda_ms(lambda: dt.tile_topk(*args), reps=5)
     plain_ms = cuda_ms(lambda: dt.tile_topk_plain(*args))
     lib_ms = cuda_ms(lambda: library_topk(q, qs, corpus.values, corpus.scales,
                                           mask, n, tile, kt))
@@ -426,7 +476,8 @@ def phase_full(results: dict):
     nbytes = (n * DIM + n * 4 + n + BATCH * DIM + BATCH * 4
               + num_tiles * BATCH * kt * 8)
     bound, bound_by = bound_ms(nbytes, 2.0 * BATCH * n * DIM, INT8_OPS_PER_S)
-    log(f"[full] dense_topk kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
+    log(f"[full] dense_topk tensor-core kernel {kernel_ms:.3f} ms (SIMT kernel "
+        f"{simt_ms:.3f} ms), plain {plain_ms:.3f} ms, "
         f"library (_int_mm + topk) {lib_ms:.3f} ms, bound {bound:.3f} ms "
         f"({bound_by}); search_hybrid batch {BATCH}: {hybrid_ms:.3f} ms "
         f"({BATCH / hybrid_ms * 1e3:.1f} queries/s)")
@@ -470,9 +521,10 @@ def phase_full(results: dict):
         f"{hybrid_ms - analyze_ms - dense_ms - lex_ms:.3f} ms; kernel at "
         f"batch 64: {kernel64_ms:.3f} ms (bound {bound64:.3f} ms, {bound64_by})")
     results["dense_topk"] = {
-        "launches": launches, "max_abs_err": err, "ms": kernel_ms,
-        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-        "library_ms": lib_ms,
+        "variant": "tc (mma.sync m16n8k32 s8)", "launches": launches,
+        "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": bound_by, "library_ms": lib_ms, "simt_ms": simt_ms,
+        "batch64_ms": kernel64_ms,
     }
     results["hybrid_ms"] = hybrid_ms
     return idx, texts, embedder
@@ -499,15 +551,16 @@ def phase_serve(idx, texts, embedder) -> dict:
                                       for t in requests))
 
     try:
-        dt.launches.count = 0
+        _reset_counts()
         t0 = time.perf_counter()
         answers = asyncio.run(serve())
         wall = time.perf_counter() - t0
-        launches = dt.launches.count
+        launches = _counts()["dense_topk_tc"]
     finally:
         batcher.close()
     if launches < 1:
-        raise AssertionError("served requests did not launch the dense_topk kernel")
+        raise AssertionError("served requests did not launch the tensor-core dense_topk "
+                             "kernel")
     for text, got in zip(requests, answers):
         want = engine.search_batch([text], top_k=TOP_K)[0]
         if ([(h.row, h.score) for h in got] != [(h.row, h.score) for h in want]
@@ -521,7 +574,7 @@ def phase_serve(idx, texts, embedder) -> dict:
     batch64_ms = host_ms(lambda: engine.search_batch(batch, top_k=TOP_K), reps=10)
     log(f"[serve] {len(requests)} concurrent requests in {wall:.3f} s: "
         f"{stats['dispatches']} dispatches, {stats['queries']} queries, "
-        f"dense_topk launches {launches}; every answer equals a direct "
+        f"tensor-core dense_topk launches {launches}; every answer equals a direct "
         f"search_batch; search_batch of 64 texts {batch64_ms:.3f} ms, of "
         f"which embedding {embed64_ms:.3f} ms")
     return stats
@@ -611,16 +664,19 @@ def _reset_counts() -> None:
     from super_rag_tpu_torch.ops import dense_topk as dt
     from super_rag_tpu_torch.ops import ivf_topk as it
 
-    dt.launches.count = 0
-    it.union_launches.count = 0
-    it.probe_launches.count = 0
+    for counter in (dt.tc_launches, dt.simt_launches, it.union_tc_launches,
+                    it.union_simt_launches, it.probe_launches):
+        counter.count = 0
 
 
 def _counts() -> dict:
     from super_rag_tpu_torch.ops import dense_topk as dt
     from super_rag_tpu_torch.ops import ivf_topk as it
 
-    return {"dense_topk": dt.launches.count, "ivf_union": it.union_launches.count,
+    return {"dense_topk_tc": dt.tc_launches.count,
+            "dense_topk_simt": dt.simt_launches.count,
+            "ivf_union_tc": it.union_tc_launches.count,
+            "ivf_union_simt": it.union_simt_launches.count,
             "ivf_probe": it.probe_launches.count}
 
 
@@ -685,9 +741,9 @@ def phase_ivf(results: dict):
         res = idx.search_hybrid(q32, t32, k=TOP_K, candidates=CANDIDATES)
     torch.cuda.synchronize()
     hyb_counts = _counts()
-    if hyb_counts["ivf_union"] < 1:
-        raise AssertionError(f"search_hybrid B={IVF_HYBRID_BATCH} launched no union "
-                             f"kernel: {hyb_counts}")
+    if hyb_counts["ivf_union_tc"] < 1:
+        raise AssertionError(f"search_hybrid B={IVF_HYBRID_BATCH} launched no tensor-core "
+                             f"union kernel: {hyb_counts}")
     ids = res.indices.cpu().numpy()
     if (ids.shape != (IVF_HYBRID_BATCH, TOP_K) or ids.min() < 0
             or not np.isfinite(res.scores.cpu().numpy()).all()):
@@ -707,29 +763,48 @@ def phase_ivf(results: dict):
     log(f"[ivf] launches: search_hybrid B={IVF_HYBRID_BATCH} {hyb_counts}; "
         f"search_dense B={IVF_DENSE_BATCH} {dense_counts}")
 
-    # the whole B = 32 hybrid result against the same path on the plain versions
-    with mock.patch.object(it, "union_scores", it.union_scores_plain), \
-            mock.patch.object(it, "probe_scores", it.probe_scores_plain):
-        res_plain = idx.search_hybrid(q32, t32, k=TOP_K, candidates=CANDIDATES)
-    if not torch.equal(res.indices, res_plain.indices):
-        raise AssertionError("IVF hybrid ids differ between kernel and plain version")
-    hyb_err = float((res.scores - res_plain.scores).abs().max())
-    dense_err = float((res.dense_scores - res_plain.dense_scores).abs().max())
-    if hyb_err > 0 or dense_err > 1e-6:
-        raise AssertionError(f"IVF hybrid scores differ: rrf {hyb_err}, dense {dense_err}")
-    log(f"[ivf] hybrid B={IVF_HYBRID_BATCH} on the kernels equals the plain versions' "
-        f"ids and RRF scores (dense branch scores max |diff| {dense_err}, limit 1e-6: "
-        f"the sign-plane refine re-scores the pool from the codes)")
-
     mask = idx._mask(None)
     cap = ivf.capacity
     # union kernel vs plain at the B = 32 call's inputs
+    from super_rag_tpu_torch.ops.topk import stable_topk
+
     uargs = calls["union"]
     q_in, union = uargs[0], uargs[1]
     uk, up = it.union_scores(*uargs), it.union_scores_plain(*uargs)
     union_err = _compare_candidates(uk, up, DIM, CANDIDATES)
     n_union = union.shape[0]
-    del uk, up
+    # queries whose candidate lists (the top-CANDIDATES of the union scores)
+    # come out in the same order on the kernel and on the plain version
+    ki_ = stable_topk(uk.reshape(IVF_HYBRID_BATCH, -1), CANDIDATES)[1]
+    pi_ = stable_topk(up.reshape(IVF_HYBRID_BATCH, -1), CANDIDATES)[1]
+    same_cands = (ki_ == pi_).all(1)
+    del uk, up, ki_, pi_
+
+    # the whole B = 32 hybrid result against the same path on the plain
+    # versions: bit-equal for every query whose candidate list is the plain
+    # version's; a query whose list differs (only at near-ties of the union
+    # scores, checked above: the tensor cores add in their own order) is
+    # held to the kernel's contract: RRF scores equal where ids are
+    with mock.patch.object(it, "union_scores", it.union_scores_plain), \
+            mock.patch.object(it, "probe_scores", it.probe_scores_plain):
+        res_plain = idx.search_hybrid(q32, t32, k=TOP_K, candidates=CANDIDATES)
+    rows_eq = ((res.indices == res_plain.indices).all(1)
+               & (res.scores == res_plain.scores).all(1))
+    dense_err = (float((res.dense_scores - res_plain.dense_scores)[same_cands].abs().max())
+                 if bool(same_cands.any()) else 0.0)
+    if bool((same_cands & ~rows_eq).any()) or dense_err > 1e-6:
+        raise AssertionError(f"IVF hybrid differs between kernel and plain version for a "
+                             f"query with the same candidates (dense {dense_err})")
+    same_ids = res.indices == res_plain.indices
+    if not torch.equal(res.scores[same_ids], res_plain.scores[same_ids]):
+        raise AssertionError("IVF hybrid RRF scores differ where the ids agree")
+    log(f"[ivf] hybrid B={IVF_HYBRID_BATCH} on the kernels vs the plain versions: "
+        f"{int(same_cands.sum())} of {IVF_HYBRID_BATCH} queries have the same candidate "
+        f"list and equal the plain result bit for bit (dense branch scores max |diff| "
+        f"{dense_err}, limit 1e-6: the sign-plane refine re-scores the pool from the "
+        f"codes); {int((~rows_eq).sum())} rows differ, each where the candidate list "
+        f"differs at a near-tie, with RRF scores equal where ids agree")
+
     # per-query kernel vs plain at the B = 512 call's inputs
     pargs = calls["probe"]
     probes_a = pargs[1]
@@ -744,14 +819,17 @@ def phase_ivf(results: dict):
     # recall@10 of the IVF tier against an exact f32 search of the stored rows
     n = idx.size
     gold = exact_topk(qa[:64], idx.dense_corpus(), mask, n)
+    gold_cos = exact_topk(qa[:64], idx.dense_corpus(), mask, n, cosine=True)
     recall_probe = recall_at_k(di[:64], gold)
     got_union = torch.cat([idx.search_dense(qa[lo:lo + IVF_HYBRID_BATCH], k=TOP_K)[1]
                            for lo in (0, IVF_HYBRID_BATCH)])
     recall_union = recall_at_k(got_union, gold)
-    log(f"[ivf] dense recall@{TOP_K} at nprobe {IVF_NPROBE} vs exact f32 over the "
-        f"stored rows (64 queries): {recall_probe:.4f} (per-query route, "
+    log(f"[ivf] dense recall@{TOP_K} at nprobe {IVF_NPROBE} (64 queries) vs the exact "
+        f"f32 dot with the stored rows: {recall_probe:.4f} (per-query route, "
         f"B={IVF_DENSE_BATCH}: own probes), {recall_union:.4f} (union route, "
-        f"B={IVF_HYBRID_BATCH}: the batch's probe union)")
+        f"B={IVF_HYBRID_BATCH}: the batch's probe union); vs the exact cosine with "
+        f"the stored rows (the IVF's own metric): {recall_at_k(di[:64], gold_cos):.4f} "
+        f"(per-query), {recall_at_k(got_union, gold_cos):.4f} (union)")
     if recall_probe < 0.5:
         raise AssertionError(f"IVF recall@{TOP_K} {recall_probe} < 0.5")
 
@@ -801,7 +879,7 @@ def phase_ivf(results: dict):
         f"(whole-index scan tier, launches {big_counts}) {hyb512_ms:.3f} ms; "
         f"search_dense B={b512} (per-query tier) {dense512_ms:.3f} ms, B={b32} "
         f"(union tier) {dense32_ms:.3f} ms")
-    log(f"[ivf] union kernel {union_ms:.3f} ms, plain {union_plain_ms:.3f} ms, library "
+    log(f"[ivf] union tensor-core kernel {union_ms:.3f} ms, plain {union_plain_ms:.3f} ms, library "
         f"(cuBLAS bf16 matmul over the pre-gathered {n_union} tiles, gather not timed) "
         f"{union_lib_ms:.3f} ms, bound {u_bound:.3f} ms ({u_by}: {u_bytes / 1e9:.3f} GB)")
     log(f"[ivf] per-query kernel {probe_ms:.3f} ms, plain {probe_plain_ms:.3f} ms, "
@@ -811,12 +889,12 @@ def phase_ivf(results: dict):
         f"{p_bytes / 1e9:.3f} GB); reading each query's own tiles moves "
         f"{b512 * IVF_NPROBE * cap * DIM / 1e9:.2f} GB, {per_query_reads_ms:.3f} ms")
     results["ivf_union"] = {
-        "launches": hyb_counts["ivf_union"], "max_abs_err": union_err, "ms": union_ms,
-        "plain_ms": union_plain_ms, "bound_ms": u_bound, "bound_by": u_by,
-        "library_ms": union_lib_ms,
+        "variant": "tc (mma.sync m16n8k16 bf16)", "launches": hyb_counts["ivf_union_tc"],
+        "max_abs_err": union_err, "ms": union_ms, "plain_ms": union_plain_ms,
+        "bound_ms": u_bound, "bound_by": u_by, "library_ms": union_lib_ms,
     }
     results["ivf_probe"] = {
-        "launches": dense_counts["ivf_probe"], "max_abs_err": probe_err, "ms": probe_ms,
+        "variant": "simt", "launches": dense_counts["ivf_probe"], "max_abs_err": probe_err, "ms": probe_ms,
         "plain_ms": probe_plain_ms, "bound_ms": p_bound, "bound_by": p_by,
         "library_ms": None,
     }
@@ -866,7 +944,7 @@ def phase_ivf_serve(idx, texts) -> dict:
     finally:
         batcher.close()
     stats = batcher.stats()
-    if counts["ivf_union"] != stats["dispatches"] or stats["dispatches"] != len(dispatched):
+    if counts["ivf_union_tc"] != stats["dispatches"] or stats["dispatches"] != len(dispatched):
         raise AssertionError(f"union launches {counts} != dispatches {stats['dispatches']}")
     served = dict(zip(requests, answers))
     for queries, kw in dispatched:
@@ -877,8 +955,8 @@ def phase_ivf_serve(idx, texts) -> dict:
                 raise AssertionError(f"served answer differs for {text!r}")
     sizes = sorted(len(q) for q, _ in dispatched)
     log(f"[ivf-serve] {len(requests)} concurrent requests in {wall:.3f} s: "
-        f"{stats['dispatches']} dispatches (sizes {sizes}), union kernel launches "
-        f"{counts['ivf_union']} (all launches {counts}); every answer equals a direct "
+        f"{stats['dispatches']} dispatches (sizes {sizes}), tensor-core union kernel "
+        f"launches {counts['ivf_union_tc']} (all launches {counts}); every answer equals a direct "
         f"search_batch of its dispatch's batch")
     return stats
 

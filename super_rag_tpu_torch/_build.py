@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``_build/lib<name>-<hash>.so`` for ``sm_90a`` (no PyTorch headers, so
-a build takes seconds).  The hash covers the source and the flags, so an
-edited source builds anew.  Building happens at first use, never at
-import: this module only runs ``nvcc`` when a kernel is asked for.
+a build takes seconds).  The hash covers the source, the shared
+``csrc/*.cuh`` headers and the flags, so an edited source builds anew.
+Building happens at first use, never at import: this module only runs
+``nvcc`` when a kernel is asked for.
 """
 
 from __future__ import annotations
@@ -43,8 +44,11 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -272,6 +272,11 @@ class DeviceIndex:
         _clear_rows(self.valid, rows)
         self._ivf_churn += len(rows)
 
+    @property
+    def live_count(self) -> int:
+        """Rows added and not deleted."""
+        return sum(1 for m in self.row_meta if m is not None)
+
     # -- query ---------------------------------------------------------------
 
     def _mask(self, flt: Optional[FilterSpec]) -> torch.Tensor:
@@ -571,13 +576,15 @@ class DeviceIndex:
         postings_per_query_term: int = 768,
         lex_deep_terms: int = 0,
         lex_deep_postings: Optional[int] = None,
+        lex_approx_topk: bool = False,
     ) -> HybridResult:
         """Dense + BM25 + RRF over the whole index (ops/hybrid.py); uses the
         inverted snapshot plus a doc-major fresh tail once compacted, and
         the IVF snapshot when it covers every row.  On the card (capacity
         >= 2048) the dense branch runs the kernels, with int8 queries for
         int8 storage and the calibrated per-tile cap for deep candidate
-        lists."""
+        lists.  ``lex_approx_topk`` is accepted for the reference's
+        contract; the port's top-k is exact either way."""
         self._maybe_autocompact()
         qt, qi = self._query_arrays(queries, max_terms)
         if use_kernel is None:
@@ -603,6 +610,7 @@ class DeviceIndex:
             rescore=rescore, postings_per_query_term=postings_per_query_term,
             lex_deep_terms=lex_deep_terms,
             lex_deep_postings=lex_deep_postings,
+            lex_approx_topk=lex_approx_topk,
             int8_queries=use_kernel and self.spec.dtype == torch.int8,
             device=self.device,
         )

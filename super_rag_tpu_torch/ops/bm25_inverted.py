@@ -122,16 +122,26 @@ def inverted_bm25_search(
     index: InvertedIndex,
     k: int,
     mask: Optional[torch.Tensor] = None,  # [N] bool keep-mask
+    has_mask: Optional[bool] = None,
     postings_per_query_term: Optional[int] = None,
     deep_terms: int = 0,
     deep_postings: Optional[int] = None,
+    approx_topk: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k BM25 via the inverted index: ``(scores [B, k], int32 ids)``.
 
     ``postings_per_query_term`` caps each query term's postings at query
     time (the highest-impact prefix).  With ``deep_terms`` > 0 each row's
     ``deep_terms`` lowest-idf terms (highest df: the ones the cap
-    truncates) read ``deep_postings`` rows instead."""
+    truncates) read ``deep_postings`` rows instead.  ``has_mask`` (default:
+    whether ``mask`` is given) says whether the mask applies, as in the
+    reference.  ``approx_topk`` is accepted for the reference's contract;
+    the port's top-k is exact either way."""
+    del approx_topk
+    if has_mask is None:
+        has_mask = mask is not None
+    if not has_mask:
+        mask = None
     bsz, q = query_terms.shape
     p = index.postings_per_term
     if postings_per_query_term is not None:

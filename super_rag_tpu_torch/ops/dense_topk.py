@@ -2,10 +2,14 @@
 
 Port of the TPU kernel in the JAX package's ``ops/pallas_topk.py``
 (``_make_kernel`` :36, driven by ``pallas_dense_topk`` :106).  The kernel
-is ``csrc/dense_topk.cu`` (CUDA C++ for sm_90a, built by ``_build.py``);
-``tile_topk_plain`` beside it is the plain PyTorch version with the same
-per-tile semantics.  ``tile_topk`` launches the kernel for CUDA tensors
-and runs the plain version only for CPU tensors.
+is ``csrc/dense_topk.cu`` (CUDA C++ for sm_90a, built by ``_build.py``)
+in two variants, chosen by shape (``kernel_variant``): the int8 tensor-
+core kernel for int8 x int8 at kt <= 8 and D <= 1024 (the flat
+search_hybrid's call), the SIMT kernel for every other mode and kt.  Each
+has its own launch counter (``tc_launches``, ``simt_launches``).
+``tile_topk_plain`` beside them is the plain PyTorch version with the same
+per-tile semantics.  ``tile_topk`` launches a kernel for CUDA tensors and
+runs the plain version only for CPU tensors.
 
 The logical tile is part of the result: with ``per_tile_k < k`` the
 candidates depend on which rows share a tile, so both versions extract
@@ -32,6 +36,10 @@ MODE_INT8_BF16 = 1  # int8 codes, bf16 queries
 MODE_BF16 = 2
 MODE_F32 = 3
 
+# the tensor-core variant's shapes: int8 x int8, register lists of up to
+# TC_MAX_KT, the block's [queries, D] int8 block in shared memory
+TC_MAX_KT = 8
+TC_MAX_D = 1024
 # rows of one plain-version chunk: bounds its [B, rows] f32 score block
 PLAIN_CHUNK_ROWS = 32768
 MAX_GRID_Y = 65535
@@ -44,7 +52,8 @@ class _Launches:
         self.count = 0
 
 
-launches = _Launches()
+tc_launches = _Launches()  # the int8 tensor-core variant
+simt_launches = _Launches()  # the SIMT variant (every other mode and kt)
 
 
 @functools.cache
@@ -56,6 +65,9 @@ def _lib() -> ctypes.CDLL:
     lib.dense_topk_launch.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i,
                                       p, p, p]
     lib.dense_topk_launch.restype = i
+    lib.dense_topk_tc_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
+                                         p, p, p]
+    lib.dense_topk_tc_launch.restype = i
     return lib
 
 
@@ -70,6 +82,15 @@ def _mode(q: torch.Tensor, values: torch.Tensor) -> int:
         return MODE_F32
     raise ValueError(f"no kernel mode for queries {q.dtype} x corpus "
                      f"{values.dtype}")
+
+
+def kernel_variant(mode: int, kt: int, d: int) -> str:
+    """Which kernel takes a call: ``"tc"`` (int8 tensor cores) for the
+    int8 x int8 mode at ``kt <= TC_MAX_KT`` and ``d <= TC_MAX_D``, else
+    ``"simt"``."""
+    if mode == MODE_INT8 and 1 <= kt <= TC_MAX_KT and d <= TC_MAX_D:
+        return "tc"
+    return "simt"
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -107,15 +128,19 @@ def _launch_kernel(q, qscale, values, scales, norms, mask, n, tile, kt):
         return out_v, out_i
     mask_u8 = None if mask is None else mask.view(torch.uint8)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.dense_topk_launch(
-        mode, q.data_ptr(), _ptr(qscale), values.data_ptr(), _ptr(scales),
-        _ptr(norms), _ptr(mask_u8), b, n, d, tile, num_tiles, kt,
-        out_v.data_ptr(), out_i.data_ptr(), stream,
-    )
+    operands = (q.data_ptr(), _ptr(qscale), values.data_ptr(), _ptr(scales),
+                _ptr(norms), _ptr(mask_u8), b, n, d, tile, num_tiles, kt,
+                out_v.data_ptr(), out_i.data_ptr(), stream)
+    variant = kernel_variant(mode, kt, d)
+    if variant == "tc":
+        err = lib.dense_topk_tc_launch(*operands)
+    else:
+        err = lib.dense_topk_launch(mode, *operands)
     if err != 0:
         # e.g. a tile whose score block exceeds the card's shared memory
-        raise RuntimeError(f"dense_topk kernel launch failed: cudaError {err}")
-    launches.count += 1
+        raise RuntimeError(f"dense_topk {variant} kernel launch failed: "
+                           f"cudaError {err}")
+    (tc_launches if variant == "tc" else simt_launches).count += 1
     return out_v, out_i
 
 

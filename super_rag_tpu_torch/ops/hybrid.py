@@ -124,7 +124,7 @@ def hybrid_search(
     query_emb: torch.Tensor,  # [B, D] f32
     query_terms: torch.Tensor,  # [B, Q] int32 (pad = vocab_size)
     query_idf: torch.Tensor,  # [B, Q] f32
-    dense: DenseCorpus,
+    dense: Optional[DenseCorpus],
     lexical: Optional[LexicalCorpus],
     avgdl,
     inverted: Optional[InvertedIndex] = None,
@@ -152,8 +152,11 @@ def hybrid_search(
     rescore: bool = True,
     lex_gen: Optional[int] = None,
     dense_gen: Optional[int] = None,
+    num_docs: Optional[int] = None,
     lex_deep_terms: int = 0,
     lex_deep_postings: Optional[int] = None,
+    lex_approx_topk: bool = False,
+    dense_approx_topk: bool = False,
     dense_refine: int = 0,
     device: DeviceLike = None,
 ) -> HybridResult:
@@ -172,16 +175,31 @@ def hybrid_search(
     pool with exact BM25 before fusion; ``lex_gen`` deepens the lexical
     generation (default ``2 * candidates``).
 
+    ``dense`` may be None when ``ivf`` serves the dense branch alone (no
+    second flat copy of a large index); ``num_docs`` then gives the row
+    count, and the flat-only ``dense_refine`` is skipped.
+    ``lex_approx_topk`` / ``dense_approx_topk`` are accepted for the
+    reference's contract; the port's top-k is exact either way.
+
     ``device`` (default CUDA) is where it runs; the corpora must already
     live there."""
-    dev = check_device(dense.values, device)
+    del lex_approx_topk, dense_approx_topk
+    if dense is None:
+        if ivf is None or num_docs is None:
+            raise ValueError("hybrid_search needs a dense corpus, or an ivf "
+                             "index and num_docs to serve the dense branch")
+        dev = check_device(ivf.values, device)
+        n = num_docs
+    else:
+        dev = check_device(dense.values, device)
+        n = dense.size
     metric = Metric(metric)
-    n = dense.size
     kc = min(candidates, n)
     kd = min(max(kc, dense_gen), n) if dense_gen is not None else kc
     # sign-plane refinement: phase-1 int8 ranks only have to keep the true
     # winners inside the refine pool
-    do_refine = (dense_refine > 0 and dense.sign_plane is not None
+    do_refine = (dense_refine > 0 and dense is not None
+                 and dense.sign_plane is not None
                  and metric in (Metric.COSINE, Metric.DOT))
     if do_refine:
         kd = min(max(kd, dense_refine), n)

@@ -7,7 +7,8 @@ with its plain PyTorch version and a launch counter beside it:
 
   * ``union_scores`` (TPU kernel: pallas_ivf.py:93 ``_make_union_kernel``)
     scores the whole query block against every tile of the batch's probe
-    union: ``[B, U, C]``;
+    union: ``[B, U, C]``; on the bf16 tensor cores for int8 / bf16 values,
+    on CUDA cores for f32 (``union_variant``), each variant counted;
   * ``probe_scores`` (TPU kernel: pallas_ivf.py:48 ``_make_kernel``)
     scores each query against its own probed tiles: ``[B, nprobe, C]``.
 
@@ -53,7 +54,8 @@ class _Launches:
         self.count = 0
 
 
-union_launches = _Launches()
+union_tc_launches = _Launches()  # union kernel, tensor-core variant
+union_simt_launches = _Launches()  # union kernel, SIMT variant (f32)
 probe_launches = _Launches()
 
 
@@ -63,10 +65,18 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("ivf_scan")
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.ivf_union_launch, lib.ivf_probe_launch):
+    for fn in (lib.ivf_union_launch, lib.ivf_union_tc_launch,
+               lib.ivf_probe_launch):
         fn.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, p, p]
         fn.restype = i
     return lib
+
+
+def union_variant(mode: int) -> str:
+    """Which union kernel takes a mode: ``"tc"`` (bf16 tensor cores) for
+    int8 or bf16 values, ``"simt"`` for f32 values (TF32 would not keep
+    the summation tolerance)."""
+    return "simt" if mode == MODES[torch.float32] else "tc"
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -192,15 +202,19 @@ def union_scores(q, union, values, scales, cs, row_ids,
                       device=values.device)
     if b == 0 or n_union == 0 or cap == 0:
         return out
-    err = _lib().ivf_union_launch(
+    variant = union_variant(mode)
+    lib = _lib()
+    launch = lib.ivf_union_tc_launch if variant == "tc" else lib.ivf_union_launch
+    err = launch(
         mode, q.data_ptr(), union.data_ptr(), values.data_ptr(), _ptr(scales),
         _ptr(cs), row_ids.data_ptr(),
         _ptr(None if mask is None else mask.view(torch.uint8)),
         b, n_union, cap, d, nlist, out.data_ptr(),
         torch.cuda.current_stream(values.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"ivf_union kernel launch failed: cudaError {err}")
-    union_launches.count += 1
+        raise RuntimeError(f"ivf_union {variant} kernel launch failed: "
+                           f"cudaError {err}")
+    (union_tc_launches if variant == "tc" else union_simt_launches).count += 1
     return out
 
 

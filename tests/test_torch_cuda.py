@@ -47,9 +47,12 @@ def test_kernel_matches_plain_version(card, mode):
             norms = corpus.norms_sq if metric == "l2" else None
             args = (qq, qs, corpus.values, corpus.scales, norms, keep, 5000,
                     tile, kt)
-            before = dt.launches.count
+            variant = dt.kernel_variant(dt._mode(qq, corpus.values), kt, 96)
+            counter = dt.tc_launches if variant == "tc" else dt.simt_launches
+            assert variant == ("tc" if i8q else "simt")
+            before = counter.count
             kv, ki = dt.tile_topk(*args)
-            assert dt.launches.count == before + 1
+            assert counter.count == before + 1
             pv, pi = dt.tile_topk_plain(*args)
             fin = torch.isfinite(pv)
             if i8q:
@@ -59,6 +62,96 @@ def test_kernel_matches_plain_version(card, mode):
                 assert_topk_match(pv.cpu(), pi.cpu(), kv.cpu(), ki.cpu(),
                                   rtol=0.0, atol=tol,
                                   scores=dt.plain_scores(*args[:6], 0, 5000))
+
+
+def _int8_operands(card, b, n, d, seed, masked, l2):
+    """int8 x int8 operands made on the card: codes, per-row scales, int8
+    queries with their scales; a keep-mask whose second tile is all
+    masked; rows 64.. repeating rows 0.. (ties inside and across tiles)."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    values = torch.randint(-127, 128, (n, d), device=card, generator=gen,
+                           dtype=torch.int8)
+    values[64:96] = values[0:32]
+    values[2048 + 5:2048 + 37] = values[0:32]
+    scales = torch.rand(n, device=card, generator=gen) * 0.01 + 0.001
+    scales[64:96] = scales[0:32]
+    scales[2048 + 5:2048 + 37] = scales[0:32]
+    q = torch.randint(-127, 128, (b, d), device=card, generator=gen,
+                      dtype=torch.int8)
+    qscale = torch.rand(b, device=card, generator=gen) * 0.01 + 0.001
+    mask = None
+    if masked:
+        mask = torch.rand(n, device=card, generator=gen) < 0.7
+        mask[2048:4096] = False
+    norms = (torch.rand(n, device=card, generator=gen) if l2 else None)
+    return q, qscale, values, scales, norms, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kt", [1, 2, 3, 8, 9])
+@pytest.mark.parametrize("d", [16, 48, 768])
+@pytest.mark.parametrize("b", [1, 17, 130])
+def test_int8_kernel_bit_equal_at_ragged_shapes(card, b, d, kt):
+    """int8 x int8 at B not a multiple of the 64-query block, n = 5000
+    (not a multiple of the 2048-row tile nor the 128-row chunk), D in
+    {16, 48, 768}: the tensor-core kernel (kt <= 8) and the SIMT one
+    (kt = 9, above the register lists' cap) equal tile_topk_plain bit for
+    bit, values and ids, -inf slots included; with and without a mask
+    (an all-masked tile), with L2 norms, with duplicate rows."""
+    n, tile = 5000, 2048
+    variant = dt.kernel_variant(dt.MODE_INT8, kt, d)
+    assert variant == ("tc" if kt <= 8 else "simt")
+    counter = dt.tc_launches if variant == "tc" else dt.simt_launches
+    for masked, l2 in ((False, False), (True, False), (True, True)):
+        q, qs, values, scales, norms, mask = _int8_operands(
+            card, b, n, d, seed=b * 1000 + d + kt, masked=masked, l2=l2)
+        args = (q, qs, values, scales, norms, mask, n, tile, kt)
+        before = (dt.tc_launches.count, dt.simt_launches.count)
+        kv, ki = dt.tile_topk(*args)
+        after = (dt.tc_launches.count, dt.simt_launches.count)
+        assert sum(after) - sum(before) == 1
+        assert counter.count == (before[0] if variant == "tc" else before[1]) + 1
+        pv, pi = dt.tile_topk_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(kv, pv)
+        assert torch.equal(ki, pi)
+        if masked:
+            assert torch.isinf(kv[1]).all()  # the all-masked tile
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kt", [1, 2, 5])
+def test_int8_kernel_bit_equal_at_the_largest_d(card, kt):
+    """D = 1024: the kt <= 2 block's shared memory does not fit there, so
+    the tensor-core kernel takes its narrower block for every kt."""
+    n, b, d = 4100, 130, dt.TC_MAX_D
+    assert dt.kernel_variant(dt.MODE_INT8, kt, d) == "tc"
+    q, qs, values, scales, norms, mask = _int8_operands(
+        card, b, n, d, seed=kt, masked=True, l2=True)
+    args = (q, qs, values, scales, norms, mask, n, 2048, kt)
+    before = dt.tc_launches.count
+    kv, ki = dt.tile_topk(*args)
+    assert dt.tc_launches.count == before + 1
+    pv, pi = dt.tile_topk_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [200, 1000])
+def test_int8_kernel_bit_equal_at_small_tiles(card, tile):
+    """Tiles that are not a multiple of the 128-row chunk."""
+    n, b = 5000, 70
+    q, qs, values, scales, norms, mask = _int8_operands(
+        card, b, n, 96, seed=tile, masked=True, l2=False)
+    for kt in (1, 4, 8):
+        args = (q, qs, values, scales, None, mask, n, tile, kt)
+        before = dt.tc_launches.count
+        kv, ki = dt.tile_topk(*args)
+        assert dt.tc_launches.count == before + 1
+        pv, pi = dt.tile_topk_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(kv, pv) and torch.equal(ki, pi)
 
 
 @pytest.mark.cuda
@@ -141,7 +234,9 @@ def test_ivf_kernels_match_plain_versions(card, mode, route):
             if route == "union":
                 ids = torch.tensor([3, 0, 11, 7, 5], dtype=torch.int32,
                                    device=card)
-                fn, counter = it.union_scores, it.union_launches
+                fn = it.union_scores
+                counter = (it.union_tc_launches if mode != "f32"
+                           else it.union_simt_launches)
                 plain = it.union_scores_plain
             else:
                 ids = torch.randint(0, 12, (b, 14), device=card,
@@ -157,6 +252,75 @@ def test_ivf_kernels_match_plain_versions(card, mode, route):
             assert torch.equal(fin, torch.isfinite(got))
             tol = 96 * 2.0 ** -23 * (float(ref[fin].abs().max()) + 1.0)
             assert float((got - ref)[fin].abs().max()) <= tol
+
+
+def _union_operands(card, dtype, b, nlist, cap, d, seed=0):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn(nlist, cap, d, device=card, generator=gen)
+    if dtype == torch.int8:
+        values = torch.clamp(torch.round(x * 40), -127, 127).to(torch.int8)
+        scales = torch.rand(nlist, cap, device=card, generator=gen) * 0.01
+    else:
+        values, scales = x.to(dtype), None
+    row_ids = torch.randperm(nlist * cap, device=card, generator=gen).to(
+        torch.int32).reshape(nlist, cap)
+    row_ids[torch.rand(nlist, cap, device=card, generator=gen) < 0.2] = -1
+    q = torch.randn(b, d, device=card, generator=gen).to(torch.bfloat16)
+    cs = torch.randn(b, nlist, device=card, generator=gen)
+    mask = torch.rand(nlist * cap, device=card, generator=gen) < 0.7
+    return q, values, scales, cs, row_ids, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("b,u,cap,d", [(1, 3, 200, 96), (20, 5, 257, 16),
+                                       (33, 7, 1280, 768), (70, 2, 300, 48)])
+def test_union_tc_kernel_within_tolerance_at_ragged_shapes(card, dtype, b, u,
+                                                           cap, d):
+    """The tensor-core union kernel against union_scores_plain at B, U and
+    C off the 32-query / 256-row blocks and D off the 64-byte stage:
+    the same -inf slots, values within D * 2^-23 * (max|s| + 1)."""
+    from super_rag_tpu_torch.ops import ivf_topk as it
+
+    nlist = 9
+    q, values, scales, cs, row_ids, mask = _union_operands(card, dtype, b,
+                                                           nlist, cap, d)
+    union = torch.randperm(nlist, device=card)[:u].to(torch.int32)
+    for residual, masked in ((False, False), (True, True)):
+        args = (q, union, values, scales, cs if residual else None, row_ids,
+                mask if masked else None)
+        before = (it.union_tc_launches.count, it.union_simt_launches.count)
+        got = it.union_scores(*args)
+        assert (it.union_tc_launches.count, it.union_simt_launches.count) == (
+            before[0] + 1, before[1])
+        ref = it.union_scores_plain(*args)
+        torch.cuda.synchronize()
+        assert got.shape == (b, u, cap)
+        fin = torch.isfinite(ref)
+        assert torch.equal(fin, torch.isfinite(got))
+        tol = d * 2.0 ** -23 * (float(ref[fin].abs().max()) + 1.0)
+        assert float((got - ref)[fin].abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_union_tc_kernel_is_batch_invariant(card, dtype):
+    """A query scores bit-alike alone and inside a batch of 32 (and of
+    40, a second query block): the MMA's order is fixed by D alone."""
+    from super_rag_tpu_torch.ops import ivf_topk as it
+
+    q, values, scales, cs, row_ids, mask = _union_operands(card, dtype, 40, 12,
+                                                           1280, 768, seed=3)
+    union = torch.tensor([7, 0, 11, 3], dtype=torch.int32, device=card)
+    full = it.union_scores(q, union, values, scales, cs, row_ids, mask)
+    b32 = it.union_scores(q[:32].contiguous(), union, values, scales,
+                          cs[:32].contiguous(), row_ids, mask)
+    for i in (0, 17, 31, 35):
+        alone = it.union_scores(q[i:i + 1].contiguous(), union, values, scales,
+                                cs[i:i + 1].contiguous(), row_ids, mask)
+        assert torch.equal(alone[0], full[i])
+        if i < 32:
+            assert torch.equal(alone[0], b32[i])
 
 
 def _ivf_to(ivf, device):
@@ -199,10 +363,10 @@ def test_ivf_engine_on_card_answers_as_on_cpu(card, nprobe):
         # one snapshot for both: k-means on the card sums in another order
         ivf = eng.index._ivf if ivf is None else ivf
         eng.index._ivf = _ivf_to(ivf, dev)
-        before = it.union_launches.count
+        before = it.union_tc_launches.count
         res = eng.index.search_hybrid(eng._embed(queries), queries, k=10,
                                       candidates=40, use_kernel=True)
-        launched = it.union_launches.count - before
+        launched = it.union_tc_launches.count - before
         out[dev] = (res.indices.cpu(), res.dense_scores.cpu(), launched)
     assert out["cuda"][2] == (1 if 8 * nprobe < 32 else 0)
     assert torch.equal(out["cpu"][0], out["cuda"][0])

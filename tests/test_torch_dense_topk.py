@@ -51,11 +51,12 @@ def test_plain_version_matches_pallas_interpret(metric, mode, per_tile_k, masked
         jnp.asarray(q), jc, k=K, metric=metric,
         mask=None if mask is None else jnp.asarray(mask), tile=TILE,
         interpret=True, int8_queries=i8q, per_tile_k=per_tile_k)
-    before = dt.launches.count
+    before = (dt.tc_launches.count, dt.simt_launches.count)
     tv, ti = dt.dense_topk(t(q), tc, k=K, metric=metric,
                            mask=None if mask is None else t(mask), tile=TILE,
                            int8_queries=i8q, per_tile_k=per_tile_k, device="cpu")
-    assert dt.launches.count == before  # the CPU runs the plain version
+    # the CPU runs the plain version
+    assert (dt.tc_launches.count, dt.simt_launches.count) == before
     assert ti.dtype == torch.int32
     assert_topk_match(jv, ji, tv, ti)
     if masked:
@@ -114,3 +115,14 @@ def test_live_rows_scan_changes_no_bit(live, per_tile_k):
                         tile=TILE, int8_queries=True, per_tile_k=per_tile_k,
                         device="cpu")
     assert torch.equal(whole[0], cut[0]) and torch.equal(whole[1], cut[1])
+
+
+@pytest.mark.parametrize("mode,kt,d,want", [
+    (dt.MODE_INT8, 2, 768, "tc"), (dt.MODE_INT8, 1, 16, "tc"),
+    (dt.MODE_INT8, 8, 1024, "tc"), (dt.MODE_INT8, 9, 768, "simt"),
+    (dt.MODE_INT8, 2, 1040, "simt"), (dt.MODE_INT8_BF16, 2, 768, "simt"),
+    (dt.MODE_BF16, 1, 768, "simt"), (dt.MODE_F32, 2, 96, "simt")])
+def test_kernel_variant_by_shape(mode, kt, d, want):
+    """The int8 tensor-core kernel takes int8 x int8 at kt <= 8 and
+    D <= 1024; every other mode and shape takes the SIMT kernel."""
+    assert dt.kernel_variant(mode, kt, d) == want

@@ -81,7 +81,10 @@ def test_index_state_matches_after_adds_deletes_and_compaction():
 
 
 def test_delete_semantics():
-    """df drops once per live row; dead and out-of-range rows are ignored."""
+    """df drops once per live row; dead and out-of-range rows are ignored.
+    Negative ids are ignored too (a kept difference: the reference clears
+    the last row's metadata and df entry but leaves its validity bit set,
+    half-deleting it)."""
     j, p, texts, emb, _ = _pair(seed=41)
     before = p.df.num_docs
     p.delete([0, 0, 5, 123456])  # 5 is dead already
@@ -89,6 +92,26 @@ def test_delete_semantics():
     assert not bool(p.valid[0]) and p.row_meta[0] is None
     j.delete([0, 0, 5, 123456])
     assert p.df.state() == j.df.state()
+    last = p.size - 1
+    state = p.df.state()
+    p.delete([-1, -p.size])
+    assert p.df.state() == state and p.live_count == j.live_count
+    assert bool(p.valid[last]) and p.row_meta[last] is not None
+    j.delete([-1])
+    assert j.row_meta[last] is None and bool(np.asarray(j.valid)[last])
+
+
+def test_live_count_matches():
+    """Rows added and not deleted, after adds, deletes (duplicates, dead
+    and out-of-range rows included) and more adds."""
+    j, p, texts, emb, _ = _pair(seed=45)
+    assert p.live_count == j.live_count == 570 - 4
+    for idx in (j, p):
+        idx.delete([0, 1, 1, 17, 569, 10 ** 6])
+    assert p.live_count == j.live_count == 570 - 4 - 3
+    for idx in (j, p):
+        idx.add(emb[:7], texts[:7])
+    assert p.live_count == j.live_count == 570 - 4 - 3 + 7
 
 
 @pytest.mark.parametrize("dtype,metric", [("int8", "cosine"), ("bf16", "cosine"),
@@ -253,6 +276,54 @@ def test_engine_modes_and_rerank():
     assert all(h.row != 7 for h in eng.search(q, top_k=5, mode="dense"))
 
 
+class _TableEmbedder:
+    """Fixed numpy embeddings by text (zeros for the batch's pad ""), so
+    both packages' engines search with the same query bits."""
+
+    def __init__(self, texts, emb):
+        self.table = dict(zip(texts, emb))
+
+    def embed(self, texts):
+        return np.stack([self.table.get(t, np.zeros(DIM, np.float32))
+                         for t in texts])
+
+
+# the five ``hybrid`` config keys that the reference's EngineManager.get
+# forwards to CollectionEngine(hybrid_opts=...)
+MANAGER_HYBRID_OPTS = {"rescore": True, "postings_per_query_term": 48,
+                       "lex_deep_terms": 2, "lex_deep_postings": 96,
+                       "lex_approx_topk": True}
+
+
+@pytest.mark.parametrize("approx", [False, True])
+def test_engine_takes_the_managers_hybrid_opts(approx):
+    """A CollectionEngine built with all five of the manager's hybrid keys
+    answers as the reference's does, over the indexes of ``_pair`` (the
+    port's top-k is exact where the reference may take approx_max_k; on
+    the CPU the reference is exact too): the same rows, scores within
+    1e-6.  ``rescore`` stays on: unrescored lexical ranks of tied docs
+    may differ (the kept difference "Lexical tie order")."""
+    from super_rag_tpu.engine.collection import CollectionEngine as JEngine
+
+    j, p, texts, emb, rng = _pair(seed=42)
+    queries = [" ".join(t.split()[:3]) for t in texts[::97]]
+    qemb = (emb[::97] + 0.2 * rng.standard_normal((len(queries), DIM))).astype(
+        np.float32)
+    embedder = _TableEmbedder(queries, qemb)
+    opts = dict(MANAGER_HYBRID_OPTS, lex_approx_topk=approx)
+    jeng = JEngine(j.spec, embedder=embedder, hybrid_opts=opts)
+    peng = CollectionEngine(p.spec, embedder=embedder, hybrid_opts=opts,
+                            device="cpu")
+    jeng.index, peng.index = j, p
+    got = peng.search_batch(queries, top_k=8)
+    want = jeng.search_batch(queries, top_k=8)
+    assert sum(len(g) for g in got) == 8 * len(queries)
+    for g, w in zip(got, want):
+        assert [h.row for h in g] == [h.row for h in w]
+        np.testing.assert_allclose([h.score for h in g], [h.score for h in w],
+                                   rtol=1e-6)
+
+
 EMBED_TEXTS = ["alpha beta gamma", "", "beta beta beta",
                " ".join(f"w{i}" for i in range(90)),  # past max_terms
                "The quick brown fox jumps over the lazy dog"]
@@ -406,12 +477,13 @@ def test_batcher_on_the_ivf_tier_answers_as_direct_calls_of_its_batches():
         return await asyncio.gather(*(batcher.search(eng, q, top_k=5)
                                       for q in queries))
 
-    before = tit.union_launches.count
+    before = (tit.union_tc_launches.count, tit.union_simt_launches.count)
     try:
         got = dict(zip(queries, asyncio.run(many())))
     finally:
         batcher.close()
-    assert tit.union_launches.count == before  # plain versions on the CPU
+    # plain versions on the CPU
+    assert (tit.union_tc_launches.count, tit.union_simt_launches.count) == before
     assert 1 < len(batches) < 40 and sum(len(b) for b, _ in batches) == 40
     for qs, kw in batches:
         for q, want in zip(qs, direct(qs, **kw)):

@@ -282,3 +282,66 @@ def test_dense_refine_matches(masked, kernel):
                        s["avgdl"], mask=tmask, use_kernel=kernel,
                        dense_tile=256, block_size=256, device="cpu", **common)
     _assert_same(jr, tr)
+
+
+@pytest.mark.parametrize("tier", ["flat_scan", "kernel", "gather"])
+def test_ivf_serves_the_dense_branch_alone(tier, interpret_pallas_ivf):
+    """``dense=None`` with ``num_docs``: the IVF serves the dense branch
+    with no flat copy, in every IVF tier, and the approximate-top-k flags
+    are taken (the port's top-k is exact, as the reference's is on the
+    CPU).  Dense refine needs the flat corpus and is skipped, as in the
+    reference."""
+    s = _setup("int8", seed=38)
+    j, p, _ = _ivf_pair(s, "int8", seed=39)
+    nprobe = 3 if tier == "flat_scan" else 2
+    kernel = tier != "gather"
+    jinv_ = jinv.build_inverted(s["terms"], s["tfs"], s["dl"], V,
+                                postings_per_term=16, avgdl=s["avgdl"])
+    tinv_ = tinv.build_inverted(t(s["terms"]), t(s["tfs"]), t(s["dl"]), V,
+                                postings_per_term=16, avgdl=s["avgdl"])
+    common = dict(vocab_size=V, k=8, candidates=20, nprobe=nprobe,
+                  num_docs=ROWS, lex_approx_topk=True, dense_approx_topk=True,
+                  dense_refine=40)
+    jr = j_hybrid(jnp.asarray(s["q"]), jnp.asarray(s["qt"]), jnp.asarray(s["qi"]),
+                  None, s["jl"], jnp.float32(s["avgdl"]), inverted=jinv_,
+                  ivf=j, mask=jnp.asarray(s["mask"]), use_pallas=kernel, **common)
+    tr = hybrid_search(t(s["q"]), t(s["qt"]), t(s["qi"]), None, s["tl"],
+                       s["avgdl"], inverted=tinv_, ivf=p, mask=t(s["mask"]),
+                       use_kernel=kernel, device="cpu", **common)
+    _assert_same(jr, tr)
+
+
+@pytest.mark.parametrize("missing", ["ivf", "num_docs"])
+def test_no_dense_corpus_needs_ivf_and_num_docs(missing):
+    s = _setup("int8", seed=38)
+    _, p, _ = _ivf_pair(s, "int8", seed=39)
+    kw = dict(ivf=p, num_docs=ROWS)
+    kw[missing] = None
+    with pytest.raises(ValueError, match="num_docs"):
+        hybrid_search(t(s["q"]), t(s["qt"]), t(s["qi"]), None, s["tl"],
+                      s["avgdl"], vocab_size=V, k=8, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("has_mask", [None, True, False])
+@pytest.mark.parametrize("approx_topk", [False, True])
+def test_inverted_search_mask_switch_and_approx_flag(has_mask, approx_topk):
+    """``has_mask`` decides whether the given mask applies (None: whether
+    one is given); ``approx_topk`` is taken, exact in both packages here."""
+    s = _setup("int8", seed=40)
+    jinv_ = jinv.build_inverted(s["terms"], s["tfs"], s["dl"], V,
+                                postings_per_term=16, avgdl=s["avgdl"])
+    tinv_ = tinv.build_inverted(t(s["terms"]), t(s["tfs"]), t(s["dl"]), V,
+                                postings_per_term=16, avgdl=s["avgdl"])
+    jv, ji = jinv.inverted_bm25_search(
+        jnp.asarray(s["qt"]), jnp.asarray(s["qi"]), jinv_, k=12,
+        mask=jnp.asarray(s["mask"]), has_mask=has_mask, approx_topk=approx_topk)
+    tv, ti = tinv.inverted_bm25_search(
+        t(s["qt"]), t(s["qi"]), tinv_, k=12, mask=t(s["mask"]),
+        has_mask=has_mask, approx_topk=approx_topk)
+    masked = has_mask is not False
+    assert (not masked) == bool(np.isin(n(ti), np.flatnonzero(~s["mask"])).any())
+    np.testing.assert_allclose(n(tv), np.asarray(jv), rtol=1e-5, atol=1e-5)
+    fin = np.isfinite(np.asarray(jv))
+    gap = np.abs(np.diff(np.asarray(jv), axis=-1)) <= 1e-4
+    near = np.pad(gap, ((0, 0), (1, 0))) | np.pad(gap, ((0, 0), (0, 1)))
+    assert not (fin & (n(ti) != np.asarray(ji)) & ~near).any()

@@ -146,12 +146,23 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     _, p, q, _ = _index("int8")
     qb = t(q).to(torch.bfloat16)
     tiles = torch.tensor([1, 4], dtype=torch.int32)
-    before = (tit.union_launches.count, tit.probe_launches.count)
+    counters = (tit.union_tc_launches, tit.union_simt_launches,
+                tit.probe_launches)
+    before = [c.count for c in counters]
     tit.union_scores(qb, tiles, p.values, p.scales, None, p.row_ids, None)
     tit.probe_scores(qb, tiles[None].expand(5, -1).contiguous(), p.values,
                      p.scales, None, p.row_ids, None)
-    assert (tit.union_launches.count, tit.probe_launches.count) == before
+    assert [c.count for c in counters] == before
     meta = p.values.to("meta")
     for fn in (tit.union_scores, tit.probe_scores):
         with pytest.raises(ValueError, match="no ivf_scan path"):
             fn(qb, tiles, meta, None, None, p.row_ids, None)
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.int8, "tc"),
+                                        (torch.bfloat16, "tc"),
+                                        (torch.float32, "simt")])
+def test_union_variant_by_mode(dtype, want):
+    """int8 / bf16 values take the bf16 tensor-core union kernel, f32
+    values the SIMT one."""
+    assert tit.union_variant(tit.MODES[dtype]) == want
