@@ -25,15 +25,16 @@ Phases, each printing one line with its seconds:
   6. IVF tier: a clustered 1M x 768 int8 corpus made on the card,
      DeviceIndex + compact_lexical + compact_dense(nlist 1024, nprobe 16)
      (timed streaming build), search_hybrid at batch 32 (the union
-     kernel) and search_dense at batch 512 (the per-query kernel) with
-     their launches counted, each kernel held against its plain version
+     kernel) and search_dense at batch 512 (the tensor-core per-query
+     kernel over its tile-major work list) with their launches counted
+     per variant, each kernel held against its plain version
      at those calls' inputs, the batch-32 hybrid result against the same
      path on the plain versions (bit for bit for every query whose union
      candidate list matches the plain version's; RRF scores equal where
      ids agree for the others, which differ at near-ties of the tensor
      cores' sums), recall@10 against an exact f32 dot (gated) and cosine
-     search, and timings of the calls, the kernels, the plain versions
-     and a library yardstick;
+     search, timings of the calls, the kernels, the plain versions and
+     a library yardstick each, and search_dense B = 512 stage by stage;
   7. IVF serving: >= 128 concurrent requests through
      QueryBatcher(max_batch=32) on the IVF index, each answer equal to a
      direct search_batch of its dispatch's batch, one union-kernel launch
@@ -615,15 +616,22 @@ def _compare_candidates(got: torch.Tensor, ref: torch.Tensor, d: int, k: int) ->
 def phase_small_ivf() -> int:
     """Both IVF kernels against their plain versions at small shapes:
     every values mode, a ragged capacity (200) and a 128-multiple one,
-    empty slots, with and without a keep-mask and the residual add-back,
-    and probe lists that cover every tile (nprobe = nlist)."""
+    D = 96 and, on the tensor cores, 1536, empty slots, with and without
+    a keep-mask and the residual add-back; probe lists with repeats, that
+    cover every tile (nprobe = nlist), that all hold one tile, and that
+    put every query on the same two tiles (a tile over several groups of
+    the work list).  Each per-query call must launch the variant its mode
+    picks."""
     from super_rag_tpu_torch.ops import ivf_topk as it
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
-    nlist, d, b = 12, 96, 20
+    nlist, b = 12, 20
     cases = 0
     for dtype in (torch.int8, torch.bfloat16, torch.float32):
-        for cap in (200, 256):
+        variant = it.probe_variant(it.MODES[dtype])
+        counter = it.probe_tc_launches if variant == "tc" else it.probe_simt_launches
+        shapes = ((200, 96), (256, 96)) + (((200, 1536),) if variant == "tc" else ())
+        for cap, d in shapes:
             x = torch.randn(nlist, cap, d, device=DEVICE, generator=gen)
             if dtype == torch.int8:
                 values = torch.clamp(torch.round(x * 40), -127, 127).to(torch.int8)
@@ -639,10 +647,16 @@ def phase_small_ivf() -> int:
             keep = torch.rand(nlist * cap, device=DEVICE, generator=gen) < 0.7
             union_sets = [torch.tensor([3, 0, 11, 7], dtype=torch.int32, device=DEVICE),
                           torch.arange(nlist, dtype=torch.int32, device=DEVICE)]
+            one_tile = torch.randint(0, nlist, (b, 5), device=DEVICE, generator=gen,
+                                     dtype=torch.int32)
+            one_tile[:, 2] = 7
             probe_sets = [torch.randint(0, nlist, (b, 5), device=DEVICE, generator=gen,
                                         dtype=torch.int32),
                           torch.stack([torch.randperm(nlist, device=DEVICE, generator=gen)
-                                       for _ in range(b)]).to(torch.int32)]
+                                       for _ in range(b)]).to(torch.int32),
+                          one_tile,
+                          torch.tensor([[11, 4]], dtype=torch.int32,
+                                       device=DEVICE).repeat(b, 2)]
             for residual in (False, True):
                 for mask in (None, keep):
                     cs = cs_all if residual else None
@@ -653,8 +667,12 @@ def phase_small_ivf() -> int:
                         cases += 1
                     for probes in probe_sets:
                         args = (q, probes, values, scales, cs, row_ids, mask)
-                        _compare_candidates(it.probe_scores(*args),
-                                            it.probe_scores_plain(*args), d, 10)
+                        before = counter.count
+                        got = it.probe_scores(*args)
+                        if counter.count != before + 1:
+                            raise AssertionError(f"{dtype} per-query call did not launch "
+                                                 f"the {variant} variant")
+                        _compare_candidates(got, it.probe_scores_plain(*args), d, 10)
                         cases += 1
     torch.cuda.synchronize()
     return cases
@@ -665,7 +683,7 @@ def _reset_counts() -> None:
     from super_rag_tpu_torch.ops import ivf_topk as it
 
     for counter in (dt.tc_launches, dt.simt_launches, it.union_tc_launches,
-                    it.union_simt_launches, it.probe_launches):
+                    it.union_simt_launches, it.probe_tc_launches, it.probe_simt_launches):
         counter.count = 0
 
 
@@ -677,7 +695,8 @@ def _counts() -> dict:
             "dense_topk_simt": dt.simt_launches.count,
             "ivf_union_tc": it.union_tc_launches.count,
             "ivf_union_simt": it.union_simt_launches.count,
-            "ivf_probe": it.probe_launches.count}
+            "ivf_probe_tc": it.probe_tc_launches.count,
+            "ivf_probe_simt": it.probe_simt_launches.count}
 
 
 def _recording(calls: dict, name: str, fn):
@@ -686,6 +705,75 @@ def _recording(calls: dict, name: str, fn):
         calls[name] = args
         return fn(*args)
     return wrapped
+
+
+def _dense_stages(idx, qa, mask, want):
+    """search_dense at qa's batch on the per-query route, stage by stage
+    (each timed alone on CUDA events): probe selection, work-list build,
+    the tensor-core kernel, top-k of the [B, nprobe * C] candidates, the
+    overflow scan + sign-plane refine.  The staged result must equal
+    ``want``, the (scores, ids) of the call itself.  Returns the stage
+    times, the work list, the kernel's ms and the library yardstick's ms:
+    one torch.bmm of the groups' tiles against their queries, padded to
+    the group size, both gathered and made bf16 beforehand (not timed)."""
+    from super_rag_tpu_torch.ops import ivf_topk as it
+    from super_rag_tpu_torch.ops.dense import normalize_queries
+    from super_rag_tpu_torch.ops.ivf import attach_overflow_and_refine
+    from super_rag_tpu_torch.ops.topk import stable_topk
+
+    ivf = idx._ivf
+    b = qa.shape[0]
+    nlist, cap, _ = ivf.values.shape
+    nprobe = min(idx._ivf_nprobe, nlist)
+
+    def select():
+        q = normalize_queries(qa, idx.spec.metric)
+        cs = q @ ivf.centroids.T
+        return q, cs, stable_topk(cs, nprobe)[1].to(torch.int32)
+
+    q, cs, probes = select()
+    groups = it.probe_groups(probes, nlist, it.PROBE_QG)
+    q_in = q.to(torch.bfloat16).contiguous()
+    cs_in = cs.contiguous() if ivf.residual else None
+    out = torch.empty((b, nprobe, cap), dtype=torch.float32, device=DEVICE)
+    mode = it.MODES[ivf.values.dtype]
+
+    def kernel():
+        it._probe_tc(mode, q_in, groups, nprobe, ivf.values, ivf.scales, cs_in,
+                     ivf.row_ids, mask, out)
+
+    kernel()
+    cv = out.reshape(b, -1)
+    fv, pos = stable_topk(cv, TOP_K)
+    floc = torch.gather(probes.long(), 1, pos // cap) * cap + pos % cap
+    fi = torch.where(torch.isfinite(fv), ivf.row_ids.reshape(-1)[floc], -1)
+
+    def tail():
+        return attach_overflow_and_refine(q, cs, ivf, fv, fi, floc, TOP_K, mask=mask)
+
+    got = tail()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("search_dense staged for timing differs from the call")
+    stages = {
+        "probe selection": cuda_ms(select),
+        "work-list build": cuda_ms(lambda: it.probe_groups(probes, nlist, it.PROBE_QG)),
+        "tensor-core kernel": cuda_ms(kernel),
+        f"top-{TOP_K} of [{b}, {nprobe * cap}]": cuda_ms(lambda: stable_topk(cv, TOP_K)),
+        "overflow scan + sign-plane refine": cuda_ms(tail),
+    }
+    # the yardstick's operands: group g's tile and its queries, padded
+    n_groups = int(groups.group_off[-1])
+    g = torch.arange(n_groups, device=DEVICE, dtype=torch.int32)
+    tile_of = torch.searchsorted(groups.group_off, g, right=True) - 1
+    first = groups.pair_off[tile_of] + (g - groups.group_off[tile_of]) * it.PROBE_QG
+    slot = first[:, None] + torch.arange(it.PROBE_QG, device=DEVICE)[None]
+    filled = slot < groups.pair_off[tile_of + 1][:, None]
+    pairs = groups.order.long()[slot.clamp(max=b * nprobe - 1)]
+    qblk = torch.where(filled[..., None], q_in[pairs // nprobe], 0).transpose(1, 2)
+    tiles = ivf.values[tile_of.long()].to(torch.bfloat16)
+    lib_ms = cuda_ms(lambda: torch.bmm(tiles, qblk), reps=10)
+    del tiles, qblk
+    return stages, groups, stages["tensor-core kernel"], lib_ms
 
 
 def phase_ivf(results: dict):
@@ -755,8 +843,8 @@ def phase_ivf(results: dict):
         dv, di = idx.search_dense(qa, k=TOP_K)
     torch.cuda.synchronize()
     dense_counts = _counts()
-    if dense_counts["ivf_probe"] < 1:
-        raise AssertionError(f"search_dense B={IVF_DENSE_BATCH} launched no "
+    if dense_counts["ivf_probe_tc"] < 1:
+        raise AssertionError(f"search_dense B={IVF_DENSE_BATCH} launched no tensor-core "
                              f"per-query kernel: {dense_counts}")
     if tuple(di.shape) != (IVF_DENSE_BATCH, TOP_K) or int(di.min()) < 0:
         raise AssertionError("IVF search_dense result has the wrong shape")
@@ -812,7 +900,7 @@ def phase_ivf(results: dict):
     probe_err = _compare_candidates(pk, pp, DIM, TOP_K)
     del pk, pp
     log(f"[ivf] union kernel vs plain [B={IVF_HYBRID_BATCH}, U={n_union}, C={cap}]: "
-        f"max |diff| {union_err:.3g}; per-query kernel vs plain [B={IVF_DENSE_BATCH}, "
+        f"max |diff| {union_err:.3g}; tensor-core per-query kernel vs plain [B={IVF_DENSE_BATCH}, "
         f"nprobe={IVF_NPROBE}, C={cap}]: max |diff| {probe_err:.3g} (tolerance "
         f"D * 2^-23 * (max|s| + 1); top-k ids equal up to near-ties)")
 
@@ -859,7 +947,7 @@ def phase_ivf(results: dict):
     tiles_bf16 = ivf.values[union.long()].reshape(n_union * cap, DIM).to(torch.bfloat16)
     union_lib_ms = cuda_ms(lambda: q_in @ tiles_bf16.T)
     del tiles_bf16
-    probe_ms = cuda_ms(lambda: it.probe_scores(*pargs), reps=10)
+    probe_wrapper_ms = cuda_ms(lambda: it.probe_scores(*pargs), reps=10)
     probe_plain_ms = cuda_ms(lambda: it.probe_scores_plain(*pargs), reps=3, warmup=1)
     b32, b512 = IVF_HYBRID_BATCH, IVF_DENSE_BATCH
     u_bytes = (n_union * cap * (DIM + 4 + 4 + 1) + b32 * DIM * 2 + n_union * 4
@@ -870,6 +958,8 @@ def phase_ivf(results: dict):
                + b512 * IVF_NPROBE * (4 + 4) + b512 * IVF_NPROBE * cap * 4)
     p_bound, p_by = bound_ms(p_bytes, 2.0 * b512 * IVF_NPROBE * cap * DIM, BF16_OPS_PER_S)
     per_query_reads_ms = b512 * IVF_NPROBE * cap * DIM / HBM_BYTES_PER_S * 1e3
+    stages, groups, probe_ms, probe_lib_ms = _dense_stages(idx, qa, mask, (dv, di))
+    n_groups = int(groups.group_off[-1])
     log(f"[ivf] breakdown of search_hybrid B={b32}: host query analysis "
         f"{analyze32_ms:.3f} ms, dense branch (ivf_topk: probes + union kernel + "
         f"top-{CANDIDATES} + overflow scan + sign-plane refine) {dense32_branch_ms:.3f} ms, "
@@ -882,21 +972,30 @@ def phase_ivf(results: dict):
     log(f"[ivf] union tensor-core kernel {union_ms:.3f} ms, plain {union_plain_ms:.3f} ms, library "
         f"(cuBLAS bf16 matmul over the pre-gathered {n_union} tiles, gather not timed) "
         f"{union_lib_ms:.3f} ms, bound {u_bound:.3f} ms ({u_by}: {u_bytes / 1e9:.3f} GB)")
-    log(f"[ivf] per-query kernel {probe_ms:.3f} ms, plain {probe_plain_ms:.3f} ms, "
-        f"library none (no single PyTorch call scores each query against only its own "
-        f"probed tiles: a bmm needs the [{b512},{IVF_NPROBE},{cap},{DIM}] gather first), "
-        f"bound {p_bound:.3f} ms ({p_by}: {distinct} distinct tiles read once, "
+    log(f"[ivf] per-query kernel, variant tc (mma.sync m16n8k16 bf16, tile-major over "
+        f"{n_groups} groups of <= {it.PROBE_QG} pairs on {distinct} tiles, grid of "
+        f"{groups.max_groups} groups), launches {dense_counts['ivf_probe_tc']} in "
+        f"search_dense B={b512}: kernel {probe_ms:.3f} ms, with the work list "
+        f"{probe_wrapper_ms:.3f} ms, plain {probe_plain_ms:.3f} ms, library (torch.bmm of "
+        f"the {n_groups} groups' tiles against their queries padded to {it.PROBE_QG}, "
+        f"bf16, gathered beforehand, gather not timed) {probe_lib_ms:.3f} ms, bound "
+        f"{p_bound:.3f} ms ({p_by}: {distinct} distinct tiles read once, "
         f"{p_bytes / 1e9:.3f} GB); reading each query's own tiles moves "
         f"{b512 * IVF_NPROBE * cap * DIM / 1e9:.2f} GB, {per_query_reads_ms:.3f} ms")
+    rest = dense512_ms - sum(stages.values())
+    log(f"[ivf] breakdown of search_dense B={b512} ({dense512_ms:.3f} ms): "
+        + ", ".join(f"{name} {ms:.3f} ms" for name, ms in stages.items())
+        + f", rest (gathers, host) {rest:.3f} ms")
     results["ivf_union"] = {
         "variant": "tc (mma.sync m16n8k16 bf16)", "launches": hyb_counts["ivf_union_tc"],
         "max_abs_err": union_err, "ms": union_ms, "plain_ms": union_plain_ms,
         "bound_ms": u_bound, "bound_by": u_by, "library_ms": union_lib_ms,
     }
     results["ivf_probe"] = {
-        "variant": "simt", "launches": dense_counts["ivf_probe"], "max_abs_err": probe_err, "ms": probe_ms,
-        "plain_ms": probe_plain_ms, "bound_ms": p_bound, "bound_by": p_by,
-        "library_ms": None,
+        "variant": "tc (mma.sync m16n8k16 bf16)", "launches": dense_counts["ivf_probe_tc"],
+        "max_abs_err": probe_err, "ms": probe_ms, "plain_ms": probe_plain_ms,
+        "bound_ms": p_bound, "bound_by": p_by, "library_ms": probe_lib_ms,
+        "with_work_list_ms": probe_wrapper_ms,
     }
     return idx, texts
 

@@ -10,7 +10,11 @@ with its plain PyTorch version and a launch counter beside it:
     union: ``[B, U, C]``; on the bf16 tensor cores for int8 / bf16 values,
     on CUDA cores for f32 (``union_variant``), each variant counted;
   * ``probe_scores`` (TPU kernel: pallas_ivf.py:48 ``_make_kernel``)
-    scores each query against its own probed tiles: ``[B, nprobe, C]``.
+    scores each query against its own probed tiles: ``[B, nprobe, C]``;
+    for int8 / bf16 values the union's tensor-core kernel body run
+    tile-major over a work list of (query, probe) pairs grouped by tile
+    (``probe_groups``, built on the device), for f32 values on CUDA cores
+    (``probe_variant``), each variant counted.
 
 Both fuse the epilogue the reference ran outside its kernels (dequant
 scale, residual add-back of the probe score, the empty-slot and keep-mask
@@ -25,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -40,7 +44,12 @@ UNION_OUT_BYTES_MAX = 400 << 20
 
 # kernel modes (csrc/ivf_scan.cu): values dtype, with bf16 or f32 queries
 MODES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
-PROBE_MAX_D = 1024  # the per-query kernel keeps a lane's query slice in registers
+# the SIMT per-query kernel (f32) keeps a lane's query slice in registers
+PROBE_SIMT_MAX_D = 1024
+# (query, probe) pairs a block of the tensor-core per-query kernel scores:
+# its N side, a compile-time constant of the kernel (csrc/ivf_scan.cu
+# GroupCfg), never chosen by B
+PROBE_QG = 16
 MAX_GRID_YZ = 65535
 # tiles (union) or queries (per-query) scored per plain-version chunk:
 # bounds its f32 gather
@@ -56,7 +65,8 @@ class _Launches:
 
 union_tc_launches = _Launches()  # union kernel, tensor-core variant
 union_simt_launches = _Launches()  # union kernel, SIMT variant (f32)
-probe_launches = _Launches()
+probe_tc_launches = _Launches()  # per-query kernel, tensor-core variant
+probe_simt_launches = _Launches()  # per-query kernel, SIMT variant (f32)
 
 
 @functools.cache
@@ -69,6 +79,9 @@ def _lib() -> ctypes.CDLL:
                lib.ivf_probe_launch):
         fn.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, p, p]
         fn.restype = i
+    lib.ivf_probe_tc_launch.argtypes = [i, p, p, p, p, i, i, p, p, p, p, p,
+                                        i, i, i, i, i, p, p]
+    lib.ivf_probe_tc_launch.restype = i
     return lib
 
 
@@ -79,11 +92,49 @@ def union_variant(mode: int) -> str:
     return "simt" if mode == MODES[torch.float32] else "tc"
 
 
+# which per-query kernel takes a mode, by the union's rule: "tc" (the
+# tensor-core kernel over the tile-major work list) for int8 or bf16
+# values, "simt" for f32 values
+probe_variant = union_variant
+
+
+class ProbeGroups(NamedTuple):
+    """The per-query route's work list: the (query, probe) pairs
+    ``p = b * nprobe + j`` grouped by tile, at most ``qg`` a group."""
+
+    order: torch.Tensor  # [B * nprobe] int32 pair ids, stably sorted by tile
+    pair_off: torch.Tensor  # [nlist + 1] int32: tile t's pairs are order[pair_off[t]:pair_off[t + 1]]
+    group_off: torch.Tensor  # [nlist + 1] int32: tile t's groups are group_off[t]:group_off[t + 1]
+    max_groups: int  # bound on group_off[nlist] from shapes alone: the kernel's grid
+
+
+def probe_groups(probes: torch.Tensor, nlist: int, qg: int) -> ProbeGroups:
+    """Cut the pairs of ``probes [B, nprobe]`` (tile ids in ``[0,
+    nlist)``) into groups of at most ``qg`` pairs of one tile, in
+    ascending tile order and, within a tile, ascending pair order.  Group
+    ``g`` of tile ``t`` (``g`` in ``group_off[t]:group_off[t + 1]``) holds
+    ``order[pair_off[t] + (g - group_off[t]) * qg:][:qg]``, cut at
+    ``pair_off[t + 1]``.  Built on the probes' device with no host sync:
+    the tile offsets come from a search of the sorted tiles, not
+    ``bincount`` (whose CUDA version reads its maximum on the host)."""
+    flat = probes.reshape(-1)
+    n_pairs = flat.numel()
+    tiles, order = torch.sort(flat, stable=True)
+    bounds = torch.arange(nlist + 1, dtype=tiles.dtype, device=flat.device)
+    pair_off = torch.searchsorted(tiles, bounds, out_int32=True)
+    counts = pair_off[1:] - pair_off[:-1]
+    group_off = torch.zeros_like(pair_off)
+    torch.cumsum(torch.div(counts + (qg - 1), qg, rounding_mode="floor"), 0,
+                 dtype=torch.int32, out=group_off[1:])
+    return ProbeGroups(order.to(torch.int32), pair_off, group_off,
+                       -(-n_pairs // qg) + min(nlist, n_pairs))
+
+
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _check(q, ids, values, scales, cs, row_ids, mask, max_d=None) -> int:
+def _check(q, ids, values, scales, cs, row_ids, mask) -> int:
     """Validate the kernel operands; returns the kernel mode."""
     b, d = q.shape
     nlist, cap, dv = values.shape
@@ -94,8 +145,6 @@ def _check(q, ids, values, scales, cs, row_ids, mask, max_d=None) -> int:
                          f"{values.dtype}")
     if dv != d or d % 16:
         raise ValueError(f"kernel needs matching D % 16 == 0, got {d}, {dv}")
-    if max_d is not None and d > max_d:
-        raise ValueError(f"per-query kernel takes D <= {max_d}, got {d}")
     dev = values.device
     for name, t in (("queries", q), ("values", values)):
         if not t.is_contiguous() or t.data_ptr() % 16 or t.device != dev:
@@ -222,22 +271,32 @@ def probe_scores(q, probes, values, scales, cs, row_ids,
                  mask) -> torch.Tensor:
     """Scores of each query against its own probed tiles ``probes
     [B, nprobe]`` int32: ``[B, nprobe, C]`` f32, epilogue fused (same
-    operands as ``union_scores``).  The CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    operands as ``union_scores``).  The CUDA kernel for CUDA tensors (for
+    int8 / bf16 values over ``probe_groups``' work list), the plain
+    version for CPU tensors."""
     if values.device.type == "cpu":
         return probe_scores_plain(q, probes, values, scales, cs, row_ids, mask)
     if values.device.type != "cuda":
         raise ValueError(f"no ivf_scan path for device {values.device}")
-    mode = _check(q, probes, values, scales, cs, row_ids, mask,
-                  max_d=PROBE_MAX_D)
+    mode = _check(q, probes, values, scales, cs, row_ids, mask)
+    variant = probe_variant(mode)
     b, d = q.shape
     nlist, cap, _ = values.shape
     nprobe = probes.shape[1]
-    if tuple(probes.shape) != (b, nprobe) or nprobe > MAX_GRID_YZ:
-        raise ValueError(f"probes must be [B, nprobe <= {MAX_GRID_YZ}]")
+    if tuple(probes.shape) != (b, nprobe):
+        raise ValueError("probes must be [B, nprobe]")
+    if variant == "simt" and (nprobe > MAX_GRID_YZ or d > PROBE_SIMT_MAX_D):
+        raise ValueError(f"the SIMT per-query kernel takes nprobe <= "
+                         f"{MAX_GRID_YZ} and D <= {PROBE_SIMT_MAX_D}")
+    if -(-cap // 128) > MAX_GRID_YZ:
+        raise ValueError(f"per-query grid exceeds {MAX_GRID_YZ} row blocks")
     out = torch.empty((b, nprobe, cap), dtype=torch.float32,
                       device=values.device)
     if b == 0 or nprobe == 0 or cap == 0:
+        return out
+    if variant == "tc":
+        _probe_tc(mode, q, probe_groups(probes, nlist, PROBE_QG), nprobe,
+                  values, scales, cs, row_ids, mask, out)
         return out
     err = _lib().ivf_probe_launch(
         mode, q.data_ptr(), probes.data_ptr(), values.data_ptr(),
@@ -246,9 +305,30 @@ def probe_scores(q, probes, values, scales, cs, row_ids,
         b, nprobe, cap, d, nlist, out.data_ptr(),
         torch.cuda.current_stream(values.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"ivf_probe kernel launch failed: cudaError {err}")
-    probe_launches.count += 1
+        raise RuntimeError(f"ivf_probe simt kernel launch failed: "
+                           f"cudaError {err}")
+    probe_simt_launches.count += 1
     return out
+
+
+def _probe_tc(mode, q, groups: ProbeGroups, nprobe, values, scales, cs,
+              row_ids, mask, out) -> None:
+    """Launch the tensor-core per-query kernel over a work list into
+    ``out [B, nprobe, C]`` (operands checked by ``probe_scores``)."""
+    b, d = q.shape
+    nlist, cap, _ = values.shape
+    err = _lib().ivf_probe_tc_launch(
+        mode, q.data_ptr(), groups.order.data_ptr(),
+        groups.pair_off.data_ptr(), groups.group_off.data_ptr(),
+        groups.max_groups, PROBE_QG, values.data_ptr(), _ptr(scales),
+        _ptr(cs), row_ids.data_ptr(),
+        _ptr(None if mask is None else mask.view(torch.uint8)),
+        b, nprobe, cap, d, nlist, out.data_ptr(),
+        torch.cuda.current_stream(values.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ivf_probe tc kernel launch failed: "
+                           f"cudaError {err}")
+    probe_tc_launches.count += 1
 
 
 def probe_union(probes: torch.Tensor, nlist: int) -> torch.Tensor:

@@ -223,7 +223,9 @@ def test_ivf_kernels_match_plain_versions(card, mode, route):
     """Both IVF kernels against their plain versions, residual on and off,
     with and without a mask: -inf slots equal, values within
     D * 2^-23 * (max|score| + 1) (sums of exact products, or of f32
-    products, in other orders); nprobe >= nlist is one of the cases."""
+    products, in other orders); nprobe >= nlist is one of the cases.  Each
+    call launches the variant its mode picks (tensor cores for int8 /
+    bf16 values, SIMT for f32) once, and no other kernel."""
     from super_rag_tpu_torch.ops import ivf_topk as it
 
     for residual in (False, True):
@@ -241,11 +243,16 @@ def test_ivf_kernels_match_plain_versions(card, mode, route):
             else:
                 ids = torch.randint(0, 12, (b, 14), device=card,
                                     dtype=torch.int32)
-                fn, counter = it.probe_scores, it.probe_launches
+                fn = it.probe_scores
+                counter = (it.probe_tc_launches if mode != "f32"
+                           else it.probe_simt_launches)
                 plain = it.probe_scores_plain
-            before = counter.count
+            counters = (it.union_tc_launches, it.union_simt_launches,
+                        it.probe_tc_launches, it.probe_simt_launches)
+            before = [c.count for c in counters]
             got = fn(q, ids, values, scales, cs, row_ids, mask)
-            assert counter.count == before + 1
+            moved = [c.count - n for c, n in zip(counters, before)]
+            assert moved == [int(c is counter) for c in counters]
             ref = plain(q, ids, values, scales, cs, row_ids, mask)
             torch.cuda.synchronize()
             fin = torch.isfinite(ref)
@@ -321,6 +328,119 @@ def test_union_tc_kernel_is_batch_invariant(card, dtype):
         assert torch.equal(alone[0], full[i])
         if i < 32:
             assert torch.equal(alone[0], b32[i])
+
+
+def _probe_sets(card, kind, b, nlist, nprobe, gen):
+    """Probe lists [B, nprobe] int32 of a kind: random (repeats allowed),
+    repeated (every query lists a tile twice), every tile (nprobe =
+    nlist), skewed (every query on the same two tiles, so each of them
+    spans several groups of the work list)."""
+    if kind == "random":
+        return torch.randint(0, nlist, (b, nprobe), device=card, generator=gen,
+                             dtype=torch.int32)
+    if kind == "repeated":
+        p = torch.randint(0, nlist, (b, nprobe), device=card, generator=gen,
+                          dtype=torch.int32)
+        p[:, 1] = p[:, 0]
+        return p
+    if kind == "every_tile":
+        return torch.stack([torch.randperm(nlist, device=card, generator=gen)
+                            for _ in range(b)]).to(torch.int32)
+    if kind == "skewed":
+        pair = torch.tensor([nlist - 1, 1], dtype=torch.int32, device=card)
+        return pair.repeat(b, nprobe // 2 + 1)[:, :nprobe].contiguous()
+    raise ValueError(kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("b,nlist,nprobe,cap,d,kind", [
+    (20, 12, 5, 200, 96, "random"), (33, 9, 4, 257, 16, "repeated"),
+    (7, 6, 6, 300, 48, "every_tile"), (70, 8, 3, 200, 96, "skewed"),
+    (40, 10, 4, 1280, 768, "random"), (45, 5, 2, 200, 1536, "skewed"),
+    (3, 4, 4, 129, 1536, "every_tile")])
+def test_probe_tc_kernel_within_tolerance_at_ragged_shapes(
+        card, dtype, b, nlist, nprobe, cap, d, kind):
+    """The tensor-core per-query kernel against probe_scores_plain: ragged
+    C, D from 16 to 1536 (above the SIMT kernel's 1024), B * nprobe off
+    the 32-pair group, repeated and skewed probe lists, nprobe = nlist;
+    residual and mask on and off.  The same -inf slots, values within
+    D * 2^-23 * (max|s| + 1), top-10 ids equal up to near-ties."""
+    from super_rag_tpu_torch.ops import ivf_topk as it
+    from super_rag_tpu_torch.ops.topk import stable_topk
+
+    q, values, scales, cs, row_ids, mask = _union_operands(card, dtype, b,
+                                                           nlist, cap, d)
+    gen = torch.Generator(device=card).manual_seed(b + d)
+    probes = _probe_sets(card, kind, b, nlist, nprobe, gen)
+    for residual, masked in ((False, False), (True, True), (True, False),
+                             (False, True)):
+        args = (q, probes, values, scales, cs if residual else None, row_ids,
+                mask if masked else None)
+        before = (it.probe_tc_launches.count, it.probe_simt_launches.count)
+        got = it.probe_scores(*args)
+        assert (it.probe_tc_launches.count, it.probe_simt_launches.count) == (
+            before[0] + 1, before[1])
+        ref = it.probe_scores_plain(*args)
+        torch.cuda.synchronize()
+        assert got.shape == (b, nprobe, cap)
+        fin = torch.isfinite(ref)
+        assert torch.equal(fin, torch.isfinite(got))
+        tol = d * 2.0 ** -23 * (float(ref[fin].abs().max()) + 1.0)
+        assert float((got - ref)[fin].abs().max()) <= tol
+        k = min(10, nprobe * cap)
+        gv, gi = stable_topk(got.reshape(b, -1), k)
+        rv, ri = stable_topk(ref.reshape(b, -1), k)
+        assert_topk_match(rv.cpu(), ri.cpu(), gv.cpu(), gi.cpu(), rtol=0.0,
+                          atol=tol, scores=ref.reshape(b, -1).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_probe_tc_kernel_is_batch_invariant(card, dtype):
+    """A query scores bit-alike alone and inside a batch of 512 (where
+    its tiles' groups hold other queries): a column's MMA sums depend on
+    D alone."""
+    from super_rag_tpu_torch.ops import ivf_topk as it
+
+    b, nlist, nprobe = 512, 64, 16
+    q, values, scales, cs, row_ids, mask = _union_operands(card, dtype, b,
+                                                           nlist, 1280, 768,
+                                                           seed=5)
+    gen = torch.Generator(device=card).manual_seed(6)
+    probes = _probe_sets(card, "random", b, nlist, nprobe, gen)
+    full = it.probe_scores(q, probes, values, scales, cs, row_ids, mask)
+    for i in (0, 17, 255, 511):
+        alone = it.probe_scores(q[i:i + 1].contiguous(),
+                                probes[i:i + 1].contiguous(), values, scales,
+                                cs[i:i + 1].contiguous(), row_ids, mask)
+        assert torch.equal(alone[0], full[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["random", "skewed", "every_tile"])
+def test_probe_tc_kernel_equals_union_kernel_gathered(card, dtype, kind):
+    """Both routes run one kernel body with one MMA order, so a query's
+    scores against a tile are the same bits on either: the per-query
+    kernel equals the union kernel over every tile, gathered at each
+    query's probes."""
+    from super_rag_tpu_torch.ops import ivf_topk as it
+
+    b, nlist, nprobe = 70, 12, 12 if kind == "every_tile" else 5
+    q, values, scales, cs, row_ids, mask = _union_operands(card, dtype, b,
+                                                           nlist, 300, 768,
+                                                           seed=7)
+    gen = torch.Generator(device=card).manual_seed(8)
+    probes = _probe_sets(card, kind, b, nlist, nprobe, gen)
+    every = torch.arange(nlist, dtype=torch.int32, device=card)
+    for residual in (False, True):
+        c = cs if residual else None
+        got = it.probe_scores(q, probes, values, scales, c, row_ids, mask)
+        union = it.union_scores(q, every, values, scales, c, row_ids, mask)
+        want = torch.gather(union, 1, probes.long()[:, :, None].expand(
+            -1, -1, union.shape[2]))
+        assert torch.equal(got, want)
 
 
 def _ivf_to(ivf, device):

@@ -18,7 +18,7 @@ MODULES = [
     "super_rag_tpu_torch.ops.ivf", "super_rag_tpu_torch.ops.ivf_topk",
     "super_rag_tpu_torch.engine", "super_rag_tpu_torch.engine.batcher",
     "super_rag_tpu_torch.engine.snapshot", "super_rag_tpu_torch.models",
-    "super_rag_tpu_torch.tokenize", "chip_smoke",
+    "super_rag_tpu_torch.tokenize", "chip_smoke", "tune_ivf_probe",
 ]
 
 
