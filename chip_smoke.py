@@ -39,8 +39,19 @@ Phases, each printing one line with its seconds:
      QueryBatcher(max_batch=32) on the IVF index, each answer equal to a
      direct search_batch of its dispatch's batch, one union-kernel launch
      per dispatch;
-  8. a ``{"kernels": [...]}`` JSON line;
-  9. last line: ``{"ok": true, "device": {...}}``.
+  8. semantic tier: the encoder and cross-encoder at the in-repo
+     checkpoints' config (6 x 256, bf16; weights drawn from flax's
+     initialisers with a seed), f32 on the card held against the CPU and
+     bf16 against f32; a 1M x 256 int8 index whose rows' texts are their
+     own words; search_batch(hybrid, rerank, top-100 -> top-5) at batch 32
+     (one tensor-core dense_topk launch at D = 256, held bit for bit
+     against its plain version; every top-5 among the hybrid top-100),
+     chunk embedding (65,536 texts at [128, 128]), query embedding (512),
+     hybrid without rerank at 512, each forward's FLOPs and bound, and 64
+     reranked requests through QueryBatcher(max_batch=32), each with the
+     rows of a direct search_batch;
+  9. a ``{"kernels": [...]}`` JSON line;
+  10. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  There is no CPU path: without a
 CUDA device, or without the package beside it, it exits non-zero and
@@ -87,6 +98,24 @@ IVF_NPROBE = 16
 IVF_HYBRID_BATCH = 32
 IVF_DENSE_BATCH = 512
 IVF_SERVE_REQUESTS = 128
+SEM_ROWS = 1_000_000
+SEM_WORDS = 128  # words a row's text holds: every (query, row) pair fills 128 tokens
+SEM_CHUNKS = 65_536
+SEM_CHUNK_BATCH = 128
+SEM_QUERY_BATCH = 512
+SEM_RERANK_QUERIES = 32
+SEM_RERANK_BATCH = 32
+SEM_SERVE_REQUESTS = 64
+SEM_CHECK_TEXTS = 128
+SEM_CPU_TEXTS = 16  # a full-width CPU forward at [16, 128] takes about a second
+# the semantic tier: the in-repo encoder_semantic checkpoints' config
+# (checkpoints/encoder_semantic{,_reranker}.json); the weights are drawn
+# from flax's initialisers with a seed (checkpoints/ is not copied to the
+# card), over a 1M-row index of the encoder's 256-dim embeddings
+SEMANTIC_CONFIG = {"vocab_size": 30522, "hidden_dim": 256, "num_layers": 6,
+                   "num_heads": 8, "mlp_dim": 1024, "max_len": 128,
+                   "type_vocab_size": 2, "layer_norm_eps": 1e-12,
+                   "embed_dim": None, "dtype": "bfloat16"}
 
 # H100 SXM published peaks (dense): HBM bytes/s, int8 and bf16 operations/s
 HBM_BYTES_PER_S = 3.35e12
@@ -257,7 +286,7 @@ def _zipf(gen, a: float, shape) -> torch.Tensor:
     return torch.clamp(x.to(torch.int64), min=1)
 
 
-def make_corpus(n: int, gen: torch.Generator, centers=None):
+def make_corpus(n: int, gen: torch.Generator, centers=None, dim: int = DIM):
     """Codes, scales and a zipfian doc-term table on the card, plus the
     host state a DeviceIndex snapshot carries.  Term buckets are the
     analyzer's hashes of the words ``t<rank>``, so text queries made of
@@ -267,12 +296,12 @@ def make_corpus(n: int, gen: torch.Generator, centers=None):
     from super_rag_tpu_torch.ops.dense import build_corpus
     from super_rag_tpu_torch.tokenize.analyzer import fnv1a32
 
-    codes = torch.empty((n, DIM), dtype=torch.int8, device=DEVICE)
+    codes = torch.empty((n, dim), dtype=torch.int8, device=DEVICE)
     scales = torch.empty((n,), dtype=torch.float32, device=DEVICE)
     step = 131072
     for lo in range(0, n, step):
         hi = min(n, lo + step)
-        x = torch.randn(hi - lo, DIM, device=DEVICE, generator=gen)
+        x = torch.randn(hi - lo, dim, device=DEVICE, generator=gen)
         if centers is not None:
             x += centers[torch.randint(0, centers.shape[0], (hi - lo,),
                                        device=DEVICE, generator=gen)]
@@ -305,7 +334,7 @@ def make_corpus(n: int, gen: torch.Generator, centers=None):
         "chat_code": torch.zeros(n, dtype=torch.int32, device=DEVICE),
     }
     host = {
-        "spec": {"dim": DIM, "metric": "cosine", "dtype": "int8",
+        "spec": {"dim": dim, "metric": "cosine", "dtype": "int8",
                  "bm25_slots": SLOTS, "vocab_size": VOCAB,
                  "min_capacity": 4096},
         "size": n,
@@ -1060,6 +1089,402 @@ def phase_ivf_serve(idx, texts) -> dict:
     return stats
 
 
+# -- the semantic tier: encoder -> hybrid search -> cross-encoder rerank ------
+
+def semantic_config(dtype: torch.dtype):
+    """The checkpoints' EncoderConfig at activation ``dtype``."""
+    from super_rag_tpu_torch.models.encoder import EncoderConfig
+
+    return EncoderConfig(**{**SEMANTIC_CONFIG, "dtype": dtype})
+
+
+def row_texts(ranks: torch.Tensor, tfs: torch.Tensor, words: int) -> list[str]:
+    """Each row's text: its own words ``t<rank>`` in slot order, each
+    repeated tf times, the sequence repeated until it is ``words`` long
+    (a chunk that fills the encoders' 128-token bucket).  Built on the
+    card (a searchsorted of each position into the row's cumulative tf),
+    joined on the host from fixed-width 8-byte words."""
+    table = np.array([f"t{r}".ljust(8).encode() for r in range(VOCAB)], dtype="S8")
+    out: list[str] = []
+    pos = torch.arange(words, device=DEVICE)
+    for lo in range(0, ranks.shape[0], 131072):
+        r, tf = ranks[lo:lo + 131072], tfs[lo:lo + 131072].to(torch.int64)
+        cum = torch.cumsum(tf, 1)
+        total = torch.clamp(cum[:, -1:], min=1)
+        slot = torch.searchsorted(cum, (pos[None] % total).contiguous(), right=True)
+        word = torch.gather(r, 1, slot.clamp(max=r.shape[1] - 1)).clamp(min=0)
+        row = table[word.to(torch.int32).cpu().numpy()]
+        out.extend(b.decode() for b in row.view(f"S{8 * words}").ravel().tolist())
+    return out
+
+
+def encoder_flops(b: int, s: int, cfg, pooler: bool = False) -> float:
+    """Multiply-adds x 2 of one forward at [b, s]: the Q, K, V and output
+    products, the two attention products and the MLP of every layer (and
+    the cross-encoder's pooler and head)."""
+    h, m = cfg.hidden_dim, cfg.mlp_dim
+    per_layer = 2.0 * b * s * (4 * h * h + 2 * h * m) + 4.0 * b * s * s * h
+    return cfg.num_layers * per_layer + (2.0 * b * (h * h + h) if pooler else 0.0)
+
+
+def encoder_bound(b: int, s: int, model, flops: float) -> tuple[float, str]:
+    """The forward's bound: its stored (f32) weights read once, except
+    the token table, of which the b * s rows gathered; ids, mask and
+    type ids read once; the output written once."""
+    emb = model.backbone.token_embed.weight
+    weights = sum(p.numel() for p in model.parameters()) - emb.numel()
+    nbytes = weights * 4 + b * s * (emb.shape[1] * 4 + 4 + 1 + 4) + b * emb.shape[1] * 4
+    return bound_ms(nbytes, flops, BF16_OPS_PER_S)
+
+
+def interleaved_ms(fns: dict, reps: int = 10, warmup: int = 1) -> dict:
+    """Median milliseconds of each function + a device synchronize, on the
+    host clock; the functions run in turn within each repetition, so a
+    drift of the shared host falls on all of them alike."""
+    for _ in range(warmup):
+        for fn in fns.values():
+            fn()
+    torch.cuda.synchronize()
+    times: dict = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def device_busy(fn, wall_ms: float, reps: int = 5) -> str:
+    """The card's kernel time and kernel count per call of ``fn``, from a
+    torch.profiler trace, and the idle share of ``wall_ms`` (the call's
+    untraced CUDA-event time) that leaves: the card waiting on the host's
+    launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return "device busy time not measured (the trace holds no kernel)"
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
+    return (f"{len(kernels) / reps:.0f} kernels, busy {busy:.3f} ms "
+            f"(idle {max(0.0, 1 - busy / wall_ms):.1%} of the call)")
+
+
+def _close(got, want, rel: float) -> float:
+    """Raise unless |got - want| <= rel * (1 + |want|); return the largest
+    |got - want| / (1 + |want|)."""
+    err = float(((got - want).abs() / (1 + want.abs())).max())
+    if not err <= rel:
+        raise AssertionError(f"scores differ by {err} (1 + |s|) > {rel} (1 + |s|)")
+    return err
+
+
+def semantic_checks(enc, rr, texts: list[str], queries: list[str]) -> dict:
+    """The encoder and cross-encoder in f32 on the card (TF32 off) against
+    the same modules and weights on the CPU, and the bf16 modules on the
+    card against their f32 run on the card.  Returns the margins."""
+    from super_rag_tpu_torch import convert
+    from super_rag_tpu_torch.models.cross_encoder import rerank_scores
+    from super_rag_tpu_torch.models.encoder import flax_params
+
+    cfg32 = semantic_config(torch.float32)
+    enc_p, ce_p = flax_params(enc.model), flax_params(rr.model)
+    ids, mask = enc.tokenizer.encode_batch(texts, max_len=enc.max_len)
+    pids, pmask, ptt = rr.tokenizer.encode_pairs(
+        [queries[i % len(queries)] for i in range(len(texts))], texts, max_len=rr.max_len)
+
+    def run(model, dev, n, pairs=False):
+        args = (pids, pmask, ptt) if pairs else (ids, mask)
+        args = [torch.from_numpy(a[:n]).to(dev) for a in args]
+        with torch.inference_mode():
+            return (rerank_scores(model, *args) if pairs else model(*args)).float().cpu()
+
+    out = {}
+    n_cpu = SEM_CPU_TEXTS
+    enc32 = convert.encoder_from_jax(enc_p, cfg32, device=DEVICE)
+    ce32 = convert.cross_encoder_from_jax(ce_p, cfg32, device=DEVICE)
+    emb_card, ce_card = run(enc32, DEVICE, len(texts)), run(ce32, DEVICE, len(texts), True)
+    emb_cpu = run(convert.encoder_from_jax(enc_p, cfg32, device="cpu"), "cpu", n_cpu)
+    ce_cpu = run(convert.cross_encoder_from_jax(ce_p, cfg32, device="cpu"), "cpu", n_cpu, True)
+    out["f32_emb_err"] = float((emb_card[:n_cpu] - emb_cpu).abs().max())
+    if not out["f32_emb_err"] <= 1e-5:
+        raise AssertionError(f"f32 embeddings on the card differ from the CPU by "
+                             f"{out['f32_emb_err']} > 1e-5")
+    out["f32_ce_err"] = _close(ce_card[:n_cpu], ce_cpu, 1e-4)
+    emb16, ce16 = run(enc.model, DEVICE, len(texts)), run(rr.model, DEVICE, len(texts), True)
+    out["bf16_min_cos"] = float((emb16 * emb_card).sum(1).min())
+    out["bf16_emb_err"] = float((emb16 - emb_card).abs().max())
+    if not (out["bf16_min_cos"] >= 0.9995 and out["bf16_emb_err"] <= 1e-2):
+        raise AssertionError(f"bf16 embeddings vs f32: min cosine {out['bf16_min_cos']} "
+                             f"(limit 0.9995), max |diff| {out['bf16_emb_err']} (limit 1e-2)")
+    out["bf16_ce_err"] = _close(ce16, ce_card, 2e-2)
+    out["ce_abs_max"] = float(ce_card.abs().max())
+    return out
+
+
+def phase_semantic(results: dict):
+    """The served path of hybrid search + cross-encoder rerank: query texts
+    -> EncoderService (TextEncoder) -> CollectionEngine.search_batch(hybrid,
+    rerank) -> DeviceIndex.search_hybrid (flat tier, dense_topk at D = 256)
+    -> RerankService (CrossEncoder) -> z-fused top-5, over 1M rows of
+    256-dim int8 embeddings and the zipfian 64-slot lexical table, each
+    row's text its own words; the encoders at the checkpoints' full width
+    with seeded weights."""
+    from super_rag_tpu_torch.engine.batcher import QueryBatcher
+    from super_rag_tpu_torch.engine.collection import CollectionEngine
+    from super_rag_tpu_torch.engine.index import DeviceIndex, IndexSpec
+    from super_rag_tpu_torch.models.encoder_service import EncoderService
+    from super_rag_tpu_torch.ops import dense_topk as dt
+    from super_rag_tpu_torch.service.rerank_service import RerankService
+
+    cfg = semantic_config(torch.bfloat16)
+    dim, seq = cfg.out_dim, cfg.max_len
+    enc = EncoderService(cfg, batch_size=SEM_CHUNK_BATCH, max_len=seq, seed=SEED,
+                         device=DEVICE)
+    rr = RerankService(cfg, max_len=seq, batch_size=SEM_RERANK_BATCH, seed=SEED + 1,
+                       device=DEVICE)
+    forwards = {"encoder": 0, "cross_encoder": 0}
+
+    def counting(name):
+        def hook(module, args):
+            if args[0].device.type == torch.device(DEVICE).type:
+                forwards[name] += 1
+        return hook
+
+    enc.model.register_forward_pre_hook(counting("encoder"))
+    rr.model.register_forward_pre_hook(counting("cross_encoder"))
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    t0 = time.perf_counter()
+    arrays, host, ranks, df_host = make_corpus(SEM_ROWS, gen, dim=dim)
+    torch.cuda.synchronize()
+    t_corpus = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    texts_all = row_texts(ranks, arrays["tfs"], SEM_WORDS)
+    host["row_meta"] = [{"text": t} for t in texts_all]
+    t_texts = time.perf_counter() - t0
+    idx = DeviceIndex.from_snapshot(arrays, host, device=DEVICE)
+    del arrays, host
+    idx.compact_lexical(postings_per_term=max(256, SEM_ROWS // 500))
+    torch.cuda.synchronize()
+    engine = CollectionEngine(
+        IndexSpec(dim=dim, dtype=torch.int8, bm25_slots=SLOTS, vocab_size=VOCAB,
+                  min_capacity=4096), embedder=enc, reranker=rr, device=DEVICE)
+    engine.index = idx
+    queries = make_query_texts(ranks, df_host, gen, SEM_QUERY_BATCH)
+    del ranks
+    log(f"[semantic] on {results['card']}: corpus {SEM_ROWS} x {dim} int8 + "
+        f"{SLOTS}-slot table in {t_corpus:.2f} s; row texts ({SEM_WORDS} words each) "
+        f"in {t_texts:.2f} s; "
+        f"encoder and cross-encoder {cfg.num_layers} layers x {cfg.hidden_dim} "
+        f"({cfg.num_heads} heads, MLP {cfg.mlp_dim}, vocab {cfg.vocab_size}, "
+        f"{str(cfg.dtype)[6:]}), weights drawn from flax's initialisers (seeds "
+        f"{SEED}, {SEED + 1}), HashTokenizer")
+
+    # hard checks: f32 on the card vs the CPU, bf16 vs f32 on the card
+    checks = semantic_checks(enc, rr, texts_all[:SEM_CHECK_TEXTS], queries)
+    log(f"[semantic] f32 (TF32 off) card vs CPU, {SEM_CPU_TEXTS} texts / pairs: "
+        f"embeddings max |diff| {checks['f32_emb_err']:.3g} (limit 1e-5), CE scores "
+        f"{checks['f32_ce_err']:.3g} (1 + |s|) (limit 1e-4); bf16 vs f32 on the card, "
+        f"{SEM_CHECK_TEXTS} texts / pairs: embeddings min cosine "
+        f"{checks['bf16_min_cos']:.6f} (limit 0.9995), max |diff| "
+        f"{checks['bf16_emb_err']:.3g} (limit 1e-2), CE scores "
+        f"{checks['bf16_ce_err']:.3g} (1 + |s|) (limit 2e-2; max |s| "
+        f"{checks['ce_abs_max']:.3f})")
+
+    # the main path, counted: B = 32 hybrid + rerank top-100 -> top-5
+    q32 = queries[:SEM_RERANK_QUERIES]
+    calls: dict = {}
+    _reset_counts()
+    forwards.update(encoder=0, cross_encoder=0)
+    with mock.patch.object(dt, "tile_topk", _recording(calls, "tile", dt.tile_topk)):
+        hits = engine.search_batch(q32, mode="hybrid", rerank=True,
+                                   candidates=CANDIDATES, top_k=5)
+    torch.cuda.synchronize()
+    counts = _counts()
+    n_fwd = dict(forwards)
+    if counts["dense_topk_tc"] != 1:
+        raise AssertionError(f"hybrid + rerank B={len(q32)} launched {counts}, not one "
+                             f"tensor-core dense_topk")
+    want_ce = len(q32) * -(-CANDIDATES // SEM_RERANK_BATCH)
+    if n_fwd["encoder"] < 1 or n_fwd["cross_encoder"] != want_ce:
+        raise AssertionError(f"forwards on cuda {n_fwd}; expected >= 1 encoder and "
+                             f"{want_ce} cross-encoder forwards")
+    cands = engine.search_batch(q32, mode="hybrid", candidates=CANDIDATES,
+                                top_k=CANDIDATES)
+    for q, got, cand in zip(q32, hits, cands):
+        if len(got) != 5 or len(cand) != CANDIDATES:
+            raise AssertionError(f"{q!r}: {len(got)} reranked hits of "
+                                 f"{len(cand)} candidates")
+        if not {h.row for h in got} <= {h.row for h in cand}:
+            raise AssertionError(f"{q!r}: a reranked row is not among the hybrid "
+                                 f"top-{CANDIDATES}")
+        if not all(np.isfinite(h.score) and h.recall_type == "reranked" for h in got):
+            raise AssertionError(f"{q!r}: reranked hits malformed")
+    log(f"[semantic] search_batch(hybrid, rerank, candidates {CANDIDATES}, top_k 5) "
+        f"B={len(q32)}: launches {counts}, forwards on cuda {n_fwd}; every top-5 "
+        f"lies in its query's hybrid top-{CANDIDATES}")
+
+    # dense_topk at this path's shape (D = 256) against its plain version
+    targs = calls["tile"]
+    kv, ki = dt.tile_topk(*targs)
+    pv, pi = dt.tile_topk_plain(*targs)
+    torch.cuda.synchronize()
+    err = _compare(kv, ki, pv, pi, exact=True, tol=0.0)
+    q8, n, tile, kt = targs[0], targs[6], targs[7], targs[8]
+    b = q8.shape[0]
+    k_ms = cuda_ms(lambda: dt.tile_topk(*targs))
+    p_ms = cuda_ms(lambda: dt.tile_topk_plain(*targs), reps=10)
+    keep = targs[5] if targs[5] is not None else torch.ones(n, dtype=torch.bool,
+                                                             device=DEVICE)
+    lib_ms = cuda_ms(lambda: library_topk(*targs[:4], keep, n, tile, kt), reps=10)
+    num_tiles = kv.shape[0]
+    nbytes = n * dim + n * 4 + n + b * dim + b * 4 + num_tiles * b * kt * 8
+    k_bound, k_by = bound_ms(nbytes, 2.0 * b * n * dim, INT8_OPS_PER_S)
+    log(f"[semantic] dense_topk tensor-core kernel vs plain [num_tiles={num_tiles}, "
+        f"B={b}, D={dim}, kt={kt}]: bit-equal (max |diff| {err}); kernel {k_ms:.3f} ms, "
+        f"plain {p_ms:.3f} ms, library (_int_mm + topk) {lib_ms:.3f} ms, bound "
+        f"{k_bound:.3f} ms ({k_by})")
+    results["dense_topk"]["semantic"] = {
+        "launches": counts["dense_topk_tc"], "batch": b, "dim": dim,
+        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": k_bound,
+        "bound_by": k_by, "library_ms": lib_ms}
+
+    # a. chunk embedding, 65,536 texts at [128, 128]
+    chunks = texts_all[:SEM_CHUNKS]
+    ids, mask = enc.tokenizer.encode_batch(chunks[:SEM_CHUNK_BATCH], max_len=seq)
+    if ids.shape != (SEM_CHUNK_BATCH, seq):
+        raise AssertionError(f"chunk batch tokenized to {ids.shape}")
+    ids_d, mask_d = torch.from_numpy(ids).to(DEVICE), torch.from_numpy(mask).to(DEVICE)
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: enc.model(ids_d, mask_d))
+        fwd_busy = device_busy(lambda: enc.model(ids_d, mask_d), fwd_ms)
+    enc.embed_device(chunks[:SEM_CHUNK_BATCH])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = enc.embed_device(chunks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for lo in range(0, len(chunks), SEM_CHUNK_BATCH):
+        enc.tokenizer.encode_batch(chunks[lo:lo + SEM_CHUNK_BATCH], max_len=seq)
+    tok_s = time.perf_counter() - t0
+    if tuple(emb.shape) != (len(chunks), dim) or not bool(torch.isfinite(emb).all()):
+        raise AssertionError("chunk embeddings malformed")
+    norms = emb.norm(dim=1)
+    if float((norms - 1).abs().max()) > 1e-3:
+        raise AssertionError("chunk embeddings are not unit-norm")
+    e_flops = encoder_flops(SEM_CHUNK_BATCH, seq, cfg)
+    e_bound, e_by = encoder_bound(SEM_CHUNK_BATCH, seq, enc.model, e_flops)
+    log(f"[semantic] a. EncoderService.embed_device of {len(chunks)} chunks at "
+        f"[{SEM_CHUNK_BATCH}, {seq}]: {wall:.3f} s, {len(chunks) / wall:.0f} chunks/s "
+        f"(host tokenization alone {tok_s:.3f} s); TextEncoder forward "
+        f"[{SEM_CHUNK_BATCH}, {seq}] {fwd_ms:.3f} ms ({SEM_CHUNK_BATCH / fwd_ms * 1e3:.0f} "
+        f"chunks/s on the card), {fwd_busy}, {e_flops / 1e9:.2f} GFLOP, bound "
+        f"{e_bound:.3f} ms ({e_by})")
+    del emb
+
+    # b. query embedding, B = 512
+    qemb_ms = host_ms(lambda: enc.embed(queries), reps=10)
+    qids, _ = enc.tokenizer.encode_batch(queries[:SEM_CHUNK_BATCH], max_len=seq)
+    q_flops = encoder_flops(SEM_CHUNK_BATCH, qids.shape[1], cfg)
+    q_bound, q_by = encoder_bound(SEM_CHUNK_BATCH, qids.shape[1], enc.model, q_flops)
+    log(f"[semantic] b. EncoderService.embed of {len(queries)} queries: {qemb_ms:.3f} ms "
+        f"({len(queries) // SEM_CHUNK_BATCH} forwards at [{SEM_CHUNK_BATCH}, "
+        f"{qids.shape[1]}], each {q_flops / 1e9:.2f} GFLOP, bound {q_bound:.3f} ms ({q_by}))")
+
+    # c. hybrid + rerank, B = 32, and its stages
+    q_emb = engine._embed(q32)
+    cand_texts = [[h.text for h in c] for c in cands]
+    c_ms = interleaved_ms({
+        "total": lambda: engine.search_batch(q32, mode="hybrid", rerank=True,
+                                             candidates=CANDIDATES, top_k=5),
+        "embed": lambda: engine._embed(q32),
+        "search_hybrid": lambda: idx.search_hybrid(q_emb, q32, k=CANDIDATES,
+                                                   candidates=CANDIDATES),
+        "rerank": lambda: [rr(q, t) for q, t in zip(q32, cand_texts)],
+    })
+    pids, pmask, ptt = rr.tokenizer.encode_pairs([q32[0]] * SEM_RERANK_BATCH,
+                                                 cand_texts[0][:SEM_RERANK_BATCH],
+                                                 max_len=rr.max_len)
+    if pids.shape != (SEM_RERANK_BATCH, seq):
+        raise AssertionError(f"rerank pairs tokenized to {pids.shape}, not the "
+                             f"{seq} bucket")
+    pargs = [torch.from_numpy(a).to(DEVICE) for a in (pids, pmask, ptt)]
+    with torch.inference_mode():
+        ce_ms = cuda_ms(lambda: rr.model(*pargs))
+        ce_busy = device_busy(lambda: rr.model(*pargs), ce_ms)
+    t0 = time.perf_counter()
+    for q, t in zip(q32, cand_texts):
+        rr.tokenizer.encode_pairs([q] * len(t), t, max_len=rr.max_len)
+    pair_tok_ms = (time.perf_counter() - t0) * 1e3
+    c_flops = encoder_flops(SEM_RERANK_BATCH, seq, cfg, pooler=True)
+    c_bound, c_by = encoder_bound(SEM_RERANK_BATCH, seq, rr.model, c_flops)
+    log(f"[semantic] c. search_batch(hybrid, rerank=True, candidates {CANDIDATES}, "
+        f"top_k 5) B={len(q32)}: {c_ms['total']:.3f} ms; stages (each alone, in "
+        f"turn): embed {c_ms['embed']:.3f} ms, search_hybrid "
+        f"{c_ms['search_hybrid']:.3f} ms, rerank {c_ms['rerank']:.3f} ms (pair "
+        f"tokenization {pair_tok_ms:.3f} ms; {want_ce} CrossEncoder forwards at "
+        f"[{SEM_RERANK_BATCH}, {seq}], each {ce_ms:.3f} ms, {ce_busy}, "
+        f"{c_flops / 1e9:.2f} GFLOP, bound {c_bound:.3f} ms ({c_by})), rest "
+        f"{c_ms['total'] - c_ms['embed'] - c_ms['search_hybrid'] - c_ms['rerank']:.3f} ms")
+
+    # d. hybrid without rerank, B = 512
+    q_emb512 = engine._embed(queries)
+    d_ms = interleaved_ms({
+        "total": lambda: engine.search_batch(queries, mode="hybrid", top_k=TOP_K),
+        "embed": lambda: engine._embed(queries),
+        "search_hybrid": lambda: idx.search_hybrid(q_emb512, queries, k=CANDIDATES,
+                                                   candidates=CANDIDATES),
+    })
+    log(f"[semantic] d. search_batch(hybrid, top_k {TOP_K}) B={len(queries)}: "
+        f"{d_ms['total']:.3f} ms; stages (each alone, in turn): embed "
+        f"{d_ms['embed']:.3f} ms, search_hybrid {d_ms['search_hybrid']:.3f} ms, rest "
+        f"{d_ms['total'] - d_ms['embed'] - d_ms['search_hybrid']:.3f} ms")
+
+    # e. served: 64 requests through QueryBatcher(max_batch=32) with rerank
+    requests = list(dict.fromkeys(queries))[:SEM_SERVE_REQUESTS]
+    batcher = QueryBatcher(max_batch=SEM_RERANK_QUERIES)
+
+    async def serve():
+        return await asyncio.gather(*(batcher.search(
+            engine, t, mode="hybrid", rerank=True, candidates=CANDIDATES, top_k=5)
+            for t in requests))
+
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        answers = asyncio.run(serve())
+        serve_s = time.perf_counter() - t0
+        served_counts = _counts()
+    finally:
+        batcher.close()
+    stats = batcher.stats()
+    if served_counts["dense_topk_tc"] != stats["dispatches"]:
+        raise AssertionError(f"served launches {served_counts} != dispatches {stats}")
+    worst = 0.0
+    for text, got in zip(requests, answers):
+        want = engine.search_batch([text], mode="hybrid", rerank=True,
+                                   candidates=CANDIDATES, top_k=5)[0]
+        if [h.row for h in got] != [h.row for h in want] or len(got) != 5:
+            raise AssertionError(f"served answer differs for {text!r}")
+        worst = max(worst, _close(torch.tensor([h.score for h in got]),
+                                  torch.tensor([h.score for h in want]), 2e-2))
+    log(f"[semantic] e. {len(requests)} concurrent requests (rerank) through "
+        f"QueryBatcher(max_batch={SEM_RERANK_QUERIES}) in {serve_s:.3f} s: "
+        f"{stats['dispatches']} dispatches, dense_topk launches "
+        f"{served_counts['dense_topk_tc']}; every answer has the rows of a direct "
+        f"search_batch, scores within {worst:.3g} (1 + |s|) (limit 2e-2)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script has no CPU path",
@@ -1102,7 +1527,7 @@ def main() -> int:
     log(f"[small] IVF kernels vs plain versions: {cases} cases agree in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    results: dict = {}
+    results: dict = {"card": smi}
     t0 = time.perf_counter()
     idx, texts, embedder = phase_full(results)
     log(f"[full] phase in {time.perf_counter() - t0:.2f} s")
@@ -1119,6 +1544,12 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_ivf_serve(idx, texts)
     log(f"[ivf-serve] phase in {time.perf_counter() - t0:.2f} s")
+    del idx, texts
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phase_semantic(results)
+    log(f"[semantic] phase in {time.perf_counter() - t0:.2f} s")
 
     source = "super_rag_tpu_torch/csrc/"
     kernels = {"kernels": [

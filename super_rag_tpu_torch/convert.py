@@ -6,6 +6,9 @@ output (the JAX package's ``engine/index.py:843``) into the port's
 ``DeviceIndex``, and ``ivf_from_jax`` turns a JAX ``IVFIndex`` (its
 ``ops/ivf.py:40``), handed over as numpy arrays, into the port's
 ``IVFIndex``, so both packages can answer over identical state.
+``encoder_from_jax`` / ``cross_encoder_from_jax`` put a flax parameter
+tree of the JAX ``TextEncoder`` / ``CrossEncoder`` into the port's
+modules.
 """
 
 from __future__ import annotations
@@ -17,6 +20,9 @@ import torch
 
 from super_rag_tpu_torch.device import DeviceLike, resolve_device
 from super_rag_tpu_torch.engine.index import DTYPES, DeviceIndex
+from super_rag_tpu_torch.models.cross_encoder import CrossEncoder
+from super_rag_tpu_torch.models.encoder import (
+    EncoderConfig, TextEncoder, load_flax_params)
 from super_rag_tpu_torch.ops.dense import DenseCorpus
 from super_rag_tpu_torch.ops.ivf import IVFIndex
 
@@ -104,3 +110,24 @@ def ivf_from_jax(arrays: dict[str, Optional[np.ndarray]], residual: bool,
         overflow_rows=out["overflow_rows"], residual=bool(residual),
         sign_plane=out["sign_plane"], of_sign_plane=out["of_sign_plane"],
         of_assign=out["of_assign"])
+
+
+def _model_from_jax(model_cls, params, cfg: EncoderConfig, device: DeviceLike):
+    dev = resolve_device(device)
+    return load_flax_params(model_cls(cfg), params).to(dev).eval()
+
+
+def encoder_from_jax(params, cfg: EncoderConfig,
+                     device: DeviceLike = None) -> TextEncoder:
+    """The port's ``TextEncoder`` holding a JAX ``TextEncoder``'s
+    parameters: the flax tree as numpy arrays (nested, or the flat
+    ``"backbone/layer_0/attention/query/kernel"`` keys of the npz).
+    Raises on a missing or an extra key."""
+    return _model_from_jax(TextEncoder, params, cfg, device)
+
+
+def cross_encoder_from_jax(params, cfg: EncoderConfig,
+                           device: DeviceLike = None) -> CrossEncoder:
+    """The port's ``CrossEncoder`` holding a JAX ``CrossEncoder``'s
+    parameters (as ``encoder_from_jax``)."""
+    return _model_from_jax(CrossEncoder, params, cfg, device)

@@ -33,8 +33,10 @@ class CollectionEngine:
     """One collection: a DeviceIndex + an embedder (+ optional reranker).
 
     ``embedder`` is any object with ``embed(list[str]) -> [B, dim]``
-    (tensor or array); the default is the HashEmbedder.  ``reranker`` is
-    an optional callable ``(query, texts) -> scores``.
+    (tensor or array): the default HashEmbedder, or
+    ``models/encoder_service.EncoderService``.  ``reranker`` is an
+    optional callable ``(query, texts) -> scores``, such as
+    ``service/rerank_service.RerankService``.
     """
 
     def __init__(
@@ -106,6 +108,23 @@ class CollectionEngine:
             out.append(SearchHit(row=r, score=float(s), text=meta["text"],
                                  metadata=md, recall_type=recall_type))
         return out
+
+    def search_by_image(self, image: bytes, top_k: int = 5,
+                        chat_id: Optional[str] = None) -> list[SearchHit]:
+        """Image -> image retrieval over vision rows (their dense vectors
+        are image embeddings, ``models/image_embedder.py``)."""
+        from super_rag_tpu_torch.models.image_embedder import ImageEmbedder
+
+        if self.index.size == 0:
+            return []
+        q = ImageEmbedder(dim=self.index.spec.dim).embed([image])
+        flt = self._filter(["vision"], chat_id, None)
+        dv, di = self.index.search_dense(
+            torch.from_numpy(q).to(self.index.device),
+            min(top_k, self.index.size), flt)
+        v, i = dv.cpu().numpy(), di.cpu().numpy()
+        i = np.where(np.isfinite(v), i, -1)
+        return self._hits(v[0], i[0], "vision_search")
 
     def search(self, query: str, top_k: int = 5, **kwargs) -> list[SearchHit]:
         """Single-query search (same options as ``search_batch``)."""

@@ -492,3 +492,32 @@ def test_ivf_engine_on_card_answers_as_on_cpu(card, nprobe):
     assert torch.equal(out["cpu"][0], out["cuda"][0])
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_f32_encoder_and_cross_encoder_on_card_equal_their_cpu_run(card):
+    """The checkpoint-shaped encoder and cross-encoder in f32 (TF32 off)
+    on the card against the same modules and weights on the CPU:
+    embeddings within 1e-5, scores within 1e-4 (1 + |s|)."""
+    from super_rag_tpu_torch.models.cross_encoder import CrossEncoder
+    from super_rag_tpu_torch.models.encoder import (
+        EncoderConfig, TextEncoder, init_params)
+
+    cfg = EncoderConfig(vocab_size=30522, hidden_dim=256, num_layers=6, num_heads=8,
+                        mlp_dim=1024, max_len=128, dtype=torch.float32)
+    rng = np.random.default_rng(2)
+    ids = torch.from_numpy(rng.integers(4, 30522, (16, 128)).astype(np.int32))
+    mask = torch.arange(128)[None] < torch.from_numpy(rng.integers(1, 129, (16, 1)))
+    tt = (torch.arange(128)[None] >= 20).to(torch.int32) * mask
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for cls in (TextEncoder, CrossEncoder):
+            model = init_params(cls(cfg), torch.Generator().manual_seed(0)).eval()
+            with torch.inference_mode():
+                want = model(ids, mask, tt)
+                got = model.to(card)(ids.to(card), mask.to(card), tt.to(card)).cpu()
+            tol = 1e-5 if cls is TextEncoder else 1e-4 * (1 + want.abs())
+            assert ((got - want).abs() <= tol).all()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -18,7 +18,12 @@ MODULES = [
     "super_rag_tpu_torch.ops.ivf", "super_rag_tpu_torch.ops.ivf_topk",
     "super_rag_tpu_torch.engine", "super_rag_tpu_torch.engine.batcher",
     "super_rag_tpu_torch.engine.snapshot", "super_rag_tpu_torch.models",
-    "super_rag_tpu_torch.tokenize", "chip_smoke", "tune_ivf_probe",
+    "super_rag_tpu_torch.tokenize", "super_rag_tpu_torch.tokenize.native_bpe",
+    "super_rag_tpu_torch.models.encoder", "super_rag_tpu_torch.models.cross_encoder",
+    "super_rag_tpu_torch.models.tokenization", "super_rag_tpu_torch.models.subword",
+    "super_rag_tpu_torch.models.encoder_service", "super_rag_tpu_torch.models.hf_loader",
+    "super_rag_tpu_torch.models.image_embedder", "super_rag_tpu_torch.service",
+    "super_rag_tpu_torch.service.rerank_service", "chip_smoke", "tune_ivf_probe",
 ]
 
 
@@ -46,27 +51,32 @@ def test_source_names_no_jax_import_or_jax_package_path():
         if "_build" in dirpath:
             continue
         for f in files:
-            if f.endswith((".py", ".cu", ".cuh")):
+            if f.endswith((".py", ".cu", ".cuh", ".cpp")):
                 with open(os.path.join(dirpath, f)) as fh:
                     hits = pattern.findall(fh.read())
                 assert not hits, f"{f}: {hits}"
                 scanned += 1
-    assert scanned >= 18
+    assert scanned >= 28
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "DeviceIndex",
                                    "CollectionEngine", "HashEmbedder",
                                    "dense_topk", "hybrid_search", "ivf_topk",
-                                   "build_ivf_streaming"])
+                                   "build_ivf_streaming", "EncoderService",
+                                   "RerankService", "encoder_from_jax",
+                                   "cross_encoder_from_jax"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, monkeypatch):
-    from super_rag_tpu_torch import resolve_device
+    from super_rag_tpu_torch import convert, resolve_device
     from super_rag_tpu_torch.engine import CollectionEngine, DeviceIndex, IndexSpec
     from super_rag_tpu_torch.models import HashEmbedder
+    from super_rag_tpu_torch.models.encoder import EncoderConfig
+    from super_rag_tpu_torch.models.encoder_service import EncoderService
     from super_rag_tpu_torch.ops.dense import build_corpus
     from super_rag_tpu_torch.ops.dense_topk import dense_topk
     from super_rag_tpu_torch.ops.hybrid import hybrid_search
     from super_rag_tpu_torch.ops.ivf import build_ivf, build_ivf_streaming
     from super_rag_tpu_torch.ops.ivf_topk import ivf_topk
+    from super_rag_tpu_torch.service.rerank_service import RerankService
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     spec = IndexSpec(dim=16, vocab_size=1 << 10, min_capacity=256)
@@ -74,6 +84,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, monkeypatch):
     q = torch.randn(2, 16)
     qt = torch.full((2, 4), 1 << 10, dtype=torch.int32)
     ivf = build_ivf(torch.randn(40, 16), nlist=4, kmeans_iters=1)
+    tiny = EncoderConfig(vocab_size=50, hidden_dim=16, num_layers=1, num_heads=2,
+                         mlp_dim=32, max_len=64)
     calls = {
         "resolve_device": lambda: resolve_device(),
         "DeviceIndex": lambda: DeviceIndex(spec),
@@ -86,6 +98,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, monkeypatch):
         "ivf_topk": lambda: ivf_topk(q, ivf, k=3),
         "build_ivf_streaming": lambda: build_ivf_streaming(
             lambda: iter([torch.randn(40, 16).numpy()]), nlist=4),
+        "EncoderService": lambda: EncoderService(cfg=tiny),
+        "RerankService": lambda: RerankService(config=tiny),
+        "encoder_from_jax": lambda: convert.encoder_from_jax({}, tiny),
+        "cross_encoder_from_jax": lambda: convert.cross_encoder_from_jax({}, tiny),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
