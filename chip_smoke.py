@@ -50,13 +50,28 @@ Phases, each printing one line with its seconds:
      hybrid without rerank at 512, each forward's FLOPs and bound, and 64
      reranked requests through QueryBatcher(max_batch=32), each with the
      rows of a direct search_batch;
-  9. a ``{"kernels": [...]}`` JSON line;
-  10. last line: ``{"ok": true, "device": {...}}``.
+  9. CSR lexical tier at the north star's 10,002,432 rows x 768 int8 with
+     a 48-slot zipfian table: compact_lexical picks CSR by itself;
+     search_hybrid at batch 512 and 32 with the 10M budgets (pq 2048 +
+     deep 4 x 16384, lex_gen 250), unsharded and with 16 doc shards,
+     stage by stage; gates: CSR generation at full coverage equals the
+     exact doc-major BM25 top-100, the 16-shard build equals it too, the
+     dense_topk kernel inside the call is bit-equal to its plain version,
+     dense recall@10 >= 0.9, hybrid fidelity against an exact hybrid
+     (RRF of the exact branches) >= 0.8;
+  10. engine layer: EngineManager builds an engine from a collection
+     config, 65,536 texts ingested (native analyzer and Python loop
+     timed), snapshot to a LocalObjectStore, a fresh manager restores from
+     the store alone and answers as the original, batched_search through a
+     QueryBatcher equals direct searches;
+  11. a ``{"kernels": [...]}`` JSON line;
+  12. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  There is no CPU path: without a
 CUDA device, or without the package beside it, it exits non-zero and
 prints no result.  Nothing is written under the repo except the kernel
-library in super_rag_tpu_torch/_build/.
+and analyzer libraries in super_rag_tpu_torch/_build/; the engine phase's
+snapshots go to a temporary directory that it removes.
 """
 
 from __future__ import annotations
@@ -98,6 +113,29 @@ IVF_NPROBE = 16
 IVF_HYBRID_BATCH = 32
 IVF_DENSE_BATCH = 512
 IVF_SERVE_REQUESTS = 128
+# the CSR lexical tier at the north star's scale: scripts/bench_10m.py's
+# rows and lexical recipe (48 slots over 2^17 buckets, 16 discriminative
+# query terms, pq 2048 + deep 4 x 16384, lex_gen 250), the flat dense tier
+CSR_ROWS = 8192 * 1221
+CSR_SLOTS = 48
+CSR_QUERY_TERMS = 16
+CSR_BATCH = 512
+CSR_SMALL_BATCH = 32
+CSR_PQ = 2048
+CSR_DEEP_TERMS = 4
+CSR_DEEP_POSTINGS = 16384
+CSR_LEX_GEN = 250
+CSR_SHARDS = 16
+CSR_GATE_QUERIES = 8
+CSR_EVAL_QUERIES = 64
+# CSR impacts are bf16 (relative rounding <= 2^-9), the doc-major scorer's
+# f32: a sum of nonnegative weights stays within 2^-9, held at 2^-8
+CSR_BF16_RTOL = 2.0 ** -8
+# the engine layer: texts ingested through EngineManager / CollectionEngine
+ENGINE_TEXTS = 65_536
+ENGINE_WORDS = 128
+ENGINE_INGEST_BATCH = 2048
+ENGINE_QUERIES = 64
 SEM_ROWS = 1_000_000
 SEM_WORDS = 128  # words a row's text holds: every (query, row) pair fills 128 tokens
 SEM_CHUNKS = 65_536
@@ -286,13 +324,16 @@ def _zipf(gen, a: float, shape) -> torch.Tensor:
     return torch.clamp(x.to(torch.int64), min=1)
 
 
-def make_corpus(n: int, gen: torch.Generator, centers=None, dim: int = DIM):
-    """Codes, scales and a zipfian doc-term table on the card, plus the
-    host state a DeviceIndex snapshot carries.  Term buckets are the
-    analyzer's hashes of the words ``t<rank>``, so text queries made of
-    those words hit the same buckets.  Rows are iid Gaussian, or, given
-    ``centers``, a random centre plus N(0, 1) noise (the repo's clustered
-    IVF recipe); build_corpus L2-normalises and quantizes them."""
+def make_corpus(n: int, gen: torch.Generator, centers=None, dim: int = DIM,
+                slots: int = SLOTS, vocab: int = VOCAB, pad: float = 0.2):
+    """Codes, scales and a zipfian doc-term table of ``slots`` slots over
+    ``vocab`` buckets on the card (a ``pad`` share of the slots padded),
+    plus the host state a DeviceIndex snapshot carries.  Term buckets are
+    the analyzer's hashes of the words ``t<rank>``, so text queries made
+    of those words hit the same buckets.  Rows are iid Gaussian, or,
+    given ``centers``, a random centre plus N(0, 1) noise (the repo's
+    clustered IVF recipe); build_corpus L2-normalises and quantizes them.
+    Returns the int32 ranks too (-1 on pad slots)."""
     from super_rag_tpu_torch.ops.dense import build_corpus
     from super_rag_tpu_torch.tokenize.analyzer import fnv1a32
 
@@ -308,23 +349,27 @@ def make_corpus(n: int, gen: torch.Generator, centers=None, dim: int = DIM):
         c = build_corpus(x, dtype=torch.int8)
         codes[lo:hi], scales[lo:hi] = c.values, c.scales
 
-    bucket_of_rank = torch.tensor([fnv1a32(f"t{r}") & (VOCAB - 1)
-                                   for r in range(VOCAB)],
+    bucket_of_rank = torch.tensor([fnv1a32(f"t{r}") & (vocab - 1)
+                                   for r in range(vocab)],
                                   dtype=torch.int32, device=DEVICE)
-    ranks = (_zipf(gen, 1.3, (n, SLOTS)) - 1) % VOCAB
+    ranks = ((_zipf(gen, 1.3, (n, slots)) - 1) % vocab).to(torch.int32)
     terms = bucket_of_rank[ranks]
-    tfs = torch.clamp(_zipf(gen, 2.0, (n, SLOTS)), max=8).to(torch.float32)
-    pad = torch.rand((n, SLOTS), device=DEVICE, generator=gen) < 0.2
-    terms[pad] = VOCAB
-    tfs[pad] = 0.0
-    ranks[pad] = -1
+    tfs = torch.clamp(_zipf(gen, 2.0, (n, slots)), max=8).to(torch.float32)
+    if pad > 0:
+        padded = torch.rand((n, slots), device=DEVICE, generator=gen) < pad
+        terms[padded] = vocab
+        tfs[padded] = 0.0
+        ranks[padded] = -1
+        del padded
     doc_len = tfs.sum(1) * 2.0 + 1.0
 
     sorted_terms = torch.sort(terms, dim=1).values
     first = torch.ones_like(sorted_terms, dtype=torch.bool)
     first[:, 1:] = sorted_terms[:, 1:] != sorted_terms[:, :-1]
     uniq = sorted_terms[first]
-    df = torch.bincount(uniq[uniq < VOCAB].long(), minlength=VOCAB)
+    del sorted_terms, first
+    df = torch.bincount(uniq[uniq < vocab].long(), minlength=vocab)
+    del uniq
     df_host = df.cpu().numpy()
     arrays = {
         "emb": codes, "scales": scales, "terms": terms, "tfs": tfs,
@@ -335,7 +380,7 @@ def make_corpus(n: int, gen: torch.Generator, centers=None, dim: int = DIM):
     }
     host = {
         "spec": {"dim": dim, "metric": "cosine", "dtype": "int8",
-                 "bm25_slots": SLOTS, "vocab_size": VOCAB,
+                 "bm25_slots": slots, "vocab_size": vocab,
                  "min_capacity": 4096},
         "size": n,
         "row_meta": [{"text": f"chunk {r}"} for r in range(n)],
@@ -346,9 +391,10 @@ def make_corpus(n: int, gen: torch.Generator, centers=None, dim: int = DIM):
     return arrays, host, ranks, df_host
 
 
-def make_query_texts(ranks, df_host, gen, count: int) -> list[str]:
-    """Queries of up to QUERY_TERMS discriminative words from random rows
-    (df <= max(64, N/50), as the repo's benchmark picks them)."""
+def make_query_texts(ranks, df_host, gen, count: int, terms: int = QUERY_TERMS,
+                     vocab: int = VOCAB) -> list[str]:
+    """Queries of up to ``terms`` discriminative words from random rows
+    (df <= max(64, N/50), as the repo's benchmarks pick them)."""
     n = ranks.shape[0]
     rows = torch.randint(0, n, (count,), device=DEVICE, generator=gen)
     row_ranks = ranks[rows].cpu().numpy()
@@ -361,12 +407,12 @@ def make_query_texts(ranks, df_host, gen, count: int) -> list[str]:
         for r in rr.tolist():
             if r < 0:
                 continue
-            bucket = fnv1a32(f"t{r}") & (VOCAB - 1)
+            bucket = fnv1a32(f"t{r}") & (vocab - 1)
             if bucket in seen or df_host[bucket] > df_cap:
                 continue
             seen.add(bucket)
             words.append(f"t{r}")
-            if len(words) == QUERY_TERMS:
+            if len(words) == terms:
                 break
         texts.append(" ".join(words))
     return texts
@@ -391,8 +437,9 @@ def library_topk(q_i8, q_scale, codes, scales, mask, n, tile, kt):
     return out_v
 
 
-def exact_topk(queries, corpus, mask, n: int, cosine: bool = False) -> torch.Tensor:
-    """Ids of the exact f32 top-TOP_K over the stored rows (codes x
+def exact_topk(queries, corpus, mask, n: int, cosine: bool = False,
+               k: int = TOP_K) -> torch.Tensor:
+    """Ids of the exact f32 top-``k`` over the stored rows (codes x
     scales) of the first ``n`` rows, for cosine queries: the dot with the
     stored rows, or with ``cosine`` the cosine (the rows renormalised, as
     the IVF build renormalises them)."""
@@ -409,7 +456,7 @@ def exact_topk(queries, corpus, mask, n: int, cosine: bool = False) -> torch.Ten
             rows = normalize_queries(rows, "cosine")
         s = qn @ rows.T
         s = torch.where(mask[None, lo:hi], s, float("-inf"))
-        v, i = torch.topk(torch.cat([gold, s], 1), TOP_K)
+        v, i = torch.topk(torch.cat([gold, s], 1), k)
         gold_i = torch.gather(torch.cat([gold_i, torch.arange(lo, hi, device=DEVICE)
                                          .expand(b, -1)], 1), 1, i)
         gold = v
@@ -1485,6 +1532,455 @@ def phase_semantic(results: dict):
         f"search_batch, scores within {worst:.3g} (1 + |s|) (limit 2e-2)")
 
 
+# -- the CSR lexical tier at the north star's 10M chunks -----------------------
+
+def _compare_rel(got_v, got_i, ref_v, ref_i, rtol: float, scores) -> float:
+    """Raise unless two top-k lists agree as tests/torch_parity.py holds
+    them: the same -inf slots, finite values within ``rtol`` relative,
+    and an id that differs only where its ``scores`` value (the reference
+    scorer's [B, N] scores) lies within that tolerance of the slot's
+    reference value (a tie).  Returns the largest relative difference."""
+    fin = torch.isfinite(ref_v)
+    if not torch.equal(fin, torch.isfinite(got_v)):
+        raise AssertionError("the two lists disagree on empty slots")
+    ref0 = torch.where(fin, ref_v, 0.0)
+    tol = rtol * ref0.abs()
+    diff = torch.where(fin, (got_v - ref_v).abs(), 0.0)
+    if bool((diff > tol).any()):
+        raise AssertionError(f"scores differ by {float(diff.max())} > {rtol} relative")
+    got_s = torch.gather(scores, 1, torch.where(fin, got_i, 0).long())
+    bad = fin & (got_i != ref_i) & ((got_s - ref0).abs() > 2 * tol)
+    if bool(bad.any()):
+        raise AssertionError(f"{int(bad.sum())} ids differ away from any tie")
+    rel = diff / ref0.abs().clamp(min=1e-30)
+    return float(rel.max()) if rel.numel() else 0.0
+
+
+def _bm25_all_scores(idx, qt, qi, step: int = 1 << 20) -> torch.Tensor:
+    """Exact doc-major BM25 of every live row for each query ``[B, N]``,
+    in row blocks (the doc-major scorer of ops/bm25.py)."""
+    from super_rag_tpu_torch.ops.bm25 import _bm25_block, _idf_table, clamp_avgdl
+
+    table = _idf_table(qt, qi, idx.spec.vocab_size)
+    avgdl = clamp_avgdl(idx.df.avgdl, qt.device)
+    n = idx.size
+    out = torch.empty((qt.shape[0], n), dtype=torch.float32, device=qt.device)
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        out[:, lo:hi] = _bm25_block(table, idx.terms[lo:hi], idx.tfs[lo:hi],
+                                    idx.doc_len[lo:hi], avgdl, 1.2, 0.75)
+    return out
+
+
+def _ranked_topk(scores: torch.Tensor, k: int):
+    """Top-``k`` per row, value descending and lowest index first among
+    ties (a topk of a little more, then a stable re-sort)."""
+    v, i = torch.topk(scores, min(scores.shape[1], 4 * k))
+    i, order = torch.sort(i, dim=1)
+    v = torch.gather(v, 1, order)
+    v, order = torch.sort(v, dim=1, descending=True, stable=True)
+    return v[:, :k], torch.gather(i, 1, order)[:, :k].to(torch.int32)
+
+
+def _csr_stages(idx, q_emb, texts, opts: dict, reps: int) -> dict:
+    """search_hybrid at one batch, and its stages each timed alone: host
+    query analysis, the dense branch (its kernel apart), the CSR gather,
+    the sort + segment sum + top-k (with the shard merge), and the rest
+    (exact rescore + RRF + glue) as the remainder."""
+    from super_rag_tpu_torch.ops import bm25_inverted as bi
+    from super_rag_tpu_torch.ops import dense_topk as dt
+
+    calls: dict = {}
+    with mock.patch.object(dt, "tile_topk", _recording(calls, "tile", dt.tile_topk)):
+        idx.search_hybrid(q_emb, texts, k=TOP_K, candidates=CANDIDATES, **opts)
+    total = host_ms(lambda: idx.search_hybrid(q_emb, texts, k=TOP_K,
+                                              candidates=CANDIDATES, **opts), reps=reps)
+    t0 = time.perf_counter()
+    qt, qi = idx._query_arrays(texts, 16)
+    analysis = (time.perf_counter() - t0) * 1e3
+    corpus, mask = idx.dense_corpus(), idx._mask(None)
+    dense = cuda_ms(lambda: dt.dense_topk(q_emb, corpus, CANDIDATES, mask=mask, tile=2048,
+                                          int8_queries=True, per_tile_k=idx._per_tile_k,
+                                          device=DEVICE), reps=reps)
+    targs = calls["tile"]
+    kernel = cuda_ms(lambda: dt.tile_topk(*targs), reps=reps)
+    def gather():
+        return bi._csr_gather_budgets(qt, qi, idx._inverted, mask,
+                                      opts["postings_per_query_term"],
+                                      opts["lex_deep_terms"], opts["lex_deep_postings"])
+
+    ids, w = gather()
+    k_gen = min(opts["lex_gen"], idx.size)
+    stages = {
+        "total": total, "host query analysis": analysis,
+        "dense branch": dense, "dense_topk kernel": kernel,
+        "CSR gather": cuda_ms(gather, reps=reps),
+        "sort + segment sum + top-k": cuda_ms(lambda: bi._csr_aggregate(ids, w, k_gen),
+                                              reps=reps),
+        "width": int(ids.shape[-1]) * (ids.shape[1] if ids.dim() == 3 else 1),
+    }
+    stages["rest (rescore + RRF)"] = (total - analysis - dense - stages["CSR gather"]
+                                      - stages["sort + segment sum + top-k"])
+    return stages
+
+
+def _log_stages(tag: str, b: int, st: dict) -> None:
+    log(f"[csr] {tag} search_hybrid B={b}: {st['total']:.3f} ms "
+        f"({b / st['total'] * 1e3:.1f} queries/s); stages (each alone): host query "
+        f"analysis {st['host query analysis']:.3f} ms, dense branch "
+        f"{st['dense branch'] - st['dense_topk kernel']:.3f} ms + kernel "
+        f"{st['dense_topk kernel']:.3f} ms, CSR gather {st['CSR gather']:.3f} ms "
+        f"({st['width']} postings a query), sort + segment sum + top-k "
+        f"{st['sort + segment sum + top-k']:.3f} ms, rest (rescore + RRF) "
+        f"{st['rest (rescore + RRF)']:.3f} ms")
+
+
+def phase_csr(results: dict) -> None:
+    """The north star's lexical scale on the card: 10,002,432 rows x 768
+    int8 with a 48-slot zipfian doc-term table (scripts/bench_10m.py's
+    lexical recipe, no pad slots; the 1M smoke's flat dense tier in place
+    of its IVF).  compact_lexical must pick the CSR tier by itself; then
+    search_hybrid at B = 512 and 32 with the 10M budgets, unsharded and
+    with 16 doc shards, gated: (a) CSR generation at full coverage is the
+    exact doc-major BM25 top-k, (b) the 16-shard build gives the same, (c)
+    the dense_topk kernel launched inside search_hybrid is bit-equal to its
+    plain version, (d) dense recall@10 >= 0.9; hybrid fidelity against an
+    exact hybrid gold >= 0.8."""
+    import dataclasses
+
+    from super_rag_tpu_torch.engine.index import DeviceIndex
+    from super_rag_tpu_torch.ops import dense_topk as dt
+    from super_rag_tpu_torch.ops.bm25_inverted import (
+        CSRInvertedIndex, _shard_depth, inverted_bm25_search)
+    from super_rag_tpu_torch.ops.fusion import rrf_fuse
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    arrays, host, ranks, df_host = make_corpus(CSR_ROWS, gen, dim=DIM, slots=CSR_SLOTS,
+                                               vocab=VOCAB, pad=0.0)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx = DeviceIndex.from_snapshot(arrays, host, device=DEVICE)
+    del arrays, host
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    if idx.spec.lex_tier != "auto" or idx.size < idx.spec.csr_auto_rows:
+        raise AssertionError("the 10M index is not on the auto tier past csr_auto_rows")
+    t0 = time.perf_counter()
+    idx.compact_lexical()
+    torch.cuda.synchronize()
+    t_compact = time.perf_counter() - t0
+    csr = idx._inverted
+    if not isinstance(csr, CSRInvertedIndex) or csr.shards != 1:
+        raise AssertionError(f"compact_lexical at {idx.size} rows built {type(csr).__name__}")
+    e = csr.postings_docs.shape[0]
+    csr_bytes = e * 6 + csr.offsets.numel() * 4
+    log(f"[csr] on {results['card']}: corpus {CSR_ROWS} x {DIM} int8 + {CSR_SLOTS}-slot zipfian table (V = "
+        f"{VOCAB}, no pad slots) made on the card in {t_gen:.2f} s; DeviceIndex in "
+        f"{t_load:.2f} s (capacity {idx._capacity}); compact_lexical with lex_tier "
+        f"'auto' picked {type(csr).__name__} (csr_auto_rows {idx.spec.csr_auto_rows}): "
+        f"{t_compact:.2f} s with the per_tile_k calibration (-> {idx._per_tile_k}); "
+        f"{e} postings, {csr_bytes / 1e9:.3f} GB of CSR arrays; card memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB at peak in this phase")
+
+    q_all = torch.randn(CSR_BATCH, DIM, device=DEVICE, generator=gen)
+    texts = make_query_texts(ranks, df_host, gen, CSR_BATCH, terms=CSR_QUERY_TERMS,
+                             vocab=VOCAB)
+    del ranks
+    opts = dict(postings_per_query_term=CSR_PQ, lex_deep_terms=CSR_DEEP_TERMS,
+                lex_deep_postings=CSR_DEEP_POSTINGS, lex_gen=CSR_LEX_GEN, rescore=True)
+
+    # the main path, counted: search_hybrid at B = 512 on the CSR tier
+    calls: dict = {}
+    _reset_counts()
+    with mock.patch.object(dt, "tile_topk", _recording(calls, "tile", dt.tile_topk)):
+        res = idx.search_hybrid(q_all, texts, k=TOP_K, candidates=CANDIDATES, **opts)
+    torch.cuda.synchronize()
+    counts = _counts()
+    if counts["dense_topk_tc"] < 1:
+        raise AssertionError(f"search_hybrid on the CSR tier launched {counts}")
+    ids = res.indices.cpu().numpy()
+    if (ids.shape != (CSR_BATCH, TOP_K) or ids.min() < 0
+            or not np.isfinite(res.scores.cpu().numpy()).all()):
+        raise AssertionError("CSR hybrid result has the wrong shape or empty slots")
+
+    # (c) the kernel inside that call against its plain version
+    targs = calls["tile"]
+    kv, ki = dt.tile_topk(*targs)
+    pv, pi = dt.tile_topk_plain(*targs)
+    torch.cuda.synchronize()
+    k_err = _compare(kv, ki, pv, pi, exact=True, tol=0.0)
+    q8, n_scan, tile, kt = targs[0], targs[6], targs[7], targs[8]
+    num_tiles = kv.shape[0]
+    del kv, ki, pv, pi
+    k_ms = cuda_ms(lambda: dt.tile_topk(*targs))
+    p_ms = cuda_ms(lambda: dt.tile_topk_plain(*targs), reps=5, warmup=1)
+    keep = targs[5] if targs[5] is not None else torch.ones(n_scan, dtype=torch.bool,
+                                                             device=DEVICE)
+    lib_ms = cuda_ms(lambda: library_topk(*targs[:4], keep, n_scan, tile, kt), reps=5,
+                     warmup=1)
+    b = q8.shape[0]
+    nbytes = (n_scan * DIM + n_scan * 4 + n_scan + b * DIM + b * 4
+              + num_tiles * b * kt * 8)
+    k_bound, k_by = bound_ms(nbytes, 2.0 * b * n_scan * DIM, INT8_OPS_PER_S)
+    log(f"[csr] (c) dense_topk inside search_hybrid B={b} [num_tiles={num_tiles}, "
+        f"kt={kt}]: launches {counts}; bit-equal to its plain version (max |diff| "
+        f"{k_err}); kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, library (_int_mm + topk, "
+        f"in 32-tile chunks) {lib_ms:.3f} ms, bound {k_bound:.3f} ms ({k_by}; "
+        f"{nbytes / 1e9:.2f} GB, {2.0 * b * n_scan * DIM / 1e12:.2f} T int8 operations)")
+    results["dense_topk_10m"] = {
+        "variant": "tc (mma.sync m16n8k32 s8)", "launches": counts["dense_topk_tc"],
+        "rows": n_scan, "batch": b, "max_abs_err": k_err, "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": k_bound, "bound_by": k_by, "library_ms": lib_ms}
+
+    # exact references for 64 queries: BM25 scores of every row, the exact
+    # BM25 and dense top-100, and the exact hybrid (RRF of the two)
+    ev = CSR_EVAL_QUERIES
+    qt, qi = idx._query_arrays(texts[:ev], 16)
+    mask = idx._mask(None)
+    corpus = idx.dense_corpus()
+    full_bm25 = _bm25_all_scores(idx, qt, qi)
+    gold_lv, gold_li = _ranked_topk(full_bm25, CANDIDATES)
+    gold_lex = torch.where(gold_lv > 0, gold_li, -1)
+    gold_di = exact_topk(q_all[:ev], corpus, mask, idx.size, k=CANDIDATES)
+    gold_hyb = rrf_fuse(gold_di.to(torch.int32), gold_lex, k=TOP_K)[1]
+
+    # (a) full coverage: a budget at the longest run of the gate queries'
+    # terms makes CSR generation exact BM25
+    g = CSR_GATE_QUERIES
+    qg, qig = qt[:g], qi[:g]
+    live = qg < VOCAB
+    runs = (csr.offsets[qg.long() + 1] - csr.offsets[qg.long()])[live]
+    budget = int(runs.max())
+    t0 = time.perf_counter()
+    cv, ci = inverted_bm25_search(qg, qig, csr, k=CANDIDATES, mask=mask,
+                                  postings_per_query_term=budget)
+    torch.cuda.synchronize()
+    t_full = time.perf_counter() - t0
+    rv = torch.where(gold_lv[:g] > 0, gold_lv[:g], float("-inf"))
+    a_err = _compare_rel(cv, ci, rv, gold_lex[:g], CSR_BF16_RTOL, full_bm25[:g])
+    # the unsharded tier's own scores of its top-4096, the tie rule of (b)
+    uv, ui = inverted_bm25_search(qg, qig, csr, k=4096, mask=mask,
+                                  postings_per_query_term=budget)
+    csr_scores = torch.full((g, idx.size), float("-inf"), device=DEVICE)
+    csr_scores.scatter_(1, ui.clamp(min=0).long(), torch.where(ui >= 0, uv, float("-inf")))
+    del uv, ui
+    log(f"[csr] (a) {g} queries at full coverage (budget {budget} = the longest run of "
+        f"their terms, {int(live.sum())} terms, {t_full:.3f} s): CSR generation top-"
+        f"{CANDIDATES} = the exact doc-major BM25 top-{CANDIDATES}: ids equal up to ties, "
+        f"scores within {a_err:.3g} relative (limit {CSR_BF16_RTOL:.3g}: bf16 impacts)")
+
+    # lexical generation overlap and hybrid fidelity over the 64 queries
+    gen_v, gen_i = inverted_bm25_search(qt, qi, csr, k=CSR_LEX_GEN, mask=mask,
+                                        postings_per_query_term=CSR_PQ,
+                                        deep_terms=CSR_DEEP_TERMS,
+                                        deep_postings=CSR_DEEP_POSTINGS)
+    lex_overlap = float(np.mean([
+        len(set(a) & {x for x in gl if x >= 0}) / max(1, sum(1 for x in gl if x >= 0))
+        for a, gl in zip(gen_i.cpu().tolist(), gold_lex.cpu().tolist())]))
+    fidelity = recall_at_k(res.indices[:ev], gold_hyb)
+    _, got_d = dt.dense_topk(q_all[:ev], corpus, TOP_K, mask=mask, tile=2048,
+                             int8_queries=True, per_tile_k=idx._per_tile_k, device=DEVICE)
+    recall = recall_at_k(got_d, gold_di[:, :TOP_K])
+    log(f"[csr] {ev} queries: lexical generation (pq {CSR_PQ} + deep {CSR_DEEP_TERMS} x "
+        f"{CSR_DEEP_POSTINGS}, top-{CSR_LEX_GEN}) holds {lex_overlap:.4f} of the exact BM25 "
+        f"top-{CANDIDATES}; hybrid top-{TOP_K} fidelity against the exact hybrid (RRF of the "
+        f"exact dense and exact BM25 top-{CANDIDATES}) {fidelity:.4f} (gate 0.8); (d) dense "
+        f"recall@{TOP_K} vs exact f32 over the stored rows {recall:.4f} (gate 0.9)")
+    if fidelity < 0.8:
+        raise AssertionError(f"hybrid fidelity {fidelity} < 0.8")
+    if recall < 0.9:
+        raise AssertionError(f"dense recall@{TOP_K} {recall} < 0.9")
+    del full_bm25, gen_v, gen_i
+
+    # stage times, unsharded
+    stages = {}
+    for bb in (CSR_BATCH, CSR_SMALL_BATCH):
+        stages[(1, bb)] = _csr_stages(idx, q_all[:bb], texts[:bb], opts,
+                                      reps=10 if bb == CSR_BATCH else 20)
+        _log_stages("C=1", bb, stages[(1, bb)])
+
+    # (b) 16 doc shards: the same index recompacted, full coverage equal
+    idx.spec = dataclasses.replace(idx.spec, csr_shards=CSR_SHARDS)
+    del csr
+    t0 = time.perf_counter()
+    idx.compact_lexical()
+    torch.cuda.synchronize()
+    t_compact16 = time.perf_counter() - t0
+    csr16 = idx._inverted
+    if not isinstance(csr16, CSRInvertedIndex) or csr16.shards != CSR_SHARDS:
+        raise AssertionError("the csr_shards=16 compaction did not build 16 shards")
+    lens = (csr16.offsets[:, qg.long() + 1] - csr16.offsets[:, qg.long()])
+    depth = _shard_depth(budget, CSR_SHARDS)
+    if int(lens.max()) > depth:
+        raise AssertionError(f"a shard run of {int(lens.max())} > the shard depth {depth}")
+    sv, si = inverted_bm25_search(qg, qig, csr16, k=CANDIDATES, mask=mask,
+                                  postings_per_query_term=budget)
+    b_err = _compare_rel(sv, si, cv, ci, 1e-6, csr_scores)
+    log(f"[csr] (b) csr_shards={CSR_SHARDS}: compact_lexical {t_compact16:.2f} s; at full "
+        f"coverage (per-shard depth {depth} >= the longest shard run {int(lens.max())}) "
+        f"the result equals the unsharded one: ids up to ties, scores within "
+        f"{b_err:.3g} relative (limit 1e-6)")
+    res16 = idx.search_hybrid(q_all, texts, k=TOP_K, candidates=CANDIDATES, **opts)
+    fid16 = recall_at_k(res16.indices[:ev], gold_hyb)
+    log(f"[csr] C={CSR_SHARDS} hybrid fidelity {fid16:.4f}; rows equal to C=1 for "
+        f"{int((res16.indices == res.indices).all(1).sum())} of {CSR_BATCH} queries")
+    for bb in (CSR_BATCH, CSR_SMALL_BATCH):
+        stages[(CSR_SHARDS, bb)] = _csr_stages(idx, q_all[:bb], texts[:bb], opts,
+                                               reps=10 if bb == CSR_BATCH else 20)
+        _log_stages(f"C={CSR_SHARDS}", bb, stages[(CSR_SHARDS, bb)])
+    results["csr"] = {"fidelity": fidelity, "lex_overlap": lex_overlap, "recall": recall,
+                      "stages": {f"C={c} B={bb}": st for (c, bb), st in stages.items()}}
+    del idx, res, res16
+
+
+# -- the engine layer under the serving seam ---------------------------------
+
+def phase_engine(results: dict) -> None:
+    """EngineManager (Settings with its data directory in a temporary
+    directory outside the repo, a LocalObjectStore as its snapshot
+    store) builds an engine from a collection config with ``hybrid``
+    keys; 65,536 texts go in through CollectionEngine.ingest (timed, the
+    analyzer's share with the native path and with the Python loop); the
+    index is snapshotted to the store and a fresh manager restores it from
+    the store alone; the restored engine's hybrid answers must equal the
+    original's, and batched_search through a QueryBatcher must equal a
+    direct search."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from super_rag_tpu_torch.config import Settings
+    from super_rag_tpu_torch.engine.batcher import QueryBatcher, batched_search
+    from super_rag_tpu_torch.engine.manager import EngineManager
+    from super_rag_tpu_torch.engine.snapshot import snapshot_exists, store_snapshot_exists
+    from super_rag_tpu_torch.store.objectstore import LocalObjectStore
+    from super_rag_tpu_torch.tokenize import native
+    from super_rag_tpu_torch.tokenize.analyzer import Analyzer
+
+    if not native.available():
+        raise AssertionError("the native analyzer did not build here (g++)")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_engine_")
+    try:
+        store = LocalObjectStore(os.path.join(tmp, "objects"))
+        config = {"embedding": {"dim": DIM}, "index_dtype": "int8", "bm25_slots": SLOTS,
+                  "vocab_size": VOCAB,
+                  "hybrid": {"rescore": True, "postings_per_query_term": 768,
+                             "lex_deep_terms": 2, "lex_deep_postings": 4096}}
+
+        def manager(name):
+            m = EngineManager(dataclasses.replace(Settings(),
+                                                  data_dir=os.path.join(tmp, name)),
+                              device=DEVICE)
+            m.snapshot_store = store
+            return m
+
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+        ranks = ((_zipf(gen, 1.3, (ENGINE_TEXTS, SLOTS)) - 1) % VOCAB).to(torch.int32)
+        tfs = torch.clamp(_zipf(gen, 2.0, (ENGINE_TEXTS, SLOTS)), max=4)
+        texts = row_texts(ranks, tfs, ENGINE_WORDS)
+        queries = list(dict.fromkeys(" ".join(t.split()[3:7]) for t in texts[::509]))
+        queries = queries[:ENGINE_QUERIES]
+        del ranks, tfs
+
+        analyzer_s = {"t": 0.0}
+        real = Analyzer.batch_doc_entries
+
+        def timed(self, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(self, *a, **kw)
+            finally:
+                analyzer_s["t"] += time.perf_counter() - t0
+
+        def ingest(eng, **kw):
+            analyzer_s["t"] = 0.0
+            with mock.patch.object(Analyzer, "batch_doc_entries",
+                                   lambda self, t, s: timed(self, t, s, **kw)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for lo in range(0, len(texts), ENGINE_INGEST_BATCH):
+                    eng.ingest(texts[lo:lo + ENGINE_INGEST_BATCH])
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0, analyzer_s["t"]
+
+        m1 = manager("a")
+        eng = m1.get("c", config)
+        if (eng.hybrid_opts != config["hybrid"]
+                or eng.index.device.type != torch.device(DEVICE).type):
+            raise AssertionError(f"engine built with {eng.hybrid_opts} on {eng.index.device}")
+        wall, ana = ingest(eng)
+        py_eng = manager("p").get("py", config)
+        py_wall, py_ana = ingest(py_eng, prefer_native=False)
+        if not (torch.equal(py_eng.index.terms, eng.index.terms)
+                and torch.equal(py_eng.index.tfs, eng.index.tfs)):
+            raise AssertionError("the native and Python analyzers indexed other terms")
+        del py_eng
+        log(f"[engine] on {results['card']}: EngineManager engine (int8, {DIM}-dim hash embedder, hybrid keys "
+            f"{sorted(config['hybrid'])}) ingested {len(texts)} texts of {ENGINE_WORDS} "
+            f"words in batches of {ENGINE_INGEST_BATCH}: {wall:.3f} s, "
+            f"{len(texts) / wall:.0f} chunks/s, analyzer {ana:.3f} s ({ana / wall:.1%}, "
+            f"native); with prefer_native=False {py_wall:.3f} s, "
+            f"{len(texts) / py_wall:.0f} chunks/s, analyzer {py_ana:.3f} s "
+            f"({py_ana / py_wall:.1%}); both indexed the same terms and tfs")
+
+        t0 = time.perf_counter()
+        want = eng.search_batch(queries, top_k=TOP_K)
+        t_first = time.perf_counter() - t0
+        m1.snapshot("c")
+        if not store_snapshot_exists(store, "snapshots/c"):
+            raise AssertionError("the snapshot did not reach the store")
+        m2 = manager("b")  # a fresh machine: no file snapshot
+        if snapshot_exists(m2._snapshot_path("c")):
+            raise AssertionError("the fresh manager sees a file snapshot")
+        t0 = time.perf_counter()
+        restored = m2.get("c", config)
+        t_restore = time.perf_counter() - t0
+        if restored.index.size != eng.index.size or restored is eng:
+            raise AssertionError("the store restore holds other rows")
+        _reset_counts()
+        got = restored.search_batch(queries, top_k=TOP_K)
+        torch.cuda.synchronize()
+        counts = _counts()
+        if counts["dense_topk_tc"] < 1:
+            raise AssertionError(f"the restored engine's search launched {counts}")
+        for q, g_, w_ in zip(queries, got, want):
+            if ([(h.row, h.score) for h in g_] != [(h.row, h.score) for h in w_]
+                    or len(g_) != TOP_K):
+                raise AssertionError(f"restored answer differs for {q!r}: "
+                                     f"{[(h.row, h.score) for h in g_]} vs "
+                                     f"{[(h.row, h.score) for h in w_]}")
+        batcher = QueryBatcher(max_batch=32)
+
+        async def serve():
+            return await asyncio.gather(*(batched_search({"batcher": batcher}, restored,
+                                                         q, top_k=TOP_K) for q in queries))
+
+        try:
+            served = asyncio.run(serve())
+        finally:
+            batcher.close()
+        for q, s_ in zip(queries, served):
+            direct = restored.search(q, top_k=TOP_K)
+            if [(h.row, h.score) for h in s_] != [(h.row, h.score) for h in direct]:
+                raise AssertionError(f"batched_search differs from a direct search for {q!r}")
+        log(f"[engine] snapshot to the LocalObjectStore and restore by a fresh manager "
+            f"from the store alone ({t_restore:.3f} s); the restored engine's "
+            f"search_batch(hybrid) of {len(queries)} queries equals the original's "
+            f"(first search {t_first:.3f} s with the lexical compaction; launches "
+            f"{counts}); {len(queries)} batched_search requests through "
+            f"QueryBatcher(max_batch=32) in {batcher.stats()['dispatches']} dispatches "
+            f"equal direct searches")
+        results["engine"] = {"chunks_per_s": len(texts) / wall,
+                             "analyzer_share": ana / wall,
+                             "chunks_per_s_python": len(texts) / py_wall,
+                             "analyzer_share_python": py_ana / py_wall}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script has no CPU path",
@@ -1508,15 +2004,23 @@ def main() -> int:
         f"python {sys.version.split()[0]}, {torch.cuda.get_device_name(0)} "
         f"({time.perf_counter() - t0:.2f} s)")
 
+    import threading
+
     from super_rag_tpu_torch import _build
+    from super_rag_tpu_torch.tokenize import native
 
     t0 = time.perf_counter()
+    # the native analyzer (g++) builds while nvcc builds the kernels
+    analyzer_build = threading.Thread(target=native.load)
+    analyzer_build.start()
     took = _build.build(["dense_topk", "ivf_scan"])  # one nvcc each, together
+    analyzer_build.join()
     for name in ("dense_topk", "ivf_scan"):
         for ln in _build.build_logs.get(name, "").splitlines():
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
                 log(f"[build] {name} ptxas: {ln.strip()}")
-    log(f"[build] nvcc {took} in {time.perf_counter() - t0:.2f} s")
+    log(f"[build] nvcc {took}, native analyzer {native.available()}, in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     cases = phase_small()
@@ -1550,11 +2054,23 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_semantic(results)
     log(f"[semantic] phase in {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phase_csr(results)
+    log(f"[csr] phase in {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phase_engine(results)
+    log(f"[engine] phase in {time.perf_counter() - t0:.2f} s")
 
     source = "super_rag_tpu_torch/csrc/"
     kernels = {"kernels": [
         {"name": "dense_topk", "route": "cuda", "source": source + "dense_topk.cu",
          "replaces": "super_rag_tpu/ops/pallas_topk.py:36", **results["dense_topk"]},
+        {"name": "dense_topk_10m", "route": "cuda", "source": source + "dense_topk.cu",
+         "replaces": "super_rag_tpu/ops/pallas_topk.py:36", **results["dense_topk_10m"]},
         {"name": "ivf_union", "route": "cuda", "source": source + "ivf_scan.cu",
          "replaces": "super_rag_tpu/ops/pallas_ivf.py:93", **results["ivf_union"]},
         {"name": "ivf_probe", "route": "cuda", "source": source + "ivf_scan.cu",

@@ -1,22 +1,27 @@
-"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+"""Build the port's native libraries and load them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``_build/lib<name>-<hash>.so`` for ``sm_90a`` (no PyTorch headers, so
 a build takes seconds).  The hash covers the source, the shared
 ``csrc/*.cuh`` headers and the flags, so an edited source builds anew.
-Building happens at first use, never at import: this module only runs
-``nvcc`` when a kernel is asked for.
+The host libraries of ``native/*.cpp`` (the analyzer, the BPE encoder)
+build with g++ the same way (``gxx_library``).  Building happens at first
+use, never at import: this module only runs a compiler when a library is
+asked for.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
 import threading
-from typing import Iterable
+from typing import Iterable, Optional
+
+logger = logging.getLogger(__name__)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
@@ -25,6 +30,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -88,3 +95,31 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(_target(name)[1])
             _libs[name] = lib
         return lib
+
+
+def _gxx_target(src: str, name: str) -> str:
+    digest = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    with open(src, "rb") as f:
+        digest.update(f.read())
+    return os.path.join(BUILD, f"lib{name}-{digest.hexdigest()[:16]}.so")
+
+
+def gxx_library(src: str, name: str) -> Optional[str]:
+    """Path of the g++-built host library of ``src``
+    (``_build/lib<name>-<hash>.so``, the hash over the source and the
+    flags), built now if it is not there yet; None where g++ cannot build
+    it.  The build writes a temporary file and renames it, so concurrent
+    processes never load a half-written library."""
+    out = _gxx_target(src, name)
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(["g++", *GXX_FLAGS, src, "-o", tmp], check=True,
+                       capture_output=True, timeout=300)
+    except (subprocess.SubprocessError, FileNotFoundError) as e:
+        logger.warning("g++ build of %s failed: %s", os.path.basename(src), e)
+        return None
+    os.replace(tmp, out)
+    return out

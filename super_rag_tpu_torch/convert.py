@@ -5,7 +5,8 @@ For this system the index state plays the role of model weights:
 output (the JAX package's ``engine/index.py:843``) into the port's
 ``DeviceIndex``, and ``ivf_from_jax`` turns a JAX ``IVFIndex`` (its
 ``ops/ivf.py:40``), handed over as numpy arrays, into the port's
-``IVFIndex``, so both packages can answer over identical state.
+``IVFIndex``, so both packages can answer over identical state;
+``csr_from_jax`` does so for a JAX ``CSRInvertedIndex``.
 ``encoder_from_jax`` / ``cross_encoder_from_jax`` put a flax parameter
 tree of the JAX ``TextEncoder`` / ``CrossEncoder`` into the port's
 modules.
@@ -23,6 +24,7 @@ from super_rag_tpu_torch.engine.index import DTYPES, DeviceIndex
 from super_rag_tpu_torch.models.cross_encoder import CrossEncoder
 from super_rag_tpu_torch.models.encoder import (
     EncoderConfig, TextEncoder, load_flax_params)
+from super_rag_tpu_torch.ops.bm25_inverted import CSRInvertedIndex
 from super_rag_tpu_torch.ops.dense import DenseCorpus
 from super_rag_tpu_torch.ops.ivf import IVFIndex
 
@@ -110,6 +112,33 @@ def ivf_from_jax(arrays: dict[str, Optional[np.ndarray]], residual: bool,
         overflow_rows=out["overflow_rows"], residual=bool(residual),
         sign_plane=out["sign_plane"], of_sign_plane=out["of_sign_plane"],
         of_assign=out["of_assign"])
+
+
+def csr_from_jax(arrays: dict[str, np.ndarray],
+                 device: DeviceLike = None) -> CSRInvertedIndex:
+    """The port's ``CSRInvertedIndex`` over a JAX ``CSRInvertedIndex``'s
+    arrays: ``docs`` (int32), ``impacts`` (the bf16 impacts as f32, exact;
+    cast back), ``offsets`` (int32, ``[V+2]`` or sharded ``[C, V+2]``)
+    and ``num_docs``, all as numpy arrays."""
+    dev = resolve_device(device)
+    want = {"docs": np.int32, "impacts": np.float32, "offsets": np.int32}
+    out = {}
+    for name, dtype in want.items():
+        if name not in arrays:
+            raise ValueError(f"JAX CSRInvertedIndex lacks array {name!r}")
+        a = np.asarray(arrays[name])
+        if a.dtype != dtype:
+            raise ValueError(f"JAX CSRInvertedIndex array {name!r} is "
+                             f"{a.dtype}, expected {np.dtype(dtype)}")
+        out[name] = torch.from_numpy(np.array(a)).to(dev)
+    if out["docs"].shape != out["impacts"].shape or out["docs"].dim() != 1:
+        raise ValueError("docs and impacts must be [E] arrays of one length")
+    if int(out["offsets"].reshape(-1)[-1]) != out["docs"].shape[0]:
+        raise ValueError("the last offset must equal the number of postings")
+    return CSRInvertedIndex(
+        postings_docs=out["docs"],
+        postings_impact=out["impacts"].to(torch.bfloat16),
+        offsets=out["offsets"], num_docs=int(np.asarray(arrays["num_docs"])))
 
 
 def _model_from_jax(model_cls, params, cfg: EncoderConfig, device: DeviceLike):

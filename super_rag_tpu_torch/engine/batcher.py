@@ -138,3 +138,14 @@ class QueryBatcher:
             "queries": self.queries,
             "avg_batch": round(self.queries / max(self.dispatches, 1), 2),
         }
+
+
+async def batched_search(services: dict, engine: Any, query: str,
+                         **params) -> list:
+    """Search through the services' ``QueryBatcher`` (key ``"batcher"``)
+    when there is one, else directly, so every request path coalesces
+    through the same batcher without knowing whether one is configured."""
+    batcher = services.get("batcher") if services else None
+    if batcher is not None:
+        return await batcher.search(engine, query, **params)
+    return engine.search(query, **params)

@@ -28,7 +28,7 @@ import torch
 from super_rag_tpu_torch.device import DeviceLike, resolve_device
 from super_rag_tpu_torch.ops.bm25 import LexicalCorpus, bm25_search
 from super_rag_tpu_torch.ops.bm25_inverted import (
-    build_inverted, inverted_bm25_search)
+    build_inverted, build_inverted_csr, inverted_bm25_search)
 from super_rag_tpu_torch.ops.dense import DenseCorpus, Metric, dense_search
 from super_rag_tpu_torch.ops.dense_topk import dense_topk
 from super_rag_tpu_torch.ops.hybrid import HybridResult, hybrid_search
@@ -64,10 +64,15 @@ class IndexSpec:
     vocab_size: int = 1 << 17
     min_capacity: int = 4096
     # lexical snapshot layout: "table" = fixed [V, P] impact-truncated
-    # postings; "csr" = full CSR (not ported yet); "auto" = csr from
-    # csr_auto_rows rows on, as in the JAX package
+    # postings (exact for small corpora, where P covers the runs); "csr" =
+    # every posting stored, the query budget the only truncation; "auto" =
+    # csr from csr_auto_rows rows on, as in the JAX package
     lex_tier: str = "auto"
     csr_auto_rows: int = 2_000_000
+    # doc-sharded CSR: C id-disjoint shards aggregate as C narrow sorts
+    # with exact results (ops/bm25_inverted.py CSRInvertedIndex); 1 =
+    # unsharded
+    csr_shards: int = 1
 
 
 @dataclass(frozen=True)
@@ -475,24 +480,31 @@ class DeviceIndex:
     @_locked
     def compact_lexical(self, postings_per_term: int = 256) -> None:
         """(Re)build the inverted lexical snapshot from the live rows, on
-        the index's device.  Dead rows are left out of the build (terms
-        padded, tf zeroed) so they cannot displace live postings."""
+        the index's device: the fixed table, or from ``csr_auto_rows`` rows
+        on (``lex_tier="auto"``) the full CSR postings.  Dead rows are left
+        out of the build (terms padded, tf zeroed) so they cannot displace
+        live postings."""
         n = self.size
         if n == 0:
             return
         tier = self.spec.lex_tier
         if tier == "auto":
             tier = "csr" if n >= self.spec.csr_auto_rows else "table"
-        if tier != "table":
-            raise NotImplementedError(
-                "CSR lexical tier: ROADMAP.md A2 (build_inverted_csr)")
         dead = ~self.valid[:n]
         terms = torch.where(dead[:, None], self.spec.vocab_size,
                             self.terms[:n])
         tfs = torch.where(dead[:, None], 0.0, self.tfs[:n].to(torch.float32))
-        self._inverted = build_inverted(
-            terms, tfs, self.doc_len[:n], self.spec.vocab_size,
-            postings_per_term=postings_per_term, avgdl=self.df.avgdl)
+        # the old snapshot's memory goes before the build's transients
+        self._inverted, self._inverted_upto = None, 0
+        if tier == "csr":
+            self._inverted = build_inverted_csr(
+                terms, tfs, self.doc_len[:n], self.spec.vocab_size,
+                avgdl=self.df.avgdl, shards=self.spec.csr_shards)
+        else:
+            self._inverted = build_inverted(
+                terms, tfs, self.doc_len[:n], self.spec.vocab_size,
+                postings_per_term=postings_per_term, avgdl=self.df.avgdl)
+        del terms, tfs  # 3.8 GB at 10M x 48 slots, freed before the calibration
         self._inverted_upto = n
         # the compaction cadence is also the per-tile cap's guard cadence
         # (on the card only: the plain version at corpus scale is slow)
@@ -577,14 +589,18 @@ class DeviceIndex:
         lex_deep_terms: int = 0,
         lex_deep_postings: Optional[int] = None,
         lex_approx_topk: bool = False,
+        lex_gen: Optional[int] = None,
     ) -> HybridResult:
         """Dense + BM25 + RRF over the whole index (ops/hybrid.py); uses the
-        inverted snapshot plus a doc-major fresh tail once compacted, and
-        the IVF snapshot when it covers every row.  On the card (capacity
-        >= 2048) the dense branch runs the kernels, with int8 queries for
-        int8 storage and the calibrated per-tile cap for deep candidate
-        lists.  ``lex_approx_topk`` is accepted for the reference's
-        contract; the port's top-k is exact either way."""
+        inverted snapshot (table or CSR) plus a doc-major fresh tail once
+        compacted, and the IVF snapshot when it covers every row.  On the
+        card (capacity >= 2048) the dense branch runs the kernels, with int8
+        queries for int8 storage and the calibrated per-tile cap for deep
+        candidate lists.  ``lex_approx_topk`` is accepted for the
+        reference's contract; the port's top-k is exact either way.
+        ``lex_gen`` (default ``2 * candidates``, the reference's) is the
+        lexical generation depth, which the reference's 10M configuration
+        sets on ``hybrid_search`` itself."""
         self._maybe_autocompact()
         qt, qi = self._query_arrays(queries, max_terms)
         if use_kernel is None:
@@ -610,7 +626,7 @@ class DeviceIndex:
             rescore=rescore, postings_per_query_term=postings_per_query_term,
             lex_deep_terms=lex_deep_terms,
             lex_deep_postings=lex_deep_postings,
-            lex_approx_topk=lex_approx_topk,
+            lex_approx_topk=lex_approx_topk, lex_gen=lex_gen,
             int8_queries=use_kernel and self.spec.dtype == torch.int8,
             device=self.device,
         )

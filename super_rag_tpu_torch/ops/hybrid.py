@@ -15,7 +15,7 @@ The stages run back to back on the query's device with no host sync.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -23,7 +23,7 @@ from super_rag_tpu_torch.device import DeviceLike, check_device
 from super_rag_tpu_torch.ops.bm25 import (
     LexicalCorpus, _bm25_block, _blocked_topk, _idf_table, _sat, clamp_avgdl)
 from super_rag_tpu_torch.ops.bm25_inverted import (
-    InvertedIndex, inverted_bm25_search)
+    CSRInvertedIndex, InvertedIndex, inverted_bm25_search)
 from super_rag_tpu_torch.ops.dense import (
     DenseCorpus, Metric, dense_search, normalize_queries)
 from super_rag_tpu_torch.ops.dense_topk import dense_topk
@@ -127,7 +127,7 @@ def hybrid_search(
     dense: Optional[DenseCorpus],
     lexical: Optional[LexicalCorpus],
     avgdl,
-    inverted: Optional[InvertedIndex] = None,
+    inverted: Optional[Union[InvertedIndex, CSRInvertedIndex]] = None,
     ivf: Optional[IVFIndex] = None,
     tail_lexical: Optional[LexicalCorpus] = None,
     tail_mask: Optional[torch.Tensor] = None,
@@ -173,7 +173,9 @@ def hybrid_search(
     ``dense_refine`` re-scores a deeper flat int8 pool with the corpus's
     error sign plane.  ``rescore`` (inverted path) re-scores the fused
     pool with exact BM25 before fusion; ``lex_gen`` deepens the lexical
-    generation (default ``2 * candidates``).
+    generation (default ``2 * candidates``).  ``inverted`` is the table or
+    the CSR tier (``ops/bm25_inverted.py``); the rest of the program is
+    the same for both.
 
     ``dense`` may be None when ``ivf`` serves the dense branch alone (no
     second flat copy of a large index); ``num_docs`` then gives the row

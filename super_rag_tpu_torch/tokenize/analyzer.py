@@ -1,11 +1,12 @@
 """Lexical analysis for the BM25 index (copy of
-the JAX package's tokenize/analyzer.py, pure-Python path).
+the JAX package's tokenize/analyzer.py).
 
 Terms hash (FNV-1a 32-bit) into a power-of-two vocabulary of buckets;
 each document becomes L (term_id, tf) slots padded with the reserved PAD
 bucket ``vocab_size``; CJK runs become character bigrams, Latin text
-``[a-z0-9_]+`` words.  The JAX package's native C++ analyzer is
-bit-identical to this path.
+``[a-z0-9_]+`` words.  ``batch_doc_entries`` takes the native C++
+analyzer (``tokenize/native.py``) for 8 or more texts; it is
+bit-identical to the Python path here.
 """
 
 from __future__ import annotations
@@ -91,8 +92,19 @@ class Analyzer:
         return terms, tfs, len(ids)
 
     def batch_doc_entries(
-        self, texts: Sequence[str], slots: int
+        self, texts: Sequence[str], slots: int, prefer_native: bool = True
     ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """``(terms [n, slots] int32, tfs [n, slots] f32, lens [n] f32)``.
+        Eight or more texts take the native analyzer (the ingest path's
+        hot loop) where it builds; otherwise, or with ``prefer_native``
+        off, the Python loop."""
+        if prefer_native and len(texts) >= 8:
+            from super_rag_tpu_torch.tokenize import native
+
+            out = native.batch_doc_entries(texts, slots, self.vocab_size,
+                                           self.use_stopwords)
+            if out is not None:
+                return out
         terms = np.full((len(texts), slots), self.pad_id, np.int32)
         tfs = np.zeros((len(texts), slots), np.float32)
         lens = np.zeros(len(texts), np.float32)

@@ -13,46 +13,24 @@ this is host tokenization, so where no compiler is available, or
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import logging
 import os
 import struct
-import subprocess
 import threading
 from typing import Optional, Sequence
 
 import numpy as np
 
+from super_rag_tpu_torch import _build
+
 logger = logging.getLogger(__name__)
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(HERE, "native", "bpe.cpp")
-_BUILD = os.path.join(HERE, "_build")
-_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _load_failed = False
-
-
-def _target() -> str:
-    digest = hashlib.sha256(" ".join(_FLAGS).encode())
-    with open(_SRC, "rb") as f:
-        digest.update(f.read())
-    return os.path.join(_BUILD, f"libbpe-{digest.hexdigest()[:16]}.so")
-
-
-def _build(out: str) -> bool:
-    os.makedirs(_BUILD, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    try:
-        subprocess.run(["g++", *_FLAGS, _SRC, "-o", tmp], check=True,
-                       capture_output=True, timeout=300)
-    except (subprocess.SubprocessError, FileNotFoundError) as e:
-        logger.warning("native bpe build failed: %s", e)
-        return False
-    os.replace(tmp, out)
-    return True
 
 
 def load() -> Optional[ctypes.CDLL]:
@@ -64,8 +42,8 @@ def load() -> Optional[ctypes.CDLL]:
     with _lock:
         if _lib is not None or _load_failed:
             return _lib
-        out = _target()
-        if not os.path.exists(out) and not _build(out):
+        out = _build.gxx_library(_SRC, "bpe")
+        if out is None:
             _load_failed = True
             return None
         try:

@@ -17,7 +17,7 @@ from super_rag_tpu_torch.engine.index import IndexSpec
 from super_rag_tpu_torch.models.hash_embedder import HashEmbedder
 from super_rag_tpu_torch.ops import dense_topk as dt
 from super_rag_tpu_torch.ops.dense import build_corpus
-from torch_parity import assert_topk_match
+from torch_parity import all_scores, assert_topk_match
 
 MODES = {"int8xint8": (torch.int8, True), "int8+bf16q": (torch.int8, False),
          "bf16": (torch.bfloat16, False), "f32": (torch.float32, False)}
@@ -521,3 +521,66 @@ def test_f32_encoder_and_cross_encoder_on_card_equal_their_cpu_run(card):
             assert ((got - want).abs() <= tol).all()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _csr_corpus(rows=20000, slots=24, vocab=1 << 12, seed=5):
+    """Zipfian doc-term table (duplicates in a row kept, pads, a dead
+    row), as the CSR tier's CPU parity tests draw it."""
+    rng = np.random.default_rng(seed)
+    terms = ((rng.zipf(1.3, size=(rows, slots)) - 1) % vocab).astype(np.int32)
+    tfs = np.minimum(rng.zipf(2.0, size=(rows, slots)), 8).astype(np.float32)
+    pad = rng.random((rows, slots)) < 0.2
+    terms[pad], tfs[pad] = vocab, 0.0
+    terms[3], tfs[3] = vocab, 0.0
+    doc_len = (tfs.sum(1) * 2.0 + 1.0).astype(np.float32)
+    return terms, tfs, doc_len, vocab
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [1, 16])
+def test_csr_build_on_card_equals_the_cpu_build(card, shards):
+    """build_inverted_csr on the card: docs, bf16 impact bits and offsets
+    equal the CPU build bit for bit (the CPU build equals the JAX
+    package's, tests/test_torch_csr.py)."""
+    from super_rag_tpu_torch.ops.bm25_inverted import build_inverted_csr
+
+    terms, tfs, dl, vocab = _csr_corpus()
+    args = [torch.from_numpy(a) for a in (terms, tfs, dl)]
+    cpu = build_inverted_csr(*args, vocab, shards=shards)
+    gpu = build_inverted_csr(*[a.to(card) for a in args], vocab, shards=shards)
+    assert gpu.postings_docs.device.type == "cuda"
+    assert torch.equal(gpu.postings_docs.cpu(), cpu.postings_docs)
+    assert torch.equal(gpu.postings_impact.cpu().view(torch.int16),
+                       cpu.postings_impact.view(torch.int16))
+    assert torch.equal(gpu.offsets.cpu(), cpu.offsets)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [1, 16])
+@pytest.mark.parametrize("budget", [dict(postings_per_query_term=64),
+                                    dict(postings_per_query_term=64, deep_terms=3,
+                                         deep_postings=2048)])
+def test_csr_search_on_card_equals_cpu(card, shards, budget):
+    """The CSR search on the card: the CPU's ids up to near-ties, scores
+    within 1e-6 (f64 run sums rounded once on either device)."""
+    from super_rag_tpu_torch.ops.bm25_inverted import (
+        build_inverted_csr, inverted_bm25_search)
+
+    terms, tfs, dl, vocab = _csr_corpus()
+    index = build_inverted_csr(*[torch.from_numpy(a) for a in (terms, tfs, dl)],
+                               vocab, shards=shards)
+    rng = np.random.default_rng(6)
+    qt = np.full((16, 8), vocab, np.int32)
+    for i, r in enumerate(rng.integers(0, len(terms), 16)):
+        u = [x for x in dict.fromkeys(terms[r].tolist()) if x != vocab][:8]
+        qt[i, :len(u)] = u
+    qi = np.where(qt < vocab, rng.random(qt.shape) + 0.5, 0.0).astype(np.float32)
+    mask = torch.from_numpy(rng.random(len(terms)) < 0.8)
+    q = (torch.from_numpy(qt), torch.from_numpy(qi))
+    cv, ci = inverted_bm25_search(*q, index, k=50, mask=mask, **budget)
+    on_card = type(index)(*(a.to(card) for a in index[:3]), index.num_docs)
+    gv, gi = inverted_bm25_search(*(a.to(card) for a in q), on_card, k=50,
+                                  mask=mask.to(card), **budget)
+    full = inverted_bm25_search(*q, index, k=len(terms), mask=mask, **budget)
+    assert_topk_match(cv, ci, gv.cpu(), gi.cpu(), rtol=1e-6, atol=1e-6,
+                      scores=all_scores(*full, len(terms)))

@@ -198,15 +198,26 @@ def test_kernel_path_matches_blocked_path_when_exact():
 
 
 def test_unported_tiers_raise():
-    """The IVF tier and dense_refine are ported (the tests below); the CSR
-    lexical tier is not yet, and its compaction says so."""
+    """Every tier is ported now: the IVF tier and dense_refine (the tests
+    below) and the CSR lexical tier, which the same index that once
+    raised here now builds and serves; at full coverage its search is the
+    doc-major result (the CSR parity tests are in test_torch_csr.py)."""
     from super_rag_tpu_torch.engine.index import DeviceIndex, IndexSpec
 
     idx = DeviceIndex(IndexSpec(dim=DIM, vocab_size=V, lex_tier="csr",
                                 min_capacity=256), device="cpu")
     idx.add(np.zeros((3, DIM), np.float32), ["a b", "b c", "c d"])
-    with pytest.raises(NotImplementedError, match="A2"):
-        idx.compact_lexical()
+    queries = ["b", "c d", "a d", "zzz"]
+    dv, di = idx.search_bm25(queries, 3)  # no snapshot yet: doc-major
+    idx.compact_lexical()
+    assert isinstance(idx._inverted, tinv.CSRInvertedIndex)
+    slots_used = int((idx.terms[:3] < V).sum())  # "a" is a stopword
+    assert idx._inverted_upto == 3
+    assert idx._inverted.postings_docs.shape == (slots_used,) == (5,)
+    cv, ci = idx.search_bm25(queries, 3)
+    np.testing.assert_array_equal(n(ci), n(torch.where(dv > 0, di, -1)))
+    np.testing.assert_allclose(n(cv), n(torch.where(dv > 0, dv, float("-inf"))),
+                               rtol=2.0 ** -8)
 
 
 def _ivf_pair(s, dtype, seed=35):

@@ -23,7 +23,10 @@ MODULES = [
     "super_rag_tpu_torch.models.tokenization", "super_rag_tpu_torch.models.subword",
     "super_rag_tpu_torch.models.encoder_service", "super_rag_tpu_torch.models.hf_loader",
     "super_rag_tpu_torch.models.image_embedder", "super_rag_tpu_torch.service",
-    "super_rag_tpu_torch.service.rerank_service", "chip_smoke", "tune_ivf_probe",
+    "super_rag_tpu_torch.service.rerank_service", "super_rag_tpu_torch.config",
+    "super_rag_tpu_torch.store", "super_rag_tpu_torch.store.objectstore",
+    "super_rag_tpu_torch.tokenize.native", "super_rag_tpu_torch.engine.manager",
+    "super_rag_tpu_torch.ops.bm25_inverted", "chip_smoke", "tune_ivf_probe",
 ]
 
 
@@ -64,10 +67,12 @@ def test_source_names_no_jax_import_or_jax_package_path():
                                    "dense_topk", "hybrid_search", "ivf_topk",
                                    "build_ivf_streaming", "EncoderService",
                                    "RerankService", "encoder_from_jax",
-                                   "cross_encoder_from_jax"])
+                                   "cross_encoder_from_jax", "csr_from_jax",
+                                   "EngineManager"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, monkeypatch):
     from super_rag_tpu_torch import convert, resolve_device
     from super_rag_tpu_torch.engine import CollectionEngine, DeviceIndex, IndexSpec
+    from super_rag_tpu_torch.engine.manager import EngineManager
     from super_rag_tpu_torch.models import HashEmbedder
     from super_rag_tpu_torch.models.encoder import EncoderConfig
     from super_rag_tpu_torch.models.encoder_service import EncoderService
@@ -102,6 +107,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, monkeypatch):
         "RerankService": lambda: RerankService(config=tiny),
         "encoder_from_jax": lambda: convert.encoder_from_jax({}, tiny),
         "cross_encoder_from_jax": lambda: convert.cross_encoder_from_jax({}, tiny),
+        "csr_from_jax": lambda: convert.csr_from_jax({}),
+        "EngineManager": lambda: EngineManager(),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
