@@ -64,14 +64,30 @@ Phases, each printing one line with its seconds:
      timed), snapshot to a LocalObjectStore, a fresh manager restores from
      the store alone and answers as the original, batched_search through a
      QueryBatcher equals direct searches;
-  11. a ``{"kernels": [...]}`` JSON line;
-  12. last line: ``{"ok": true, "device": {...}}``.
+  11. HTTP serving seam: the port's own App (HTTP server, auth, audit,
+     nodeflow, QueryBatcher, ThreadScheduler ingest) on the card at the
+     deployment's defaults, driven over a socket with http.client: the
+     [semantic] encoder and cross-encoder as checkpoints the port writes,
+     a bf16 collection (dense_topk's SIMT route) and an int8 one (its
+     tensor-core route), HTTP_DOCS markdown documents uploaded to each
+     by 8 clients (chunks/s to the last COMPLETE), 256 queries from one
+     client and from 64, with and without rerank (p50, p99, requests/s,
+     batcher dispatches), one request split into stages by wrapped
+     methods, and gates: a. statuses and sizes; b. every single-client
+     answer equals a direct search_batch + RerankService; c. no ERROR
+     record, every item reranked, the encoders on the card; d. each
+     dispatch launched dense_topk in the variant its kt selects, held
+     against its plain version at the largest served batch; e. a
+     deleted document leaves the search; f. a fresh App on the same
+     data directory answers as before the restart;
+  12. a ``{"kernels": [...]}`` JSON line;
+  13. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  There is no CPU path: without a
 CUDA device, or without the package beside it, it exits non-zero and
 prints no result.  Nothing is written under the repo except the kernel
-and analyzer libraries in super_rag_tpu_torch/_build/; the engine phase's
-snapshots go to a temporary directory that it removes.
+and analyzer libraries in super_rag_tpu_torch/_build/; the engine and
+HTTP phases' data go to temporary directories that they remove.
 """
 
 from __future__ import annotations
@@ -136,6 +152,20 @@ ENGINE_TEXTS = 65_536
 ENGINE_WORDS = 128
 ENGINE_INGEST_BATCH = 2048
 ENGINE_QUERIES = 64
+# the HTTP serving seam: the port's App at the deployment's defaults, each
+# collection fed HTTP_DOCS markdown documents of HTTP_SECTIONS sections (one
+# chunk each) of HTTP_WORDS zipfian words
+HTTP_DOCS = 32  # at 64 the phase ran past 120 s on an H100
+HTTP_SECTIONS = 512
+HTTP_WORDS = 96
+HTTP_UPLOADERS = 8
+HTTP_QUERIES = 256
+HTTP_CLIENTS = 64
+HTTP_TOP_K = 5
+HTTP_CANDIDATES = 100
+HTTP_STAGE_REQUESTS = 32
+HTTP_RESTART_QUERIES = 64
+HTTP_INGEST_TIMEOUT_S = 600.0
 SEM_ROWS = 1_000_000
 SEM_WORDS = 128  # words a row's text holds: every (query, row) pair fills 128 tokens
 SEM_CHUNKS = 65_536
@@ -1981,6 +2011,715 @@ def phase_engine(results: dict) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- the HTTP serving seam: the port's own app over a socket ------------------
+
+class _AppThread:
+    """The port's App on its own asyncio loop in a thread, as a deployment
+    runs it (``python -m super_rag_tpu_torch.app``) but stoppable."""
+
+    def __init__(self, cfg):
+        import threading
+
+        from super_rag_tpu_torch.app import App
+
+        self.loop = asyncio.new_event_loop()
+        self.app = None
+        self.error = None
+        ready = threading.Event()
+
+        def run():
+            asyncio.set_event_loop(self.loop)
+
+            async def boot():
+                try:
+                    self.app = App(cfg, background_tasks=True, device=DEVICE)
+                    await self.app.start(port=0)
+                except Exception as e:  # noqa: BLE001 — raised below
+                    self.error = e
+                ready.set()
+
+            self.loop.run_until_complete(boot())
+            if self.error is None:
+                self.loop.run_forever()
+            self.loop.close()
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+        if not ready.wait(300):
+            raise AssertionError("the app did not start in 300 s")
+        if self.error is not None:
+            raise self.error
+
+    def stop(self) -> None:
+        asyncio.run_coroutine_threadsafe(self.app.stop(), self.loop).result(300)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(60)
+        if self.thread.is_alive():
+            raise AssertionError("the app's thread did not stop")
+
+
+class _Client:
+    """One keep-alive HTTP/1.1 connection (the standard library's
+    http.client), JSON in and out."""
+
+    def __init__(self, port: int, token: str = ""):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        self.token = token
+
+    def call(self, method: str, path: str, body=None):
+        headers = {"Content-Type": "application/json"}
+        if self.token:
+            headers["Authorization"] = f"Bearer {self.token}"
+        data = None if body is None else json.dumps(body).encode()
+        self.conn.request(method, path, body=data, headers=headers)
+        resp = self.conn.getresponse()
+        payload = resp.read()
+        if (resp.getheader("Content-Type") or "").startswith("application/json"):
+            return resp.status, json.loads(payload)
+        return resp.status, payload.decode()
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def _expect(status, body, want: int, what: str):
+    if status != want:
+        raise AssertionError(f"{what}: HTTP {status}, expected {want}: {str(body)[:300]}")
+    return body
+
+
+def _login(port: int) -> str:
+    c = _Client(port)
+    try:
+        st, body = c.call("POST", "/api/v1/auth/login",
+                          {"username": "smoke", "password": "smoke-password"})
+        return _expect(st, body, 200, "login")["token"]
+    finally:
+        c.close()
+
+
+def _metrics(port: int, token: str) -> dict:
+    c = _Client(port, token)
+    try:
+        st, text = c.call("GET", "/metrics")
+    finally:
+        c.close()
+    _expect(st, text, 200, "metrics")
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("super_rag_batcher_"):
+            name, value = line.split()
+            out[name[len("super_rag_batcher_"):]] = float(value)
+    return out
+
+
+def _pctl(ms: list, q: float) -> float:
+    return float(np.percentile(np.asarray(ms), q))
+
+
+def http_corpus(gen) -> tuple[list, list]:
+    """HTTP_DOCS markdown documents, each a title and HTTP_SECTIONS
+    sections of HTTP_WORDS zipfian words (the [semantic] recipe: words
+    ``t<rank>``, a row's own words repeated by tf), and HTTP_QUERIES
+    distinct queries of discriminative words from random sections."""
+    from super_rag_tpu_torch.tokenize.analyzer import fnv1a32
+
+    n = HTTP_DOCS * HTTP_SECTIONS
+    ranks = ((_zipf(gen, 1.3, (n, SLOTS)) - 1) % VOCAB).to(torch.int32)
+    tfs = torch.clamp(_zipf(gen, 2.0, (n, SLOTS)), max=4)
+    paras = row_texts(ranks, tfs, HTTP_WORDS)
+    bucket_of_rank = torch.tensor([fnv1a32(f"t{r}") & (VOCAB - 1) for r in range(VOCAB)],
+                                  dtype=torch.int64, device=DEVICE)
+    terms = torch.sort(bucket_of_rank[ranks.long()], dim=1).values
+    first = torch.ones_like(terms, dtype=torch.bool)
+    first[:, 1:] = terms[:, 1:] != terms[:, :-1]
+    df_host = torch.bincount(terms[first], minlength=VOCAB).cpu().numpy()
+    queries = list(dict.fromkeys(make_query_texts(ranks, df_host, gen, 4 * HTTP_QUERIES)))
+    queries = [q for q in queries if q][:HTTP_QUERIES]
+    if len(queries) < HTTP_QUERIES:
+        raise AssertionError(f"only {len(queries)} distinct queries")
+    docs = []
+    for d in range(HTTP_DOCS):
+        body = "".join(f"## section {d}.{s}\n\n{paras[d * HTTP_SECTIONS + s].strip()}\n\n"
+                       for s in range(HTTP_SECTIONS))
+        docs.append((f"doc{d:03d}.md", f"# doc {d}\n\n{body}"))
+    return docs, queries
+
+
+class _Stages:
+    """Per-request stage times of the served search, by wrapping the
+    package's methods from outside (no timer lives in the package)."""
+
+    def __init__(self):
+        self.ms: dict = {}
+        self.patches = []
+
+    def _add(self, name: str, t0: float) -> None:
+        self.ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+
+    def wrap_async(self, cls, attr: str, name: str):
+        orig = getattr(cls, attr)
+
+        async def wrapped(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return await orig(*args, **kw)
+            finally:
+                self._add(name, t0)
+        self.patches.append(mock.patch.object(cls, attr, wrapped))
+
+    def wrap_sync(self, cls, attr: str, name: str, sync: bool = False):
+        orig = getattr(cls, attr)
+
+        def wrapped(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                out = orig(*args, **kw)
+                if sync:
+                    torch.cuda.synchronize()
+                return out
+            finally:
+                self._add(name, t0)
+        self.patches.append(mock.patch.object(cls, attr, wrapped))
+
+    def __enter__(self):
+        for p in self.patches:
+            p.start()
+        return self
+
+    def __exit__(self, *exc):
+        for p in reversed(self.patches):
+            p.stop()
+
+
+def _library_topk_bf16(q, values, scales, mask, n, tile, kt):
+    """Yardstick only, never used by the port: torch.matmul in bf16 (a
+    cuBLAS GEMM with f32 output) + the same epilogue + torch.topk per tile,
+    in chunks."""
+    b = q.shape[0]
+    num_tiles = -(-n // tile)
+    out_v = torch.empty((num_tiles, b, kt), dtype=torch.float32, device=DEVICE)
+    tiles_per_chunk = 32
+    for t0 in range(0, num_tiles, tiles_per_chunk):
+        t1 = min(num_tiles, t0 + tiles_per_chunk)
+        r0, r1 = t0 * tile, min(n, t1 * tile)
+        s = torch.matmul(q, values[r0:r1].T).to(torch.float32)
+        if scales is not None:
+            s = s * scales[None, r0:r1]
+        if mask is not None:
+            s = torch.where(mask[None, r0:r1], s, float("-inf"))
+        s = torch.nn.functional.pad(s, (0, (t1 - t0) * tile - (r1 - r0)),
+                                    value=float("-inf"))
+        out_v[t0:t1] = torch.topk(s.view(b, t1 - t0, tile), kt, dim=-1).values.transpose(0, 1)
+    return out_v
+
+
+def _served_kernel_row(args, launches: int, dispatches: int, hlog) -> dict:
+    """dense_topk at one served batch's shape: the kernel against its plain
+    version (bit for bit for int8 x int8, within _tolerance for bf16), and
+    the kernel, plain, library and bound times."""
+    from super_rag_tpu_torch.ops import dense_topk as dt
+
+    q, qs, values, scales, norms, mask, n, tile, kt = args
+    b, d = q.shape
+    kv, ki = dt.tile_topk(*args)
+    pv, pi = dt.tile_topk_plain(*args)
+    torch.cuda.synchronize()
+    exact = q.dtype == torch.int8
+    tol = 0.0 if exact else _tolerance(d, pv)
+    err = _compare(kv, ki, pv, pi, exact=exact, tol=tol,
+                   scores=None if exact else dt.plain_scores(*args[:6], 0, n))
+    k_ms = cuda_ms(lambda: dt.tile_topk(*args))
+    p_ms = cuda_ms(lambda: dt.tile_topk_plain(*args), reps=10)
+    keep = mask if mask is not None else torch.ones(n, dtype=torch.bool, device=DEVICE)
+    if exact:
+        lib_ms = cuda_ms(lambda: library_topk(*args[:4], keep, n, tile, kt), reps=10)
+        lib = "_int_mm + topk"
+    else:
+        lib_ms = cuda_ms(lambda: _library_topk_bf16(q, values, scales, keep, n, tile, kt),
+                         reps=10)
+        lib = "bf16 matmul + topk"
+    num_tiles = kv.shape[0]
+    esize = values.element_size()
+    nbytes = (n * d * esize + (n * 4 if scales is not None else 0) + n
+              + b * d * q.element_size() + (b * 4 if qs is not None else 0)
+              + num_tiles * b * kt * 8)
+    k_bound, k_by = bound_ms(nbytes, 2.0 * b * n * d,
+                             INT8_OPS_PER_S if exact else BF16_OPS_PER_S)
+    variant = dt.kernel_variant(dt._mode(q, values), kt, d)
+    hlog(f"dense_topk {variant} kernel vs plain at the served batch [num_tiles="
+         f"{num_tiles}, B={b}, D={d}, kt={kt}, {str(values.dtype)[6:]}]: "
+         f"{'bit-equal' if exact else f'within {tol:.3g}'} (max |diff| {err:.3g}); "
+         f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, library ({lib}) {lib_ms:.3f} ms, "
+         f"bound {k_bound:.4f} ms ({k_by}); {launches} launches over {dispatches} "
+         f"dispatches")
+    return {"launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": k_bound, "bound_by": k_by, "library_ms": lib_ms,
+            "batch": b, "dim": d, "kt": kt, "variant": variant,
+            "launches_per_dispatch": launches / max(dispatches, 1)}
+
+
+def phase_http(results: dict) -> None:
+    """The port's own App (HTTP server, auth, audit, nodeflow, QueryBatcher,
+    ThreadScheduler ingest) on the card, driven over a socket by the
+    standard library's http.client at the deployment's defaults: the
+    [semantic] encoder and cross-encoder (6 x 256, bf16, seeded weights
+    written as checkpoints by the port), two collections (the default
+    bf16 index: dense_topk's SIMT route; an int8 one: its tensor-core
+    route), HTTP_DOCS markdown documents uploaded to each by
+    HTTP_UPLOADERS clients; then searches from one client and from
+    HTTP_CLIENTS, with and without rerank, one request split into stages,
+    and gates a-f (statuses and sizes, served = direct, no degrade, the
+    kernel ran and matches its plain version, delete, restart)."""
+    import dataclasses
+    import logging
+    import shutil
+    import tempfile
+    import threading
+
+    from super_rag_tpu_torch.api.http import HttpServer
+    from super_rag_tpu_torch.config import Settings
+    from super_rag_tpu_torch.engine.batcher import QueryBatcher
+    from super_rag_tpu_torch.engine.collection import CollectionEngine
+    from super_rag_tpu_torch.engine.index import DeviceIndex
+    from super_rag_tpu_torch.models.encoder import flax_params
+    from super_rag_tpu_torch.models.encoder_service import EncoderService, save_params
+    from super_rag_tpu_torch.nodeflow.engine import NodeflowEngine
+    from super_rag_tpu_torch.ops import dense_topk as dt
+    from super_rag_tpu_torch.service.collection_service import CollectionService
+    from super_rag_tpu_torch.service.rerank_service import RerankService
+
+    card = results["card"]
+
+    def hlog(msg: str) -> None:
+        log(f"[http] {msg} (on {card})")
+
+    class _Errors(logging.Handler):
+        def __init__(self):
+            super().__init__(level=logging.ERROR)
+            self.records = []
+
+        def emit(self, record):
+            self.records.append(f"{record.name}: {record.getMessage()}")
+
+    errors = _Errors()
+    port_logger = logging.getLogger("super_rag_tpu_torch")
+    port_logger.addHandler(errors)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_http_")
+    apps: list = []
+    c = None
+    try:
+        # -- the deployment: checkpoints the port writes, Settings, the app
+        t0 = time.perf_counter()
+        cfg = semantic_config(torch.bfloat16)
+        enc = EncoderService(cfg, max_len=cfg.max_len, seed=SEED, device=DEVICE)
+        rr = RerankService(cfg, max_len=cfg.max_len, seed=SEED + 1, device=DEVICE)
+        save_params(flax_params(enc.model), os.path.join(tmp, "enc"), cfg)
+        save_params(flax_params(rr.model), os.path.join(tmp, "ce"), cfg)
+        del enc, rr
+        settings = dataclasses.replace(
+            Settings(), data_dir=os.path.join(tmp, "data"), port=0,
+            reranker_checkpoint=os.path.join(tmp, "ce"), ingest_backend="thread",
+            batch_max=64, default_top_k=HTTP_TOP_K, rerank_candidates=HTTP_CANDIDATES,
+            chunk_size=400, encoder_checkpoint="")
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+        docs, queries = http_corpus(gen)
+        srv = _AppThread(settings)
+        apps.append(srv)
+        port = srv.app.port
+        c = _Client(port)
+        _expect(*c.call("POST", "/api/v1/auth/register",
+                        {"username": "smoke", "password": "smoke-password"}), 201,
+                "register")
+        c.close()
+        token = _login(port)
+        c = _Client(port, token)
+        colls = {}
+        for name, extra in (("default", {}), ("int8", {"index_dtype": "int8"})):
+            config = {"embedding": {"provider": "onboard",
+                                    "model": os.path.join(tmp, "enc")}, **extra}
+            body = _expect(*c.call("POST", "/api/v1/collections",
+                                   {"title": name, "config": config}), 201,
+                           f"create collection {name}")
+            colls[name] = body["id"]
+        engines = {name: srv.app.ctx.engines.get(cid) for name, cid in colls.items()}
+        reranker = srv.app.ctx.reranker_for(srv.app.ctx.db.get_collection(
+            colls["default"])["config"])
+        for name, eng in engines.items():
+            if not (isinstance(eng.embedder, EncoderService)
+                    and eng.embedder.device.type == torch.device(DEVICE).type
+                    and eng.index.device.type == torch.device(DEVICE).type):
+                raise AssertionError(f"gate c: collection {name} embeds with "
+                                     f"{type(eng.embedder).__name__} on "
+                                     f"{getattr(eng.embedder, 'device', None)}")
+        if not (isinstance(reranker, RerankService)
+                and reranker.device.type == torch.device(DEVICE).type):
+            raise AssertionError(f"gate c: the reranker is {type(reranker).__name__}")
+        want_dtypes = {"default": torch.bfloat16, "int8": torch.int8}
+        for name, eng in engines.items():
+            if eng.index.spec.dtype != want_dtypes[name]:
+                raise AssertionError(f"collection {name} stores {eng.index.spec.dtype}")
+        hlog(f"App on port {port} (ThreadScheduler ingest, {settings.ingest_host_workers} "
+             f"host workers, batch_max {settings.batch_max}, top_k {HTTP_TOP_K}, rerank "
+             f"candidates {HTTP_CANDIDATES}, chunk_size {settings.chunk_size}); encoder and "
+             f"cross-encoder {cfg.num_layers} x {cfg.hidden_dim} ({cfg.num_heads} heads, MLP "
+             f"{cfg.mlp_dim}, max_len {cfg.max_len}, bf16) from checkpoints the port wrote "
+             f"(seeds {SEED}, {SEED + 1}); collections default (bf16 index) and int8; "
+             f"{len(docs)} documents x {HTTP_SECTIONS} sections of {HTTP_WORDS} words; set-up "
+             f"{time.perf_counter() - t0:.2f} s")
+
+        # -- ingest: HTTP_UPLOADERS clients upload; wait for every COMPLETE
+        ingest = {}
+        for name, cid in colls.items():
+            failures: list = []
+
+            def upload(mine):
+                uc = _Client(port, token)
+                try:
+                    for dname, text in mine:
+                        st, body = uc.call("POST", f"/api/v1/collections/{cid}/documents",
+                                           {"name": dname, "content": text})
+                        if st != 201:
+                            failures.append((dname, st, str(body)[:200]))
+                finally:
+                    uc.close()
+
+            t_first = time.perf_counter()
+            threads = [threading.Thread(target=upload, args=(docs[i::HTTP_UPLOADERS],))
+                       for i in range(HTTP_UPLOADERS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(HTTP_INGEST_TIMEOUT_S)
+            t_uploaded = time.perf_counter()
+            if failures or any(th.is_alive() for th in threads):
+                raise AssertionError(f"gate a: uploads to {name} failed: {failures[:3]}")
+            while True:
+                listing = _expect(*c.call("GET", f"/api/v1/collections/{cid}/documents"),
+                                  200, "list documents")
+                status = [d["status"] for d in listing]
+                if "FAILED" in status:
+                    raise AssertionError(f"a document of {name} FAILED: "
+                                         f"{[d for d in listing if d['status'] == 'FAILED'][:1]}")
+                if len(status) == len(docs) and set(status) == {"COMPLETE"}:
+                    break
+                if time.perf_counter() - t_first > HTTP_INGEST_TIMEOUT_S:
+                    raise AssertionError(f"ingest of {name} not complete after "
+                                         f"{HTTP_INGEST_TIMEOUT_S} s: {status.count('COMPLETE')}"
+                                         f" of {len(docs)}")
+                time.sleep(0.1)
+            wall = time.perf_counter() - t_first
+            chunks = engines[name].index.live_count
+            if chunks != len(docs) * HTTP_SECTIONS:
+                raise AssertionError(f"{name} holds {chunks} chunks, expected "
+                                     f"{len(docs) * HTTP_SECTIONS}")
+            ingest[name] = {"chunks": chunks, "s": wall, "chunks_per_s": chunks / wall}
+            hlog(f"ingest {name}: {len(docs)} documents ({chunks} chunks) through POST "
+                 f"/api/v1/collections/{{cid}}/documents from {HTTP_UPLOADERS} clients; "
+                 f"uploads answered in {t_uploaded - t_first:.3f} s, every document "
+                 f"COMPLETE after {wall:.3f} s: {chunks / wall:.0f} chunks/s (first upload "
+                 f"to last completion, polled every 0.1 s)")
+
+        # warm each collection once: its first search compacts the lexical
+        # index and calibrates the per-tile cap (not part of the timed runs)
+        for name, cid in colls.items():
+            _expect(*c.call("POST", f"/api/v1/collections/{cid}/searches",
+                            {"query": queries[0], "use_rerank": False}), 201, "warm-up")
+
+        # -- searches: one client, then HTTP_CLIENTS concurrent clients
+        served: dict = {}
+        runs: dict = {}
+        calls: dict = {}
+        real_tile_topk = dt.tile_topk
+
+        def largest(*args):
+            """dense_topk, keeping the arguments of the largest batch
+            served under the key ``calls["keep"]``."""
+            key = calls.get("keep")
+            if key is not None and args[0].shape[0] >= calls.get(
+                    key, (torch.empty(0),))[0].shape[0]:
+                calls[key] = args
+            return real_tile_topk(*args)
+
+        def delta(before: dict) -> dict:
+            after = _counts()
+            return {k: after[k] - before[k] for k in after}
+
+        _reset_counts()
+        with mock.patch.object(dt, "tile_topk", largest):
+            for name, cid in colls.items():
+                m0 = _metrics(port, token)
+                for rerank in (False, True):
+                    body = {"use_rerank": rerank, "top_k": HTTP_TOP_K}
+                    lat, items = [], []
+                    counts0 = _counts()
+                    for q in queries:
+                        t1 = time.perf_counter()
+                        st, out = c.call("POST", f"/api/v1/collections/{cid}/searches",
+                                         {**body, "query": q})
+                        lat.append((time.perf_counter() - t1) * 1e3)
+                        _expect(st, out, 201, "search")
+                        items.append(out["items"])
+                    served[(name, rerank)] = items
+                    m1 = _metrics(port, token)
+                    runs[(name, rerank, 1)] = {
+                        "p50": _pctl(lat, 50), "p99": _pctl(lat, 99),
+                        "dispatches": m1["dispatches"] - m0["dispatches"],
+                        "queries": m1["queries"] - m0["queries"],
+                        "launches": delta(counts0)}
+                    m0 = m1
+
+                    per = HTTP_QUERIES // HTTP_CLIENTS
+                    clat: list = []
+                    cfail: list = []
+                    calls["keep"] = (name, rerank)
+                    counts0 = _counts()
+                    barrier = threading.Barrier(HTTP_CLIENTS + 1)
+
+                    def client(k):
+                        cc = _Client(port, token)
+                        try:
+                            barrier.wait()
+                            for q in queries[k * per:(k + 1) * per]:
+                                t1 = time.perf_counter()
+                                st, out = cc.call("POST",
+                                                  f"/api/v1/collections/{cid}/searches",
+                                                  {**body, "query": q})
+                                clat.append((time.perf_counter() - t1) * 1e3)
+                                if st != 201 or len(out["items"]) != HTTP_TOP_K:
+                                    cfail.append((st, str(out)[:200]))
+                        finally:
+                            cc.close()
+
+                    threads = [threading.Thread(target=client, args=(k,))
+                               for k in range(HTTP_CLIENTS)]
+                    for th in threads:
+                        th.start()
+                    barrier.wait()
+                    t1 = time.perf_counter()
+                    for th in threads:
+                        th.join(600)
+                    cwall = time.perf_counter() - t1
+                    if cfail or any(th.is_alive() for th in threads):
+                        raise AssertionError(f"gate a: concurrent searches failed: {cfail[:3]}")
+                    m1 = _metrics(port, token)
+                    runs[(name, rerank, HTTP_CLIENTS)] = {
+                        "p50": _pctl(clat, 50), "p99": _pctl(clat, 99),
+                        "rps": len(clat) / cwall,
+                        "dispatches": m1["dispatches"] - m0["dispatches"],
+                        "queries": m1["queries"] - m0["queries"],
+                        "launches": delta(counts0)}
+                    m0 = m1
+                    calls["keep"] = None
+        torch.cuda.synchronize()
+        for (name, rerank, clients), r in sorted(runs.items()):
+            extra = (f", {r['rps']:.1f} requests/s" if clients > 1 else "")
+            launched = {k: v for k, v in r["launches"].items() if v}
+            hlog(f"search {name} use_rerank={rerank}, {clients} client(s), "
+                 f"{HTTP_QUERIES} requests: p50 {r['p50']:.3f} ms, p99 {r['p99']:.3f} ms"
+                 f"{extra}; batcher {r['dispatches']:.0f} dispatches, average batch "
+                 f"{r['queries'] / max(r['dispatches'], 1):.2f}; launches {launched}")
+
+        # gate a (sizes) and c (every served item reranked)
+        for (name, rerank), items in ((k, v) for k, v in served.items()
+                                      if isinstance(k[1], bool)):
+            for q, its in zip(queries, items):
+                if len(its) != HTTP_TOP_K:
+                    raise AssertionError(f"gate a: {name} answered {len(its)} items "
+                                         f"for {q!r}")
+                if any(it["recall_type"] != "reranked" for it in its):
+                    raise AssertionError(f"gate c: {name} rerank={rerank}: an item is "
+                                         f"not reranked for {q!r}")
+
+        # gate d: in every run each dispatch launched dense_topk, in the
+        # variant its kt selects: SIMT on the bf16 collection; the tensor
+        # cores on the int8 one while kt <= TC_MAX_KT (the kt of a
+        # reranked request follows the per-tile cap that compaction
+        # calibrated on this collection's data)
+        variants = {}
+        for (name, rerank, clients), r in runs.items():
+            q, _, values, *_, kt = calls[(name, rerank)]
+            variant = "dense_topk_" + dt.kernel_variant(dt._mode(q, values), kt, q.shape[1])
+            variants[(name, rerank)] = (variant, kt)
+            if name == "default" and variant != "dense_topk_simt":
+                raise AssertionError(f"gate d: the bf16 collection took {variant}")
+            if name == "int8" and not rerank and variant != "dense_topk_tc":
+                raise AssertionError(f"gate d: the int8 collection took {variant} at kt {kt}")
+            if r["launches"][variant] < r["dispatches"] or r["dispatches"] < 1:
+                raise AssertionError(f"gate d: {name} rerank={rerank} {clients} client(s): "
+                                     f"{r['launches']} over {r['dispatches']} dispatches")
+        hlog("gate d: every dispatch launched dense_topk: " + "; ".join(
+            f"{n_} use_rerank={rr_} {v[len('dense_topk_'):]} at kt {kt} (per-tile cap "
+            f"{engines[n_].index._per_tile_k})" for (n_, rr_), (v, kt) in variants.items()))
+
+        # gate b: each single-client answer equals a direct call on the same
+        # engine: search_batch(hybrid) of the flow's recall depth, then the
+        # RerankService over those candidates -> top_k
+        worst = 0.0
+        for name in colls:
+            eng = engines[name]
+            for rerank in (False, True):
+                depth = HTTP_CANDIDATES if rerank else HTTP_TOP_K
+                for q, its in zip(queries, served[(name, rerank)]):
+                    cand = eng.search_batch([q], mode="hybrid", top_k=depth,
+                                            candidates=depth)[0]
+                    scores = np.asarray(reranker(q, [h.text for h in cand]))
+                    order = np.argsort(-scores)[:HTTP_TOP_K]
+                    want = [(cand[int(i)].metadata["document_id"], cand[int(i)].row,
+                             "reranked") for i in order]
+                    got = [(it["metadata"]["document_id"], it["metadata"]["row"],
+                            it["recall_type"]) for it in its]
+                    if got != want:
+                        raise AssertionError(f"gate b: {name} rerank={rerank}: served "
+                                             f"{got} != direct {want} for {q!r}")
+                    worst = max(worst, _close(torch.tensor([it["score"] for it in its]),
+                                              torch.tensor([float(scores[int(i)])
+                                                            for i in order]), 2e-2))
+        hlog(f"gate b: all {4 * HTTP_QUERIES} single-client answers equal a direct "
+             f"search_batch + RerankService in-process (items, rows, recall types; "
+             f"scores within {worst:.3g} (1 + |s|), limit 2e-2)")
+
+        # the kernel at the largest served batch of each run, against its
+        # plain version; the kernel rows are the unreranked requests' (the
+        # int8 collection's tensor-core route)
+        for (name, rerank), (variant, _) in variants.items():
+            mine = [r for (n_, rr_, _), r in runs.items() if n_ == name and rr_ == rerank]
+            row = _served_kernel_row(calls[(name, rerank)],
+                                     sum(r["launches"][variant] for r in mine),
+                                     sum(r["dispatches"] for r in mine), hlog)
+            if not rerank:
+                results[f"dense_topk_http_{'bf16' if name == 'default' else 'int8'}"] = row
+
+        # -- one reranked request split into stages, by wrapped methods
+        stage_rows = {}
+        for name, cid in colls.items():
+            st_ = _Stages()
+            st_.wrap_async(HttpServer, "_dispatch", "dispatch")
+            st_.wrap_async(CollectionService, "execute_search", "execute_search")
+            st_.wrap_async(NodeflowEngine, "execute_nodeflow", "nodeflow")
+            st_.wrap_async(QueryBatcher, "search", "batcher")
+            st_.wrap_sync(CollectionEngine, "search_batch", "search_batch")
+            st_.wrap_sync(CollectionEngine, "_embed", "embed", sync=True)
+            st_.wrap_sync(DeviceIndex, "search_hybrid", "search_hybrid", sync=True)
+            st_.wrap_sync(RerankService, "__call__", "rerank")
+            client_ms = []
+            with st_:
+                for q in queries[:HTTP_STAGE_REQUESTS]:
+                    t1 = time.perf_counter()
+                    _expect(*c.call("POST", f"/api/v1/collections/{cid}/searches",
+                                    {"query": q}), 201, "staged search")
+                    client_ms.append((time.perf_counter() - t1) * 1e3)
+            ms = {k: np.asarray(v) for k, v in st_.ms.items()}
+            ms["client"] = np.asarray(client_ms)
+            if any(len(v) != HTTP_STAGE_REQUESTS for v in ms.values()):
+                raise AssertionError(f"stage counts {({k: len(v) for k, v in ms.items()})}")
+            split = {
+                "client total": ms["client"],
+                "HTTP + client (outside the handler)": ms["client"] - ms["dispatch"],
+                "route + auth + audit + sqlite": ms["dispatch"] - ms["execute_search"],
+                "service set-up (collection, reranker)": ms["execute_search"] - ms["nodeflow"],
+                "nodeflow (engine, templates, models)": (ms["nodeflow"] - ms["batcher"]
+                                                         - ms["rerank"]),
+                "batcher wait": ms["batcher"] - ms["search_batch"],
+                "device search (search_batch)": ms["search_batch"],
+                "  embed (query encoder)": ms["embed"],
+                "  search_hybrid (dense_topk + BM25 + RRF)": ms["search_hybrid"],
+                "  hits (host)": ms["search_batch"] - ms["embed"] - ms["search_hybrid"],
+                "rerank (CrossEncoder, 100 pairs)": ms["rerank"],
+            }
+            stage_rows[name] = {k: float(np.median(v)) for k, v in split.items()}
+            hlog(f"stages of one served request ({name}, use_rerank=True, median of "
+                 f"{HTTP_STAGE_REQUESTS}): " + "; ".join(
+                     f"{k.strip()} {v:.3f} ms" for k, v in stage_rows[name].items()))
+
+        # -- gate e: a deleted document's rows leave the search
+        cid = colls["default"]
+        q0 = next(q for q, its in zip(queries, served[("default", False)]) if its)
+        first = _expect(*c.call("POST", f"/api/v1/collections/{cid}/searches",
+                                {"query": q0, "use_rerank": False}), 201, "search")
+        did = first["items"][0]["metadata"]["document_id"]
+        _expect(*c.call("DELETE", f"/api/v1/documents/{did}"), 204, "delete")
+        right_after = _expect(*c.call("POST", f"/api/v1/collections/{cid}/searches",
+                                      {"query": q0, "use_rerank": False}), 201, "search")
+        stale = sum(it["metadata"]["document_id"] == did for it in right_after["items"])
+        t1 = time.perf_counter()
+        if not srv.app.ctx.scheduler.wait_idle(120):
+            raise AssertionError("gate e: the delete task did not drain")
+        drained_ms = (time.perf_counter() - t1) * 1e3
+        hits_of_did = [q for q, its in zip(queries, served[("default", True)])
+                       if any(it["metadata"]["document_id"] == did for it in its)]
+        for q in [q0] + hits_of_did[:16]:
+            out = _expect(*c.call("POST", f"/api/v1/collections/{cid}/searches",
+                                  {"query": q}), 201, "search")
+            if any(it["metadata"]["document_id"] == did for it in out["items"]):
+                raise AssertionError(f"gate e: deleted document {did} still served for {q!r}")
+        _expect(*c.call("GET", f"/api/v1/documents/{did}"), 404, "deleted document")
+        hlog(f"gate e: DELETE /api/v1/documents/{{did}} answered 204; the search right "
+             f"after it still held {stale} of its rows (the ThreadScheduler deletes on "
+             f"its device worker; drained {drained_ms:.1f} ms later); after the drain "
+             f"none of its rows is served for {1 + len(hits_of_did[:16])} queries that "
+             f"had them")
+
+        # -- gate f: stop (snapshot), a fresh App on the same data_dir
+        restart_q = queries[:HTTP_RESTART_QUERIES]
+        before = {}
+        for name, cid in colls.items():
+            before[name] = [_expect(*c.call("POST", f"/api/v1/collections/{cid}/searches",
+                                            {"query": q}), 201, "search")["items"]
+                            for q in restart_q]
+        c.close()
+        t1 = time.perf_counter()
+        srv.stop()
+        apps.remove(srv)
+        stop_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        srv = _AppThread(settings)
+        apps.append(srv)
+        start_s = time.perf_counter() - t1
+        port = srv.app.port
+        token = _login(port)
+        c = _Client(port, token)
+        worst = 0.0
+        first_ms = None
+        for name, cid in colls.items():
+            for q, want in zip(restart_q, before[name]):
+                t1 = time.perf_counter()
+                got = _expect(*c.call("POST", f"/api/v1/collections/{cid}/searches",
+                                      {"query": q}), 201, "search after restart")["items"]
+                if first_ms is None:
+                    first_ms = (time.perf_counter() - t1) * 1e3
+                key = lambda its: [(it["metadata"]["document_id"], it["metadata"]["row"],  # noqa: E731
+                                    it["recall_type"]) for it in its]
+                if key(got) != key(want):
+                    raise AssertionError(f"gate f: {name} after restart {key(got)} != "
+                                         f"{key(want)} for {q!r}")
+                worst = max(worst, _close(torch.tensor([it["score"] for it in got]),
+                                          torch.tensor([it["score"] for it in want]), 2e-2))
+        c.close()
+        hlog(f"gate f: App.stop() (snapshots) {stop_s:.3f} s; a fresh App on the same "
+             f"data_dir started in {start_s:.3f} s and, after a new login, answered "
+             f"{len(colls) * len(restart_q)} searches with the same items (first request "
+             f"{first_ms:.3f} ms; scores within {worst:.3g} (1 + |s|), limit 2e-2)")
+
+        # gate c: no degrade anywhere in the phase
+        if errors.records:
+            raise AssertionError(f"gate c: {len(errors.records)} ERROR records: "
+                                 f"{errors.records[:3]}")
+        results["http"] = {"ingest": ingest, "runs": {f"{k[0]}/rerank={k[1]}/clients={k[2]}": v
+                                                      for k, v in runs.items()},
+                           "stages": stage_rows}
+        hlog("gates a-f passed; no ERROR record from the port's loggers")
+    finally:
+        if c is not None:
+            c.close()  # the server's stop waits for its open connections
+        for app in apps:
+            app.stop()
+        port_logger.removeHandler(errors)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script has no CPU path",
@@ -2064,6 +2803,11 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_engine(results)
     log(f"[engine] phase in {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    phase_http(results)
+    log(f"[http] phase in {time.perf_counter() - t0:.2f} s (on {smi})")
 
     source = "super_rag_tpu_torch/csrc/"
     kernels = {"kernels": [
@@ -2075,6 +2819,10 @@ def main() -> int:
          "replaces": "super_rag_tpu/ops/pallas_ivf.py:93", **results["ivf_union"]},
         {"name": "ivf_probe", "route": "cuda", "source": source + "ivf_scan.cu",
          "replaces": "super_rag_tpu/ops/pallas_ivf.py:48", **results["ivf_probe"]},
+        *({"name": f"dense_topk_http_{t}", "route": "cuda",
+           "source": source + "dense_topk.cu",
+           "replaces": "super_rag_tpu/ops/pallas_topk.py:36",
+           **results[f"dense_topk_http_{t}"]} for t in ("bf16", "int8")),
     ]}
     log(f"[done] wall {time.perf_counter() - t_start:.2f} s")
     log(json.dumps(kernels))

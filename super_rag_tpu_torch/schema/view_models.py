@@ -1,0 +1,127 @@
+"""API contract models of the serving seam (port of the JAX package's
+schema/view_models.py, the models that the ported routes parse).
+
+Routes parse inbound payloads through these, so an invalid body fails
+with a 422 whose text is the first error's location and message, word
+for word as the JAX package's pydantic models give it.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Literal, Optional
+
+from super_rag_tpu_torch.schema.model import Field, Model, ValidationError, field_validator
+
+# -- model / collection configuration -----------------------------------------
+
+
+class ModelSpec(Model):
+    """Which provider/model serves an api for a collection."""
+
+    provider: str = ""
+    model: str = ""
+    dim: Optional[int] = None  # embeddings only; None = probe/default
+
+
+class KGEntityType(Model):
+    """One custom knowledge-graph entity type."""
+
+    name: str = Field(min_length=1, max_length=64)
+    description: str = Field(default="", max_length=300)
+    pattern: Optional[str] = Field(default=None, max_length=300)
+
+
+class CollectionConfig(Model):
+    """Per-collection JSON config (stored in collection.config)."""
+
+    metric: Literal["cosine", "ip", "l2"] = "cosine"
+    index_dtype: Literal["float32", "bfloat16", "int8"] = "bfloat16"
+    bm25_slots: int = Field(default=64, ge=8, le=512)
+    vocab_size: int = Field(default=1 << 17, ge=1 << 10)
+    enable_summary: bool = False
+    enable_vision: bool = False
+    enable_knowledge_graph: bool = False
+    kg_entity_types: list[KGEntityType] = Field(default_factory=list)
+    embedding: Optional[ModelSpec] = None
+    completion: Optional[ModelSpec] = None
+    rerank: Optional[ModelSpec] = None
+
+    @field_validator("vocab_size")
+    @classmethod
+    def _pow2(cls, v: int) -> int:
+        if v & (v - 1) != 0:
+            raise ValueError("vocab_size must be a power of two")
+        return v
+
+
+class CollectionCreate(Model):
+    title: str = Field(min_length=1, max_length=256)
+    description: str = ""
+    config: CollectionConfig = Field(default_factory=CollectionConfig)
+
+
+class CollectionUpdate(Model):
+    title: Optional[str] = Field(default=None, min_length=1, max_length=256)
+    description: Optional[str] = None
+    config: Optional[CollectionConfig] = None
+
+
+# -- documents -----------------------------------------------------------------
+
+
+class DocumentUpload(Model):
+    name: str = Field(min_length=1, max_length=512)
+    content: Optional[str] = None
+    content_base64: Optional[str] = None
+    metadata: dict = Field(default_factory=dict)
+    chat_id: Optional[str] = None
+
+
+# -- search ---------------------------------------------------------------------
+
+
+class SearchRequest(Model):
+    """POST /collections/{id}/searches body."""
+
+    query: str = Field(min_length=1)
+    top_k: int = Field(default=5, ge=1, le=100)
+    similarity_threshold: Optional[float] = Field(default=0.2, ge=-1.0, le=1.0)
+    use_fulltext: bool = True
+    use_graph: bool = False
+    use_rerank: bool = True
+    chat_id: Optional[str] = None
+
+
+class MultiSearchRequest(Model):
+    query: str = Field(min_length=1)
+    collection_ids: list[str] = Field(min_length=1)
+    top_k: int = Field(default=5, ge=1, le=100)
+    use_rerank: bool = True
+    chat_id: Optional[str] = None
+
+
+# -- auth ---------------------------------------------------------------------------
+
+
+class RegisterRequest(Model):
+    username: str = Field(min_length=1, max_length=64)
+    password: str = Field(min_length=8, max_length=256)
+    email: str = ""
+
+
+class LoginRequest(Model):
+    username: str
+    password: str
+
+
+def parse_body(model: type[Model], data: Any):
+    """Validate a request body against a contract model; raises the
+    router's 422 with the first error's location and message."""
+    from super_rag_tpu_torch.api.http import HttpError
+
+    try:
+        return model(**(data or {}))
+    except ValidationError as e:
+        first = e.errors()[0]
+        loc = ".".join(str(x) for x in first["loc"])
+        raise HttpError(422, f"{loc}: {first['msg']}") from e

@@ -1,0 +1,188 @@
+"""AppContext: wires the port's subsystems together (port of the JAX
+package's service/context.py).
+
+One explicit context object owns the metadata db, object store, engine
+manager, task scheduler, reconciler, auth and query batcher, constructed
+once per process (or per test) and handed to services and routes.
+``device`` reaches every model and engine the context builds; ``None``
+means the CUDA card, which raises without one unless ``"cpu"`` is named.
+
+What the JAX package resolves through remote model providers
+(``llm/resolver.py``) is not ported yet (ROADMAP A6): a collection whose
+``embedding`` or ``rerank`` spec names a provider other than ``"onboard"``
+raises ``NotImplementedError`` instead of quietly getting the hash
+embedder, the knowledge-graph service and the completion client are
+``None``, and the process and Ray ingest backends are refused.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from dataclasses import dataclass
+from typing import Optional
+
+from super_rag_tpu_torch.api.auth import Auth
+from super_rag_tpu_torch.config import Settings, settings as default_settings
+from super_rag_tpu_torch.device import DeviceLike, resolve_device
+from super_rag_tpu_torch.engine.batcher import QueryBatcher
+from super_rag_tpu_torch.engine.manager import EngineManager
+from super_rag_tpu_torch.models.encoder_service import EncoderService
+from super_rag_tpu_torch.models.hash_embedder import HashEmbedder
+from super_rag_tpu_torch.service.rerank_service import RerankService
+from super_rag_tpu_torch.store.db import Database
+from super_rag_tpu_torch.store.objectstore import LocalObjectStore, ObjectStore
+from super_rag_tpu_torch.tasks.document import DocumentIndexTask
+from super_rag_tpu_torch.tasks.reconciler import DocumentIndexReconciler
+from super_rag_tpu_torch.tasks.scheduler import InProcessScheduler, TaskScheduler, ThreadScheduler
+
+logger = logging.getLogger(__name__)
+
+
+def check_provider(config: dict, api: str) -> str:
+    """The provider a collection config names for ``api``; raises for
+    one the port cannot serve yet."""
+    provider = ((config or {}).get(api) or {}).get("provider") or ""
+    if provider and provider != "onboard":
+        raise NotImplementedError(
+            f"{api} provider {provider!r}: remote model providers are not "
+            "ported to the PyTorch port yet (ROADMAP A6); use 'onboard'")
+    return provider
+
+
+@dataclass
+class AppContext:
+    cfg: Settings
+    db: Database
+    objects: ObjectStore
+    engines: EngineManager
+    reconciler: DocumentIndexReconciler
+    scheduler: TaskScheduler
+    auth: Auth
+    kg: Optional[object] = None  # knowledge-graph service: not ported yet
+    completion: Optional[object] = None  # LLM client: not ported yet
+    reranker: Optional[object] = None  # callable (query, texts) -> scores
+    batcher: Optional[QueryBatcher] = None
+    reranker_factory_fn: Optional[object] = None
+
+    def reranker_for(self, config: Optional[dict] = None):
+        """Per-collection reranker, resolved at search time so that a
+        retrained checkpoint is picked up without a restart."""
+        fac = self.reranker_factory_fn
+        if fac is None:
+            return self.reranker
+        check_provider(config or {}, "rerank")
+        try:
+            return fac(config or {}) or self.reranker
+        except Exception:  # noqa: BLE001 — rerank is optional, never fatal
+            logger.exception("reranker resolution failed; rerank disabled")
+            return self.reranker
+
+    def services_for_nodeflow(self) -> dict:
+        return {
+            "engines": self.engines,
+            "db": self.db,
+            "kg": self.kg,
+            "completion": self.completion,
+            "reranker": self.reranker_for({}),
+            "batcher": self.batcher,
+        }
+
+
+def build_context(
+    cfg: Optional[Settings] = None,
+    background_tasks: bool = False,
+    device: DeviceLike = None,
+) -> AppContext:
+    cfg = cfg or default_settings
+    device = resolve_device(device)
+    if cfg.object_store_type != "local":
+        raise NotImplementedError(
+            f"object store {cfg.object_store_type!r}: only the local store is "
+            "ported to the PyTorch port yet (ROADMAP A6)")
+    if background_tasks and cfg.ingest_backend != "thread":
+        raise NotImplementedError(
+            f"ingest backend {cfg.ingest_backend!r}: only 'thread' is ported to "
+            "the PyTorch port yet (ROADMAP A6)")
+    db = Database(cfg.resolved_db_path())
+    objects = LocalObjectStore(cfg.objects_root())
+
+    def embedder_factory(config: dict):
+        spec = config.get("embedding", {}) or {}
+        if check_provider(config, "embedding") == "onboard":
+            # the on-device encoder; model = checkpoint path, or empty for
+            # a fresh random-init encoder
+            ckpt = spec.get("model", "")
+            try:
+                if ckpt and os.path.exists(ckpt + ".npz"):
+                    return EncoderService.from_checkpoint(ckpt, device=device)
+                if ckpt and os.path.isdir(ckpt):
+                    return EncoderService.from_hf_checkpoint(ckpt, device=device)
+                return EncoderService(device=device)
+            except Exception:  # noqa: BLE001 — fall through to hash
+                logger.exception(
+                    "onboard encoder load failed; using hash embedder"
+                )
+        dim = int(spec.get("dim", cfg.embedding_dim))
+        # a trained encoder checkpoint (SUPER_RAG_ENCODER_CKPT) beats the
+        # hash embedder as the no-provider default
+        ckpt = cfg.encoder_checkpoint
+        if ckpt and os.path.exists(ckpt + ".npz"):
+            try:
+                svc = EncoderService.from_checkpoint(ckpt, device=device)
+                if svc.cfg.out_dim == dim:
+                    return svc
+            except Exception:  # noqa: BLE001 — fall through to hash
+                logger.exception(
+                    "default encoder checkpoint load failed; using hash"
+                )
+        return HashEmbedder(dim=dim, device=device)
+
+    # reranker_for() resolves at search time, so the cross-encoder is
+    # cached here keyed on (path, mtime): a retrained checkpoint is picked
+    # up without a restart but not reloaded per search
+    _ce_cache: dict = {}
+
+    def reranker_factory(config: dict):
+        check_provider(config, "rerank")
+        # a trained cross-encoder checkpoint (SUPER_RAG_RERANKER_CKPT)
+        # serves as the default reranker
+        ckpt = cfg.reranker_checkpoint
+        if ckpt and os.path.exists(ckpt + ".npz"):
+            try:
+                key = (ckpt, os.path.getmtime(ckpt + ".npz"))
+                svc = _ce_cache.get(key)
+                if svc is None:
+                    _ce_cache.clear()  # at most one live checkpoint
+                    svc = RerankService.from_checkpoint(ckpt, device=device)
+                    _ce_cache[key] = svc
+                return svc
+            except Exception:  # noqa: BLE001 — rerank is optional
+                logger.exception(
+                    "reranker checkpoint load failed; rerank disabled"
+                )
+        return None
+
+    engines = EngineManager(cfg, embedder_factory=embedder_factory,
+                            reranker_factory=reranker_factory, device=device)
+    if cfg.snapshot_to_object_store:
+        engines.snapshot_store = objects
+    task = DocumentIndexTask(db, objects, engines, cfg)
+    reconciler = DocumentIndexReconciler(db)
+    if background_tasks:
+        scheduler: TaskScheduler = ThreadScheduler(
+            task, reconciler.callbacks, host_workers=cfg.ingest_host_workers)
+    else:
+        scheduler = InProcessScheduler(task, reconciler.callbacks)
+    reconciler.scheduler = scheduler
+    auth = Auth(db, cfg.jwt_secret, cfg.jwt_ttl_hours,
+                oauth_providers=cfg.oauth_providers())
+    batcher = QueryBatcher(max_batch=cfg.batch_max,
+                           max_wait_ms=cfg.batch_window_ms)
+    ctx = AppContext(
+        cfg=cfg, db=db, objects=objects, engines=engines,
+        reconciler=reconciler, scheduler=scheduler, auth=auth,
+        batcher=batcher, reranker_factory_fn=reranker_factory,
+    )
+    task.ctx = ctx  # the index task reaches the context's services
+    return ctx

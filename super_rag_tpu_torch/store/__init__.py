@@ -1,2 +1,2 @@
-"""Storage backends of the PyTorch port (the object store for documents
-and index snapshots)."""
+"""Storage of the PyTorch port: the object store for documents and index
+snapshots, and the sqlite metadata store."""
