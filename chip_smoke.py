@@ -8,17 +8,20 @@ Phases, each printing one line with its seconds:
   2. build: nvcc builds the kernels from super_rag_tpu_torch/csrc;
   3. kernel vs plain version at small shapes, every mode (int8 x int8 must
      match bit for bit, the float modes within a stated tolerance), for
-     the dense top-k (both variants: int8 tensor cores at kt <= 8, SIMT
-     above and for float queries) and both IVF kernels; prints the ptxas
-     report (registers, shared memory, spills) of every kernel built;
+     the dense top-k (all three variants: the sorted-selection tensor-core
+     kernel for int8 and bf16 queries at kt <= 128, split tiles included;
+     the int8 register-list kernel at kt <= 8; SIMT above the cap and for
+     f32), each launch checked against the variant and mode counters, and
+     both IVF kernels; prints the ptxas report (registers, shared memory,
+     spills) of every kernel built;
   4. full size: 1M x 768 int8 corpus + 64-slot zipfian BM25 table made on
      the card from a seed, DeviceIndex + compact_lexical, then
      search_hybrid at batch 512 (the tensor-core kernel launched and held
      bit for bit against its plain version, the hybrid result against the
      same path on the plain version, the dense top-10 against an exact
-     f32 search: recall >= 0.9), and timings of the kernel, the SIMT
-     kernel on the same inputs, the plain version, a library yardstick,
-     the whole search_hybrid batch and its stages;
+     f32 search: recall >= 0.9), and timings of the kernel, the SIMT and
+     sorted-selection kernels on the same inputs, the plain version, a
+     library yardstick, the whole search_hybrid batch and its stages;
   5. serving: >= 256 concurrent text requests through QueryBatcher over
      a CollectionEngine on that index, each checked against a direct
      search_batch of the same query;
@@ -68,14 +71,15 @@ Phases, each printing one line with its seconds:
      nodeflow, QueryBatcher, ThreadScheduler ingest) on the card at the
      deployment's defaults, driven over a socket with http.client: the
      [semantic] encoder and cross-encoder as checkpoints the port writes,
-     a bf16 collection (dense_topk's SIMT route) and an int8 one (its
-     tensor-core route), HTTP_DOCS markdown documents uploaded to each
-     by 8 clients (chunks/s to the last COMPLETE), 256 queries from one
+     a bf16 collection (the deployment's default) and an int8 one (both
+     on dense_topk's tensor cores), HTTP_DOCS markdown documents uploaded
+     to each by 8 clients (chunks/s to the last COMPLETE), 256 queries from one
      client and from 64, with and without rerank (p50, p99, requests/s,
      batcher dispatches), one request split into stages by wrapped
      methods, and gates: a. statuses and sizes; b. every single-client
      answer equals a direct search_batch + RerankService; c. no ERROR
-     record, every item reranked, the encoders on the card; d. each
+     record, exactly the reranked requests' items reranked (an unreranked
+     request runs no cross-encoder), the encoders on the card; d. each
      dispatch launched dense_topk in the variant its kt selects, held
      against its plain version at the largest served batch; e. a
      deleted document leaves the search; f. a fresh App on the same
@@ -308,9 +312,12 @@ def phase_small() -> int:
                                  tol=_tolerance(d, ref[0]),
                                  scores=dt.plain_scores(*args[:6], 0, n))
                         cases += 1
-    # int8 x int8 at every register-list depth of the tensor-core variant
-    # and one above its cap (the SIMT variant), ragged B and D, a mask
-    # with an all-masked tile, duplicate rows (ties)
+    # int8 x int8 at every list depth: the register-list kernel (kt <= 8,
+    # forced here: these grids are too small for it to be chosen), the
+    # sorted-selection kernel (kt <= 128) and the SIMT one above the cap
+    # (kt 129); ragged B and D, a mask with an all-masked tile, duplicate
+    # rows (ties); every one bit-equal to the plain version
+    sms = dt._sm_count(torch.cuda.current_device())
     for bq, dq in ((1, 16), (17, 48), (130, 768)):
         codes = torch.randint(-127, 128, (n, dq), device=DEVICE, generator=gen,
                               dtype=torch.int8)
@@ -322,24 +329,69 @@ def phase_small() -> int:
         qs8 = torch.rand(bq, device=DEVICE, generator=gen) * 0.01 + 0.001
         keep = torch.rand(n, device=DEVICE, generator=gen) < 0.7
         keep[2048:4096] = False
-        for kt in (1, 2, 3, 8, 9):
-            want = "tc" if kt <= dt.TC_MAX_KT else "simt"
-            if dt.kernel_variant(dt.MODE_INT8, kt, dq) != want:
-                raise AssertionError(f"kt={kt}, D={dq} did not take the {want} variant")
-            counter = dt.tc_launches if want == "tc" else dt.simt_launches
-            for mask in (None, keep):
-                args = (q8, qs8, codes, row_scale, None, mask, n, 2048, kt)
-                before = counter.count
-                got = dt.tile_topk(*args)
-                if counter.count != before + 1:
-                    raise AssertionError(f"the {want} variant was not launched")
-                ref = dt.tile_topk_plain(*args)
-                torch.cuda.synchronize()
-                if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
-                    raise AssertionError(f"int8 {want} kernel differs from plain at "
-                                         f"B={bq}, D={dq}, kt={kt}")
-                cases += 1
+        for kt in (1, 2, 3, 8, 9, 32, 100, dt.TC_MAX_KT, dt.TC_MAX_KT + 1):
+            want = "tcs" if kt <= dt.TC_MAX_KT else "simt"
+            got_variant = dt.kernel_variant(dt.MODE_INT8, kt, dq, bq, -(-n // 2048), sms)
+            if got_variant != want:
+                raise AssertionError(f"kt={kt}, D={dq} took {got_variant}, not {want}")
+            for variant in (want, "tc") if kt <= dt.LIST_MAX_KT else (want,):
+                for mask in (None, keep):
+                    args = (q8, qs8, codes, row_scale, None, mask, n, 2048, kt)
+                    before = _counts()
+                    with mock.patch.object(dt, "kernel_variant",
+                                           lambda *a, v=variant, **kw: v):
+                        got = dt.tile_topk(*args)
+                    _expect_launch(before, variant, dt.MODE_INT8)
+                    ref = dt.tile_topk_plain(*args)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+                        raise AssertionError(f"int8 {variant} kernel differs from plain at "
+                                             f"B={bq}, D={dq}, kt={kt}")
+                    cases += 1
+    # bf16 queries on the tensor cores, bf16 rows and int8 codes, at every
+    # list depth and split: within _tolerance, ids equal but at near-ties
+    for mode in (dt.MODE_BF16, dt.MODE_INT8_BF16):
+        for bq, dq in ((1, 16), (17, 96), (64, 256), (130, 768)):
+            x = torch.randn(n, dq, device=DEVICE, generator=gen)
+            x[64:96] = x[:32]
+            if mode == dt.MODE_BF16:
+                values, row_scale = x.to(torch.bfloat16), None
+            else:
+                values = torch.clamp(torch.round(x * 40), -127, 127).to(torch.int8)
+                row_scale = torch.rand(n, device=DEVICE, generator=gen) * 0.01 + 0.001
+            qb = torch.randn(bq, dq, device=DEVICE, generator=gen).to(torch.bfloat16)
+            keep = torch.rand(n, device=DEVICE, generator=gen) < 0.7
+            keep[2048:4096] = False
+            for kt in (1, 5, 9, 32, 100, dt.TC_MAX_KT):
+                for tile in (200, 2048):
+                    if dt.kernel_variant(mode, kt, dq, bq, -(-n // tile), sms) != "tcs":
+                        raise AssertionError(f"bf16 queries at kt={kt}, D={dq} left the "
+                                             f"tensor cores")
+                    args = (qb, None, values, row_scale, None, keep, n, tile, kt)
+                    before = _counts()
+                    got = dt.tile_topk(*args)
+                    _expect_launch(before, "tcs", mode)
+                    ref = dt.tile_topk_plain(*args)
+                    torch.cuda.synchronize()
+                    _compare(*got, *ref, exact=False, tol=_tolerance(dq, ref[0]),
+                             scores=dt.plain_scores(*args[:6], 0, n))
+                    cases += 1
     return cases
+
+
+# the _counts() key of each tensor-core mode (ops/dense_topk.py MODE_*)
+TC_MODE_KEYS = {0: "dense_topk_tc_int8", 1: "dense_topk_tc_int8_bf16", 2: "dense_topk_tc_bf16"}
+
+
+def _expect_launch(before: dict, variant: str, mode: int) -> None:
+    """Raise unless exactly one dense_topk kernel launched since ``before``
+    (``_counts()``): the SIMT one, or a tensor-core one of ``mode``."""
+    after = _counts()
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    want = ({"dense_topk_simt": 1} if variant == "simt" else
+            {"dense_topk_tc": 1, TC_MODE_KEYS[mode]: 1})
+    if moved != want:
+        raise AssertionError(f"{variant} (mode {mode}) launched {moved}, not {want}")
 
 
 # -- phase 4: the full-size corpus, made on the card --------------------------
@@ -566,14 +618,19 @@ def phase_full(results: dict):
     log(f"[full] kernel vs plain [num_tiles={kv.shape[0]}, B={BATCH}, kt={kt}]: "
         f"bit-equal (max |diff| {err})")
 
-    if dt.kernel_variant(dt.MODE_INT8, kt, DIM) != "tc":
-        raise AssertionError(f"the main path's kt={kt} is outside the tensor-core variant")
+    sms = dt._sm_count(torch.cuda.current_device())
+    if dt.kernel_variant(dt.MODE_INT8, kt, DIM, BATCH, kv.shape[0], sms) != "tc":
+        raise AssertionError(f"the main path's kt={kt} left the register-list kernel")
     kernel_ms = cuda_ms(lambda: dt.tile_topk(*args))
-    # the earlier (SIMT dp4a) kernel on the same inputs, for the record
-    with mock.patch.object(dt, "kernel_variant", lambda *a: "simt"):
-        sv, si = dt.tile_topk(*args)
-        _compare(sv, si, pv, pi, exact=True, tol=0.0)
-        simt_ms = cuda_ms(lambda: dt.tile_topk(*args), reps=5)
+    # the other kernels on the same inputs, for the record: the first
+    # (SIMT dp4a) and the sorted-selection tensor-core one
+    other_ms = {}
+    for variant, reps in (("simt", 5), ("tcs", TIMED_REPS)):
+        with mock.patch.object(dt, "kernel_variant", lambda *a, v=variant, **kw: v):
+            sv, si = dt.tile_topk(*args)
+            _compare(sv, si, pv, pi, exact=True, tol=0.0)
+            other_ms[variant] = cuda_ms(lambda: dt.tile_topk(*args), reps=reps)
+    simt_ms = other_ms["simt"]
     plain_ms = cuda_ms(lambda: dt.tile_topk_plain(*args))
     lib_ms = cuda_ms(lambda: library_topk(q, qs, corpus.values, corpus.scales,
                                           mask, n, tile, kt))
@@ -584,7 +641,8 @@ def phase_full(results: dict):
               + num_tiles * BATCH * kt * 8)
     bound, bound_by = bound_ms(nbytes, 2.0 * BATCH * n * DIM, INT8_OPS_PER_S)
     log(f"[full] dense_topk tensor-core kernel {kernel_ms:.3f} ms (SIMT kernel "
-        f"{simt_ms:.3f} ms), plain {plain_ms:.3f} ms, "
+        f"{simt_ms:.3f} ms, sorted-selection tensor-core kernel {other_ms['tcs']:.3f} ms, "
+        f"both bit-equal), plain {plain_ms:.3f} ms, "
         f"library (_int_mm + topk) {lib_ms:.3f} ms, bound {bound:.3f} ms "
         f"({bound_by}); search_hybrid batch {BATCH}: {hybrid_ms:.3f} ms "
         f"({BATCH / hybrid_ms * 1e3:.1f} queries/s)")
@@ -631,6 +689,7 @@ def phase_full(results: dict):
         "variant": "tc (mma.sync m16n8k32 s8)", "launches": launches,
         "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": bound_by, "library_ms": lib_ms, "simt_ms": simt_ms,
+        "tcs_ms": other_ms["tcs"],
         "batch64_ms": kernel64_ms,
     }
     results["hybrid_ms"] = hybrid_ms
@@ -788,8 +847,9 @@ def _reset_counts() -> None:
     from super_rag_tpu_torch.ops import dense_topk as dt
     from super_rag_tpu_torch.ops import ivf_topk as it
 
-    for counter in (dt.tc_launches, dt.simt_launches, it.union_tc_launches,
-                    it.union_simt_launches, it.probe_tc_launches, it.probe_simt_launches):
+    for counter in (dt.tc_launches, dt.simt_launches, *dt.tc_mode_launches.values(),
+                    it.union_tc_launches, it.union_simt_launches, it.probe_tc_launches,
+                    it.probe_simt_launches):
         counter.count = 0
 
 
@@ -798,6 +858,7 @@ def _counts() -> dict:
     from super_rag_tpu_torch.ops import ivf_topk as it
 
     return {"dense_topk_tc": dt.tc_launches.count,
+            **{TC_MODE_KEYS[m]: c.count for m, c in dt.tc_mode_launches.items()},
             "dense_topk_simt": dt.simt_launches.count,
             "ivf_union_tc": it.union_tc_launches.count,
             "ivf_union_simt": it.union_simt_launches.count,
@@ -1253,6 +1314,24 @@ def device_busy(fn, wall_ms: float, reps: int = 5) -> str:
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
     return (f"{len(kernels) / reps:.0f} kernels, busy {busy:.3f} ms "
             f"(idle {max(0.0, 1 - busy / wall_ms):.1%} of the call)")
+
+
+def burst_ms(fn, calls: int = 50, reps: int = 5) -> float:
+    """Milliseconds a call of ``fn`` in a burst of ``calls`` back-to-back
+    calls between two CUDA events (median of ``reps`` bursts): the card's
+    time where it outpaces the host's launch path, else the host's."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
 
 
 def _close(got, want, rel: float) -> float:
@@ -2248,15 +2327,23 @@ def _served_kernel_row(args, launches: int, dispatches: int, hlog) -> dict:
               + num_tiles * b * kt * 8)
     k_bound, k_by = bound_ms(nbytes, 2.0 * b * n * d,
                              INT8_OPS_PER_S if exact else BF16_OPS_PER_S)
-    variant = dt.kernel_variant(dt._mode(q, values), kt, d)
+    variant = dt.kernel_variant(dt._mode(q, values), kt, d, b, -(-n // tile),
+                                dt._sm_count(torch.cuda.current_device()))
+    # in bursts, where the card's time shows once it outpaces the host's
+    # launch path (one call between two events includes that path)
+    k_burst = burst_ms(lambda: dt.tile_topk(*args))
+    lib_burst = burst_ms(lambda: _library_topk_bf16(q, values, scales, keep, n, tile, kt)
+                         if not exact else library_topk(*args[:4], keep, n, tile, kt))
     hlog(f"dense_topk {variant} kernel vs plain at the served batch [num_tiles="
          f"{num_tiles}, B={b}, D={d}, kt={kt}, {str(values.dtype)[6:]}]: "
          f"{'bit-equal' if exact else f'within {tol:.3g}'} (max |diff| {err:.3g}); "
-         f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, library ({lib}) {lib_ms:.3f} ms, "
-         f"bound {k_bound:.4f} ms ({k_by}); {launches} launches over {dispatches} "
-         f"dispatches")
+         f"kernel {k_ms:.3f} ms ({k_burst:.4f} ms a call in bursts of 50), plain "
+         f"{p_ms:.3f} ms, library ({lib}) {lib_ms:.3f} ms ({lib_burst:.4f} ms in "
+         f"bursts), bound {k_bound:.4f} ms ({k_by}); {launches} launches over "
+         f"{dispatches} dispatches")
     return {"launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": k_bound, "bound_by": k_by, "library_ms": lib_ms,
+            "burst_ms": k_burst, "library_burst_ms": lib_burst,
             "batch": b, "dim": d, "kt": kt, "variant": variant,
             "launches_per_dispatch": launches / max(dispatches, 1)}
 
@@ -2267,7 +2354,7 @@ def phase_http(results: dict) -> None:
     standard library's http.client at the deployment's defaults: the
     [semantic] encoder and cross-encoder (6 x 256, bf16, seeded weights
     written as checkpoints by the port), two collections (the default
-    bf16 index: dense_topk's SIMT route; an int8 one: its tensor-core
+    bf16 index and an int8 one, both on dense_topk's tensor-core
     route), HTTP_DOCS markdown documents uploaded to each by
     HTTP_UPLOADERS clients; then searches from one client and from
     HTTP_CLIENTS, with and without rerank, one request split into stages,
@@ -2447,11 +2534,22 @@ def phase_http(results: dict) -> None:
             after = _counts()
             return {k: after[k] - before[k] for k in after}
 
+        # cross-encoder calls per (collection, use_rerank): none unreranked
+        ce_calls: dict = {}
+        running: list = [None]
+        real_rerank = RerankService.__call__
+
+        def counted_rerank(self, *args, **kw):
+            ce_calls[running[0]] = ce_calls.get(running[0], 0) + 1
+            return real_rerank(self, *args, **kw)
+
         _reset_counts()
-        with mock.patch.object(dt, "tile_topk", largest):
+        with mock.patch.object(dt, "tile_topk", largest), \
+                mock.patch.object(RerankService, "__call__", counted_rerank):
             for name, cid in colls.items():
                 m0 = _metrics(port, token)
                 for rerank in (False, True):
+                    running[0] = (name, rerank)
                     body = {"use_rerank": rerank, "top_k": HTTP_TOP_K}
                     lat, items = [], []
                     counts0 = _counts()
@@ -2522,41 +2620,52 @@ def phase_http(results: dict) -> None:
                  f"{extra}; batcher {r['dispatches']:.0f} dispatches, average batch "
                  f"{r['queries'] / max(r['dispatches'], 1):.2f}; launches {launched}")
 
-        # gate a (sizes) and c (every served item reranked)
+        # gate a (sizes) and c (the cross-encoder orders exactly the
+        # reranked requests: an unreranked one keeps the hybrid order)
         for (name, rerank), items in ((k, v) for k, v in served.items()
                                       if isinstance(k[1], bool)):
             for q, its in zip(queries, items):
                 if len(its) != HTTP_TOP_K:
                     raise AssertionError(f"gate a: {name} answered {len(its)} items "
                                          f"for {q!r}")
-                if any(it["recall_type"] != "reranked" for it in its):
-                    raise AssertionError(f"gate c: {name} rerank={rerank}: an item is "
-                                         f"not reranked for {q!r}")
+                if any((it["recall_type"] == "reranked") != rerank for it in its):
+                    raise AssertionError(f"gate c: {name} rerank={rerank}: recall types "
+                                         f"{[it['recall_type'] for it in its]} for {q!r}")
 
-        # gate d: in every run each dispatch launched dense_topk, in the
-        # variant its kt selects: SIMT on the bf16 collection; the tensor
-        # cores on the int8 one while kt <= TC_MAX_KT (the kt of a
-        # reranked request follows the per-tile cap that compaction
-        # calibrated on this collection's data)
+        for name in colls:
+            if ce_calls.get((name, False), 0) or not ce_calls.get((name, True), 0):
+                raise AssertionError(f"gate c: cross-encoder calls {ce_calls}: an "
+                                     f"unreranked request ran it, or no reranked one")
+        hlog(f"gate c: cross-encoder calls per (collection, use_rerank): {ce_calls}")
+
+        # gate d: in every run each dispatch launched dense_topk on the
+        # tensor cores, in the variant its shape selects (kt of a reranked
+        # request follows the per-tile cap that compaction calibrated on
+        # this collection's data), counted in its mode
         variants = {}
+        sms = dt._sm_count(torch.cuda.current_device())
         for (name, rerank, clients), r in runs.items():
-            q, _, values, *_, kt = calls[(name, rerank)]
-            variant = "dense_topk_" + dt.kernel_variant(dt._mode(q, values), kt, q.shape[1])
-            variants[(name, rerank)] = (variant, kt)
-            if name == "default" and variant != "dense_topk_simt":
-                raise AssertionError(f"gate d: the bf16 collection took {variant}")
-            if name == "int8" and not rerank and variant != "dense_topk_tc":
-                raise AssertionError(f"gate d: the int8 collection took {variant} at kt {kt}")
-            if r["launches"][variant] < r["dispatches"] or r["dispatches"] < 1:
+            q, _, values, *_, n_scan, tile, kt = calls[(name, rerank)]
+            mode = dt._mode(q, values)
+            variant = dt.kernel_variant(mode, kt, q.shape[1], q.shape[0],
+                                        -(-n_scan // tile), sms)
+            if variant == "simt":
+                raise AssertionError(f"gate d: {name} rerank={rerank} left the tensor cores "
+                                     f"at kt {kt}")
+            key = TC_MODE_KEYS[mode]
+            variants[(name, rerank)] = (variant, kt, key)
+            if r["launches"][key] < r["dispatches"] or r["dispatches"] < 1:
                 raise AssertionError(f"gate d: {name} rerank={rerank} {clients} client(s): "
                                      f"{r['launches']} over {r['dispatches']} dispatches")
-        hlog("gate d: every dispatch launched dense_topk: " + "; ".join(
-            f"{n_} use_rerank={rr_} {v[len('dense_topk_'):]} at kt {kt} (per-tile cap "
-            f"{engines[n_].index._per_tile_k})" for (n_, rr_), (v, kt) in variants.items()))
+        hlog("gate d: every dispatch launched dense_topk on the tensor cores: " + "; ".join(
+            f"{n_} use_rerank={rr_} {v} ({key}) at kt {kt} (per-tile cap "
+            f"{engines[n_].index._per_tile_k})"
+            for (n_, rr_), (v, kt, key) in variants.items()))
 
         # gate b: each single-client answer equals a direct call on the same
-        # engine: search_batch(hybrid) of the flow's recall depth, then the
-        # RerankService over those candidates -> top_k
+        # engine: search_batch(hybrid) of the flow's recall depth, then, for
+        # a reranked request, the RerankService over those candidates ->
+        # top_k (an unreranked one keeps the hybrid hits, scores and all)
         worst = 0.0
         for name in colls:
             eng = engines[name]
@@ -2565,6 +2674,15 @@ def phase_http(results: dict) -> None:
                 for q, its in zip(queries, served[(name, rerank)]):
                     cand = eng.search_batch([q], mode="hybrid", top_k=depth,
                                             candidates=depth)[0]
+                    if not rerank:
+                        want = [(h.metadata["document_id"], h.row, h.recall_type, h.score)
+                                for h in cand[:HTTP_TOP_K]]
+                        got = [(it["metadata"]["document_id"], it["metadata"]["row"],
+                                it["recall_type"], it["score"]) for it in its]
+                        if got != want:
+                            raise AssertionError(f"gate b: {name} unreranked: served "
+                                                 f"{got} != direct {want} for {q!r}")
+                        continue
                     scores = np.asarray(reranker(q, [h.text for h in cand]))
                     order = np.argsort(-scores)[:HTTP_TOP_K]
                     want = [(cand[int(i)].metadata["document_id"], cand[int(i)].row,
@@ -2578,19 +2696,20 @@ def phase_http(results: dict) -> None:
                                               torch.tensor([float(scores[int(i)])
                                                             for i in order]), 2e-2))
         hlog(f"gate b: all {4 * HTTP_QUERIES} single-client answers equal a direct "
-             f"search_batch + RerankService in-process (items, rows, recall types; "
-             f"scores within {worst:.3g} (1 + |s|), limit 2e-2)")
+             f"search_batch (unreranked: items, rows, recall types and scores to the "
+             f"bit) or search_batch + RerankService in-process (reranked: items, rows, "
+             f"recall types; scores within {worst:.3g} (1 + |s|), limit 2e-2)")
 
         # the kernel at the largest served batch of each run, against its
-        # plain version; the kernel rows are the unreranked requests' (the
-        # int8 collection's tensor-core route)
-        for (name, rerank), (variant, _) in variants.items():
+        # plain version: four rows, each collection unreranked (kt 5) and
+        # reranked (kt as calibrated)
+        for (name, rerank), (variant, _, key) in variants.items():
             mine = [r for (n_, rr_, _), r in runs.items() if n_ == name and rr_ == rerank]
             row = _served_kernel_row(calls[(name, rerank)],
-                                     sum(r["launches"][variant] for r in mine),
+                                     sum(r["launches"][key] for r in mine),
                                      sum(r["dispatches"] for r in mine), hlog)
-            if not rerank:
-                results[f"dense_topk_http_{'bf16' if name == 'default' else 'int8'}"] = row
+            results[f"dense_topk_http_{'bf16' if name == 'default' else 'int8'}"
+                    f"{'_rerank' if rerank else ''}"] = row
 
         # -- one reranked request split into stages, by wrapped methods
         stage_rows = {}
@@ -2611,6 +2730,12 @@ def phase_http(results: dict) -> None:
                     _expect(*c.call("POST", f"/api/v1/collections/{cid}/searches",
                                     {"query": q}), 201, "staged search")
                     client_ms.append((time.perf_counter() - t1) * 1e3)
+            # the server's dispatch wrapper records its time after the
+            # response is written, so the client may see it first
+            deadline = time.perf_counter() + 5.0
+            while (len(st_.ms.get("dispatch", ())) < HTTP_STAGE_REQUESTS
+                   and time.perf_counter() < deadline):
+                time.sleep(0.01)
             ms = {k: np.asarray(v) for k, v in st_.ms.items()}
             ms["client"] = np.asarray(client_ms)
             if any(len(v) != HTTP_STAGE_REQUESTS for v in ms.values()):
@@ -2822,7 +2947,8 @@ def main() -> int:
         *({"name": f"dense_topk_http_{t}", "route": "cuda",
            "source": source + "dense_topk.cu",
            "replaces": "super_rag_tpu/ops/pallas_topk.py:36",
-           **results[f"dense_topk_http_{t}"]} for t in ("bf16", "int8")),
+           **results[f"dense_topk_http_{t}"]}
+          for t in ("bf16", "bf16_rerank", "int8", "int8_rerank")),
     ]}
     log(f"[done] wall {time.perf_counter() - t_start:.2f} s")
     log(json.dumps(kernels))

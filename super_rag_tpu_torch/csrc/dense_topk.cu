@@ -15,15 +15,33 @@
 // slot is (-inf, column 0).  Output: vals/ids [num_tiles, B, kt],
 // ids = tile*T + col.
 //
-// What bounds it on an H100: the corpus read (N x D bytes in int8, ~0.77 GB
-// at 1M x 768: 0.23 ms at 3.35 TB/s) at small batches, and the int8 work
-// (2 B N D operations: 0.40 ms at 1,979 TOP/s) at batch 512.
+// Three variants, chosen by shape in the wrapper (ops/dense_topk.py
+// kernel_variant), counted by the wrapper per route and mode:
 //
-// Two variants, chosen by shape in the wrapper (ops/dense_topk.py
-// kernel_variant), each with its own launch counter:
-//
-// * dense_topk_tc_kernel, the int8 x int8 mode (the flat search_hybrid's)
-//   for kt <= 8 and D <= 1024, on the int8 tensor cores:
+// * dense_topk_tcs_kernel, the tensor cores for every mode but f32 at
+//   kt <= 128 and D <= 1024 (the served searches, calibration, deep
+//   per-tile lists): int8 x int8 on mma.sync.m16n8k32.s8, bf16 queries on
+//   m16n8k16.bf16 with f32 sums, over bf16 rows or over int8 codes widened
+//   exactly to bf16 in registers (ldmatrix -> s8x4_to_bf16x2, the k order
+//   permuted alike for queries and codes).  A block of 32 queries walks
+//   its slice of a tile in 256-row chunks (8 warps of 16 queries x 64
+//   rows, a 4-stage cp.async ring of 64-byte k-slices); the chunk's
+//   epilogued scores go to shared memory, and a warp per query takes their
+//   top-kp (kp = kt rounded up to a power of two, >= 8) over 64-bit
+//   (value, column) keys held 8 a lane -- kt rounds of a warp max for
+//   kt <= 8, bitonic networks above -- merging it into the query's running
+//   list; a chunk none of whose keys beats the list's kt-th is skipped.  Where the tiles alone would leave SMs idle,
+//   each tile's rows split over up to 8 blocks of a cluster, whose lists
+//   merge through distributed shared memory.  What bounds it: at the
+//   served shape (16,384 rows, B = 64) the corpus is 4-8 MB, so the
+//   launch, the ring's latency and the selection, not bytes or tensor
+//   operations; the split puts 128 blocks on the 132 SMs.  No split of D
+//   and a k loop whose order is fixed: a query's sums are the same bits
+//   alone or in any batch and any split; the selection is exact, so int8
+//   x int8 is bit-equal to the plain version.
+// * dense_topk_tc_kernel, the int8 x int8 mode with register lists, for
+//   kt <= 8 and D <= 1024 where the grid of tiles already fills the card
+//   (the 1M and 10M flat search_hybrid):
 //   mma.sync.m16n8k32.s32.s8.s8 fed by ldmatrix from padded shared memory
 //   (row strides of 16 mod 32 bytes, so the 8 rows of an ldmatrix hit 8
 //   distinct bank groups).  A block keeps its whole [queries, D] block in
@@ -48,21 +66,27 @@
 //   for kt 3..8, whose longer lists do not fit beside that tile's
 //   registers, or D > 896, 64 queries x 128 rows in 8 warps of 16 x 64, two
 //   blocks an SM.
-// * dense_topk_kernel, every other mode and kt (bf16 / f32 queries, which
-//   search_dense and calibration run, and kt > 8): the first version, dp4a
-//   or FMA on CUDA cores from shared memory with a 4 x 4 register tile per
-//   thread and the [16 x tile] score tile in shared memory.
+// * dense_topk_kernel, the rest: f32 queries (whose only tensor-core path,
+//   TF32, cannot hold the f32 tolerance), kt > 128 and D > 1024: the first
+//   version, dp4a or FMA on CUDA cores from shared memory with a 4 x 4
+//   register tile per thread and the [16 x tile] score tile in shared
+//   memory.
 //
 // Modes (dense_topk_launch):
 //   int8 x int8 : q int8 [B, D] + qscale f32 [B]; corpus int8
 //   int8 corpus, bf16 queries; bf16 corpus, bf16 queries; f32 x f32.
 // Requirements checked by the Python wrapper: D % 16 == 0, 16-byte aligned
-// row-major operands, tile <= 2048 (SIMT variant).
+// row-major operands, tile <= 2048 (SIMT variant).  What bounds the work
+// at its largest: the corpus read (N x D bytes in int8, ~0.77 GB at
+// 1M x 768: 0.23 ms at 3.35 TB/s) at small batches, and the int8 work
+// (2 B N D operations: 0.40 ms at 1,979 TOP/s) at batch 512.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <cooperative_groups.h>
 
 #include <type_traits>
 
@@ -563,6 +587,466 @@ int launch(const void* q, const float* qscale, const void* c, const float* scale
 
 }  // namespace tc
 
+// ---- tensor-core variant with sorted selection ------------------------------
+//
+// Every tensor-core mode (int8 x int8 on m16n8k32 s8; bf16 queries on bf16
+// rows or on int8 codes widened exactly to bf16, m16n8k16 with f32 sums),
+// kt <= 128, and a tile's rows split over the blocks of one cluster.
+//
+// A block holds QB queries and walks its slice of the tile in chunks of RC
+// rows; the chunk's corpus k-slices stream through a cp.async ring, the
+// chunk's epilogued f32 scores go to shared memory (over the drained ring),
+// and a warp per query takes the chunk's top-KP over (value, column) keys
+// (rounds of a warp max, or bitonic networks) and merges it into the
+// query's running list in shared memory.  A chunk none of whose keys beats the list's kt-th is
+// skipped.  The S blocks of a tile (a cluster along z) then merge their
+// lists through distributed shared memory: block r takes the queries
+// q = r (mod S).  The top-kt of a union under a strict total order is the
+// same whatever the split, so the result depends on the logical tile only.
+namespace tcs {
+
+constexpr int QB = 32;         // queries per block: 2 warp rows of 16
+constexpr int RC = 256;        // corpus rows per chunk: 4 warp columns of 64
+constexpr int KS = 64;         // corpus bytes of a row per ring stage
+constexpr int NST = 4;         // ring stages (82 KB: two blocks an SM where
+                               // the query block is small, so the clusters
+                               // of a launch are resident together)
+constexpr int CS = KS + 16;    // ring row stride: 16 mod 32 bytes
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int E = RC / 32;     // keys per lane in the selection
+constexpr int SS = RC + 8;     // score row stride (floats): conflict-free float2 stores
+constexpr int MAX_KT = 128;
+constexpr int MAX_SLICES = 8;  // a portable cluster
+constexpr int MAX_D = 1024;
+
+using u64 = unsigned long long;
+
+// query row stride in bytes: the row rounded up to one stage of query
+// bytes, + 16 (ldmatrix rows: 16 mod 32) or, for the int8-codes mode whose
+// query fragments are 8-byte loads, + 32 (four rows cover 128 bytes)
+__host__ __device__ inline int query_stride(int mode, int D) {
+  const int stage = mode == 1 ? 2 * KS : KS;
+  const int bytes = mode == 0 ? D : 2 * D;
+  return (bytes + stage - 1) / stage * stage + (mode == 1 ? 32 : 16);
+}
+
+inline size_t smem_bytes(int mode, int D, int kp) {
+  return static_cast<size_t>(QB) * query_stride(mode, D) + static_cast<size_t>(NST) * RC * CS +
+         static_cast<size_t>(QB) * kp * sizeof(u64);
+}
+
+// (value, column) as one key whose unsigned order is the reference's:
+// value descending, then lowest column first; -inf (masked, padding) is
+// the empty key 0, below every real key; -0 counts as +0, as == does
+__device__ __forceinline__ u64 make_key(float v, int col) {
+  uint32_t u = __float_as_uint(v);
+  if (v == -INFINITY) return 0ull;
+  if ((u << 1) == 0u) u = 0u;
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<u64>(u) << 32) | static_cast<uint32_t>(~col);
+}
+
+__device__ __forceinline__ float key_value(u64 k) {
+  const uint32_t u = static_cast<uint32_t>(k >> 32);
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+__device__ __forceinline__ int key_col(u64 k) { return static_cast<int>(~static_cast<uint32_t>(k)); }
+
+// Bitonic networks over the KP = G * E keys of a group of G lanes (element
+// i = g * E + j: lane g of the group, register j).  A stage compares pairs
+// (i, i ^ d); the pair's lower element keeps the larger key where
+// i & kk == 0 (kk: the length of the runs being built; 0 in a merge).
+template <int D>
+__device__ __forceinline__ void stage_in_lane(u64 (&k)[E], int kk, int g) {
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    if ((j & D) == 0) {
+      const bool desc = ((g * E + j) & kk) == 0;
+      const u64 a = k[j], b = k[j | D];
+      if (desc ? a < b : a > b) {
+        k[j] = b;
+        k[j | D] = a;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void stage(u64 (&k)[E], int kk, int d, int g) {
+  if (d >= E) {
+    const int m = d / E;
+    const bool lower = (g & m) == 0;
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      const u64 o = __shfl_xor_sync(0xffffffffu, k[j], m);
+      const bool desc = ((g * E + j) & kk) == 0;
+      k[j] = (lower == desc) ? (o > k[j] ? o : k[j]) : (o < k[j] ? o : k[j]);
+    }
+  } else if (d == 4) {
+    stage_in_lane<4>(k, kk, g);
+  } else if (d == 2) {
+    stage_in_lane<2>(k, kk, g);
+  } else {
+    stage_in_lane<1>(k, kk, g);
+  }
+}
+
+// a bitonic sequence of KP keys, sorted descending
+__device__ __forceinline__ void merge_cascade(u64 (&k)[E], int kp, int g) {
+  for (int d = kp >> 1; d > 0; d >>= 1) stage(k, 0, d, g);
+}
+
+// keys k (sorted, group layout) <- the top KP of k and the sorted list L
+__device__ __forceinline__ void merge_list(u64 (&k)[E], const u64* L, int kp, int g) {
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    const u64 o = L[kp - 1 - (g * E + j)];
+    k[j] = o > k[j] ? o : k[j];
+  }
+  merge_cascade(k, kp, g);
+}
+
+// kt <= E: the warp's 32 * E keys (any order) -> their top kt, sorted, in
+// registers 0 .. kt - 1 of every lane (the rest empty): kt rounds of a
+// warp-wide max, whose owner drops it and takes its next best
+__device__ __forceinline__ void warp_top_rounds(u64 (&k)[E], int kt) {
+  u64 best = k[0];
+#pragma unroll
+  for (int j = 1; j < E; ++j) best = k[j] > best ? k[j] : best;
+  u64 out[E];
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    out[r] = 0ull;
+    if (r < kt) {
+      u64 w = best;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const u64 o = __shfl_xor_sync(0xffffffffu, w, off);
+        w = o > w ? o : w;
+      }
+      out[r] = w;
+      if (best == w) {  // the owner (or, once w is empty, every lane: no-op)
+#pragma unroll
+        for (int j = 0; j < E; ++j) k[j] = k[j] == w ? 0ull : k[j];
+        best = k[0];
+#pragma unroll
+        for (int j = 1; j < E; ++j) best = k[j] > best ? k[j] : best;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < E; ++j) k[j] = out[j];
+}
+
+// the warp's 32 * E keys (any order) -> their top KP, sorted, in every group
+__device__ __forceinline__ void warp_top(u64 (&k)[E], int kp, int lane) {
+  const int G = kp / E;
+  const int g = lane & (G - 1);
+  for (int kk = 2; kk <= kp; kk <<= 1)
+    for (int d = kk >> 1; d > 0; d >>= 1) stage(k, kk, d, g);
+  // groups pairwise: my run against the partner's, reversed, then merge
+  for (int m = G; m < 32; m <<= 1) {
+    const int src = ((lane ^ m) & ~(G - 1)) | (G - 1 - g);
+    u64 o[E];
+#pragma unroll
+    for (int j = 0; j < E; ++j) o[j] = __shfl_sync(0xffffffffu, k[E - 1 - j], src);
+#pragma unroll
+    for (int j = 0; j < E; ++j) k[j] = o[j] > k[j] ? o[j] : k[j];
+    merge_cascade(k, kp, g);
+  }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, 2)
+dense_topk_tcs_kernel(const void* __restrict__ q, const float* __restrict__ qscale,
+                      const void* __restrict__ c, const float* __restrict__ scales,
+                      const float* __restrict__ norms, const uint8_t* __restrict__ mask,
+                      int B, int N, int D, int tile, int kt, int kp, int slice_rows,
+                      float* __restrict__ out_vals, int* __restrict__ out_ids) {
+  namespace cg = cooperative_groups;
+  using Acc = typename std::conditional<MODE == 0, int, float>::type;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int QS = query_stride(MODE, D);
+  uint8_t* sq = smem;                                        // [QB][QS]
+  uint8_t* ring = smem + QB * QS;                            // [NST][RC][CS]
+  float* ss = reinterpret_cast<float*>(ring);                // [QB][SS], after a chunk
+  u64* lists = reinterpret_cast<u64*>(ring + NST * RC * CS);  // [QB][kp]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp & 1;         // queries 16 wm ..
+  const int wn = warp >> 1;        // chunk rows 64 wn ..
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const int b0 = blockIdx.x * QB;
+  const int tile_idx = blockIdx.y;
+  const int slice = blockIdx.z;
+  const int S = gridDim.z;
+  const long long base = static_cast<long long>(tile_idx) * tile;
+  const int r_begin = slice * slice_rows;
+  const int r_end = min(tile, r_begin + slice_rows);
+  const int rowc = MODE == 2 ? 2 * D : D;  // corpus bytes a row
+  const int rowq = MODE == 0 ? D : 2 * D;  // query bytes a row
+  const int nks = (rowc + KS - 1) / KS;
+  const uint8_t* cb = static_cast<const uint8_t*>(c);
+  const uint8_t* qb = static_cast<const uint8_t*>(q);
+
+  // the query block, once (committed with the first chunk's first stage):
+  // rows past B and bytes past D are zeros
+  {
+    const int vpr = (QS - (MODE == 1 ? 32 : 16)) / 16;
+    for (int idx = tid; idx < QB * vpr; idx += THREADS) {
+      const int r = idx / vpr, kb = (idx - r * vpr) * 16;
+      const bool ok = b0 + r < B && kb < rowq;
+      sm90::cp_async16(sq + r * QS + kb, ok ? qb + static_cast<long long>(b0 + r) * rowq + kb : qb,
+                       ok ? 16 : 0);
+    }
+  }
+  for (int i = tid; i < QB * kp; i += THREADS) lists[i] = 0ull;
+  float qsc[2] = {0.0f, 0.0f};
+  if constexpr (MODE == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int b = b0 + wm * 16 + gid + 8 * h;
+      qsc[h] = b < B ? qscale[b] : 0.0f;
+    }
+  }
+
+  const uint8_t* a_row =
+      sq + (wm * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * QS + (lane >> 4) * 16;
+  const int b_off = (wn * 64 + (lane & 7) + (lane >> 4) * 8) * CS + ((lane >> 3) & 1) * 16;
+  const int G = kp / E;
+
+  for (int r0 = r_begin; r0 < r_end; r0 += RC) {
+    auto load_stage = [&](int s) {
+      const int kb0 = s * KS;
+      uint8_t* dst = ring + (s % NST) * (RC * CS);
+      for (int idx = tid; idx < RC * (KS / 16); idx += THREADS) {
+        const int r = idx / (KS / 16), kb = kb0 + (idx % (KS / 16)) * 16;
+        const int col = r0 + r;
+        const long long t = base + col;
+        const bool ok = col < r_end && t < N && kb < rowc;
+        sm90::cp_async16(dst + r * CS + (kb - kb0), ok ? cb + t * rowc + kb : cb, ok ? 16 : 0);
+      }
+    };
+#pragma unroll
+    for (int s = 0; s < NST - 1; ++s) {
+      if (s < nks) load_stage(s);
+      sm90::cp_async_commit();
+    }
+    Acc acc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0;
+
+    for (int s = 0; s < nks; ++s) {
+      sm90::cp_async_wait<NST - 2>();
+      __syncthreads();
+      if (s + NST - 1 < nks) load_stage(s + NST - 1);
+      sm90::cp_async_commit();
+      const uint8_t* buf = ring + (s % NST) * (RC * CS) + b_off;
+#pragma unroll
+      for (int sub = 0; sub < KS / 32; ++sub) {
+        const int kb = s * KS + sub * 32;  // corpus byte of this 32-byte step
+        if (kb < rowc) {
+          if constexpr (MODE == 1) {
+            // int8 codes: one ldmatrix.x4 holds 16 rows x 32 codes (two k16
+            // steps of two n-tiles), widened to bf16 in registers; the
+            // k order within a k16 step is permuted (logical 2t + j <-
+            // physical 4t + j, 8 + 2t + j <- 4t + 2 + j) the same way for
+            // the queries, whose fragments are then 8-byte loads
+            uint32_t bb[4][4];
+#pragma unroll
+            for (int jp = 0; jp < 4; ++jp) sm90::ldmatrix_x4(buf + jp * 16 * CS + sub * 32, bb[jp]);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              if (kb + h * 16 < rowc) {
+                const uint8_t* qa = sq + (wm * 16 + gid) * QS + 2 * (kb + h * 16) + tig * 8;
+                const uint2 lo = *reinterpret_cast<const uint2*>(qa);
+                const uint2 hi = *reinterpret_cast<const uint2*>(qa + 8 * QS);
+                const uint32_t a[4] = {lo.x, hi.x, lo.y, hi.y};
+#pragma unroll
+                for (int jp = 0; jp < 4; ++jp) {
+                  uint32_t x0, x1;
+                  sm90::s8x4_to_bf16x2(bb[jp][h], x0, x1);
+                  sm90::mma_bf16_16816(acc[2 * jp], a, x0, x1);
+                  sm90::s8x4_to_bf16x2(bb[jp][2 + h], x0, x1);
+                  sm90::mma_bf16_16816(acc[2 * jp + 1], a, x0, x1);
+                }
+              }
+            }
+          } else {
+            uint32_t a[4];
+            sm90::ldmatrix_x4(a_row + kb, a);
+#pragma unroll
+            for (int jp = 0; jp < 4; ++jp) {
+              uint32_t bb[4];
+              sm90::ldmatrix_x4(buf + jp * 16 * CS + sub * 32, bb);
+              if constexpr (MODE == 0) {
+                sm90::mma_s8_16832(acc[2 * jp], a, bb[0], bb[1]);
+                sm90::mma_s8_16832(acc[2 * jp + 1], a, bb[2], bb[3]);
+              } else {
+                sm90::mma_bf16_16816(acc[2 * jp], a, bb[0], bb[1]);
+                sm90::mma_bf16_16816(acc[2 * jp + 1], a, bb[2], bb[3]);
+              }
+            }
+          }
+        }
+      }
+    }
+    sm90::cp_async_wait<0>();
+    __syncthreads();
+
+    // the chunk's scores over the drained ring, in the reference's order:
+    // (s * qscale) * row_scale, then 2 s - norm, then the mask
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int cc = wn * 64 + j * 8 + 2 * tig + e;
+        const int col = r0 + cc;
+        const long long t = base + col;
+        const bool live = col < r_end && t < N && (mask == nullptr || mask[t] != 0);
+        const float rs = (scales != nullptr && live) ? scales[t] : 1.0f;
+        const float nn = (norms != nullptr && live) ? norms[t] : 0.0f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float v;
+          if constexpr (MODE == 0) {
+            v = __fmul_rn(__int2float_rn(acc[j][2 * h + e]), qsc[h]);
+          } else {
+            v = acc[j][2 * h + e];
+          }
+          if (scales != nullptr) v = __fmul_rn(v, rs);
+          if (norms != nullptr) v = __fsub_rn(__fmul_rn(2.0f, v), nn);
+          ss[(wm * 16 + gid + 8 * h) * SS + cc] = live ? v : -INFINITY;
+        }
+      }
+    }
+    __syncthreads();
+
+    // a warp per query: the chunk's top-kp merged into the running list
+    for (int qi = warp; qi < QB && b0 + qi < B; qi += WARPS) {
+      const float* row = ss + qi * SS + lane * E;
+      const float4 v0 = *reinterpret_cast<const float4*>(row);
+      const float4 v1 = *reinterpret_cast<const float4*>(row + 4);
+      const float v[E] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+      u64* L = lists + qi * kp;
+      const u64 thr = L[kt - 1];
+      u64 k[E];
+      bool any = false;
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        k[j] = make_key(v[j], r0 + lane * E + j);
+        any |= k[j] > thr;
+      }
+      if (!__any_sync(0xffffffffu, any)) continue;
+      if (kp == E)
+        warp_top_rounds(k, kt);  // kt <= 8: cheaper than a network of 8
+      else
+        warp_top(k, kp, lane);
+      merge_list(k, L, kp, lane & (G - 1));
+      __syncwarp();
+      if (lane < G) {
+#pragma unroll
+        for (int j = 0; j < E; ++j) L[lane * E + j] = k[j];
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+  }
+
+  // the tile's slices, through distributed shared memory: block r merges
+  // the lists of queries r, r + S, ... in slice order and writes them
+  sm90::cp_async_wait<0>();  // an empty slice never waited for its queries
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  {
+    const int g = lane & (G - 1);
+    int m = 0;
+    for (int qi = slice; qi < QB && b0 + qi < B; qi += S, ++m) {
+      if (m % WARPS != warp) continue;
+      u64 k[E];
+      const u64* L0 = cluster.map_shared_rank(lists, 0) + qi * kp;
+#pragma unroll
+      for (int j = 0; j < E; ++j) k[j] = L0[g * E + j];
+      for (int r = 1; r < S; ++r) merge_list(k, cluster.map_shared_rank(lists, r) + qi * kp, kp, g);
+      if (lane < G) {
+        const long long out0 = (static_cast<long long>(tile_idx) * B + b0 + qi) * kt;
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          const int i = lane * E + j;
+          if (i < kt) {
+            // once only -inf is left, every further slot is (-inf, column 0)
+            out_vals[out0 + i] = k[j] == 0ull ? -INFINITY : key_value(k[j]);
+            out_ids[out0 + i] = static_cast<int>(base + (k[j] == 0ull ? 0 : key_col(k[j])));
+          }
+        }
+      }
+    }
+  }
+  cluster.sync();  // no block leaves while another still reads its lists
+}
+
+template <int MODE>
+int launch_mode(const void* q, const float* qscale, const void* c, const float* scales,
+                const float* norms, const uint8_t* mask, int B, int N, int D, int tile,
+                int num_tiles, int kt, int kp, int slices, int slice_rows, float* out_vals,
+                int* out_ids, cudaStream_t stream) {
+  const size_t smem = smem_bytes(MODE, D, kp);
+  auto kern = dense_topk_tcs_kernel<MODE>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  // the query blocks of a tile slice run together, so the slice is read
+  // from HBM once and from L2 by its neighbours
+  cfg.gridDim = dim3((B + QB - 1) / QB, num_tiles, slices);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = slices;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, q, qscale, c, scales, norms, mask, B, N, D, tile, kt, kp,
+                           slice_rows, out_vals, out_ids);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch(int mode, const void* q, const float* qscale, const void* c, const float* scales,
+           const float* norms, const uint8_t* mask, int B, int N, int D, int tile,
+           int num_tiles, int kt, int slices, int slice_rows, float* out_vals, int* out_ids,
+           cudaStream_t s) {
+  if (kt < 1 || kt > MAX_KT || D > MAX_D || D % 16 != 0 || slices < 1 || slices > MAX_SLICES ||
+      slice_rows < 1 || slice_rows % RC != 0 || static_cast<long long>(slices) * slice_rows < tile)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int kp = E;
+  while (kp < kt) kp <<= 1;
+  switch (mode) {
+    case 0:
+      return launch_mode<0>(q, qscale, c, scales, norms, mask, B, N, D, tile, num_tiles, kt, kp,
+                            slices, slice_rows, out_vals, out_ids, s);
+    case 1:
+      return launch_mode<1>(q, qscale, c, scales, norms, mask, B, N, D, tile, num_tiles, kt, kp,
+                            slices, slice_rows, out_vals, out_ids, s);
+    case 2:
+      return launch_mode<2>(q, qscale, c, scales, norms, mask, B, N, D, tile, num_tiles, kt, kp,
+                            slices, slice_rows, out_vals, out_ids, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace tcs
+
 }  // namespace
 
 // mode: 0 = int8 x int8, 1 = int8 corpus + bf16 queries,
@@ -604,4 +1088,20 @@ extern "C" int dense_topk_tc_launch(const void* q, const float* qscale, const vo
                                     void* stream) {
   return tc::launch(q, qscale, c, scales, norms, mask, B, N, D, tile, num_tiles,
                                  kt, out_vals, out_ids, static_cast<cudaStream_t>(stream));
+}
+
+// The tensor-core variant with sorted selection: modes 0 (int8 x int8),
+// 1 (int8 codes, bf16 queries) and 2 (bf16 x bf16), 1 <= kt <= 128,
+// D <= 1024, D % 16 == 0; each tile's rows split into `slices` slices of
+// `slice_rows` rows (a multiple of 256), the blocks of one cluster
+// (slices <= 8, slices * slice_rows >= tile).  Same operands and output
+// as dense_topk_launch.  Returns the cudaError_t of the launch (0 =
+// success); cudaErrorInvalidValue outside its shapes.
+extern "C" int dense_topk_tcs_launch(int mode, const void* q, const float* qscale, const void* c,
+                                     const float* scales, const float* norms,
+                                     const uint8_t* mask, int B, int N, int D, int tile,
+                                     int num_tiles, int kt, int slices, int slice_rows,
+                                     float* out_vals, int* out_ids, void* stream) {
+  return tcs::launch(mode, q, qscale, c, scales, norms, mask, B, N, D, tile, num_tiles, kt, slices,
+                     slice_rows, out_vals, out_ids, static_cast<cudaStream_t>(stream));
 }

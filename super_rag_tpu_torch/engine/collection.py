@@ -55,7 +55,13 @@ class CollectionEngine:
         self.hybrid_opts = hybrid_opts or {}
 
     def _embed(self, texts: list[str]) -> torch.Tensor:
-        emb = self.embedder.embed(texts)
+        # an embedder with ``embed_device`` leaves its rows on its device
+        # (no host sync, no round trip through host memory), as the
+        # reference's ingest takes it (engine/collection.py:75-76)
+        if hasattr(self.embedder, "embed_device"):
+            emb = self.embedder.embed_device(texts)
+        else:
+            emb = self.embedder.embed(texts)
         return torch.as_tensor(emb, dtype=torch.float32).to(self.index.device)
 
     # -- ingest ---------------------------------------------------------------

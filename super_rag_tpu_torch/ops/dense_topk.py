@@ -3,18 +3,29 @@
 Port of the TPU kernel in the JAX package's ``ops/pallas_topk.py``
 (``_make_kernel`` :36, driven by ``pallas_dense_topk`` :106).  The kernel
 is ``csrc/dense_topk.cu`` (CUDA C++ for sm_90a, built by ``_build.py``)
-in two variants, chosen by shape (``kernel_variant``): the int8 tensor-
-core kernel for int8 x int8 at kt <= 8 and D <= 1024 (the flat
-search_hybrid's call), the SIMT kernel for every other mode and kt.  Each
-has its own launch counter (``tc_launches``, ``simt_launches``).
-``tile_topk_plain`` beside them is the plain PyTorch version with the same
-per-tile semantics.  ``tile_topk`` launches a kernel for CUDA tensors and
-runs the plain version only for CPU tensors.
+in three variants, chosen by shape (``kernel_variant``):
+
+* ``"tcs"``, the tensor cores for every mode but f32 (int8 x int8, int8
+  codes with bf16 queries, bf16 x bf16) at ``kt <= TC_MAX_KT`` and
+  ``D <= TC_MAX_D``: per-tile lists selected from scores in shared memory
+  (rounds of a warp max for kt <= 8, bitonic networks above), each tile's
+  rows split over the blocks of a cluster (``tcs_split``) where the tiles
+  alone would leave the card idle;
+* ``"tc"``, the int8 x int8 kernel with register lists (``kt <=
+  LIST_MAX_KT``), taken where the grid of tiles already fills the card;
+* ``"simt"`` for the rest (f32, kt above the cap, D above 1024).
+
+``tc_launches`` counts every tensor-core launch (``tc_mode_launches``
+splits them by mode), ``simt_launches`` the rest.  ``tile_topk_plain``
+beside them is the plain PyTorch version with the same per-tile
+semantics.  ``tile_topk`` launches a kernel for CUDA tensors and runs the
+plain version only for CPU tensors.
 
 The logical tile is part of the result: with ``per_tile_k < k`` the
 candidates depend on which rows share a tile, so both versions extract
 the top-kt of each ``tile``-row block (value descending, lowest column
-first, as kt rounds of max / first-argmax / suppress do).
+first, as kt rounds of max / first-argmax / suppress do), whatever rows
+of it a block of the kernel scans.
 """
 
 from __future__ import annotations
@@ -36,10 +47,19 @@ MODE_INT8_BF16 = 1  # int8 codes, bf16 queries
 MODE_BF16 = 2
 MODE_F32 = 3
 
-# the tensor-core variant's shapes: int8 x int8, register lists of up to
-# TC_MAX_KT, the block's [queries, D] int8 block in shared memory
-TC_MAX_KT = 8
+# the tensor-core route's shapes: kt <= TC_MAX_KT (the sorted lists of
+# "tcs"), D <= TC_MAX_D; the register lists of "tc" hold up to LIST_MAX_KT
+TC_MAX_KT = 128
 TC_MAX_D = 1024
+LIST_MAX_KT = 8
+# "tcs": queries a block, rows a chunk, at most a cluster's blocks a tile
+TCS_QB = 32
+TCS_RC = 256
+TCS_MAX_SLICES = 8
+# "tc" takes the grid where it holds at least a block an SM (its narrow
+# block: 64 queries)
+LIST_QB = 64
+H100_SMS = 132
 # rows of one plain-version chunk: bounds its [B, rows] f32 score block
 PLAIN_CHUNK_ROWS = 32768
 MAX_GRID_Y = 65535
@@ -52,8 +72,11 @@ class _Launches:
         self.count = 0
 
 
-tc_launches = _Launches()  # the int8 tensor-core variant
-simt_launches = _Launches()  # the SIMT variant (every other mode and kt)
+tc_launches = _Launches()  # every tensor-core launch ("tc" and "tcs")
+simt_launches = _Launches()  # the SIMT variant
+# tc_launches by mode
+tc_mode_launches = {m: _Launches() for m in (MODE_INT8, MODE_INT8_BF16,
+                                         MODE_BF16)}
 
 
 @functools.cache
@@ -68,7 +91,15 @@ def _lib() -> ctypes.CDLL:
     lib.dense_topk_tc_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
                                          p, p, p]
     lib.dense_topk_tc_launch.restype = i
+    lib.dense_topk_tcs_launch.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i,
+                                          i, i, i, p, p, p]
+    lib.dense_topk_tcs_launch.restype = i
     return lib
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _mode(q: torch.Tensor, values: torch.Tensor) -> int:
@@ -84,13 +115,35 @@ def _mode(q: torch.Tensor, values: torch.Tensor) -> int:
                      f"{values.dtype}")
 
 
-def kernel_variant(mode: int, kt: int, d: int) -> str:
-    """Which kernel takes a call: ``"tc"`` (int8 tensor cores) for the
-    int8 x int8 mode at ``kt <= TC_MAX_KT`` and ``d <= TC_MAX_D``, else
-    ``"simt"``."""
-    if mode == MODE_INT8 and 1 <= kt <= TC_MAX_KT and d <= TC_MAX_D:
+def kernel_variant(mode: int, kt: int, d: int, b: int, num_tiles: int,
+                   sms: int = H100_SMS) -> str:
+    """Which kernel takes a call of ``b`` queries over ``num_tiles`` tiles:
+    ``"tc"`` (int8 x int8 register lists) where ``kt <= LIST_MAX_KT`` and
+    the tiles alone give every one of ``sms`` SMs a block; ``"tcs"`` for
+    the other int8 and bf16 calls at ``kt <= TC_MAX_KT``; ``"simt"`` for
+    f32 queries and above the caps.  Every variant of a mode gives the
+    same bits for a query whatever the batch (int8 x int8: all equal the
+    plain version), so the choice by ``b`` changes no answer."""
+    if mode == MODE_F32 or not 1 <= kt <= TC_MAX_KT or d > TC_MAX_D:
+        return "simt"
+    if mode == MODE_INT8 and kt <= LIST_MAX_KT and \
+            -(-b // LIST_QB) * num_tiles >= sms:
         return "tc"
-    return "simt"
+    return "tcs"
+
+
+def tcs_split(b: int, num_tiles: int, tile: int,
+              sms: int = H100_SMS) -> tuple[int, int]:
+    """``(slices, slice_rows)`` of a "tcs" launch: each tile's rows in
+    ``slices`` slices of ``slice_rows`` (whole 256-row chunks), at least as
+    many as it takes to give each of ``sms`` SMs a block where the tiles
+    alone do not, at most a portable cluster of 8."""
+    blocks = -(-b // TCS_QB) * num_tiles
+    chunks = -(-tile // TCS_RC)
+    want = max(1, -(-sms // max(blocks, 1)))
+    per = max(1, chunks // want, -(-chunks // TCS_MAX_SLICES))
+    rows = per * TCS_RC
+    return -(-tile // rows), rows
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -131,16 +184,26 @@ def _launch_kernel(q, qscale, values, scales, norms, mask, n, tile, kt):
     operands = (q.data_ptr(), _ptr(qscale), values.data_ptr(), _ptr(scales),
                 _ptr(norms), _ptr(mask_u8), b, n, d, tile, num_tiles, kt,
                 out_v.data_ptr(), out_i.data_ptr(), stream)
-    variant = kernel_variant(mode, kt, d)
+    sms = _sm_count(dev.index if dev.index is not None else
+                    torch.cuda.current_device())
+    variant = kernel_variant(mode, kt, d, b, num_tiles, sms)
     if variant == "tc":
         err = lib.dense_topk_tc_launch(*operands)
+    elif variant == "tcs":
+        slices, rows = tcs_split(b, num_tiles, tile, sms)
+        err = lib.dense_topk_tcs_launch(mode, *operands[:12], slices, rows,
+                                        *operands[12:])
     else:
         err = lib.dense_topk_launch(mode, *operands)
     if err != 0:
         # e.g. a tile whose score block exceeds the card's shared memory
         raise RuntimeError(f"dense_topk {variant} kernel launch failed: "
                            f"cudaError {err}")
-    (tc_launches if variant == "tc" else simt_launches).count += 1
+    if variant == "simt":
+        simt_launches.count += 1
+    else:
+        tc_launches.count += 1
+        tc_mode_launches[mode].count += 1
     return out_v, out_i
 
 

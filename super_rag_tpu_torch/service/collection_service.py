@@ -201,7 +201,11 @@ class CollectionService:
         )
         engine = NodeflowEngine()
         services = self.ctx.services_for_nodeflow()
-        if use_rerank and colls:
+        if not use_rerank:
+            # no cross-encoder: the rerank node keeps the recall order (a
+            # kept difference from the reference, ROADMAP C5)
+            services["reranker"] = None
+        elif colls:
             # rerank spec of the first collection governs (the reference
             # resolves rerank config per search the same way)
             services["reranker"] = _not_implemented(
@@ -251,6 +255,11 @@ class CollectionService:
         if use_rerank:
             services["reranker"] = _not_implemented(
                 self.ctx.reranker_for, coll.get("config") or {})
+        else:
+            # no cross-encoder for an unreranked search: the rerank node
+            # keeps the hybrid order (the reference still runs its default
+            # reranker here: a kept difference, ROADMAP C5)
+            services["reranker"] = None
         ctx = await engine.execute_nodeflow(
             flow,
             SystemInput(query=query, user=user, chat_id=chat_id),

@@ -294,6 +294,76 @@ def test_search_with_cross_encoder_matches(apps, clients, corpus, ce_checkpoint)
             srv.app.cfg.reranker_checkpoint = ""
 
 
+def test_unreranked_search_runs_no_cross_encoder(apps, clients, corpus, ce_checkpoint):
+    """A kept difference (ROADMAP C5): with a cross-encoder configured, a
+    ``use_rerank=false`` search in the port calls the reranker zero times
+    and keeps the hybrid order, so it answers as both apps do without a
+    checkpoint; the JAX app still scores the same items with its default
+    reranker and returns them in the cross-encoder's order."""
+    cids, _, maps = corpus
+
+    def search(q, path=None):
+        if path is None:
+            return both(clients, "POST",
+                        lambda i: f"/api/v1/collections/{cids[i]}/searches",
+                        {"query": q, "top_k": 4, "use_rerank": False})
+        return [c.call("POST", path, {"query": q, "collection_ids": [cids[i]],
+                                      "top_k": 4, "use_rerank": False})
+                for i, c in enumerate(clients)]
+
+    def item_set(body, ids):
+        return sorted(json.dumps({k: v for k, v in it.items()
+                                  if k not in ("rank", "score", "recall_type")},
+                                 sort_keys=True)
+                      for it in normal_items(body, ids))
+
+    plain = {}
+    for q in QUERIES:
+        for path in (None, "/api/v1/searches"):
+            (s0, b0), (s1, b1) = search(q, path)
+            assert s0 == s1 == 201
+            assert_same_items(b0, b1, maps[0], maps[1])
+            plain[q, path] = b1
+    port_ctx = apps[1].app.ctx
+    calls = []
+    resolve = port_ctx.reranker_for
+
+    def counted(config):
+        reranker = resolve(config)
+        if reranker is None:
+            return None
+
+        def wrapped(*args):
+            calls.append(args[0])
+            return reranker(*args)
+        return wrapped
+
+    for srv in apps:
+        srv.app.cfg.reranker_checkpoint = ce_checkpoint
+    port_ctx.reranker_for = counted
+    try:
+        for q in QUERIES:
+            for path in (None, "/api/v1/searches"):
+                (s0, b0), (s1, b1) = search(q, path)
+                assert s0 == s1 == 201
+                assert_same_items(plain[q, path], b1, maps[1], maps[1])
+                if b0["items"]:
+                    assert {it["recall_type"] for it in b0["items"]} == {"reranked"}
+                # the same items, each app in its own order
+                assert item_set(b0, maps[0]) == item_set(b1, maps[1])
+        assert calls == []
+        # the counter does count: a reranked search calls the reranker
+        (s0, _), (s1, b1) = both(
+            clients, "POST", lambda i: f"/api/v1/collections/{cids[i]}/searches",
+            {"query": QUERIES[0], "top_k": 4})
+        assert s0 == s1 == 201 and calls
+        assert {it["recall_type"] for it in b1["items"]} == {"reranked"}
+    finally:
+        del port_ctx.reranker_for
+        for srv in apps:
+            srv.app.cfg.reranker_checkpoint = ""
+
+
 def test_delete_then_search(clients):
     cids = make_collection(clients, "del")
     maps = [{cids[0]: "del"}, {cids[1]: "del"}]

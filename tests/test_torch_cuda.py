@@ -47,9 +47,10 @@ def test_kernel_matches_plain_version(card, mode):
             norms = corpus.norms_sq if metric == "l2" else None
             args = (qq, qs, corpus.values, corpus.scales, norms, keep, 5000,
                     tile, kt)
-            variant = dt.kernel_variant(dt._mode(qq, corpus.values), kt, 96)
-            counter = dt.tc_launches if variant == "tc" else dt.simt_launches
-            assert variant == ("tc" if i8q else "simt")
+            variant = dt.kernel_variant(dt._mode(qq, corpus.values), kt, 96, 20,
+                                        -(-5000 // tile))
+            counter = dt.simt_launches if variant == "simt" else dt.tc_launches
+            assert variant == ("simt" if mode == "f32" else "tcs")
             before = counter.count
             kv, ki = dt.tile_topk(*args)
             assert counter.count == before + 1
@@ -87,71 +88,206 @@ def _int8_operands(card, b, n, d, seed, masked, l2):
     return q, qscale, values, scales, norms, mask
 
 
+@pytest.fixture
+def force_variant(monkeypatch):
+    """Make the wrapper take the named kernel variant whatever the shape."""
+    def force(name):
+        monkeypatch.setattr(dt, "kernel_variant", lambda *a, **kw: name)
+        return name
+    return force
+
+
+def _launched(variant, mode, before):
+    """One launch of ``variant`` (and of no other) since the counts
+    ``before`` (``_counts()``)."""
+    after = _counts(mode)
+    want = (after[0] - before[0], after[1] - before[1], after[2] - before[2])
+    return want == ((0, 1, 0) if variant == "simt" else (1, 0, 1))
+
+
+def _counts(mode):
+    per_mode = dt.tc_mode_launches.get(mode)
+    return (dt.tc_launches.count, dt.simt_launches.count,
+            per_mode.count if per_mode is not None else 0)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kt", [1, 2, 3, 8, 9])
+@pytest.mark.parametrize("kt", [1, 2, 3, 8, 9, 32, 100, 128, 129])
 @pytest.mark.parametrize("d", [16, 48, 768])
 @pytest.mark.parametrize("b", [1, 17, 130])
-def test_int8_kernel_bit_equal_at_ragged_shapes(card, b, d, kt):
-    """int8 x int8 at B not a multiple of the 64-query block, n = 5000
-    (not a multiple of the 2048-row tile nor the 128-row chunk), D in
-    {16, 48, 768}: the tensor-core kernel (kt <= 8) and the SIMT one
-    (kt = 9, above the register lists' cap) equal tile_topk_plain bit for
-    bit, values and ids, -inf slots included; with and without a mask
-    (an all-masked tile), with L2 norms, with duplicate rows."""
+def test_int8_kernel_bit_equal_at_ragged_shapes(card, force_variant, b, d, kt):
+    """int8 x int8 at B not a multiple of either query block, n = 5000
+    (not a multiple of the 2048-row tile nor of either chunk), D in
+    {16, 48, 768}: the register-list kernel (kt <= 8), the sorted-selection
+    kernel (kt <= 128, every split of the tile's rows) and the SIMT one
+    (kt = 129, above the tensor cores' cap) equal tile_topk_plain bit for
+    bit, values and ids, -inf slots included; with and without a mask (an
+    all-masked tile), with L2 norms, with duplicate rows."""
     n, tile = 5000, 2048
-    variant = dt.kernel_variant(dt.MODE_INT8, kt, d)
-    assert variant == ("tc" if kt <= 8 else "simt")
-    counter = dt.tc_launches if variant == "tc" else dt.simt_launches
+    variants = ["simt"] if kt > dt.TC_MAX_KT else (
+        ["tc", "tcs"] if kt <= dt.LIST_MAX_KT else ["tcs"])
+    assert dt.kernel_variant(dt.MODE_INT8, kt, d, b, 3) == (
+        "simt" if kt > dt.TC_MAX_KT else "tcs")
     for masked, l2 in ((False, False), (True, False), (True, True)):
         q, qs, values, scales, norms, mask = _int8_operands(
             card, b, n, d, seed=b * 1000 + d + kt, masked=masked, l2=l2)
         args = (q, qs, values, scales, norms, mask, n, tile, kt)
-        before = (dt.tc_launches.count, dt.simt_launches.count)
-        kv, ki = dt.tile_topk(*args)
-        after = (dt.tc_launches.count, dt.simt_launches.count)
-        assert sum(after) - sum(before) == 1
-        assert counter.count == (before[0] if variant == "tc" else before[1]) + 1
         pv, pi = dt.tile_topk_plain(*args)
-        torch.cuda.synchronize()
-        assert torch.equal(kv, pv)
-        assert torch.equal(ki, pi)
+        for variant in variants:
+            force_variant(variant)
+            before = _counts(dt.MODE_INT8)
+            kv, ki = dt.tile_topk(*args)
+            assert _launched(variant, dt.MODE_INT8, before)
+            torch.cuda.synchronize()
+            assert torch.equal(kv, pv), variant
+            assert torch.equal(ki, pi), variant
         if masked:
             assert torch.isinf(kv[1]).all()  # the all-masked tile
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kt", [1, 2, 5])
-def test_int8_kernel_bit_equal_at_the_largest_d(card, kt):
+def test_int8_kernel_bit_equal_at_the_largest_d(card, force_variant, kt):
     """D = 1024: the kt <= 2 block's shared memory does not fit there, so
-    the tensor-core kernel takes its narrower block for every kt."""
+    the register-list kernel takes its narrower block for every kt; the
+    sorted-selection kernel's query block is at its largest."""
     n, b, d = 4100, 130, dt.TC_MAX_D
-    assert dt.kernel_variant(dt.MODE_INT8, kt, d) == "tc"
     q, qs, values, scales, norms, mask = _int8_operands(
         card, b, n, d, seed=kt, masked=True, l2=True)
     args = (q, qs, values, scales, norms, mask, n, 2048, kt)
-    before = dt.tc_launches.count
-    kv, ki = dt.tile_topk(*args)
-    assert dt.tc_launches.count == before + 1
     pv, pi = dt.tile_topk_plain(*args)
-    torch.cuda.synchronize()
-    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    for variant in ("tc", "tcs"):
+        force_variant(variant)
+        before = _counts(dt.MODE_INT8)
+        kv, ki = dt.tile_topk(*args)
+        assert _launched(variant, dt.MODE_INT8, before)
+        torch.cuda.synchronize()
+        assert torch.equal(kv, pv) and torch.equal(ki, pi), variant
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("tile", [200, 1000])
-def test_int8_kernel_bit_equal_at_small_tiles(card, tile):
-    """Tiles that are not a multiple of the 128-row chunk."""
+def test_int8_kernel_bit_equal_at_small_tiles(card, force_variant, tile):
+    """Tiles that are not a multiple of either chunk."""
     n, b = 5000, 70
     q, qs, values, scales, norms, mask = _int8_operands(
         card, b, n, 96, seed=tile, masked=True, l2=False)
-    for kt in (1, 4, 8):
+    for kt in (1, 4, 8, 40):
         args = (q, qs, values, scales, None, mask, n, tile, kt)
-        before = dt.tc_launches.count
-        kv, ki = dt.tile_topk(*args)
-        assert dt.tc_launches.count == before + 1
         pv, pi = dt.tile_topk_plain(*args)
-        torch.cuda.synchronize()
+        for variant in (("tc", "tcs") if kt <= dt.LIST_MAX_KT else ("tcs",)):
+            force_variant(variant)
+            before = _counts(dt.MODE_INT8)
+            kv, ki = dt.tile_topk(*args)
+            assert _launched(variant, dt.MODE_INT8, before)
+            torch.cuda.synchronize()
+            assert torch.equal(kv, pv) and torch.equal(ki, pi), variant
+
+
+def _bf16q_operands(card, mode, b, n, d, seed):
+    """bf16 queries on bf16 rows or on int8 codes with row scales; rows
+    64.. repeat rows 0.. (ties); a keep-mask whose second tile is all
+    masked."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn(n, d, device=card, generator=gen)
+    x[64:96] = x[0:32]
+    if mode == dt.MODE_BF16:
+        values, scales = x.to(torch.bfloat16), None
+    else:
+        values = torch.clamp(torch.round(x * 40), -127, 127).to(torch.int8)
+        scales = torch.rand(n, device=card, generator=gen) * 0.01 + 0.001
+        scales[64:96] = scales[0:32]
+    q = torch.randn(b, d, device=card, generator=gen).to(torch.bfloat16)
+    mask = torch.rand(n, device=card, generator=gen) < 0.7
+    mask[2048:4096] = False
+    return q, values, scales, mask
+
+
+BF16Q_MODES = {"bf16": dt.MODE_BF16, "int8+bf16q": dt.MODE_INT8_BF16}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kt", [1, 2, 3, 8, 9, 32, 100, 128])
+@pytest.mark.parametrize("mode", list(BF16Q_MODES))
+def test_bf16_tensor_core_kernel_within_tolerance(card, mode, kt):
+    """bf16 queries on the tensor cores at ragged B (1, 17, 64, 130), D
+    (16, 96, 256, 768) and tile (200, 1024, 2048), masked (an all-masked
+    tile) and not, with duplicate rows: -inf slots equal, values within
+    D * 2^-23 * (max|score| + 1) of tile_topk_plain (exact products
+    summed in f32 in another order), ids equal but at near-ties."""
+    m = BF16Q_MODES[mode]
+    n = 5000
+    for b in (1, 17, 64, 130):
+        for d in (16, 96, 256, 768):
+            q, values, scales, mask = _bf16q_operands(card, m, b, n, d, seed=b + d + kt)
+            for tile in (200, 1024, 2048):
+                for msk in (None, mask):
+                    args = (q, None, values, scales, None, msk, n, tile, kt)
+                    assert dt.kernel_variant(m, kt, d, b, -(-n // tile)) == "tcs"
+                    before = _counts(m)
+                    kv, ki = dt.tile_topk(*args)
+                    assert _launched("tcs", m, before)
+                    pv, pi = dt.tile_topk_plain(*args)
+                    fin = torch.isfinite(pv)
+                    tol = d * 2.0 ** -23 * (float(pv[fin].abs().max()) + 1.0)
+                    assert_topk_match(pv.cpu(), pi.cpu(), kv.cpu(), ki.cpu(),
+                                      rtol=0.0, atol=tol,
+                                      scores=dt.plain_scores(*args[:6], 0, n))
+                    if msk is not None and tile == 2048:
+                        assert torch.isinf(kv[1]).all()
+                        assert (ki[1] == 2048).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [dt.MODE_INT8, dt.MODE_INT8_BF16, dt.MODE_BF16])
+@pytest.mark.parametrize("kt", [5, 32])
+def test_tensor_core_kernel_is_batch_invariant(card, mode, kt):
+    """A query's lists are the same bits alone (B = 1) and at row 37 of a
+    batch of 64, whatever the split of the tiles' rows each batch takes."""
+    n, d, tile = 16384, 256, 2048
+    if mode == dt.MODE_INT8:
+        q, qs, values, scales, norms, mask = _int8_operands(
+            card, 64, n, d, seed=kt, masked=True, l2=False)
+    else:
+        q, values, scales, mask = _bf16q_operands(card, mode, 64, n, d, seed=kt)
+        qs = None
+    full = dt.tile_topk(q, qs, values, scales, None, mask, n, tile, kt)
+    one = dt.tile_topk(q[37:38], None if qs is None else qs[37:38], values, scales,
+                       None, mask, n, tile, kt)
+    assert dt.tcs_split(64, 8, tile) == dt.tcs_split(1, 8, tile) == (8, 256)
+    assert torch.equal(full[0][:, 37:38], one[0])
+    assert torch.equal(full[1][:, 37:38], one[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [dt.MODE_INT8, dt.MODE_INT8_BF16, dt.MODE_BF16])
+@pytest.mark.parametrize("kt", [5, 32])
+def test_served_shape_takes_the_split_grid(card, mode, kt):
+    """16,384 rows of D = 256 at B = 64 (the served default collection,
+    unreranked kt 5 and reranked kt 32): the sorted-selection kernel with
+    each 2048-row tile split over a cluster of 8, equal to the plain
+    version (int8 x int8 bit for bit)."""
+    n, d, tile, b = 16384, 256, 2048, 64
+    if mode == dt.MODE_INT8:
+        q, qs, values, scales, norms, mask = _int8_operands(
+            card, b, n, d, seed=3, masked=True, l2=False)
+    else:
+        q, values, scales, mask = _bf16q_operands(card, mode, b, n, d, seed=3)
+        qs = None
+    assert dt.kernel_variant(mode, kt, d, b, n // tile, dt._sm_count(0)) == "tcs"
+    assert dt.tcs_split(b, n // tile, tile, dt._sm_count(0)) == (8, 256)
+    args = (q, qs, values, scales, None, mask, n, tile, kt)
+    before = _counts(mode)
+    kv, ki = dt.tile_topk(*args)
+    assert _launched("tcs", mode, before)
+    pv, pi = dt.tile_topk_plain(*args)
+    if mode == dt.MODE_INT8:
         assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    else:
+        fin = torch.isfinite(pv)
+        tol = d * 2.0 ** -23 * (float(pv[fin].abs().max()) + 1.0)
+        assert_topk_match(pv.cpu(), pi.cpu(), kv.cpu(), ki.cpu(), rtol=0.0, atol=tol,
+                          scores=dt.plain_scores(*args[:6], 0, n))
 
 
 @pytest.mark.cuda

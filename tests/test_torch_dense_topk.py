@@ -117,12 +117,107 @@ def test_live_rows_scan_changes_no_bit(live, per_tile_k):
     assert torch.equal(whole[0], cut[0]) and torch.equal(whole[1], cut[1])
 
 
-@pytest.mark.parametrize("mode,kt,d,want", [
-    (dt.MODE_INT8, 2, 768, "tc"), (dt.MODE_INT8, 1, 16, "tc"),
-    (dt.MODE_INT8, 8, 1024, "tc"), (dt.MODE_INT8, 9, 768, "simt"),
-    (dt.MODE_INT8, 2, 1040, "simt"), (dt.MODE_INT8_BF16, 2, 768, "simt"),
-    (dt.MODE_BF16, 1, 768, "simt"), (dt.MODE_F32, 2, 96, "simt")])
-def test_kernel_variant_by_shape(mode, kt, d, want):
-    """The int8 tensor-core kernel takes int8 x int8 at kt <= 8 and
-    D <= 1024; every other mode and shape takes the SIMT kernel."""
-    assert dt.kernel_variant(mode, kt, d) == want
+@pytest.mark.parametrize("mode,kt,d,b,tiles,want", [
+    # 1M rows, the flat search_hybrid and the encoder's B = 32: a full grid
+    (dt.MODE_INT8, 2, 768, 512, 489, "tc"), (dt.MODE_INT8, 1, 256, 32, 489, "tc"),
+    (dt.MODE_INT8, 8, 1024, 64, 132, "tc"), (dt.MODE_INT8, 8, 1024, 64, 131, "tcs"),
+    # 16,384 rows served at B = 64: 8 tiles, so the rows split
+    (dt.MODE_INT8, 5, 256, 64, 8, "tcs"), (dt.MODE_INT8, 32, 256, 64, 8, "tcs"),
+    (dt.MODE_BF16, 5, 256, 64, 8, "tcs"), (dt.MODE_BF16, 32, 256, 1, 8, "tcs"),
+    (dt.MODE_BF16, 1, 768, 1, 1, "tcs"),
+    # deep lists on a full grid; calibration's uncapped gold (kt 100)
+    (dt.MODE_INT8, 9, 768, 512, 489, "tcs"), (dt.MODE_INT8, 128, 768, 512, 489, "tcs"),
+    (dt.MODE_INT8_BF16, 100, 768, 32, 489, "tcs"), (dt.MODE_INT8_BF16, 2, 768, 32, 489, "tcs"),
+    # one above each cap, and f32
+    (dt.MODE_INT8, 129, 768, 1, 1, "simt"), (dt.MODE_INT8_BF16, 129, 256, 32, 8, "simt"),
+    (dt.MODE_BF16, 129, 256, 64, 8, "simt"), (dt.MODE_INT8, 2, 1040, 512, 489, "simt"),
+    (dt.MODE_BF16, 5, 1040, 64, 8, "simt"), (dt.MODE_F32, 2, 96, 20, 3, "simt")])
+def test_kernel_variant_by_shape(mode, kt, d, b, tiles, want):
+    """The int8 register-list kernel takes int8 x int8 at kt <= 8 where the
+    tiles alone fill the card's 132 SMs; the sorted-selection tensor-core
+    kernel every other int8 and bf16 call at kt <= 128 and D <= 1024; the
+    SIMT kernel f32 and what lies above the caps."""
+    assert dt.kernel_variant(mode, kt, d, b, tiles) == want
+
+
+@pytest.mark.parametrize("b,tiles,tile,want", [
+    (64, 8, 2048, (8, 256)), (1, 8, 2048, (8, 256)), (32, 8, 2048, (8, 256)),
+    (32, 489, 2048, (1, 2048)), (512, 489, 2048, (1, 2048)),
+    (64, 100, 2048, (1, 2048)), (32, 40, 2048, (4, 512)), (32, 30, 2048, (8, 256)),
+    (32, 20, 2048, (8, 256)), (1, 1, 200, (1, 256)), (1, 5, 1000, (4, 256)),
+    (7, 2, 600, (3, 256))])
+def test_tcs_split_fills_the_card(b, tiles, tile, want):
+    """Each tile's rows split into whole 256-row chunks over at most 8
+    blocks, at least as many as it takes to give the 132 SMs a block
+    each."""
+    slices, rows = dt.tcs_split(b, tiles, tile)
+    assert (slices, rows) == want
+    assert rows % dt.TCS_RC == 0 and slices * rows >= tile > (slices - 1) * rows
+
+
+def _kernel_selection_model(scores, kt, slices, rows):
+    """The "tcs" kernel's selection rule, written out: per slice, chunks of
+    256 columns; a chunk none of whose live keys beats the running list's
+    kt-th is skipped, else its top-kp merges into the list; then the
+    slices' lists merge in slice order.  Keys order value descending,
+    lowest column first; -inf is no key; missing slots are (-inf,
+    column 0)."""
+    kp = 8
+    while kp < kt:
+        kp *= 2
+    b, tile = scores.shape
+    order = lambda kv: (-kv[0], kv[1])  # noqa: E731
+    out_v = torch.empty((b, kt))
+    out_i = torch.empty((b, kt), dtype=torch.int32)
+    for qi in range(b):
+        lists = []
+        for s in range(slices):
+            lst = []
+            for c0 in range(s * rows, min(tile, (s + 1) * rows), dt.TCS_RC):
+                c1 = min(tile, (s + 1) * rows, c0 + dt.TCS_RC)
+                keys = [(float(scores[qi, c]), c) for c in range(c0, c1)
+                        if scores[qi, c] != float("-inf")]
+                if len(lst) >= kt and all(order(k) >= order(lst[kt - 1]) for k in keys):
+                    continue
+                top = sorted(keys, key=order)[:kp]
+                lst = sorted(lst + top, key=order)[:kp]
+            lists.append(lst)
+        merged = lists[0]
+        for lst in lists[1:]:
+            merged = sorted(merged + lst, key=order)[:kp]
+        merged = (merged + [(float("-inf"), 0)] * kt)[:kt]
+        out_v[qi] = torch.tensor([v for v, _ in merged])
+        out_i[qi] = torch.tensor([c for _, c in merged], dtype=torch.int32)
+    return out_v, out_i
+
+
+@pytest.mark.parametrize("kt", [1, 3, 8, 9, 32, 100, 128])
+@pytest.mark.parametrize("b,sms", [(3, 1), (3, dt.H100_SMS)])
+def test_sliced_selection_equals_the_plain_version(kt, b, sms):
+    """Taking a tile's top-kt by row slices and merging the slices' lists
+    in slice order under the tie rule gives tile_topk_plain's values and
+    ids exactly: ties (integer scores, -0 beside +0), an all-masked slice,
+    padding rows past n, tiles with fewer live rows than kt."""
+    rng = np.random.default_rng(15 + kt)
+    tile, n = 2048, 2 * 2048 + 700
+    num_tiles = -(-n // tile)
+    scores = rng.integers(-6, 7, size=(b, n)).astype(np.float32)
+    scores[:, 5::97] = -0.0
+    keep = rng.random(n) < 0.8
+    keep[256:768] = False  # whole chunks: an all-masked slice at 4+ slices
+    keep[2048 + 300:2 * 2048] = False  # tile 1 keeps 300 rows
+    keep[2 * 2048 + 20:] = False  # the ragged tile keeps 20 rows
+    # f32 queries = the identity, so the plain version's scores are these
+    q = torch.eye(b, 16)
+    values = torch.zeros((n, 16))
+    values[:, :b] = t(scores.T.copy())
+    pv, pi = dt.tile_topk_plain(q, None, values, None, None, t(keep), n, tile, kt)
+    slices, rows = dt.tcs_split(b, num_tiles, tile, sms)
+    assert (slices > 1) == (sms > 1)
+    masked = torch.where(t(keep)[None, :], t(scores), float("-inf"))
+    masked = torch.nn.functional.pad(masked, (0, num_tiles * tile - n),
+                                     value=float("-inf"))
+    for ti in range(num_tiles):
+        mv, mi = _kernel_selection_model(masked[:, ti * tile:(ti + 1) * tile], kt,
+                                         slices, rows)
+        assert torch.equal(mv, pv[ti]) and torch.equal(mi + ti * tile, pi[ti])

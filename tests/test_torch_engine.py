@@ -489,3 +489,54 @@ def test_batcher_on_the_ivf_tier_answers_as_direct_calls_of_its_batches():
         for q, want in zip(qs, direct(qs, **kw)):
             assert ([(h.row, h.score) for h in got[q]]
                     == [(h.row, h.score) for h in want])
+
+
+class _CountingEmbedder:
+    """An embedder with both entry points, counting the calls of each;
+    ``embed`` is ``embed_device`` brought to host memory, as
+    EncoderService's is."""
+
+    def __init__(self, dim, device_entry=True):
+        self.inner = HashEmbedder(dim=dim, device="cpu")
+        self.dim = dim
+        self.calls = {"embed": 0, "embed_device": 0}
+        if device_entry:
+            self.embed_device = self._embed_device
+
+    def _embed_device(self, texts):
+        self.calls["embed_device"] += 1
+        return self.inner.embed(list(texts))
+
+    def embed(self, texts):
+        self.calls["embed"] += 1
+        return self.inner.embed(list(texts)).numpy()
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bf16"])
+def test_ingest_takes_embed_device_and_stores_the_same_rows(dtype):
+    """Ingest keeps the embedding on the device when the embedder has
+    ``embed_device`` (the reference's engine/collection.py:75-76), and
+    stores the rows the ``embed()`` path stores, bit for bit."""
+    tdt = {"int8": torch.int8, "bf16": torch.bfloat16}[dtype]
+    rng = np.random.default_rng(44)
+    texts = _texts(rng, 300)
+    engines = []
+    for device_entry in (True, False):
+        emb = _CountingEmbedder(DIM, device_entry)
+        eng = CollectionEngine(tindex.IndexSpec(dim=DIM, dtype=tdt, bm25_slots=12,
+                                                vocab_size=V, min_capacity=512),
+                               embedder=emb, device="cpu")
+        for lo in range(0, 300, 128):
+            assert eng.ingest(texts[lo:lo + 128]) == list(range(lo, min(300, lo + 128)))
+        engines.append((eng, emb))
+    (dev, dev_emb), (host, host_emb) = engines
+    assert dev_emb.calls == {"embed": 0, "embed_device": 3}
+    assert host_emb.calls == {"embed": 3, "embed_device": 0}
+    assert torch.equal(dev.index.emb, host.index.emb)
+    if dev.index.scales is not None:
+        assert torch.equal(dev.index.scales, host.index.scales)
+    q = texts[:4]
+    a = dev.search_batch(q, top_k=5)
+    b = host.search_batch(q, top_k=5)
+    assert [[(h.row, h.score) for h in r] for r in a] == [
+        [(h.row, h.score) for h in r] for r in b]
