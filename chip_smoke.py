@@ -84,14 +84,26 @@ Phases, each printing one line with its seconds:
      against its plain version at the largest served batch; e. a
      deleted document leaves the search; f. a fresh App on the same
      data directory answers as before the restart;
-  12. a ``{"kernels": [...]}`` JSON line;
-  13. last line: ``{"ok": true, "device": {...}}``.
+  12. the rest of the search and document routes: the App with the
+     process ingest backend (worker subprocesses, stopped with the App)
+     and a local object store; text documents through documents/upload +
+     documents/confirm and a .zip, 256 PNG and BMP images through the
+     two-phase upload, a .zip and a .tar.gz into a collection with the
+     vision index; gates: a. the chunk texts equal a thread-backend App's;
+     b. 64 image searches, each its own asset first, equal to a direct
+     search_by_image, one tensor-core dense_topk launch each, the kernel
+     held against its plain version; c. assets, preview and object with
+     byte ranges, and a path outside the document refused; d. rebuilds;
+     e. a bulk delete checks the whole batch first; f. API keys and
+     change-password;
+  13. a ``{"kernels": [...]}`` JSON line;
+  14. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  There is no CPU path: without a
 CUDA device, or without the package beside it, it exits non-zero and
 prints no result.  Nothing is written under the repo except the kernel
-and analyzer libraries in super_rag_tpu_torch/_build/; the engine and
-HTTP phases' data go to temporary directories that they remove.
+and analyzer libraries in super_rag_tpu_torch/_build/; the engine, HTTP
+and docs phases' data go to temporary directories that they remove.
 """
 
 from __future__ import annotations
@@ -102,6 +114,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from unittest import mock
 
@@ -170,6 +183,15 @@ HTTP_CANDIDATES = 100
 HTTP_STAGE_REQUESTS = 32
 HTTP_RESTART_QUERIES = 64
 HTTP_INGEST_TIMEOUT_S = 600.0
+# [docs]: the rest of the search and document routes, the process ingest
+# backend, archives and the image route
+DOCS_TEXT_DOCS = 32  # 16 staged + confirmed, 16 in one .zip
+DOCS_TEXT_SECTIONS = 128
+DOCS_IMAGES = 256  # 192 PNG (32 staged + 160 in one .zip), 64 BMP in one .tar.gz
+DOCS_IMAGE_SIZE = 256
+DOCS_IMAGE_QUERIES = 64  # 48 PNG + 16 BMP
+DOCS_WORKERS = 2
+DOCS_PHOTOS = ((1080, 1920), (3000, 4000))  # JPEG decode timed on photos: HD, 12 MP
 SEM_ROWS = 1_000_000
 SEM_WORDS = 128  # words a row's text holds: every (query, row) pair fills 128 tokens
 SEM_CHUNKS = 65_536
@@ -2198,14 +2220,17 @@ def _pctl(ms: list, q: float) -> float:
     return float(np.percentile(np.asarray(ms), q))
 
 
-def http_corpus(gen) -> tuple[list, list]:
-    """HTTP_DOCS markdown documents, each a title and HTTP_SECTIONS
-    sections of HTTP_WORDS zipfian words (the [semantic] recipe: words
-    ``t<rank>``, a row's own words repeated by tf), and HTTP_QUERIES
-    distinct queries of discriminative words from random sections."""
+def http_corpus(gen, n_docs: int = None, sections: int = None) -> tuple[list, list]:
+    """``n_docs`` (HTTP_DOCS) markdown documents, each a title and
+    ``sections`` (HTTP_SECTIONS) sections of HTTP_WORDS zipfian words (the
+    [semantic] recipe: words ``t<rank>``, a row's own words repeated by tf),
+    and HTTP_QUERIES distinct queries of discriminative words from random
+    sections."""
     from super_rag_tpu_torch.tokenize.analyzer import fnv1a32
 
-    n = HTTP_DOCS * HTTP_SECTIONS
+    n_docs = HTTP_DOCS if n_docs is None else n_docs
+    sections = HTTP_SECTIONS if sections is None else sections
+    n = n_docs * sections
     ranks = ((_zipf(gen, 1.3, (n, SLOTS)) - 1) % VOCAB).to(torch.int32)
     tfs = torch.clamp(_zipf(gen, 2.0, (n, SLOTS)), max=4)
     paras = row_texts(ranks, tfs, HTTP_WORDS)
@@ -2220,9 +2245,9 @@ def http_corpus(gen) -> tuple[list, list]:
     if len(queries) < HTTP_QUERIES:
         raise AssertionError(f"only {len(queries)} distinct queries")
     docs = []
-    for d in range(HTTP_DOCS):
-        body = "".join(f"## section {d}.{s}\n\n{paras[d * HTTP_SECTIONS + s].strip()}\n\n"
-                       for s in range(HTTP_SECTIONS))
+    for d in range(n_docs):
+        body = "".join(f"## section {d}.{s}\n\n{paras[d * sections + s].strip()}\n\n"
+                       for s in range(sections))
         docs.append((f"doc{d:03d}.md", f"# doc {d}\n\n{body}"))
     return docs, queries
 
@@ -2845,6 +2870,672 @@ def phase_http(results: dict) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- [docs]: the rest of the search and document routes ------------------------
+
+def smooth_images(count: int, size: int, seed: int) -> list:
+    """``count`` distinct [size, size, 3] uint8 images: a few seeded
+    low-frequency waves per channel, no two alike."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    out = []
+    for _ in range(count):
+        img = np.zeros((size, size, 3), np.float32)
+        for c in range(3):
+            for _ in range(3):
+                fx, fy = rng.uniform(0.5, 6.0, 2)
+                ph = rng.uniform(0, 2 * np.pi)
+                img[..., c] += np.sin(2 * np.pi * (fx * xx + fy * yy) + ph)
+        img = (img - img.min()) / (img.max() - img.min() + 1e-6) * 255.0
+        out.append(img.astype(np.uint8))
+    return out
+
+
+def png_file(img: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG (filter type Sub on every row) with zlib and struct."""
+    import struct
+    import zlib
+
+    h, w, _ = img.shape
+    rows = img.reshape(h, w * 3).astype(np.int16)
+    sub = rows.copy()
+    sub[:, 3:] -= rows[:, :-3]
+    raw = np.concatenate([np.ones((h, 1), np.uint8), (sub & 0xFF).astype(np.uint8)],
+                         axis=1).tobytes()
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def bmp_file(img: np.ndarray) -> bytes:
+    """A 24-bit bottom-up BI_RGB BMP with struct."""
+    import struct
+
+    h, w, _ = img.shape
+    stride = (w * 3 + 3) & ~3
+    body = b"".join(r.tobytes() + bytes(stride - w * 3) for r in img[::-1, :, ::-1])
+    return (b"BM" + struct.pack("<IHHI", 54 + len(body), 0, 0, 54)
+            + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, len(body), 2835, 2835, 0, 0)
+            + body)
+
+
+def photo_image(h: int, w: int, seed: int) -> np.ndarray:
+    """[h, w, 3] uint8 with what a photo has: smooth gradients, edges and
+    sensor noise (seeded)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.zeros((h, w, 3), np.float32)
+    for c in range(3):
+        for _ in range(4):
+            fx, fy = rng.uniform(0.3, 4.0, 2) / max(h, w)
+            img[..., c] += 40 * np.sin(2 * np.pi * (fx * xx + fy * yy) + rng.uniform(0, 6.3))
+    for _ in range(24):  # flat objects with hard edges
+        y0, x0 = rng.integers(0, h), rng.integers(0, w)
+        img[y0:y0 + rng.integers(h // 20, h // 4), x0:x0 + rng.integers(w // 20, w // 4)] \
+            += rng.uniform(-60, 60, 3)
+    img += 128 + rng.normal(0, 9, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+_STD_Q = (np.array([  # ITU T.81 K.1, natural order
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99]),
+    np.array([
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99] + [99] * 32))
+
+
+def jpeg_file(img: np.ndarray, quality: int = 90) -> bytes:
+    """A baseline JPEG (JFIF, 4:2:0, libjpeg's quality scaling of the K.1
+    tables, the K.3 Huffman tables) of an [h, w, 3] uint8 image, encoded
+    with numpy: float DCT, then vectorized Huffman coding and bit packing."""
+    import struct
+
+    from super_rag_tpu_torch.models.image_decode import _STD_HUFFMAN, _ZIGZAG
+
+    h, w, _ = img.shape
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    qts = [np.clip((q * scale + 50) // 100, 1, 255) for q in _STD_Q]
+    f = img.astype(np.float32)
+    ycc = [0.299 * f[..., 0] + 0.587 * f[..., 1] + 0.114 * f[..., 2],
+           -0.168736 * f[..., 0] - 0.331264 * f[..., 1] + 0.5 * f[..., 2] + 128,
+           0.5 * f[..., 0] - 0.418688 * f[..., 1] - 0.081312 * f[..., 2] + 128]
+    H, W = -(-h // 16) * 16, -(-w // 16) * 16
+    ycc = [np.pad(p, ((0, H - h), (0, W - w)), mode="edge") for p in ycc]
+    ycc[1:] = [p.reshape(H // 2, 2, W // 2, 2).mean(axis=(1, 3)) for p in ycc[1:]]
+    k = np.arange(8)
+    dct = np.cos(np.pi * (2 * k[None, :] + 1) * k[:, None] / 16) * np.sqrt(2 / 8)
+    dct[0] /= np.sqrt(2)
+    zz = []
+    for ci, p in enumerate(ycc):
+        bh, bw = p.shape[0] // 8, p.shape[1] // 8
+        blocks = p.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3) - 128
+        coef = np.einsum("uy,abyx,vx->abuv", dct, blocks, dct).reshape(bh, bw, 64)
+        q = qts[0 if ci == 0 else 1]
+        zz.append(np.rint(coef / q)[..., _ZIGZAG].astype(np.int64))
+    # MCU order: Y00 Y01 Y10 Y11 Cb Cr
+    my, mx = H // 16, W // 16
+    y = zz[0].reshape(my, 2, mx, 2, 64).transpose(0, 2, 1, 3, 4).reshape(my * mx, 4, 64)
+    seq = np.concatenate([y, zz[1].reshape(-1, 1, 64), zz[2].reshape(-1, 1, 64)], axis=1)
+    comp = np.tile([0, 0, 0, 0, 1, 2], my * mx)
+    seq = seq.reshape(-1, 64)
+    # Huffman code tables: symbol -> (code, length)
+    tabs = {}
+    for (cls, slot), (counts, syms) in _STD_HUFFMAN.items():
+        counts, syms = bytes.fromhex(counts), bytes.fromhex(syms)
+        code, k2, ctab, ltab = 0, 0, np.zeros(256, np.int64), np.zeros(256, np.int64)
+        for length in range(1, 17):
+            for _ in range(counts[length - 1]):
+                ctab[syms[k2]], ltab[syms[k2]] = code, length
+                code += 1
+                k2 += 1
+            code <<= 1
+        tabs[(cls, slot)] = (ctab, ltab)
+
+    def size_bits(v):
+        a = np.abs(v)
+        s = np.zeros_like(a)
+        nz = a > 0
+        s[nz] = np.floor(np.log2(a[nz])).astype(np.int64) + 1
+        return s, np.where(v < 0, v + (1 << s) - 1, v)
+
+    slot = (comp > 0).astype(np.int64)
+    dc = seq[:, 0].copy()
+    diff = np.empty_like(dc)
+    for c in range(3):
+        at = np.flatnonzero(comp == c)
+        diff[at] = np.diff(dc[at], prepend=0)
+    keys, vals, lens = [], [], []
+    s, extra = size_bits(diff)
+    for sl in (0, 1):
+        m = slot == sl
+        ctab, ltab = tabs[(0, sl)]
+        keys.append(np.flatnonzero(m) * 4096)
+        vals.append((ctab[s[m]] << s[m]) | extra[m])
+        lens.append(ltab[s[m]] + s[m])
+    b, kk = np.nonzero(seq[:, 1:])
+    kk = kk + 1
+    prev = np.zeros_like(kk)
+    same = np.r_[False, b[1:] == b[:-1]]
+    prev[same] = kk[:-1][same[1:]]
+    run = kk - prev - 1
+    v = seq[b, kk]
+    s, extra = size_bits(v)
+    sl = slot[b]
+    for t in (0, 1):
+        m = sl == t
+        ctab, ltab = tabs[(1, t)]
+        sym = ((run[m] % 16) << 4) | s[m]
+        keys.append(b[m] * 4096 + kk[m] * 32 + 4)
+        vals.append((ctab[sym] << s[m]) | extra[m])
+        lens.append(ltab[sym] + s[m])
+        z = run[m] // 16  # ZRL symbols before this one
+        zb = np.repeat(np.flatnonzero(m), z)
+        if zb.size:
+            j = np.arange(zb.size) - np.repeat(np.cumsum(z) - z, z)
+            keys.append(b[zb] * 4096 + kk[zb] * 32 + j)
+            vals.append(np.full(zb.size, ctab[0xF0]))
+            lens.append(np.full(zb.size, ltab[0xF0]))
+    last = np.zeros(len(seq), np.int64)
+    np.maximum.at(last, b, kk)
+    eob = np.flatnonzero(last < 63)
+    for t in (0, 1):
+        m = slot[eob] == t
+        ctab, ltab = tabs[(1, t)]
+        keys.append(eob[m] * 4096 + 64 * 32)
+        vals.append(np.full(m.sum(), ctab[0]))
+        lens.append(np.full(m.sum(), ltab[0]))
+    order = np.argsort(np.concatenate(keys), kind="stable")
+    vals = np.concatenate(vals)[order]
+    lens = np.concatenate(lens)[order]
+    ends = np.cumsum(lens)
+    total = int(ends[-1]) if len(ends) else 0
+    bits = np.ones(-(-total // 8) * 8, np.uint8)  # the last byte padded with 1s
+    step = 1 << 18
+    for a in range(0, len(vals), step):
+        vv, ll, ee = vals[a:a + step, None], lens[a:a + step, None], ends[a:a + step, None]
+        j = np.arange(27)[None, :]
+        ok = j < ll
+        bits[(ee - ll + j)[ok]] = ((vv >> np.maximum(ll - 1 - j, 0)) & 1)[ok]
+    data = np.packbits(bits)
+    data = np.insert(data, np.flatnonzero(data == 0xFF) + 1, 0).tobytes()
+
+    def seg(marker, body):
+        return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+
+    out = b"\xff\xd8" + seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    for t, q in enumerate(qts):
+        out += seg(0xDB, bytes([t]) + bytes(q[_ZIGZAG].astype(np.uint8)))
+    out += seg(0xC0, struct.pack(">BHHB", 8, h, w, 3) + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1]))
+    for (cls, sl), (counts, syms) in sorted(_STD_HUFFMAN.items()):
+        out += seg(0xC4, bytes([cls << 4 | sl]) + bytes.fromhex(counts) + bytes.fromhex(syms))
+    out += seg(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
+    return out + data + b"\xff\xd9"
+
+
+def _archive(kind: str, files: list) -> bytes:
+    import io
+    import tarfile
+    import zipfile
+
+    buf = io.BytesIO()
+    if kind == "zip":
+        with zipfile.ZipFile(buf, "w", zipfile.ZIP_DEFLATED) as z:
+            for name, data in files:
+                z.writestr(name, data)
+    else:
+        with tarfile.open(fileobj=buf, mode="w:gz") as t:
+            for name, data in files:
+                info = tarfile.TarInfo(name)
+                info.size = len(data)
+                t.addfile(info, io.BytesIO(data))
+    return buf.getvalue()
+
+
+def _raw(port: int, token: str, method: str, path: str, body: bytes = None,
+         headers: dict = None):
+    """One request with a raw body; returns (status, headers, bytes)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        hdrs = {"Authorization": f"Bearer {token}", **(headers or {})}
+        conn.request(method, path, body=body, headers=hdrs)
+        resp = conn.getresponse()
+        return resp.status, {k.lower(): v for k, v in resp.getheaders()}, resp.read()
+    finally:
+        conn.close()
+
+
+def _post_files(port: int, token: str, path: str, files: list):
+    boundary = "smokeB0undary7"
+    raw = b"".join((f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+                    f"filename=\"{name}\"\r\nContent-Type: application/octet-stream"
+                    "\r\n\r\n").encode() + data + b"\r\n" for name, data in files)
+    raw += f"--{boundary}--\r\n".encode()
+    st, _, out = _raw(port, token, "POST", path, raw,
+                      {"Content-Type": f"multipart/form-data; boundary={boundary}"})
+    return st, json.loads(out)
+
+
+def _wait_complete(c, cid: str, count: int, what: str, t_first: float) -> float:
+    while True:
+        listing = _expect(*c.call("GET", f"/api/v1/collections/{cid}/documents?limit=1000"), 200,
+                          "list documents")
+        status = [d["status"] for d in listing]
+        if "FAILED" in status:
+            bad = [d for d in listing if d["status"] == "FAILED"][:1]
+            raise AssertionError(f"a document of {what} FAILED: {bad}")
+        if len(status) == count and set(status) == {"COMPLETE"}:
+            return time.perf_counter() - t_first
+        if time.perf_counter() - t_first > HTTP_INGEST_TIMEOUT_S:
+            raise AssertionError(f"ingest of {what} not complete after "
+                                 f"{HTTP_INGEST_TIMEOUT_S} s: {status.count('COMPLETE')} "
+                                 f"of {count}")
+        time.sleep(0.05)
+
+
+def _upload_text(port: int, token: str, cid: str, docs: list) -> None:
+    """Half the documents through documents/upload + documents/confirm,
+    half in one .zip through POST documents."""
+    half = len(docs) // 2
+    staged = _expect(*_post_files(port, token, f"/api/v1/collections/{cid}/documents/upload",
+                                  [(n, t.encode()) for n, t in docs[:half]]), 201, "stage")
+    c = _Client(port, token)
+    try:
+        _expect(*c.call("POST", f"/api/v1/collections/{cid}/documents/confirm", staged),
+                201, "confirm")
+    finally:
+        c.close()
+    _expect(*_post_files(port, token, f"/api/v1/collections/{cid}/documents",
+                         [("text.zip", _archive("zip", [(n, t.encode())
+                                                        for n, t in docs[half:]]))]),
+            201, "zip upload")
+
+
+def phase_docs(results: dict) -> None:
+    """The rest of the search and document routes on the port's own App,
+    with the process ingest backend (DOCS_WORKERS worker subprocesses, the
+    device commit in the App's process) and a local object store: text
+    documents through the two-phase upload and a .zip, images through the
+    two-phase upload, a .zip and a .tar.gz into a collection with the
+    vision index; the same text under the thread backend for gate a;
+    image searches on the card (dense_topk); gates a-f."""
+    import base64
+    import dataclasses
+    import hashlib
+    import shutil
+    import tempfile
+
+    from super_rag_tpu_torch.config import Settings
+    from super_rag_tpu_torch.models.encoder import flax_params
+    from super_rag_tpu_torch.models.encoder_service import EncoderService, save_params
+    from super_rag_tpu_torch.ops import dense_topk as dt
+    from super_rag_tpu_torch.tasks.scheduler import ProcessScheduler, ThreadScheduler
+
+    card = results["card"]
+
+    def dlog(msg: str) -> None:
+        log(f"[docs] {msg} (on {card})")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_docs_")
+    apps: list = []
+    c = None
+    try:
+        t0 = time.perf_counter()
+        cfg = semantic_config(torch.bfloat16)
+        enc = EncoderService(cfg, max_len=cfg.max_len, seed=SEED, device=DEVICE)
+        save_params(flax_params(enc.model), os.path.join(tmp, "enc"), cfg)
+        del enc
+        base = dataclasses.replace(
+            Settings(), port=0, batch_max=64, default_top_k=HTTP_TOP_K,
+            rerank_candidates=HTTP_CANDIDATES, chunk_size=400, encoder_checkpoint="",
+            reranker_checkpoint="", ingest_host_workers=DOCS_WORKERS)
+        embedding = {"provider": "onboard", "model": os.path.join(tmp, "enc")}
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+        docs, queries = http_corpus(gen, DOCS_TEXT_DOCS, DOCS_TEXT_SECTIONS)
+        imgs = smooth_images(DOCS_IMAGES, DOCS_IMAGE_SIZE, SEED + 12)
+        n_png = DOCS_IMAGES * 3 // 4
+        files = ([(f"img{i:03d}.png", png_file(im)) for i, im in enumerate(imgs[:n_png])]
+                 + [(f"img{i:03d}.bmp", bmp_file(im))
+                    for i, im in enumerate(imgs[n_png:], n_png)])
+        del imgs
+        asset_of = {name: hashlib.sha256(data).hexdigest()[:16] for name, data in files}
+        if len(set(asset_of.values())) != len(files):
+            raise AssertionError("two images share their bytes")
+        dlog(f"set-up: encoder checkpoint ({cfg.num_layers} x {cfg.hidden_dim}, bf16), "
+             f"{len(docs)} markdown documents x {DOCS_TEXT_SECTIONS} sections, "
+             f"{n_png} PNG + {len(files) - n_png} BMP images of {DOCS_IMAGE_SIZE} x "
+             f"{DOCS_IMAGE_SIZE} ({sum(len(d) for _, d in files) / 2**20:.1f} MiB) in "
+             f"{time.perf_counter() - t0:.2f} s")
+
+        # -- the thread backend: the same text documents, for gate a
+        chunks_by_backend: dict = {}
+        ingest: dict = {}
+        for backend in ("thread", "process"):
+            settings = dataclasses.replace(base, data_dir=os.path.join(tmp, backend),
+                                           ingest_backend=backend)
+            srv = _AppThread(settings)
+            apps.append(srv)
+            port = srv.app.port
+            want = ProcessScheduler if backend == "process" else ThreadScheduler
+            if type(srv.app.ctx.scheduler) is not want:
+                raise AssertionError(f"the {backend} backend runs "
+                                     f"{type(srv.app.ctx.scheduler).__name__}")
+            c = _Client(port)
+            _expect(*c.call("POST", "/api/v1/auth/register",
+                            {"username": "smoke", "password": "smoke-password"}), 201,
+                    "register")
+            c.close()
+            token = _login(port)
+            c = _Client(port, token)
+            tcid = _expect(*c.call("POST", "/api/v1/collections",
+                                   {"title": "text", "config": {"embedding": embedding}}),
+                           201, "create collection")["id"]
+            t_first = time.perf_counter()
+            _upload_text(port, token, tcid, docs)
+            wall = _wait_complete(c, tcid, len(docs), f"text ({backend})", t_first)
+            listing = _expect(*c.call("GET", f"/api/v1/collections/{tcid}/documents?limit=1000"), 200,
+                              "list")
+            chunks_by_backend[backend] = {
+                d["name"]: [ch["text"] for ch in _expect(*c.call(
+                    "GET", f"/api/v1/documents/{d['id']}/chunks"), 200, "chunks")]
+                for d in listing}
+            n_chunks = sum(len(v) for v in chunks_by_backend[backend].values())
+            ingest[backend] = {"chunks": n_chunks, "s": wall, "chunks_per_s": n_chunks / wall}
+            dlog(f"ingest, {backend} backend ({DOCS_WORKERS} host workers): {len(docs)} "
+                 f"documents (half staged + confirmed, half in one .zip), {n_chunks} chunks, "
+                 f"every document COMPLETE after {wall:.3f} s: {n_chunks / wall:.0f} chunks/s")
+            if backend == "thread":
+                c.close()
+                c = None
+                srv.stop()
+                apps.remove(srv)
+
+        # gate a: the same chunk texts under both backends
+        if chunks_by_backend["process"] != chunks_by_backend["thread"]:
+            bad = [n for n in chunks_by_backend["thread"]
+                   if chunks_by_backend["process"].get(n) != chunks_by_backend["thread"][n]]
+            raise AssertionError(f"gate a: chunk texts differ between the process and thread "
+                                 f"backends for {bad[:3]}")
+        dlog(f"gate a: the {len(docs)} documents' chunk texts under the process backend "
+             f"equal the thread backend's ({ingest['process']['chunks']} chunks)")
+
+        # -- the image collection (vision index), through the process backend
+        icid = _expect(*c.call("POST", "/api/v1/collections",
+                               {"title": "images", "config": {"embedding": embedding,
+                                                              "enable_vision": True}}),
+                       201, "create image collection")["id"]
+        pngs, bmps = files[:n_png], files[n_png:]
+        t_first = time.perf_counter()
+        staged = _expect(*_post_files(port, token,
+                                      f"/api/v1/collections/{icid}/documents/upload",
+                                      pngs[:32]), 201, "stage images")
+        _expect(*c.call("POST", f"/api/v1/collections/{icid}/documents/confirm", staged),
+                201, "confirm images")
+        _expect(*_post_files(port, token, f"/api/v1/collections/{icid}/documents",
+                             [("images.zip", _archive("zip", pngs[32:]))]), 201, "zip")
+        _expect(*_post_files(port, token, f"/api/v1/collections/{icid}/documents",
+                             [("images.tar.gz", _archive("tar.gz", bmps))]), 201, "tar.gz")
+        img_wall = _wait_complete(c, icid, len(files), "images", t_first)
+        listing = _expect(*c.call("GET", f"/api/v1/collections/{icid}/documents?limit=1000"), 200, "list")
+        did_of = {d["name"]: d["id"] for d in listing}
+        eng = srv.app.ctx.engines.get(icid)
+        vision_rows = sum(1 for m in eng.index.row_meta if m is not None and m.get("asset_id"))
+        if vision_rows != len(files):
+            raise AssertionError(f"gate: {vision_rows} vision rows, expected {len(files)}")
+        if eng.index.device.type != torch.device(DEVICE).type:
+            raise AssertionError(f"the image index lives on {eng.index.device}")
+        dlog(f"ingest, process backend: {len(files)} images (32 PNG staged + confirmed, "
+             f"{len(pngs) - 32} PNG in one .zip, {len(bmps)} BMP in one .tar.gz), vector + "
+             f"vision indexes, every document COMPLETE after {img_wall:.3f} s: "
+             f"{len(files) / img_wall:.1f} images/s; {vision_rows} vision rows "
+             f"({eng.index.live_count} live rows, {str(eng.index.spec.dtype)[6:]} index, "
+             f"D = {eng.index.spec.dim})")
+
+        # -- gate b: image searches over HTTP, each equal to a direct call
+        blob = dict(files)
+        picks = pngs[:: max(1, len(pngs) // 48)][:48] + bmps[:: max(1, len(bmps) // 16)][:16]
+        picks = picks[:DOCS_IMAGE_QUERIES]
+        calls: dict = {}
+        real_tile_topk = dt.tile_topk
+
+        def keep(*args):
+            calls["last"] = args
+            return real_tile_topk(*args)
+
+        lat = []
+        served = []
+        _reset_counts()
+        counts0 = _counts()
+        with mock.patch.object(dt, "tile_topk", keep):
+            for name, data in picks:
+                body = {"image_base64": base64.b64encode(data).decode(),
+                        "top_k": HTTP_TOP_K}
+                t1 = time.perf_counter()
+                out = _expect(*c.call("POST", f"/api/v1/collections/{icid}/searches/image",
+                                      body), 201, "image search")
+                lat.append((time.perf_counter() - t1) * 1e3)
+                served.append((name, out["items"]))
+        torch.cuda.synchronize()
+        launched = {k: v - counts0[k] for k, v in _counts().items() if v - counts0[k]}
+        mode = dt._mode(calls["last"][0], calls["last"][2])
+        key = TC_MODE_KEYS[mode]
+        if launched.get(key, 0) != len(picks) or launched.get("dense_topk_tc", 0) != len(picks):
+            raise AssertionError(f"gate b: {len(picks)} image searches launched {launched}")
+        for name, items in served:
+            if not items or items[0]["asset_id"] != asset_of[name] \
+                    or items[0]["document_id"] != did_of[name]:
+                raise AssertionError(f"gate b: the image search for {name} answered "
+                                     f"{items[:1]}, expected asset {asset_of[name]}")
+            direct = eng.search_by_image(blob[name], top_k=HTTP_TOP_K)
+            want = [(h.metadata.get("asset_id"), h.metadata.get("document_id"), h.score)
+                    for h in direct]
+            got = [(it["asset_id"], it["document_id"], it["score"]) for it in items]
+            if got != want:
+                raise AssertionError(f"gate b: served {got} != direct {want} for {name}")
+        row = _served_kernel_row(calls["last"], launched[key], len(picks), dlog)
+        results["dense_topk"]["http_image"] = {
+            k: row[k] for k in ("variant", "ms", "launches", "bound_ms", "bound_by",
+                                "plain_ms", "library_ms", "max_abs_err")}
+        results["dense_topk_http_image"] = row
+        dlog(f"gate b: {len(picks)} POST searches/image ({sum(n.endswith('.png') for n, _ in picks)}"
+             f" PNG, {sum(n.endswith('.bmp') for n, _ in picks)} BMP), each 201 with its own "
+             f"asset first and the items of a direct search_by_image (ids, scores to the bit); "
+             f"{launched[key]} {row['variant']} dense_topk launches ({key}); one client p50 "
+             f"{_pctl(lat, 50):.3f} ms, p99 {_pctl(lat, 99):.3f} ms")
+
+        # -- gate c: assets, preview, object, ranges, scope
+        for name, data in picks[:8]:
+            st, hdrs, out = _raw(port, token, "GET",
+                                 f"/api/v1/collections/{icid}/assets/{asset_of[name]}")
+            if st != 200 or out != data:
+                raise AssertionError(f"gate c: asset of {name}: HTTP {st}, "
+                                     f"{len(out)} of {len(data)} bytes")
+            did = did_of[name]
+            for path in (f"/api/v1/documents/{did}/preview",
+                         f"/api/v1/collections/{icid}/documents/{did}/preview",
+                         f"/api/v1/collections/{icid}/documents/{did}/object"):
+                for rng, want_st, want in ((None, 200, data), ("bytes=10-99", 206, data[10:100]),
+                                           ("bytes=-50", 206, data[-50:]),
+                                           ("bytes=x-y", 200, data)):
+                    st, hdrs, out = _raw(port, token, "GET", path, None,
+                                         {"Range": rng} if rng else None)
+                    if st != want_st or out != want:
+                        raise AssertionError(f"gate c: {path} Range {rng}: HTTP {st}, "
+                                             f"{len(out)} bytes")
+                    if st == 206:
+                        lo = 10 if rng == "bytes=10-99" else len(data) - 50
+                        hi = 99 if rng == "bytes=10-99" else len(data) - 1
+                        if hdrs.get("content-range") != f"bytes {lo}-{hi}/{len(data)}":
+                            raise AssertionError(f"gate c: Content-Range "
+                                                 f"{hdrs.get('content-range')}")
+            st, _, _ = _raw(port, token, "GET", f"/api/v1/collections/{icid}/documents/"
+                            f"{did}/object?path=../../x")
+            if st != 403:
+                raise AssertionError(f"gate c: ?path=../../x answered {st}")
+        dlog("gate c: 8 assets return their uploaded bytes; preview (flat, nested) and "
+             "object answer 200 with the whole body, 206 with the slice and Content-Range "
+             "for bytes=10-99 and bytes=-50, 200 for a malformed range; ?path=../../x 403")
+
+        # -- gate d: rebuild four image documents
+        rebuilt = picks[:4]
+        for name, _ in rebuilt:
+            out = _expect(*c.call("POST", f"/api/v1/documents/{did_of[name]}/rebuild_indexes"),
+                          200, "rebuild")
+            if out != {"rebuilt": 2}:
+                raise AssertionError(f"gate d: rebuild of {name} answered {out}")
+        t1 = time.perf_counter()
+        _wait_complete(c, icid, len(files), "rebuilt images", t1)
+        srv.app.ctx.scheduler.wait_idle(120)
+        _wait_complete(c, icid, len(files), "rebuilt images", t1)
+        rebuild_s = time.perf_counter() - t1
+        for name, data in rebuilt:
+            out = _expect(*c.call("POST", f"/api/v1/collections/{icid}/searches/image",
+                                  {"image_base64": base64.b64encode(data)
+                                   .decode()}), 201, "image search")
+            if out["items"][0]["asset_id"] != asset_of[name]:
+                raise AssertionError(f"gate d: after the rebuild {name} answers "
+                                     f"{out['items'][:1]}")
+        out = _expect(*c.call("POST", f"/api/v1/collections/{icid}/rebuild_failed_indexes"),
+                      200, "rebuild failed")
+        if out != {"rebuilt": 0}:
+            raise AssertionError(f"gate d: rebuild_failed_indexes answered {out}")
+        dlog(f"gate d: rebuild_indexes on 4 image documents: COMPLETE again after "
+             f"{rebuild_s:.3f} s, each still its own top-1; rebuild_failed_indexes "
+             f"{{\"rebuilt\": 0}}")
+
+        # -- gate e: bulk delete
+        victims = [n for n, _ in picks[8:16]]
+        n_docs = len(did_of)
+        st, out = c.call("DELETE", f"/api/v1/collections/{icid}/documents",
+                         {"document_ids": [did_of[victims[0]], "no-such-document"]})
+        _expect(st, out, 404, "bulk delete with an unknown id")
+        left = _expect(*c.call("GET", f"/api/v1/collections/{icid}/documents?limit=1000"), 200, "list")
+        if len(left) != n_docs:
+            raise AssertionError(f"gate e: a refused batch deleted {n_docs - len(left)}")
+        out = _expect(*c.call("DELETE", f"/api/v1/collections/{icid}/documents",
+                              {"document_ids": [did_of[n] for n in victims]}), 200,
+                      "bulk delete")
+        if sorted(out["deleted"]) != sorted(did_of[n] for n in victims):
+            raise AssertionError(f"gate e: bulk delete answered {out}")
+        if not srv.app.ctx.scheduler.wait_idle(120):
+            raise AssertionError("gate e: the delete tasks did not drain")
+        gone = {asset_of[n] for n in victims}
+        for name, data in picks[:24]:
+            out = _expect(*c.call("POST", f"/api/v1/collections/{icid}/searches/image",
+                                  {"image_base64": base64.b64encode(data)
+                                   .decode(), "top_k": 20}), 201, "image search")
+            if gone & {it["asset_id"] for it in out["items"]}:
+                raise AssertionError(f"gate e: a deleted asset answers for {name}")
+        dlog(f"gate e: a batch with one unknown id answered 404 and deleted nothing; "
+             f"{len(victims)} image documents deleted in one batch leave every later "
+             f"image search (24 queries, top 20)")
+
+        # -- JPEG decode on the host, on photo-like images (printed, not gated)
+        from super_rag_tpu_torch.models.image_decode import gray64
+
+        photos = {}
+        for h, w in DOCS_PHOTOS:
+            data = jpeg_file(photo_image(h, w, SEED + 13))
+            t1 = time.perf_counter()
+            px = gray64(data)
+            dec_s = time.perf_counter() - t1
+            if px.shape != (64, 64) or not 0 < float(px.std()):
+                raise AssertionError(f"the {w} x {h} photo decoded to {px.shape}, flat")
+            photos[f"{w}x{h}"] = {"bytes": len(data), "decode_s": dec_s,
+                                  "mpix_per_s": h * w / 1e6 / dec_s}
+            dlog(f"JPEG decode (baseline, q90, 4:2:0, {len(data) * 8 / (h * w):.2f} bits a "
+                 f"pixel) of a {w} x {h} photo-like image on the host: {dec_s:.3f} s, "
+                 f"{h * w / 1e6 / dec_s:.2f} Mpixel/s")
+        # one image search with the largest photo, and text searches meanwhile
+        body = {"image_base64": base64.b64encode(data).decode(), "top_k": HTTP_TOP_K}
+        text = {"query": queries[1], "use_rerank": False}
+        quiet = []
+        for _ in range(8):
+            t1 = time.perf_counter()
+            _expect(*c.call("POST", f"/api/v1/collections/{tcid}/searches", text), 201,
+                    "text search")
+            quiet.append((time.perf_counter() - t1) * 1e3)
+        box: dict = {}
+
+        def photo_search() -> None:
+            pc = _Client(port, token)
+            try:
+                t2 = time.perf_counter()
+                box["status"] = pc.call("POST", f"/api/v1/collections/{icid}/searches/image",
+                                        body)[0]
+                box["ms"] = (time.perf_counter() - t2) * 1e3
+            finally:
+                pc.close()
+
+        worker = threading.Thread(target=photo_search)
+        worker.start()
+        during = []
+        while worker.is_alive():
+            t1 = time.perf_counter()
+            _expect(*c.call("POST", f"/api/v1/collections/{tcid}/searches", text), 201,
+                    "text search during the photo search")
+            during.append((time.perf_counter() - t1) * 1e3)
+        worker.join()
+        if box.get("status") != 201:
+            raise AssertionError(f"the photo's image search answered {box.get('status')}")
+        photos["search_ms"] = box["ms"]
+        photos["text_ms_alone_p50"] = _pctl(quiet, 50)
+        photos["text_ms_during_p50"] = _pctl(during, 50) if during else None
+        photos["text_ms_during_max"] = max(during) if during else None
+        dlog(f"POST searches/image with the {w} x {h} photo: {box['ms']:.1f} ms; text "
+             f"searches from another client meanwhile: {len(during)} answered, p50 "
+             f"{photos['text_ms_during_p50'] or 0:.1f} ms, max "
+             f"{photos['text_ms_during_max'] or 0:.1f} ms (alone p50 "
+             f"{photos['text_ms_alone_p50']:.1f} ms)")
+
+        # -- gate f: accounts
+        key = _expect(*c.call("POST", "/api/v1/apikeys", {"description": "smoke"}), 201,
+                      "create API key")
+        kc = _Client(port, key["key"])
+        try:
+            _expect(*kc.call("POST", f"/api/v1/collections/{tcid}/searches",
+                             {"query": queries[0], "use_rerank": False}), 201,
+                    "search with an API key")
+            _expect(*c.call("DELETE", f"/api/v1/apikeys/{key['id']}"), 204, "delete key")
+            _expect(*kc.call("POST", f"/api/v1/collections/{tcid}/searches",
+                             {"query": queries[0]}), 401, "search with a deleted key")
+        finally:
+            kc.close()
+        _expect(*c.call("POST", "/api/v1/change-password",
+                        {"old_password": "smoke-password", "new_password": "smoke-new-pw"}),
+                200, "change-password")
+        lc = _Client(port)
+        try:
+            _expect(*lc.call("POST", "/api/v1/auth/login",
+                             {"username": "smoke", "password": "smoke-new-pw"}), 200,
+                    "login with the new password")
+            _expect(*lc.call("POST", "/api/v1/auth/login",
+                             {"username": "smoke", "password": "smoke-password"}), 401,
+                    "login with the old password")
+        finally:
+            lc.close()
+        dlog("gate f: a search with a new API key answered 201 and 401 once the key was "
+             "deleted; after change-password the new password logs in and the old does not")
+        results["docs"] = {"ingest": ingest, "images": len(files), "images_s": img_wall,
+                           "images_per_s": len(files) / img_wall,
+                           "image_search_p50": _pctl(lat, 50),
+                           "image_search_p99": _pctl(lat, 99), "photos": photos}
+        dlog("gates a-f passed")
+    finally:
+        if c is not None:
+            c.close()
+        for app in apps:
+            app.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script has no CPU path",
@@ -2934,6 +3625,10 @@ def main() -> int:
     phase_http(results)
     log(f"[http] phase in {time.perf_counter() - t0:.2f} s (on {smi})")
 
+    t0 = time.perf_counter()
+    phase_docs(results)
+    log(f"[docs] phase in {time.perf_counter() - t0:.2f} s (on {smi})")
+
     source = "super_rag_tpu_torch/csrc/"
     kernels = {"kernels": [
         {"name": "dense_topk", "route": "cuda", "source": source + "dense_topk.cu",
@@ -2948,7 +3643,7 @@ def main() -> int:
            "source": source + "dense_topk.cu",
            "replaces": "super_rag_tpu/ops/pallas_topk.py:36",
            **results[f"dense_topk_http_{t}"]}
-          for t in ("bf16", "bf16_rerank", "int8", "int8_rerank")),
+          for t in ("bf16", "bf16_rerank", "int8", "int8_rerank", "image")),
     ]}
     log(f"[done] wall {time.perf_counter() - t_start:.2f} s")
     log(json.dumps(kernels))

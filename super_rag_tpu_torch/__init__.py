@@ -8,6 +8,15 @@ pass ``device="cpu"``, where every kernel wrapper runs its plain PyTorch
 version.
 """
 
-from super_rag_tpu_torch.device import resolve_device
+
+def __getattr__(name: str):
+    # resolved on first use, so host-only modules (the ingest worker
+    # process, tasks/worker.py) import the package without torch
+    if name == "resolve_device":
+        from super_rag_tpu_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = ["resolve_device"]

@@ -4,18 +4,28 @@ api/routes.py, the routes of the search and document path).
 Handlers are thin: auth resolution, request shaping, service call, JSON
 response.  An audit middleware writes request/latency rows for every
 /api/v1 call.  Served here: /health and /metrics; register, login,
-logout, users/me and their unprefixed aliases; collection CRUD; the
-collection search and the multi-collection search; document upload (JSON
-and multipart, without archives), list, get, delete and chunks, flat and
-nested under their collection.  Every other route of the JAX package
-waits (ROADMAP A6); its URL answers 404, as any unknown route does.
+logout, users/me and their unprefixed aliases, change-password, users,
+API keys and OAuth; collection CRUD; the collection search, the image
+search, assets and the multi-collection search; document upload (JSON,
+multipart and archives, and the two-phase upload + confirm), list, get,
+delete (one or a batch), chunks, preview, object and rebuild, flat and
+nested under their collection; the collection rebuilds.  Every other
+route of the JAX package waits (ROADMAP A6); its URL answers 404, as any
+unknown route does.
 """
 
 from __future__ import annotations
 
+import asyncio
 import base64
+import binascii
+import functools
+import posixpath
 import time
+import uuid
+from typing import Optional
 
+from super_rag_tpu_torch.api import auth as A
 from super_rag_tpu_torch.api.auth import COOKIE_NAME
 from super_rag_tpu_torch.api.http import HttpError, Request, Response, Router
 from super_rag_tpu_torch.schema import view_models as vm
@@ -23,9 +33,9 @@ from super_rag_tpu_torch.schema.view_models import parse_body
 from super_rag_tpu_torch.service.collection_service import CollectionService
 from super_rag_tpu_torch.service.context import AppContext
 from super_rag_tpu_torch.service.document_service import DocumentService
-
-# archives the JAX package expands into one document per member
-ARCHIVE_EXTENSIONS = (".zip", ".tar", ".tar.gz", ".tgz", ".tar.bz2", ".tbz2", ".7z")
+from super_rag_tpu_torch.models.image_decode import UnsupportedImageError
+from super_rag_tpu_torch.store.objectstore import is_upload_id, safe_object_name
+from super_rag_tpu_torch.utils.uncompress import iter_archive, supported_archive
 
 
 def build_router(ctx: AppContext) -> Router:
@@ -158,6 +168,92 @@ def build_router(ctx: AppContext) -> Router:
     router.add("POST", "/api/v1/logout", logout)
     router.add("GET", "/api/v1/user", users_me)
 
+    def _oauth_redirect(req: Request, provider: str) -> str:
+        return req.query.get(
+            "redirect_uri",
+            f"http://{req.headers.get('host', 'localhost')}"
+            f"/api/v1/auth/oauth/{provider}/callback",
+        )
+
+    @router.get("/api/v1/auth/oauth/{provider}/authorize")
+    async def oauth_authorize(req: Request) -> Response:
+        """Start the OAuth authorization-code flow."""
+        provider = req.path_params["provider"]
+        return Response.json(
+            auth.oauth_authorize_url(provider, _oauth_redirect(req, provider)))
+
+    @router.get("/api/v1/auth/oauth/{provider}/callback")
+    async def oauth_callback(req: Request) -> Response:
+        provider = req.path_params["provider"]
+        code = req.query.get("code", "")
+        state = req.query.get("state", "")
+        if not code:
+            raise HttpError(422, "code required")
+        user, token = auth.oauth_callback(provider, code, state,
+                                          _oauth_redirect(req, provider))
+        return Response.json(
+            {"user": user, "token": token},
+            headers={"Set-Cookie":
+                     f"{COOKIE_NAME}={token}; HttpOnly; Path=/; SameSite=Lax"},
+        )
+
+    @router.get("/api/v1/users/me/oauth_accounts")
+    async def my_oauth_accounts(req: Request) -> Response:
+        user = me(req)
+        return Response.json(ctx.db.list_oauth_accounts(user["id"]))
+
+    @router.post("/api/v1/change-password")
+    async def change_password(req: Request) -> Response:
+        """Verify the old password then rehash; the caller's own account
+        unless admin."""
+        user = me(req)
+        body = parse_body(vm.ChangePasswordRequest, req.json())
+        target = body.username or user["username"]
+        if target != user["username"] and user["role"] != "admin":
+            raise HttpError(403, "cannot change another user's password")
+        row = ctx.db.get_user(target)
+        if row is None:
+            raise HttpError(400, "user not found")
+        if not A.verify_password(body.old_password, row["password_hash"]):
+            raise HttpError(400, "current password is incorrect")
+        ctx.db.set_user_password(target, A.hash_password(body.new_password))
+        return Response.json(auth._public(ctx.db.get_user(target)))
+
+    @router.get("/api/v1/users")
+    async def list_users(req: Request) -> Response:
+        auth.required_admin(req)
+        return Response.json([auth._public(u) for u in ctx.db.list_users()])
+
+    @router.delete("/api/v1/users/{uid}")
+    async def delete_user(req: Request) -> Response:
+        # admin only, and never the caller's own account
+        user = auth.required_admin(req)
+        uid = req.path_params["uid"]
+        if uid == user["id"]:
+            raise HttpError(400, "cannot delete your own account")
+        if not ctx.db.delete_user(uid):
+            raise HttpError(404, "user not found")
+        return Response.no_content()
+
+    @router.post("/api/v1/apikeys")
+    async def create_key(req: Request) -> Response:
+        user = me(req)
+        body = parse_body(vm.ApiKeyCreate, req.json())
+        return Response.json(ctx.db.create_api_key(user["id"], body.description),
+                             status=201)
+
+    @router.get("/api/v1/apikeys")
+    async def list_keys(req: Request) -> Response:
+        user = me(req)
+        return Response.json(ctx.db.list_api_keys(user["id"]))
+
+    @router.delete("/api/v1/apikeys/{kid}")
+    async def delete_key(req: Request) -> Response:
+        user = me(req)
+        if not ctx.db.delete_api_key(req.path_params["kid"], user["id"]):
+            raise HttpError(404, "api key not found")
+        return Response.no_content()
+
     # -- collections -------------------------------------------------------------------
 
     @router.post("/api/v1/collections")
@@ -270,6 +366,63 @@ def build_router(ctx: AppContext) -> Router:
         )
         return Response.json(result, status=201)
 
+    @router.post("/api/v1/collections/{cid}/searches/image")
+    async def image_search(req: Request) -> Response:
+        """Image -> image retrieval over the collection's vision rows (the
+        perceptual image embedder, ``models/image_embedder.py``)."""
+        user = me(req)
+        cid = req.path_params["cid"]
+        coll = collections.get(user["username"], cid)
+        b = parse_body(vm.ImageSearchRequest, req.json())
+        try:
+            blob = base64.b64decode(b.image_base64)
+        except (binascii.Error, ValueError) as e:
+            raise HttpError(422, "invalid base64") from e
+        engine = ctx.engines.get(cid, coll["config"])
+        dim = engine.image_query_dim()
+        try:
+            # the decode is pure-Python host work: it runs in a worker
+            # subprocess, where it holds neither the event loop nor the
+            # GIL that the device worker's searches need
+            q = None if dim is None else await asyncio.get_running_loop(
+            ).run_in_executor(None, ctx.embed_image, blob, dim)
+        except UnsupportedImageError as e:
+            raise HttpError(415, str(e)) from e
+        search = functools.partial(engine.search_image_vector, q, top_k=b.top_k)
+        hits = await ctx.batcher.run(search) if ctx.batcher else search()
+        return Response.json({
+            "items": [
+                {"text": h.text, "score": h.score,
+                 "asset_id": h.metadata.get("asset_id"),
+                 "document_id": h.metadata.get("document_id"),
+                 "recall_type": h.recall_type}
+                for h in hits
+            ]
+        }, status=201)
+
+    @router.get("/api/v1/collections/{cid}/assets/{asset_id}")
+    async def get_asset(req: Request) -> Response:
+        """Serve an extracted image asset (vision index preview)."""
+        user = me(req)
+        cid = req.path_params["cid"]
+        collections.get(user["username"], cid)
+        asset_id = req.path_params["asset_id"]
+        if not safe_object_name(asset_id):
+            raise HttpError(404, "asset not found")
+        rows = ctx.db.query(
+            "SELECT id FROM document WHERE collection_id=?", (cid,)
+        )
+        for r in rows:
+            path = f"assets/{r['id']}/{asset_id}"
+            try:
+                data = ctx.objects.get(path)
+            except (FileNotFoundError, KeyError):
+                continue
+            mime = "image/jpeg" if data[:2] == b"\xff\xd8" else "image/png"
+            return Response(status=200, body=data,
+                            headers={"Content-Type": mime})
+        raise HttpError(404, "asset not found")
+
     @router.post("/api/v1/searches")
     async def multi_search(req: Request) -> Response:
         """Search several collections in one request."""
@@ -296,14 +449,20 @@ def build_router(ctx: AppContext) -> Router:
             for part in req.multipart():
                 if not part["filename"]:
                     continue
-                if part["filename"].lower().endswith(ARCHIVE_EXTENSIONS):
-                    raise HttpError(501, "archive uploads are not ported to the "
-                                    "PyTorch port yet (ROADMAP A6)")
-                created.append(
-                    documents.create(
-                        user["username"], cid, part["filename"], part["data"]
+                if supported_archive(part["filename"]):
+                    # an archive expands into one document per member
+                    for member, data in iter_archive(part["filename"],
+                                                     part["data"]):
+                        created.append(
+                            documents.create(user["username"], cid,
+                                             member, data)
+                        )
+                else:
+                    created.append(
+                        documents.create(
+                            user["username"], cid, part["filename"], part["data"]
+                        )
                     )
-                )
         else:
             body = req.json()
             items = body if isinstance(body, list) else [body]
@@ -322,6 +481,57 @@ def build_router(ctx: AppContext) -> Router:
                         chat_id=item.get("chat_id"),
                     )
                 )
+        return Response.json(created, status=201)
+
+    # two-phase upload: stage bytes, then confirm into the collection.
+    # Staged keys are built from the client's file name and upload id,
+    # so both are checked before they reach the object store.
+    @router.post("/api/v1/collections/{cid}/documents/upload")
+    async def stage_upload(req: Request) -> Response:
+        user = me(req)
+        cid = req.path_params["cid"]
+        collections.get(user["username"], cid, allow_shared=False)
+        parts = [p for p in req.multipart() if p["filename"]]
+        limit = ctx.cfg.max_document_size_mb * 1024 * 1024
+        for part in parts:  # the whole batch is checked before any put
+            if not safe_object_name(part["filename"]):
+                raise HttpError(422, "invalid document name")
+            if len(part["data"]) > limit:
+                raise HttpError(413, "document exceeds size limit")
+        staged = []
+        for part in parts:
+            upload_id = uuid.uuid4().hex
+            ctx.objects.put(f"_staged/{cid}/{upload_id}/{part['filename']}",
+                            part["data"])
+            staged.append({"upload_id": upload_id,
+                           "name": part["filename"],
+                           "size": len(part["data"])})
+        if not staged:
+            raise HttpError(422, "no files in upload")
+        return Response.json(staged, status=201)
+
+    @router.post("/api/v1/collections/{cid}/documents/confirm")
+    async def confirm_upload(req: Request) -> Response:
+        user = me(req)
+        cid = req.path_params["cid"]
+        collections.get(user["username"], cid, allow_shared=False)
+        body = req.json()
+        items = body if isinstance(body, list) else [body]
+        created = []
+        for item in items:
+            upload_id = item.get("upload_id", "")
+            name = item.get("name", "")
+            if not safe_object_name(name):
+                raise HttpError(422, "invalid document name")
+            path = f"_staged/{cid}/{upload_id}/{name}"
+            if not is_upload_id(upload_id) or not ctx.objects.exists(path):
+                raise HttpError(404, f"staged upload {upload_id} not found")
+            data = ctx.objects.get(path)
+            created.append(
+                documents.create(user["username"], cid, name, data,
+                                 metadata=item.get("metadata"))
+            )
+            ctx.objects.delete(path)
         return Response.json(created, status=201)
 
     @router.get("/api/v1/collections/{cid}/documents")
@@ -350,6 +560,22 @@ def build_router(ctx: AppContext) -> Router:
             documents.chunks(user["username"], req.path_params["did"])
         )
 
+    @router.post("/api/v1/documents/{did}/rebuild_indexes")
+    async def rebuild_indexes(req: Request) -> Response:
+        user = me(req)
+        only_failed = req.query.get("only_failed", "") in ("1", "true")
+        n = documents.rebuild_indexes(
+            user["username"], req.path_params["did"], only_failed=only_failed
+        )
+        return Response.json({"rebuilt": n})
+
+    @router.get("/api/v1/documents/{did}/preview")
+    async def preview_document(req: Request) -> Response:
+        user = me(req)
+        doc = documents.get(user["username"], req.path_params["did"])
+        return _stream_object(req, doc["object_path"],
+                              {"X-Document-Name": doc["name"]})
+
     # -- nested document routes (every document route under its collection;
     # the flat /api/v1/documents/* routes above are kept for existing
     # clients) ------------------------------------------------------------------
@@ -375,5 +601,117 @@ def build_router(ctx: AppContext) -> Router:
                                  req.path_params["did"])
         documents.delete(user["username"], doc["id"])
         return Response.no_content()
+
+    @router.delete("/api/v1/collections/{cid}/documents")
+    async def delete_documents_bulk(req: Request) -> Response:
+        user = me(req)
+        cid = req.path_params["cid"]
+        body = req.json()
+        ids = body.get("document_ids", []) if isinstance(body, dict) else body
+        if not isinstance(ids, list) or not ids:
+            raise HttpError(422, "document_ids list required")
+        # check the whole batch before deleting anything: a bad id
+        # mid-list must not leave a half-deleted, unretryable batch
+        for did in ids:
+            _doc_in_collection(user, cid, did)
+        deleted = documents.delete_many(user["username"], ids)
+        return Response.json({"deleted": deleted})
+
+    def _stream_object(req: Request, path: str,
+                       extra_headers: Optional[dict] = None) -> Response:
+        """RFC 7233 single-range streaming with Content-Range.  Invalid
+        Range headers are ignored (full 200 body), suffix ranges
+        (bytes=-N) serve the last N bytes, and every 206 carries
+        Content-Range so clients can check offsets."""
+        if not ctx.objects.exists(path):
+            raise HttpError(404, "object not found")
+        size = ctx.objects.obj_size(path)
+        start, stop, status = 0, size, 200
+        headers = {"Content-Type": "application/octet-stream",
+                   "Accept-Ranges": "bytes", **(extra_headers or {})}
+        rng = req.headers.get("range", "")
+        if rng.startswith("bytes="):
+            spec = rng[6:].split(",")[0].strip()
+            s, _, e = spec.partition("-")
+            try:
+                if not s and e:  # suffix range: last N bytes
+                    n = min(int(e), size)
+                    cand = (size - n, size)
+                else:
+                    cand = (int(s), min(int(e) + 1, size) if e else size)
+                if 0 <= cand[0] < cand[1]:
+                    start, stop = cand
+                    status = 206
+                    headers["Content-Range"] = \
+                        f"bytes {start}-{stop - 1}/{size}"
+            except ValueError:
+                pass  # malformed Range: serve the full body (RFC 7233)
+        # no Content-Length: a streamed response is chunked; Content-Range
+        # carries offsets and the total size
+        return Response(status=status, headers=headers,
+                        stream=ctx.objects.stream_range(path, start, stop))
+
+    def _asset_scoped_path(req: Request, doc: dict) -> str:
+        """?path= must stay inside the document's own object directory;
+        normalized first so '..' segments cannot escape it."""
+        path = req.query.get("path", "") or doc["object_path"]
+        path = posixpath.normpath(path.lstrip("/"))
+        prefix = doc["object_path"].rsplit("/", 1)[0] + "/"
+        if path != doc["object_path"] and not path.startswith(prefix):
+            raise HttpError(403, "object path outside document scope")
+        return path
+
+    @router.get("/api/v1/collections/{cid}/documents/{did}/preview")
+    async def preview_document_nested(req: Request) -> Response:
+        user = me(req)
+        doc = _doc_in_collection(user, req.path_params["cid"],
+                                 req.path_params["did"])
+        return _stream_object(req, doc["object_path"],
+                              {"X-Document-Name": doc["name"]})
+
+    @router.get("/api/v1/collections/{cid}/documents/{did}/object")
+    async def document_object(req: Request) -> Response:
+        """Raw object or asset download with Range support; ?path= selects
+        an object stored beside the document."""
+        user = me(req)
+        doc = _doc_in_collection(user, req.path_params["cid"],
+                                 req.path_params["did"])
+        return _stream_object(req, _asset_scoped_path(req, doc))
+
+    @router.post("/api/v1/collections/{cid}/documents/{did}/rebuild_indexes")
+    async def rebuild_indexes_nested(req: Request) -> Response:
+        user = me(req)
+        doc = _doc_in_collection(user, req.path_params["cid"],
+                                 req.path_params["did"])
+        only_failed = req.query.get("only_failed", "") in ("1", "true")
+        n = documents.rebuild_indexes(user["username"], doc["id"],
+                                      only_failed=only_failed)
+        return Response.json({"rebuilt": n})
+
+    @router.post("/api/v1/collections/{cid}/rebuild_failed_indexes")
+    async def rebuild_failed_indexes(req: Request) -> Response:
+        user = me(req)
+        cid = req.path_params["cid"]
+        collections.get(user["username"], cid, allow_shared=False)
+        total = 0
+        for d in documents.list(user["username"], cid):
+            total += documents.rebuild_indexes(user["username"], d["id"],
+                                               only_failed=True,
+                                               reconcile=False)
+        ctx.reconciler.reconcile_all()  # one pass for the whole collection
+        return Response.json({"rebuilt": total})
+
+    @router.post("/api/v1/collections/{cid}/rebuild_indexes")
+    async def rebuild_collection_indexes(req: Request) -> Response:
+        """Re-drive every document's indexes."""
+        user = me(req)
+        cid = req.path_params["cid"]
+        collections.get(user["username"], cid, allow_shared=False)
+        only_failed = req.query.get("only_failed", "") in ("1", "true")
+        n = 0
+        for doc in ctx.db.list_documents(cid):
+            n += ctx.db.rebuild_indexes(doc["id"], only_failed=only_failed)
+        ctx.reconciler.reconcile_all()
+        return Response.json({"rebuilt": n})
 
     return router

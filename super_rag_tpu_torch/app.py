@@ -73,6 +73,7 @@ class App:
         self.ctx.engines.snapshot_all()
         await self.server.stop()
         self.ctx.batcher.close()
+        self.ctx.close()
 
     @property
     def port(self) -> int:

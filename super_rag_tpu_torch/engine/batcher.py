@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import asyncio
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Hashable
+from typing import Any, Callable, Hashable
 
 
 def _freeze(v: Any) -> Hashable:
@@ -127,6 +127,12 @@ class QueryBatcher:
         task = loop.run_in_executor(self._executor, run)
         task = asyncio.ensure_future(task)
         task.add_done_callback(done)
+
+    async def run(self, fn: Callable[[], Any]) -> Any:
+        """Run ``fn`` on the worker, in turn with the batches: a request
+        that decodes or embeds on the host (the image search) keeps the
+        event loop free and device access serialized."""
+        return await asyncio.get_running_loop().run_in_executor(self._executor, fn)
 
     def close(self) -> None:
         """Stop the worker thread after the dispatch in flight, if any."""

@@ -119,11 +119,28 @@ class CollectionEngine:
                         chat_id: Optional[str] = None) -> list[SearchHit]:
         """Image -> image retrieval over vision rows (their dense vectors
         are image embeddings, ``models/image_embedder.py``)."""
-        from super_rag_tpu_torch.models.image_embedder import ImageEmbedder
+        return self.search_image_vector(self.embed_image(image), top_k, chat_id)
 
-        if self.index.size == 0:
+    def embed_image(self, image: bytes) -> Optional[np.ndarray]:
+        """The host half of ``search_by_image``: the image's ``[1, dim]``
+        query vector (decode and DCT features), or None when the index
+        is empty."""
+        from super_rag_tpu_torch.models.image_embedder import embed_image
+
+        dim = self.image_query_dim()
+        return None if dim is None else embed_image(image, dim)
+
+    def image_query_dim(self) -> Optional[int]:
+        """The width of an image query vector, or None when the index is
+        empty and there is nothing to search."""
+        return self.index.spec.dim if self.index.size else None
+
+    def search_image_vector(self, q: Optional[np.ndarray], top_k: int = 5,
+                            chat_id: Optional[str] = None) -> list[SearchHit]:
+        """The device half of ``search_by_image``: the vision rows nearest
+        to the query vector ``q`` from ``embed_image``."""
+        if q is None or self.index.size == 0:
             return []
-        q = ImageEmbedder(dim=self.index.spec.dim).embed([image])
         flt = self._filter(["vision"], chat_id, None)
         dv, di = self.index.search_dense(
             torch.from_numpy(q).to(self.index.device),

@@ -1,9 +1,9 @@
 """Parser dispatch by extension (port of the JAX package's
 fileparser/parser.py).
 
-Markdown and plain text parse here.  The JAX package's PDF, office
-(docx / xlsx / pptx and the legacy doc / ppt) and image parsers are not
-ported yet (ROADMAP A6): a file with one of their extensions raises
+Markdown, plain text and image files parse here.  The JAX package's PDF
+and office parsers (docx / xlsx / pptx and the legacy doc / ppt) are not
+ported yet (ROADMAP A6c): a file with one of their extensions raises
 ``NotImplementedError`` instead of being decoded as text.  Unknown
 extensions fall back to plain-text decoding, as in the JAX package.
 """
@@ -14,12 +14,12 @@ import os
 from typing import Optional
 
 from super_rag_tpu_torch.fileparser.base import BaseParser, Part
+from super_rag_tpu_torch.fileparser.image import ImageFileParser
 from super_rag_tpu_torch.fileparser.markdown import MarkdownParser, TextParser
 
-# the extensions of the JAX package's heavy parsers (pdf, office, image)
+# the extensions of the JAX package's pdf and office parsers
 UNPORTED_EXTENSIONS = frozenset({
     ".pdf", ".docx", ".xlsx", ".pptx", ".doc", ".ppt",
-    ".png", ".jpg", ".jpeg", ".gif", ".bmp", ".webp", ".tif", ".tiff",
 })
 
 
@@ -30,6 +30,7 @@ class DocParser:
         self.parsers: list[BaseParser] = [
             MarkdownParser(),
             *(extra_parsers or []),
+            ImageFileParser(),
             TextParser(),
         ]
 
@@ -47,7 +48,7 @@ class DocParser:
         if not chain and ext in UNPORTED_EXTENSIONS:
             raise NotImplementedError(
                 f"{ext} files need a parser the PyTorch port has not ported "
-                "yet (ROADMAP A6)")
+                "yet (ROADMAP A6c)")
         chain = chain or [TextParser()]
         last_err: Optional[Exception] = None
         for parser in chain:

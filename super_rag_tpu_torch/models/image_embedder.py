@@ -7,7 +7,8 @@ multimodal model (super_rag/index/vision_index.py:33-39).  This image
 has no multimodal checkpoint, so the offline tier is a perceptual
 embedding — a real (if shallow) visual signature, not a placeholder:
 
-  decode (PIL) -> grayscale 64x64 -> 2D DCT -> low-frequency 12x12 block
+  decode (``image_decode``: PNG, BMP, baseline JPEG; Pillow's pixels bit
+  for bit, without Pillow) -> grayscale 64x64 -> 2D DCT -> low-frequency 12x12 block
   (DC dropped) -> per-feature sign-log scaling -> fixed seeded random
   projection to the index dim -> L2 normalize.
 
@@ -20,9 +21,9 @@ A trained vision tower can replace this via the same ``embed`` contract.
 
 from __future__ import annotations
 
-import io
-
 import numpy as np
+
+from .image_decode import ImageDecodeError, gray64
 
 _BLOCK = 12  # low-frequency DCT block kept (144 features minus DC)
 _SIZE = 64
@@ -51,12 +52,7 @@ class ImageEmbedder:
                       np.sqrt(n_feat)).astype(np.float32)
 
     def _features(self, data: bytes) -> np.ndarray:
-        from PIL import Image
-
-        img = Image.open(io.BytesIO(data)).convert("L").resize(
-            (_SIZE, _SIZE), Image.BILINEAR
-        )
-        px = np.asarray(img, np.float32) / 255.0
+        px = gray64(data, _SIZE).astype(np.float32) / 255.0
         coeffs = _DCT @ px @ _DCT.T
         block = coeffs[:_BLOCK, :_BLOCK].reshape(-1)[1:]  # drop DC
         # sign-log scaling tames the 1/f energy falloff so no single
@@ -68,10 +64,16 @@ class ImageEmbedder:
         for j, data in enumerate(images):
             try:
                 f = self._features(data)
-            except Exception:  # undecodable image -> zero vector
+            except ImageDecodeError:  # no image, or corrupt data -> zeros
                 continue
             v = f @ self._proj
             n = np.linalg.norm(v)
             if n > 0:
                 out[j] = v / n
         return out
+
+
+def embed_image(data: bytes, dim: int) -> np.ndarray:
+    """``[1, dim]``: one image's embedding.  Module-level and host-only,
+    so a worker process can run it (``AppContext.host_pool``)."""
+    return ImageEmbedder(dim=dim).embed([data])

@@ -103,6 +103,11 @@ class MultiSearchRequest(Model):
 # -- auth ---------------------------------------------------------------------------
 
 
+class ImageSearchRequest(Model):
+    image_base64: str = Field(min_length=4)
+    top_k: int = Field(default=5, ge=1, le=100)
+
+
 class RegisterRequest(Model):
     username: str = Field(min_length=1, max_length=64)
     password: str = Field(min_length=8, max_length=256)
@@ -112,6 +117,16 @@ class RegisterRequest(Model):
 class LoginRequest(Model):
     username: str
     password: str
+
+
+class ChangePasswordRequest(Model):
+    username: str = ""
+    old_password: str
+    new_password: str = Field(min_length=8, max_length=256)
+
+
+class ApiKeyCreate(Model):
+    description: str = ""
 
 
 def parse_body(model: type[Model], data: Any):

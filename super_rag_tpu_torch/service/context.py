@@ -11,16 +11,23 @@ What the JAX package resolves through remote model providers
 (``llm/resolver.py``) is not ported yet (ROADMAP A6): a collection whose
 ``embedding`` or ``rerank`` spec names a provider other than ``"onboard"``
 raises ``NotImplementedError`` instead of quietly getting the hash
-embedder, the knowledge-graph service and the completion client are
-``None``, and the process and Ray ingest backends are refused.
+embedder, and the knowledge-graph service and the completion client are
+``None``.  Objects go to the local store or to S3
+(``object_store_type="s3"``); ingest runs in process, on host threads
+(``thread``), in worker subprocesses (``process``) or on Ray (``ray``,
+which falls back to ``process`` where ``ray`` is not installed).
 """
 
 from __future__ import annotations
 
+import base64
 import logging
 import os
-from dataclasses import dataclass
+import threading
+from dataclasses import dataclass, field
 from typing import Optional
+
+import numpy as np
 
 from super_rag_tpu_torch.api.auth import Auth
 from super_rag_tpu_torch.config import Settings, settings as default_settings
@@ -29,12 +36,20 @@ from super_rag_tpu_torch.engine.batcher import QueryBatcher
 from super_rag_tpu_torch.engine.manager import EngineManager
 from super_rag_tpu_torch.models.encoder_service import EncoderService
 from super_rag_tpu_torch.models.hash_embedder import HashEmbedder
+from super_rag_tpu_torch.models.image_decode import UnsupportedImageError
 from super_rag_tpu_torch.service.rerank_service import RerankService
 from super_rag_tpu_torch.store.db import Database
-from super_rag_tpu_torch.store.objectstore import LocalObjectStore, ObjectStore
+from super_rag_tpu_torch.store.objectstore import LocalObjectStore, ObjectStore, get_object_store
 from super_rag_tpu_torch.tasks.document import DocumentIndexTask
 from super_rag_tpu_torch.tasks.reconciler import DocumentIndexReconciler
-from super_rag_tpu_torch.tasks.scheduler import InProcessScheduler, TaskScheduler, ThreadScheduler
+from super_rag_tpu_torch.tasks.scheduler import (
+    InProcessScheduler,
+    ProcessScheduler,
+    RayTaskScheduler,
+    TaskScheduler,
+    ThreadScheduler,
+    WorkerProcess,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -64,6 +79,31 @@ class AppContext:
     reranker: Optional[object] = None  # callable (query, texts) -> scores
     batcher: Optional[QueryBatcher] = None
     reranker_factory_fn: Optional[object] = None
+    _image_worker: Optional[WorkerProcess] = None
+    _image_worker_lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    def embed_image(self, data: bytes, dim: int) -> np.ndarray:
+        """``[1, dim]``: one searched image's embedding, computed in a host
+        worker subprocess started at first use, so that the pure-Python
+        decode holds neither the event loop nor this process's GIL, which
+        every device search needs.  Blocks the calling thread."""
+        with self._image_worker_lock:
+            if self._image_worker is None:
+                self._image_worker = WorkerProcess()
+        resp = self._image_worker.call({
+            "op": "embed_image", "dim": dim,
+            "data_b64": base64.b64encode(data).decode()})
+        if not resp.get("ok"):
+            if resp.get("unsupported"):
+                raise UnsupportedImageError(resp["error"])
+            raise RuntimeError(resp.get("error", "image embedding failed"))
+        return np.asarray(resp["vector"], np.float32)[None]
+
+    def close(self) -> None:
+        """Stop the image worker subprocess, if one was started."""
+        if self._image_worker is not None:
+            self._image_worker.stop()
+            self._image_worker = None
 
     def reranker_for(self, config: Optional[dict] = None):
         """Per-collection reranker, resolved at search time so that a
@@ -96,16 +136,14 @@ def build_context(
 ) -> AppContext:
     cfg = cfg or default_settings
     device = resolve_device(device)
-    if cfg.object_store_type != "local":
-        raise NotImplementedError(
-            f"object store {cfg.object_store_type!r}: only the local store is "
-            "ported to the PyTorch port yet (ROADMAP A6)")
-    if background_tasks and cfg.ingest_backend != "thread":
-        raise NotImplementedError(
-            f"ingest backend {cfg.ingest_backend!r}: only 'thread' is ported to "
-            "the PyTorch port yet (ROADMAP A6)")
     db = Database(cfg.resolved_db_path())
-    objects = LocalObjectStore(cfg.objects_root())
+    if cfg.object_store_type == "s3":
+        objects: ObjectStore = get_object_store(
+            "s3", bucket=cfg.s3_bucket,
+            endpoint_url=cfg.s3_endpoint or None, region=cfg.s3_region,
+        )
+    else:
+        objects = LocalObjectStore(cfg.objects_root())
 
     def embedder_factory(config: dict):
         spec = config.get("embedding", {}) or {}
@@ -169,11 +207,31 @@ def build_context(
         engines.snapshot_store = objects
     task = DocumentIndexTask(db, objects, engines, cfg)
     reconciler = DocumentIndexReconciler(db)
-    if background_tasks:
-        scheduler: TaskScheduler = ThreadScheduler(
-            task, reconciler.callbacks, host_workers=cfg.ingest_host_workers)
+    if not background_tasks:
+        scheduler: TaskScheduler = InProcessScheduler(task, reconciler.callbacks)
+    elif cfg.ingest_backend == "ray":
+        try:
+            scheduler = RayTaskScheduler(
+                task, reconciler.callbacks,
+                ray_workers=cfg.ingest_host_workers,
+                ray_address=cfg.ray_address or None,
+            )
+        except ImportError:
+            logger.warning(
+                "INGEST_BACKEND=ray but ray is not installed; falling "
+                "back to the process scheduler (same wire contract)")
+            scheduler = ProcessScheduler(
+                task, reconciler.callbacks,
+                process_workers=cfg.ingest_host_workers,
+            )
+    elif cfg.ingest_backend == "process":
+        scheduler = ProcessScheduler(
+            task, reconciler.callbacks,
+            process_workers=cfg.ingest_host_workers,
+        )
     else:
-        scheduler = InProcessScheduler(task, reconciler.callbacks)
+        scheduler = ThreadScheduler(task, reconciler.callbacks,
+                                    host_workers=cfg.ingest_host_workers)
     reconciler.scheduler = scheduler
     auth = Auth(db, cfg.jwt_secret, cfg.jwt_ttl_hours,
                 oauth_providers=cfg.oauth_providers())

@@ -1,6 +1,5 @@
 """Document lifecycle: upload -> dedup/quota -> index specs -> reconcile
-(port of the JAX package's service/document_service.py, without the
-rebuild and preview routes, which wait: ROADMAP A6).
+(port of the JAX package's service/document_service.py).
 
 Counterpart of the reference's DocumentService
 (service/document_service.py): validate/quota/dedup :76-160, create
@@ -12,12 +11,13 @@ every mutation :44-60.
 from __future__ import annotations
 
 import hashlib
-from typing import Optional
+from typing import Iterator, Optional
 
 from super_rag_tpu_torch.api.http import HttpError
 from super_rag_tpu_torch.service.collection_service import CollectionService
 from super_rag_tpu_torch.service.context import AppContext
 from super_rag_tpu_torch.store.models import DocumentStatus
+from super_rag_tpu_torch.store.objectstore import safe_object_name
 
 
 class DocumentService:
@@ -32,6 +32,9 @@ class DocumentService:
                metadata: Optional[dict] = None,
                chat_id: Optional[str] = None) -> dict:
         coll = self.collections.get(user, collection_id, allow_shared=False)
+        # the name ends the object key: it must stay inside its directory
+        if not safe_object_name(name, nested=True):
+            raise HttpError(422, "invalid document name")
         if len(data) > self.ctx.cfg.max_document_size_mb * 1024 * 1024:
             raise HttpError(413, "document exceeds size limit")
         docs = self.ctx.db.list_documents(collection_id)
@@ -120,6 +123,17 @@ class DocumentService:
             self.ctx.objects.delete(doc["object_path"])
         return [d["id"] for d in docs]
 
+    def rebuild_indexes(self, user: str, document_id: str,
+                        only_failed: bool = False,
+                        reconcile: bool = True) -> int:
+        doc = self.get(user, document_id)
+        # rebuild burns compute: owner only (same rule as delete)
+        self.collections.get(user, doc["collection_id"], allow_shared=False)
+        n = self.ctx.db.rebuild_indexes(document_id, only_failed=only_failed)
+        if reconcile:
+            self._trigger_reconcile()
+        return n
+
     def chunks(self, user: str, document_id: str) -> list[dict]:
         """Chunk listing straight from the device index rows (the
         reference queries SeekDB by metadata filter — :725-885)."""
@@ -136,3 +150,10 @@ class DocumentService:
                 )
         out.sort(key=lambda c: (c["chunk_index"] is None, c["chunk_index"]))
         return out
+
+    def preview_bytes(self, user: str, document_id: str, start: int = 0,
+                      end: Optional[int] = None) -> tuple[dict, Iterator[bytes]]:
+        doc = self.get(user, document_id)
+        if not self.ctx.objects.exists(doc["object_path"]):
+            raise HttpError(404, "original object missing")
+        return doc, self.ctx.objects.stream_range(doc["object_path"], start, end)

@@ -5,8 +5,10 @@ The parse step pulls the original from the object store and produces
 Parts; create_index chunks, embeds on the card and inserts into the
 collection's DeviceIndex, recording the engine row ids in
 DocumentIndex.index_data so update and delete are exact.  The port builds
-the ``vector`` index type, the one a collection enables by default; the
-summary, vision and graph index types are not ported yet (ROADMAP A6).
+the ``vector`` index type, the one a collection enables by default, and
+the ``vision`` type (one row per image part: its image embedding where
+the asset bytes exist, its caption's embedding elsewhere); the summary
+and graph index types are not ported yet (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -14,17 +16,21 @@ from __future__ import annotations
 import json
 import logging
 
-from super_rag_tpu_torch.chunk.chunking import Rechunker
+import numpy as np
+import torch
+
 from super_rag_tpu_torch.config import Settings
 from super_rag_tpu_torch.engine.index import INDEXER_CODES
 from super_rag_tpu_torch.engine.manager import EngineManager
-from super_rag_tpu_torch.fileparser.parser import DocParser
+from super_rag_tpu_torch.index.vision import vision_rows
+from super_rag_tpu_torch.models.image_embedder import ImageEmbedder
 from super_rag_tpu_torch.store.db import Database
 from super_rag_tpu_torch.store.objectstore import ObjectStore
+from super_rag_tpu_torch.tasks.worker import prepare_document
 
 logger = logging.getLogger(__name__)
 
-UNPORTED_INDEX_TYPES = ("summary", "vision", "graph")
+UNPORTED_INDEX_TYPES = ("summary", "graph")
 
 
 def _live_engine_rows(engine, document_id: str, index_type: str) -> list[int]:
@@ -57,27 +63,15 @@ class DocumentIndexTask:
         self.objects = objects
         self.engines = engines
         self.cfg = cfg
-        self.parser = DocParser()
         self.ctx = None  # backfilled by service.context.build_context
-
-    def _load_parts(self, document: dict):
-        data = self.objects.get(document["object_path"])
-        return self.parser.parse_file(document["name"], data)
 
     def prepare(self, document_id: str, index_type: str) -> dict:
         """Host-side stage of create_index — parse + chunk, the CPU-bound
         work safe to run on a worker pool while the device worker embeds
         a previous document (ThreadScheduler host_workers pipelining).
         Returns the payload ``create_index`` accepts as ``prepared``."""
-        doc = self.db.get_document(document_id)
-        if doc is None:
-            raise ValueError(f"document {document_id} not found")
-        parts = self._load_parts(doc)
-        chunker = Rechunker(self.cfg.chunk_size, self.cfg.chunk_overlap)
-        chunks = chunker.rechunk(parts, metadata={"document_id": document_id})
-        return {"document_id": document_id, "index_type": index_type,
-                "doc_hash": doc.get("content_hash"), "parts": parts,
-                "chunks": chunks}
+        return prepare_document(self.db, self.objects, document_id, index_type,
+                                self.cfg.chunk_size, self.cfg.chunk_overlap)
 
     def create_index(self, document_id: str, index_type: str,
                      version: int, prepared: dict | None = None) -> dict:
@@ -113,15 +107,13 @@ class DocumentIndexTask:
         if old_rows:
             engine.delete(old_rows)
 
-        if (prepared is not None
-                and prepared.get("document_id") == document_id
-                and prepared.get("doc_hash") == doc.get("content_hash")):
-            chunks = prepared["chunks"]
-        else:
-            parts = self._load_parts(doc)
-            chunker = Rechunker(self.cfg.chunk_size, self.cfg.chunk_overlap)
-            chunks = chunker.rechunk(parts,
-                                     metadata={"document_id": document_id})
+        if (prepared is None
+                or prepared.get("document_id") != document_id
+                or prepared.get("doc_hash") != doc.get("content_hash")):
+            prepared = self.prepare(document_id, index_type)
+        parts, chunks = prepared["parts"], prepared["chunks"]
+        if index_type == "vision":
+            return self._create_vision(doc, coll, engine, parts)
         if not chunks:
             return {"rows": [], "chunks": 0}
 
@@ -136,6 +128,52 @@ class DocumentIndexTask:
             chat_id=doc.get("chat_id"),
         )
         return {"rows": rows, "chunks": len(chunks)}
+
+    def _create_vision(self, doc: dict, coll: dict, engine, parts) -> dict:
+        """One row per image part: the image embedding where the asset
+        bytes exist (or the caption's embedding where that is all zeros),
+        the caption text for BM25; the asset goes to
+        ``assets/{document_id}/{asset_id}``."""
+        document_id = doc["id"]
+        rows_data = vision_rows(
+            parts,
+            vision_completion=getattr(self.ctx, "completion", None),
+            doc_name=doc["name"],
+        )
+        if not rows_data:
+            return {"rows": [], "chunks": 0}
+        dim = engine.index.spec.dim
+        emb = np.zeros((len(rows_data), dim), np.float32)
+        with_data = [j for j, r in enumerate(rows_data) if r["data"]]
+        if with_data:
+            emb[with_data] = ImageEmbedder(dim=dim).embed(
+                [rows_data[j]["data"] for j in with_data])
+        text_only = [j for j in range(len(rows_data))
+                     if j not in set(with_data) or not emb[j].any()]
+        if text_only:
+            caption = engine.embedder.embed(
+                [rows_data[j]["text"] for j in text_only])
+            if isinstance(caption, torch.Tensor):
+                caption = caption.float().cpu().numpy()
+            emb[text_only] = np.asarray(caption, np.float32)
+        for r in rows_data:  # assets retrievable for preview/display
+            if r["data"]:
+                self.objects.put(f"assets/{document_id}/{r['asset_id']}",
+                                 r["data"])
+        rows = engine.ingest(
+            [r["text"] for r in rows_data],
+            metadata=[
+                {"document_id": document_id, "collection_id": coll["id"],
+                 "document_name": doc["name"], "asset_id": r["asset_id"],
+                 "mime_type": r.get("mime_type"), "title_path": "",
+                 "chunk_index": j}
+                for j, r in enumerate(rows_data)
+            ],
+            indexer="vision",
+            chat_id=doc.get("chat_id"),
+            embeddings=emb,
+        )
+        return {"rows": rows, "chunks": len(rows)}
 
     def delete_index(self, document_id: str, index_type: str) -> None:
         doc = self.db.get_document(document_id)

@@ -1,12 +1,13 @@
 """Task schedulers: the host-side ingestion execution plane (port of the
 JAX package's tasks/scheduler.py).
 
-The same ABC fronts two backends: InProcessScheduler (runs the index
-task synchronously, the deterministic test path) and ThreadScheduler (a
+The same ABC fronts four backends: InProcessScheduler (runs the index
+task synchronously, the deterministic test path), ThreadScheduler (a
 host worker pool parses and chunks while one device worker serializes
-embed + insert on the card).  The JAX package's process and Ray backends
-are not ported yet (ROADMAP A6); ``service/context.build_context``
-refuses them by name.
+embed + insert on the card), ProcessScheduler (parse and chunk in worker
+subprocesses speaking JSON-lines over pipes, ``tasks/worker.py``) and
+RayTaskScheduler (the same prepare body as Ray remote tasks, where
+``ray`` is installed).
 """
 
 from __future__ import annotations
@@ -125,7 +126,8 @@ class ThreadScheduler(CallbackScheduler):
                 self._q.task_done()
 
     def _submit_prepare(self, document_id: str, index_type: str):
-        """Kick off the host-side prepare stage on the host pool."""
+        """Kick off the host-side prepare stage; overridden by
+        ProcessScheduler to cross a process boundary."""
         return self._host.submit(self.task.prepare, document_id, index_type)
 
     def schedule_create_index(self, index_id, document_id, index_type, version):
@@ -155,3 +157,149 @@ class ThreadScheduler(CallbackScheduler):
             self._host.shutdown(wait=False)
         for _ in self._workers:
             self._q.put(None)
+
+
+class WorkerProcess:
+    """One host worker subprocess (``python -m
+    super_rag_tpu_torch.tasks.worker``) with a request/response pipe: the
+    ProcessScheduler's prepare stage and the image route's decode."""
+
+    def __init__(self):
+        import os
+        import subprocess
+        import sys
+
+        env = dict(os.environ)
+        pkg_root = os.path.dirname(os.path.dirname(
+            os.path.dirname(os.path.abspath(__file__))
+        ))
+        env["PYTHONPATH"] = pkg_root + os.pathsep + env.get("PYTHONPATH", "")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "super_rag_tpu_torch.tasks.worker"],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+            bufsize=1, env=env,
+        )
+        self.lock = threading.Lock()
+
+    def call(self, req: dict) -> dict:
+        import json
+
+        with self.lock:
+            assert self.proc.stdin and self.proc.stdout
+            self.proc.stdin.write(json.dumps(req) + "\n")
+            self.proc.stdin.flush()
+            line = self.proc.stdout.readline()
+        if not line:
+            raise RuntimeError("ingest worker died")
+        return json.loads(line)
+
+    def stop(self) -> None:
+        try:
+            if self.proc.stdin:
+                self.proc.stdin.close()
+            self.proc.terminate()
+        except Exception:  # noqa: BLE001 — already gone
+            pass
+
+
+class _RemotePrepareScheduler(ThreadScheduler):
+    """A ThreadScheduler whose prepare stage runs out of this process, as
+    :func:`tasks.worker.prepare_on_host` on a request built from the
+    object store's wire config; the device commit stays FIFO in this
+    process.  A store that cannot be put on the wire prepares in a host
+    thread instead, as the JAX package does."""
+
+    def _submit_prepare(self, document_id: str, index_type: str):
+        return self._host.submit(self._prepare, document_id, index_type)
+
+    def _prepare(self, document_id: str, index_type: str) -> dict:
+        from super_rag_tpu_torch.tasks.worker import prepared_from_wire
+
+        store_cfg = self.task.objects.wire_config()
+        if store_cfg is None:
+            logger.warning(
+                "object store %s is not wire-serializable; preparing "
+                "in-process", type(self.task.objects).__name__)
+            return self.task.prepare(document_id, index_type)
+        cfg = self.task.cfg
+        return prepared_from_wire(self._remote_prepare({
+            "document_id": document_id, "index_type": index_type,
+            "db_path": self.task.db.path, "object_store": store_cfg,
+            "chunk_size": cfg.chunk_size, "chunk_overlap": cfg.chunk_overlap,
+        }))
+
+    def _remote_prepare(self, req: dict) -> dict:
+        """``prepare_on_host(**req)`` elsewhere; returns its wire dict."""
+        raise NotImplementedError
+
+
+class RayTaskScheduler(_RemotePrepareScheduler):
+    """Ray-backed ingest: the parse/chunk stage runs as Ray remote tasks
+    executing :func:`tasks.worker.prepare_on_host` — the same host-only
+    body the pipe workers run — while embed + insert stays FIFO on the
+    in-process device worker (the card's engine cannot move).
+
+    ``ray`` is imported on construction: without it construction raises
+    ImportError, and ``service/context.build_context`` falls back to
+    ProcessScheduler with a warning."""
+
+    def __init__(self, task, callbacks, num_workers: int = 1,
+                 ray_workers: int = 4, ray_address: Optional[str] = None):
+        import ray  # ImportError here = fall back to ProcessScheduler
+
+        super().__init__(task, callbacks, num_workers=num_workers,
+                         host_workers=max(ray_workers, 1))
+        self._ray = ray
+        if ray_address:
+            # prepare_on_host opens the sqlite db_path and local object
+            # root as filesystem paths inside the Ray task: a multi-node
+            # cluster needs them on shared storage (NFS) or an s3 store
+            logger.warning(
+                "RayTaskScheduler with address=%s: db_path/object paths "
+                "must be reachable from every worker node", ray_address)
+        if not ray.is_initialized():
+            ray.init(address=ray_address, ignore_reinit_error=True,
+                     include_dashboard=False)
+        from super_rag_tpu_torch.tasks.worker import prepare_on_host
+
+        self._remote_fn = ray.remote(prepare_on_host)
+
+    def _remote_prepare(self, req: dict) -> dict:
+        return self._ray.get(self._remote_fn.remote(**req))
+
+    def shutdown(self) -> None:
+        super().shutdown()
+        # leave ray itself running: other schedulers/process may share it
+
+
+class ProcessScheduler(_RemotePrepareScheduler):
+    """Pipelined ingest with prepare in subprocesses (tasks/worker.py).
+
+    Same FIFO device-commit ordering as ThreadScheduler; the parse/chunk
+    stage runs out of process and its Parts/Chunks return over a pipe,
+    the pipe standing in for Ray's object store.  The device-side commit
+    stays in the parent, where the card's engine lives."""
+
+    def __init__(self, task, callbacks, num_workers: int = 1,
+                 process_workers: int = 2):
+        super().__init__(task, callbacks, num_workers=num_workers,
+                         host_workers=max(process_workers, 1))
+        self._procs = [WorkerProcess() for _ in range(max(process_workers, 1))]
+        self._idle: "queue.Queue[WorkerProcess]" = queue.Queue()
+        for w in self._procs:
+            self._idle.put(w)
+
+    def _remote_prepare(self, req: dict) -> dict:
+        w = self._idle.get()
+        try:
+            resp = w.call({"op": "prepare", **req})
+        finally:
+            self._idle.put(w)
+        if not resp.get("ok"):
+            raise RuntimeError(resp.get("error", "prepare failed"))
+        return resp["prepared"]
+
+    def shutdown(self) -> None:
+        super().shutdown()
+        for w in self._procs:
+            w.stop()

@@ -113,8 +113,10 @@ def test_get_object_store(tmp_path):
     assert isinstance(store, tstore.LocalObjectStore)
     assert store.root == str(tmp_path / "objs")
     assert tstore.get_object_store(**store.wire_config()).root == store.root
-    with pytest.raises(NotImplementedError, match="A6"):
-        tstore.get_object_store("s3", bucket="b")
+    s3 = tstore.get_object_store("s3", bucket="b", root="ignored",
+                                 endpoint_url="http://127.0.0.1:9", region="r")
+    assert isinstance(s3, tstore.S3ObjectStore)
+    assert tstore.get_object_store(**s3.wire_config()).wire_config() == s3.wire_config()
     with pytest.raises(ValueError, match="unknown"):
         tstore.get_object_store("ftp")
 

@@ -36,11 +36,15 @@ MODULES = [
     "super_rag_tpu_torch.tasks.reconciler", "super_rag_tpu_torch.tasks.document",
     "super_rag_tpu_torch.service.context", "super_rag_tpu_torch.service.collection_service",
     "super_rag_tpu_torch.service.document_service", "chip_smoke", "tune_ivf_probe",
+    "super_rag_tpu_torch.models.image_decode", "super_rag_tpu_torch.index.vision",
+    "super_rag_tpu_torch.fileparser.image", "super_rag_tpu_torch.fileparser.ocr",
+    "super_rag_tpu_torch.utils.sevenzip", "super_rag_tpu_torch.utils.uncompress",
+    "super_rag_tpu_torch.tasks.worker", "super_rag_tpu_torch.store.sources",
 ]
 # third-party packages the JAX package's serving seam uses and the card's
 # machine may lack; the port replaces each (jinja2, torch's own dependency,
 # is allowed)
-FORBIDDEN = ("pydantic", "pydantic_core", "yaml", "httpx", "markdown_it")
+FORBIDDEN = ("pydantic", "pydantic_core", "yaml", "httpx", "markdown_it", "PIL", "ray")
 
 
 def test_import_pulls_no_jax_and_nothing_of_the_jax_package():
