@@ -96,14 +96,31 @@ Phases, each printing one line with its seconds:
      byte ranges, and a path outside the document refused; d. rebuilds;
      e. a bulk delete checks the whole batch first; f. API keys and
      change-password;
-  13. a ``{"kernels": [...]}`` JSON line;
-  14. last line: ``{"ok": true, "device": {...}}``.
+  13. the stdlib document parsers and the knowledge graph: the App with
+     the thread backend and the encoder; 24 documents written here from
+     the seed by stdlib writers (zipfile, zlib, struct, an OLE compound
+     file), 4 each of .pdf (with a FlateDecode RGB image), .docx, .xlsx,
+     .pptx, .doc and .ppt, into a bf16 collection with
+     ``enable_knowledge_graph``; the graph ingest split into extraction,
+     node resolution (host, device) and device writes; gates: a. every
+     document COMPLETE, its chunks those of a parse here and holding its
+     sentences; b. a ``KnowledgeGraphService(device="cpu")`` fed the same
+     chunk texts holds the same nodes, facts and invalidations as the
+     served graph (``/graph/stats``, ``/graph``); c. 64 graph searches
+     and 64 ``use_graph`` searches from one client, each equal to the CPU
+     graph's answer up to ties; d. each graph dispatch launched
+     ``dense_topk_tcs_kernel`` with a mask, the kernel held against its
+     plain version; e. a deleted document's facts leave both graphs;
+     f. no ERROR record;
+  14. a ``{"kernels": [...]}`` JSON line;
+  15. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  There is no CPU path: without a
 CUDA device, or without the package beside it, it exits non-zero and
 prints no result.  Nothing is written under the repo except the kernel
-and analyzer libraries in super_rag_tpu_torch/_build/; the engine, HTTP
-and docs phases' data go to temporary directories that they remove.
+and analyzer libraries in super_rag_tpu_torch/_build/; the engine, HTTP,
+docs and graph phases' data go to temporary directories that they
+remove.
 """
 
 from __future__ import annotations
@@ -192,6 +209,16 @@ DOCS_IMAGE_SIZE = 256
 DOCS_IMAGE_QUERIES = 64  # 48 PNG + 16 BMP
 DOCS_WORKERS = 2
 DOCS_PHOTOS = ((1080, 1920), (3000, 4000))  # JPEG decode timed on photos: HD, 12 MP
+# [graph]: the stdlib document formats into a collection with the knowledge graph
+GRAPH_DOCS_PER_FORMAT = 4  # x 6 formats: .pdf .docx .xlsx .pptx .doc .ppt
+GRAPH_SENTENCES = 48  # a document's seeded sentences, each one or two facts
+GRAPH_ORGS = 200
+GRAPH_PEOPLE = 150
+GRAPH_QUERIES = 64  # POST graph/search, and as many searches with use_graph
+GRAPH_TOP_K = 5
+GRAPH_IMAGE = 48  # each PDF's FlateDecode RGB image is 48 x 48
+GRAPH_MIN_FACTS = 1000  # gate a: the graph the documents make is at least this big
+GRAPH_MIN_ENTITIES = 300
 SEM_ROWS = 1_000_000
 SEM_WORDS = 128  # words a row's text holds: every (query, row) pair fills 128 tokens
 SEM_CHUNKS = 65_536
@@ -3536,6 +3563,817 @@ def phase_docs(results: dict) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- [graph]: the stdlib document parsers and the knowledge graph -------------
+
+_G_STEMS = ("Northwind", "Contoso", "Fabrikam", "Adatum", "Litware", "Proseware",
+            "Tailspin", "Wingtip", "Woodgrove", "Lucerne", "Alpine", "Coho", "Blue Yonder",
+            "Consolidated", "Fourth Coffee", "Graphic Design", "Humongous", "Margie",
+            "Nod", "Relecloud", "Southridge", "Trey", "VanArsdel", "Wide World", "Bellows",
+            "Datum", "Fineart", "Kestrel", "Lamna", "Mistral", "Norrland", "Orchid",
+            "Pinnacle", "Quillon", "Rainier", "Sable", "Tamarack", "Umber", "Vireo", "Zephyr")
+_G_SUFFIXES = ("Labs", "Inc", "Systems", "Group", "Foundation", "Bank")
+_G_FIRST = ("Alice", "Bruno", "Chen", "Dalia", "Emeka", "Freya", "Goran", "Hana", "Ivan",
+            "Jonas", "Keiko", "Lucia", "Mateo", "Nadia", "Omar", "Priya")
+_G_LAST = ("Okafor", "Lindqvist", "Moreau", "Tanaka", "Varga", "Quispe", "Haddad",
+           "Novak", "Reyes", "Sato", "Fischer", "Mbeki", "Kowalski", "Dubois")
+_G_PLACES = ("Silicon Valley", "Hudson Bay", "Rocky Mountains", "Kent County",
+             "Jade Island", "Napa Valley", "Orange County", "Monterey Bay")
+_G_PRODUCTS = ("Warehouse Robots", "Tensor Engines", "Cloud Ledgers", "Solar Arrays",
+               "Medical Scanners", "Quantum Sensors", "Freight Drones", "Battery Packs")
+
+
+def graph_sentences(rng, count: int, orgs: list, people: list) -> list:
+    """``count`` sentences that the knowledge graph's heuristic extractor
+    turns into one or two facts each: acquisitions, leadership (a
+    functional relation: a person's later post invalidates the earlier),
+    foundings in the passive, products, offices and support."""
+    out = []
+    for _ in range(count):
+        kind = int(rng.integers(6))
+        a, b = (orgs[int(i)] for i in rng.choice(len(orgs), 2, replace=False))
+        p = people[int(rng.integers(len(people)))]
+        year = int(rng.integers(1990, 2025))
+        if kind == 0:
+            out.append(f"{a} acquired {b} in {year}.")
+        elif kind == 1:
+            out.append(f"{p} leads {a} since {year}.")
+        elif kind == 2:
+            out.append(f"{a} was founded by {p} in {year}.")
+        elif kind == 3:
+            out.append(f"{a} develops {_G_PRODUCTS[int(rng.integers(len(_G_PRODUCTS)))]} "
+                       f"for {b}.")
+        elif kind == 4:
+            out.append(f"{a} owns offices in {_G_PLACES[int(rng.integers(len(_G_PLACES)))]} "
+                       f"since {year}.")
+        else:
+            out.append(f"{p} supports {a} and {b}.")
+    return out
+
+
+def _zip(files: dict) -> bytes:
+    import io
+    import zipfile
+
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w", zipfile.ZIP_DEFLATED) as z:
+        for name, text in files.items():
+            z.writestr(name, text)
+    return buf.getvalue()
+
+
+def _xml(text: str) -> str:
+    return text.replace("&", "&amp;").replace("<", "&lt;").replace(">", "&gt;")
+
+
+_OOXML_W = "http://schemas.openxmlformats.org/wordprocessingml/2006/main"
+_OOXML_S = "http://schemas.openxmlformats.org/spreadsheetml/2006/main"
+_OOXML_A = "http://schemas.openxmlformats.org/drawingml/2006/main"
+_OOXML_P = "http://schemas.openxmlformats.org/presentationml/2006/main"
+
+
+def docx_file(title: str, sentences: list) -> bytes:
+    """word/document.xml: a heading, a paragraph per sentence, the last
+    four sentences in a two-column table."""
+    body, rest = sentences[:-4], sentences[-4:]
+    paras = "".join(f"<w:p><w:r><w:t>{_xml(s)}</w:t></w:r></w:p>" for s in body)
+    rows = "".join("<w:tr>" + "".join(f"<w:tc><w:p><w:r><w:t>{_xml(s)}</w:t></w:r></w:p></w:tc>"
+                                      for s in rest[i:i + 2]) + "</w:tr>"
+                   for i in range(0, len(rest), 2))
+    doc = (f'<?xml version="1.0"?><w:document xmlns:w="{_OOXML_W}"><w:body>'
+           f'<w:p><w:pPr><w:pStyle w:val="Heading1"/></w:pPr><w:r><w:t>{_xml(title)}'
+           f"</w:t></w:r></w:p>{paras}<w:tbl>{rows}</w:tbl></w:body></w:document>")
+    return _zip({"word/document.xml": doc})
+
+
+def xlsx_file(sentences: list) -> bytes:
+    """Two sheets, one sentence a row, through the shared-string table
+    (first sheet) and inline strings (second)."""
+    half = len(sentences) // 2
+    shared = (f'<?xml version="1.0"?><sst xmlns="{_OOXML_S}">'
+              + "".join(f"<si><t>{_xml(s)}</t></si>" for s in sentences[:half]) + "</sst>")
+    sheet1 = "".join(f'<row r="{i + 1}"><c r="A{i + 1}" t="s"><v>{i}</v></c></row>'
+                     for i in range(half))
+    sheet2 = "".join(f'<row r="{i + 1}"><c r="B{i + 1}" t="inlineStr"><is><t>{_xml(s)}'
+                     f"</t></is></c></row>" for i, s in enumerate(sentences[half:]))
+    wrap = f'<?xml version="1.0"?><worksheet xmlns="{_OOXML_S}"><sheetData>{{}}</sheetData></worksheet>'
+    return _zip({"xl/sharedStrings.xml": shared, "xl/worksheets/sheet1.xml": wrap.format(sheet1),
+                 "xl/worksheets/sheet2.xml": wrap.format(sheet2)})
+
+
+def pptx_file(sentences: list, per_slide: int = 6) -> bytes:
+    slides = {}
+    for j in range(0, len(sentences), per_slide):
+        texts = "".join(f"<a:t>{_xml(s)}</a:t>" for s in sentences[j:j + per_slide])
+        slides[f"ppt/slides/slide{j // per_slide + 1}.xml"] = (
+            f'<?xml version="1.0"?><p:sld xmlns:p="{_OOXML_P}" xmlns:a="{_OOXML_A}">'
+            f"<p:cSld>{texts}</p:cSld></p:sld>")
+    return _zip(slides)
+
+
+def cfb_file(streams: dict) -> bytes:
+    """A version 3 OLE compound file ([MS-CFB]: 512-byte sectors, header
+    DIFAT, FAT chains; streams under 4096 bytes in the mini stream)."""
+    import struct
+
+    sect, end, free = 512, 0xFFFFFFFE, 0xFFFFFFFF
+    big = {n: d for n, d in streams.items() if len(d) >= 4096}
+    small = {n: d for n, d in streams.items() if len(d) < 4096}
+    mini, mini_fat, mini_start = bytearray(), [], {}
+    for name, d in small.items():
+        mini_start[name] = len(mini_fat)
+        n = -(-len(d) // 64) or 1
+        mini_fat += [len(mini_fat) + i + 1 for i in range(n - 1)] + [end]
+        mini += d + b"\0" * ((-len(d)) % 64)
+    sectors: list = []
+    fat: list = []
+
+    def add(data: bytes) -> int:
+        start = len(sectors)
+        n = -(-len(data) // sect) or 1
+        for i in range(n):
+            sectors.append(data[i * sect:(i + 1) * sect].ljust(sect, b"\0"))
+            fat.append(start + i + 1)
+        fat[-1] = end
+        return start
+
+    big_start = {name: add(d) for name, d in big.items()}
+    mini_sec = add(bytes(mini)) if mini else end
+    minifat_sec, n_minifat = end, 0
+    if mini_fat:
+        raw = struct.pack(f"<{len(mini_fat)}I", *mini_fat)
+        minifat_sec, n_minifat = add(raw), -(-len(raw) // sect)
+
+    def dirent(name: str, etype: int, start: int, size: int, child: int = free) -> bytes:
+        raw = bytearray(128)
+        enc = name.encode("utf-16-le")
+        raw[:len(enc)] = enc
+        struct.pack_into("<H", raw, 0x40, len(enc) + 2)
+        raw[0x42], raw[0x43] = etype, 1
+        struct.pack_into("<III", raw, 0x44, free, free, child)
+        struct.pack_into("<IQ", raw, 0x74, start, size)
+        return bytes(raw)
+
+    entries = [dirent("Root Entry", 5, mini_sec, len(mini), child=1)]
+    entries += [dirent(n, 2, big_start[n], len(d)) for n, d in big.items()]
+    entries += [dirent(n, 2, mini_start[n], len(d)) for n, d in small.items()]
+    dir_sec = add(b"".join(entries))
+    n_fat = 1
+    while (len(sectors) + n_fat) * 4 > n_fat * sect:
+        n_fat += 1
+    fat_sec = len(sectors)
+    table = fat + [0xFFFFFFFD] * n_fat
+    table += [free] * (n_fat * sect // 4 - len(table))
+    raw = struct.pack(f"<{len(table)}I", *table)
+    sectors += [raw[i * sect:(i + 1) * sect] for i in range(n_fat)]
+    header = bytearray(512)
+    header[:8] = b"\xd0\xcf\x11\xe0\xa1\xb1\x1a\xe1"
+    struct.pack_into("<HHHHH", header, 0x18, 0x3E, 3, 0xFFFE, 9, 6)
+    struct.pack_into("<IIIIIIII", header, 0x2C, n_fat, dir_sec, 0, 4096, minifat_sec,
+                     n_minifat, end, 0)
+    difat = [fat_sec + i for i in range(n_fat)] + [free] * (109 - n_fat)
+    struct.pack_into("<109I", header, 0x4C, *difat)
+    return bytes(header) + b"".join(sectors)
+
+
+def doc_file(sentences: list) -> bytes:
+    """A Word 97 .doc: the FIB, one cp1252 piece (a paragraph per
+    sentence) in the WordDocument stream, its piece table in 0Table."""
+    import struct
+
+    text = "\r".join(sentences) + "\r"
+    raw = text.encode("cp1252")
+    fc = 1024
+    word = bytearray(max(2048, fc + len(raw)))
+    struct.pack_into("<H", word, 0, 0xA5EC)
+    word[fc:fc + len(raw)] = raw
+    struct.pack_into("<I", word, 0x4C, len(text))
+    plc = struct.pack("<II", 0, len(text)) + struct.pack("<HIH", 0, (fc * 2) | (1 << 30), 0)
+    clx = bytes([2]) + struct.pack("<I", len(plc)) + plc
+    table = bytes(64) + clx
+    struct.pack_into("<II", word, 0x1A2, 64, len(clx))
+    return cfb_file({"WordDocument": bytes(word), "0Table": table})
+
+
+def ppt_file(sentences: list) -> bytes:
+    """A PowerPoint 97 .ppt: one container record of text atoms, UTF-16
+    (TextCharsAtom) and cp1252 (TextBytesAtom) in turn."""
+    import struct
+
+    atoms = b""
+    for i, t in enumerate(sentences):
+        body = t.encode("utf-16-le" if i % 2 == 0 else "cp1252")
+        atoms += struct.pack("<HHI", 0, 0x0FA0 if i % 2 == 0 else 0x0FA8, len(body)) + body
+    container = struct.pack("<HHI", 0xF, 0x03EE, len(atoms)) + atoms
+    return cfb_file({"PowerPoint Document": container, "Current User": bytes(24)})
+
+
+def pdf_file(sentences: list, image: np.ndarray) -> bytes:
+    """A one-page PDF: a FlateDecode content stream with a line per
+    sentence, and one FlateDecode RGB image XObject."""
+    import zlib
+
+    lines = " T* ".join(f"({s}) Tj" for s in sentences)
+    content = zlib.compress(f"BT /F1 11 Tf 14 TL 72 780 Td {lines} ET".encode("latin-1"))
+    h, w, _ = image.shape
+    pixels = zlib.compress(np.ascontiguousarray(image, np.uint8).tobytes())
+    objs = [
+        b"1 0 obj << /Type /Catalog /Pages 2 0 R >> endobj",
+        b"2 0 obj << /Type /Pages /Kids [3 0 R] /Count 1 >> endobj",
+        b"3 0 obj << /Type /Page /Parent 2 0 R /Contents 4 0 R "
+        b"/Resources << /XObject << /Im1 5 0 R >> >> >> endobj",
+        b"4 0 obj << /Filter /FlateDecode /Length " + str(len(content)).encode()
+        + b" >>\nstream\n" + content + b"\nendstream\nendobj",
+        b"5 0 obj << /Type /XObject /Subtype /Image /Width " + str(w).encode()
+        + b" /Height " + str(h).encode() + b" /ColorSpace /DeviceRGB /BitsPerComponent 8"
+        b" /Filter /FlateDecode /Length " + str(len(pixels)).encode()
+        + b" >>\nstream\n" + pixels + b"\nendstream\nendobj",
+    ]
+    return b"%PDF-1.4\n" + b"\n".join(objs) + b"\ntrailer\n%%EOF"
+
+
+def graph_corpus(seed: int, per_format: int = None, sentences: int = None):
+    """``per_format`` documents of each format (pdf, docx, xlsx, pptx,
+    doc, ppt), each ``sentences`` seeded sentences over GRAPH_ORGS
+    organisations and GRAPH_PEOPLE people; returns
+    ``[(name, bytes, sentences)]`` and the organisations."""
+    per_format = GRAPH_DOCS_PER_FORMAT if per_format is None else per_format
+    sentences = GRAPH_SENTENCES if sentences is None else sentences
+    rng = np.random.default_rng(seed)
+    orgs = [f"{s} {x}" for s in _G_STEMS for x in _G_SUFFIXES]
+    orgs = [orgs[int(i)] for i in rng.permutation(len(orgs))[:GRAPH_ORGS]]
+    people = [f"{f} {l}" for f in _G_FIRST for l in _G_LAST]
+    people = [people[int(i)] for i in rng.permutation(len(people))[:GRAPH_PEOPLE]]
+    images = smooth_images(per_format, GRAPH_IMAGE, seed + 1)
+    docs = []
+    for k in range(per_format):
+        for ext in ("pdf", "docx", "xlsx", "pptx", "doc", "ppt"):
+            sents = graph_sentences(rng, sentences, orgs, people)
+            name = f"report{k:02d}.{ext}"
+            if ext == "pdf":
+                data = pdf_file(sents, images[k])
+            elif ext == "docx":
+                data = docx_file(f"Report {k}", sents)
+            elif ext == "xlsx":
+                data = xlsx_file(sents)
+            elif ext == "pptx":
+                data = pptx_file(sents)
+            elif ext == "doc":
+                data = doc_file(sents)
+            else:
+                data = ppt_file(sents)
+            docs.append((name, data, sents))
+    return docs, orgs
+
+
+def _graph_edge_key(r: dict) -> tuple:
+    return (r["fact"], r["source"], r["target"], r["relation"])
+
+
+def _graph_node_key(r: dict) -> tuple:
+    return (r["name"], r["label"], tuple(r["facts"]))
+
+
+def _graph_episode_key(r: dict) -> tuple:
+    return (r["preview"], r["source"])
+
+
+def _same_up_to_ties(want: list, got: list, key, rtol: float, what: str) -> float:
+    """``got`` equals ``want`` up to ties: the same length, scores within
+    ``rtol`` (relative, on 1 + |s|) slot by slot, and each run of tied
+    scores (the last, which top-k may cut, aside) the same items.
+    Returns the largest score difference."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} items, the CPU graph {len(want)}: "
+                             f"{[key(r) for r in got][:3]} / {[key(r) for r in want][:3]}")
+    ws = [float(r["score"]) for r in want]
+    gs = [float(r["score"]) for r in got]
+    worst = 0.0
+    for w, g in zip(ws, gs):
+        worst = max(worst, abs(w - g))
+        if abs(w - g) > rtol * (1 + abs(w)):
+            raise AssertionError(f"{what}: scores {gs} against the CPU graph's {ws}")
+    i = 0
+    while i < len(want):
+        j = i + 1
+        while j < len(want) and abs(ws[j] - ws[i]) <= rtol * (1 + abs(ws[i])):
+            j += 1
+        if j < len(want) and sorted(map(key, want[i:j])) != sorted(map(key, got[i:j])):
+            raise AssertionError(f"{what}: items {[key(r) for r in got[i:j]]} where the CPU "
+                                 f"graph has {[key(r) for r in want[i:j]]}")
+        i = j
+    return worst
+
+
+def phase_graph(results: dict) -> None:
+    """The stdlib document parsers and the knowledge graph on the port's
+    own App (thread ingest backend, the [semantic] encoder as the
+    collection's embedder): GRAPH_DOCS_PER_FORMAT documents of each of
+    .pdf (with a FlateDecode RGB image), .docx, .xlsx, .pptx, .doc and
+    .ppt, written here from the seed, into one bf16 collection with
+    ``enable_knowledge_graph``; the graph ingest split by stage; graph
+    searches and ``use_graph`` searches over HTTP, each held against a
+    ``KnowledgeGraphService(device="cpu")`` fed the same chunk texts;
+    gates a-f."""
+    import dataclasses
+    import logging
+    import shutil
+    import tempfile
+
+    from super_rag_tpu_torch.chunk.chunking import Rechunker
+    from super_rag_tpu_torch.config import Settings
+    from super_rag_tpu_torch.engine.index import DeviceIndex
+    from super_rag_tpu_torch.fileparser.parser import DocParser
+    from super_rag_tpu_torch.kg import service as kgs
+    from super_rag_tpu_torch.kg.extract import Ontology
+    from super_rag_tpu_torch.models.encoder import flax_params
+    from super_rag_tpu_torch.models.encoder_service import EncoderService, save_params
+    from super_rag_tpu_torch.ops import dense_topk as dt
+    from super_rag_tpu_torch.store.db import Database
+
+    card = results["card"]
+
+    def glog(msg: str) -> None:
+        log(f"[graph] {msg} (on {card})")
+
+    class _Errors(logging.Handler):
+        def __init__(self):
+            super().__init__(level=logging.ERROR)
+            self.records = []
+
+        def emit(self, record):
+            self.records.append(f"{record.name}: {record.getMessage()}")
+
+    errors = _Errors()
+    port_logger = logging.getLogger("super_rag_tpu_torch")
+    port_logger.addHandler(errors)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_graph_")
+    srv = None
+    c = None
+    # on a CPU index too: the kernel route (its plain version) from 2,048 rows
+    route = mock.patch.object(DeviceIndex, "_kernel_default",
+                              lambda self, min_capacity: self._capacity >= min_capacity)
+    try:
+        t0 = time.perf_counter()
+        cfg = semantic_config(torch.bfloat16)
+        enc = EncoderService(cfg, max_len=cfg.max_len, seed=SEED, device=DEVICE)
+        save_params(flax_params(enc.model), os.path.join(tmp, "enc"), cfg)
+        del enc
+        settings = dataclasses.replace(
+            Settings(), data_dir=os.path.join(tmp, "data"), port=0, batch_max=64,
+            default_top_k=GRAPH_TOP_K, chunk_size=400, encoder_checkpoint="",
+            reranker_checkpoint="", ingest_backend="thread")
+        embedding = {"provider": "onboard", "model": os.path.join(tmp, "enc")}
+        docs, orgs = graph_corpus(SEED + 21)
+        n_sent = sum(len(s) for _, _, s in docs)
+        glog(f"set-up: encoder checkpoint ({cfg.num_layers} x {cfg.hidden_dim}, bf16), "
+             f"{len(docs)} documents ({GRAPH_DOCS_PER_FORMAT} each of .pdf .docx .xlsx .pptx "
+             f".doc .ppt, {sum(len(d) for _, d, _ in docs) / 1024:.0f} KiB) of {n_sent} seeded "
+             f"sentences in {time.perf_counter() - t0:.2f} s")
+
+        # -- the graph ingest, split by stage (wrapped from outside)
+        split = {"bulk": 0.0, "extract": 0.0, "resolve": 0.0, "candidates": 0.0,
+                 "resolve_device": 0.0, "resolve_writes": 0.0, "writes": 0.0, "searches": 0,
+                 "rows": 0}
+        where = threading.local()
+
+        class TimedEngine(kgs.CollectionEngine):
+            def ingest(self, texts, *a, **kw):
+                t1 = time.perf_counter()
+                try:
+                    out = super().ingest(texts, *a, **kw)
+                    torch.cuda.synchronize()
+                    return out
+                finally:
+                    ms = time.perf_counter() - t1
+                    split["writes"] += ms
+                    split["rows"] += len(texts)
+                    if getattr(where, "upsert", False):
+                        split["resolve_writes"] += ms
+
+            def search(self, *a, **kw):
+                t1 = time.perf_counter()
+                try:
+                    return super().search(*a, **kw)
+                finally:
+                    if getattr(where, "candidates", False):
+                        split["resolve_device"] += time.perf_counter() - t1
+                        split["searches"] += 1
+
+        def timed(name: str, fn, flag: str = None):
+            def wrapped(*a, **kw):
+                t1 = time.perf_counter()
+                if flag:
+                    setattr(where, flag, True)
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    if flag:
+                        setattr(where, flag, False)
+                    split[name] += time.perf_counter() - t1
+            return wrapped
+
+        KGS = kgs.KnowledgeGraphService
+        patches = [
+            mock.patch.object(kgs, "CollectionEngine", TimedEngine),
+            mock.patch.object(kgs, "extract", timed("extract", kgs.extract)),
+            mock.patch.object(KGS, "add_episode_bulk", timed("bulk", KGS.add_episode_bulk)),
+            mock.patch.object(KGS, "_upsert_node", timed("resolve", KGS._upsert_node, "upsert")),
+            mock.patch.object(KGS, "_node_candidates",
+                              timed("candidates", KGS._node_candidates, "candidates")),
+        ]
+
+        for p in patches:
+            p.start()
+        try:
+            srv = _AppThread(settings)
+            port = srv.app.port
+            c = _Client(port)
+            _expect(*c.call("POST", "/api/v1/auth/register",
+                            {"username": "smoke", "password": "smoke-password"}), 201, "register")
+            c.close()
+            token = _login(port)
+            c = _Client(port, token)
+            cid = _expect(*c.call("POST", "/api/v1/collections", {
+                "title": "graph", "config": {"embedding": embedding,
+                                             "enable_knowledge_graph": True}}),
+                          201, "create collection")["id"]
+            t_first = time.perf_counter()
+            half = len(docs) // 2
+            for batch in (docs[:half], docs[half:]):
+                _expect(*_post_files(port, token, f"/api/v1/collections/{cid}/documents",
+                                     [(n, d) for n, d, _ in batch]), 201, "upload")
+            wall = _wait_complete(c, cid, len(docs), "graph documents", t_first)
+            srv.app.ctx.scheduler.wait_idle(120)
+        finally:
+            for p in reversed(patches):
+                p.stop()
+        kg = srv.app.ctx.kg
+        db = srv.app.ctx.db
+        geng = kg._engines[cid]
+        if geng.index.device.type != torch.device(DEVICE).type:
+            raise AssertionError(f"the graph engine lives on {geng.index.device}")
+        listing = _expect(*c.call("GET", f"/api/v1/collections/{cid}/documents?limit=1000"),
+                          200, "list")
+        did_of = {d["name"]: d["id"] for d in listing}
+        n_edges = db.query_one("SELECT COUNT(*) AS n FROM kg_edge WHERE group_id=?", (cid,))["n"]
+        n_nodes = db.query_one("SELECT COUNT(*) AS n FROM kg_node WHERE group_id=?", (cid,))["n"]
+        n_dead = db.query_one("SELECT COUNT(*) AS n FROM kg_edge WHERE group_id=? AND "
+                              "invalid_at IS NOT NULL", (cid,))["n"]
+
+        # -- gate a: every document COMPLETE, its chunks hold its sentences
+        rechunk = Rechunker(settings.chunk_size, settings.chunk_overlap)
+        chunk_texts: dict = {}
+        n_chunks = 0
+        for name, data, sents in docs:
+            did = did_of[name]
+            served = [ch["text"] for ch in _expect(*c.call(
+                "GET", f"/api/v1/documents/{did}/chunks"), 200, "chunks")]
+            local = rechunk.rechunk(DocParser().parse_file(name, data),
+                                    metadata={"document_id": did})
+            if served != [ch.padded_text for ch in local]:
+                raise AssertionError(f"gate a: {name}'s served chunks differ from a parse here")
+            joined = " ".join(" ".join(served).split())
+            missing = [s for s in sents if s not in joined]
+            if missing:
+                raise AssertionError(f"gate a: {name} lacks {len(missing)} of its sentences, "
+                                     f"e.g. {missing[0]!r}")
+            chunk_texts[name] = [ch.text for ch in local]
+            n_chunks += len(served)
+        if n_edges < GRAPH_MIN_FACTS or n_nodes < GRAPH_MIN_ENTITIES:
+            raise AssertionError(f"gate a: {n_edges} facts and {n_nodes} entities; the phase "
+                                 f"needs >= {GRAPH_MIN_FACTS} and >= {GRAPH_MIN_ENTITIES}")
+        bulk = split["bulk"]
+        host_resolve = split["resolve"] - split["resolve_device"] - split["resolve_writes"]
+        glog(f"ingest: {len(docs)} documents (6 formats), {n_chunks} chunks, every document "
+             f"COMPLETE (vector + graph indexes) after {wall:.3f} s: {n_chunks / wall:.1f} "
+             f"chunks/s, {n_edges / wall:.1f} facts/s ({n_edges} facts, {n_dead} invalidated; "
+             f"{n_nodes} entities; {geng.index.live_count} graph rows, "
+             f"{str(geng.index.spec.dtype)[6:]}, D = {geng.index.spec.dim})")
+        glog(f"gate a: each of the {len(docs)} documents COMPLETE; its served chunk texts equal "
+             f"a parse + rechunk here and hold all its seeded sentences, in all 6 formats")
+        glog(f"graph ingest split: add_episode_bulk {bulk:.3f} s in all = extraction "
+             f"{split['extract']:.3f} s + node resolution {split['resolve']:.3f} s (host "
+             f"{host_resolve:.3f} s, of it {split['candidates'] - split['resolve_device']:.3f} s "
+             f"in the candidates' trigram screen; device candidate searches "
+             f"{split['resolve_device']:.3f} s in {split['searches']} searches; node-row writes "
+             f"{split['resolve_writes']:.3f} s)"
+             f" + other device writes {split['writes'] - split['resolve_writes']:.3f} s "
+             f"({split['rows']} rows written in all) + the rest "
+             f"{bulk - split['extract'] - split['resolve'] - split['writes'] + split['resolve_writes']:.3f} s")
+
+        # -- gate b: a CPU twin fed the same chunk texts in the served order
+        t1 = time.perf_counter()
+        order = [r["source"] for r in db.query(
+            "SELECT source, MIN(created) AS t FROM kg_episode WHERE group_id=? "
+            "GROUP BY source ORDER BY t", (cid,))]
+        name_of = {v: k for k, v in did_of.items()}
+        if sorted(order) != sorted(did_of.values()):
+            raise AssertionError("gate b: the served graph lacks some documents' episodes")
+        # the twin takes the card's route on the CPU: the dense branch on
+        # dense_topk (queries rounded to bf16, the calibrated per-tile cap)
+        # with the kernel's plain version in the kernel's place; the CPU's
+        # own route scores f32 queries
+        route.start()
+        twin = KGS(Database(":memory:"), device="cpu")
+        for did in order:
+            twin.add_episode_bulk(cid, chunk_texts[name_of[did]], source=did,
+                                  ontology=Ontology.from_config([]))
+        twin_s = time.perf_counter() - t1
+        teng = twin._engines[cid]
+        if teng.index._per_tile_k != geng.index._per_tile_k:
+            raise AssertionError(f"gate b: the twin calibrated a per-tile cap of "
+                                 f"{teng.index._per_tile_k}, the served graph "
+                                 f"{geng.index._per_tile_k}")
+
+        def graph_state(g: KGS) -> dict:
+            names = {r["id"]: r["name"] for r in g.db.query(
+                "SELECT id, name FROM kg_node WHERE group_id=?", (cid,))}
+            return {
+                "nodes": sorted((r["name"], r["label"], r["summary"]) for r in g.db.query(
+                    "SELECT name, label, summary FROM kg_node WHERE group_id=?", (cid,))),
+                "edges": sorted((names[r["source_id"]], r["relation"], names[r["target_id"]],
+                                 r["fact"], r["invalid_at"] is not None) for r in g.db.query(
+                    "SELECT * FROM kg_edge WHERE group_id=?", (cid,))),
+                "aliases": sorted((r["norm"], names[r["node_id"]]) for r in g.db.query(
+                    "SELECT norm, node_id FROM kg_node_alias WHERE group_id=?", (cid,))),
+            }
+
+        served_state, twin_state = graph_state(kg), graph_state(twin)
+        for part in ("nodes", "edges", "aliases"):
+            if served_state[part] != twin_state[part]:
+                bad = sorted(set(served_state[part]) ^ set(twin_state[part]))[:3]
+                raise AssertionError(f"gate b: the served graph's {part} differ from the CPU "
+                                     f"twin's: {bad}")
+        stats = _expect(*c.call("GET", f"/api/v1/collections/{cid}/graph/stats"), 200, "stats")
+        tstats = twin.stats(cid)
+        # communities are printed, not compared: label propagation visits
+        # nodes in id order, and ids are uuids
+        if (stats["nodes"], stats["edges"]) != (tstats["nodes"], tstats["edges"]):
+            raise AssertionError(f"gate b: /graph/stats {stats} != the twin's {tstats}")
+        sub = _expect(*c.call("GET", f"/api/v1/collections/{cid}/graph?limit=100000"), 200,
+                      "subgraph")
+        tsub = twin.subgraph(cid, limit=100000)
+
+        def sub_key(g: dict):
+            names = {n["id"]: (n["name"], n["label"]) for n in g["nodes"]}
+            return (sorted(names.values()),
+                    sorted((names[e["source"]], e["relation"], names[e["target"]], e["fact"])
+                           for e in g["edges"]))
+
+        if sub_key(sub) != sub_key(tsub):
+            raise AssertionError("gate b: /graph differs from the CPU twin's subgraph")
+        labels = _expect(*c.call("GET", f"/api/v1/collections/{cid}/graphs/labels"), 200,
+                         "labels")
+        if sorted(map(str, labels)) != sorted(map(str, twin.labels(cid))):
+            raise AssertionError(f"gate b: labels {labels} != {twin.labels(cid)}")
+        glog(f"gate b: a KnowledgeGraphService(device=\"cpu\") on the card's route (dense_topk's "
+             f"plain version, bf16 queries, per-tile cap {teng.index._per_tile_k} as on the "
+             f"card) fed the same chunk texts in the served order ({twin_s:.3f} s) holds the same {len(twin_state['nodes'])} nodes "
+             f"(names, labels, summaries), {len(twin_state['edges'])} facts with the same "
+             f"{n_dead} invalidations, {len(twin_state['aliases'])} aliases; /graph/stats, "
+             f"/graph ({len(sub['edges'])} live facts) and /graphs/labels agree "
+             f"({stats['communities']} communities served, {tstats['communities']} in the "
+             f"twin: their label propagation visits nodes in the order of their uuids)")
+
+        # -- gates c, d: graph searches and use_graph searches from one client
+        rng = np.random.default_rng(SEED + 22)
+        queries = []
+        for k in range(GRAPH_QUERIES):
+            _, _, sents = docs[int(rng.integers(len(docs)))]
+            words = sents[int(rng.integers(len(sents)))].rstrip(".").split()
+            start = int(rng.integers(max(1, len(words) - 3)))
+            queries.append(" ".join(words[start:start + 4]))
+        people = [r["name"] for r in twin.db.query(
+            "SELECT name FROM kg_node WHERE group_id=? ORDER BY name", (cid,))]
+
+        def graph_body(k: int) -> dict:
+            body = {"query": queries[k], "limit": GRAPH_TOP_K,
+                    "scopes": ["edges", "nodes", "episodes"]}
+            if k % 4 == 1:
+                body.update(center_node=people[k % len(people)], rerank="node_distance")
+            elif k % 4 == 2:
+                body["bfs_origin_nodes"] = [people[(3 * k) % len(people)]]
+            return body
+
+        calls: list = []
+        real_tile_topk = dt.tile_topk
+
+        def record(*args):
+            q, values, mask, n, tile, kt = args[0], args[2], args[5], args[6], args[7], args[8]
+            calls.append({"args": args, "masked": mask is not None, "d": q.shape[1],
+                          "variant": dt.kernel_variant(
+                              dt._mode(q, values), kt, q.shape[1], q.shape[0], -(-n // tile),
+                              dt._sm_count(torch.cuda.current_device()))})
+            return real_tile_topk(*args)
+
+        lat_g, lat_s, per_request, served_g, served_s = [], [], [], [], []
+        _reset_counts()
+        counts0 = _counts()
+        with mock.patch.object(dt, "tile_topk", record):
+            for k in range(GRAPH_QUERIES):
+                n0 = len(calls)
+                t1 = time.perf_counter()
+                out = _expect(*c.call("POST", f"/api/v1/collections/{cid}/graph/search",
+                                      graph_body(k)), 200, "graph search")
+                lat_g.append((time.perf_counter() - t1) * 1e3)
+                per_request.append(("graph/search", calls[n0:]))
+                served_g.append(out)
+            for k in range(GRAPH_QUERIES):
+                n0 = len(calls)
+                t1 = time.perf_counter()
+                out = _expect(*c.call("POST", f"/api/v1/collections/{cid}/searches", {
+                    "query": queries[k], "use_graph": True, "use_rerank": False,
+                    "top_k": GRAPH_TOP_K}), 201, "use_graph search")
+                lat_s.append((time.perf_counter() - t1) * 1e3)
+                per_request.append(("searches", calls[n0:]))
+                served_s.append(out)
+        torch.cuda.synchronize()
+        launched = {k: v - counts0[k] for k, v in _counts().items() if v - counts0[k]}
+        if launched.get("dense_topk_tc", 0) != len(calls) or launched.get("dense_topk_simt"):
+            raise AssertionError(f"gate d: {len(calls)} dense_topk calls launched {launched}")
+        graph_launches = 0
+        for what, rc in per_request:
+            g = [r for r in rc if r["d"] == geng.index.spec.dim]
+            want = 3 if what == "graph/search" else 1
+            if len(g) != want or not all(r["masked"] and r["variant"] == "tcs" for r in g):
+                raise AssertionError(f"gate d: a {what} request made {len(g)} graph "
+                                     f"dispatches {[(r['masked'], r['variant']) for r in g]}, "
+                                     f"expected {want} masked tcs launches")
+            graph_launches += len(g)
+        last_graph = [r for _, rc in per_request for r in rc
+                      if r["d"] == geng.index.spec.dim][-1]["args"]
+
+        dense_tol = geng.index.spec.dim * 2.0 ** -23 * 2  # cosine scores: max |s| <= 1
+
+        def branches_agree(q: str, what: str) -> None:
+            """Each branch the hybrid fuses -- dense and BM25, over every
+            scope a graph search masks to -- equals the twin's up to ties
+            within its tolerance (dense: the kernel's summation bound;
+            BM25: the card's and the CPU's float sums, a few ulps)."""
+            scopes = [dict(index_types=["graph"]), dict(index_types=["vector"]),
+                      dict(doc_rows=kg._edge_doc_rows(cid, None) or None)]
+            for kw in scopes:
+                for mode, tol in (("dense", dense_tol), ("fulltext", 1e-6)):
+                    a = geng.search(q, top_k=100, mode=mode, **kw)
+                    b = teng.search(q, top_k=100, mode=mode, **kw)
+                    _same_up_to_ties([{"score": h.score, "row": h.row} for h in b],
+                                     [{"score": h.score, "row": h.row} for h in a],
+                                     lambda r: r["row"], tol, f"{what}: {mode} branch {kw}")
+
+        tie_explained: list = []
+
+        def check(want, got, key, q: str, what: str) -> float:
+            """Served = twin up to ties; where the fused lists differ, the
+            branches they fuse must agree up to ties (a branch's tie
+            broken the other way on the card moves its RRF ranks)."""
+            try:
+                return _same_up_to_ties(want, got, key, 1e-3, what)
+            except AssertionError as e:
+                try:
+                    branches_agree(q, what)
+                except AssertionError as b:
+                    raise AssertionError(f"{e}; and a branch differs: {b}") from None
+                tie_explained.append(what)
+                return 0.0
+
+        worst = 0.0
+        for k, out in enumerate(served_g):
+            b = graph_body(k)
+            want = twin.search_combined(cid, b["query"], limit=b["limit"],
+                                        center_node=b.get("center_node"),
+                                        rerank=b.get("rerank"),
+                                        bfs_origin_nodes=b.get("bfs_origin_nodes"),
+                                        scopes=b["scopes"])
+            for scope, key in (("edges", _graph_edge_key), ("nodes", _graph_node_key),
+                               ("episodes", _graph_episode_key)):
+                worst = max(worst, check(want[scope], out[scope], key, b["query"],
+                                         f"gate c: graph/search {k} {scope}"))
+        for k, out in enumerate(served_s):
+            graph_items = [it for it in out["items"] if it["recall_type"] == "graph_search"]
+            want = twin.search(cid, queries[k], top_k=GRAPH_TOP_K)
+            if not want:
+                if graph_items:
+                    raise AssertionError(f"gate c: searches {k} has a graph item, the twin none")
+                continue
+            if len(graph_items) != 1:
+                raise AssertionError(f"gate c: searches {k} answered {len(graph_items)} "
+                                     f"graph items: {out['items'][:2]}")
+            direct = kg.search(cid, queries[k], top_k=GRAPH_TOP_K)
+            if graph_items[0]["text"] != "\n".join(r["fact"] for r in direct):
+                raise AssertionError(f"gate c: searches {k}'s graph item is not the graph's "
+                                     f"direct answer")
+            worst = max(worst, check(want, direct, _graph_edge_key, queries[k],
+                                     f"gate c: searches {k} graph facts"))
+        n_lists = 3 * len(served_g) + len(served_s)
+        glog(f"gate c: {GRAPH_QUERIES} POST graph/search (edges, nodes, episodes; a quarter "
+             f"with node_distance from a centre, a quarter with BFS origins) and "
+             f"{GRAPH_QUERIES} POST searches with use_graph (each graph item the graph's own "
+             f"answer) equal the CPU graph's answers: {n_lists - len(tie_explained)} of "
+             f"{n_lists} lists up to ties of the fused scores (within {worst:.3g}), the other "
+             f"{len(tie_explained)} where a branch's near-tie (dense within {dense_tol:.3g}, "
+             f"BM25 within 1e-6 relative) fell the other way on the card, each branch equal "
+             f"to the twin's up to those ties ({', '.join(tie_explained[:4])}"
+             f"{' ...' if len(tie_explained) > 4 else ''}); graph/search one client p50 "
+             f"{_pctl(lat_g, 50):.3f} ms, p99 {_pctl(lat_g, 99):.3f} ms; use_graph searches "
+             f"p50 {_pctl(lat_s, 50):.3f} ms, p99 {_pctl(lat_s, 99):.3f} ms")
+        row = _served_kernel_row(last_graph, graph_launches, len(per_request), glog)
+        results["dense_topk"]["http_graph"] = {
+            k: row[k] for k in ("variant", "ms", "launches", "bound_ms", "bound_by",
+                                "plain_ms", "library_ms", "max_abs_err")}
+        results["dense_topk_http_graph"] = row
+        glog(f"gate d: every graph dispatch launched dense_topk_tcs_kernel with a mask: "
+             f"{graph_launches} launches at D = {geng.index.spec.dim} over {len(per_request)} "
+             f"requests (3 each graph/search, 1 each use_graph search; {launched} in all)")
+
+        # -- what a graph search costs the requests beside it (printed)
+        text = {"query": queries[0], "use_rerank": False}
+        quiet = []
+        for _ in range(16):
+            t1 = time.perf_counter()
+            _expect(*c.call("POST", f"/api/v1/collections/{cid}/searches", text), 201, "search")
+            quiet.append((time.perf_counter() - t1) * 1e3)
+        box: dict = {"n": 0}
+
+        def graph_load() -> None:
+            gc = _Client(port, token)
+            try:
+                for k in range(GRAPH_QUERIES // 2):
+                    _expect(*gc.call("POST", f"/api/v1/collections/{cid}/graph/search",
+                                     graph_body(k)), 200, "graph search")
+                    box["n"] += 1
+            except Exception as e:  # noqa: BLE001 — raised below
+                box["error"] = e
+            finally:
+                gc.close()
+
+        worker = threading.Thread(target=graph_load)
+        worker.start()
+        during = []
+        while worker.is_alive():
+            t1 = time.perf_counter()
+            _expect(*c.call("POST", f"/api/v1/collections/{cid}/searches", text), 201, "search")
+            during.append((time.perf_counter() - t1) * 1e3)
+        worker.join()
+        if "error" in box:
+            raise box["error"]
+        glog(f"searches beside graph searches: alone p50 {_pctl(quiet, 50):.3f} ms; while "
+             f"another client sends {box['n']} graph/search, {len(during)} searches p50 "
+             f"{_pctl(during, 50) if during else 0:.3f} ms, max {max(during or [0]):.3f} ms")
+
+        # -- gate e: delete a document: its facts leave both graphs
+        victim = docs[0][0]
+        vdid = did_of[victim]
+        gone = {r["fact"] for r in db.query(
+            "SELECT fact FROM kg_edge WHERE group_id=? AND episode_id IN (SELECT id FROM "
+            "kg_episode WHERE source=?)", (cid, vdid))}
+        if not gone:
+            raise AssertionError(f"gate e: {victim} has no facts")
+        st, body = c.call("DELETE", f"/api/v1/documents/{vdid}")
+        _expect(st, body, 204, "delete document")
+        if not srv.app.ctx.scheduler.wait_idle(120):
+            raise AssertionError("gate e: the delete did not drain")
+        for r in twin.db.query("SELECT id FROM kg_episode WHERE group_id=? AND source=?",
+                               (cid, vdid)):
+            twin.delete_episode(cid, r["id"])
+        left = db.query_one("SELECT COUNT(*) AS n FROM kg_episode WHERE source=?", (vdid,))["n"]
+        if left:
+            raise AssertionError(f"gate e: {left} episodes of {victim} stay")
+        live = {r["fact"] for r in db.query("SELECT fact FROM kg_edge WHERE group_id=?", (cid,))}
+        probe = sorted(gone)[:8]
+        for q in probe:
+            out = _expect(*c.call("POST", f"/api/v1/collections/{cid}/graph/search",
+                                  {"query": q, "limit": 10, "scopes": ["edges"]}), 200, "search")
+            want = twin.search_combined(cid, q, limit=10, scopes=["edges"])["edges"]
+            stale = {r["fact"] for r in out["edges"]} & (gone - live)
+            if stale or {r["fact"] for r in want} & (gone - live):
+                raise AssertionError(f"gate e: deleted facts {sorted(stale)[:2]} still answer")
+            check(want, out["edges"], _graph_edge_key, q, "gate e: search")
+        glog(f"gate e: DELETE of {victim} removed its episodes; its {len(gone)} facts leave "
+             f"graph/search in the served graph and its CPU twin ({len(probe)} probes, answers "
+             f"equal up to ties)")
+
+        # -- gate f
+        if errors.records:
+            raise AssertionError(f"gate f: {len(errors.records)} ERROR records: "
+                                 f"{errors.records[:3]}")
+        results["graph"] = {"ingest_s": wall, "chunks_per_s": n_chunks / wall,
+                            "facts_per_s": n_edges / wall, "facts": n_edges,
+                            "entities": n_nodes, "invalidated": n_dead,
+                            "split_s": {k: v for k, v in split.items()},
+                            "graph_search_p50": _pctl(lat_g, 50),
+                            "graph_search_p99": _pctl(lat_g, 99),
+                            "use_graph_p50": _pctl(lat_s, 50), "use_graph_p99": _pctl(lat_s, 99)}
+        glog("gate f: no ERROR record from the port's loggers; gates a-f passed")
+    finally:
+        route.stop()
+        if c is not None:
+            c.close()
+        if srv is not None:
+            srv.stop()
+        port_logger.removeHandler(errors)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script has no CPU path",
@@ -3629,6 +4467,10 @@ def main() -> int:
     phase_docs(results)
     log(f"[docs] phase in {time.perf_counter() - t0:.2f} s (on {smi})")
 
+    t0 = time.perf_counter()
+    phase_graph(results)
+    log(f"[graph] phase in {time.perf_counter() - t0:.2f} s (on {smi})")
+
     source = "super_rag_tpu_torch/csrc/"
     kernels = {"kernels": [
         {"name": "dense_topk", "route": "cuda", "source": source + "dense_topk.cu",
@@ -3643,7 +4485,7 @@ def main() -> int:
            "source": source + "dense_topk.cu",
            "replaces": "super_rag_tpu/ops/pallas_topk.py:36",
            **results[f"dense_topk_http_{t}"]}
-          for t in ("bf16", "bf16_rerank", "int8", "int8_rerank", "image")),
+          for t in ("bf16", "bf16_rerank", "int8", "int8_rerank", "image", "graph")),
     ]}
     log(f"[done] wall {time.perf_counter() - t_start:.2f} s")
     log(json.dumps(kernels))

@@ -9,7 +9,9 @@ API keys and OAuth; collection CRUD; the collection search, the image
 search, assets and the multi-collection search; document upload (JSON,
 multipart and archives, and the two-phase upload + confirm), list, get,
 delete (one or a batch), chunks, preview, object and rebuild, flat and
-nested under their collection; the collection rebuilds.  Every other
+nested under their collection; the collection rebuilds; the knowledge
+graph's labels, subgraph (also under the ``/graphs`` spelling), stats,
+combined search, node and episode search and BFS expansion.  Every other
 route of the JAX package waits (ROADMAP A6); its URL answers 404, as any
 unknown route does.
 """
@@ -713,5 +715,98 @@ def build_router(ctx: AppContext) -> Router:
             n += ctx.db.rebuild_indexes(doc["id"], only_failed=only_failed)
         ctx.reconciler.reconcile_all()
         return Response.json({"rebuilt": n})
+
+    # -- knowledge graph (reference api/collections.py:282-323) -------------------------
+
+    def graph_of(req: Request) -> str:
+        """The request's collection id, once the caller may read it and
+        the knowledge graph exists."""
+        user = me(req)
+        collections.get(user["username"], req.path_params["cid"])
+        if ctx.kg is None:
+            raise HttpError(404, "knowledge graph not enabled")
+        return req.path_params["cid"]
+
+    @router.get("/api/v1/collections/{cid}/graph/labels")
+    async def graph_labels(req: Request) -> Response:
+        cid = graph_of(req)
+        return Response.json(ctx.kg.labels(cid))
+
+    @router.get("/api/v1/collections/{cid}/graph")
+    async def graph_subgraph(req: Request) -> Response:
+        cid = graph_of(req)
+        return Response.json(ctx.kg.subgraph(
+            cid, req.query.get("node"), limit=int(req.query.get("limit", "200"))))
+
+    # reference path dialect (api/collections.py:282+ uses /graphs) — same
+    # handlers under the plural spelling
+    router.add("GET", "/api/v1/collections/{cid}/graphs", graph_subgraph)
+    router.add("GET", "/api/v1/collections/{cid}/graphs/labels", graph_labels)
+
+    @router.get("/api/v1/collections/{cid}/graph/stats")
+    async def graph_stats(req: Request) -> Response:
+        cid = graph_of(req)
+        return Response.json(ctx.kg.stats(cid))
+
+    @router.post("/api/v1/collections/{cid}/graph/search")
+    async def graph_search(req: Request) -> Response:
+        """Combined recipe search: edge/node/episode/community scopes,
+        configurable reranker, point-in-time ``as_of``, BFS origins
+        (graphiti search.py:54-180 recipe surface)."""
+        cid = graph_of(req)
+        body = req.json()
+        query = (body.get("query") or "").strip()
+        if not query:
+            raise HttpError(400, "query is required")
+        return Response.json(ctx.kg.search_combined(
+            cid, query,
+            limit=int(body.get("limit", 5)),
+            center_node=body.get("center_node"),
+            rerank=body.get("rerank"),
+            as_of=body.get("as_of"),
+            bfs_origin_nodes=body.get("bfs_origin_nodes"),
+            scopes=body.get("scopes"),
+        ))
+
+    @router.get("/api/v1/collections/{cid}/graph/nodes")
+    async def graph_nodes(req: Request) -> Response:
+        cid = graph_of(req)
+        q = (req.query.get("q") or "").strip()
+        if not q:
+            raise HttpError(400, "q is required")
+        return Response.json(ctx.kg.search_nodes(
+            cid, q,
+            top_k=int(req.query.get("limit", "5")),
+            center_node=req.query.get("center_node"),
+            rerank=req.query.get("rerank"),
+        ))
+
+    @router.get("/api/v1/collections/{cid}/graph/episodes")
+    async def graph_episodes(req: Request) -> Response:
+        cid = graph_of(req)
+        q = (req.query.get("q") or "").strip()
+        if not q:
+            raise HttpError(400, "q is required")
+        return Response.json(ctx.kg.search_episodes(
+            cid, q,
+            top_k=int(req.query.get("limit", "5")),
+        ))
+
+    @router.get("/api/v1/collections/{cid}/graph/expand")
+    async def graph_expand(req: Request) -> Response:
+        """BFS hop expansion from origin nodes (?node=A,B&depth=2)."""
+        cid = graph_of(req)
+        # comma-separated origins: ?node=Alice,Bob (the runtime's query
+        # dict keeps one value per key)
+        origins = [n.strip() for n in (req.query.get("node") or "").split(",")
+                   if n.strip()]
+        if not origins:
+            raise HttpError(400, "node is required")
+        as_of = req.query.get("as_of")
+        return Response.json(ctx.kg.expand(
+            cid, origins,
+            max_depth=int(req.query.get("depth", "1")),
+            as_of=float(as_of) if as_of else None,
+        ))
 
     return router

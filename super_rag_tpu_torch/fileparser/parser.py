@@ -1,11 +1,12 @@
-"""Parser dispatch by extension (port of the JAX package's
-fileparser/parser.py).
+"""Parser dispatch by extension with a fallback chain (port of the JAX
+package's fileparser/parser.py).
 
-Markdown, plain text and image files parse here.  The JAX package's PDF
-and office parsers (docx / xlsx / pptx and the legacy doc / ppt) are not
-ported yet (ROADMAP A6c): a file with one of their extensions raises
-``NotImplementedError`` instead of being decoded as text.  Unknown
-extensions fall back to plain-text decoding, as in the JAX package.
+The chain is the JAX package's: markdown, any extra parsers, then PDF,
+docx, xlsx, pptx, the legacy doc and ppt, images, and plain text; an
+unknown extension falls back to plain-text decoding.  The JAX package
+puts its heavy adapters (docling, MinerU) ahead of the built-in PDF and
+office parsers when those packages can be imported; the port has no such
+adapters, so the built-in parsers always take these files.
 """
 
 from __future__ import annotations
@@ -16,11 +17,9 @@ from typing import Optional
 from super_rag_tpu_torch.fileparser.base import BaseParser, Part
 from super_rag_tpu_torch.fileparser.image import ImageFileParser
 from super_rag_tpu_torch.fileparser.markdown import MarkdownParser, TextParser
-
-# the extensions of the JAX package's pdf and office parsers
-UNPORTED_EXTENSIONS = frozenset({
-    ".pdf", ".docx", ".xlsx", ".pptx", ".doc", ".ppt",
-})
+from super_rag_tpu_torch.fileparser.office import DocxParser, PptxParser, XlsxParser
+from super_rag_tpu_torch.fileparser.olebinary import LegacyDocParser, LegacyPptParser
+from super_rag_tpu_torch.fileparser.pdf import PdfParser
 
 
 class DocParser:
@@ -30,7 +29,8 @@ class DocParser:
         self.parsers: list[BaseParser] = [
             MarkdownParser(),
             *(extra_parsers or []),
-            ImageFileParser(),
+            PdfParser(), DocxParser(), XlsxParser(), PptxParser(),
+            LegacyDocParser(), LegacyPptParser(), ImageFileParser(),
             TextParser(),
         ]
 
@@ -44,12 +44,7 @@ class DocParser:
         ext = os.path.splitext(path)[1].lower()
         chain = [
             p for p in self.parsers if ext in p.supported_extensions
-        ]
-        if not chain and ext in UNPORTED_EXTENSIONS:
-            raise NotImplementedError(
-                f"{ext} files need a parser the PyTorch port has not ported "
-                "yet (ROADMAP A6c)")
-        chain = chain or [TextParser()]
+        ] or [TextParser()]
         last_err: Optional[Exception] = None
         for parser in chain:
             try:

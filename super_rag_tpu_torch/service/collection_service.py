@@ -8,9 +8,9 @@ execute_search_flow :229-366 which builds the search DAG programmatically
 nodeflow engine.  Ours adds the fulltext branch as a first-class node and
 lets hybrid fusion use RRF.
 
-The graph branch (``use_graph``) waits for the knowledge-graph service
-(ROADMAP A6) and answers 501, as does a collection config that names a
-remote model provider.
+The graph branch (``use_graph``) adds graph_search -> merge; a
+collection config that names a remote model provider answers 501
+(ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -238,9 +238,6 @@ class CollectionService:
         chat_id: Optional[str] = None,
     ) -> dict:
         coll = self.get(user, collection_id)
-        if use_graph:
-            raise HttpError(501, "use_graph: the knowledge-graph service is not "
-                            "ported to the PyTorch port yet (ROADMAP A6)")
         top_k = top_k or self.ctx.cfg.default_top_k
         if similarity_threshold is None:
             similarity_threshold = self.ctx.cfg.default_similarity_threshold

@@ -2,8 +2,9 @@
 package's service/context.py).
 
 One explicit context object owns the metadata db, object store, engine
-manager, task scheduler, reconciler, auth and query batcher, constructed
-once per process (or per test) and handed to services and routes.
+manager, task scheduler, reconciler, auth, knowledge graph and query
+batcher, constructed once per process (or per test) and handed to
+services and routes.
 ``device`` reaches every model and engine the context builds; ``None``
 means the CUDA card, which raises without one unless ``"cpu"`` is named.
 
@@ -11,8 +12,9 @@ What the JAX package resolves through remote model providers
 (``llm/resolver.py``) is not ported yet (ROADMAP A6): a collection whose
 ``embedding`` or ``rerank`` spec names a provider other than ``"onboard"``
 raises ``NotImplementedError`` instead of quietly getting the hash
-embedder, and the knowledge-graph service and the completion client are
-``None``.  Objects go to the local store or to S3
+embedder, and the completion client is ``None``, so the knowledge graph
+extracts with its offline heuristic, as the JAX package's does where no
+provider is registered.  Objects go to the local store or to S3
 (``object_store_type="s3"``); ingest runs in process, on host threads
 (``thread``), in worker subprocesses (``process``) or on Ray (``ray``,
 which falls back to ``process`` where ``ray`` is not installed).
@@ -34,6 +36,7 @@ from super_rag_tpu_torch.config import Settings, settings as default_settings
 from super_rag_tpu_torch.device import DeviceLike, resolve_device
 from super_rag_tpu_torch.engine.batcher import QueryBatcher
 from super_rag_tpu_torch.engine.manager import EngineManager
+from super_rag_tpu_torch.kg.service import KnowledgeGraphService
 from super_rag_tpu_torch.models.encoder_service import EncoderService
 from super_rag_tpu_torch.models.hash_embedder import HashEmbedder
 from super_rag_tpu_torch.models.image_decode import UnsupportedImageError
@@ -74,7 +77,7 @@ class AppContext:
     reconciler: DocumentIndexReconciler
     scheduler: TaskScheduler
     auth: Auth
-    kg: Optional[object] = None  # knowledge-graph service: not ported yet
+    kg: Optional[KnowledgeGraphService] = None
     completion: Optional[object] = None  # LLM client: not ported yet
     reranker: Optional[object] = None  # callable (query, texts) -> scores
     batcher: Optional[QueryBatcher] = None
@@ -235,12 +238,16 @@ def build_context(
     reconciler.scheduler = scheduler
     auth = Auth(db, cfg.jwt_secret, cfg.jwt_ttl_hours,
                 oauth_providers=cfg.oauth_providers())
+    # no completion client until the model providers are ported: the
+    # graph extracts and resolves with its offline tier
+    kg = KnowledgeGraphService(db, completion=None,
+                               reranker=reranker_factory({}), device=device)
     batcher = QueryBatcher(max_batch=cfg.batch_max,
                            max_wait_ms=cfg.batch_window_ms)
     ctx = AppContext(
         cfg=cfg, db=db, objects=objects, engines=engines,
-        reconciler=reconciler, scheduler=scheduler, auth=auth,
+        reconciler=reconciler, scheduler=scheduler, auth=auth, kg=kg,
         batcher=batcher, reranker_factory_fn=reranker_factory,
     )
-    task.ctx = ctx  # the index task reaches the context's services
+    task.ctx = ctx  # the index task reaches kg through the context
     return ctx

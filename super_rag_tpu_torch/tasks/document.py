@@ -5,10 +5,12 @@ The parse step pulls the original from the object store and produces
 Parts; create_index chunks, embeds on the card and inserts into the
 collection's DeviceIndex, recording the engine row ids in
 DocumentIndex.index_data so update and delete are exact.  The port builds
-the ``vector`` index type, the one a collection enables by default, and
-the ``vision`` type (one row per image part: its image embedding where
-the asset bytes exist, its caption's embedding elsewhere); the summary
-and graph index types are not ported yet (ROADMAP A6).
+the ``vector`` index type, the one a collection enables by default, the
+``vision`` type (one row per image part: its image embedding where the
+asset bytes exist, its caption's embedding elsewhere) and the ``graph``
+type (the chunks become knowledge-graph episodes, ``kg/service.py``,
+under the collection's ``kg_entity_types`` ontology); the summary index
+type is not ported yet (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from super_rag_tpu_torch.config import Settings
 from super_rag_tpu_torch.engine.index import INDEXER_CODES
 from super_rag_tpu_torch.engine.manager import EngineManager
 from super_rag_tpu_torch.index.vision import vision_rows
+from super_rag_tpu_torch.kg.extract import Ontology
 from super_rag_tpu_torch.models.image_embedder import ImageEmbedder
 from super_rag_tpu_torch.store.db import Database
 from super_rag_tpu_torch.store.objectstore import ObjectStore
@@ -30,7 +33,7 @@ from super_rag_tpu_torch.tasks.worker import prepare_document
 
 logger = logging.getLogger(__name__)
 
-UNPORTED_INDEX_TYPES = ("summary", "graph")
+UNPORTED_INDEX_TYPES = ("summary",)
 
 
 def _live_engine_rows(engine, document_id: str, index_type: str) -> list[int]:
@@ -116,6 +119,8 @@ class DocumentIndexTask:
             return self._create_vision(doc, coll, engine, parts)
         if not chunks:
             return {"rows": [], "chunks": 0}
+        if index_type == "graph":
+            return self._create_graph(doc, coll, chunks)
 
         rows = engine.ingest(
             [c.padded_text for c in chunks],
@@ -128,6 +133,26 @@ class DocumentIndexTask:
             chat_id=doc.get("chat_id"),
         )
         return {"rows": rows, "chunks": len(chunks)}
+
+    def _create_graph(self, doc: dict, coll: dict, chunks) -> dict:
+        """The chunks as episodes of the collection's knowledge graph: one
+        extraction pass and one batched device write for the whole
+        document (``add_episode_bulk``), under the collection's entity
+        ontology (``kg_entity_types``)."""
+        kg = getattr(self.ctx, "kg", None)
+        if kg is None:
+            raise ValueError("graph index requires the kg service")
+        config = coll.get("config") or {}
+        if isinstance(config, str):
+            try:
+                config = json.loads(config)
+            except ValueError:
+                config = {}
+        r = kg.add_episode_bulk(
+            coll["id"], [c.text for c in chunks], source=doc["id"],
+            ontology=Ontology.from_config(config.get("kg_entity_types")),
+        )
+        return {"rows": [], "episodes": r["episode_ids"], "chunks": len(chunks)}
 
     def _create_vision(self, doc: dict, coll: dict, engine, parts) -> dict:
         """One row per image part: the image embedding where the asset
@@ -193,3 +218,7 @@ class DocumentIndexTask:
             coll = self.db.get_collection(doc["collection_id"])
             engine = self.engines.get(coll["id"], coll["config"] if coll else {})
             engine.delete(rows)
+        kg = getattr(self.ctx, "kg", None)
+        if kg is not None:
+            for eid in data.get("episodes", []):
+                kg.delete_episode(doc["collection_id"], eid)

@@ -520,20 +520,35 @@ def test_waiting_routes_answer_404(clients):
 
 
 def test_port_refuses_what_it_lacks(clients, corpus):
+    """What the port still lacks answers 501 or fails loudly: a remote
+    model provider and the summary index type (ROADMAP A6e).  A graph
+    search and a PDF, which it has now, answer as the reference does."""
+    cids, _, maps = corpus
     port = clients[1]
-    cid = corpus[0][1]
-    status, body = port.call("POST", f"/api/v1/collections/{cid}/searches",
-                             {"query": "forest", "use_graph": True})
-    assert status == 501 and "ROADMAP A6" in body["error"]["message"]
+    out = both(clients, "POST", lambda i: f"/api/v1/collections/{cids[i]}/searches",
+               {"query": "forest", "use_graph": True})
+    assert [s for s, _ in out] == [201, 201], out
+    assert_same_items(out[0][1], out[1][1], maps[0], maps[1])
     status, body = port.call("POST", "/api/v1/collections",
                              {"title": "remote", "config": {
                                  "embedding": {"provider": "openai", "model": "m"}}})
     assert status == 501 and "ROADMAP A6" in body["error"]["message"]
-    status, docs = port.call("POST", f"/api/v1/collections/{cid}/documents",
-                             {"name": "scan.pdf",
-                              "content_base64": base64.b64encode(b"%PDF-1.4").decode()})
-    assert status == 201 and docs[0]["status"] == "FAILED"
-    assert "ROADMAP A6" in docs[0]["indexes"][0]["error_message"]
+    summary = make_collection(clients, "summary", {"enable_summary": True})
+    (_, ref), (_, docs) = [c.call("POST", f"/api/v1/collections/{cid}/documents",
+                                  {"name": "s.md", "content": "# s\n\nsome text"})
+                           for c, cid in zip(clients, summary)]
+    idx = {i["index_type"]: i for i in docs[0]["indexes"]}
+    assert idx["summary"]["status"] == "FAILED"
+    assert "ROADMAP A6" in idx["summary"]["error_message"]
+    assert {i["index_type"]: i["status"] for i in ref[0]["indexes"]}["summary"] != "FAILED"
+    out = both(clients, "POST", lambda i: f"/api/v1/collections/{cids[i]}/documents",
+               {"name": "scan.pdf",
+                "content_base64": base64.b64encode(b"%PDF-1.4").decode()})
+    assert [s for s, _ in out] == [201, 201], out
+    assert out[1][1][0]["status"] == out[0][1][0]["status"] == "FAILED"
+    assert ([i["error_message"] for i in out[1][1][0]["indexes"]]
+            == [i["error_message"] for i in out[0][1][0]["indexes"]])
+    both(clients, "DELETE", lambda i: f"/api/v1/documents/{out[i][1][0]['id']}")
 
 
 def test_app_refuses_without_a_card(monkeypatch, tmp_path):

@@ -40,6 +40,12 @@ MODULES = [
     "super_rag_tpu_torch.fileparser.image", "super_rag_tpu_torch.fileparser.ocr",
     "super_rag_tpu_torch.utils.sevenzip", "super_rag_tpu_torch.utils.uncompress",
     "super_rag_tpu_torch.tasks.worker", "super_rag_tpu_torch.store.sources",
+    "super_rag_tpu_torch.fileparser.pdf", "super_rag_tpu_torch.fileparser.office",
+    "super_rag_tpu_torch.fileparser.olebinary", "super_rag_tpu_torch.llm",
+    "super_rag_tpu_torch.llm.prompts", "super_rag_tpu_torch.kg",
+    "super_rag_tpu_torch.kg.extract", "super_rag_tpu_torch.kg.construct",
+    "super_rag_tpu_torch.kg.service", "super_rag_tpu_torch.nodeflow.runners.graph_search",
+    "super_rag_tpu_torch.nodeflow.runners.merge",
 ]
 # third-party packages the JAX package's serving seam uses and the card's
 # machine may lack; the port replaces each (jinja2, torch's own dependency,
@@ -86,7 +92,8 @@ def test_source_names_no_jax_import_or_jax_package_path():
                                    "build_ivf_streaming", "EncoderService",
                                    "RerankService", "encoder_from_jax",
                                    "cross_encoder_from_jax", "csr_from_jax",
-                                   "EngineManager", "build_context", "App"])
+                                   "EngineManager", "build_context", "App",
+                                   "KnowledgeGraphService"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, monkeypatch, tmp_path):
     from super_rag_tpu_torch import convert, resolve_device
     from super_rag_tpu_torch.engine import CollectionEngine, DeviceIndex, IndexSpec
@@ -101,7 +108,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, monkeypatch, t
     from super_rag_tpu_torch.ops.ivf_topk import ivf_topk
     from super_rag_tpu_torch.app import App
     from super_rag_tpu_torch.config import Settings
+    from super_rag_tpu_torch.kg import KnowledgeGraphService
     from super_rag_tpu_torch.service.context import build_context
+    from super_rag_tpu_torch.store.db import Database
     from super_rag_tpu_torch.service.rerank_service import RerankService
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -132,6 +141,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, monkeypatch, t
         "EngineManager": lambda: EngineManager(),
         "build_context": lambda: build_context(Settings(data_dir=str(tmp_path))),
         "App": lambda: App(Settings(data_dir=str(tmp_path))),
+        "KnowledgeGraphService": lambda: KnowledgeGraphService(Database(":memory:")),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

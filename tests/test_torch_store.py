@@ -1,8 +1,8 @@
 """The port's host layers of the serving seam against the JAX package's:
 a Database file written by one package opens and reads the same in the
 other, an Auth token signed by one verifies in the other, the Rechunker
-gives identical chunks, DocParser parses markdown and text the same way
-(and the port refuses the parsers it has not ported), and the reconciler
+gives identical chunks, DocParser parses every format the same way, and
+the reconciler
 drives the same state machine."""
 
 import os
@@ -220,19 +220,22 @@ def test_docparser_matches(name):
 
 @pytest.mark.parametrize("name", ["scan.pdf", "a.docx", "b.xlsx", "c.pptx", "d.doc",
                                   "e.ppt", "f.png", "g.JPG"])
-def test_docparser_refuses_unported_formats(name, monkeypatch):
-    data = b"%PDF-1.4 binary \x00\x01"
-    if name.endswith((".png", ".JPG")):
-        # image files are ported: the same parts as the JAX package's
-        # parser (its OCR finds no text in these bytes)
-        from super_rag_tpu.fileparser import ocr as jocr
+def test_docparser_formats_match_the_reference(name, monkeypatch):
+    """Every format of the JAX package's built-in chain: bytes that none of
+    the parsers reads give the same parts, or the same error, in both
+    (its OCR finds no text in these bytes)."""
+    from super_rag_tpu.fileparser import ocr as jocr
 
-        monkeypatch.setattr(jocr, "default_ocr", lambda: None)
-        assert _parts(TDocParser().parse_file(name, data)) == _parts(
-            JDocParser().parse_file(name, data))
+    monkeypatch.setattr(jocr, "default_ocr", lambda: None)
+    data = b"%PDF-1.4 binary \x00\x01"
+    try:
+        want = _parts(JDocParser().parse_file(name, data))
+    except Exception as e:  # noqa: BLE001 — the port must raise alike
+        with pytest.raises(type(e)) as got:
+            TDocParser().parse_file(name, data)
+        assert str(got.value) == str(e)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        TDocParser().parse_file(name, data)
+    assert _parts(TDocParser().parse_file(name, data)) == want
 
 
 CHUNK_TEXTS = [

@@ -91,3 +91,55 @@ def ivf_arrays(index):
         "of_assign": host(index.of_assign),
     }
     return arrays, index.residual, np.asarray(index.values).dtype.name
+
+
+# -- knowledge-graph text ----------------------------------------------------
+
+KG_ORGS = ("Northwind", "Contoso", "Fabrikam", "Adatum", "Litware", "Proseware",
+           "Tailspin", "Wingtip", "Woodgrove", "Lucerne", "Alpine", "Coho")
+KG_SUFFIXES = ("Labs", "Inc", "Systems", "Group", "Foundation", "Bank")
+KG_FIRST = ("Alice", "Bruno", "Chen", "Dalia", "Emeka", "Freya", "Goran", "Hana")
+KG_LAST = ("Okafor", "Lindqvist", "Moreau", "Tanaka", "Varga", "Quispe")
+KG_PLACES = ("Silicon Valley", "Hudson Bay", "Rocky Mountains", "Kent County",
+             "Jade Island", "Napa Valley")
+KG_PRODUCTS = ("Warehouse Robots", "Tensor Engines", "Cloud Ledgers",
+               "Solar Arrays", "Medical Scanners", "Quantum Sensors")
+
+
+def kg_entities(rng, people: int, orgs: int):
+    """Seeded entity names: ``orgs`` organisations (stem + suffix) and
+    ``people`` people (first + last name, some with a title)."""
+    org_names = [f"{s} {x}" for s in KG_ORGS for x in KG_SUFFIXES]
+    person_names = [f"{f} {l}" for f in KG_FIRST for l in KG_LAST]
+    org = [org_names[i] for i in rng.permutation(len(org_names))[:orgs]]
+    ppl = [("Dr " if rng.random() < 0.2 else "") + person_names[i]
+           for i in rng.permutation(len(person_names))[:people]]
+    return org, ppl
+
+
+def kg_sentences(rng, count: int, org, ppl):
+    """``count`` sentences that the heuristic extractor turns into triples:
+    acquisitions, leadership (a functional relation, so a later leader
+    invalidates an earlier one), foundings in the passive, products,
+    places, with event years."""
+    out = []
+    for _ in range(count):
+        kind = int(rng.integers(6))
+        a, b = (org[int(i)] for i in rng.choice(len(org), 2, replace=False))
+        p = ppl[int(rng.integers(len(ppl)))]
+        year = int(rng.integers(1995, 2024))
+        if kind == 0:
+            out.append(f"{a} acquired {b} in {year}.")
+        elif kind == 1:
+            out.append(f"{p} leads {a} since {year}.")
+        elif kind == 2:
+            out.append(f"{a} was founded by {p} in {year}.")
+        elif kind == 3:
+            out.append(f"{a} develops {KG_PRODUCTS[int(rng.integers(6))]} "
+                       f"for {b}.")
+        elif kind == 4:
+            out.append(f"{a} owns offices in "
+                       f"{KG_PLACES[int(rng.integers(6))]} since {year}.")
+        else:
+            out.append(f"{p} supports {a} and {b}.")
+    return out
