@@ -112,15 +112,34 @@ Phases, each printing one line with its seconds:
      ``dense_topk_tcs_kernel`` with a mask, the kernel held against its
      plain version; e. a deleted document's facts leave both graphs;
      f. no ERROR record;
-  14. a ``{"kernels": [...]}`` JSON line;
-  15. last line: ``{"ok": true, "device": {...}}``.
+  14. the model providers: the provider tests' stub OpenAI-compatible
+     provider (``tests/llm_stub.py``) in this process (a standard-library
+     HTTP server in a thread: 1,536-dim
+     embeddings, query-term-overlap rerank, a lead-words summary
+     completion), registered with its key, models and default-model tags
+     through the App's routes, the App restarted so that its completion
+     client resolves at boot; collection P (bf16, text-embedding-3-small
+     through the stub, the stub's rerank, the summary index) with
+     PROV_DOCS documents; gates: a. every document COMPLETE with its
+     vector and summary index, P's engine a RemoteEmbedder of dim 1,536,
+     the stub's calls as expected, no fallback logged; b. 64 unreranked
+     and 64 reranked searches (of other queries) equal an ``App(device="cpu")`` fed the same
+     documents by the same stub, up to ties; c. each dispatch launched
+     dense_topk's SIMT variant (bf16, D = 1,536), the kernel held against
+     its plain version at the served shapes and timed beside its bound
+     and the library call; d. ``POST /v1/embeddings`` returns collection
+     O's encoder vectors bit for bit, and a second App's collection S,
+     embedded through it, answers as O (tensor cores, D = 256); e. no
+     ERROR record;
+  15. a ``{"kernels": [...]}`` JSON line;
+  16. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  There is no CPU path: without a
 CUDA device, or without the package beside it, it exits non-zero and
 prints no result.  Nothing is written under the repo except the kernel
 and analyzer libraries in super_rag_tpu_torch/_build/; the engine, HTTP,
-docs and graph phases' data go to temporary directories that they
-remove.
+docs, graph and providers phases' data (the providers' response caches
+too) go to temporary directories that they remove.
 """
 
 from __future__ import annotations
@@ -219,6 +238,21 @@ GRAPH_TOP_K = 5
 GRAPH_IMAGE = 48  # each PDF's FlateDecode RGB image is 48 x 48
 GRAPH_MIN_FACTS = 1000  # gate a: the graph the documents make is at least this big
 GRAPH_MIN_ENTITIES = 300
+PROV_DIM = 1536  # OpenAI's text-embedding-3-small
+STUB_KEY = "sk-smoke-stub-key"
+PROV_DOCS = 32  # collection P: 32 documents x PROV_SECTIONS sections of the [http] recipe
+# 256, not 512: at 512 (16,416 rows) the phase ran 160.7 s on an H100, the CPU
+# twin repeating the host-bound ingest and every App's stop snapshotting it
+PROV_SECTIONS = 256
+PROV_QUERIES = 64  # unreranked, and as many other queries reranked, from one client
+PROV_S_DOCS = 8  # collections O (onboard encoder) and S (O's encoder through /v1/embeddings)
+PROV_S_SECTIONS = 64
+PROV_S_QUERIES = 16
+PROV_ROUND_TRIPS = 64
+PROV_TOP_K = 5
+PROV_CANDIDATES = 100
+PROV_EMBED_BATCH = 64  # RemoteEmbedder's batch
+PROV_MAP_BATCH = 8  # index/summary.py's map batch
 SEM_ROWS = 1_000_000
 SEM_WORDS = 128  # words a row's text holds: every (query, row) pair fills 128 tokens
 SEM_CHUNKS = 65_536
@@ -2145,7 +2179,7 @@ class _AppThread:
     """The port's App on its own asyncio loop in a thread, as a deployment
     runs it (``python -m super_rag_tpu_torch.app``) but stoppable."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, device: str = None):
         import threading
 
         from super_rag_tpu_torch.app import App
@@ -2160,7 +2194,7 @@ class _AppThread:
 
             async def boot():
                 try:
-                    self.app = App(cfg, background_tasks=True, device=DEVICE)
+                    self.app = App(cfg, background_tasks=True, device=device or DEVICE)
                     await self.app.start(port=0)
                 except Exception as e:  # noqa: BLE001 — raised below
                     self.error = e
@@ -4374,6 +4408,496 @@ def phase_graph(results: dict) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _provider_stub():
+    """The OpenAI-compatible model provider of the provider tests
+    (``tests/llm_stub.py``), in this process on the standard library's
+    ThreadingHTTPServer: ``/v1/embeddings`` answers the port's
+    ``HashEmbedder(dim=PROV_DIM, device="cpu")`` vectors of the texts,
+    ``/v1/rerank`` scores query-term overlap (a document's hash breaks
+    ties), ``/v1/chat/completions`` answers the summary map with the lead
+    words of each chunk of its passage and the reduce with the partial
+    summaries joined; a call without the key STUB_KEY is refused (401).
+    It counts its calls and the texts it embedded."""
+    sys.path.append(os.path.join(HERE, "tests"))
+    from llm_stub import StubProvider
+
+    from super_rag_tpu_torch.models.hash_embedder import HashEmbedder
+
+    embedder = HashEmbedder(dim=PROV_DIM, device="cpu")
+    return StubProvider(dim=PROV_DIM, embed_fn=lambda texts: embedder.embed(texts).numpy(),
+                        api_key=STUB_KEY)
+
+
+def _items_key(items: list, name_of: dict) -> list:
+    """Search items as dicts for ``_same_up_to_ties``: each keyed by its
+    document's name, chunk index and recall type, not by ids."""
+    return [{"score": it["score"],
+             "key": (name_of.get(it["metadata"].get("document_id")),
+                     it["metadata"].get("chunk_index"), it["recall_type"], it["text"])}
+            for it in items]
+
+
+def phase_providers(results: dict) -> None:
+    """A collection embedded and reranked by a remote OpenAI-compatible
+    provider at text-embedding-3-small's 1,536 dimensions, on the port's
+    own App: the stub provider of ``_provider_stub`` in this process; the
+    provider, its key, its three models and the default-model tags
+    registered through the App's routes, then a restart (the completion
+    client is resolved at boot); collection P (bf16, the stub's embedding
+    model, its rerank model as the tagged default, the summary index
+    through its chat model) with PROV_DOCS documents x PROV_SECTIONS
+    sections; PROV_QUERIES unreranked and as many reranked searches of
+    other queries from one client; collection O (the
+    [semantic] encoder) and, in a second App, collection S embedded by
+    the first App's ``POST /v1/embeddings`` serving O's encoder; gates
+    a-e."""
+    import dataclasses
+    import logging
+    import shutil
+    import tempfile
+
+    from super_rag_tpu_torch.config import Settings
+    from super_rag_tpu_torch.engine.index import DeviceIndex
+    from super_rag_tpu_torch.llm.client import OpenAICompatClient
+    from super_rag_tpu_torch.llm.resolver import RemoteEmbedder
+    from super_rag_tpu_torch.models.encoder import flax_params
+    from super_rag_tpu_torch.models.encoder_service import EncoderService, save_params
+    from super_rag_tpu_torch.ops import dense_topk as dt
+
+    card = results["card"]
+
+    def plog(msg: str) -> None:
+        log(f"[providers] {msg} (on {card})")
+
+    class _Records(logging.Handler):
+        def __init__(self):
+            super().__init__(level=logging.WARNING)
+            self.errors, self.fallbacks = [], []
+
+        def emit(self, record):
+            msg = f"{record.name}: {record.getMessage()}"
+            if record.levelno >= logging.ERROR:
+                self.errors.append(msg)
+            if ("unreachable" in msg or "default embedder" in msg or "hash embedder" in msg
+                    or "extractive summary instead" in msg):
+                self.fallbacks.append(msg)
+
+    records = _Records()
+    port_logger = logging.getLogger("super_rag_tpu_torch")
+    port_logger.addHandler(records)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_providers_")
+    stub = _provider_stub()
+    apps: list = []
+    clients: list = []
+    # the CPU twin takes the card's route: dense_topk's plain version in the
+    # kernel's place (bf16 queries, the calibrated per-tile cap)
+    route = mock.patch.object(DeviceIndex, "_kernel_default",
+                              lambda self, min_capacity: self._capacity >= min_capacity)
+    t_phase = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        cfg = semantic_config(torch.bfloat16)
+        enc = EncoderService(cfg, max_len=cfg.max_len, seed=SEED, device=DEVICE)
+        save_params(flax_params(enc.model), os.path.join(tmp, "enc"), cfg)
+        del enc
+
+        def settings_for(name: str):
+            return dataclasses.replace(
+                Settings(), data_dir=os.path.join(tmp, name), port=0, batch_max=64,
+                default_top_k=PROV_TOP_K, rerank_candidates=PROV_CANDIDATES,
+                chunk_size=400, encoder_checkpoint="", reranker_checkpoint="",
+                ingest_backend="thread", ingest_host_workers=1)
+
+        def boot(name: str, device: str = None):
+            srv = _AppThread(settings_for(name), device=device)
+            apps.append(srv)
+            return srv
+
+        def client(srv, token: str = ""):
+            c = _Client(srv.app.port, token)
+            clients.append((srv, c))
+            return c
+
+        def stop(srv) -> None:
+            """Close the App's keep-alive clients (its server waits for
+            them), then stop it."""
+            for owner, c in [x for x in clients if x[0] is srv]:
+                c.close()
+                clients.remove((owner, c))
+            srv.stop()
+            apps.remove(srv)
+
+        def public_key(srv, provider: str, key: str) -> None:
+            """A key the App uses for every collection: the resolver looks
+            up the caller's key, then the user ``public``'s (as the
+            reference's does), so it is set by a ``public`` account."""
+            c = client(srv)
+            _expect(*c.call("POST", "/api/v1/auth/register",
+                            {"username": "public", "password": "public-password"}), 201,
+                    "register public")
+            st, body = c.call("POST", "/api/v1/auth/login",
+                              {"username": "public", "password": "public-password"})
+            c = client(srv, _expect(st, body, 200, "login public")["token"])
+            _expect(*c.call("POST", f"/api/v1/llm_providers/{provider}/key",
+                            {"api_key": key}), 200, "provider key")
+
+        def register(srv) -> tuple:
+            """The user, the stub provider, its key, its three models and
+            the default-model tags, all through the App's routes."""
+            c = client(srv)
+            _expect(*c.call("POST", "/api/v1/auth/register",
+                            {"username": "smoke", "password": "smoke-password"}), 201,
+                    "register")
+            token = _login(srv.app.port)
+            c = client(srv, token)
+            _expect(*c.call("POST", "/api/v1/llm_providers",
+                            {"name": "stub", "label": "Stub (OpenAI-compatible)",
+                             "base_url": stub.url}), 201, "register provider")
+            public_key(srv, "stub", STUB_KEY)
+            for api, model in (("embedding", "text-embedding-3-small"),
+                               ("rerank", "rerank-smoke"), ("completion", "chat-smoke")):
+                _expect(*c.call("POST", "/api/v1/llm_providers/stub/models",
+                                {"api": api, "model": model, "context_window": 8192}), 201,
+                        f"register {api} model")
+            defaults = _expect(*c.call("PUT", "/api/v1/default_models", {"defaults": [
+                {"scenario": "default_for_rerank", "provider_name": "stub",
+                 "model": "rerank-smoke"},
+                {"scenario": "default_for_collection_completion", "provider_name": "stub",
+                 "model": "chat-smoke"}]}), 200, "default models")
+            conf = _expect(*c.call("GET", "/api/v1/llm_configuration"), 200, "configuration")
+            masked = {p["name"]: p["api_key"] for p in conf["providers"]}["stub"]
+            if masked is not None:
+                raise AssertionError(f"llm_configuration shows smoke a key {masked!r}")
+            return token, defaults
+
+        p_config = {"index_dtype": "bfloat16", "enable_summary": True,
+                    "embedding": {"provider": "stub", "model": "text-embedding-3-small"},
+                    "rerank": {"provider": "stub"}}
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 31)
+        docs, queries = http_corpus(gen, PROV_DOCS, PROV_SECTIONS)
+        # the reranked searches ask other queries, so that each of them too
+        # embeds its query through the stub (none is a response-cache hit)
+        queries, rr_queries = queries[:PROV_QUERIES], queries[PROV_QUERIES:2 * PROV_QUERIES]
+
+        # -- App A: registered through its routes, then restarted
+        a = boot("a")
+        token, defaults = register(a)
+        stop(a)
+        a = boot("a")
+        if a.app.ctx.completion is None:
+            raise AssertionError("gate a: the restarted App resolved no completion client")
+        ca = client(a, token)
+        c0 = stub.snapshot()
+        pid = _expect(*ca.call("POST", "/api/v1/collections",
+                               {"title": "remote", "config": p_config}), 201,
+                      "create collection P")["id"]
+        eng = a.app.ctx.engines.get(pid)
+        if not (isinstance(eng.embedder, RemoteEmbedder) and eng.embedder.dim == PROV_DIM
+                and eng.index.spec.dim == PROV_DIM
+                and eng.index.spec.dtype == torch.bfloat16
+                and eng.index.device.type == torch.device(DEVICE).type):
+            raise AssertionError(f"gate a: collection P embeds with {type(eng.embedder).__name__}"
+                                 f" (dim {getattr(eng.embedder, 'dim', None)}), index D "
+                                 f"{eng.index.spec.dim} {eng.index.spec.dtype} on "
+                                 f"{eng.index.device}")
+        plog(f"set-up: stub provider at {stub.url}; registered through the routes (provider, "
+             f"key, 3 models, default tags {[(d['scenario'], d['model']) for d in defaults['items'] if d['model']]}), "
+             f"App restarted (completion client resolved at boot); collection P: "
+             f"{type(eng.embedder).__name__} dim {eng.embedder.dim} (probed), bf16 index on "
+             f"{eng.index.device}; {len(docs)} documents x {PROV_SECTIONS} sections; "
+             f"{time.perf_counter() - t0:.2f} s")
+
+        # -- ingest P (one uploader, documents in order)
+        def ingest(srv, c, cid: str, batch: list, what: str) -> tuple:
+            t_first = time.perf_counter()
+            for name, text in batch:
+                _expect(*c.call("POST", f"/api/v1/collections/{cid}/documents",
+                                {"name": name, "content": text}), 201, f"upload {what}")
+            wall = _wait_complete(c, cid, len(batch), what, t_first)
+            if not srv.app.ctx.scheduler.wait_idle(120):
+                raise AssertionError(f"{what}: the scheduler did not drain")
+            listing = _expect(*c.call("GET", f"/api/v1/collections/{cid}/documents?limit=1000"),
+                              200, "list")
+            return wall, listing
+
+        wall, listing = ingest(a, ca, pid, docs, "collection P")
+        ingest_calls = stub.since(c0)
+        name_of = {d["id"]: d["name"] for d in listing}
+        chunks = {}
+        for d in listing:
+            idx = {i["index_type"]: i["status"] for i in d["indexes"]}
+            if idx != {"vector": "ACTIVE", "summary": "ACTIVE"}:
+                raise AssertionError(f"gate a: {d['name']} indexes {idx}")
+            # the document's rows: its chunks and its one summary row
+            chunks[d["name"]] = len(_expect(*ca.call(
+                "GET", f"/api/v1/documents/{d['id']}/chunks"), 200, "chunks")) - 1
+        n_chunks = sum(chunks.values())
+        summary_code = 1  # engine/index.py INDEXER_CODES["summary"]
+        codes = eng.index.indexer_code[: eng.index.size].cpu()
+        n_summary = int((codes == summary_code).sum())
+        blocks = {n: -(-c // PROV_MAP_BATCH) for n, c in chunks.items()}
+        want = {"embedding": 1 + sum(-(-c // PROV_EMBED_BATCH) for c in chunks.values())
+                + len(docs),
+                "texts": 1 + n_chunks + len(docs), "rerank": 0,
+                "completion": sum(b + (b > 1) for b in blocks.values()), "token": 0,
+                "refused": 0}
+        if ingest_calls != want or eng.index.live_count != n_chunks + len(docs) \
+                or n_summary != len(docs):
+            raise AssertionError(f"gate a: the stub counted {ingest_calls}, expected {want}; "
+                                 f"{eng.index.live_count} rows ({n_summary} summary rows) for "
+                                 f"{n_chunks} chunks and {len(docs)} documents")
+        plog(f"ingest P: {len(docs)} documents, {n_chunks} chunks + {n_summary} summaries "
+             f"({eng.index.live_count} rows, {eng.index.live_count * PROV_DIM * 2 / 1e6:.1f} MB "
+             f"of bf16 rows) COMPLETE after {wall:.3f} s: {n_chunks / wall:.1f} chunks/s; the "
+             f"stub answered {ingest_calls['embedding']} embedding calls ({ingest_calls['texts']}"
+             f" texts: the probe, the chunks in batches of {PROV_EMBED_BATCH}, one summary a "
+             f"document) and {ingest_calls['completion']} completions (the summary map over "
+             f"blocks of {PROV_MAP_BATCH} chunks, then the reduce), as expected")
+
+        # -- searches from one client, each dispatch's dense_topk recorded
+        def searches(c, cid: str, rerank: bool, qs: list, record: list = None):
+            lat, out = [], []
+            for q in qs:
+                n0 = len(record) if record is not None else 0
+                t1 = time.perf_counter()
+                body = _expect(*c.call("POST", f"/api/v1/collections/{cid}/searches",
+                                       {"query": q, "use_rerank": rerank,
+                                        "top_k": PROV_TOP_K}), 201, "search")
+                lat.append((time.perf_counter() - t1) * 1e3)
+                out.append(body["items"])
+                if record is not None and len(record) == n0:
+                    raise AssertionError(f"gate c: a search launched no dense_topk: {q!r}")
+            return lat, out
+
+        calls: list = []
+        real_tile_topk = dt.tile_topk
+
+        def recording(*args):
+            q, values, n, tile, kt = args[0], args[2], args[6], args[7], args[8]
+            calls.append({"args": args, "d": q.shape[1], "mode": dt._mode(q, values),
+                          "variant": dt.kernel_variant(
+                              dt._mode(q, values), kt, q.shape[1], q.shape[0], -(-n // tile),
+                              dt._sm_count(torch.cuda.current_device()))})
+            return real_tile_topk(*args)
+
+        searches(ca, pid, False, queries[:1])  # compacts and calibrates: not timed
+        c1 = stub.snapshot()
+        _reset_counts()
+        counts0 = _counts()
+        with mock.patch.object(dt, "tile_topk", recording):
+            lat_plain, served_plain = searches(ca, pid, False, queries, calls)
+            n_plain = len(calls)
+            lat_rr, served_rr = searches(ca, pid, True, rr_queries, calls)
+        torch.cuda.synchronize()
+        launched = {k: v - counts0[k] for k, v in _counts().items() if v - counts0[k]}
+        search_calls = stub.since(c1)
+        distinct = len(set(queries) - {queries[0]}) + len(set(rr_queries))
+        want_calls = {"embedding": distinct, "texts": distinct, "rerank": len(rr_queries),
+                      "completion": 0, "token": 0, "refused": 0}
+        if search_calls != want_calls:
+            raise AssertionError(f"gate a: the searches made {search_calls} stub calls, "
+                                 f"expected {want_calls}")
+        if any(it["recall_type"] != "reranked" for its in served_rr for it in its) or \
+                any(it["recall_type"] == "reranked" for its in served_plain for it in its):
+            raise AssertionError("gate a: recall types of the reranked / unreranked searches")
+
+        # gate c: every dispatch launched dense_topk, SIMT at D 1,536
+        bad = [(r["d"], r["variant"], r["mode"]) for r in calls
+               if (r["d"], r["variant"], r["mode"]) != (PROV_DIM, "simt", dt.MODE_BF16)]
+        if bad or launched.get("dense_topk_simt", 0) != len(calls) or \
+                launched.get("dense_topk_tc", 0):
+            raise AssertionError(f"gate c: {len(calls)} dispatches launched {launched}; "
+                                 f"off the expected route: {bad[:3]}")
+        kts = sorted({r["args"][8] for r in calls})
+        plog(f"searches of P, one client: {len(queries)} unreranked p50 "
+             f"{_pctl(lat_plain, 50):.3f} ms, p99 {_pctl(lat_plain, 99):.3f} ms; "
+             f"{len(rr_queries)} reranked of other queries (stub rerank of the hybrid top "
+             f"{PROV_CANDIDATES}) p50 {_pctl(lat_rr, 50):.3f} ms, p99 {_pctl(lat_rr, 99):.3f} "
+             f"ms; each search embedded its query through the stub: stub calls {search_calls}")
+        plog(f"gate c: every one of the {len(calls)} dispatches ({n_plain} unreranked, "
+             f"{len(calls) - n_plain} reranked) launched dense_topk's SIMT variant in mode "
+             f"bf16 x bf16 at D = {PROV_DIM} (kt {kts}; the tensor-core routes stop at "
+             f"D = {dt.TC_MAX_D}); counters {launched}")
+
+        # -- stub round trip through the port's client (no cache)
+        rt_client = OpenAICompatClient(stub.url, api_key=STUB_KEY,
+                                       model="text-embedding-3-small", cache_enabled=False)
+        rt = []
+        c2 = stub.snapshot()
+        for k in range(PROV_ROUND_TRIPS):
+            t1 = time.perf_counter()
+            rt_client.embed([queries[k % len(queries)]])
+            rt.append((time.perf_counter() - t1) * 1e3)
+        rt_client.close()
+        rt_calls = stub.since(c2)
+
+        # -- gate b: the port's App(device="cpu") fed the same documents
+        # by the same stub answers the same searches up to ties
+        t1 = time.perf_counter()
+        route.start()
+        cpu = boot("cpu", device="cpu")
+        ctoken, _ = register(cpu)
+        stop(cpu)
+        cpu = boot("cpu", device="cpu")
+        cc = client(cpu, ctoken)
+        c3 = stub.snapshot()
+        cpid = _expect(*cc.call("POST", "/api/v1/collections",
+                                {"title": "remote", "config": p_config}), 201,
+                       "create the CPU twin's P")["id"]
+        twin_wall, twin_listing = ingest(cpu, cc, cpid, docs, "the CPU twin's P")
+        twin_calls = stub.since(c3)
+        if twin_calls != want:
+            raise AssertionError(f"gate a: the CPU twin's ingest made {twin_calls} stub "
+                                 f"calls, expected {want}")
+        teng = cpu.app.ctx.engines.get(cpid)
+        searches(cc, cpid, False, queries[:1])
+        if teng.index._per_tile_k != eng.index._per_tile_k:
+            raise AssertionError(f"gate b: the CPU twin calibrated a per-tile cap of "
+                                 f"{teng.index._per_tile_k}, the card "
+                                 f"{eng.index._per_tile_k}")
+        _, twin_plain = searches(cc, cpid, False, queries)
+        _, twin_rr = searches(cc, cpid, True, rr_queries)
+        twin_s = time.perf_counter() - t1
+        tname_of = {d["id"]: d["name"] for d in twin_listing}
+        worst = 0.0
+        for what, qs, mine, theirs, tol in (
+                ("unreranked", queries, served_plain, twin_plain, 1e-3),
+                ("reranked", rr_queries, served_rr, twin_rr, 1e-6)):
+            for q, got, want_items in zip(qs, mine, theirs):
+                worst = max(worst, _same_up_to_ties(
+                    _items_key(want_items, tname_of), _items_key(got, name_of),
+                    lambda r: r["key"], tol, f"gate b: {what} search {q!r}"))
+        plog(f"gate b: App(device=\"cpu\") (dense_topk's plain version on the card's route, "
+             f"per-tile cap {teng.index._per_tile_k} as on the card) fed the same "
+             f"{len(docs)} documents by the same stub ({twin_calls['embedding']} embedding "
+             f"calls, {twin_calls['completion']} completions; ingest {twin_wall:.3f} s, all "
+             f"{twin_s:.3f} s) answers each of the {len(queries)} unreranked and "
+             f"{len(rr_queries)} reranked searches as the card, up to ties (largest score "
+             f"difference {worst:.3g})")
+        route.stop()
+
+        # -- the kernel at the served shapes, against its plain version
+        rows = {}
+        for key, sel in (("remote", calls[n_plain - 1]), ("remote_rerank", calls[-1])):
+            row = _served_kernel_row(sel["args"], n_plain if key == "remote"
+                                     else len(calls) - n_plain, len(queries), plog)
+            rows[key] = row
+            results[f"dense_topk_http_{key}"] = row
+            results["dense_topk"][f"http_{key}"] = {
+                k: row[k] for k in ("variant", "ms", "launches", "bound_ms", "bound_by",
+                                    "plain_ms", "library_ms", "max_abs_err")}
+
+        # -- gate d: /v1/embeddings serves collection O's encoder; App B's
+        # collection S, embedded through it, answers as O
+        t1 = time.perf_counter()
+        s_docs, s_queries = http_corpus(torch.Generator(device=DEVICE).manual_seed(SEED + 32),
+                                        PROV_S_DOCS, PROV_S_SECTIONS)
+        s_queries = s_queries[:PROV_S_QUERIES]
+        oid = _expect(*ca.call("POST", "/api/v1/collections", {"title": "onboard", "config": {
+            "index_dtype": "bfloat16",
+            "embedding": {"provider": "onboard", "model": os.path.join(tmp, "enc")}}}), 201,
+            "create collection O")["id"]
+        oeng = a.app.ctx.engines.get(oid)
+        _, o_listing = ingest(a, ca, oid, s_docs, "collection O")
+        key = _expect(*ca.call("POST", "/api/v1/apikeys", {"description": "collection S"}),
+                      201, "api key")["key"]
+        texts = [t for _, t in s_docs[:2]] + s_queries[:4]
+        served = _expect(*ca.call("POST", "/v1/embeddings", {"input": texts, "model": oid}),
+                         200, "/v1/embeddings")
+        got = np.asarray([d["embedding"] for d in served["data"]], np.float32)
+        own = oeng.embedder.embed(texts)
+        if got.shape != own.shape or not np.array_equal(got, own):
+            raise AssertionError(f"gate d: /v1/embeddings differs from collection O's encoder "
+                                 f"(max |diff| {np.abs(got - own).max():.3g})")
+        b = boot("b")
+        cb = client(b)
+        _expect(*cb.call("POST", "/api/v1/auth/register",
+                         {"username": "smoke", "password": "smoke-password"}), 201, "register")
+        cb = client(b, _login(b.app.port))
+        _expect(*cb.call("POST", "/api/v1/llm_providers", {
+            "name": "super-rag-a", "base_url": f"http://127.0.0.1:{a.app.port}/v1"}), 201,
+            "register App A as a provider")
+        public_key(b, "super-rag-a", key)
+        _expect(*cb.call("POST", "/api/v1/llm_providers/super-rag-a/models",
+                         {"api": "embedding", "model": oid}), 201, "O as a model")
+        sid = _expect(*cb.call("POST", "/api/v1/collections", {"title": "via-a", "config": {
+            "index_dtype": "bfloat16",
+            "embedding": {"provider": "super-rag-a", "model": oid}}}), 201,
+            "create collection S")["id"]
+        seng = b.app.ctx.engines.get(sid)
+        if not (isinstance(seng.embedder, RemoteEmbedder)
+                and seng.index.spec.dim == oeng.index.spec.dim):
+            raise AssertionError(f"gate d: collection S embeds with "
+                                 f"{type(seng.embedder).__name__}, D {seng.index.spec.dim}")
+        _, s_listing = ingest(b, cb, sid, s_docs, "collection S")
+        o_name = {d["id"]: d["name"] for d in o_listing}
+        s_name = {d["id"]: d["name"] for d in s_listing}
+        searches(ca, oid, False, s_queries[:1])
+        searches(cb, sid, False, s_queries[:1])
+        s_calls: list = []
+        _reset_counts()
+        counts0 = _counts()
+        with mock.patch.object(dt, "tile_topk", recording):
+            n0 = len(calls)
+            _, o_items = searches(ca, oid, False, s_queries, calls)
+            n1 = len(calls)
+            _, s_items = searches(cb, sid, False, s_queries, calls)
+            s_calls = calls[n1:]
+        torch.cuda.synchronize()
+        s_launched = {k: v - counts0[k] for k, v in _counts().items() if v - counts0[k]}
+        worst_s = 0.0
+        for q, want_items, got_items in zip(s_queries, o_items, s_items):
+            worst_s = max(worst_s, _same_up_to_ties(
+                _items_key(want_items, o_name), _items_key(got_items, s_name),
+                lambda r: r["key"], 1e-3, f"gate d: S against O, {q!r}"))
+        n_rows = min(seng.index.size, oeng.index.size)
+        same_rows = int((seng.index.emb[:n_rows] == oeng.index.emb[:n_rows]).all(dim=1).sum())
+        if any((r["variant"], r["mode"]) != ("tcs", dt.MODE_BF16) for r in calls[n0:]):
+            raise AssertionError(f"gate d: O and S dispatches took "
+                                 f"{[(r['variant'], r['mode']) for r in calls[n0:]][:4]}")
+        plog(f"gate d: POST /v1/embeddings of App A returns collection O's encoder vectors "
+             f"bit for bit ({len(texts)} texts, D = {got.shape[1]}); App B's collection S, "
+             f"embedded through it ({PROV_S_DOCS} documents, {seng.index.live_count} rows), "
+             f"answers each of {len(s_queries)} searches as O does up to ties (largest "
+             f"score difference {worst_s:.3g}; {same_rows} of {n_rows} stored rows bit-equal "
+             f"to O's) ({len(s_calls)} of {len(calls) - n0} dispatches S's, every one "
+             f"dense_topk_tcs_kernel bf16 at D = {seng.index.spec.dim}; counters "
+             f"{s_launched}); {time.perf_counter() - t1:.3f} s")
+
+        # -- gates a (the remote path was taken) and e
+        if records.fallbacks:
+            raise AssertionError(f"gate a: fallbacks were logged: {records.fallbacks[:3]}")
+        if records.errors:
+            raise AssertionError(f"gate e: {len(records.errors)} ERROR records: "
+                                 f"{records.errors[:3]}")
+        plog(f"gate a: every document of P COMPLETE with its vector and summary index, P's "
+             f"engine holds a RemoteEmbedder of dim {PROV_DIM}, the stub counted the expected "
+             f"embedding, rerank and completion calls, no fallback logged; gate e: no ERROR "
+             f"record from the port's loggers; gates a-e passed")
+        results["providers"] = {
+            "ingest_s": wall, "chunks_per_s": n_chunks / wall, "rows": eng.index.live_count,
+            "search_p50": _pctl(lat_plain, 50), "search_p99": _pctl(lat_plain, 99),
+            "rerank_p50": _pctl(lat_rr, 50), "rerank_p99": _pctl(lat_rr, 99),
+            "stub_round_trip_p50": _pctl(rt, 50), "stub_calls": ingest_calls,
+            "phase_s": time.perf_counter() - t_phase}
+        plog(f"p50s: search {_pctl(lat_plain, 50):.3f} ms, reranked search "
+             f"{_pctl(lat_rr, 50):.3f} ms, ingest {n_chunks / wall:.1f} chunks/s, stub round "
+             f"trip {_pctl(rt, 50):.3f} ms (one text embedded, {rt_calls['embedding']} calls "
+             f"through the port's OpenAICompatClient)")
+    finally:
+        route.stop()
+        for _, c in clients:
+            c.close()
+        t1 = time.perf_counter()
+        for srv in reversed(apps):
+            srv.stop()
+        log(f"[providers] teardown: {len(apps)} Apps stopped (each snapshots its engines "
+            f"to its data dir) in {time.perf_counter() - t1:.2f} s")
+        stub.stop()
+        port_logger.removeHandler(records)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script has no CPU path",
@@ -4471,6 +4995,10 @@ def main() -> int:
     phase_graph(results)
     log(f"[graph] phase in {time.perf_counter() - t0:.2f} s (on {smi})")
 
+    t0 = time.perf_counter()
+    phase_providers(results)
+    log(f"[providers] phase in {time.perf_counter() - t0:.2f} s (on {smi})")
+
     source = "super_rag_tpu_torch/csrc/"
     kernels = {"kernels": [
         {"name": "dense_topk", "route": "cuda", "source": source + "dense_topk.cu",
@@ -4485,7 +5013,8 @@ def main() -> int:
            "source": source + "dense_topk.cu",
            "replaces": "super_rag_tpu/ops/pallas_topk.py:36",
            **results[f"dense_topk_http_{t}"]}
-          for t in ("bf16", "bf16_rerank", "int8", "int8_rerank", "image", "graph")),
+          for t in ("bf16", "bf16_rerank", "int8", "int8_rerank", "image", "graph",
+                    "remote", "remote_rerank")),
     ]}
     log(f"[done] wall {time.perf_counter() - t_start:.2f} s")
     log(json.dumps(kernels))

@@ -11,9 +11,12 @@ multipart and archives, and the two-phase upload + confirm), list, get,
 delete (one or a batch), chunks, preview, object and rebuild, flat and
 nested under their collection; the collection rebuilds; the knowledge
 graph's labels, subgraph (also under the ``/graphs`` spelling), stats,
-combined search, node and episode search and BFS expansion.  Every other
-route of the JAX package waits (ROADMAP A6); its URL answers 404, as any
-unknown route does.
+combined search, node and episode search and BFS expansion; the prompt
+templates; the model providers (CRUD, keys, models, the masked
+configuration, default models by scenario tag, the available-model
+listings); and ``POST /v1/embeddings``, a collection's embedder served as
+an OpenAI-compatible provider.  Every other route of the JAX package
+waits (ROADMAP A6f-A6i); its URL answers 404, as any unknown route does.
 """
 
 from __future__ import annotations
@@ -27,9 +30,14 @@ import time
 import uuid
 from typing import Optional
 
+import numpy as np
+import torch
+
 from super_rag_tpu_torch.api import auth as A
 from super_rag_tpu_torch.api.auth import COOKIE_NAME
 from super_rag_tpu_torch.api.http import HttpError, Request, Response, Router
+from super_rag_tpu_torch.llm import resolver as R
+from super_rag_tpu_torch.llm.prompts import list_templates
 from super_rag_tpu_torch.schema import view_models as vm
 from super_rag_tpu_torch.schema.view_models import parse_body
 from super_rag_tpu_torch.service.collection_service import CollectionService
@@ -808,5 +816,313 @@ def build_router(ctx: AppContext) -> Router:
             max_depth=int(req.query.get("depth", "1")),
             as_of=float(as_of) if as_of else None,
         ))
+
+    # -- prompt templates (reference prompt_template_service) --------------------------------------------
+
+    @router.get("/api/v1/prompt-templates")
+    async def list_prompt_templates_route(req: Request) -> Response:
+        """Builtin role presets for the language + the user's custom
+        templates (reference list_prompt_templates)."""
+        user = me(req)
+        language = req.query.get("language", "en-US")
+        return Response.json(list_templates(
+            language, db=ctx.db, username=user["username"]
+        ))
+
+    @router.post("/api/v1/prompt-templates")
+    async def create_prompt_template_route(req: Request) -> Response:
+        user = me(req)
+        b = req.json()
+        if not b.get("name") or not b.get("prompt"):
+            raise HttpError(422, "name and prompt are required")
+        try:
+            row = ctx.db.create_prompt_template(
+                user["username"], b["name"], b["prompt"],
+                description=b.get("description", ""),
+                language=b.get("language", "en-US"),
+            )
+        except Exception as e:  # noqa: BLE001 — unique(user,name,language)
+            raise HttpError(409, f"template exists: {e}") from e
+        return Response.json(row, status=201)
+
+    @router.put("/api/v1/prompt-templates/{pid}")
+    async def update_prompt_template_route(req: Request) -> Response:
+        user = me(req)
+        row = ctx.db.get_prompt_template(req.path_params["pid"])
+        if row is None or row["user"] != user["username"]:
+            raise HttpError(404, "template not found")
+        ctx.db.update_prompt_template(req.path_params["pid"], **req.json())
+        return Response.json(
+            ctx.db.get_prompt_template(req.path_params["pid"])
+        )
+
+    @router.delete("/api/v1/prompt-templates/{pid}")
+    async def delete_prompt_template_route(req: Request) -> Response:
+        user = me(req)
+        row = ctx.db.get_prompt_template(req.path_params["pid"])
+        if row is None or row["user"] != user["username"]:
+            raise HttpError(404, "template not found")
+        ctx.db.delete_prompt_template(req.path_params["pid"])
+        return Response.no_content()
+
+    # -- llm providers ------------------------------------------------------------------------------------
+
+    @router.get("/api/v1/llm_providers")
+    async def list_providers(req: Request) -> Response:
+        me(req)
+        return Response.json(ctx.db.list_providers())
+
+    @router.post("/api/v1/llm_providers")
+    async def upsert_provider(req: Request) -> Response:
+        me(req)
+        b_ = parse_body(vm.LLMProviderCreate, req.json())
+        b = b_.model_dump()
+        ctx.db.upsert_provider(
+            b["name"], b.get("label", ""), b.get("base_url", ""),
+            b.get("api_type", "openai"),
+        )
+        return Response.json(ctx.db.get_provider(b["name"]), status=201)
+
+    @router.delete("/api/v1/llm_providers/{name}")
+    async def delete_provider(req: Request) -> Response:
+        me(req)
+        ctx.db.delete_provider(req.path_params["name"])
+        return Response.no_content()
+
+    @router.get("/api/v1/llm_providers/{name}/models")
+    async def list_provider_models(req: Request) -> Response:
+        me(req)
+        return Response.json(ctx.db.list_models(req.path_params["name"]))
+
+    @router.post("/api/v1/llm_providers/{name}/models")
+    async def upsert_model(req: Request) -> Response:
+        me(req)
+        b = parse_body(vm.LLMProviderModelCreate, req.json())
+        ctx.db.upsert_model(
+            req.path_params["name"], b.api, b.model, b.context_window,
+            b.max_tokens, b.tags,
+        )
+        return Response.json(ctx.db.list_models(req.path_params["name"]),
+                             status=201)
+
+    @router.post("/api/v1/llm_providers/{name}/key")
+    async def set_provider_key(req: Request) -> Response:
+        user = me(req)
+        b = parse_body(vm.ProviderKeySet, req.json())
+        ctx.db.set_provider_key(
+            req.path_params["name"], user["username"], b.api_key
+        )
+        return Response.json({"ok": True})
+
+    @router.get("/api/v1/llm_providers/{name}")
+    async def get_provider(req: Request) -> Response:
+        me(req)
+        row = ctx.db.get_provider(req.path_params["name"])
+        if row is None:
+            raise HttpError(404, "provider not found")
+        return Response.json(row)
+
+    @router.put("/api/v1/llm_providers/{name}")
+    async def update_provider(req: Request) -> Response:
+        # reference api/llm.py:92 LlmProviderUpdateWithApiKey: dialect and
+        # base-url fields plus an optional api_key in the same body
+        user = me(req)
+        body = req.json()
+        api_key = body.pop("api_key", None)
+        row = ctx.db.update_provider(req.path_params["name"], **{
+            k: body.get(k) for k in (
+                "label", "base_url", "api_type", "allow_custom_base_url",
+                "completion_dialect", "embedding_dialect", "rerank_dialect",
+            )
+        })
+        if row is None:
+            raise HttpError(404, "provider not found")
+        if api_key:
+            ctx.db.set_provider_key(row["name"], user["username"], api_key)
+        return Response.json(row)
+
+    @router.get("/api/v1/llm_provider_models")
+    async def list_all_models(req: Request) -> Response:
+        # reference api/llm.py:115 flat model listing w/ optional provider
+        me(req)
+        return Response.json(
+            ctx.db.list_models(req.query.get("provider_name") or None)
+        )
+
+    @router.put("/api/v1/llm_providers/{name}/models/{api}/{model:path}")
+    async def update_model(req: Request) -> Response:
+        me(req)
+        p = req.path_params
+        existing = [m for m in ctx.db.list_models(p["name"], p["api"])
+                    if m["model"] == p["model"]]
+        if not existing:
+            raise HttpError(404, "model not found")
+        body = req.json()
+        cur = existing[0]
+        ctx.db.upsert_model(
+            p["name"], p["api"], p["model"],
+            body.get("context_window", cur["context_window"]),
+            body.get("max_tokens", cur["max_tokens"]),
+            body.get("tags", cur["tags"]),
+        )
+        return Response.json(
+            [m for m in ctx.db.list_models(p["name"], p["api"])
+             if m["model"] == p["model"]][0]
+        )
+
+    @router.delete("/api/v1/llm_providers/{name}/models/{api}/{model:path}")
+    async def delete_model(req: Request) -> Response:
+        me(req)
+        p = req.path_params
+        ctx.db.delete_model(p["name"], p["api"], p["model"])
+        return Response.no_content()
+
+    @router.get("/api/v1/llm_configuration")
+    async def llm_configuration(req: Request) -> Response:
+        """Providers (api keys masked) + models in one payload (reference
+        api/llm.py:61, llm_provider_service.get_llm_configuration)."""
+        user = me(req)
+        providers = []
+        for p in ctx.db.list_providers():
+            key = ctx.db.get_provider_key(p["name"], user["username"])
+            p["api_key"] = (key[:4] + "****" + key[-4:]) if key and len(key) > 8 \
+                else ("****" if key else None)
+            providers.append(p)
+        return Response.json({"providers": providers,
+                              "models": ctx.db.list_models()})
+
+    _SCENARIOS = (
+        "default_for_collection_completion",
+        "default_for_agent_completion",
+        "default_for_embedding",
+        "default_for_rerank",
+        "default_for_background_task",
+    )
+
+    def _default_models_payload() -> dict:
+        items = []
+        for scenario in _SCENARIOS:
+            models = ctx.db.list_models(tag=scenario)
+            items.append({
+                "scenario": scenario,
+                "provider_name": models[0]["provider"] if models else None,
+                "model": models[0]["model"] if models else None,
+            })
+        return {"items": items}
+
+    @router.get("/api/v1/default_models")
+    async def get_default_models(req: Request) -> Response:
+        me(req)
+        return Response.json(_default_models_payload())
+
+    @router.put("/api/v1/default_models")
+    async def put_default_models(req: Request) -> Response:
+        """Defaults are stored as scenario tags on the chosen model, exactly
+        the reference mechanism (default_model_service.py:94-160)."""
+        me(req)
+        body = req.json()
+        for cfg in body.get("defaults", []):
+            scenario = cfg.get("scenario")
+            if scenario not in _SCENARIOS:
+                raise HttpError(422, f"unknown scenario {scenario!r}")
+            # clear the tag everywhere, then set it on the named model
+            for m in ctx.db.list_models(tag=scenario):
+                m["tags"].remove(scenario)
+                ctx.db.upsert_model(m["provider"], m["api"], m["model"],
+                                    m["context_window"], m["max_tokens"],
+                                    m["tags"])
+            if cfg.get("provider_name") and cfg.get("model"):
+                hits = [m for m in ctx.db.list_models(cfg["provider_name"])
+                        if m["model"] == cfg["model"]]
+                if not hits:
+                    raise HttpError(404, f"model {cfg['model']} not found")
+                m = hits[0]
+                ctx.db.upsert_model(m["provider"], m["api"], m["model"],
+                                    m["context_window"], m["max_tokens"],
+                                    m["tags"] + [scenario])
+        return Response.json(_default_models_payload())
+
+    @router.post("/api/v1/available_models")
+    async def available_models_filtered(req: Request) -> Response:
+        """Tag-filtered model listing (reference api/llm.py:30; empty body
+        means the "recommend"-tagged set, OR across conditions, AND within)."""
+        me(req)
+        try:
+            body = req.json() or {}
+        except HttpError:
+            body = {}
+        conds = body.get("tag_filters") or [{"operation": "AND",
+                                             "tags": ["recommend"]}]
+        out = []
+        for m in ctx.db.list_models():
+            tags = set(m["tags"])
+            for c in conds:
+                want = set(c.get("tags", []))
+                op = (c.get("operation") or "AND").upper()
+                if (op == "AND" and want <= tags) or \
+                        (op == "OR" and want & tags):
+                    out.append(m)
+                    break
+        return Response.json({"items": out})
+
+    @router.get("/api/v1/llm/available_models")
+    async def available_models(req: Request) -> Response:
+        me(req)
+        tag = req.query.get("tag")
+        return Response.json(ctx.db.list_models(tag=tag))
+
+    @router.get("/api/v1/llm/default_models")
+    async def default_models(req: Request) -> Response:
+        """Per-scenario defaults (reference default_model_service.py)."""
+        me(req)
+        out = {}
+        for scenario, tag in (
+            ("collection_completion", R.TAG_COLLECTION_COMPLETION),
+            ("agent_completion", R.TAG_AGENT_COMPLETION),
+            ("embedding", R.TAG_EMBEDDING),
+            ("rerank", R.TAG_RERANK),
+            ("background", R.TAG_BACKGROUND),
+        ):
+            models = ctx.db.list_models(tag=tag)
+            out[scenario] = (
+                {"provider": models[0]["provider"], "model": models[0]["model"]}
+                if models else None
+            )
+        return Response.json(out)
+
+    # -- embeddings serving (OpenAI-compatible; the on-device encoder exposed
+    # as a provider other systems can point at) ---------------------------------
+
+    @router.post("/v1/embeddings")
+    async def serve_embeddings(req: Request) -> Response:
+        user = auth.resolve(req)
+        if user is None:
+            raise HttpError(401, "authentication required")
+        b = req.json()
+        texts = b.get("input", [])
+        if isinstance(texts, str):
+            texts = [texts]
+        if not texts or len(texts) > 2048:
+            raise HttpError(422, "input must be 1..2048 texts")
+        cid = b.get("model", "")  # model name = collection id (its embedder)
+        coll = ctx.db.get_collection(cid) if cid else None
+        # the collection's own engine's embedder (the JAX app builds a new
+        # one from the same config per request: the same vectors)
+        embedder = (ctx.engines.get(cid, coll["config"]).embedder
+                    if coll is not None else ctx.engines._embedder_factory({}))
+        vecs = embedder.embed(list(texts))
+        if isinstance(vecs, torch.Tensor):
+            vecs = vecs.float().cpu().numpy()
+        vecs = np.asarray(vecs)
+        return Response.json({
+            "object": "list",
+            "model": cid or "hash-embedder",
+            "data": [
+                {"object": "embedding", "index": i, "embedding": v.tolist()}
+                for i, v in enumerate(vecs)
+            ],
+            "usage": {"prompt_tokens": sum(len(t.split()) for t in texts),
+                      "total_tokens": sum(len(t.split()) for t in texts)},
+        })
 
     return router

@@ -100,12 +100,34 @@ class MultiSearchRequest(Model):
     chat_id: Optional[str] = None
 
 
-# -- auth ---------------------------------------------------------------------------
-
-
 class ImageSearchRequest(Model):
     image_base64: str = Field(min_length=4)
     top_k: int = Field(default=5, ge=1, le=100)
+
+
+# -- llm providers ---------------------------------------------------------------
+
+
+class LLMProviderCreate(Model):
+    name: str = Field(min_length=1, max_length=128)
+    label: str = ""
+    base_url: str = ""
+    api_type: str = "openai"
+
+
+class LLMProviderModelCreate(Model):
+    api: Literal["completion", "embedding", "rerank"] = "completion"
+    model: str = Field(min_length=1, max_length=256)
+    context_window: int = Field(default=0, ge=0)
+    max_tokens: int = Field(default=0, ge=0)
+    tags: list[str] = Field(default_factory=list)
+
+
+class ProviderKeySet(Model):
+    api_key: str = Field(min_length=1)
+
+
+# -- auth ---------------------------------------------------------------------------
 
 
 class RegisterRequest(Model):

@@ -8,9 +8,10 @@ execute_search_flow :229-366 which builds the search DAG programmatically
 nodeflow engine.  Ours adds the fulltext branch as a first-class node and
 lets hybrid fusion use RRF.
 
-The graph branch (``use_graph``) adds graph_search -> merge; a
-collection config that names a remote model provider answers 501
-(ROADMAP A6).
+The graph branch (``use_graph``) adds graph_search -> merge; a reranked
+search takes the collection's own reranker (``AppContext.reranker_for``:
+its rerank spec's remote provider, the tagged default, or the
+cross-encoder).
 """
 
 from __future__ import annotations
@@ -21,16 +22,8 @@ from super_rag_tpu_torch.api.http import HttpError
 from super_rag_tpu_torch.nodeflow.engine import NodeflowEngine
 from super_rag_tpu_torch.nodeflow.models import Edge, NodeInstance, NodeflowInstance, SystemInput
 import super_rag_tpu_torch.nodeflow.runners  # noqa: F401 — ensure registry
-from super_rag_tpu_torch.service.context import AppContext, check_provider
+from super_rag_tpu_torch.service.context import AppContext
 from super_rag_tpu_torch.store.models import CollectionStatus
-
-
-def _not_implemented(fn, *args):
-    """``fn(*args)``, with a part the port lacks answered as 501."""
-    try:
-        return fn(*args)
-    except NotImplementedError as e:
-        raise HttpError(501, str(e)) from e
 
 
 class CollectionService:
@@ -43,8 +36,6 @@ class CollectionService:
                config: Optional[dict] = None) -> dict:
         if not title:
             raise HttpError(422, "title required")
-        _not_implemented(check_provider, config or {}, "embedding")
-        _not_implemented(check_provider, config or {}, "rerank")
         count = len(self.ctx.db.list_collections(user))
         if count >= self.ctx.cfg.max_collections_per_user:
             raise HttpError(429, "collection quota exceeded")
@@ -208,8 +199,8 @@ class CollectionService:
         elif colls:
             # rerank spec of the first collection governs (the reference
             # resolves rerank config per search the same way)
-            services["reranker"] = _not_implemented(
-                self.ctx.reranker_for, colls[0].get("config") or {})
+            services["reranker"] = self.ctx.reranker_for(
+                colls[0].get("config") or {})
         ctx = await engine.execute_nodeflow(
             flow, SystemInput(query=query, user=user, chat_id=chat_id),
             services=services,
@@ -250,8 +241,8 @@ class CollectionService:
         engine = NodeflowEngine()
         services = self.ctx.services_for_nodeflow()
         if use_rerank:
-            services["reranker"] = _not_implemented(
-                self.ctx.reranker_for, coll.get("config") or {})
+            services["reranker"] = self.ctx.reranker_for(
+                coll.get("config") or {})
         else:
             # no cross-encoder for an unreranked search: the rerank node
             # keeps the hybrid order (the reference still runs its default

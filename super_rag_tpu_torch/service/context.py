@@ -8,13 +8,15 @@ services and routes.
 ``device`` reaches every model and engine the context builds; ``None``
 means the CUDA card, which raises without one unless ``"cpu"`` is named.
 
-What the JAX package resolves through remote model providers
-(``llm/resolver.py``) is not ported yet (ROADMAP A6): a collection whose
-``embedding`` or ``rerank`` spec names a provider other than ``"onboard"``
-raises ``NotImplementedError`` instead of quietly getting the hash
-embedder, and the completion client is ``None``, so the knowledge graph
-extracts with its offline heuristic, as the JAX package's does where no
-provider is registered.  Objects go to the local store or to S3
+Models resolve as the JAX package's do (``llm/resolver.py``): a
+collection config's ``embedding`` / ``rerank`` spec, else the model tagged
+for the scenario, names a provider row and its key in the db; a remote
+provider's client embeds (``RemoteEmbedder``, its probed ``dim`` sizing
+the index) and reranks, and the model tagged
+``default_for_collection_completion`` at boot is the completion client of
+the knowledge graph and the summary index.  With no provider, or one that
+cannot be reached, the onboard encoder checkpoint or the hash embedder
+serves, and the fallback is logged.  Objects go to the local store or to S3
 (``object_store_type="s3"``); ingest runs in process, on host threads
 (``thread``), in worker subprocesses (``process``) or on Ray (``ray``,
 which falls back to ``process`` where ``ray`` is not installed).
@@ -37,6 +39,7 @@ from super_rag_tpu_torch.device import DeviceLike, resolve_device
 from super_rag_tpu_torch.engine.batcher import QueryBatcher
 from super_rag_tpu_torch.engine.manager import EngineManager
 from super_rag_tpu_torch.kg.service import KnowledgeGraphService
+from super_rag_tpu_torch.llm.resolver import ModelResolver, RemoteEmbedder
 from super_rag_tpu_torch.models.encoder_service import EncoderService
 from super_rag_tpu_torch.models.hash_embedder import HashEmbedder
 from super_rag_tpu_torch.models.image_decode import UnsupportedImageError
@@ -57,17 +60,6 @@ from super_rag_tpu_torch.tasks.scheduler import (
 logger = logging.getLogger(__name__)
 
 
-def check_provider(config: dict, api: str) -> str:
-    """The provider a collection config names for ``api``; raises for
-    one the port cannot serve yet."""
-    provider = ((config or {}).get(api) or {}).get("provider") or ""
-    if provider and provider != "onboard":
-        raise NotImplementedError(
-            f"{api} provider {provider!r}: remote model providers are not "
-            "ported to the PyTorch port yet (ROADMAP A6); use 'onboard'")
-    return provider
-
-
 @dataclass
 class AppContext:
     cfg: Settings
@@ -78,10 +70,11 @@ class AppContext:
     scheduler: TaskScheduler
     auth: Auth
     kg: Optional[KnowledgeGraphService] = None
-    completion: Optional[object] = None  # LLM client: not ported yet
+    completion: Optional[object] = None  # callable (**kw) -> text
     reranker: Optional[object] = None  # callable (query, texts) -> scores
     batcher: Optional[QueryBatcher] = None
     reranker_factory_fn: Optional[object] = None
+    resolver: Optional[ModelResolver] = None
     _image_worker: Optional[WorkerProcess] = None
     _image_worker_lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
@@ -103,18 +96,23 @@ class AppContext:
         return np.asarray(resp["vector"], np.float32)[None]
 
     def close(self) -> None:
-        """Stop the image worker subprocess, if one was started."""
+        """Stop the image worker subprocess, if one was started, and close
+        the model providers' connections."""
         if self._image_worker is not None:
             self._image_worker.stop()
             self._image_worker = None
+        if self.resolver is not None:
+            self.resolver.close()
 
     def reranker_for(self, config: Optional[dict] = None):
-        """Per-collection reranker, resolved at search time so that a
-        retrained checkpoint is picked up without a restart."""
+        """Per-collection reranker: the collection config's rerank spec
+        (a remote dialect client) wins, then the scenario-tagged default,
+        then the cross-encoder checkpoint.  Resolved at search time, so
+        that providers registered after startup and a retrained checkpoint
+        take effect without a restart."""
         fac = self.reranker_factory_fn
         if fac is None:
             return self.reranker
-        check_provider(config or {}, "rerank")
         try:
             return fac(config or {}) or self.reranker
         except Exception:  # noqa: BLE001 — rerank is optional, never fatal
@@ -148,9 +146,14 @@ def build_context(
     else:
         objects = LocalObjectStore(cfg.objects_root())
 
+    # model resolution: collection config -> provider/model from the db
+    # (the resolver's clients share one response cache in the data dir)
+    os.makedirs(cfg.data_dir, exist_ok=True)
+    resolver = ModelResolver(db, cache_path=os.path.join(cfg.data_dir, "llm_cache.db"))
+
     def embedder_factory(config: dict):
         spec = config.get("embedding", {}) or {}
-        if check_provider(config, "embedding") == "onboard":
+        if spec.get("provider") == "onboard":
             # the on-device encoder; model = checkpoint path, or empty for
             # a fresh random-init encoder
             ckpt = spec.get("model", "")
@@ -164,6 +167,16 @@ def build_context(
                 logger.exception(
                     "onboard encoder load failed; using hash embedder"
                 )
+        client = resolver.embedding_client(config)
+        if client is not None:
+            try:
+                resolver.probe_embedding_dim(client)
+                return RemoteEmbedder(client)
+            except Exception:  # noqa: BLE001 — provider unreachable
+                logger.warning(
+                    "embedding provider %r (model %r) unreachable; using the "
+                    "default embedder", client.provider, client.model,
+                    exc_info=True)
         dim = int(spec.get("dim", cfg.embedding_dim))
         # a trained encoder checkpoint (SUPER_RAG_ENCODER_CKPT) beats the
         # hash embedder as the no-provider default
@@ -179,15 +192,33 @@ def build_context(
                 )
         return HashEmbedder(dim=dim, device=device)
 
-    # reranker_for() resolves at search time, so the cross-encoder is
-    # cached here keyed on (path, mtime): a retrained checkpoint is picked
-    # up without a restart but not reloaded per search
+    # reranker_for() resolves at search time, so what it builds is reused
+    # across queries: the remote clients live in the resolver; their
+    # wrappers, and the cross-encoder keyed on (path, mtime), here, so a
+    # retrained checkpoint is picked up without a restart but not
+    # reloaded per search
     _ce_cache: dict = {}
+    _remote_wrap_cache: dict = {}
 
     def reranker_factory(config: dict):
-        check_provider(config, "rerank")
-        # a trained cross-encoder checkpoint (SUPER_RAG_RERANKER_CKPT)
-        # serves as the default reranker
+        client = resolver.rerank_client(config)
+        if client is not None:
+            ckey = id(client)  # the resolver caches clients: ids are stable
+            wrapped = _remote_wrap_cache.get(ckey)
+            if wrapped is not None:
+                return wrapped
+
+            def rerank(query: str, texts):
+                results = client.rerank(query, list(texts))
+                scores = np.zeros(len(texts), np.float32)
+                for r in results:
+                    scores[r["index"]] = r["relevance_score"]
+                return scores
+
+            _remote_wrap_cache[ckey] = rerank
+            return rerank
+        # no remote provider: a trained cross-encoder checkpoint
+        # (SUPER_RAG_RERANKER_CKPT) serves as the default reranker
         ckpt = cfg.reranker_checkpoint
         if ckpt and os.path.exists(ckpt + ".npz"):
             try:
@@ -238,16 +269,23 @@ def build_context(
     reconciler.scheduler = scheduler
     auth = Auth(db, cfg.jwt_secret, cfg.jwt_ttl_hours,
                 oauth_providers=cfg.oauth_providers())
-    # no completion client until the model providers are ported: the
-    # graph extracts and resolves with its offline tier
-    kg = KnowledgeGraphService(db, completion=None,
+    # the completion client is resolved once, at boot, from the model
+    # tagged default_for_collection_completion (none: the graph's offline
+    # tier and the extractive summary)
+    completion = None
+    completion_client = resolver.completion_client({})
+    if completion_client is not None:
+        completion = lambda **kw: completion_client.complete(**kw)  # noqa: E731
+
+    kg = KnowledgeGraphService(db, completion=completion,
                                reranker=reranker_factory({}), device=device)
     batcher = QueryBatcher(max_batch=cfg.batch_max,
                            max_wait_ms=cfg.batch_window_ms)
     ctx = AppContext(
         cfg=cfg, db=db, objects=objects, engines=engines,
         reconciler=reconciler, scheduler=scheduler, auth=auth, kg=kg,
-        batcher=batcher, reranker_factory_fn=reranker_factory,
+        completion=completion, batcher=batcher,
+        reranker_factory_fn=reranker_factory, resolver=resolver,
     )
-    task.ctx = ctx  # the index task reaches kg through the context
+    task.ctx = ctx  # the index task reaches kg and completion through it
     return ctx

@@ -9,8 +9,10 @@ the ``vector`` index type, the one a collection enables by default, the
 ``vision`` type (one row per image part: its image embedding where the
 asset bytes exist, its caption's embedding elsewhere) and the ``graph``
 type (the chunks become knowledge-graph episodes, ``kg/service.py``,
-under the collection's ``kg_entity_types`` ontology); the summary index
-type is not ported yet (ROADMAP A6).
+under the collection's ``kg_entity_types`` ontology) and the ``summary``
+type (one row a document: its map-reduce summary through the context's
+completion client, ``index/summary.py``, or the extractive summary where
+no completion model is registered).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 from super_rag_tpu_torch.config import Settings
 from super_rag_tpu_torch.engine.index import INDEXER_CODES
 from super_rag_tpu_torch.engine.manager import EngineManager
+from super_rag_tpu_torch.index.summary import summarize_document
 from super_rag_tpu_torch.index.vision import vision_rows
 from super_rag_tpu_torch.kg.extract import Ontology
 from super_rag_tpu_torch.models.image_embedder import ImageEmbedder
@@ -32,8 +35,6 @@ from super_rag_tpu_torch.store.objectstore import ObjectStore
 from super_rag_tpu_torch.tasks.worker import prepare_document
 
 logger = logging.getLogger(__name__)
-
-UNPORTED_INDEX_TYPES = ("summary",)
 
 
 def _live_engine_rows(engine, document_id: str, index_type: str) -> list[int]:
@@ -82,10 +83,6 @@ class DocumentIndexTask:
         row.  Idempotent per (document, version): any rows from a prior
         version are removed first.  ``prepared`` (from :meth:`prepare`)
         skips the parse/chunk stage when it matches this document."""
-        if index_type in UNPORTED_INDEX_TYPES:
-            raise NotImplementedError(
-                f"the {index_type} index type is not ported to the PyTorch "
-                "port yet (ROADMAP A6)")
         doc = self.db.get_document(document_id)
         if doc is None:
             raise ValueError(f"document {document_id} not found")
@@ -119,6 +116,8 @@ class DocumentIndexTask:
             return self._create_vision(doc, coll, engine, parts)
         if not chunks:
             return {"rows": [], "chunks": 0}
+        if index_type == "summary":
+            return self._create_summary(doc, coll, engine, chunks)
         if index_type == "graph":
             return self._create_graph(doc, coll, chunks)
 
@@ -133,6 +132,24 @@ class DocumentIndexTask:
             chat_id=doc.get("chat_id"),
         )
         return {"rows": rows, "chunks": len(chunks)}
+
+    def _create_summary(self, doc: dict, coll: dict, engine, chunks) -> dict:
+        """One row: the document's summary (map-reduce through the
+        context's completion client, else extractive)."""
+        summary = summarize_document(
+            [c.text for c in chunks],
+            completion=getattr(self.ctx, "completion", None),
+            title=doc["name"],
+        )
+        rows = engine.ingest(
+            [summary],
+            metadata=[{"document_id": doc["id"], "collection_id": coll["id"],
+                       "document_name": doc["name"], "title_path": "",
+                       "chunk_index": 0}],
+            indexer="summary",
+            chat_id=doc.get("chat_id"),
+        )
+        return {"rows": rows, "chunks": 1}
 
     def _create_graph(self, doc: dict, coll: dict, chunks) -> dict:
         """The chunks as episodes of the collection's knowledge graph: one

@@ -520,27 +520,34 @@ def test_waiting_routes_answer_404(clients):
 
 
 def test_port_refuses_what_it_lacks(clients, corpus):
-    """What the port still lacks answers 501 or fails loudly: a remote
-    model provider and the summary index type (ROADMAP A6e).  A graph
-    search and a PDF, which it has now, answer as the reference does."""
+    """What the port once refused now answers as the reference does: a
+    collection config naming a model provider (here one that is not
+    registered, so both fall back to the default embedder without a
+    connection), the summary index type, a graph search and a PDF."""
     cids, _, maps = corpus
-    port = clients[1]
     out = both(clients, "POST", lambda i: f"/api/v1/collections/{cids[i]}/searches",
                {"query": "forest", "use_graph": True})
     assert [s for s, _ in out] == [201, 201], out
     assert_same_items(out[0][1], out[1][1], maps[0], maps[1])
-    status, body = port.call("POST", "/api/v1/collections",
-                             {"title": "remote", "config": {
-                                 "embedding": {"provider": "openai", "model": "m"}}})
-    assert status == 501 and "ROADMAP A6" in body["error"]["message"]
+    remote = make_collection(clients, "remote", {
+        "embedding": {"provider": "unregistered", "model": "m"}})
+    upload(clients, remote, "r.md", "# r\n\nthe fox runs into the forest")
+    out = both(clients, "POST", lambda i: f"/api/v1/collections/{remote[i]}/searches",
+               {"query": "fox forest", "use_rerank": False})
+    assert [s for s, _ in out] == [201, 201], out
+    assert [it["text"] for it in out[0][1]["items"]] == [it["text"] for it in out[1][1]["items"]]
+    assert abs(out[0][1]["items"][0]["score"] - out[1][1]["items"][0]["score"]) <= SCORE_TOL
     summary = make_collection(clients, "summary", {"enable_summary": True})
     (_, ref), (_, docs) = [c.call("POST", f"/api/v1/collections/{cid}/documents",
-                                  {"name": "s.md", "content": "# s\n\nsome text"})
+                                  {"name": "s.md", "content": "# s\n\nsome text. more."})
                            for c, cid in zip(clients, summary)]
-    idx = {i["index_type"]: i for i in docs[0]["indexes"]}
-    assert idx["summary"]["status"] == "FAILED"
-    assert "ROADMAP A6" in idx["summary"]["error_message"]
-    assert {i["index_type"]: i["status"] for i in ref[0]["indexes"]}["summary"] != "FAILED"
+    assert ({i["index_type"]: (i["status"], i["error_message"]) for i in docs[0]["indexes"]}
+            == {i["index_type"]: (i["status"], i["error_message"]) for i in ref[0]["indexes"]})
+    assert {i["index_type"]: i["status"] for i in docs[0]["indexes"]}["summary"] != "FAILED"
+    out = both(clients, "POST", lambda i: f"/api/v1/collections/{summary[i]}/searches",
+               {"query": "some text", "use_rerank": False})
+    assert sorted(it["text"] for it in out[0][1]["items"]) == \
+        sorted(it["text"] for it in out[1][1]["items"])
     out = both(clients, "POST", lambda i: f"/api/v1/collections/{cids[i]}/documents",
                {"name": "scan.pdf",
                 "content_base64": base64.b64encode(b"%PDF-1.4").decode()})

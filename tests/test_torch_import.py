@@ -45,12 +45,16 @@ MODULES = [
     "super_rag_tpu_torch.llm.prompts", "super_rag_tpu_torch.kg",
     "super_rag_tpu_torch.kg.extract", "super_rag_tpu_torch.kg.construct",
     "super_rag_tpu_torch.kg.service", "super_rag_tpu_torch.nodeflow.runners.graph_search",
-    "super_rag_tpu_torch.nodeflow.runners.merge",
+    "super_rag_tpu_torch.nodeflow.runners.merge", "super_rag_tpu_torch.llm.errors",
+    "super_rag_tpu_torch.llm.client", "super_rag_tpu_torch.llm.signed",
+    "super_rag_tpu_torch.llm.resolver", "super_rag_tpu_torch.exceptions",
+    "super_rag_tpu_torch.index.summary", "super_rag_tpu_torch.nodeflow.runners.llm",
 ]
 # third-party packages the JAX package's serving seam uses and the card's
 # machine may lack; the port replaces each (jinja2, torch's own dependency,
 # is allowed)
-FORBIDDEN = ("pydantic", "pydantic_core", "yaml", "httpx", "markdown_it", "PIL", "ray")
+FORBIDDEN = ("pydantic", "pydantic_core", "yaml", "httpx", "markdown_it", "PIL", "ray",
+             "cryptography")
 
 
 def test_import_pulls_no_jax_and_nothing_of_the_jax_package():
@@ -72,7 +76,7 @@ def test_source_names_no_jax_import_or_jax_package_path():
     pattern = re.compile(
         r"^\s*(import jax|from jax)|from super_rag_tpu\.|import super_rag_tpu\b"
         r"|super_rag_tpu/|import bench\b|from bench\b"
-        r"|^\s*(import|from) (pydantic|yaml|httpx|markdown_it)\b", re.M)
+        r"|^\s*(import|from) (pydantic|yaml|httpx|markdown_it|cryptography)\b", re.M)
     scanned = 0
     for dirpath, _, files in os.walk(PORT):
         if "_build" in dirpath:
