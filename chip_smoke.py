@@ -9,9 +9,10 @@ Phases, each printing one line with its seconds:
   3. kernel vs plain version at small shapes, every mode (int8 x int8 must
      match bit for bit, the float modes within a stated tolerance), for
      the dense top-k (all three variants: the sorted-selection tensor-core
-     kernel for int8 and bf16 queries at kt <= 128, split tiles included;
-     the int8 register-list kernel at kt <= 8; SIMT above the cap and for
-     f32), each launch checked against the variant and mode counters, and
+     kernel for int8 and bf16 queries at kt <= 128, split tiles included,
+     at D up to 4,096 with the queries streamed above 1,024; the int8
+     register-list kernel at kt <= 8; SIMT above the cap and for f32),
+     each launch checked against the variant and mode counters, and
      both IVF kernels; prints the ptxas report (registers, shared memory,
      spills) of every kernel built;
   4. full size: 1M x 768 int8 corpus + 64-slot zipfian BM25 table made on
@@ -22,6 +23,9 @@ Phases, each printing one line with its seconds:
      f32 search: recall >= 0.9), and timings of the kernel, the SIMT and
      sorted-selection kernels on the same inputs, the plain version, a
      library yardstick, the whole search_hybrid batch and its stages;
+     then [wide]: a seeded 1M x 1,536 int8 corpus searched at batch 512
+     through dense_topk (the sorted-selection kernel, queries streamed),
+     bit for bit against its plain version, timed beside the SIMT kernel;
   5. serving: >= 256 concurrent text requests through QueryBatcher over
      a CollectionEngine on that index, each checked against a direct
      search_batch of the same query;
@@ -73,8 +77,8 @@ Phases, each printing one line with its seconds:
      [semantic] encoder and cross-encoder as checkpoints the port writes,
      a bf16 collection (the deployment's default) and an int8 one (both
      on dense_topk's tensor cores), HTTP_DOCS markdown documents uploaded
-     to each by 8 clients (chunks/s to the last COMPLETE), 256 queries from one
-     client and from 64, with and without rerank (p50, p99, requests/s,
+     to each by 8 clients (chunks/s to the last COMPLETE), HTTP_QUERIES
+     queries from one client and from 64, with and without rerank (p50, p99, requests/s,
      batcher dispatches), one request split into stages by wrapped
      methods, and gates: a. statuses and sizes; b. every single-client
      answer equals a direct search_batch + RerankService; c. no ERROR
@@ -125,12 +129,14 @@ Phases, each printing one line with its seconds:
      the stub's calls as expected, no fallback logged; b. 64 unreranked
      and 64 reranked searches (of other queries) equal an ``App(device="cpu")`` fed the same
      documents by the same stub, up to ties; c. each dispatch launched
-     dense_topk's SIMT variant (bf16, D = 1,536), the kernel held against
-     its plain version at the served shapes and timed beside its bound
-     and the library call; d. ``POST /v1/embeddings`` returns collection
-     O's encoder vectors bit for bit, and a second App's collection S,
-     embedded through it, answers as O (tensor cores, D = 256); e. no
-     ERROR record;
+     dense_topk's sorted-selection tensor-core kernel (bf16, D = 1,536,
+     queries streamed) and no SIMT one, the kernel held against its plain
+     version at the served shapes and timed beside its bound and the
+     library call, and the same at text-embedding-3-large's 3,072 over as
+     many seeded rows, driven through ``dense_topk``; d. ``POST
+     /v1/embeddings`` returns collection O's encoder vectors bit for
+     bit, and a second App's collection S, embedded through it, answers
+     as O (tensor cores, D = 256); e. no ERROR record;
   15. a ``{"kernels": [...]}`` JSON line;
   16. last line: ``{"ok": true, "device": {...}}``.
 
@@ -212,7 +218,7 @@ HTTP_DOCS = 32  # at 64 the phase ran past 120 s on an H100
 HTTP_SECTIONS = 512
 HTTP_WORDS = 96
 HTTP_UPLOADERS = 8
-HTTP_QUERIES = 256
+HTTP_QUERIES = 128  # at 256 the whole smoke ran past 900 s on a slow host ([http] 295 s)
 HTTP_CLIENTS = 64
 HTTP_TOP_K = 5
 HTTP_CANDIDATES = 100
@@ -239,6 +245,7 @@ GRAPH_IMAGE = 48  # each PDF's FlateDecode RGB image is 48 x 48
 GRAPH_MIN_FACTS = 1000  # gate a: the graph the documents make is at least this big
 GRAPH_MIN_ENTITIES = 300
 PROV_DIM = 1536  # OpenAI's text-embedding-3-small
+PROV_WIDE_DIM = 3072  # text-embedding-3-large: its kernel rows, over P's shape
 STUB_KEY = "sk-smoke-stub-key"
 PROV_DOCS = 32  # collection P: 32 documents x PROV_SECTIONS sections of the [http] recipe
 # 256, not 512: at 512 (16,416 rows) the phase ran 160.7 s on an H100, the CPU
@@ -396,12 +403,14 @@ def phase_small() -> int:
                                  scores=dt.plain_scores(*args[:6], 0, n))
                         cases += 1
     # int8 x int8 at every list depth: the register-list kernel (kt <= 8,
-    # forced here: these grids are too small for it to be chosen), the
-    # sorted-selection kernel (kt <= 128) and the SIMT one above the cap
-    # (kt 129); ragged B and D, a mask with an all-masked tile, duplicate
-    # rows (ties); every one bit-equal to the plain version
+    # D <= 1024, forced here: these grids are too small for it to be
+    # chosen), the sorted-selection kernel (kt <= 128; above D = 1,024 its
+    # queries streamed) and the SIMT one above the cap (kt 129); ragged B
+    # and D, a mask with an all-masked tile, duplicate rows (ties); every
+    # one bit-equal to the plain version
     sms = dt._sm_count(torch.cuda.current_device())
-    for bq, dq in ((1, 16), (17, 48), (130, 768)):
+    wide = ((1, 1040), (17, 1536), (130, 3072), (1, 4096))  # the streamed form
+    for bq, dq in ((1, 16), (17, 48), (130, 768), *wide):
         codes = torch.randint(-127, 128, (n, dq), device=DEVICE, generator=gen,
                               dtype=torch.int8)
         codes[64:96] = codes[:32]
@@ -417,7 +426,8 @@ def phase_small() -> int:
             got_variant = dt.kernel_variant(dt.MODE_INT8, kt, dq, bq, -(-n // 2048), sms)
             if got_variant != want:
                 raise AssertionError(f"kt={kt}, D={dq} took {got_variant}, not {want}")
-            for variant in (want, "tc") if kt <= dt.LIST_MAX_KT else (want,):
+            forced = kt <= dt.LIST_MAX_KT and dq <= dt.TC_MAX_D
+            for variant in (want, "tc") if forced else (want,):
                 for mask in (None, keep):
                     args = (q8, qs8, codes, row_scale, None, mask, n, 2048, kt)
                     before = _counts()
@@ -434,7 +444,7 @@ def phase_small() -> int:
     # bf16 queries on the tensor cores, bf16 rows and int8 codes, at every
     # list depth and split: within _tolerance, ids equal but at near-ties
     for mode in (dt.MODE_BF16, dt.MODE_INT8_BF16):
-        for bq, dq in ((1, 16), (17, 96), (64, 256), (130, 768)):
+        for bq, dq in ((1, 16), (17, 96), (64, 256), (130, 768), *wide):
             x = torch.randn(n, dq, device=DEVICE, generator=gen)
             x[64:96] = x[:32]
             if mode == dt.MODE_BF16:
@@ -706,13 +716,17 @@ def phase_full(results: dict):
         raise AssertionError(f"the main path's kt={kt} left the register-list kernel")
     kernel_ms = cuda_ms(lambda: dt.tile_topk(*args))
     # the other kernels on the same inputs, for the record: the first
-    # (SIMT dp4a) and the sorted-selection tensor-core one
+    # (SIMT dp4a) and the sorted-selection tensor-core one (its queries
+    # held whole, and streamed as above D = 1,024)
     other_ms = {}
-    for variant, reps in (("simt", 5), ("tcs", TIMED_REPS)):
-        with mock.patch.object(dt, "kernel_variant", lambda *a, v=variant, **kw: v):
+    for variant, streams, reps in (("simt", False, 5), ("tcs", False, TIMED_REPS),
+                                   ("tcs", True, TIMED_REPS)):
+        with mock.patch.object(dt, "kernel_variant", lambda *a, v=variant, **kw: v), \
+                mock.patch.object(dt, "tcs_streams", lambda d, f=streams: f):
             sv, si = dt.tile_topk(*args)
             _compare(sv, si, pv, pi, exact=True, tol=0.0)
-            other_ms[variant] = cuda_ms(lambda: dt.tile_topk(*args), reps=reps)
+            other_ms[variant + " streamed" * streams] = cuda_ms(lambda: dt.tile_topk(*args),
+                                                                reps=reps)
     simt_ms = other_ms["simt"]
     plain_ms = cuda_ms(lambda: dt.tile_topk_plain(*args))
     lib_ms = cuda_ms(lambda: library_topk(q, qs, corpus.values, corpus.scales,
@@ -725,7 +739,8 @@ def phase_full(results: dict):
     bound, bound_by = bound_ms(nbytes, 2.0 * BATCH * n * DIM, INT8_OPS_PER_S)
     log(f"[full] dense_topk tensor-core kernel {kernel_ms:.3f} ms (SIMT kernel "
         f"{simt_ms:.3f} ms, sorted-selection tensor-core kernel {other_ms['tcs']:.3f} ms, "
-        f"both bit-equal), plain {plain_ms:.3f} ms, "
+        f"{other_ms['tcs streamed']:.3f} ms with its queries streamed, each bit-equal), "
+        f"plain {plain_ms:.3f} ms, "
         f"library (_int_mm + topk) {lib_ms:.3f} ms, bound {bound:.3f} ms "
         f"({bound_by}); search_hybrid batch {BATCH}: {hybrid_ms:.3f} ms "
         f"({BATCH / hybrid_ms * 1e3:.1f} queries/s)")
@@ -772,11 +787,55 @@ def phase_full(results: dict):
         "variant": "tc (mma.sync m16n8k32 s8)", "launches": launches,
         "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": bound_by, "library_ms": lib_ms, "simt_ms": simt_ms,
-        "tcs_ms": other_ms["tcs"],
+        "tcs_ms": other_ms["tcs"], "tcs_streamed_ms": other_ms["tcs streamed"],
         "batch64_ms": kernel64_ms,
     }
     results["hybrid_ms"] = hybrid_ms
     return idx, texts, embedder
+
+
+WIDE_DIM = 1536  # phase_wide: the flat 1M-row int8 corpus at text-embedding-3-small's width
+
+
+def phase_wide(results: dict) -> None:
+    """int8 x int8 at 1M x WIDE_DIM (the remote embeddings' width, which
+    the register-list kernel does not take), B = BATCH, per-tile cap 2:
+    one ``dense_topk`` call through the sorted-selection kernel with its
+    queries streamed, held bit for bit against its plain version, and
+    timed beside the SIMT kernel (the route it took before), the library
+    call and its bound."""
+    from super_rag_tpu_torch.ops import dense_topk as dt
+    from super_rag_tpu_torch.ops.dense import build_corpus
+
+    def wlog(msg: str) -> None:
+        log(f"[wide] {msg} (on {results['card']})")
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 40)
+    corpus = build_corpus(torch.randn(N_ROWS, WIDE_DIM, device=DEVICE, generator=gen),
+                          dtype=torch.int8)
+    q_emb = torch.randn(BATCH, WIDE_DIM, device=DEVICE, generator=gen)
+    calls: dict = {}
+    _reset_counts()
+    counts0 = _counts()
+    with mock.patch.object(dt, "tile_topk", _recording(calls, "tile", dt.tile_topk)):
+        dt.dense_topk(q_emb, corpus, TOP_K, tile=2048, int8_queries=True, per_tile_k=2,
+                      device=DEVICE)
+    torch.cuda.synchronize()
+    launched = {k: v - counts0[k] for k, v in _counts().items() if v - counts0[k]}
+    if launched != {"dense_topk_tc": 1, TC_MODE_KEYS[dt.MODE_INT8]: 1}:
+        raise AssertionError(f"[wide] dense_topk at D = {WIDE_DIM} launched {launched}")
+    args = calls["tile"]
+    row = _served_kernel_row(args, 1, 1, wlog)
+    if row["variant"] != "tcs" or not dt.tcs_streams(WIDE_DIM):
+        raise AssertionError(f"[wide] took {row['variant']}")
+    with mock.patch.object(dt, "kernel_variant", lambda *a, **kw: "simt"):
+        sv, si = dt.tile_topk(*args)
+        kv, ki = dt.tile_topk_plain(*args)
+        if not (torch.equal(sv, kv) and torch.equal(si, ki)):
+            raise AssertionError("[wide] the SIMT kernel differs from the plain version")
+        row["simt_ms"] = cuda_ms(lambda: dt.tile_topk(*args), reps=5)
+    wlog(f"the SIMT kernel on the same inputs (the route before): {row['simt_ms']:.3f} ms")
+    results["dense_topk_1m_wide"] = row
 
 
 # -- phase 5: serving through CollectionEngine + QueryBatcher ----------------
@@ -2420,16 +2479,28 @@ def _served_kernel_row(args, launches: int, dispatches: int, hlog) -> dict:
     k_burst = burst_ms(lambda: dt.tile_topk(*args))
     lib_burst = burst_ms(lambda: _library_topk_bf16(q, values, scales, keep, n, tile, kt)
                          if not exact else library_topk(*args[:4], keep, n, tile, kt))
+    # where the queries fit whole (D <= 1,024), the streamed form of the
+    # same kernel beside it: the same bits, timed in the same call
+    streamed = {}
+    if variant == "tcs" and not dt.tcs_streams(d):
+        with mock.patch.object(dt, "tcs_streams", lambda _d: True):
+            sv, si = dt.tile_topk(*args)
+            if not (torch.equal(sv, kv) and torch.equal(si, ki)):
+                raise AssertionError("the streamed form differs from the resident one")
+            streamed = {"streamed_ms": cuda_ms(lambda: dt.tile_topk(*args)),
+                        "streamed_burst_ms": burst_ms(lambda: dt.tile_topk(*args))}
     hlog(f"dense_topk {variant} kernel vs plain at the served batch [num_tiles="
          f"{num_tiles}, B={b}, D={d}, kt={kt}, {str(values.dtype)[6:]}]: "
          f"{'bit-equal' if exact else f'within {tol:.3g}'} (max |diff| {err:.3g}); "
          f"kernel {k_ms:.3f} ms ({k_burst:.4f} ms a call in bursts of 50), plain "
          f"{p_ms:.3f} ms, library ({lib}) {lib_ms:.3f} ms ({lib_burst:.4f} ms in "
          f"bursts), bound {k_bound:.4f} ms ({k_by}); {launches} launches over "
-         f"{dispatches} dispatches")
+         f"{dispatches} dispatches" + (
+             f"; with its queries streamed (the same bits) {streamed['streamed_ms']:.3f} ms "
+             f"({streamed['streamed_burst_ms']:.4f} ms in bursts)" if streamed else ""))
     return {"launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": k_bound, "bound_by": k_by, "library_ms": lib_ms,
-            "burst_ms": k_burst, "library_burst_ms": lib_burst,
+            "burst_ms": k_burst, "library_burst_ms": lib_burst, **streamed,
             "batch": b, "dim": d, "kt": kt, "variant": variant,
             "launches_per_dispatch": launches / max(dispatches, 1)}
 
@@ -4463,6 +4534,7 @@ def phase_providers(results: dict) -> None:
     from super_rag_tpu_torch.models.encoder import flax_params
     from super_rag_tpu_torch.models.encoder_service import EncoderService, save_params
     from super_rag_tpu_torch.ops import dense_topk as dt
+    from super_rag_tpu_torch.ops.dense import build_corpus
 
     card = results["card"]
 
@@ -4672,19 +4744,33 @@ def phase_providers(results: dict) -> None:
         calls: list = []
         real_tile_topk = dt.tile_topk
 
-        def recording(*args):
-            q, values, n, tile, kt = args[0], args[2], args[6], args[7], args[8]
-            calls.append({"args": args, "d": q.shape[1], "mode": dt._mode(q, values),
-                          "variant": dt.kernel_variant(
-                              dt._mode(q, values), kt, q.shape[1], q.shape[0], -(-n // tile),
-                              dt._sm_count(torch.cuda.current_device()))})
-            return real_tile_topk(*args)
+        def recording_into(record: list):
+            def recording(*args):
+                q, values, n, tile, kt = args[0], args[2], args[6], args[7], args[8]
+                record.append({"args": args, "d": q.shape[1], "mode": dt._mode(q, values),
+                               "variant": dt.kernel_variant(
+                                   dt._mode(q, values), kt, q.shape[1], q.shape[0],
+                                   -(-n // tile), dt._sm_count(torch.cuda.current_device()))})
+                return real_tile_topk(*args)
+            return recording
+
+        def on_the_tensor_cores(record: list, launched: dict, d: int) -> list:
+            """Dispatches of ``record`` off dense_topk's bf16 tensor-core
+            route at ``d`` (the queries streamed), or counts other than one
+            launch of it a dispatch and no SIMT one."""
+            bad = [(r["d"], r["variant"], r["mode"]) for r in record
+                   if (r["d"], r["variant"], r["mode"]) != (d, "tcs", dt.MODE_BF16)]
+            if launched.get("dense_topk_tc", 0) != len(record) or launched.get(
+                    TC_MODE_KEYS[dt.MODE_BF16], 0) != len(record) or \
+                    launched.get("dense_topk_simt", 0) or not dt.tcs_streams(d):
+                bad.append(launched)
+            return bad
 
         searches(ca, pid, False, queries[:1])  # compacts and calibrates: not timed
         c1 = stub.snapshot()
         _reset_counts()
         counts0 = _counts()
-        with mock.patch.object(dt, "tile_topk", recording):
+        with mock.patch.object(dt, "tile_topk", recording_into(calls)):
             lat_plain, served_plain = searches(ca, pid, False, queries, calls)
             n_plain = len(calls)
             lat_rr, served_rr = searches(ca, pid, True, rr_queries, calls)
@@ -4701,11 +4787,10 @@ def phase_providers(results: dict) -> None:
                 any(it["recall_type"] == "reranked" for its in served_plain for it in its):
             raise AssertionError("gate a: recall types of the reranked / unreranked searches")
 
-        # gate c: every dispatch launched dense_topk, SIMT at D 1,536
-        bad = [(r["d"], r["variant"], r["mode"]) for r in calls
-               if (r["d"], r["variant"], r["mode"]) != (PROV_DIM, "simt", dt.MODE_BF16)]
-        if bad or launched.get("dense_topk_simt", 0) != len(calls) or \
-                launched.get("dense_topk_tc", 0):
+        # gate c: every dispatch launched dense_topk on the tensor cores,
+        # bf16 x bf16 with the queries streamed, and none SIMT
+        bad = on_the_tensor_cores(calls, launched, PROV_DIM)
+        if bad:
             raise AssertionError(f"gate c: {len(calls)} dispatches launched {launched}; "
                                  f"off the expected route: {bad[:3]}")
         kts = sorted({r["args"][8] for r in calls})
@@ -4715,9 +4800,10 @@ def phase_providers(results: dict) -> None:
              f"{PROV_CANDIDATES}) p50 {_pctl(lat_rr, 50):.3f} ms, p99 {_pctl(lat_rr, 99):.3f} "
              f"ms; each search embedded its query through the stub: stub calls {search_calls}")
         plog(f"gate c: every one of the {len(calls)} dispatches ({n_plain} unreranked, "
-             f"{len(calls) - n_plain} reranked) launched dense_topk's SIMT variant in mode "
-             f"bf16 x bf16 at D = {PROV_DIM} (kt {kts}; the tensor-core routes stop at "
-             f"D = {dt.TC_MAX_D}); counters {launched}")
+             f"{len(calls) - n_plain} reranked) launched dense_topk's sorted-selection "
+             f"tensor-core kernel in mode bf16 x bf16 at D = {PROV_DIM} (kt {kts}; the "
+             f"queries streamed above D = {dt.TC_MAX_D}), none the SIMT one; counters "
+             f"{launched}")
 
         # -- stub round trip through the port's client (no cache)
         rt_client = OpenAICompatClient(stub.url, api_key=STUB_KEY,
@@ -4787,6 +4873,33 @@ def phase_providers(results: dict) -> None:
                 k: row[k] for k in ("variant", "ms", "launches", "bound_ms", "bound_by",
                                     "plain_ms", "library_ms", "max_abs_err")}
 
+        # -- the same kernel at text-embedding-3-large's width, over seeded
+        # rows of P's shape (rows, tiles, mask, kt): no served collection is
+        # that wide here, so one query a call through dense_topk, counted
+        wide_gen = torch.Generator(device=DEVICE).manual_seed(SEED + 33)
+        for key, sel in (("remote", calls[n_plain - 1]), ("remote_rerank", calls[-1])):
+            _, _, _, _, _, mask, n, tile, kt = sel["args"]
+            corpus = build_corpus(torch.randn(n, PROV_WIDE_DIM, device=DEVICE,
+                                              generator=wide_gen), dtype=torch.bfloat16)
+            wide_q = torch.randn(PROV_QUERIES, PROV_WIDE_DIM, device=DEVICE, generator=wide_gen)
+            wide: list = []
+            counts0 = _counts()
+            with mock.patch.object(dt, "tile_topk", recording_into(wide)):
+                for i in range(PROV_QUERIES):
+                    dt.dense_topk(wide_q[i:i + 1], corpus, k=kt, mask=mask, tile=tile,
+                                  per_tile_k=kt, device=DEVICE)
+            torch.cuda.synchronize()
+            wide_launched = {k: v - counts0[k] for k, v in _counts().items() if v - counts0[k]}
+            bad = on_the_tensor_cores(wide, wide_launched, PROV_WIDE_DIM)
+            if bad or len(wide) != PROV_QUERIES:
+                raise AssertionError(f"gate c: {PROV_QUERIES} calls at D = {PROV_WIDE_DIM} "
+                                     f"launched {wide_launched}: {bad[:3]}")
+            row = _served_kernel_row(wide[-1]["args"], len(wide), PROV_QUERIES, plog)
+            results[f"dense_topk_http_{key}_{PROV_WIDE_DIM}"] = row
+            results["dense_topk"][f"http_{key}_{PROV_WIDE_DIM}"] = {
+                k: row[k] for k in ("variant", "ms", "launches", "bound_ms", "bound_by",
+                                    "plain_ms", "library_ms", "max_abs_err")}
+
         # -- gate d: /v1/embeddings serves collection O's encoder; App B's
         # collection S, embedded through it, answers as O
         t1 = time.perf_counter()
@@ -4837,7 +4950,7 @@ def phase_providers(results: dict) -> None:
         s_calls: list = []
         _reset_counts()
         counts0 = _counts()
-        with mock.patch.object(dt, "tile_topk", recording):
+        with mock.patch.object(dt, "tile_topk", recording_into(calls)):
             n0 = len(calls)
             _, o_items = searches(ca, oid, False, s_queries, calls)
             n1 = len(calls)
@@ -4954,6 +5067,11 @@ def main() -> int:
     log(f"[full] phase in {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
+    phase_wide(results)
+    log(f"[wide] phase in {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
     phase_serve(idx, texts, embedder)
     log(f"[serve] phase in {time.perf_counter() - t0:.2f} s")
     del idx, texts, embedder
@@ -5014,7 +5132,10 @@ def main() -> int:
            "replaces": "super_rag_tpu/ops/pallas_topk.py:36",
            **results[f"dense_topk_http_{t}"]}
           for t in ("bf16", "bf16_rerank", "int8", "int8_rerank", "image", "graph",
-                    "remote", "remote_rerank")),
+                    "remote", "remote_rerank", f"remote_{PROV_WIDE_DIM}",
+                    f"remote_rerank_{PROV_WIDE_DIM}")),
+        {"name": "dense_topk_1m_wide", "route": "cuda", "source": source + "dense_topk.cu",
+         "replaces": "super_rag_tpu/ops/pallas_topk.py:36", **results["dense_topk_1m_wide"]},
     ]}
     log(f"[done] wall {time.perf_counter() - t_start:.2f} s")
     log(json.dumps(kernels))

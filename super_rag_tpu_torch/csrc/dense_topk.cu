@@ -19,28 +19,41 @@
 // kernel_variant), counted by the wrapper per route and mode:
 //
 // * dense_topk_tcs_kernel, the tensor cores for every mode but f32 at
-//   kt <= 128 and D <= 1024 (the served searches, calibration, deep
-//   per-tile lists): int8 x int8 on mma.sync.m16n8k32.s8, bf16 queries on
-//   m16n8k16.bf16 with f32 sums, over bf16 rows or over int8 codes widened
-//   exactly to bf16 in registers (ldmatrix -> s8x4_to_bf16x2, the k order
-//   permuted alike for queries and codes).  A block of 32 queries walks
-//   its slice of a tile in 256-row chunks (8 warps of 16 queries x 64
-//   rows, a 4-stage cp.async ring of 64-byte k-slices); the chunk's
-//   epilogued scores go to shared memory, and a warp per query takes their
-//   top-kp (kp = kt rounded up to a power of two, >= 8) over 64-bit
-//   (value, column) keys held 8 a lane -- kt rounds of a warp max for
-//   kt <= 8, bitonic networks above -- merging it into the query's running
-//   list; a chunk none of whose keys beats the list's kt-th is skipped.  Where the tiles alone would leave SMs idle,
-//   each tile's rows split over up to 8 blocks of a cluster, whose lists
-//   merge through distributed shared memory.  What bounds it: at the
-//   served shape (16,384 rows, B = 64) the corpus is 4-8 MB, so the
-//   launch, the ring's latency and the selection, not bytes or tensor
-//   operations; the split puts 128 blocks on the 132 SMs.  No split of D
-//   and a k loop whose order is fixed: a query's sums are the same bits
-//   alone or in any batch and any split; the selection is exact, so int8
-//   x int8 is bit-equal to the plain version.
-// * dense_topk_tc_kernel, the int8 x int8 mode with register lists, for
-//   kt <= 8 and D <= 1024 where the grid of tiles already fills the card
+//   kt <= 128 and any D (the served searches, calibration, deep per-tile
+//   lists, remote embeddings of 1,536 to 4,096 dimensions): int8 x int8
+//   on mma.sync.m16n8k32.s8, bf16 queries on m16n8k16.bf16 with f32 sums,
+//   over bf16 rows or over int8 codes widened exactly to bf16 in registers
+//   (ldmatrix -> s8x4_to_bf16x2, the k order permuted alike for queries
+//   and codes).  A block of 32 queries walks its slice of a tile in
+//   256-row chunks (8 warps of 16 queries x 64 rows, a 4-stage cp.async
+//   ring of 64-byte k-slices); the chunk's epilogued scores go to shared
+//   memory, and a warp per query takes their top-kp (kp = kt rounded up
+//   to a power of two, >= 8) over 64-bit (value, column) keys held 8 a
+//   lane -- kt rounds of a warp max for kt <= 8, bitonic networks above --
+//   merging it into the query's running list; a chunk none of whose keys
+//   beats the list's kt-th is skipped.  Where the tiles alone would leave
+//   SMs idle, each tile's rows split over up to 8 blocks of a cluster,
+//   whose lists merge through distributed shared memory.  Up to D = 1024
+//   the block's queries are held whole in shared memory; above it (the
+//   query block alone would be 98,816 B at D = 1,536 in bf16, 197,120 B at
+//   3,072) they stream through a ring of their own, one 64-byte k-slice a
+//   row a stage (128 in the int8-codes mode) beside the corpus's, so
+//   shared memory is 94-135 KB whatever D; only the block's live queries
+//   are loaded (rows past B are zeros written once), so at B = 1 a stage
+//   adds one row.  What bounds it: at the served shapes (16,384 rows of
+//   D = 256 at B = 64; 8,224 rows of D = 1,536 at B = 1, 25.3 MB of bf16
+//   rows, 0.0075 ms at 3.35 TB/s) the launch, the ring's latency and the
+//   selection, not bytes or tensor operations: the split puts 128 blocks
+//   on the 132 SMs at D = 256 and 40 (33 with rows) at the 1,536-wide
+//   collection's 5 tiles, each keeping three of a 256-row chunk's 48
+//   stages in flight (0.047-0.054 ms on an H100, 6-7x the bytes bound).
+//   No split of D and a k loop whose order is fixed by D alone (the same
+//   in both forms): a query's sums are the same bits alone or in any batch
+//   and any split; the selection is exact, so int8 x int8 is bit-equal to
+//   the plain version.
+// * dense_topk_tc_kernel, the int8 x int8 mode with register lists (its
+//   whole query block in shared memory), for kt <= 8 and D <= 1024 where
+//   the grid of tiles already fills the card
 //   (the 1M and 10M flat search_hybrid):
 //   mma.sync.m16n8k32.s32.s8.s8 fed by ldmatrix from padded shared memory
 //   (row strides of 16 mod 32 bytes, so the 8 rows of an ldmatrix hit 8
@@ -67,7 +80,7 @@
 //   registers, or D > 896, 64 queries x 128 rows in 8 warps of 16 x 64, two
 //   blocks an SM.
 // * dense_topk_kernel, the rest: f32 queries (whose only tensor-core path,
-//   TF32, cannot hold the f32 tolerance), kt > 128 and D > 1024: the first
+//   TF32, cannot hold the f32 tolerance) and kt > 128: the first
 //   version, dp4a or FMA on CUDA cores from shared memory with a 4 x 4
 //   register tile per thread and the [16 x tile] score tile in shared
 //   memory.
@@ -76,7 +89,8 @@
 //   int8 x int8 : q int8 [B, D] + qscale f32 [B]; corpus int8
 //   int8 corpus, bf16 queries; bf16 corpus, bf16 queries; f32 x f32.
 // Requirements checked by the Python wrapper: D % 16 == 0, 16-byte aligned
-// row-major operands, tile <= 2048 (SIMT variant).  What bounds the work
+// row-major operands, tile <= 2048 (SIMT variant); the launches refuse
+// the rest (cudaErrorInvalidValue).  What bounds the work
 // at its largest: the corpus read (N x D bytes in int8, ~0.77 GB at
 // 1M x 768: 0.23 ms at 3.35 TB/s) at small batches, and the int8 work
 // (2 B N D operations: 0.40 ms at 1,979 TOP/s) at batch 512.
@@ -594,7 +608,9 @@ int launch(const void* q, const float* qscale, const void* c, const float* scale
 // kt <= 128, and a tile's rows split over the blocks of one cluster.
 //
 // A block holds QB queries and walks its slice of the tile in chunks of RC
-// rows; the chunk's corpus k-slices stream through a cp.async ring, the
+// rows; the chunk's corpus k-slices stream through a cp.async ring (and,
+// above D = MAX_D, the query block's k-slices through a ring of their own,
+// stage by stage beside them, so that no shared memory grows with D), the
 // chunk's epilogued f32 scores go to shared memory (over the drained ring),
 // and a warp per query takes the chunk's top-KP over (value, column) keys
 // (rounds of a warp max, or bitonic networks) and merges it into the
@@ -609,8 +625,9 @@ constexpr int QB = 32;         // queries per block: 2 warp rows of 16
 constexpr int RC = 256;        // corpus rows per chunk: 4 warp columns of 64
 constexpr int KS = 64;         // corpus bytes of a row per ring stage
 constexpr int NST = 4;         // ring stages (82 KB: two blocks an SM where
-                               // the query block is small, so the clusters
-                               // of a launch are resident together)
+                               // the query block is small or streamed, so
+                               // the clusters of a launch are resident
+                               // together)
 constexpr int CS = KS + 16;    // ring row stride: 16 mod 32 bytes
 constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
@@ -618,22 +635,34 @@ constexpr int E = RC / 32;     // keys per lane in the selection
 constexpr int SS = RC + 8;     // score row stride (floats): conflict-free float2 stores
 constexpr int MAX_KT = 128;
 constexpr int MAX_SLICES = 8;  // a portable cluster
-constexpr int MAX_D = 1024;
+constexpr int MAX_D = 1024;    // the resident query block (32 x 2,064 B at bf16)
+// the streamed form: int32 sums of int8 x int8 are exact while
+// D * 127^2 < 2^31 (the quantizer's codes), i.e. to D = 133,143; 2^16
+// keeps them exact for any int8 codes (D * 128^2 <= 2^30)
+constexpr int MAX_D_STREAMED = 65536;
 
 using u64 = unsigned long long;
 
-// query row stride in bytes: the row rounded up to one stage of query
-// bytes, + 16 (ldmatrix rows: 16 mod 32) or, for the int8-codes mode whose
-// query fragments are 8-byte loads, + 32 (four rows cover 128 bytes)
-__host__ __device__ inline int query_stride(int mode, int D) {
-  const int stage = mode == 1 ? 2 * KS : KS;
+// query bytes of one ring stage (the int8-codes mode's bf16 queries are
+// twice its code bytes), and the padding of a query row: + 16 (ldmatrix
+// rows: 16 mod 32) or, for the int8-codes mode whose query fragments are
+// 8-byte loads, + 32 (four rows cover 128 bytes)
+__host__ __device__ constexpr int stage_query_bytes(int mode) { return mode == 1 ? 2 * KS : KS; }
+__host__ __device__ constexpr int query_pad(int mode) { return mode == 1 ? 32 : 16; }
+
+// query row stride in bytes: the whole row rounded up to one stage of
+// query bytes (resident), or one stage (streamed), + the padding
+__host__ __device__ inline int query_stride(int mode, int D, bool streamed) {
+  const int stage = stage_query_bytes(mode);
   const int bytes = mode == 0 ? D : 2 * D;
-  return (bytes + stage - 1) / stage * stage + (mode == 1 ? 32 : 16);
+  return (streamed ? stage : (bytes + stage - 1) / stage * stage) + query_pad(mode);
 }
 
-inline size_t smem_bytes(int mode, int D, int kp) {
-  return static_cast<size_t>(QB) * query_stride(mode, D) + static_cast<size_t>(NST) * RC * CS +
-         static_cast<size_t>(QB) * kp * sizeof(u64);
+// resident: [QB] query rows + the corpus ring + the lists; streamed: a
+// query ring of NST stages beside the corpus ring, nothing that grows with D
+inline size_t smem_bytes(int mode, int D, int kp, bool streamed) {
+  return static_cast<size_t>(streamed ? NST : 1) * QB * query_stride(mode, D, streamed) +
+         static_cast<size_t>(NST) * RC * CS + static_cast<size_t>(QB) * kp * sizeof(u64);
 }
 
 // (value, column) as one key whose unsigned order is the reference's:
@@ -757,7 +786,9 @@ __device__ __forceinline__ void warp_top(u64 (&k)[E], int kp, int lane) {
   }
 }
 
-template <int MODE>
+// STREAMED: the query block's k-slices stream through a ring of their
+// own beside the corpus's (D > MAX_D), else the block is held whole
+template <int MODE, bool STREAMED>
 __global__ void __launch_bounds__(THREADS, 2)
 dense_topk_tcs_kernel(const void* __restrict__ q, const float* __restrict__ qscale,
                       const void* __restrict__ c, const float* __restrict__ scales,
@@ -766,10 +797,11 @@ dense_topk_tcs_kernel(const void* __restrict__ q, const float* __restrict__ qsca
                       float* __restrict__ out_vals, int* __restrict__ out_ids) {
   namespace cg = cooperative_groups;
   using Acc = typename std::conditional<MODE == 0, int, float>::type;
+  constexpr int QK = stage_query_bytes(MODE);
   extern __shared__ __align__(16) uint8_t smem[];
-  const int QS = query_stride(MODE, D);
-  uint8_t* sq = smem;                                        // [QB][QS]
-  uint8_t* ring = smem + QB * QS;                            // [NST][RC][CS]
+  const int QS = query_stride(MODE, D, STREAMED);
+  uint8_t* sq = smem;                                        // [QB][QS] or [NST][QB][QS]
+  uint8_t* ring = smem + (STREAMED ? NST : 1) * QB * QS;     // [NST][RC][CS]
   float* ss = reinterpret_cast<float*>(ring);                // [QB][SS], after a chunk
   u64* lists = reinterpret_cast<u64*>(ring + NST * RC * CS);  // [QB][kp]
 
@@ -781,6 +813,7 @@ dense_topk_tcs_kernel(const void* __restrict__ q, const float* __restrict__ qsca
   const int gid = lane >> 2;
   const int tig = lane & 3;
   const int b0 = blockIdx.x * QB;
+  const int nb = min(QB, B - b0);  // the block's live queries (streamed form)
   const int tile_idx = blockIdx.y;
   const int slice = blockIdx.z;
   const int S = gridDim.z;
@@ -793,10 +826,16 @@ dense_topk_tcs_kernel(const void* __restrict__ q, const float* __restrict__ qsca
   const uint8_t* cb = static_cast<const uint8_t*>(c);
   const uint8_t* qb = static_cast<const uint8_t*>(q);
 
-  // the query block, once (committed with the first chunk's first stage):
-  // rows past B and bytes past D are zeros
-  {
-    const int vpr = (QS - (MODE == 1 ? 32 : 16)) / 16;
+  if constexpr (STREAMED) {
+    // query rows past B are zeros in every stage, written once: the
+    // stage loads below fill rows < B only
+    for (int i = tid; i < NST * QB * (QS / 16); i += THREADS) {
+      if (i / (QS / 16) % QB >= nb) reinterpret_cast<uint4*>(sq)[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  } else {
+    // the query block, once (committed with the first chunk's first stage):
+    // rows past B and bytes past D are zeros
+    const int vpr = (QS - query_pad(MODE)) / 16;
     for (int idx = tid; idx < QB * vpr; idx += THREADS) {
       const int r = idx / vpr, kb = (idx - r * vpr) * 16;
       const bool ok = b0 + r < B && kb < rowq;
@@ -830,6 +869,17 @@ dense_topk_tcs_kernel(const void* __restrict__ q, const float* __restrict__ qsca
         const bool ok = col < r_end && t < N && kb < rowc;
         sm90::cp_async16(dst + r * CS + (kb - kb0), ok ? cb + t * rowc + kb : cb, ok ? 16 : 0);
       }
+      if constexpr (STREAMED) {
+        // the live queries' bytes of the same k-slice; bytes past D zeros
+        const int qb0 = s * QK;
+        uint8_t* qdst = sq + (s % NST) * (QB * QS);
+        for (int idx = tid; idx < nb * (QK / 16); idx += THREADS) {
+          const int r = idx / (QK / 16), kb = qb0 + (idx % (QK / 16)) * 16;
+          const bool ok = kb < rowq;
+          sm90::cp_async16(qdst + r * QS + (kb - qb0),
+                           ok ? qb + static_cast<long long>(b0 + r) * rowq + kb : qb, ok ? 16 : 0);
+        }
+      }
     };
 #pragma unroll
     for (int s = 0; s < NST - 1; ++s) {
@@ -848,6 +898,7 @@ dense_topk_tcs_kernel(const void* __restrict__ q, const float* __restrict__ qsca
       if (s + NST - 1 < nks) load_stage(s + NST - 1);
       sm90::cp_async_commit();
       const uint8_t* buf = ring + (s % NST) * (RC * CS) + b_off;
+      const int qstage = (s % NST) * (QB * QS);  // the streamed form's query stage
 #pragma unroll
       for (int sub = 0; sub < KS / 32; ++sub) {
         const int kb = s * KS + sub * 32;  // corpus byte of this 32-byte step
@@ -864,7 +915,10 @@ dense_topk_tcs_kernel(const void* __restrict__ q, const float* __restrict__ qsca
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               if (kb + h * 16 < rowc) {
-                const uint8_t* qa = sq + (wm * 16 + gid) * QS + 2 * (kb + h * 16) + tig * 8;
+                // the resident rows hold the whole query, a stage its k-slice
+                const uint8_t* qa =
+                    STREAMED ? sq + qstage + (wm * 16 + gid) * QS + 2 * (sub * 32 + h * 16) + tig * 8
+                             : sq + (wm * 16 + gid) * QS + 2 * (kb + h * 16) + tig * 8;
                 const uint2 lo = *reinterpret_cast<const uint2*>(qa);
                 const uint2 hi = *reinterpret_cast<const uint2*>(qa + 8 * QS);
                 const uint32_t a[4] = {lo.x, hi.x, lo.y, hi.y};
@@ -880,7 +934,7 @@ dense_topk_tcs_kernel(const void* __restrict__ q, const float* __restrict__ qsca
             }
           } else {
             uint32_t a[4];
-            sm90::ldmatrix_x4(a_row + kb, a);
+            sm90::ldmatrix_x4(STREAMED ? a_row + qstage + sub * 32 : a_row + kb, a);
 #pragma unroll
             for (int jp = 0; jp < 4; ++jp) {
               uint32_t bb[4];
@@ -991,13 +1045,13 @@ dense_topk_tcs_kernel(const void* __restrict__ q, const float* __restrict__ qsca
   cluster.sync();  // no block leaves while another still reads its lists
 }
 
-template <int MODE>
+template <int MODE, bool STREAMED>
 int launch_mode(const void* q, const float* qscale, const void* c, const float* scales,
                 const float* norms, const uint8_t* mask, int B, int N, int D, int tile,
                 int num_tiles, int kt, int kp, int slices, int slice_rows, float* out_vals,
                 int* out_ids, cudaStream_t stream) {
-  const size_t smem = smem_bytes(MODE, D, kp);
-  auto kern = dense_topk_tcs_kernel<MODE>;
+  const size_t smem = smem_bytes(MODE, D, kp, STREAMED);
+  auto kern = dense_topk_tcs_kernel<MODE, STREAMED>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1021,28 +1075,41 @@ int launch_mode(const void* q, const float* qscale, const void* c, const float* 
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch(int mode, const void* q, const float* qscale, const void* c, const float* scales,
-           const float* norms, const uint8_t* mask, int B, int N, int D, int tile,
-           int num_tiles, int kt, int slices, int slice_rows, float* out_vals, int* out_ids,
-           cudaStream_t s) {
-  if (kt < 1 || kt > MAX_KT || D > MAX_D || D % 16 != 0 || slices < 1 || slices > MAX_SLICES ||
-      slice_rows < 1 || slice_rows % RC != 0 || static_cast<long long>(slices) * slice_rows < tile)
-    return static_cast<int>(cudaErrorInvalidValue);
-  int kp = E;
-  while (kp < kt) kp <<= 1;
+template <bool STREAMED>
+int launch_form(int mode, const void* q, const float* qscale, const void* c, const float* scales,
+                const float* norms, const uint8_t* mask, int B, int N, int D, int tile,
+                int num_tiles, int kt, int kp, int slices, int slice_rows, float* out_vals,
+                int* out_ids, cudaStream_t s) {
   switch (mode) {
     case 0:
-      return launch_mode<0>(q, qscale, c, scales, norms, mask, B, N, D, tile, num_tiles, kt, kp,
-                            slices, slice_rows, out_vals, out_ids, s);
+      return launch_mode<0, STREAMED>(q, qscale, c, scales, norms, mask, B, N, D, tile, num_tiles,
+                                      kt, kp, slices, slice_rows, out_vals, out_ids, s);
     case 1:
-      return launch_mode<1>(q, qscale, c, scales, norms, mask, B, N, D, tile, num_tiles, kt, kp,
-                            slices, slice_rows, out_vals, out_ids, s);
+      return launch_mode<1, STREAMED>(q, qscale, c, scales, norms, mask, B, N, D, tile, num_tiles,
+                                      kt, kp, slices, slice_rows, out_vals, out_ids, s);
     case 2:
-      return launch_mode<2>(q, qscale, c, scales, norms, mask, B, N, D, tile, num_tiles, kt, kp,
-                            slices, slice_rows, out_vals, out_ids, s);
+      return launch_mode<2, STREAMED>(q, qscale, c, scales, norms, mask, B, N, D, tile, num_tiles,
+                                      kt, kp, slices, slice_rows, out_vals, out_ids, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+int launch(int mode, const void* q, const float* qscale, const void* c, const float* scales,
+           const float* norms, const uint8_t* mask, int B, int N, int D, int tile,
+           int num_tiles, int kt, int slices, int slice_rows, int streamed, float* out_vals,
+           int* out_ids, cudaStream_t s) {
+  if (kt < 1 || kt > MAX_KT || D > (streamed ? MAX_D_STREAMED : MAX_D) || D % 16 != 0 ||
+      slices < 1 || slices > MAX_SLICES || slice_rows < 1 || slice_rows % RC != 0 ||
+      static_cast<long long>(slices) * slice_rows < tile)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int kp = E;
+  while (kp < kt) kp <<= 1;
+  if (streamed)
+    return launch_form<true>(mode, q, qscale, c, scales, norms, mask, B, N, D, tile, num_tiles,
+                             kt, kp, slices, slice_rows, out_vals, out_ids, s);
+  return launch_form<false>(mode, q, qscale, c, scales, norms, mask, B, N, D, tile, num_tiles, kt,
+                            kp, slices, slice_rows, out_vals, out_ids, s);
 }
 
 }  // namespace tcs
@@ -1092,16 +1159,19 @@ extern "C" int dense_topk_tc_launch(const void* q, const float* qscale, const vo
 
 // The tensor-core variant with sorted selection: modes 0 (int8 x int8),
 // 1 (int8 codes, bf16 queries) and 2 (bf16 x bf16), 1 <= kt <= 128,
-// D <= 1024, D % 16 == 0; each tile's rows split into `slices` slices of
+// D % 16 == 0; each tile's rows split into `slices` slices of
 // `slice_rows` rows (a multiple of 256), the blocks of one cluster
-// (slices <= 8, slices * slice_rows >= tile).  Same operands and output
+// (slices <= 8, slices * slice_rows >= tile).  `streamed` = 0 holds the
+// query block whole in shared memory (D <= 1024); 1 streams its k-slices
+// through a ring beside the corpus's (D <= 65536: int32 sums exact), the
+// same sums in the same order, so the same bits.  Same operands and output
 // as dense_topk_launch.  Returns the cudaError_t of the launch (0 =
 // success); cudaErrorInvalidValue outside its shapes.
 extern "C" int dense_topk_tcs_launch(int mode, const void* q, const float* qscale, const void* c,
                                      const float* scales, const float* norms,
                                      const uint8_t* mask, int B, int N, int D, int tile,
                                      int num_tiles, int kt, int slices, int slice_rows,
-                                     float* out_vals, int* out_ids, void* stream) {
+                                     int streamed, float* out_vals, int* out_ids, void* stream) {
   return tcs::launch(mode, q, qscale, c, scales, norms, mask, B, N, D, tile, num_tiles, kt, slices,
-                     slice_rows, out_vals, out_ids, static_cast<cudaStream_t>(stream));
+                     slice_rows, streamed, out_vals, out_ids, static_cast<cudaStream_t>(stream));
 }

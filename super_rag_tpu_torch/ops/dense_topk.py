@@ -6,14 +6,22 @@ is ``csrc/dense_topk.cu`` (CUDA C++ for sm_90a, built by ``_build.py``)
 in three variants, chosen by shape (``kernel_variant``):
 
 * ``"tcs"``, the tensor cores for every mode but f32 (int8 x int8, int8
-  codes with bf16 queries, bf16 x bf16) at ``kt <= TC_MAX_KT`` and
-  ``D <= TC_MAX_D``: per-tile lists selected from scores in shared memory
-  (rounds of a warp max for kt <= 8, bitonic networks above), each tile's
-  rows split over the blocks of a cluster (``tcs_split``) where the tiles
-  alone would leave the card idle;
+  codes with bf16 queries, bf16 x bf16) at ``kt <= TC_MAX_KT`` and any
+  D: per-tile lists selected from scores in shared memory (rounds of a
+  warp max for kt <= 8, bitonic networks above), each tile's rows split
+  over the blocks of a cluster (``tcs_split``) where the tiles alone
+  would leave the card idle.  Up to ``TC_MAX_D`` a block holds its
+  queries whole in shared memory; above it (``tcs_streams``: the remote
+  embeddings of 1,536 to 4,096 dimensions) their k-slices stream through
+  a ring beside the corpus's, the same sums in the same order.  What
+  bounds it there: the bytes of the rows (25.3 MB at 8,224 x 1,536 bf16,
+  0.0075 ms at 3.35 TB/s), read at B = 1 by 33 busy blocks of 40 (5
+  tiles split 8 ways, the last tile 32 rows), so by the ring's latency:
+  each block keeps three 64-byte k-slices of its 256 rows in flight;
 * ``"tc"``, the int8 x int8 kernel with register lists (``kt <=
-  LIST_MAX_KT``), taken where the grid of tiles already fills the card;
-* ``"simt"`` for the rest (f32, kt above the cap, D above 1024).
+  LIST_MAX_KT``, ``D <= TC_MAX_D``), taken where the grid of tiles
+  already fills the card;
+* ``"simt"`` for the rest (f32, kt above the cap).
 
 ``tc_launches`` counts every tensor-core launch (``tc_mode_launches``
 splits them by mode), ``simt_launches`` the rest.  ``tile_topk_plain``
@@ -48,7 +56,9 @@ MODE_BF16 = 2
 MODE_F32 = 3
 
 # the tensor-core route's shapes: kt <= TC_MAX_KT (the sorted lists of
-# "tcs"), D <= TC_MAX_D; the register lists of "tc" hold up to LIST_MAX_KT
+# "tcs"); the register lists of "tc" hold up to LIST_MAX_KT.  "tc" and
+# the resident form of "tcs" hold a block's queries whole for D <=
+# TC_MAX_D; "tcs" streams them above it
 TC_MAX_KT = 128
 TC_MAX_D = 1024
 LIST_MAX_KT = 8
@@ -92,7 +102,7 @@ def _lib() -> ctypes.CDLL:
                                          p, p, p]
     lib.dense_topk_tc_launch.restype = i
     lib.dense_topk_tcs_launch.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i,
-                                          i, i, i, p, p, p]
+                                          i, i, i, i, p, p, p]
     lib.dense_topk_tcs_launch.restype = i
     return lib
 
@@ -119,17 +129,25 @@ def kernel_variant(mode: int, kt: int, d: int, b: int, num_tiles: int,
                    sms: int = H100_SMS) -> str:
     """Which kernel takes a call of ``b`` queries over ``num_tiles`` tiles:
     ``"tc"`` (int8 x int8 register lists) where ``kt <= LIST_MAX_KT`` and
-    the tiles alone give every one of ``sms`` SMs a block; ``"tcs"`` for
-    the other int8 and bf16 calls at ``kt <= TC_MAX_KT``; ``"simt"`` for
-    f32 queries and above the caps.  Every variant of a mode gives the
-    same bits for a query whatever the batch (int8 x int8: all equal the
-    plain version), so the choice by ``b`` changes no answer."""
-    if mode == MODE_F32 or not 1 <= kt <= TC_MAX_KT or d > TC_MAX_D:
+    the tiles alone give every one of ``sms`` SMs a block and ``d <=
+    TC_MAX_D``; ``"tcs"`` for the other int8 and bf16 calls at ``kt <=
+    TC_MAX_KT``, whatever ``d``; ``"simt"`` for f32 queries and kt above
+    the cap.  Every variant of a mode gives the same bits for a query
+    whatever the batch (int8 x int8: all equal the plain version), so the
+    choice by ``b`` changes no answer."""
+    if mode == MODE_F32 or not 1 <= kt <= TC_MAX_KT:
         return "simt"
-    if mode == MODE_INT8 and kt <= LIST_MAX_KT and \
+    if mode == MODE_INT8 and kt <= LIST_MAX_KT and d <= TC_MAX_D and \
             -(-b // LIST_QB) * num_tiles >= sms:
         return "tc"
     return "tcs"
+
+
+def tcs_streams(d: int) -> bool:
+    """Whether a "tcs" launch streams its query block's k-slices through
+    shared memory (``d > TC_MAX_D``) instead of holding the block whole.
+    Both forms take the same sums in the same order: the same bits."""
+    return d > TC_MAX_D
 
 
 def tcs_split(b: int, num_tiles: int, tile: int,
@@ -192,7 +210,7 @@ def _launch_kernel(q, qscale, values, scales, norms, mask, n, tile, kt):
     elif variant == "tcs":
         slices, rows = tcs_split(b, num_tiles, tile, sms)
         err = lib.dense_topk_tcs_launch(mode, *operands[:12], slices, rows,
-                                        *operands[12:])
+                                        int(tcs_streams(d)), *operands[12:])
     else:
         err = lib.dense_topk_launch(mode, *operands)
     if err != 0:
@@ -211,10 +229,14 @@ def plain_scores(q, qscale, values, scales, norms, mask, r0: int, r1: int
                  ) -> torch.Tensor:
     """``[B, r1 - r0]`` f32 scores of corpus rows ``[r0, r1)`` as the
     kernel's epilogue forms them: ``s * qscale``, then ``* scales``, then
-    ``2s - norms``; masked rows -inf."""
-    s = q.to(torch.float32) @ values[r0:r1].to(torch.float32).T
+    ``2s - norms``; masked rows -inf.  int8 x int8 sums are taken in
+    float64 (exact below 2^53) and rounded once to f32, as the kernel's
+    exact int32 sums are, at any D."""
     if q.dtype == torch.int8:
-        s = s * qscale[:, None]
+        s = q.to(torch.float64) @ values[r0:r1].to(torch.float64).T
+        s = s.to(torch.float32) * qscale[:, None]
+    else:
+        s = q.to(torch.float32) @ values[r0:r1].to(torch.float32).T
     if scales is not None:
         s = s * scales[None, r0:r1]
     if norms is not None:
@@ -238,10 +260,10 @@ def tile_topk_plain(
     """Plain PyTorch version: ``[num_tiles, B, kt]`` values and int32 ids.
 
     Scores are taken in f32 chunks of whole tiles, never ``[B, N]``.  In
-    the int8 x int8 mode the f32 product sums integers below 2^24
-    (D * 127^2 < 2^24 for D <= 1040), so it reproduces the kernel's int32
-    sums exactly; the epilogue then applies the same f32 operations in the
-    same order, so kernel and plain version agree bit for bit."""
+    the int8 x int8 mode the float64 product reproduces the kernel's exact
+    int32 sums at any D (an f32 one only while D * 127^2 < 2^24, D <=
+    1040); the epilogue then applies the same f32 operations in the same
+    order, so kernel and plain version agree bit for bit."""
     b = q.shape[0]
     num_tiles = -(-n // tile)
     dev = values.device

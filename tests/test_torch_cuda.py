@@ -239,6 +239,72 @@ def test_bf16_tensor_core_kernel_within_tolerance(card, mode, kt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [1040, 1536, 3072, 4096])
+@pytest.mark.parametrize("mode", [dt.MODE_INT8, dt.MODE_INT8_BF16, dt.MODE_BF16])
+def test_tensor_core_kernel_above_the_resident_block(card, mode, d):
+    """D above 1,024 (the remote embeddings' 1,536, 3,072 and 4,096): the
+    sorted-selection kernel streams its queries through its ring, at B 1,
+    17 and 130, kt 1 to 128, tiles of 200 and 2048 rows, with a mask (an
+    all-masked tile) and duplicate rows: int8 x int8 equals the plain
+    version bit for bit, the bf16 modes are within D * 2^-23 *
+    (max|score| + 1) with ids equal but at near-ties."""
+    n = 5000
+    assert dt.tcs_streams(d)
+    for b in (1, 17, 130):
+        if mode == dt.MODE_INT8:
+            q, qs, values, scales, norms, mask = _int8_operands(
+                card, b, n, d, seed=b + d, masked=True, l2=b == 17)
+        else:
+            q, values, scales, mask = _bf16q_operands(card, mode, b, n, d, seed=b + d)
+            qs, norms = None, None
+        for kt in (1, 5, 32, 128):
+            for tile in (200, 2048):
+                args = (q, qs, values, scales, norms, mask, n, tile, kt)
+                assert dt.kernel_variant(mode, kt, d, b, -(-n // tile)) == "tcs"
+                before = _counts(mode)
+                kv, ki = dt.tile_topk(*args)
+                assert _launched("tcs", mode, before)
+                pv, pi = dt.tile_topk_plain(*args)
+                if mode == dt.MODE_INT8:
+                    assert torch.equal(kv, pv) and torch.equal(ki, pi), (b, kt, tile)
+                else:
+                    fin = torch.isfinite(pv)
+                    tol = d * 2.0 ** -23 * (float(pv[fin].abs().max()) + 1.0)
+                    assert_topk_match(pv.cpu(), pi.cpu(), kv.cpu(), ki.cpu(), rtol=0.0,
+                                      atol=tol, scores=dt.plain_scores(*args[:6], 0, n))
+                if tile == 2048:
+                    assert torch.isinf(kv[1]).all() and (ki[1] == 2048).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [256, 1024])
+@pytest.mark.parametrize("mode", [dt.MODE_INT8, dt.MODE_INT8_BF16, dt.MODE_BF16])
+def test_streamed_queries_give_the_resident_bits(card, monkeypatch, mode, d):
+    """Where both forms of the sorted-selection kernel fit (D <= 1,024),
+    streaming the queries through the ring gives the bits of holding them
+    whole: the same sums in the same order (B 1 and 64, kt 5 and 32)."""
+    n, tile = 16384, 2048
+    for b in (1, 64):
+        if mode == dt.MODE_INT8:
+            q, qs, values, scales, norms, mask = _int8_operands(
+                card, b, n, d, seed=d + b, masked=True, l2=False)
+        else:
+            q, values, scales, mask = _bf16q_operands(card, mode, b, n, d, seed=d + b)
+            qs = None
+        for kt in (5, 32):
+            args = (q, qs, values, scales, None, mask, n, tile, kt)
+            assert not dt.tcs_streams(d)
+            resident = dt.tile_topk(*args)
+            with monkeypatch.context() as m:
+                m.setattr(dt, "tcs_streams", lambda _d: True)
+                before = _counts(mode)
+                streamed = dt.tile_topk(*args)
+                assert _launched("tcs", mode, before)
+            assert torch.equal(resident[0], streamed[0])
+            assert torch.equal(resident[1], streamed[1])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", [dt.MODE_INT8, dt.MODE_INT8_BF16, dt.MODE_BF16])
 @pytest.mark.parametrize("kt", [5, 32])
 def test_tensor_core_kernel_is_batch_invariant(card, mode, kt):

@@ -130,14 +130,69 @@ def test_live_rows_scan_changes_no_bit(live, per_tile_k):
     (dt.MODE_INT8_BF16, 100, 768, 32, 489, "tcs"), (dt.MODE_INT8_BF16, 2, 768, 32, 489, "tcs"),
     # one above each cap, and f32
     (dt.MODE_INT8, 129, 768, 1, 1, "simt"), (dt.MODE_INT8_BF16, 129, 256, 32, 8, "simt"),
-    (dt.MODE_BF16, 129, 256, 64, 8, "simt"), (dt.MODE_INT8, 2, 1040, 512, 489, "simt"),
-    (dt.MODE_BF16, 5, 1040, 64, 8, "simt"), (dt.MODE_F32, 2, 96, 20, 3, "simt")])
+    (dt.MODE_BF16, 129, 256, 64, 8, "simt"), (dt.MODE_F32, 2, 96, 20, 3, "simt"),
+    # above D = 1,024 the sorted-selection kernel streams its queries:
+    # never the register lists, whose query block is held whole
+    (dt.MODE_INT8, 2, 1040, 512, 489, "tcs"), (dt.MODE_BF16, 5, 1040, 64, 8, "tcs"),
+    # the served remote-embedding collection (1,536 wide, 8,224 rows)
+    (dt.MODE_BF16, 5, 1536, 1, 5, "tcs"), (dt.MODE_BF16, 32, 1536, 1, 5, "tcs"),
+    (dt.MODE_INT8, 2, 1536, 512, 489, "tcs"),
+    (dt.MODE_INT8_BF16, 5, 3072, 1, 5, "tcs"), (dt.MODE_INT8_BF16, 5, 4096, 1, 5, "tcs"),
+    (dt.MODE_BF16, 129, 1536, 1, 5, "simt"), (dt.MODE_F32, 5, 1536, 1, 5, "simt")])
 def test_kernel_variant_by_shape(mode, kt, d, b, tiles, want):
-    """The int8 register-list kernel takes int8 x int8 at kt <= 8 where the
-    tiles alone fill the card's 132 SMs; the sorted-selection tensor-core
-    kernel every other int8 and bf16 call at kt <= 128 and D <= 1024; the
-    SIMT kernel f32 and what lies above the caps."""
+    """The int8 register-list kernel takes int8 x int8 at kt <= 8 and D <=
+    1024 where the tiles alone fill the card's 132 SMs; the
+    sorted-selection tensor-core kernel every other int8 and bf16 call at
+    kt <= 128, whatever D; the SIMT kernel f32 and kt above the cap."""
     assert dt.kernel_variant(mode, kt, d, b, tiles) == want
+
+
+@pytest.mark.parametrize("d,want", [(16, False), (768, False), (1024, False),
+                                    (1040, True), (1536, True), (4096, True)])
+def test_tcs_streams_queries_above_the_resident_block(d, want):
+    """The sorted-selection kernel holds a block's queries whole up to
+    D = 1,024 and streams their k-slices above it."""
+    assert dt.tcs_streams(d) is want
+
+
+@pytest.mark.parametrize("d", [1536, 3072])
+def test_int8_plain_version_is_exact_above_2_to_the_24(d):
+    """int8 x int8 at D = 1,536 and 3,072, whose sums an f32 product may
+    round: rows of +-127 codes with a quarter of other codes, queries
+    copies of rows, so the self-match sums exceed 2^24 and some are odd
+    (no f32 holds them).  The plain version's scores are the exact sums
+    rounded once to f32, then scaled, for the batch and for each query
+    alone; on the CPU the port's dense_topk equals
+    pallas_dense_topk(interpret=True), whose int32 sums are exact, bit for
+    bit: values and ids."""
+    rng = np.random.default_rng(16)
+    rows, b, tile, k = 300, 6, 128, 8
+    x = rng.choice([-1.0, 1.0], size=(rows, d)).astype(np.float32)
+    odd = rng.random((rows, d)) < 0.25
+    x[odd] *= rng.choice(np.arange(1, 127), size=int(odd.sum())) / 127.0
+    q = x[rng.choice(rows, size=b, replace=False)].copy()
+    jc = jdense.build_corpus(jnp.asarray(x), metric="ip", dtype=jnp.int8)
+    codes = np.asarray(jc.values).astype(np.int64)
+    tc = DenseCorpus(values=t(codes.astype(np.int8)),
+                     scales=t(np.asarray(jc.scales)), norms_sq=None)
+    qq, qs, _, _ = dt.prepare(t(q), tc, k, "ip", tile, int8_queries=True)
+    exact = n(qq).astype(np.int64) @ codes.T
+    self_sums = exact.max(1)
+    assert (self_sums > 2 ** 24).all() and (self_sums % 2 == 1).any()
+    want = t(exact.astype(np.float32)) * qs[:, None]
+    assert torch.equal(dt.plain_scores(qq, qs, tc.values, None, None, None, 0, rows), want)
+    for i in range(b):
+        got = dt.plain_scores(qq[i:i + 1], qs[i:i + 1], tc.values, None, None, None, 0, rows)
+        assert torch.equal(got, want[i:i + 1])
+    for per_tile_k in (None, 2):
+        jv, ji = pallas_dense_topk(jnp.asarray(q), jc, k=k, metric="ip", tile=tile,
+                                   interpret=True, int8_queries=True,
+                                   per_tile_k=per_tile_k)
+        tv, ti = dt.dense_topk(t(q), tc, k=k, metric="ip", tile=tile,
+                               int8_queries=True, per_tile_k=per_tile_k,
+                               device="cpu")
+        assert np.array_equal(np.asarray(jv), n(tv))
+        assert np.array_equal(np.asarray(ji), n(ti))
 
 
 @pytest.mark.parametrize("b,tiles,tile,want", [
