@@ -1,7 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (super_rag_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                          # every phase and gate
+    python3 chip_smoke.py --phases http,workflows  # or SMOKE_PHASES=http,workflows
+
+With ``--phases`` (or ``SMOKE_PHASES``) it runs the device, build and two
+[small] phases, then the named phases (from full, wide, serve, ivf,
+ivf-serve, semantic, csr, engine, http, docs, graph, providers,
+workflows) in their usual order, with those that feed them ([serve]
+needs [full], [ivf-serve] needs [ivf]), and lists their kernel rows; an
+unknown phase exits non-zero before anything runs.
 
 Phases, each printing one line with its seconds:
   1. device: the card's name and power limit (nvidia-smi), torch / CUDA;
@@ -53,7 +61,7 @@ Phases, each printing one line with its seconds:
      own words; search_batch(hybrid, rerank, top-100 -> top-5) at batch 32
      (one tensor-core dense_topk launch at D = 256, held bit for bit
      against its plain version; every top-5 among the hybrid top-100),
-     chunk embedding (65,536 texts at [128, 128]), query embedding (512),
+     chunk embedding (16,384 texts at [128, 128]), query embedding (512),
      hybrid without rerank at 512, each forward's FLOPs and bound, and 64
      reranked requests through QueryBatcher(max_batch=32), each with the
      rows of a direct search_batch;
@@ -137,15 +145,35 @@ Phases, each printing one line with its seconds:
      /v1/embeddings`` returns collection O's encoder vectors bit for
      bit, and a second App's collection S, embedded through it, answers
      as O (tensor cores, D = 256); e. no ERROR record;
-  15. a ``{"kernels": [...]}`` JSON line;
-  16. last line: ``{"ok": true, "device": {...}}``.
+  15. the workflows: the App as [http] sets it up, collection A (bf16) of
+     WF_DOCS_A and B (int8) of WF_DOCS_B documents of [http]'s recipe; a
+     saved workflow of the reference's RAG shape (start ->
+     vector_search + fulltext_search over A and B -> merge (rrf) ->
+     rerank (the cross-encoder) -> llm (echoes the top document))
+     created by ``POST /api/v1/workflows`` and edited into a second
+     version, its definition also written as YAML and parsed by the
+     port's parser; WF_SINGLE runs from one client, WF_CONCURRENT from
+     WF_CLIENTS clients, WF_ONE_SHOT one-shot runs of the YAML text and
+     WF_STREAM streamed ones (p50, p99, runs/s, batcher dispatches), one
+     run split into stages; gates: a. statuses, a workflow_run row and
+     one node_run row per node for every run, the streamed events in
+     order; b. each single-client run's node outputs equal an in-process
+     run of the same definition with no batcher (search and merge
+     outputs to the bit, rerank items equal, CE scores within 2e-2); c.
+     every vector_search dispatch launched dense_topk's tensor-core
+     kernel (bf16 for A, int8 for B), held against its plain version at
+     the largest served batch of each; d. the cross-encoder ran on the
+     card once a run; e. a deleted workflow takes its versions and runs;
+     f. no ERROR record;
+  16. a ``{"kernels": [...]}`` JSON line;
+  17. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  There is no CPU path: without a
 CUDA device, or without the package beside it, it exits non-zero and
 prints no result.  Nothing is written under the repo except the kernel
 and analyzer libraries in super_rag_tpu_torch/_build/; the engine, HTTP,
-docs, graph and providers phases' data (the providers' response caches
-too) go to temporary directories that they remove.
+docs, graph, providers and workflows phases' data (the providers'
+response caches too) go to temporary directories that they remove.
 """
 
 from __future__ import annotations
@@ -222,8 +250,8 @@ HTTP_QUERIES = 128  # at 256 the whole smoke ran past 900 s on a slow host ([htt
 HTTP_CLIENTS = 64
 HTTP_TOP_K = 5
 HTTP_CANDIDATES = 100
-HTTP_STAGE_REQUESTS = 32
-HTTP_RESTART_QUERIES = 64
+HTTP_STAGE_REQUESTS = 16  # 32 until the [workflows] phase joined the smoke
+HTTP_RESTART_QUERIES = 32  # a collection; 64 until [workflows] joined
 HTTP_INGEST_TIMEOUT_S = 600.0
 # [docs]: the rest of the search and document routes, the process ingest
 # backend, archives and the image route
@@ -247,7 +275,9 @@ GRAPH_MIN_ENTITIES = 300
 PROV_DIM = 1536  # OpenAI's text-embedding-3-small
 PROV_WIDE_DIM = 3072  # text-embedding-3-large: its kernel rows, over P's shape
 STUB_KEY = "sk-smoke-stub-key"
-PROV_DOCS = 32  # collection P: 32 documents x PROV_SECTIONS sections of the [http] recipe
+# collection P: 16 documents x PROV_SECTIONS sections of the [http] recipe (32
+# until [workflows] joined the smoke: P's ingest and its CPU twin's halve)
+PROV_DOCS = 16
 # 256, not 512: at 512 (16,416 rows) the phase ran 160.7 s on an H100, the CPU
 # twin repeating the host-bound ingest and every App's stop snapshotting it
 PROV_SECTIONS = 256
@@ -260,9 +290,19 @@ PROV_TOP_K = 5
 PROV_CANDIDATES = 100
 PROV_EMBED_BATCH = 64  # RemoteEmbedder's batch
 PROV_MAP_BATCH = 8  # index/summary.py's map batch
+WF_DOCS_A = 16  # [workflows] collection A (bf16): 16 x HTTP_SECTIONS sections, 8,192 chunks
+WF_DOCS_B = 8  # collection B (int8): 4,096 chunks
+WF_SINGLE = 64  # saved-workflow runs from one client
+WF_CONCURRENT = 64  # saved-workflow runs from WF_CLIENTS clients
+WF_CLIENTS = 16
+WF_ONE_SHOT = 16  # POST /workflows/run of the definition's YAML text
+WF_STREAM = 16  # POST /workflows/run/stream
+WF_STAGE_RUNS = 16
+WF_TOP_K = 50  # vector_search and fulltext_search, each over A and B
+WF_RERANK_TOP_K = 5
 SEM_ROWS = 1_000_000
 SEM_WORDS = 128  # words a row's text holds: every (query, row) pair fills 128 tokens
-SEM_CHUNKS = 65_536
+SEM_CHUNKS = 16_384  # 65,536 until [workflows] joined the smoke
 SEM_CHUNK_BATCH = 128
 SEM_QUERY_BATCH = 512
 SEM_RERANK_QUERIES = 32
@@ -1656,7 +1696,7 @@ def phase_semantic(results: dict):
         "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": k_bound,
         "bound_by": k_by, "library_ms": lib_ms}
 
-    # a. chunk embedding, 65,536 texts at [128, 128]
+    # a. chunk embedding, SEM_CHUNKS texts at [128, 128]
     chunks = texts_all[:SEM_CHUNKS]
     ids, mask = enc.tokenizer.encode_batch(chunks[:SEM_CHUNK_BATCH], max_len=seq)
     if ids.shape != (SEM_CHUNK_BATCH, seq):
@@ -2340,16 +2380,18 @@ def _pctl(ms: list, q: float) -> float:
     return float(np.percentile(np.asarray(ms), q))
 
 
-def http_corpus(gen, n_docs: int = None, sections: int = None) -> tuple[list, list]:
+def http_corpus(gen, n_docs: int = None, sections: int = None,
+                n_queries: int = None) -> tuple[list, list]:
     """``n_docs`` (HTTP_DOCS) markdown documents, each a title and
     ``sections`` (HTTP_SECTIONS) sections of HTTP_WORDS zipfian words (the
     [semantic] recipe: words ``t<rank>``, a row's own words repeated by tf),
-    and HTTP_QUERIES distinct queries of discriminative words from random
-    sections."""
+    and ``n_queries`` (HTTP_QUERIES) distinct queries of discriminative
+    words from random sections."""
     from super_rag_tpu_torch.tokenize.analyzer import fnv1a32
 
     n_docs = HTTP_DOCS if n_docs is None else n_docs
     sections = HTTP_SECTIONS if sections is None else sections
+    n_queries = HTTP_QUERIES if n_queries is None else n_queries
     n = n_docs * sections
     ranks = ((_zipf(gen, 1.3, (n, SLOTS)) - 1) % VOCAB).to(torch.int32)
     tfs = torch.clamp(_zipf(gen, 2.0, (n, SLOTS)), max=4)
@@ -2360,9 +2402,9 @@ def http_corpus(gen, n_docs: int = None, sections: int = None) -> tuple[list, li
     first = torch.ones_like(terms, dtype=torch.bool)
     first[:, 1:] = terms[:, 1:] != terms[:, :-1]
     df_host = torch.bincount(terms[first], minlength=VOCAB).cpu().numpy()
-    queries = list(dict.fromkeys(make_query_texts(ranks, df_host, gen, 4 * HTTP_QUERIES)))
-    queries = [q for q in queries if q][:HTTP_QUERIES]
-    if len(queries) < HTTP_QUERIES:
+    queries = list(dict.fromkeys(make_query_texts(ranks, df_host, gen, 4 * n_queries)))
+    queries = [q for q in queries if q][:n_queries]
+    if len(queries) < n_queries:
         raise AssertionError(f"only {len(queries)} distinct queries")
     docs = []
     for d in range(n_docs):
@@ -2420,8 +2462,8 @@ class _Stages:
 
 def _library_topk_bf16(q, values, scales, mask, n, tile, kt):
     """Yardstick only, never used by the port: torch.matmul in bf16 (a
-    cuBLAS GEMM with f32 output) + the same epilogue + torch.topk per tile,
-    in chunks."""
+    cuBLAS GEMM with f32 output; an int8 corpus converted to bf16 chunk by
+    chunk) + the same epilogue + torch.topk per tile, in chunks."""
     b = q.shape[0]
     num_tiles = -(-n // tile)
     out_v = torch.empty((num_tiles, b, kt), dtype=torch.float32, device=DEVICE)
@@ -2429,7 +2471,8 @@ def _library_topk_bf16(q, values, scales, mask, n, tile, kt):
     for t0 in range(0, num_tiles, tiles_per_chunk):
         t1 = min(num_tiles, t0 + tiles_per_chunk)
         r0, r1 = t0 * tile, min(n, t1 * tile)
-        s = torch.matmul(q, values[r0:r1].T).to(torch.float32)
+        v = values[r0:r1]
+        s = torch.matmul(q, (v if v.dtype == q.dtype else v.to(q.dtype)).T).to(torch.float32)
         if scales is not None:
             s = s * scales[None, r0:r1]
         if mask is not None:
@@ -5010,8 +5053,618 @@ def phase_providers(results: dict) -> None:
         port_logger.removeHandler(records)
         shutil.rmtree(tmp, ignore_errors=True)
 
+# -- [workflows]: a saved RAG workflow through the workflow routes ------------
 
-def main() -> int:
+
+def workflow_definition(cids: list, strategy: str = "rrf",
+                        rerank_top_k: int = None) -> dict:
+    """The reference's RAG shape over collections ``cids``: start ->
+    vector_search + fulltext_search (WF_TOP_K each, over every collection)
+    -> merge -> rerank (the App's default reranker) -> llm (no completion
+    model: it echoes the top document, as an offline deployment does)."""
+    return {
+        "name": "rag",
+        "input_schema": {"query": {"type": "string", "default": ""}},
+        "graph": {
+            "nodes": [
+                {"id": "start", "type": "start", "data": {}},
+                {"id": "vs", "type": "vector_search",
+                 "data": {"input_values": {"top_k": WF_TOP_K, "similarity_threshold": 0.0,
+                                           "collection_ids": list(cids)}}},
+                {"id": "fs", "type": "fulltext_search",
+                 "data": {"input_values": {"top_k": WF_TOP_K,
+                                           "collection_ids": list(cids)}}},
+                {"id": "merge", "type": "merge",
+                 "data": {"input_values": {
+                     "vector_docs": "{{ nodes.vs.output.docs }}",
+                     "fulltext_docs": "{{ nodes.fs.output.docs }}",
+                     "strategy": strategy}}},
+                {"id": "rerank", "type": "rerank",
+                 "data": {"input_values": {
+                     "docs": "{{ nodes.merge.output.docs }}",
+                     "top_k": WF_RERANK_TOP_K if rerank_top_k is None else rerank_top_k}}},
+                {"id": "llm", "type": "llm",
+                 "data": {"input_values": {"docs": "{{ nodes.rerank.output.docs }}"}}},
+            ],
+            "edges": [
+                {"source": "start", "target": "vs", "targetHandle": "query"},
+                {"source": "start", "target": "fs", "targetHandle": "query"},
+                {"source": "vs", "target": "merge", "targetHandle": "vector_docs"},
+                {"source": "fs", "target": "merge", "targetHandle": "fulltext_docs"},
+                {"source": "merge", "target": "rerank", "targetHandle": "docs"},
+                {"source": "rerank", "target": "llm", "targetHandle": "docs"},
+            ],
+        },
+    }
+
+
+def workflow_yaml(defn: dict) -> str:
+    """``defn`` written as a user writes YAML by hand: block mappings, an
+    indentless edge list, flow lists and mappings, quoted templates and
+    comments."""
+    lines = ["# the saved RAG workflow", f"name: {defn['name']}", "input_schema:",
+             "  query: {type: string, default: ''}", "graph:", "  nodes:"]
+    for n in defn["graph"]["nodes"]:
+        lines += [f"    - id: {n['id']}", f"      type: {n['type']}"]
+        values = n["data"].get("input_values")
+        if not values:
+            lines.append("      data: {}")
+            continue
+        lines += ["      data:", "        input_values:"]
+        for k, v in values.items():
+            text = (f"[{', '.join(v)}]" if isinstance(v, list)
+                    else f'"{v}"' if isinstance(v, str) else str(v))
+            lines.append(f"          {k}: {text}")
+    lines.append("  edges:  # each into a port of its target")
+    for e in defn["graph"]["edges"]:
+        lines += [f"  - source: {e['source']}", f"    target: {e['target']}",
+                  f"    targetHandle: '{e['targetHandle']}'"]
+    return "\n".join(lines) + "\n"
+
+
+def _sse_events(text: str) -> list:
+    out = []
+    for frame in text.strip().split("\n\n"):
+        name, data = None, []
+        for line in frame.splitlines():
+            if line.startswith("event: "):
+                name = line[len("event: "):]
+            elif line.startswith("data: "):
+                data.append(line[len("data: "):])
+        out.append((name, json.loads("\n".join(data))))
+    return out
+
+
+def phase_workflows(results: dict) -> None:
+    """A saved workflow of the reference's RAG shape on the port's own App
+    at the deployment's defaults, as [http] sets it up (ThreadScheduler
+    ingest, the [semantic] encoder and cross-encoder as checkpoints the
+    port writes, the QueryBatcher): collection A (bf16, the default) of
+    WF_DOCS_A documents and B (int8) of WF_DOCS_B, both of [http]'s
+    recipe; the workflow created by ``POST /api/v1/workflows``, edited into
+    a second version by ``POST .../versions``, and its definition also
+    written as YAML and parsed by the port's parser; WF_SINGLE runs of it
+    from one client, WF_CONCURRENT from WF_CLIENTS clients, WF_ONE_SHOT
+    one-shot runs of the YAML text and WF_STREAM streamed ones; one run
+    split into stages; gates a-f."""
+    import dataclasses
+    import logging
+    import shutil
+    import tempfile
+    import threading
+
+    from super_rag_tpu_torch.api.http import HttpServer
+    from super_rag_tpu_torch.config import Settings
+    from super_rag_tpu_torch.engine.batcher import QueryBatcher
+    from super_rag_tpu_torch.engine.collection import CollectionEngine
+    from super_rag_tpu_torch.models.encoder import flax_params
+    from super_rag_tpu_torch.models.encoder_service import EncoderService, save_params
+    from super_rag_tpu_torch.nodeflow.engine import NodeflowEngine
+    from super_rag_tpu_torch.nodeflow.models import SystemInput
+    from super_rag_tpu_torch.nodeflow.parser import NodeflowParser
+    from super_rag_tpu_torch.ops import dense_topk as dt
+    from super_rag_tpu_torch.service.rerank_service import RerankService
+    from super_rag_tpu_torch.service.workflow_service import WorkflowService
+    from super_rag_tpu_torch.store.db import Database
+
+    card = results["card"]
+    t_phase = time.perf_counter()
+
+    def wlog(msg: str) -> None:
+        log(f"[workflows] {msg} (on {card})")
+
+    class _Errors(logging.Handler):
+        def __init__(self):
+            super().__init__(level=logging.ERROR)
+            self.records = []
+
+        def emit(self, record):
+            self.records.append(f"{record.name}: {record.getMessage()}")
+
+    errors = _Errors()
+    port_logger = logging.getLogger("super_rag_tpu_torch")
+    port_logger.addHandler(errors)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_workflows_")
+    srv = None
+    c = None
+    try:
+        # -- the deployment, as [http] sets it up
+        t0 = time.perf_counter()
+        cfg = semantic_config(torch.bfloat16)
+        enc = EncoderService(cfg, max_len=cfg.max_len, seed=SEED, device=DEVICE)
+        rr = RerankService(cfg, max_len=cfg.max_len, seed=SEED + 1, device=DEVICE)
+        save_params(flax_params(enc.model), os.path.join(tmp, "enc"), cfg)
+        save_params(flax_params(rr.model), os.path.join(tmp, "ce"), cfg)
+        del enc, rr
+        settings = dataclasses.replace(
+            Settings(), data_dir=os.path.join(tmp, "data"), port=0,
+            reranker_checkpoint=os.path.join(tmp, "ce"), ingest_backend="thread",
+            batch_max=64, chunk_size=400, encoder_checkpoint="")
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 41)
+        n_queries = WF_SINGLE + WF_CONCURRENT + WF_ONE_SHOT + WF_STREAM
+        docs, queries = http_corpus(gen, WF_DOCS_A + WF_DOCS_B, HTTP_SECTIONS, n_queries)
+        q_single = queries[:WF_SINGLE]
+        q_conc = queries[WF_SINGLE:WF_SINGLE + WF_CONCURRENT]
+        q_once = queries[WF_SINGLE + WF_CONCURRENT:n_queries - WF_STREAM]
+        q_stream = queries[n_queries - WF_STREAM:]
+        srv = _AppThread(settings)
+        port = srv.app.port
+        c = _Client(port)
+        _expect(*c.call("POST", "/api/v1/auth/register",
+                        {"username": "smoke", "password": "smoke-password"}), 201,
+                "register")
+        c.close()
+        token = _login(port)
+        c = _Client(port, token)
+        colls = {}
+        for name, extra in (("A", {}), ("B", {"index_dtype": "int8"})):
+            config = {"embedding": {"provider": "onboard",
+                                    "model": os.path.join(tmp, "enc")}, **extra}
+            colls[name] = _expect(*c.call("POST", "/api/v1/collections",
+                                          {"title": name, "config": config}), 201,
+                                  f"create collection {name}")["id"]
+        engines = {name: srv.app.ctx.engines.get(cid) for name, cid in colls.items()}
+        for name, want in (("A", torch.bfloat16), ("B", torch.int8)):
+            if engines[name].index.spec.dtype != want:
+                raise AssertionError(f"collection {name} stores "
+                                     f"{engines[name].index.spec.dtype}")
+        reranker = srv.app.ctx.services_for_nodeflow()["reranker"]
+        if not (isinstance(reranker, RerankService)
+                and reranker.device.type == torch.device(DEVICE).type):
+            raise AssertionError(f"gate d: the workflows' reranker is "
+                                 f"{type(reranker).__name__}")
+        wlog(f"App on port {port} (ThreadScheduler ingest, batch_max {settings.batch_max}); "
+             f"encoder and cross-encoder {cfg.num_layers} x {cfg.hidden_dim} bf16 from "
+             f"checkpoints the port wrote; collections A (bf16) and B (int8); set-up "
+             f"{time.perf_counter() - t0:.2f} s")
+
+        # -- ingest: A and B, every document COMPLETE
+        t1 = time.perf_counter()
+        for name, mine in (("A", docs[:WF_DOCS_A]), ("B", docs[WF_DOCS_A:])):
+            cid = colls[name]
+            for dname, text in mine:
+                _expect(*c.call("POST", f"/api/v1/collections/{cid}/documents",
+                                {"name": dname, "content": text}), 201, "upload")
+        for name, count in (("A", WF_DOCS_A), ("B", WF_DOCS_B)):
+            while True:
+                listing = _expect(*c.call("GET", f"/api/v1/collections/{colls[name]}"
+                                                 f"/documents"), 200, "list documents")
+                status = [d["status"] for d in listing]
+                if "FAILED" in status:
+                    raise AssertionError(f"a document of {name} FAILED")
+                if len(status) == count and set(status) == {"COMPLETE"}:
+                    break
+                if time.perf_counter() - t1 > HTTP_INGEST_TIMEOUT_S:
+                    raise AssertionError(f"ingest of {name} not complete")
+                time.sleep(0.1)
+            want = count * HTTP_SECTIONS
+            if engines[name].index.live_count != want:
+                raise AssertionError(f"{name} holds {engines[name].index.live_count} chunks, "
+                                     f"expected {want}")
+        wlog(f"ingest: A {WF_DOCS_A} documents ({WF_DOCS_A * HTTP_SECTIONS} chunks), B "
+             f"{WF_DOCS_B} ({WF_DOCS_B * HTTP_SECTIONS} chunks), every document COMPLETE "
+             f"after {time.perf_counter() - t1:.3f} s")
+        # warm each collection once: its first search compacts the lexical
+        # index and calibrates the per-tile cap (not part of the timed runs)
+        for cid in colls.values():
+            _expect(*c.call("POST", f"/api/v1/collections/{cid}/searches",
+                            {"query": queries[0], "use_rerank": False}), 201, "warm-up")
+
+        # -- the saved workflow: version 1, then version 2 by POST .../versions;
+        # its YAML text parses to the same flow as its JSON
+        cids = [colls["A"], colls["B"]]
+        defn = workflow_definition(cids)
+        first = _expect(*c.call("POST", "/api/v1/workflows", {
+            "title": "rag", "definition": workflow_definition(cids, "union", 3)}), 201,
+            "create workflow")
+        wid = first["id"]
+        v2 = _expect(*c.call("POST", f"/api/v1/workflows/{wid}/versions",
+                             {"definition": defn}), 201, "new version")
+        got = _expect(*c.call("GET", f"/api/v1/workflows/{wid}"), 200, "get workflow")
+        if (first["version"], v2["version"], got["version"]) != (1, 2, 2) or \
+                got["definition"] != defn:
+            raise AssertionError(f"gate a: versions {first['version']}, {v2['version']}, "
+                                 f"{got['version']}")
+        versions = _expect(*c.call("GET", f"/api/v1/workflows/{wid}/versions"), 200,
+                           "versions")
+        if [v["version"] for v in versions] != [1, 2]:
+            raise AssertionError(f"gate a: versions {[v['version'] for v in versions]}")
+        yaml_text = workflow_yaml(defn)
+        parser = NodeflowParser()
+        from_json, from_yaml = parser.parse(defn), parser.parse(yaml_text)
+        if (dataclasses.asdict(from_json[0]), from_json[1]) != \
+                (dataclasses.asdict(from_yaml[0]), from_yaml[1]):
+            raise AssertionError("the YAML text parses to another flow than the JSON")
+        wlog(f"workflow {wid}: version 1 by POST /api/v1/workflows, version 2 by POST "
+             f".../versions (the runs use it); its {len(yaml_text.splitlines())}-line YAML "
+             f"text parses to the JSON's flow ({len(from_json[0].nodes)} nodes, "
+             f"{len(from_json[0].edges)} edges)")
+
+        # -- the traffic, with the dense dispatches and the cross-encoder counted
+        real_tile_topk = dt.tile_topk
+        real_search_batch = CollectionEngine.search_batch
+        real_rerank = RerankService.__call__
+        name_of = {id(eng): name for name, eng in engines.items()}
+        local = threading.local()
+        dense: dict = {"A": 0, "B": 0}
+        biggest: dict = {}
+        ce_calls = [0]
+
+        def search_batch(self, queries_, *a, **kw):
+            local.name = name_of.get(id(self)) if kw.get("mode") == "dense" else None
+            if local.name is not None:
+                dense[local.name] += 1
+            try:
+                return real_search_batch(self, queries_, *a, **kw)
+            finally:
+                local.name = None
+
+        def tile_topk(*args):
+            name = getattr(local, "name", None)
+            if name is not None and args[0].shape[0] >= biggest.get(
+                    name, (torch.empty(0),))[0].shape[0]:
+                biggest[name] = args
+            return real_tile_topk(*args)
+
+        def rerank(self, *a, **kw):
+            ce_calls[0] += 1
+            return real_rerank(self, *a, **kw)
+
+        runs: dict = {}
+        served: list = []
+        run_ids: list = []
+        _reset_counts()
+        with mock.patch.object(dt, "tile_topk", tile_topk), \
+                mock.patch.object(CollectionEngine, "search_batch", search_batch), \
+                mock.patch.object(RerankService, "__call__", rerank):
+            m0 = _metrics(port, token)
+            lat = []
+            for q in q_single:
+                t1 = time.perf_counter()
+                out = _expect(*c.call("POST", f"/api/v1/workflows/{wid}/run",
+                                      {"inputs": {"query": q}}), 200, "run")
+                lat.append((time.perf_counter() - t1) * 1e3)
+                served.append(out)
+                run_ids.append(out["run_id"])
+            m1 = _metrics(port, token)
+            runs["saved, 1 client"] = {"p50": _pctl(lat, 50), "p99": _pctl(lat, 99),
+                                       "runs_s": len(lat) / (sum(lat) / 1e3),
+                                       "dispatches": m1["dispatches"] - m0["dispatches"]}
+
+            per = WF_CONCURRENT // WF_CLIENTS
+            clat: list = []
+            cfail: list = []
+            barrier = threading.Barrier(WF_CLIENTS + 1)
+
+            def client(k):
+                cc = _Client(port, token)
+                try:
+                    barrier.wait()
+                    for q in q_conc[k * per:(k + 1) * per]:
+                        t2 = time.perf_counter()
+                        st, body = cc.call("POST", f"/api/v1/workflows/{wid}/run",
+                                           {"inputs": {"query": q}})
+                        clat.append((time.perf_counter() - t2) * 1e3)
+                        if st != 200 or body.get("status") != "SUCCESS":
+                            cfail.append((st, str(body)[:200]))
+                        else:
+                            run_ids.append(body["run_id"])
+                finally:
+                    cc.close()
+
+            threads = [threading.Thread(target=client, args=(k,)) for k in range(WF_CLIENTS)]
+            for th in threads:
+                th.start()
+            barrier.wait()
+            t1 = time.perf_counter()
+            for th in threads:
+                th.join(600)
+            cwall = time.perf_counter() - t1
+            if cfail or any(th.is_alive() for th in threads):
+                raise AssertionError(f"gate a: concurrent runs failed: {cfail[:3]}")
+            m2 = _metrics(port, token)
+            runs[f"saved, {WF_CLIENTS} clients"] = {
+                "p50": _pctl(clat, 50), "p99": _pctl(clat, 99), "runs_s": len(clat) / cwall,
+                "dispatches": m2["dispatches"] - m1["dispatches"]}
+
+            lat = []
+            once = []
+            for q in q_once:
+                t1 = time.perf_counter()
+                out = _expect(*c.call("POST", "/api/v1/workflows/run",
+                                      {"definition": yaml_text, "inputs": {"query": q}}),
+                              200, "one-shot run")
+                lat.append((time.perf_counter() - t1) * 1e3)
+                once.append(out)
+                run_ids.append(out["run_id"])
+            m3 = _metrics(port, token)
+            runs["one-shot (YAML), 1 client"] = {
+                "p50": _pctl(lat, 50), "p99": _pctl(lat, 99),
+                "runs_s": len(lat) / (sum(lat) / 1e3),
+                "dispatches": m3["dispatches"] - m2["dispatches"]}
+
+            lat = []
+            streams = []
+            for q in q_stream:
+                t1 = time.perf_counter()
+                st, text = c.call("POST", "/api/v1/workflows/run/stream",
+                                  {"definition": defn, "inputs": {"query": q}})
+                lat.append((time.perf_counter() - t1) * 1e3)
+                _expect(st, text, 200, "streamed run")
+                streams.append(_sse_events(text))
+                run_ids.append(streams[-1][-1][1]["run_id"])
+            m4 = _metrics(port, token)
+            runs["streamed, 1 client"] = {
+                "p50": _pctl(lat, 50), "p99": _pctl(lat, 99),
+                "runs_s": len(lat) / (sum(lat) / 1e3),
+                "dispatches": m4["dispatches"] - m3["dispatches"]}
+            launched = _counts()
+        torch.cuda.synchronize()
+        n_runs = len(run_ids)
+        for what, r in runs.items():
+            wlog(f"{what}: p50 {r['p50']:.3f} ms, p99 {r['p99']:.3f} ms, "
+                 f"{r['runs_s']:.2f} runs/s; batcher {r['dispatches']:.0f} dispatches")
+
+        # -- gate a: statuses, the stored rows, the streamed events
+        node_ids = [n["id"] for n in defn["graph"]["nodes"]]
+        for out in served + once:
+            if out["status"] != "SUCCESS" or sorted(out["outputs"]) != sorted(node_ids):
+                raise AssertionError(f"gate a: run {out['run_id']} answered "
+                                     f"{out['status']} with nodes {list(out['outputs'])}")
+        for rid in run_ids:
+            row = _expect(*c.call("GET", f"/api/v1/workflow-runs/{rid}"), 200, "run row")
+            kinds = sorted((nr["node_id"], nr["status"]) for nr in row["node_runs"])
+            if row["status"] != "SUCCESS" or kinds != sorted((n, "SUCCESS")
+                                                             for n in node_ids):
+                raise AssertionError(f"gate a: run {rid} row {row['status']}, node rows "
+                                     f"{kinds}")
+        listed = _expect(*c.call("GET", f"/api/v1/workflows/{wid}/runs"), 200, "runs")
+        if len(listed) != WF_SINGLE + WF_CONCURRENT or any(r["version"] != 2 for r in listed):
+            raise AssertionError(f"gate a: the workflow lists {len(listed)} runs")
+        levels = {"start": 0, "vs": 1, "fs": 1, "merge": 2, "rerank": 3, "llm": 4}
+        for events in streams:
+            names = [n for n, _ in events]
+            per_node = sorted((n, d.get("node_id")) for n, d in events
+                              if n in ("NODE_START", "NODE_END"))
+            order = [levels[d["node_id"]] for n, d in events
+                     if n in ("NODE_START", "NODE_END")]
+            if (names[0] != "FLOW_START" or names[-2:] != ["FLOW_END", "RESULT"]
+                    or per_node != sorted([("NODE_START", n) for n in node_ids]
+                                          + [("NODE_END", n) for n in node_ids])
+                    or order != sorted(order) or events[-1][1]["status"] != "SUCCESS"):
+                raise AssertionError(f"gate a: streamed events {names}")
+        wlog(f"gate a: {n_runs} runs answered SUCCESS; each has a workflow_run row SUCCESS "
+             f"and one node_run row SUCCESS per node ({len(node_ids)}); the workflow lists "
+             f"its {len(listed)} runs at version 2; each of {WF_STREAM} streams is FLOW_START, "
+             f"NODE_START / NODE_END per node level by level, FLOW_END, RESULT")
+
+        # -- gate b: each single-client run against an in-process run of the
+        # same definition on the same App with no batcher
+        flow, defaults = from_json
+        services = {**srv.app.ctx.services_for_nodeflow(), "batcher": None}
+        loop = asyncio.new_event_loop()
+        worst = 0.0
+        sizes = {"vs": 0, "fs": 0, "merge": 0}
+        try:
+            for q, out in zip(q_single, served):
+                ctx = loop.run_until_complete(NodeflowEngine().execute_nodeflow(
+                    flow, SystemInput(query=q, user="smoke"),
+                    globals_={**defaults, "query": q}, services=services))
+                want = {nid: o.model_dump() for nid, o in ctx.outputs.items()}
+                got = out["outputs"]
+                for nid in ("vs", "fs", "merge"):
+                    if not got[nid]["docs"] and nid != "merge":
+                        raise AssertionError(f"gate b: {nid} answered no document for {q!r}")
+                    if got[nid] != want[nid]:
+                        raise AssertionError(f"gate b: {nid} served != in-process for {q!r}")
+                    sizes[nid] += len(got[nid]["docs"])
+                key = lambda d: (d["text"], d["metadata"], d["recall_type"])  # noqa: E731
+                g, w = got["rerank"]["docs"], want["rerank"]["docs"]
+                if [key(d) for d in g] != [key(d) for d in w] or len(g) != WF_RERANK_TOP_K:
+                    raise AssertionError(f"gate b: rerank served != in-process for {q!r}")
+                worst = max(worst, _close(torch.tensor([d["score"] for d in g]),
+                                          torch.tensor([d["score"] for d in w]), 2e-2))
+                if got["llm"]["text"] != g[0]["text"]:
+                    raise AssertionError(f"gate b: llm answered another text for {q!r}")
+        finally:
+            loop.close()
+        wlog(f"gate b: each of {WF_SINGLE} single-client runs equals an in-process run of the "
+             f"same definition on the same App with no batcher: vector_search (mean "
+             f"{sizes['vs'] / WF_SINGLE:.1f} documents), fulltext_search "
+             f"({sizes['fs'] / WF_SINGLE:.1f}) and merge ({sizes['merge'] / WF_SINGLE:.1f}) "
+             f"to the bit; rerank items equal, CE scores within {worst:.3g} (1 + |s|) "
+             f"(limit 2e-2); the llm text the top reranked text")
+
+        # -- gate c: each dense dispatch launched the tensor-core kernel in
+        # the collection's mode; the kernel at the largest served batch
+        sms = dt._sm_count(torch.cuda.current_device())
+        # the dense route quantizes no query: bf16 queries over A's bf16
+        # rows and over B's int8 rows
+        want_keys = {"A": TC_MODE_KEYS[dt.MODE_BF16], "B": TC_MODE_KEYS[dt.MODE_INT8_BF16]}
+        got_launched = {k: v for k, v in launched.items() if v}
+        if launched["dense_topk_simt"] or any(
+                launched[want_keys[n]] != dense[n] or dense[n] < 1 for n in dense):
+            raise AssertionError(f"gate c: dense dispatches {dense}, launches {got_launched}")
+        for name in ("A", "B"):
+            q, _, values, *_, n_scan, tile, kt = biggest[name]
+            mode = dt._mode(q, values)
+            variant = dt.kernel_variant(mode, kt, q.shape[1], q.shape[0],
+                                        -(-n_scan // tile), sms)
+            if variant == "simt" or TC_MODE_KEYS[mode] != want_keys[name]:
+                raise AssertionError(f"gate c: {name} took {variant} in mode {mode}")
+            row = _served_kernel_row(biggest[name], launched[want_keys[name]], dense[name],
+                                     wlog)
+            results[f"dense_topk_workflow_{'bf16' if name == 'A' else 'int8'}"] = row
+        wlog(f"gate c: every vector_search dispatch launched dense_topk's tensor-core kernel "
+             f"in its collection's mode (A {dense['A']} dispatches, bf16 x bf16; B "
+             f"{dense['B']}, bf16 queries x int8 rows), none the SIMT one; counters "
+             f"{got_launched}")
+
+        # -- gate d: the cross-encoder ran on the card, once a run
+        if ce_calls[0] != n_runs:
+            raise AssertionError(f"gate d: {ce_calls[0]} cross-encoder calls over {n_runs} "
+                                 f"runs")
+        wlog(f"gate d: the cross-encoder ({reranker.device}) ran {ce_calls[0]} times, once "
+             f"for each run's rerank node")
+
+        # -- one saved run split into stages, by wrapped methods
+        st_ = _Stages()
+        st_.wrap_async(HttpServer, "_dispatch", "dispatch")
+        st_.wrap_async(WorkflowService, "run_definition", "service")
+        st_.wrap_sync(NodeflowParser, "parse", "parse")
+        for attr in ("create_workflow_run", "add_node_run", "finish_workflow_run"):
+            st_.wrap_sync(Database, attr, "db")
+        st_.wrap_async(QueryBatcher, "search", "batcher")
+        st_.wrap_sync(CollectionEngine, "search_batch", "search_batch", sync=True)
+        st_.wrap_sync(RerankService, "__call__", "rerank", sync=True)
+        real_node = NodeflowEngine._execute_node
+
+        async def node(self, n, *a, **kw):
+            t2 = time.perf_counter()
+            try:
+                return await real_node(self, n, *a, **kw)
+            finally:
+                st_._add(f"node {n.id}", t2)
+        st_.patches.append(mock.patch.object(NodeflowEngine, "_execute_node", node))
+        client_ms = []
+        with st_:
+            for q in q_single[:WF_STAGE_RUNS]:
+                t1 = time.perf_counter()
+                _expect(*c.call("POST", f"/api/v1/workflows/{wid}/run",
+                                {"inputs": {"query": q}}), 200, "staged run")
+                client_ms.append((time.perf_counter() - t1) * 1e3)
+            deadline = time.perf_counter() + 5.0
+            while (len(st_.ms.get("dispatch", ())) < WF_STAGE_RUNS
+                   and time.perf_counter() < deadline):
+                time.sleep(0.01)
+        per_run = {k: np.asarray(v).reshape(WF_STAGE_RUNS, -1).sum(axis=1)
+                   for k, v in st_.ms.items()}
+        per_run["client"] = np.asarray(client_ms)
+        split = {
+            "client total": per_run["client"],
+            "HTTP + client (outside the handler)": per_run["client"] - per_run["dispatch"],
+            "route + auth + audit": per_run["dispatch"] - per_run["service"],
+            "parse": per_run["parse"],
+            "db writes (run row, node rows, finish)": per_run["db"],
+            **{f"node {n} (with its node_run row)": per_run[f"node {n}"]
+               for n in node_ids},
+            "  batcher wait (4 searches, summed; vs and fs overlap)":
+                per_run["batcher"] - per_run["search_batch"],
+            "  device searches (4 search_batch calls, summed)": per_run["search_batch"],
+            "  rerank (CrossEncoder)": per_run["rerank"],
+        }
+        stages = {k: float(np.median(v)) for k, v in split.items()}
+        wlog(f"stages of one saved run (median of {WF_STAGE_RUNS}; vs and fs run together): "
+             + "; ".join(f"{k.strip()} {v:.3f} ms" for k, v in stages.items()))
+
+        # -- gate e: the delete takes the versions and runs with it
+        _expect(*c.call("DELETE", f"/api/v1/workflows/{wid}"), 204, "delete workflow")
+        _expect(*c.call("GET", f"/api/v1/workflows/{wid}"), 404, "deleted workflow")
+        _expect(*c.call("GET", f"/api/v1/workflows/{wid}/versions"), 404, "its versions")
+        _expect(*c.call("GET", f"/api/v1/workflow-runs/{run_ids[0]}"), 404, "its run")
+        left = srv.app.ctx.db.query_one(
+            "SELECT (SELECT COUNT(*) FROM workflow_version WHERE workflow_id=?) AS v,"
+            " (SELECT COUNT(*) FROM workflow_run WHERE workflow_id=?) AS r", (wid, wid))
+        if left["v"] or left["r"]:
+            raise AssertionError(f"gate e: {left} rows left")
+        wlog("gate e: DELETE /api/v1/workflows/{wid} answered 204; the workflow, its "
+             "versions and its runs answer 404 and no row of them is left")
+
+        # -- gate f: no ERROR record
+        if errors.records:
+            raise AssertionError(f"gate f: {len(errors.records)} ERROR records: "
+                                 f"{errors.records[:3]}")
+        results["workflows"] = {"runs": runs, "stages": stages,
+                                "phase_s": time.perf_counter() - t_phase}
+        wlog("gates a-f passed; no ERROR record from the port's loggers")
+    finally:
+        if c is not None:
+            c.close()  # the server's stop waits for its open connections
+        if srv is not None:
+            srv.stop()
+        port_logger.removeHandler(errors)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# the phases after [small], in the order they run; a phase that another
+# feeds (its index and texts) pulls that one in
+PHASES = ("full", "wide", "serve", "ivf", "ivf-serve", "semantic", "csr", "engine", "http",
+          "docs", "graph", "providers", "workflows")
+PHASE_NEEDS = {"serve": ("full",), "ivf-serve": ("ivf",)}
+_DT = "super_rag_tpu/ops/pallas_topk.py:36"
+# each row of the kernels line: (name, source, replaces, key in results, phase)
+KERNEL_ROWS = (
+    ("dense_topk", "dense_topk.cu", _DT, "dense_topk", "full"),
+    ("dense_topk_10m", "dense_topk.cu", _DT, "dense_topk_10m", "csr"),
+    ("ivf_union", "ivf_scan.cu", "super_rag_tpu/ops/pallas_ivf.py:93", "ivf_union", "ivf"),
+    ("ivf_probe", "ivf_scan.cu", "super_rag_tpu/ops/pallas_ivf.py:48", "ivf_probe", "ivf"),
+    *((f"dense_topk_http_{t}", "dense_topk.cu", _DT, f"dense_topk_http_{t}", phase)
+      for t, phase in (("bf16", "http"), ("bf16_rerank", "http"), ("int8", "http"),
+                       ("int8_rerank", "http"), ("image", "docs"), ("graph", "graph"),
+                       ("remote", "providers"), ("remote_rerank", "providers"),
+                       (f"remote_{PROV_WIDE_DIM}", "providers"),
+                       (f"remote_rerank_{PROV_WIDE_DIM}", "providers"))),
+    ("dense_topk_1m_wide", "dense_topk.cu", _DT, "dense_topk_1m_wide", "wide"),
+    ("dense_topk_workflow_bf16", "dense_topk.cu", _DT, "dense_topk_workflow_bf16",
+     "workflows"),
+    ("dense_topk_workflow_int8", "dense_topk.cu", _DT, "dense_topk_workflow_int8",
+     "workflows"),
+)
+
+
+def select_phases(argv: list, env: dict) -> list:
+    """The phases to run, in their usual order: every one with no
+    selection, else those of ``--phases a,b`` (or ``SMOKE_PHASES=a,b``) and
+    the phases they need.  An unknown phase or argument raises ValueError."""
+    names = None
+    args = list(argv)
+    while args:
+        arg = args.pop(0)
+        if arg == "--phases" and args:
+            names = args.pop(0)
+        elif arg.startswith("--phases="):
+            names = arg[len("--phases="):]
+        else:
+            raise ValueError(f"unknown argument {arg!r} (usage: chip_smoke.py "
+                             f"[--phases {','.join(PHASES)}])")
+    if names is None:
+        names = env.get("SMOKE_PHASES") or ",".join(PHASES)
+    wanted = {n.strip() for n in names.split(",") if n.strip()}
+    unknown = sorted(wanted - set(PHASES))
+    if unknown or not wanted:
+        raise ValueError(f"unknown phase(s) {unknown or names!r}; the phases are "
+                         f"{', '.join(PHASES)}")
+    for name in list(wanted):
+        wanted.update(PHASE_NEEDS.get(name, ()))
+    return [p for p in PHASES if p in wanted]
+
+
+def main(argv: list = None) -> int:
+    try:
+        phases = select_phases(sys.argv[1:] if argv is None else argv, os.environ)
+    except ValueError as e:
+        print(f"chip_smoke: {e}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script has no CPU path",
               file=sys.stderr)
@@ -5032,7 +5685,7 @@ def main() -> int:
     log(smi)
     log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, {torch.cuda.get_device_name(0)} "
-        f"({time.perf_counter() - t0:.2f} s)")
+        f"({time.perf_counter() - t0:.2f} s); phases {', '.join(phases)}")
 
     import threading
 
@@ -5061,82 +5714,52 @@ def main() -> int:
     log(f"[small] IVF kernels vs plain versions: {cases} cases agree in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    results: dict = {"card": smi}
-    t0 = time.perf_counter()
-    idx, texts, embedder = phase_full(results)
-    log(f"[full] phase in {time.perf_counter() - t0:.2f} s")
+    # later phases add their extras to the full-size row's entry
+    results: dict = {"card": smi, "dense_topk": {}}
+    fed: dict = {}
 
-    t0 = time.perf_counter()
-    phase_wide(results)
-    log(f"[wide] phase in {time.perf_counter() - t0:.2f} s")
-    torch.cuda.empty_cache()
+    def run(name: str, fn) -> None:
+        if name not in phases:
+            return
+        t0 = time.perf_counter()
+        fn()
+        tail = f" (on {smi})" if PHASES.index(name) >= PHASES.index("http") else ""
+        log(f"[{name}] phase in {time.perf_counter() - t0:.2f} s{tail}")
+        torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    phase_serve(idx, texts, embedder)
-    log(f"[serve] phase in {time.perf_counter() - t0:.2f} s")
-    del idx, texts, embedder
-    torch.cuda.empty_cache()
+    def full():
+        out = phase_full(results)
+        if "serve" in phases:
+            fed["full"] = out
 
-    t0 = time.perf_counter()
-    idx, texts = phase_ivf(results)
-    log(f"[ivf] phase in {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    phase_ivf_serve(idx, texts)
-    log(f"[ivf-serve] phase in {time.perf_counter() - t0:.2f} s")
-    del idx, texts
-    torch.cuda.empty_cache()
+    def serve():
+        phase_serve(*fed.pop("full"))
 
-    t0 = time.perf_counter()
-    phase_semantic(results)
-    log(f"[semantic] phase in {time.perf_counter() - t0:.2f} s")
-    torch.cuda.empty_cache()
+    def ivf():
+        out = phase_ivf(results)
+        if "ivf-serve" in phases:
+            fed["ivf"] = out
 
-    t0 = time.perf_counter()
-    phase_csr(results)
-    log(f"[csr] phase in {time.perf_counter() - t0:.2f} s")
-    torch.cuda.empty_cache()
+    def ivf_serve():
+        phase_ivf_serve(*fed.pop("ivf"))
 
-    t0 = time.perf_counter()
-    phase_engine(results)
-    log(f"[engine] phase in {time.perf_counter() - t0:.2f} s")
-    torch.cuda.empty_cache()
-
-    t0 = time.perf_counter()
-    phase_http(results)
-    log(f"[http] phase in {time.perf_counter() - t0:.2f} s (on {smi})")
-
-    t0 = time.perf_counter()
-    phase_docs(results)
-    log(f"[docs] phase in {time.perf_counter() - t0:.2f} s (on {smi})")
-
-    t0 = time.perf_counter()
-    phase_graph(results)
-    log(f"[graph] phase in {time.perf_counter() - t0:.2f} s (on {smi})")
-
-    t0 = time.perf_counter()
-    phase_providers(results)
-    log(f"[providers] phase in {time.perf_counter() - t0:.2f} s (on {smi})")
+    for name, fn in (("full", full), ("wide", lambda: phase_wide(results)),
+                     ("serve", serve), ("ivf", ivf), ("ivf-serve", ivf_serve),
+                     ("semantic", lambda: phase_semantic(results)),
+                     ("csr", lambda: phase_csr(results)),
+                     ("engine", lambda: phase_engine(results)),
+                     ("http", lambda: phase_http(results)),
+                     ("docs", lambda: phase_docs(results)),
+                     ("graph", lambda: phase_graph(results)),
+                     ("providers", lambda: phase_providers(results)),
+                     ("workflows", lambda: phase_workflows(results))):
+        run(name, fn)
 
     source = "super_rag_tpu_torch/csrc/"
     kernels = {"kernels": [
-        {"name": "dense_topk", "route": "cuda", "source": source + "dense_topk.cu",
-         "replaces": "super_rag_tpu/ops/pallas_topk.py:36", **results["dense_topk"]},
-        {"name": "dense_topk_10m", "route": "cuda", "source": source + "dense_topk.cu",
-         "replaces": "super_rag_tpu/ops/pallas_topk.py:36", **results["dense_topk_10m"]},
-        {"name": "ivf_union", "route": "cuda", "source": source + "ivf_scan.cu",
-         "replaces": "super_rag_tpu/ops/pallas_ivf.py:93", **results["ivf_union"]},
-        {"name": "ivf_probe", "route": "cuda", "source": source + "ivf_scan.cu",
-         "replaces": "super_rag_tpu/ops/pallas_ivf.py:48", **results["ivf_probe"]},
-        *({"name": f"dense_topk_http_{t}", "route": "cuda",
-           "source": source + "dense_topk.cu",
-           "replaces": "super_rag_tpu/ops/pallas_topk.py:36",
-           **results[f"dense_topk_http_{t}"]}
-          for t in ("bf16", "bf16_rerank", "int8", "int8_rerank", "image", "graph",
-                    "remote", "remote_rerank", f"remote_{PROV_WIDE_DIM}",
-                    f"remote_rerank_{PROV_WIDE_DIM}")),
-        {"name": "dense_topk_1m_wide", "route": "cuda", "source": source + "dense_topk.cu",
-         "replaces": "super_rag_tpu/ops/pallas_topk.py:36", **results["dense_topk_1m_wide"]},
-    ]}
+        {"name": name, "route": "cuda", "source": source + src, "replaces": replaces,
+         **results[key]}
+        for name, src, replaces, key, phase in KERNEL_ROWS if phase in phases]}
     log(f"[done] wall {time.perf_counter() - t_start:.2f} s")
     log(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

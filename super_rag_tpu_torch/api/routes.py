@@ -14,9 +14,13 @@ graph's labels, subgraph (also under the ``/graphs`` spelling), stats,
 combined search, node and episode search and BFS expansion; the prompt
 templates; the model providers (CRUD, keys, models, the masked
 configuration, default models by scenario tag, the available-model
-listings); and ``POST /v1/embeddings``, a collection's embedder served as
-an OpenAI-compatible provider.  Every other route of the JAX package
-waits (ROADMAP A6f-A6i); its URL answers 404, as any unknown route does.
+listings); ``POST /v1/embeddings``, a collection's embedder served as
+an OpenAI-compatible provider; the workflows (CRUD, versions, runs and
+their node runs, a saved workflow's run, a one-shot run and its SSE
+stream) and the nodeflow catalog (node types, packs).  Every other route
+of the JAX package (sharing, the marketplace and the audit log, chats
+and agents, MCP and the web console: ROADMAP A6g-A6i) waits; its URL
+answers 404, as any unknown route does.
 """
 
 from __future__ import annotations
@@ -38,11 +42,14 @@ from super_rag_tpu_torch.api.auth import COOKIE_NAME
 from super_rag_tpu_torch.api.http import HttpError, Request, Response, Router
 from super_rag_tpu_torch.llm import resolver as R
 from super_rag_tpu_torch.llm.prompts import list_templates
+from super_rag_tpu_torch.nodeflow.models import node_type_catalog
+from super_rag_tpu_torch.nodeflow.registry import registry_summary
 from super_rag_tpu_torch.schema import view_models as vm
 from super_rag_tpu_torch.schema.view_models import parse_body
 from super_rag_tpu_torch.service.collection_service import CollectionService
 from super_rag_tpu_torch.service.context import AppContext
 from super_rag_tpu_torch.service.document_service import DocumentService
+from super_rag_tpu_torch.service.workflow_service import WorkflowService
 from super_rag_tpu_torch.models.image_decode import UnsupportedImageError
 from super_rag_tpu_torch.store.objectstore import is_upload_id, safe_object_name
 from super_rag_tpu_torch.utils.uncompress import iter_archive, supported_archive
@@ -52,6 +59,7 @@ def build_router(ctx: AppContext) -> Router:
     router = Router()
     collections = CollectionService(ctx)
     documents = DocumentService(ctx, collections)
+    workflows = WorkflowService(ctx)
     auth = ctx.auth
 
     # -- middleware: audit log ------------------------------------------------
@@ -1124,5 +1132,151 @@ def build_router(ctx: AppContext) -> Router:
             "usage": {"prompt_tokens": sum(len(t.split()) for t in texts),
                       "total_tokens": sum(len(t.split()) for t in texts)},
         })
+
+    # -- workflows -----------------------------------------------------------------------------------
+
+    @router.post("/api/v1/workflows")
+    async def create_workflow(req: Request) -> Response:
+        user = me(req)
+        raw = req.json()
+        if "definition" in (raw or {}):
+            parse_body(vm.WorkflowDefinition, raw["definition"])
+        body = raw or {}
+        return Response.json(
+            workflows.create(
+                user["username"], body.get("title", "workflow"),
+                body.get("definition", body.get("graph", {})),
+                body.get("description", ""),
+            ),
+            status=201,
+        )
+
+    @router.get("/api/v1/workflows")
+    async def list_workflows(req: Request) -> Response:
+        user = me(req)
+        return Response.json(workflows.list(user["username"]))
+
+    @router.get("/api/v1/workflows/{wid}")
+    async def get_workflow(req: Request) -> Response:
+        user = me(req)
+        return Response.json(workflows.get(user["username"],
+                                           req.path_params["wid"]))
+
+    @router.put("/api/v1/workflows/{wid}")
+    async def update_workflow(req: Request) -> Response:
+        user = me(req)
+        body = req.json()
+        return Response.json(
+            workflows.update_definition(
+                user["username"], req.path_params["wid"],
+                body.get("definition", {}),
+            )
+        )
+
+    @router.delete("/api/v1/workflows/{wid}")
+    async def delete_workflow(req: Request) -> Response:
+        # reference api/workflow.py:53
+        user = me(req)
+        workflows.delete(user["username"], req.path_params["wid"])
+        return Response.no_content()
+
+    @router.get("/api/v1/workflows/{wid}/versions")
+    async def workflow_versions(req: Request) -> Response:
+        user = me(req)
+        return Response.json(workflows.versions(user["username"],
+                                                req.path_params["wid"]))
+
+    @router.post("/api/v1/workflows/{wid}/versions")
+    async def create_workflow_version(req: Request) -> Response:
+        # reference api/workflow.py:63 — snapshot a version (manual save)
+        user = me(req)
+        body = req.json() or {}
+        return Response.json(
+            workflows.create_version(user["username"], req.path_params["wid"],
+                                     body.get("definition")),
+            status=201,
+        )
+
+    @router.get("/api/v1/workflows/{wid}/versions/{version}")
+    async def workflow_version_detail(req: Request) -> Response:
+        user = me(req)
+        try:
+            version = int(req.path_params["version"])
+        except ValueError:
+            raise HttpError(422, "version must be an integer")
+        return Response.json(
+            workflows.version_detail(user["username"],
+                                     req.path_params["wid"], version)
+        )
+
+    @router.get("/api/v1/workflows/{wid}/runs/{rid}")
+    async def workflow_run_nested(req: Request) -> Response:
+        # reference nests run detail under the workflow (api/workflow.py)
+        user = me(req)
+        run = workflows.run_detail(user["username"], req.path_params["rid"])
+        if run.get("workflow_id") != req.path_params["wid"]:
+            raise HttpError(404, "run not found for this workflow")
+        return Response.json(run)
+
+    @router.post("/api/v1/workflows/{wid}/run")
+    async def run_workflow(req: Request) -> Response:
+        user = me(req)
+        body = req.json()
+        return Response.json(
+            await workflows.run(user["username"], req.path_params["wid"],
+                                body.get("inputs", body))
+        )
+
+    @router.get("/api/v1/workflows/{wid}/runs")
+    async def workflow_runs(req: Request) -> Response:
+        user = me(req)
+        return Response.json(workflows.runs(user["username"],
+                                            req.path_params["wid"]))
+
+    @router.get("/api/v1/workflow-runs/{rid}")
+    async def workflow_run_detail(req: Request) -> Response:
+        user = me(req)
+        return Response.json(workflows.run_detail(user["username"],
+                                                  req.path_params["rid"]))
+
+    @router.post("/api/v1/workflows/run")
+    async def run_workflow_once(req: Request) -> Response:
+        user = me(req)
+        body = req.json()
+        return Response.json(
+            await workflows.run_definition(
+                user["username"],
+                body.get("definition", body.get("workflow", {})),
+                body.get("inputs", {}),
+            )
+        )
+
+    @router.post("/api/v1/workflows/run/stream")
+    async def run_workflow_stream(req: Request) -> Response:
+        """SSE stream of node events + final result (reference
+        flow_service SSE)."""
+        user = me(req)
+        body = req.json()
+
+        async def events():
+            async for ev in workflows.run_definition_streaming(
+                user["username"],
+                body.get("definition", body.get("workflow", {})),
+                body.get("inputs", {}),
+            ):
+                yield {"event": ev.get("event", "EVENT"), "data": ev}
+
+        return Response.sse(events())
+
+    # -- nodeflow catalog ---------------------------------------------------------------------------------
+
+    @router.get("/api/v1/nodeflow/node-types")
+    async def node_types(req: Request) -> Response:
+        return Response.json(node_type_catalog())
+
+    @router.get("/api/v1/nodeflow/packs")
+    async def nodeflow_packs(req: Request) -> Response:
+        """Installed/installable node packs (reference api/nodeflow.py:21)."""
+        return Response.json(registry_summary())
 
     return router

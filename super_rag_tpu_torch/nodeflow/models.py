@@ -1,6 +1,6 @@
-"""Nodeflow data model: nodes, edges, validation, runner registry (port
-of the JAX package's nodeflow/models.py, on the port's own ``Model``;
-the node-type catalog waits for the workflow routes, ROADMAP A6).
+"""Nodeflow data model: nodes, edges, validation, runner registry and
+the node-type catalog (port of the JAX package's nodeflow/models.py, on
+the port's own ``Model``).
 
 Re-design of the reference's nodeflow base models
 (super_rag/nodeflow/base/models.py: NodeInstance :13, Edge :27,
@@ -123,3 +123,18 @@ def register_node_runner(
 
     return deco
 
+
+def node_type_catalog() -> list[dict]:
+    """Metadata for /nodeflow/node-types (reference api/nodeflow.py:12)."""
+    out = []
+    for t, entry in sorted(NODE_RUNNER_REGISTRY.items()):
+        out.append(
+            {
+                "type": t,
+                "title": entry.title,
+                "description": entry.description,
+                "input_schema": entry.input_model.model_json_schema(),
+                "output_schema": entry.output_model.model_json_schema(),
+            }
+        )
+    return out

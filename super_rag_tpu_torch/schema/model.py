@@ -12,7 +12,10 @@ models use, and nothing more:
   * ``Field(ge=, le=, min_length=, max_length=)`` and ``field_validator``
     (run after the type and constraints, as pydantic's "after" mode);
   * unknown keys ignored; ``model_fields``, ``model_dump(exclude_none=)``
-    and ``ValidationError.errors()`` with ``loc``, ``msg`` and ``type``.
+    and ``ValidationError.errors()`` with ``loc``, ``msg`` and ``type``;
+  * ``model_json_schema()``, the JSON schema pydantic v2 gives the same
+    class (titles, defaults, ``anyOf`` for ``Optional``, ``items``,
+    ``$defs`` / ``$ref`` for nested models, constraints, ``required``).
 
 Coercion follows pydantic v2's lax mode for these types, and the error
 messages are pydantic's own words, because ``parse_body`` puts the first
@@ -25,6 +28,7 @@ order, as pydantic reports them.
 from __future__ import annotations
 
 import copy
+import inspect
 import math
 import typing
 from typing import Any, Callable, Literal, Optional, Union
@@ -343,6 +347,16 @@ class Model:
         raise _fail("model_type", "Input should be a valid dictionary or instance "
                     f"of {cls.__name__}", v)
 
+    @classmethod
+    def model_json_schema(cls) -> dict:
+        """The JSON schema of the class, as pydantic v2's
+        ``model_json_schema()`` gives it; nested models go to ``$defs``."""
+        defs: dict = {}
+        out = _model_schema(cls, defs)
+        if defs:
+            out = {"$defs": dict(sorted(defs.items())), **out}
+        return out
+
     def model_dump(self, exclude_none: bool = False) -> dict:
         out = {}
         for name in self.model_fields:
@@ -358,6 +372,95 @@ class Model:
     def __repr__(self) -> str:
         body = ", ".join(f"{k}={getattr(self, k)!r}" for k in self.model_fields)
         return f"{type(self).__name__}({body})"
+
+
+# -- JSON schema (pydantic v2's GenerateJsonSchema for these annotations) ------
+
+def _type_schema(tp: Any, defs: dict) -> dict:
+    if tp is str:
+        return {"type": "string"}
+    if tp is int:
+        return {"type": "integer"}
+    if tp is float:
+        return {"type": "number"}
+    if tp is bool:
+        return {"type": "boolean"}
+    if tp is dict:
+        return {"additionalProperties": True, "type": "object"}
+    if tp is Any or tp is object:
+        return {}
+    if tp is list:
+        return {"items": {}, "type": "array"}
+    origin, args = typing.get_origin(tp), typing.get_args(tp)
+    if origin is Union:
+        inner = [a for a in args if a is not type(None)]
+        return {"anyOf": [_type_schema(inner[0], defs), {"type": "null"}]}
+    if origin is Literal:
+        kinds = {type(a) for a in args}
+        out: dict = {"const": args[0]} if len(args) == 1 else {"enum": list(args)}
+        if len(kinds) == 1:
+            out["type"] = {str: "string", int: "integer", bool: "boolean",
+                           float: "number"}[kinds.pop()]
+        return out
+    if origin is list:
+        return {"items": _type_schema(args[0], defs) if args else {}, "type": "array"}
+    if origin is dict:
+        value = _type_schema(args[1], defs) if len(args) == 2 else {}
+        return {"additionalProperties": value or True, "type": "object"}
+    if isinstance(tp, type) and issubclass(tp, Model):
+        if tp.__name__ not in defs:
+            defs[tp.__name__] = {}  # a placeholder while the model recurses
+            defs[tp.__name__] = _model_schema(tp, defs)
+        return {"$ref": f"#/$defs/{tp.__name__}"}
+    raise TypeError(f"unsupported annotation {tp!r}")
+
+
+def _constrain(schema: dict, info: FieldInfo) -> None:
+    """Field constraints, on the non-null branch of an ``Optional``."""
+    target = schema["anyOf"][0] if "anyOf" in schema else schema
+    array = target.get("type") == "array"
+    for key, value in (("minimum", info.ge), ("maximum", info.le),
+                       ("minItems" if array else "minLength", info.min_length),
+                       ("maxItems" if array else "maxLength", info.max_length)):
+        if value is not None:
+            target[key] = value
+
+
+def _sorted(schema: Any) -> Any:
+    """Keys in alphabetical order, as pydantic writes them (a model's
+    ``properties`` keep their declaration order)."""
+    if isinstance(schema, dict):
+        return {k: (dict((n, _sorted(v)) for n, v in schema[k].items())
+                    if k == "properties" else _sorted(schema[k]))
+                for k in sorted(schema)}
+    if isinstance(schema, list):
+        return [_sorted(x) for x in schema]
+    return schema
+
+
+def _model_schema(cls: type, defs: dict) -> dict:
+    props, required = {}, []
+    for name, info in cls.model_fields.items():
+        schema = _type_schema(info.annotation, defs)
+        _constrain(schema, info)
+        inner = schema["anyOf"][0] if "anyOf" in schema else schema
+        if "$ref" not in inner:
+            schema["title"] = name.title().replace("_", " ")
+        if info.is_required():
+            required.append(name)
+        elif info.default_factory is None:
+            schema["default"] = _dump(info.default, False)
+        props[name] = _sorted(schema)
+    out: dict = {}
+    doc = cls.__dict__.get("__doc__")
+    if doc:
+        out["description"] = inspect.cleandoc(doc)
+    out["properties"] = props
+    if required:
+        out["required"] = required
+    out["title"] = cls.__name__
+    out["type"] = "object"
+    return out
 
 
 def _dump(v: Any, exclude_none: bool) -> Any:

@@ -105,6 +105,42 @@ class ImageSearchRequest(Model):
     top_k: int = Field(default=5, ge=1, le=100)
 
 
+# -- workflows --------------------------------------------------------------------
+
+
+class WorkflowNode(Model):
+    id: str = Field(min_length=1)
+    type: str = Field(min_length=1)
+    data: dict = Field(default_factory=dict)
+
+
+class WorkflowEdge(Model):
+    source: str
+    target: str
+    sourceHandle: Optional[str] = None
+    targetHandle: Optional[str] = None
+
+
+class WorkflowGraph(Model):
+    nodes: list[WorkflowNode]
+    edges: list[WorkflowEdge] = Field(default_factory=list)
+
+
+class WorkflowDefinition(Model):
+    name: str = ""
+    graph: WorkflowGraph
+    input_schema: dict = Field(default_factory=dict)
+
+
+class WorkflowCreate(Model):
+    title: str = Field(min_length=1, max_length=256)
+    definition: WorkflowDefinition
+
+
+class WorkflowRunRequest(Model):
+    inputs: dict = Field(default_factory=dict)
+
+
 # -- llm providers ---------------------------------------------------------------
 
 

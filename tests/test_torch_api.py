@@ -512,7 +512,7 @@ def test_auth_aliases_and_metrics(clients):
 
 def test_waiting_routes_answer_404(clients):
     port = clients[1]
-    for method, path in (("GET", "/api/v1/workflows"), ("GET", "/api/v1/chats"),
+    for method, path in (("GET", "/api/v1/audit_logs"), ("GET", "/api/v1/chats"),
                          ("GET", "/api/v1/marketplace/collections"), ("GET", "/mcp"),
                          ("GET", "/")):
         status, body = port.call(method, path, {} if method == "POST" else None)

@@ -49,6 +49,11 @@ MODULES = [
     "super_rag_tpu_torch.llm.client", "super_rag_tpu_torch.llm.signed",
     "super_rag_tpu_torch.llm.resolver", "super_rag_tpu_torch.exceptions",
     "super_rag_tpu_torch.index.summary", "super_rag_tpu_torch.nodeflow.runners.llm",
+    "super_rag_tpu_torch.nodeflow", "super_rag_tpu_torch.nodeflow.models",
+    "super_rag_tpu_torch.nodeflow.yamlsub", "super_rag_tpu_torch.nodeflow.parser",
+    "super_rag_tpu_torch.nodeflow.registry",
+    "super_rag_tpu_torch.nodeflow.runners.fulltext_search",
+    "super_rag_tpu_torch.service.workflow_service",
 ]
 # third-party packages the JAX package's serving seam uses and the card's
 # machine may lack; the port replaces each (jinja2, torch's own dependency,

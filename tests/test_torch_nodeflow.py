@@ -344,3 +344,251 @@ def test_failing_reranker_degrades_alike_and_logs(engines, caplog):
         assert "rerank degraded" in caplog.records[0].getMessage()
         outs.append([d.model_dump() for d in ctx.outputs["rerank"].docs])
     assert outs[0] == outs[1] and outs[1]
+
+
+# -- the parser, the YAML subset and the runners' JSON schemas (A6f) ----------------
+
+def _parse(pkg, definition):
+    """A package's parser on ``definition``: its flow as plain values and
+    its defaults, or the error's type and message."""
+    from super_rag_tpu.nodeflow.parser import NodeflowParser as JParser
+    from super_rag_tpu_torch.nodeflow.parser import NodeflowParser as TParser
+
+    try:
+        flow_, defaults = (JParser if pkg == "jax" else TParser)().parse(definition)
+    except Exception as e:  # noqa: BLE001 — compared between the packages
+        return type(e).__name__, str(e)
+    return (dataclasses.asdict(flow_), defaults)
+
+
+def _parser_cases():
+    import copy
+
+    from test_nodeflow import RAG_FLOW
+
+    rag_yaml = """
+name: yflow   # a comment
+input_schema:
+  greeting:
+    type: string
+    default: "hello from globals"
+  top: {default: 7}
+graph:
+  nodes:
+    - id: s
+      type: start
+      data: {}
+    - id: e
+      type: parity_echo
+      data:
+        input_values:
+          value: "{{ globals.greeting }}"
+          items: [1, two, 3.5, null, yes]
+  edges:
+    - source: s
+      target: e
+      targetHandle: value
+"""
+    bad_port = {"name": "x", "graph": {
+        "nodes": [{"id": "a", "type": "start", "data": {}},
+                  {"id": "b", "type": "rerank", "data": {}}],
+        "edges": [{"source": "a", "target": "b", "targetHandle": "nonexistent"}]}}
+    as_json = __import__("json").dumps(RAG_FLOW)
+    handles = copy.deepcopy(RAG_FLOW)
+    handles["graph"]["edges"][0].update(sourceHandle=None, targetHandle="")
+    return {"rag flow": RAG_FLOW, "rag flow as JSON text": as_json,
+            "yaml flow": rag_yaml, "bad port": bad_port, "empty handles": handles,
+            "flat graph": {"nodes": [{"id": "n", "data": {"type": "start",
+                                                          "input": {"q": 1}}}]},
+            "cycle": {"graph": {"nodes": [{"id": "a", "type": "start"},
+                                          {"id": "b", "type": "start"}],
+                                "edges": [{"source": "a", "target": "b"},
+                                          {"source": "b", "target": "a"}]}}}
+
+
+@pytest.mark.parametrize("case", list(_parser_cases()))
+def test_parser_matches(case):
+    definition = _parser_cases()[case]
+    got, want = _parse("torch", definition), _parse("jax", definition)
+    assert got == want
+    if case == "bad port":
+        assert got[0] == "ValueError" and "no input port" in got[1]
+
+
+def test_parser_refuses_yaml_outside_the_subset():
+    """The reference's PyYAML reads anchors; the port's subset refuses them
+    by name instead of reading a different tree (ROADMAP §C)."""
+    text = "name: x\ngraph:\n  nodes: &n []\n  edges: *n\n"
+    assert _parse("jax", text)[0] == {"name": "x", "nodes": [], "edges": [], "title": ""}
+    kind, msg = _parse("torch", text)
+    assert kind == "ValueError" and "anchors (&) are not supported" in msg
+
+
+# the runners' input and output models, whose schemas the node-type catalog serves
+RUNNER_MODELS = [("start", "StartInput"), ("vector_search", "VectorSearchInput"),
+                 ("fulltext_search", "FulltextSearchInput"),
+                 ("hybrid_search", "HybridSearchInput"), ("graph_search", "GraphSearchInput"),
+                 ("merge", "MergeInput"), ("rerank", "RerankInput"), ("llm", "LLMInput")]
+
+
+@pytest.mark.parametrize("runner,model", RUNNER_MODELS)
+def test_runner_model_json_schema_matches_pydantic(runner, model):
+    import importlib
+
+    mods = [importlib.import_module(f"{p}.nodeflow.runners.{runner}")
+            for p in ("super_rag_tpu", "super_rag_tpu_torch")]
+    assert (getattr(mods[1], model).model_json_schema()
+            == getattr(mods[0], model).model_json_schema())
+    jt, tt = (importlib.import_module(f"{p}.nodeflow.types")
+              for p in ("super_rag_tpu", "super_rag_tpu_torch"))
+    for name in ("DocumentWithScore", "DocsOutput", "StartOutput", "AnswerOutput"):
+        assert getattr(tt, name).model_json_schema() == getattr(jt, name).model_json_schema()
+    assert (tmod.SystemInput.model_json_schema() == jmod.SystemInput.model_json_schema())
+
+
+def test_node_type_catalog_matches():
+    """Every built-in runner's catalog entry, dict-equal; the toy runners
+    this file registers in both packages too."""
+    import super_rag_tpu_torch.nodeflow.runners  # noqa: F401
+
+    cats = [{c["type"]: c for c in mod.node_type_catalog()} for mod in (jmod, tmod)]
+    port_types = set(cats[1])
+    assert {"start", "vector_search", "fulltext_search", "hybrid_search", "graph_search",
+            "merge", "rerank", "llm", "parity_echo", "parity_sleep"} <= port_types
+    assert {t: cats[0][t] for t in port_types} == cats[1]
+
+
+# -- the YAML subset against yaml.safe_load ------------------------------------------
+
+def _yaml_trees():
+    from hypothesis import strategies as st
+
+    scalars = st.one_of(st.text(), st.integers(), st.floats(allow_nan=False),
+                        st.booleans(), st.none())
+    trees = st.recursive(scalars, lambda ch: st.one_of(
+        st.lists(ch, max_size=5), st.dictionaries(st.text(), ch, max_size=5)),
+        max_leaves=30)
+    return st.one_of(st.lists(trees, max_size=5), st.dictionaries(st.text(), trees,
+                                                                  max_size=5))
+
+
+@pytest.mark.parametrize("style", ["block", "flow", "mixed"])
+def test_yaml_subset_loads_what_safe_dump_writes(style):
+    """Nested dicts and lists of str / int / float / bool / None, dumped by
+    ``yaml.safe_dump`` (block, flow or PyYAML's mixed style, at the default
+    width of 80 and at 20, so that long scalars fold over lines), load to
+    the tree ``yaml.safe_load`` gives."""
+    import yaml
+    from hypothesis import HealthCheck, given, settings, strategies as st
+
+    from super_rag_tpu_torch.nodeflow import yamlsub
+
+    flow_style = {"block": False, "flow": True, "mixed": None}[style]
+
+    @settings(max_examples=150, deadline=None, derandomize=True, database=None,
+              suppress_health_check=list(HealthCheck))
+    @given(_yaml_trees(), st.sampled_from([80, 20]))
+    def check(tree, width):
+        text = yaml.safe_dump(tree, default_flow_style=flow_style, width=width)
+        assert yamlsub.load(text) == yaml.safe_load(text), text
+
+    check()
+
+
+YAML_TEXTS = [
+    "a: 1\nb: yes\nc: 0x1F\nd: 0o7\ne: 1_000\nf: 1:30\ng: 1e3\nh: 1.0e+3\ni: .inf\n"
+    "j: -.INF\nk: ~\nl: null\nm:\nn: 017\no: +12\np: 1:30.5\nq: On\nr: 0b101\ns: 1.\n"
+    "t: .5\nu: NO\nv: 0.\nw: -0\n",
+    "# comment\n---\nkey: value # trailing\nlist:\n  - a\n  - b   # c\n  -\n"
+    "  - - x\n    - y\n  - k: v\n    k2: v2\n...\n",
+    "a: this is a long\n  plain scalar\n\n  with a blank line\nb: 'single ''quoted''\n"
+    "  folded'\nc: \"double \\\"q\\\" \\x41\\u00e9\\U0001F600 \\\n  continued\\t\"\n",
+    "flow: {a: [1, 2, {b: c}], d: 'e', \"f\": g, h: }\nseq: [a, b,\n  c, 'd e']\n",
+    "? complex key\n: value\n? another\n",
+    "a:b: c\nx: a:b\ny: -1\nz: -x\nw: '#not comment'\nv: a#b\n",
+    "", "- a\n- b: c\n  d: e\n-   - f\n    - g\n", "{}", "[]", "key:    \n  value\n",
+    "a: \"x\\\n   y\"\nb: \"x\n\n  y\"\n", "a : b\n", "a: b  \n",
+    "top:\n  nested:\n    deep: 1\n  other: 2\nback: 3\n", "a:\n- 1\n- 2\nb:\n  - 3\n",
+    "{a:1}", "{\"a\":1}", "x: [a, [b, c], {}]\n", "'quoted key': 1\n\"dq key\": 2\n",
+    "\ufeffa: 1\r\nb: 2\r\n", "1: one\n2.5: two\nnull: three\ntrue: four\n",
+]
+
+
+@pytest.mark.parametrize("i", range(len(YAML_TEXTS)))
+def test_yaml_subset_matches_safe_load_on_hand_written_text(i):
+    import yaml
+
+    from super_rag_tpu_torch.nodeflow import yamlsub
+
+    assert yamlsub.load(YAML_TEXTS[i]) == yaml.safe_load(YAML_TEXTS[i])
+
+
+REFUSED_YAML = [
+    ("anchor and alias", "a: &x 1\nb: *x\n", "anchors (&)"),
+    ("alias", "a: *x\n", "aliases (*)"),
+    ("tag", "a: !!str 1\n", "tags (!)"),
+    ("literal block scalar", "a: |\n  text\n", "block scalars (|)"),
+    ("folded block scalar", "a: >\n  text\n", "block scalars (>)"),
+    ("directive", "%YAML 1.1\n---\na: 1\n", "directives (%)"),
+    ("two documents", "a: 1\n---\nb: 2\n", "multiple documents"),
+    ("timestamp", "a: 2001-12-14\n", "timestamps"),
+    ("merge key", "<<: {a: 1}\n", "merge keys (<<)"),
+    ("value key", "a: =\n", "the value key (=)"),
+    ("collection key", "[a]: 1\n", "collections as mapping keys"),
+    ("flow collection key", "{[a]: 1}\n", "collections as mapping keys"),
+    ("single-pair mapping", "[a: 1]\n", "single-pair mappings"),
+    ("tab indentation", "a:\n\tb: 1\n", "tabs"),
+    ("reserved indicator", "a: `x`\n", "reserved indicator"),
+    ("unicode line break", "a: b\u2028c\n", "line break"),
+]
+
+
+@pytest.mark.parametrize("case", REFUSED_YAML, ids=[c[0] for c in REFUSED_YAML])
+def test_yaml_subset_refuses_by_name(case):
+    from super_rag_tpu_torch.nodeflow import yamlsub
+
+    _, text, what = case
+    with pytest.raises(ValueError, match="YAML subset: ") as e:
+        yamlsub.load(text)
+    assert what in str(e.value)
+
+
+@pytest.mark.parametrize("text", ["a: b: c\n", "- a\nb: c\n", "a: 'open\n", "a:\n  - b\n c: d\n",
+                                  "[a, b\n", "{a: 1\n", "a: b\n  c: d\n"])
+def test_yaml_subset_refuses_what_pyyaml_refuses(text):
+    import yaml
+
+    from super_rag_tpu_torch.nodeflow import yamlsub
+
+    with pytest.raises(yaml.YAMLError):
+        yaml.safe_load(text)
+    with pytest.raises(ValueError, match="YAML subset: "):
+        yamlsub.load(text)
+
+
+def test_pack_registry_matches(tmp_path, caplog):
+    """``load_pack_module``, ``load_packs`` (no pack is installed under
+    either entry-point group), ``registry_index`` and ``registry_summary``
+    answer alike; the loaded-pack list is reset by ``load_packs``."""
+    import json
+
+    from super_rag_tpu.nodeflow import registry as jreg
+    from super_rag_tpu_torch.nodeflow import registry as treg
+
+    index = tmp_path / "index.json"
+    index.write_text(json.dumps([{"name": "pack", "module": "m"}]))
+    out = []
+    try:
+        for reg in (jreg, treg):
+            with caplog.at_level(logging.ERROR):
+                loaded = (reg.load_pack_module("json"),
+                          reg.load_pack_module("no_such_pack_module"))
+            summary = reg.registry_summary()
+            out.append((loaded, summary["loaded_packs"], reg.registry_index(str(index)),
+                        reg.registry_index(None), reg.registry_index(str(tmp_path / "x"))))
+    finally:
+        assert jreg.load_packs() == [] and treg.load_packs() == []
+    assert out[0] == out[1]
+    assert out[1][:2] == ((True, False), ["json"])
+    assert treg.ENTRY_POINT_GROUP == "super_rag_tpu_torch.nodeflow.packs"
+    assert treg.registry_summary()["loaded_packs"] == []

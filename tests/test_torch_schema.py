@@ -97,6 +97,24 @@ CASES = {
         {"username": "a", "password": "b"}, {}, {"username": 5, "password": "b"},
         {"username": "a"}, {"username": "a", "password": None},
     ],
+    "WorkflowDefinition": [
+        {"graph": {"nodes": [{"id": "s", "type": "start"}]}}, {}, {"graph": None},
+        {"graph": {}}, {"graph": {"nodes": "s"}}, {"graph": {"nodes": [{"id": "s"}]}},
+        {"graph": {"nodes": [{"id": "", "type": "start"}]}},
+        {"graph": {"nodes": [{"id": "s", "type": "start", "data": []}]}},
+        {"graph": {"nodes": [], "edges": [{"source": "a"}]}},
+        {"graph": {"nodes": [], "edges": [{"source": "a", "target": "b",
+                                           "targetHandle": 5}]}},
+        {"name": 3, "graph": {"nodes": []}, "input_schema": []},
+        {"name": "x", "graph": {"nodes": [5], "edges": None}},
+    ],
+    "WorkflowCreate": [
+        {"title": "wf", "definition": {"graph": {"nodes": []}}}, {"title": "wf"},
+        {"title": "", "definition": {"graph": {"nodes": []}}},
+        {"title": "x" * 257, "definition": 5}, {"definition": {}},
+    ],
+    "WorkflowRunRequest": [{}, {"inputs": {"query": "q"}}, {"inputs": "q"},
+                           {"inputs": None}],
 }
 
 PARAMS = [(name, i) for name, bodies in CASES.items() for i in range(len(bodies))]
@@ -162,3 +180,35 @@ def test_nested_instance_is_kept_and_validator_runs_on_defaults_only_when_given(
         tvm.CollectionConfig(embedding=tvm.KGEntityType(name="x"))
     assert e.value.errors()[0]["msg"] == ("Input should be a valid dictionary or "
                                           "instance of ModelSpec")
+
+
+JSON_SCHEMA_MODELS = ["ModelSpec", "KGEntityType", "CollectionConfig", "CollectionCreate",
+                      "CollectionUpdate", "DocumentUpload", "SearchRequest",
+                      "MultiSearchRequest", "ImageSearchRequest", "LLMProviderCreate",
+                      "LLMProviderModelCreate", "ProviderKeySet", "RegisterRequest",
+                      "LoginRequest", "ChangePasswordRequest", "ApiKeyCreate",
+                      "WorkflowNode", "WorkflowEdge", "WorkflowGraph",
+                      "WorkflowDefinition", "WorkflowCreate", "WorkflowRunRequest"]
+
+
+def _strip_descriptions(schema):
+    if isinstance(schema, dict):
+        return {k: _strip_descriptions(v) for k, v in schema.items() if k != "description"}
+    return schema
+
+
+@pytest.mark.parametrize("name", JSON_SCHEMA_MODELS)
+def test_model_json_schema_matches_pydantic(name):
+    """``model_json_schema`` of every view model the port has, equal to
+    pydantic's for the JAX package's class of the same name up to the
+    models' descriptions, which are their docstrings and word the two
+    packages' classes differently (the runners' models, whose schemas the
+    node-type catalog serves, have none and are compared whole in
+    test_torch_nodeflow.py)."""
+    import inspect
+
+    got = tvm.__dict__[name].model_json_schema()
+    assert _strip_descriptions(got) == _strip_descriptions(
+        getattr(jvm, name).model_json_schema())
+    doc = tvm.__dict__[name].__doc__
+    assert got.get("description") == (inspect.cleandoc(doc) if doc else None)

@@ -1,0 +1,102 @@
+"""chip_smoke.py on the CPU: its phase selection, and a rehearsal of its
+[workflows] phase at a small size (the card's kernels replaced by their
+plain versions, which move the same launch counters)."""
+
+import pytest
+import torch
+
+import chip_smoke as cs
+
+
+@pytest.mark.parametrize("argv,env,want", [
+    ([], {}, list(cs.PHASES)),
+    (["--phases", "http,workflows"], {}, ["http", "workflows"]),
+    (["--phases=workflows,http"], {}, ["http", "workflows"]),
+    ([], {"SMOKE_PHASES": "workflows"}, ["workflows"]),
+    (["--phases", "serve"], {}, ["full", "serve"]),
+    (["--phases", "ivf-serve,docs"], {"SMOKE_PHASES": "csr"}, ["ivf", "ivf-serve", "docs"]),
+])
+def test_select_phases(argv, env, want):
+    assert cs.select_phases(argv, env) == want
+
+
+@pytest.mark.parametrize("argv,env", [(["--phases", "nope"], {}), (["--phase", "http"], {}),
+                                      (["--phases", ","], {}), ([], {"SMOKE_PHASES": "x"})])
+def test_unknown_phase_exits_non_zero_before_anything(argv, env, monkeypatch, capsys):
+    with pytest.raises(ValueError):
+        cs.select_phases(argv, env)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    assert cs.main(argv) == 2
+    out = capsys.readouterr()
+    assert out.out == "" and "chip_smoke:" in out.err
+
+
+def test_no_card_exits_non_zero_with_no_result(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    assert cs.main([]) == 2
+    assert capsys.readouterr().out == ""
+
+
+def test_every_kernel_row_belongs_to_a_phase():
+    assert {phase for *_, phase in cs.KERNEL_ROWS} <= set(cs.PHASES)
+    names = [name for name, *_ in cs.KERNEL_ROWS]
+    assert len(names) == len(set(names))
+    assert {"dense_topk_workflow_bf16", "dense_topk_workflow_int8"} <= set(names)
+
+
+def test_workflow_yaml_parses_to_the_definition():
+    import yaml
+
+    from super_rag_tpu_torch.nodeflow import yamlsub
+
+    defn = cs.workflow_definition(["col-a1", "col-b2"])
+    text = cs.workflow_yaml(defn)
+    assert yamlsub.load(text) == yaml.safe_load(text) == defn
+
+
+def test_workflows_phase_rehearsed_on_the_cpu(monkeypatch):
+    """The phase end to end at a small size: every gate runs, and the two
+    kernel rows come out with their keys."""
+    from super_rag_tpu_torch.engine.index import DeviceIndex
+    from super_rag_tpu_torch.ops import dense_topk as dt
+
+    for name, value in (("DEVICE", "cpu"), ("HTTP_SECTIONS", 8), ("WF_DOCS_A", 2),
+                        ("WF_DOCS_B", 2), ("WF_SINGLE", 4), ("WF_CONCURRENT", 4),
+                        ("WF_CLIENTS", 2), ("WF_ONE_SHOT", 2), ("WF_STREAM", 2),
+                        ("WF_STAGE_RUNS", 2),
+                        ("SEMANTIC_CONFIG", dict(cs.SEMANTIC_CONFIG, vocab_size=2000,
+                                                 hidden_dim=32, num_layers=1, num_heads=4,
+                                                 mlp_dim=64, max_len=64))):
+        monkeypatch.setattr(cs, name, value)
+
+    def plain_counting(*args):
+        q, _, values, *_, n, tile, kt = args
+        mode = dt._mode(q, values)
+        if dt.kernel_variant(mode, kt, q.shape[1], q.shape[0], -(-n // tile), 132) == "simt":
+            dt.simt_launches.count += 1
+        else:
+            dt.tc_launches.count += 1
+            dt.tc_mode_launches[mode].count += 1
+        return dt.tile_topk_plain(*args)
+
+    timed = lambda fn, *a, **kw: (fn(), 1.0)[1]  # noqa: E731
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    for name in ("cuda_ms", "host_ms", "burst_ms"):
+        monkeypatch.setattr(cs, name, timed)
+    monkeypatch.setattr(dt, "_sm_count", lambda i: 132)
+    monkeypatch.setattr(dt, "tile_topk", plain_counting)
+    monkeypatch.setattr(DeviceIndex, "_kernel_default", lambda self, *a: True)
+    torch.set_num_threads(2)
+    results = {"card": "CPU rehearsal", "dense_topk": {}}
+    cs.phase_workflows(results)
+    for key in ("dense_topk_workflow_bf16", "dense_topk_workflow_int8"):
+        row = results[key]
+        assert row["launches"] >= 1 and row["variant"] == "tcs"
+        assert {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"} <= set(row)
+    assert set(results["workflows"]["runs"]) == {"saved, 1 client", "saved, 2 clients",
+                                                 "one-shot (YAML), 1 client",
+                                                 "streamed, 1 client"}
