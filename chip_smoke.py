@@ -246,7 +246,7 @@ HTTP_DOCS = 32  # at 64 the phase ran past 120 s on an H100
 HTTP_SECTIONS = 512
 HTTP_WORDS = 96
 HTTP_UPLOADERS = 8
-HTTP_QUERIES = 128  # at 256 the whole smoke ran past 900 s on a slow host ([http] 295 s)
+HTTP_QUERIES = 64  # 128 until [chat] joined the smoke (608 s); 256 before a 900 s run
 HTTP_CLIENTS = 64
 HTTP_TOP_K = 5
 HTTP_CANDIDATES = 100
@@ -300,6 +300,19 @@ WF_STREAM = 16  # POST /workflows/run/stream
 WF_STAGE_RUNS = 16
 WF_TOP_K = 50  # vector_search and fulltext_search, each over A and B
 WF_RERANK_TOP_K = 5
+CHAT_DOCS = 8  # [chat] collection K (bf16): 8 x HTTP_SECTIONS sections, 4,096 chunks
+CHAT_SINGLE = 64  # SSE turns from one client, over CHAT_SINGLE_CHATS chats
+CHAT_SINGLE_CHATS = 8
+CHAT_CONCURRENT = 64  # SSE turns from CHAT_CLIENTS clients, one chat each
+CHAT_CLIENTS = 16
+CHAT_FRONTEND = 16  # POST /chat/completions/frontend, half JSON, half SSE
+CHAT_WS = 16  # chat WebSocket turns, CHAT_WS_STOPS of them stopped mid-stream
+CHAT_WS_STOPS = 4
+CHAT_FILE_SEARCHES = 16
+CHAT_AGENT_WS = 16  # agent WebSocket turns
+CHAT_AGENT_AG_UI = 16  # AG-UI turns
+CHAT_SHARED_SEARCHES = 16  # user B's searches of the shared collection
+CHAT_STAGE_TURNS = 16
 SEM_ROWS = 1_000_000
 SEM_WORDS = 128  # words a row's text holds: every (query, row) pair fills 128 tokens
 SEM_CHUNKS = 16_384  # 65,536 until [workflows] joined the smoke
@@ -2343,6 +2356,108 @@ class _Client:
 
     def close(self) -> None:
         self.conn.close()
+
+
+class WSClient:
+    """An RFC 6455 client on the standard library's socket (the card's
+    machine has no websockets package): the upgrade handshake with its
+    Sec-WebSocket-Accept check, masked text frames out, the server's
+    unmasked frames in (a ping answered), and the close handshake.  Every
+    read waits at most ``timeout`` seconds."""
+
+    GUID = "258EAFA5-E914-47DA-95CA-C5AB0DC85B11"
+
+    def __init__(self, port: int, path: str, token: str = "", timeout: float = 60.0):
+        import base64
+        import hashlib
+        import socket
+
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=timeout)
+        key = base64.b64encode(os.urandom(16)).decode()
+        auth = f"Authorization: Bearer {token}\r\n" if token else ""
+        self.sock.sendall((f"GET {path} HTTP/1.1\r\nHost: 127.0.0.1:{port}\r\n"
+                           "Upgrade: websocket\r\nConnection: Upgrade\r\n"
+                           f"Sec-WebSocket-Key: {key}\r\nSec-WebSocket-Version: 13\r\n"
+                           f"{auth}\r\n").encode())
+        self.buf = b""
+        while b"\r\n\r\n" not in self.buf:
+            self._fill()
+        head, _, self.buf = self.buf.partition(b"\r\n\r\n")
+        lines = head.decode("latin-1").split("\r\n")
+        headers = {k.strip().lower(): v.strip()
+                   for k, _, v in (ln.partition(":") for ln in lines[1:])}
+        want = base64.b64encode(hashlib.sha1((key + self.GUID).encode()).digest()).decode()
+        if lines[0].split(" ")[1:2] != ["101"] or headers.get("sec-websocket-accept") != want:
+            self.sock.close()
+            raise ConnectionError(f"websocket upgrade refused: {lines[0]!r}")
+
+    def _fill(self) -> None:
+        chunk = self.sock.recv(65536)
+        if not chunk:
+            raise ConnectionError("connection closed")
+        self.buf += chunk
+
+    def _take(self, n: int) -> bytes:
+        while len(self.buf) < n:
+            self._fill()
+        out, self.buf = self.buf[:n], self.buf[n:]
+        return out
+
+    def _send(self, opcode: int, payload: bytes) -> None:
+        import struct
+
+        n = len(payload)
+        head = bytes([0x80 | opcode])
+        if n < 126:
+            head += bytes([0x80 | n])
+        elif n < 1 << 16:
+            head += bytes([0x80 | 126]) + struct.pack("!H", n)
+        else:
+            head += bytes([0x80 | 127]) + struct.pack("!Q", n)
+        mask = os.urandom(4)
+        key = int.from_bytes((mask * (n // 4 + 1))[:n], "big") if n else 0
+        body = (int.from_bytes(payload, "big") ^ key).to_bytes(n, "big") if n else b""
+        self.sock.sendall(head + mask + body)
+
+    def send_json(self, data) -> None:
+        self._send(0x1, json.dumps(data).encode())
+
+    def recv_json(self):
+        """The next text frame as JSON; None once the server closes."""
+        import struct
+
+        buffer = b""
+        while True:
+            b0, b1 = self._take(2)
+            opcode, n = b0 & 0x0F, b1 & 0x7F
+            if n == 126:
+                n = struct.unpack("!H", self._take(2))[0]
+            elif n == 127:
+                n = struct.unpack("!Q", self._take(8))[0]
+            if b1 & 0x80:
+                raise ConnectionError("a server frame must not be masked")
+            payload = self._take(n)
+            if opcode == 0x8:
+                return None
+            if opcode == 0x9:
+                self._send(0xA, payload)
+                continue
+            if opcode == 0xA:
+                continue
+            buffer += payload
+            if b0 & 0x80:
+                return json.loads(buffer.decode())
+
+    def close(self) -> None:
+        """The close handshake: our close frame, then the server's, then EOF."""
+        try:
+            self._send(0x8, (1000).to_bytes(2, "big"))
+            while self.recv_json() is not None:
+                pass
+        except (ConnectionError, OSError):
+            pass
+        finally:
+            self.sock.close()
 
 
 def _expect(status, body, want: int, what: str):
@@ -4689,7 +4804,7 @@ def phase_providers(results: dict) -> None:
                     "embedding": {"provider": "stub", "model": "text-embedding-3-small"},
                     "rerank": {"provider": "stub"}}
         gen = torch.Generator(device=DEVICE).manual_seed(SEED + 31)
-        docs, queries = http_corpus(gen, PROV_DOCS, PROV_SECTIONS)
+        docs, queries = http_corpus(gen, PROV_DOCS, PROV_SECTIONS, 2 * PROV_QUERIES)
         # the reranked searches ask other queries, so that each of them too
         # embeds its query through the stub (none is a response-cache hit)
         queries, rr_queries = queries[:PROV_QUERIES], queries[PROV_QUERIES:2 * PROV_QUERIES]
@@ -5606,10 +5721,621 @@ def phase_workflows(results: dict) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def chat_completion(prompt: str) -> str:
+    """The [chat] phase's completion model (the stub provider's
+    ``complete_fn``): an agent prompt without a tool result gets one
+    search_collections call for the user's query, with one an answer; a
+    title prompt a title of the message's first words; a chat prompt an
+    answer quoting its first passage."""
+    import re
+
+    if prompt.startswith("You are a retrieval assistant with tools."):
+        query = prompt.rsplit("\nUser: ", 1)[-1].strip()
+        if "[tool search_collections(" not in prompt:
+            return json.dumps({"tool": "search_collections", "arguments": {"query": query}})
+        return f"From the collection, on {query}: see the retrieved passages."
+    if prompt.startswith("Give a 3-6 word title"):
+        first = prompt.split("starts with: ", 1)[1].rsplit("\nTitle:", 1)[0]
+        return " ".join(first.split()[:4])
+    m = re.search(r"\[1\] (.{1,160})", prompt)
+    return "Answer [1]: " + (m.group(1) if m else "no passage matched the question.")
+
+
+def phase_chat(results: dict) -> None:
+    """Chats, agents, sharing and the audit log on the port's own App, as
+    [workflows] sets it up (ThreadScheduler ingest, the [semantic] encoder
+    and cross-encoder as checkpoints the port writes, the QueryBatcher),
+    with the stub provider of ``_provider_stub`` in this process as the
+    collection completion model (registered through the routes, then a
+    restart: the completion client is resolved at boot) answering with
+    ``chat_completion``.  User A owns collection K (bf16) of CHAT_DOCS
+    documents; user B is a second account.  Traffic: CHAT_SINGLE SSE
+    turns from one client, CHAT_CONCURRENT from CHAT_CLIENTS clients,
+    CHAT_FRONTEND frontend completions, CHAT_WS chat WebSocket turns
+    (CHAT_WS_STOPS stopped mid-stream), a chat-file upload and
+    CHAT_FILE_SEARCHES files/search, CHAT_AGENT_WS agent WebSocket turns
+    and CHAT_AGENT_AG_UI AG-UI turns; K shared with B, published and
+    subscribed, B's CHAT_SHARED_SEARCHES searches, then the unshare and
+    unpublish; one offline web search; the audit log as A and as the
+    admin.  Gates a-g."""
+    import dataclasses
+    import logging
+    import shutil
+    import tempfile
+
+    from super_rag_tpu_torch.api.http import HttpServer
+    from super_rag_tpu_torch.config import Settings
+    from super_rag_tpu_torch.engine.collection import CollectionEngine
+    from super_rag_tpu_torch.llm.client import OpenAICompatClient
+    from super_rag_tpu_torch.models.encoder import flax_params
+    from super_rag_tpu_torch.models.encoder_service import EncoderService, save_params
+    from super_rag_tpu_torch.ops import dense_topk as dt
+    from super_rag_tpu_torch.service.collection_service import CollectionService
+    from super_rag_tpu_torch.service.rerank_service import RerankService
+    from super_rag_tpu_torch.store.db import Database
+    from super_rag_tpu_torch.websearch.service import WebSearchService
+
+    card = results["card"]
+    t_phase = time.perf_counter()
+
+    def clog(msg: str) -> None:
+        log(f"[chat] {msg} (on {card})")
+
+    class _Errors(logging.Handler):
+        def __init__(self):
+            super().__init__(level=logging.ERROR)
+            self.records = []
+
+        def emit(self, record):
+            self.records.append(f"{record.name}: {record.getMessage()}")
+
+    errors = _Errors()
+    port_logger = logging.getLogger("super_rag_tpu_torch")
+    port_logger.addHandler(errors)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_chat_")
+    sys.path.append(os.path.join(HERE, "tests"))
+    from llm_stub import StubProvider
+
+    stub = StubProvider(complete_fn=chat_completion, api_key=STUB_KEY)
+    srv = None
+    open_clients: list = []
+
+    def client(token: str = ""):
+        c = _Client(srv.app.port, token)
+        open_clients.append(c)
+        return c
+
+    def close_clients() -> None:
+        while open_clients:
+            open_clients.pop().close()
+
+    def login(name: str) -> str:
+        c = client()
+        st, body = c.call("POST", "/api/v1/auth/login",
+                          {"username": name, "password": f"{name}-password"})
+        return _expect(st, body, 200, f"login {name}")["token"]
+
+    def register(name: str) -> str:
+        _expect(*client().call("POST", "/api/v1/auth/register",
+                               {"username": name, "password": f"{name}-password"}), 201,
+                f"register {name}")
+        return login(name)
+
+    try:
+        # -- the deployment: checkpoints, the App, the stub as the completion
+        # model (through the routes), a restart
+        t0 = time.perf_counter()
+        cfg = semantic_config(torch.bfloat16)
+        enc = EncoderService(cfg, max_len=cfg.max_len, seed=SEED, device=DEVICE)
+        rr = RerankService(cfg, max_len=cfg.max_len, seed=SEED + 1, device=DEVICE)
+        save_params(flax_params(enc.model), os.path.join(tmp, "enc"), cfg)
+        save_params(flax_params(rr.model), os.path.join(tmp, "ce"), cfg)
+        del enc, rr
+        settings = dataclasses.replace(
+            Settings(), data_dir=os.path.join(tmp, "data"), port=0,
+            reranker_checkpoint=os.path.join(tmp, "ce"), ingest_backend="thread",
+            batch_max=64, chunk_size=400, encoder_checkpoint="")
+        srv = _AppThread(settings)
+        admin_token = register("admin")  # the first account is the admin
+        a_token = register("smoke")
+        b_token = register("smoke-b")
+        p_token = register("public")  # the key every collection's model uses
+        admin = client(admin_token)
+        _expect(*admin.call("POST", "/api/v1/llm_providers",
+                            {"name": "stub", "base_url": stub.url}), 201, "provider")
+        _expect(*client(p_token).call("POST", "/api/v1/llm_providers/stub/key",
+                                      {"api_key": STUB_KEY}), 200, "provider key")
+        _expect(*admin.call("POST", "/api/v1/llm_providers/stub/models",
+                            {"api": "completion", "model": "chat-smoke",
+                             "tags": ["default_for_collection_completion"]}), 201, "model")
+        close_clients()
+        srv.stop()
+        srv = _AppThread(settings)
+        if srv.app.ctx.completion is None:
+            raise AssertionError("the restarted App resolved no completion client")
+        port = srv.app.port
+        a, admin = client(a_token), client(admin_token)
+        config = {"embedding": {"provider": "onboard", "model": os.path.join(tmp, "enc")}}
+        kid = _expect(*a.call("POST", "/api/v1/collections",
+                              {"title": "K", "config": config}), 201, "collection K")["id"]
+        engine = srv.app.ctx.engines.get(kid)
+        if engine.index.spec.dtype != torch.bfloat16:
+            raise AssertionError(f"K stores {engine.index.spec.dtype}")
+        n_queries = (CHAT_SINGLE + CHAT_CONCURRENT + CHAT_FRONTEND + CHAT_WS
+                     + CHAT_AGENT_WS + CHAT_AGENT_AG_UI + CHAT_SHARED_SEARCHES)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 51)
+        docs, queries = http_corpus(gen, CHAT_DOCS, HTTP_SECTIONS, n_queries)
+        pool = iter(queries)
+        take = lambda n: [next(pool) for _ in range(n)]  # noqa: E731
+        clog(f"App on port {port}, restarted so that its boot resolves the stub provider "
+             f"(port {stub.port}) as the completion model; encoder and cross-encoder "
+             f"{cfg.num_layers} x {cfg.hidden_dim} bf16; users admin, A (smoke), B "
+             f"(smoke-b); set-up {time.perf_counter() - t0:.2f} s")
+
+        t1 = time.perf_counter()
+        for dname, text in docs:
+            _expect(*a.call("POST", f"/api/v1/collections/{kid}/documents",
+                            {"name": dname, "content": text}), 201, "upload")
+        while True:
+            listing = _expect(*a.call("GET", f"/api/v1/collections/{kid}/documents"), 200,
+                              "list documents")
+            status = [d["status"] for d in listing]
+            if "FAILED" in status:
+                raise AssertionError("a document of K FAILED")
+            if len(status) == CHAT_DOCS and set(status) == {"COMPLETE"}:
+                break
+            if time.perf_counter() - t1 > HTTP_INGEST_TIMEOUT_S:
+                raise AssertionError("ingest of K not complete")
+            time.sleep(0.1)
+        if engine.index.live_count != CHAT_DOCS * HTTP_SECTIONS:
+            raise AssertionError(f"K holds {engine.index.live_count} chunks")
+        _expect(*a.call("POST", f"/api/v1/collections/{kid}/searches",
+                        {"query": queries[0]}), 201, "warm-up")
+        clog(f"ingest: K {CHAT_DOCS} documents ({CHAT_DOCS * HTTP_SECTIONS} chunks, D "
+             f"{engine.index.spec.dim}) COMPLETE after {time.perf_counter() - t1:.3f} s")
+
+        # -- the traffic, with dense dispatches and completions counted
+        real_tile_topk = dt.tile_topk
+        real_search_batch = CollectionEngine.search_batch
+        local = threading.local()
+        dense = {"K": 0, "files": 0}
+        variants: dict = {}
+        biggest: list = []
+
+        def search_batch(self, queries_, *args, **kw):
+            local.name = "K" if self is engine else "files"
+            dense[local.name] += 1
+            try:
+                return real_search_batch(self, queries_, *args, **kw)
+            finally:
+                local.name = None
+
+        def tile_topk(*args):
+            name = getattr(local, "name", None)
+            q, _, values, *_, n_scan, tile, kt = args
+            v = dt.kernel_variant(dt._mode(q, values), kt, q.shape[1], q.shape[0],
+                                  -(-n_scan // tile), dt._sm_count(torch.cuda.current_device()))
+            variants[(name, v)] = variants.get((name, v), 0) + 1
+            if name == "K" and (not biggest or q.shape[0] >= biggest[0][0].shape[0]):
+                biggest[:] = [args]
+            return real_tile_topk(*args)
+
+        def sse_turn(c, path, body):
+            st, text = c.call("POST", path, body)
+            _expect(st, text, 200, f"POST {path}")
+            return _sse_events(text)
+
+        turns: list = []  # (query, events) of every SSE chat turn
+        lat: dict = {}
+        before = stub.snapshot()
+        _reset_counts()
+        with mock.patch.object(dt, "tile_topk", tile_topk), \
+                mock.patch.object(CollectionEngine, "search_batch", search_batch):
+            # SSE from one client, CHAT_SINGLE_CHATS chats (each titled by its
+            # first turn)
+            chats = [_expect(*a.call("POST", "/api/v1/chats", {"collection_ids": [kid]}),
+                             201, "chat")["id"] for _ in range(CHAT_SINGLE_CHATS)]
+            ms = []
+            for j, q in enumerate(take(CHAT_SINGLE)):
+                t2 = time.perf_counter()
+                turns.append((q, sse_turn(a, f"/api/v1/chats/{chats[j % len(chats)]}"
+                                             f"/completions", {"message": q})))
+                ms.append((time.perf_counter() - t2) * 1e3)
+            lat["SSE, 1 client"] = ms
+            titled = CHAT_SINGLE_CHATS
+
+            # SSE from CHAT_CLIENTS clients, one chat each
+            per = CHAT_CONCURRENT // CHAT_CLIENTS
+            mine = take(CHAT_CONCURRENT)
+            cms: list = []
+            fails: list = []
+            barrier = threading.Barrier(CHAT_CLIENTS + 1)
+
+            def chatter(k):
+                cc = _Client(port, a_token)
+                try:
+                    cid = _expect(*cc.call("POST", "/api/v1/chats",
+                                           {"collection_ids": [kid]}), 201, "chat")["id"]
+                    barrier.wait()
+                    for q in mine[k * per:(k + 1) * per]:
+                        t2 = time.perf_counter()
+                        st, text = cc.call("POST", f"/api/v1/chats/{cid}/completions",
+                                           {"message": q})
+                        cms.append((time.perf_counter() - t2) * 1e3)
+                        if st != 200:
+                            fails.append((st, text[:200]))
+                        else:
+                            turns.append((q, _sse_events(text)))
+                except Exception as e:  # noqa: BLE001 — reported below
+                    fails.append(repr(e))
+                finally:
+                    cc.close()
+
+            threads = [threading.Thread(target=chatter, args=(k,)) for k in range(CHAT_CLIENTS)]
+            for th in threads:
+                th.start()
+            barrier.wait()
+            t2 = time.perf_counter()
+            for th in threads:
+                th.join(600)
+            cwall = time.perf_counter() - t2
+            if fails or any(th.is_alive() for th in threads):
+                raise AssertionError(f"concurrent turns failed: {fails[:3]}")
+            lat[f"SSE, {CHAT_CLIENTS} clients"] = cms
+            titled += CHAT_CLIENTS
+
+            # frontend completions, each in a chat of its own over K (titled by
+            # its turn), half JSON, half SSE
+            ms = []
+            frontend = []
+            for j, q in enumerate(take(CHAT_FRONTEND)):
+                cid = _expect(*a.call("POST", "/api/v1/chats", {"collection_ids": [kid]}),
+                              201, "chat")["id"]
+                path = f"/api/v1/chat/completions/frontend?chat_id={cid}"
+                t2 = time.perf_counter()
+                if j % 2:
+                    frontend.append(("sse", q, sse_turn(a, path + "&stream=true",
+                                                        {"message": q})))
+                else:
+                    frontend.append(("json", q, _expect(*a.call("POST", path, {"message": q}),
+                                                        200, "frontend")))
+                ms.append((time.perf_counter() - t2) * 1e3)
+            lat["frontend"] = ms
+            titled += CHAT_FRONTEND
+
+            # the chat WebSocket: a titled chat; CHAT_WS_STOPS turns get a stop
+            # frame once their start event is out
+            ws_chat = _expect(*a.call("POST", "/api/v1/chats",
+                                      {"title": "ws", "collection_ids": [kid]}), 201,
+                              "ws chat")["id"]
+            stops = {j for j in range(CHAT_WS) if j % (CHAT_WS // CHAT_WS_STOPS) == 2}
+            ws_turns = []
+            ws = WSClient(port, f"/api/v1/chats/{ws_chat}/connect", a_token)
+            try:
+                for j, q in enumerate(take(CHAT_WS)):
+                    ws.send_json({"message": q})
+                    events = [ws.recv_json()]
+                    if j in stops:
+                        ws.send_json({"type": "stop"})
+                    while events[-1]["event"] not in ("done", "stopped", "error"):
+                        events.append(ws.recv_json())
+                    ws_turns.append((j in stops, q, events))
+            finally:
+                ws.close()
+
+            # chat files: one upload, then searches scoped to the chat
+            f_chat = _expect(*a.call("POST", "/api/v1/chats", {"title": "files"}), 201,
+                             "files chat")["id"]
+            note = docs[0][1][:4000].encode()
+            boundary = "chatsmokeboundary"
+            raw = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+                   f"filename=\"note.md\"\r\nContent-Type: text/markdown\r\n\r\n").encode() \
+                + note + f"\r\n--{boundary}--\r\n".encode()
+            conn = a.conn
+            conn.request("POST", f"/api/v1/chats/{f_chat}/documents", body=raw, headers={
+                "Authorization": f"Bearer {a_token}",
+                "Content-Type": f"multipart/form-data; boundary={boundary}"})
+            resp = conn.getresponse()
+            upload = json.loads(resp.read())
+            _expect(resp.status, upload, 201, "chat file upload")
+            t2 = time.perf_counter()
+            while _expect(*a.call("GET", f"/api/v1/chats/{f_chat}/documents/"
+                                         f"{upload[0]['id']}"), 200,
+                          "chat file")["status"] != "COMPLETE":
+                if time.perf_counter() - t2 > HTTP_INGEST_TIMEOUT_S:
+                    raise AssertionError("the chat file was not indexed")
+                time.sleep(0.05)
+            file_hits = []
+            for q in queries[:CHAT_FILE_SEARCHES]:
+                file_hits.append(_expect(*a.call(
+                    "POST", f"/api/v1/chats/{f_chat}/files/search", {"query": q, "top_k": 3}),
+                    200, "files/search")["items"])
+
+            # agents: K as the agent's collection; WebSocket and AG-UI turns
+            aid = _expect(*a.call("POST", "/api/v1/agents", {
+                "title": "helper", "config": {"collection_ids": [kid]}}), 201, "agent")["id"]
+            a_chat = _expect(*a.call("POST", f"/api/v1/agents/{aid}/chats",
+                                     {"title": "agent"}), 201, "agent chat")["id"]
+            agent_turns = []
+            ms = []
+            ws = WSClient(port, f"/api/v1/agents/{aid}/chats/{a_chat}/connect", a_token)
+            try:
+                for q in take(CHAT_AGENT_WS):
+                    t2 = time.perf_counter()
+                    ws.send_json({"message": q})
+                    events = [ws.recv_json()]
+                    while events[-1]["event"] not in ("done", "error"):
+                        events.append(ws.recv_json())
+                    ms.append((time.perf_counter() - t2) * 1e3)
+                    agent_turns.append((q, events))
+            finally:
+                ws.close()
+            lat["agent, WebSocket"] = ms
+            ms = []
+            ag_ui = []
+            for j, q in enumerate(take(CHAT_AGENT_AG_UI)):
+                t2 = time.perf_counter()
+                ag_ui.append((q, sse_turn(a, f"/api/v1/agents/{aid}/chats/ag-ui-{j % 4}/ag-ui",
+                                          {"message": q})))
+                ms.append((time.perf_counter() - t2) * 1e3)
+            lat["agent, AG-UI"] = ms
+
+            # sharing: B while K is shared, published and subscribed
+            b = client(b_token)
+            _expect(*a.call("POST", f"/api/v1/collections/{kid}/shares",
+                            {"username": "smoke-b"}), 201, "share")
+            _expect(*a.call("POST", f"/api/v1/collections/{kid}/publish"), 200, "publish")
+            _expect(*b.call("POST", f"/api/v1/marketplace/collections/{kid}/subscribe"), 200,
+                    "subscribe")
+            shared = []
+            for q in take(CHAT_SHARED_SEARCHES):
+                shared.append((q, _expect(*b.call("POST", f"/api/v1/collections/{kid}/searches",
+                                                  {"query": q}), 201, "B's search")))
+            market = _expect(*b.call("GET", "/api/v1/marketplace/collections"), 200, "market")
+            detail = _expect(*b.call("GET", f"/api/v1/marketplace/collections/{kid}"), 200,
+                             "market detail")
+            mdocs = _expect(*b.call("GET", f"/api/v1/marketplace/collections/{kid}/documents"),
+                            200, "market documents")
+            launched = _counts()
+        torch.cuda.synchronize()
+        completions = stub.since(before)["completion"]
+        for what, ms in lat.items():
+            clog(f"{what}: {len(ms)} turns, p50 {_pctl(ms, 50):.3f} ms, p99 "
+                 f"{_pctl(ms, 99):.3f} ms")
+        clog(f"SSE from {CHAT_CLIENTS} clients: {len(cms) / cwall:.2f} turns/s")
+
+        # -- gate a: a turn's references are the direct search of its query.
+        # Held for the turns that dispatched alone (one client), as the direct
+        # search does: a query batched with others is embedded at its batch's
+        # sequence bucket, which moves its bf16 scores in the last bits
+        for q, events in turns[CHAT_SINGLE:]:
+            data = dict(events)
+            if [n for n, _ in events][0] != "start" or len(data.get("references", ())) != \
+                    HTTP_TOP_K or events[-1][0] != "done":
+                raise AssertionError(f"gate a: concurrent turn {[n for n, _ in events]}")
+        worst = 0.0
+        bit_equal = 0
+        refs_seen = 0
+        for q, events in turns[:CHAT_SINGLE] + \
+                [(q, ev) for kind, q, ev in frontend if kind == "sse"] + \
+                [(q, ev) for _, q, ev in ws_turns]:
+            if isinstance(events[0], tuple):
+                names = [n for n, _ in events]
+                data = dict(events)
+            else:
+                names = [e["event"] for e in events]
+                data = {e["event"]: e["data"] for e in events}
+            if names[0] != "start" or names[-1] not in ("done", "stopped") or \
+                    "references" not in names:
+                raise AssertionError(f"gate a: turn events {names} for {q!r}")
+            items = _expect(*a.call("POST", f"/api/v1/collections/{kid}/searches",
+                                    {"query": q}), 201, "direct search")["items"]
+            refs = data["references"]
+            key = lambda r: (r["rank"], r["text"][:300], r["metadata"])  # noqa: E731
+            if [key(r) for r in refs] != [key(it) for it in items] or not refs:
+                raise AssertionError(f"gate a: references != the direct search for {q!r}")
+            got = torch.tensor([r["score"] for r in refs])
+            want = torch.tensor([it["score"] for it in items])
+            bit_equal += int(torch.equal(got, want))
+            worst = max(worst, _close(got, want, 2e-2))
+            refs_seen += 1
+        for q, hits in zip(queries, file_hits):
+            if not hits or any(h["metadata"].get("document_id") != upload[0]["id"]
+                               for h in hits):
+                raise AssertionError(f"gate a: files/search of {q!r} answered {hits[:1]}")
+        clog(f"gate a: the references of {refs_seen} single-client turns (SSE, frontend "
+             f"SSE, WebSocket) equal a direct POST /searches of the same query on K: items "
+             f"equal, scores bit-equal in {bit_equal}, all within {worst:.3g} (1 + |s|) "
+             f"(limit 2e-2); the {CHAT_CONCURRENT} turns from {CHAT_CLIENTS} clients each "
+             f"cite {HTTP_TOP_K}; {len(file_hits)} files/search answer the chat's file")
+
+        # -- gate b: one completion per generated answer and per title, two per
+        # agent turn (a tool call, then the answer)
+        generated = sum(1 for _, ev in turns) + CHAT_FRONTEND + sum(
+            1 for _, _, ev in ws_turns if any(e["event"] == "delta" for e in ev))
+        agent_n = len(agent_turns) + len(ag_ui)
+        want_calls = generated + titled + 2 * agent_n
+        if completions != want_calls:
+            raise AssertionError(f"gate b: the stub served {completions} completions, "
+                                 f"expected {generated} answers + {titled} titles + 2 x "
+                                 f"{agent_n} agent turns")
+        for q, events in agent_turns:
+            kinds = [e["event"] for e in events]
+            if kinds[:2] != ["tool_call", "tool_result"] or kinds[-1] != "done" or \
+                    events[0]["data"]["arguments"] != {"query": q}:
+                raise AssertionError(f"gate b: agent turn {kinds}")
+        for q, events in ag_ui:
+            kinds = [n for n, _ in events]
+            if kinds[0] != "RunStarted" or kinds[-1] != "RunFinished" or \
+                    "ToolCallStart" not in kinds or "TextMessageContent" not in kinds:
+                raise AssertionError(f"gate b: AG-UI events {kinds}")
+        for kind, q, out in frontend:
+            text = out["text"] if kind == "json" else "".join(
+                d["text"] for n, d in out if n == "delta")
+            if not text.startswith("Answer [1]: "):
+                raise AssertionError(f"gate b: frontend answer {text[:80]!r}")
+        clog(f"gate b: the stub served {completions} completions = {generated} answers + "
+             f"{titled} titles + 2 x {agent_n} agent turns (a search_collections call, then "
+             f"the answer); every agent turn called search_collections with its query")
+
+        # -- gate c: each stopped WebSocket turn ended with "stopped", and the
+        # next message was answered
+        for j, (stopped, q, events) in enumerate(ws_turns):
+            last = events[-1]["event"]
+            if stopped and last != "stopped":
+                raise AssertionError(f"gate c: stopped turn {j} ended {last}")
+            if not stopped and last != "done":
+                raise AssertionError(f"gate c: turn {j} ended {last}")
+        clog(f"gate c: {len(stops)} WebSocket turns sent a stop frame after their start "
+             f"event and ended with 'stopped' "
+             f"({[[e['event'] for e in ev] for s_, _, ev in ws_turns if s_][0]}); each "
+             f"next turn ended 'done'")
+
+        # -- gate d: B's searches while shared are A's; refused after
+        for q, body in shared:
+            mine = _expect(*a.call("POST", f"/api/v1/collections/{kid}/searches",
+                                   {"query": q}), 201, "A's search")
+            if body["items"] != mine["items"] or not mine["items"]:
+                raise AssertionError(f"gate d: B's search of {q!r} != A's")
+        if kid not in [m["collection_id"] for m in market] or detail["owner"] != "smoke" \
+                or len(mdocs) != CHAT_DOCS:
+            raise AssertionError("gate d: the marketplace listing")
+        _expect(*a.call("DELETE", f"/api/v1/collections/{kid}/shares/smoke-b"), 204,
+                "unshare")
+        _expect(*a.call("POST", f"/api/v1/collections/{kid}/unpublish"), 200, "unpublish")
+        st, body = b.call("POST", f"/api/v1/collections/{kid}/searches", {"query": queries[1]})
+        _expect(st, body, 403, "B's search after the unshare and unpublish")
+        _expect(*b.call("GET", f"/api/v1/marketplace/collections/{kid}"), 404,
+                "browse after the unpublish")
+        clog(f"gate d: B's {len(shared)} searches of K while shared, published and "
+             f"subscribed equal A's, item for item; the marketplace lists K with its "
+             f"{len(mdocs)} documents; after the unshare and unpublish B's search answers "
+             f"403 and the browse 404")
+
+        # -- one web search, offline: a transport that refuses every host (this
+        # machine has no network), behind the route's req.state["web"] seam
+        def no_network(req):
+            raise OSError(101, "Network is unreachable")
+
+        offline = WebSearchService(transport=no_network)
+
+        async def web_mw(req, nxt):
+            req.state["web"] = offline
+            return await nxt(req)
+
+        srv.app.router.use(web_mw)
+        t2 = time.perf_counter()
+        web = _expect(*a.call("POST", "/api/v1/web/search", {"query": queries[2]}), 200,
+                      "web search")
+        web_ms = (time.perf_counter() - t2) * 1e3
+        if web != {"results": [], "offline": True}:
+            raise AssertionError(f"web search answered {web}")
+        clog(f"web search: offline (every host refused) in {web_ms:.3f} ms")
+
+        # -- gate e: the audit log
+        own = _expect(*a.call("GET", "/api/v1/audit_logs?limit=100000"), 200, "A's audit")
+        if not own or {r["user"] for r in own} != {"smoke"}:
+            raise AssertionError(f"gate e: A sees rows of {sorted({r['user'] for r in own})}")
+        everyone = _expect(*admin.call("GET", "/api/v1/audit-logs?limit=100000"), 200,
+                           "admin's audit")
+        paths = {r["path"] for r in everyone}
+        for want in (f"/api/v1/chats/{chats[0]}/completions", "/api/v1/chat/completions/frontend",
+                     f"/api/v1/chats/{f_chat}/files/search", f"/api/v1/collections/{kid}/shares",
+                     f"/api/v1/agents/{aid}/chats/ag-ui-0/ag-ui", "/api/v1/web/search"):
+            if want not in paths:
+                raise AssertionError(f"gate e: the admin's audit log lacks {want}")
+        if {r["user"] for r in everyone} < {"smoke", "smoke-b", "admin"}:
+            raise AssertionError("gate e: the admin's audit log lacks a user")
+        clog(f"gate e: A lists {len(own)} audit rows, all A's; the admin lists "
+             f"{len(everyone)} rows of users {sorted({r['user'] for r in everyone})}, the "
+             f"phase's routes among them")
+
+        # -- gate f: every dense dispatch over K one tcs launch, none SIMT; the
+        # kernel at the largest served batch
+        tcs_k = variants.get(("K", "tcs"), 0)
+        others = {k: v for k, v in variants.items() if k[1] != "tcs"}
+        if others or launched["dense_topk_simt"] or tcs_k != dense["K"] or \
+                launched["dense_topk_tc_bf16"] != tcs_k + variants.get(("files", "tcs"), 0):
+            raise AssertionError(f"gate f: dispatches {dense}, launches by variant "
+                                 f"{variants}, counters {launched}")
+        row = _served_kernel_row(biggest[0], tcs_k, dense["K"], clog)
+        results["dense_topk_chat"] = row
+        clog(f"gate f: each of {dense['K']} dense dispatches over K (chat turns, agent "
+             f"tools, B's searches) launched dense_topk's tcs kernel once, "
+             f"bf16 x bf16; the {dense['files']} over the chat-file collection too; none "
+             f"SIMT; counters {({k: v for k, v in launched.items() if v})}")
+
+        # -- one turn split into stages (a titled chat, single client)
+        st_ = _Stages()
+        st_.wrap_async(HttpServer, "_dispatch", "dispatch")
+        st_.wrap_async(CollectionService, "execute_search", "search")
+        st_.wrap_sync(RerankService, "__call__", "rerank", sync=True)
+        st_.wrap_sync(OpenAICompatClient, "complete", "completion")
+        for attr in ("get_chat", "add_chat_message", "list_chat_messages", "update_chat",
+                     "add_audit"):
+            st_.wrap_sync(Database, attr, "sqlite")
+        stage_chat = _expect(*a.call("POST", "/api/v1/chats",
+                                     {"title": "stages", "collection_ids": [kid]}), 201,
+                             "stage chat")["id"]
+        client_ms = []
+        with st_:
+            for j in range(CHAT_STAGE_TURNS):
+                t2 = time.perf_counter()
+                sse_turn(a, f"/api/v1/chats/{stage_chat}/completions",
+                         {"message": f"{queries[j]} (staged {j})"})
+                client_ms.append((time.perf_counter() - t2) * 1e3)
+        total = {k: sum(v) / CHAT_STAGE_TURNS for k, v in st_.ms.items()}
+        stages = {"client (median)": float(np.median(client_ms)),
+                  "route, auth, audit, SSE framing": total["dispatch"] - total["search"]
+                  - total["completion"] - total["sqlite"],
+                  "search (hybrid + CE)": total["search"],
+                  "  of which CE": total["rerank"],
+                  "completion (stub round trip)": total["completion"],
+                  "sqlite (chat rows, messages, audit)": total["sqlite"]}
+        clog(f"stages of one SSE turn (mean of {CHAT_STAGE_TURNS}, the client's median): "
+             + "; ".join(f"{k.strip()} {v:.3f} ms" for k, v in stages.items()))
+
+        # -- gate g: the chats and messages persist across a restart
+        def snapshot() -> dict:
+            out = {}
+            for ch in _expect(*a.call("GET", "/api/v1/chats?limit=1000"), 200, "chats"):
+                got = _expect(*a.call("GET", f"/api/v1/chats/{ch['id']}"), 200, "chat")
+                out[ch["id"]] = (got["title"], [(m["id"], m["role"], m["parts"])
+                                                 for m in got["messages"]])
+            return out
+
+        kept = snapshot()
+        close_clients()
+        srv.stop()
+        srv = _AppThread(settings)
+        a = client(a_token)
+        again = snapshot()
+        if again != kept or len(kept) < CHAT_SINGLE_CHATS + CHAT_CLIENTS + CHAT_FRONTEND + 3:
+            raise AssertionError(f"gate g: {len(kept)} chats before the restart, "
+                                 f"{len(again)} after, equal {again == kept}")
+        clog(f"gate g: {len(kept)} chats and their {sum(len(m) for _, m in kept.values())} "
+             f"messages read back the same after an App restart")
+
+        if errors.records:
+            raise AssertionError(f"{len(errors.records)} ERROR records: {errors.records[:3]}")
+        results["chat"] = {"latency": {k: {"p50": _pctl(v, 50), "p99": _pctl(v, 99)}
+                                       for k, v in lat.items()},
+                           "turns_s": len(cms) / cwall, "stages": stages, "web_ms": web_ms,
+                           "phase_s": time.perf_counter() - t_phase}
+        clog("gates a-g passed; no ERROR record from the port's loggers")
+    finally:
+        close_clients()
+        if srv is not None:
+            srv.stop()
+        stub.stop()
+        port_logger.removeHandler(errors)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # the phases after [small], in the order they run; a phase that another
 # feeds (its index and texts) pulls that one in
 PHASES = ("full", "wide", "serve", "ivf", "ivf-serve", "semantic", "csr", "engine", "http",
-          "docs", "graph", "providers", "workflows")
+          "docs", "graph", "providers", "workflows", "chat")
 PHASE_NEEDS = {"serve": ("full",), "ivf-serve": ("ivf",)}
 _DT = "super_rag_tpu/ops/pallas_topk.py:36"
 # each row of the kernels line: (name, source, replaces, key in results, phase)
@@ -5629,6 +6355,7 @@ KERNEL_ROWS = (
      "workflows"),
     ("dense_topk_workflow_int8", "dense_topk.cu", _DT, "dense_topk_workflow_int8",
      "workflows"),
+    ("dense_topk_chat", "dense_topk.cu", _DT, "dense_topk_chat", "chat"),
 )
 
 
@@ -5752,7 +6479,8 @@ def main(argv: list = None) -> int:
                      ("docs", lambda: phase_docs(results)),
                      ("graph", lambda: phase_graph(results)),
                      ("providers", lambda: phase_providers(results)),
-                     ("workflows", lambda: phase_workflows(results))):
+                     ("workflows", lambda: phase_workflows(results)),
+                     ("chat", lambda: phase_chat(results))):
         run(name, fn)
 
     source = "super_rag_tpu_torch/csrc/"

@@ -17,10 +17,16 @@ configuration, default models by scenario tag, the available-model
 listings); ``POST /v1/embeddings``, a collection's embedder served as
 an OpenAI-compatible provider; the workflows (CRUD, versions, runs and
 their node runs, a saved workflow's run, a one-shot run and its SSE
-stream) and the nodeflow catalog (node types, packs).  Every other route
-of the JAX package (sharing, the marketplace and the audit log, chats
-and agents, MCP and the web console: ROADMAP A6g-A6i) waits; its URL
-answers 404, as any unknown route does.
+stream) and the nodeflow catalog (node types, packs); direct sharing,
+publishing, the marketplace (list, subscriptions, read-only browsing of a
+published collection) and the sharing status; the audit log; agents
+(CRUD, their chats, feedback and titles, the tool-loop WebSocket and the
+AG-UI SSE stream); web search and page reading; chats (CRUD, chat files
+and their search, feedback, titles, SSE completions, the frontend
+completion route and the chat WebSocket, where a stop or cancel frame
+ends the turn in flight).  The MCP endpoint and the web console of the
+JAX package wait (ROADMAP A6i); their URLs answer 404, as any unknown
+route does.
 """
 
 from __future__ import annotations
@@ -39,13 +45,17 @@ import torch
 
 from super_rag_tpu_torch.api import auth as A
 from super_rag_tpu_torch.api.auth import COOKIE_NAME
-from super_rag_tpu_torch.api.http import HttpError, Request, Response, Router
+from super_rag_tpu_torch.agent.ag_ui import to_ag_ui
+from super_rag_tpu_torch.agent.session_manager import AgentSessionManager
+from super_rag_tpu_torch.api.http import HttpError, Request, Response, Router, WebSocket
+from super_rag_tpu_torch.api.wsflow import next_message, pump, start_reader
 from super_rag_tpu_torch.llm import resolver as R
 from super_rag_tpu_torch.llm.prompts import list_templates
 from super_rag_tpu_torch.nodeflow.models import node_type_catalog
 from super_rag_tpu_torch.nodeflow.registry import registry_summary
 from super_rag_tpu_torch.schema import view_models as vm
 from super_rag_tpu_torch.schema.view_models import parse_body
+from super_rag_tpu_torch.service.chat_service import ChatService
 from super_rag_tpu_torch.service.collection_service import CollectionService
 from super_rag_tpu_torch.service.context import AppContext
 from super_rag_tpu_torch.service.document_service import DocumentService
@@ -53,6 +63,7 @@ from super_rag_tpu_torch.service.workflow_service import WorkflowService
 from super_rag_tpu_torch.models.image_decode import UnsupportedImageError
 from super_rag_tpu_torch.store.objectstore import is_upload_id, safe_object_name
 from super_rag_tpu_torch.utils.uncompress import iter_archive, supported_archive
+from super_rag_tpu_torch.websearch.service import WebSearchService
 
 
 def build_router(ctx: AppContext) -> Router:
@@ -60,6 +71,8 @@ def build_router(ctx: AppContext) -> Router:
     collections = CollectionService(ctx)
     documents = DocumentService(ctx, collections)
     workflows = WorkflowService(ctx)
+    chats = ChatService(ctx, collections)
+    agent_sessions = AgentSessionManager(ctx)
     auth = ctx.auth
 
     # -- middleware: audit log ------------------------------------------------
@@ -366,6 +379,46 @@ def build_router(ctx: AppContext) -> Router:
         user = me(req)
         collections.delete(user["username"], req.path_params["cid"])
         return Response.no_content()
+
+    # -- direct sharing (reference api/collections.py:62-120) -------------------
+
+    @router.post("/api/v1/collections/{cid}/shares")
+    async def share_collection(req: Request) -> Response:
+        user = me(req)
+        collections.get(user["username"], req.path_params["cid"],
+                        allow_shared=False)
+        b = req.json()
+        target = b.get("username", "")
+        if not target or ctx.db.get_user(target) is None:
+            raise HttpError(422, f"unknown user {target!r}")
+        return Response.json(
+            ctx.db.share_collection(req.path_params["cid"], target,
+                                    user["username"]),
+            status=201,
+        )
+
+    @router.get("/api/v1/collections/{cid}/shares")
+    async def list_shares(req: Request) -> Response:
+        user = me(req)
+        collections.get(user["username"], req.path_params["cid"],
+                        allow_shared=False)
+        return Response.json(
+            ctx.db.list_collection_shares(req.path_params["cid"])
+        )
+
+    @router.delete("/api/v1/collections/{cid}/shares/{target}")
+    async def unshare_collection(req: Request) -> Response:
+        user = me(req)
+        collections.get(user["username"], req.path_params["cid"],
+                        allow_shared=False)
+        ctx.db.unshare_collection(req.path_params["cid"],
+                                  req.path_params["target"])
+        return Response.no_content()
+
+    @router.get("/api/v1/collections/shared-with-me")
+    async def shared_with_me(req: Request) -> Response:
+        user = me(req)
+        return Response.json(ctx.db.list_shared_collections(user["username"]))
 
     # -- search (the north-star route) ----------------------------------------------------
 
@@ -825,6 +878,150 @@ def build_router(ctx: AppContext) -> Router:
             as_of=float(as_of) if as_of else None,
         ))
 
+    # -- marketplace ---------------------------------------------------------------------
+
+    @router.post("/api/v1/collections/{cid}/publish")
+    async def publish(req: Request) -> Response:
+        user = me(req)
+        collections.get(user["username"], req.path_params["cid"],
+                        allow_shared=False)
+        return Response.json(ctx.db.publish_collection(req.path_params["cid"]))
+
+    @router.post("/api/v1/collections/{cid}/unpublish")
+    async def unpublish(req: Request) -> Response:
+        user = me(req)
+        collections.get(user["username"], req.path_params["cid"],
+                        allow_shared=False)
+        ctx.db.unpublish_collection(req.path_params["cid"])
+        return Response.json({"ok": True})
+
+    @router.get("/api/v1/marketplace/collections")
+    async def marketplace_list(req: Request) -> Response:
+        me(req)
+        return Response.json(ctx.db.list_marketplace())
+
+    @router.post("/api/v1/marketplace/collections/{cid}/subscribe")
+    async def subscribe(req: Request) -> Response:
+        user = me(req)
+        return Response.json(
+            ctx.db.subscribe(user["username"], req.path_params["cid"])
+        )
+
+    @router.delete("/api/v1/marketplace/collections/{cid}/subscribe")
+    async def unsubscribe(req: Request) -> Response:
+        user = me(req)
+        ctx.db.unsubscribe(user["username"], req.path_params["cid"])
+        return Response.no_content()
+
+    @router.get("/api/v1/marketplace/subscriptions")
+    async def subscriptions(req: Request) -> Response:
+        user = me(req)
+        return Response.json(ctx.db.list_subscriptions(user["username"]))
+
+    # reference path (api/marketplace.py): subscriptions listed under
+    # /marketplace/collections/subscriptions
+    router.add("GET", "/api/v1/marketplace/collections/subscriptions",
+               subscriptions)
+
+    # -- marketplace sharing status + read-only browsing (reference
+    # api/collections.py:61-120 "sharing", api/marketplace_collections.py) --
+
+    def _sharing_status(cid: str) -> dict:
+        row = ctx.db.query_one(
+            "SELECT * FROM marketplace WHERE collection_id=?", (cid,)
+        )
+        published = bool(row and row["status"] == "PUBLISHED")
+        return {"is_published": published,
+                "published_at": row["published_at"] if published else None}
+
+    @router.get("/api/v1/collections/{cid}/sharing")
+    async def sharing_status(req: Request) -> Response:
+        user = me(req)
+        collections.get(user["username"], req.path_params["cid"],
+                        allow_shared=False)
+        return Response.json(_sharing_status(req.path_params["cid"]))
+
+    @router.post("/api/v1/collections/{cid}/sharing")
+    async def sharing_publish(req: Request) -> Response:
+        user = me(req)
+        collections.get(user["username"], req.path_params["cid"],
+                        allow_shared=False)
+        ctx.db.publish_collection(req.path_params["cid"])
+        return Response.json(_sharing_status(req.path_params["cid"]))
+
+    @router.delete("/api/v1/collections/{cid}/sharing")
+    async def sharing_unpublish(req: Request) -> Response:
+        user = me(req)
+        collections.get(user["username"], req.path_params["cid"],
+                        allow_shared=False)
+        ctx.db.unpublish_collection(req.path_params["cid"])
+        return Response.json({"is_published": False, "published_at": None})
+
+    def _published_collection(req: Request) -> dict:
+        """Any authenticated user may read a PUBLISHED collection.  A
+        soft-deleted collection is not browsable even if its marketplace
+        row was left PUBLISHED."""
+        cid = req.path_params["cid"]
+        status = _sharing_status(cid)
+        if not status["is_published"]:
+            raise HttpError(404, "collection not published")
+        coll = ctx.db.get_collection(cid)
+        if coll is None or coll.get("status") != "ACTIVE":
+            raise HttpError(404, "collection not found")
+        coll["published_at"] = status["published_at"]
+        return coll
+
+    @router.get("/api/v1/marketplace/collections/{cid}")
+    async def marketplace_collection_detail(req: Request) -> Response:
+        me(req)
+        coll = _published_collection(req)
+        return Response.json(
+            {k: coll[k] for k in ("id", "title", "description",
+                                  "published_at")}
+            | {"owner": coll["user"]}
+        )
+
+    @router.get("/api/v1/marketplace/collections/{cid}/documents")
+    async def marketplace_collection_documents(req: Request) -> Response:
+        me(req)
+        coll = _published_collection(req)
+        rows = [d for d in ctx.db.list_documents(coll["id"])
+                if d.get("status") not in ("DELETED", "DELETING")]
+        return Response.json(_paginate(req, rows))
+
+    def _marketplace_document(req: Request) -> dict:
+        coll = _published_collection(req)
+        doc = ctx.db.get_document(req.path_params["did"])
+        if (doc is None or doc["collection_id"] != coll["id"]
+                or doc.get("status") in ("DELETED", "DELETING")):
+            raise HttpError(404, "document not found")
+        return doc
+
+    @router.get("/api/v1/marketplace/collections/{cid}/documents/{did}/preview")
+    async def marketplace_document_preview(req: Request) -> Response:
+        me(req)
+        doc = _marketplace_document(req)
+        return _stream_object(req, doc["object_path"],
+                              {"X-Document-Name": doc["name"]})
+
+    @router.get("/api/v1/marketplace/collections/{cid}/documents/{did}/object")
+    async def marketplace_document_object(req: Request) -> Response:
+        # ?path= selects an asset, scoped as on the owner-facing route
+        me(req)
+        doc = _marketplace_document(req)
+        return _stream_object(req, _asset_scoped_path(req, doc))
+
+    @router.get("/api/v1/marketplace/collections/{cid}/graph")
+    async def marketplace_collection_graph(req: Request) -> Response:
+        me(req)
+        coll = _published_collection(req)
+        if ctx.kg is None:
+            raise HttpError(404, "knowledge graph not enabled")
+        return Response.json(
+            ctx.kg.subgraph(coll["id"], req.query.get("node"),
+                            limit=int(req.query.get("limit", "200")))
+        )
+
     # -- prompt templates (reference prompt_template_service) --------------------------------------------
 
     @router.get("/api/v1/prompt-templates")
@@ -1278,5 +1475,419 @@ def build_router(ctx: AppContext) -> Router:
     async def nodeflow_packs(req: Request) -> Response:
         """Installed/installable node packs (reference api/nodeflow.py:21)."""
         return Response.json(registry_summary())
+
+    # -- audit ---------------------------------------------------------------------------------------
+
+    @router.get("/api/v1/audit_logs")
+    async def audit_logs(req: Request) -> Response:
+        user = auth.required(req)
+        limit = int(req.query.get("limit", "100"))
+        offset = int(req.query.get("offset", "0"))
+        who = None if user["role"] == "admin" else user["username"]
+        return Response.json(ctx.db.list_audit(who, limit, offset))
+
+    @router.get("/api/v1/audit_logs/{aid}")
+    async def audit_detail(req: Request) -> Response:
+        user = auth.required(req)
+        row = ctx.db.get_audit(int(req.path_params["aid"]))
+        if row is None or (
+            user["role"] != "admin" and row["user"] != user["username"]
+        ):
+            raise HttpError(404, "audit record not found")
+        return Response.json(row)
+
+    # reference path dialect (api/audit.py:18,105 uses hyphens)
+    router.add("GET", "/api/v1/audit-logs", audit_logs)
+    router.add("GET", "/api/v1/audit-logs/{aid}", audit_detail)
+
+    # -- agents (bots) ---------------------------------------------------------------------------------
+
+    @router.post("/api/v1/agents")
+    async def create_agent(req: Request) -> Response:
+        user = me(req)
+        b = parse_body(vm.AgentCreate, req.json())
+        return Response.json(
+            ctx.db.create_agent(user["username"], b.title,
+                                b.description, b.config),
+            status=201,
+        )
+
+    @router.get("/api/v1/agents")
+    async def list_agents(req: Request) -> Response:
+        user = me(req)
+        return Response.json(ctx.db.list_agents(user["username"]))
+
+    def _owned_agent(req: Request, user: dict) -> dict:
+        a = ctx.db.get_agent(req.path_params["aid"])
+        if a is None or a["user"] != user["username"]:
+            raise HttpError(404, "agent not found")
+        return a
+
+    @router.get("/api/v1/agents/{aid}")
+    async def get_agent(req: Request) -> Response:
+        user = me(req)
+        return Response.json(_owned_agent(req, user))
+
+    @router.put("/api/v1/agents/{aid}")
+    async def update_agent(req: Request) -> Response:
+        user = me(req)
+        a = _owned_agent(req, user)
+        b = parse_body(vm.AgentUpdate, req.json())
+        allowed = b.model_dump(exclude_none=True)
+        if allowed:
+            ctx.db.update_agent(a["id"], **allowed)
+        return Response.json(ctx.db.get_agent(a["id"]))
+
+    @router.delete("/api/v1/agents/{aid}")
+    async def delete_agent(req: Request) -> Response:
+        user = me(req)
+        a = _owned_agent(req, user)
+        ctx.db.delete_agent(a["id"])
+        return Response.no_content()
+
+    def _agent_collections(agent: dict) -> list[str]:
+        return list(agent.get("config", {}).get("collection_ids", []))
+
+    # -- agent-scoped chat CRUD (reference api/chat.py:27-73,260) ------------
+
+    def _agent_chat(req: Request, user: dict) -> dict:
+        agent = _owned_agent(req, user)
+        chat = chats.get(user["username"], req.path_params["chat_id"])
+        if chat.get("bot_id") != agent["id"]:
+            raise HttpError(404, "chat not found for this agent")
+        return chat
+
+    @router.post("/api/v1/agents/{aid}/chats")
+    async def create_agent_chat(req: Request) -> Response:
+        user = me(req)
+        agent = _owned_agent(req, user)
+        b = req.json() or {}
+        chat = ctx.db.create_chat(user["username"], b.get("title", ""),
+                                  bot_id=agent["id"])
+        ctx.db.update_chat(chat["id"], peer_type="agent")
+        return Response.json(ctx.db.get_chat(chat["id"]), status=201)
+
+    @router.get("/api/v1/agents/{aid}/chats")
+    async def list_agent_chats(req: Request) -> Response:
+        user = me(req)
+        agent = _owned_agent(req, user)
+        rows = [c for c in chats.list(user["username"])
+                if c.get("bot_id") == agent["id"]]
+        return Response.json(_paginate(req, rows))
+
+    @router.get("/api/v1/agents/{aid}/chats/{chat_id}")
+    async def get_agent_chat(req: Request) -> Response:
+        user = me(req)
+        chat = _agent_chat(req, user)
+        chat["messages"] = chats.messages(user["username"], chat["id"])
+        return Response.json(chat)
+
+    @router.put("/api/v1/agents/{aid}/chats/{chat_id}")
+    async def update_agent_chat(req: Request) -> Response:
+        user = me(req)
+        chat = _agent_chat(req, user)
+        b = req.json()
+        return Response.json(
+            chats.update(user["username"], chat["id"], title=b.get("title"))
+        )
+
+    @router.delete("/api/v1/agents/{aid}/chats/{chat_id}")
+    async def delete_agent_chat(req: Request) -> Response:
+        user = me(req)
+        chat = _agent_chat(req, user)
+        chats.delete(user["username"], chat["id"])
+        return Response.no_content()
+
+    @router.post("/api/v1/agents/{aid}/chats/{chat_id}/messages/{mid}")
+    async def agent_message_feedback(req: Request) -> Response:
+        # reference Feedback body: {type, tag, message} (api/chat.py:61-73)
+        user = me(req)
+        chat = _agent_chat(req, user)
+        b = req.json()
+        chats.feedback(user["username"], chat["id"], req.path_params["mid"],
+                       b.get("type", b.get("feedback")))
+        return Response.json({"ok": True})
+
+    @router.post("/api/v1/agents/{aid}/chats/{chat_id}/title")
+    async def agent_chat_title(req: Request) -> Response:
+        user = me(req)
+        chat = _agent_chat(req, user)
+        out = await chats.generate_title(user["username"], chat["id"])
+        return Response.json({"id": out["id"], "title": out["title"]})
+
+    async def _ws_turns(ws: WebSocket, turn) -> None:
+        """A WebSocket's turns: each user frame's events through ``pump``,
+        so that a stop or cancel frame ends the turn in flight; ``turn``
+        maps a frame and its text to ``(events, on_events)``."""
+        inbox: asyncio.Queue = asyncio.Queue()
+        reader = start_reader(ws, inbox)
+        leftover: list[dict] = []
+        try:
+            while True:
+                msg = await next_message(inbox, leftover)
+                if msg is None:
+                    return
+                text = msg.get("message", msg.get("query", ""))
+                if not text:
+                    await ws.send_json({"event": "error",
+                                        "data": "empty message"})
+                    continue
+                events, finish = turn(msg, text)
+                sent: list[dict] = []
+
+                async def send(event):
+                    sent.append(event)
+                    await ws.send_json(event)
+
+                outcome, extra = await pump(events, inbox, send)
+                leftover.extend(extra)
+                finish(sent)
+                if outcome == "closed":
+                    return
+        finally:
+            reader.cancel()
+
+    @router.websocket("/api/v1/agents/{aid}/chats/{chat_id}/connect")
+    async def agent_chat_ws(req: Request, ws: WebSocket) -> None:
+        """Agent tool-loop chat over WebSocket (reference api/chat.py:75)."""
+        user = auth.resolve(req)
+        if user is None:
+            await ws.send_json({"event": "error", "data": "unauthorized"})
+            return
+        agent = ctx.db.get_agent(req.path_params["aid"])
+        if agent is None or agent["user"] != user["username"]:
+            await ws.send_json({"event": "error", "data": "agent not found"})
+            return
+        chat_id = req.path_params["chat_id"]
+        # ownership before any message is written: an id that exists must
+        # belong to the caller (an unknown id is an ephemeral agent chat)
+        existing = ctx.db.get_chat(chat_id)
+        if existing is not None and existing["user"] != user["username"]:
+            await ws.send_json({"event": "error", "data": "chat not found"})
+            return
+        session = agent_sessions.get(user["username"], chat_id,
+                                     _agent_collections(agent),
+                                     agent_config=agent.get("config"))
+
+        def turn(msg: dict, text: str):
+            ctx.db.add_chat_message(chat_id, "user",
+                                    [{"type": "text", "text": text}])
+
+            def finish(sent: list) -> None:
+                final = ""
+                for event in sent:
+                    if event.get("event") == "done":
+                        final = event["data"].get("text", "")
+                if final:
+                    ctx.db.add_chat_message(
+                        chat_id, "assistant", [{"type": "text", "text": final}])
+
+            return session.run(text), finish
+
+        await _ws_turns(ws, turn)
+
+    @router.post("/api/v1/agents/{aid}/chats/{chat_id}/ag-ui")
+    async def agent_ag_ui(req: Request) -> Response:
+        """AG-UI protocol SSE endpoint (reference api/chat.py:150)."""
+        user = me(req)
+        agent = _owned_agent(req, user)
+        existing = ctx.db.get_chat(req.path_params["chat_id"])
+        if existing is not None and existing["user"] != user["username"]:
+            raise HttpError(404, "chat not found")
+        b = req.json()
+        text = b.get("message", "")
+        if not text:
+            raise HttpError(422, "message required")
+        session = agent_sessions.get(
+            user["username"], req.path_params["chat_id"],
+            _agent_collections(agent),
+            agent_config=agent.get("config"),
+        )
+        return Response.sse(to_ag_ui(session.run(text)))
+
+    # -- web search ---------------------------------------------------------------------------------------
+    # a middleware may put a WebSearchService of its own into
+    # req.state["web"] (the tests' stub web); else each request makes one
+
+    @router.post("/api/v1/web/search")
+    async def web_search(req: Request) -> Response:
+        me(req)
+        b = parse_body(vm.WebSearchRequest, req.json())
+        if not b.query.strip() and not (b.source or "").strip():
+            raise HttpError(422, "query or source is required")
+        svc = req.state.get("web") or WebSearchService()
+        results = svc.search(b.query, max_results=b.max_results,
+                             providers=b.providers, source=b.source)
+        return Response.json({"results": results,
+                              "offline": len(results) == 0})
+
+    @router.post("/api/v1/web/read")
+    async def web_read(req: Request) -> Response:
+        me(req)
+        b = req.json()
+        urls = b.get("urls") or ([b["url"]] if b.get("url") else [])
+        if not urls:
+            raise HttpError(422, "urls required")
+        svc = req.state.get("web") or WebSearchService()
+        return Response.json({"pages": svc.read(urls)})
+
+    # -- chats ------------------------------------------------------------------------------------------------
+
+    @router.post("/api/v1/chats")
+    async def create_chat(req: Request) -> Response:
+        user = me(req)
+        b = parse_body(vm.ChatCreate, req.json())
+        return Response.json(
+            chats.create(user["username"], b.title,
+                         b.collection_ids or None),
+            status=201,
+        )
+
+    @router.get("/api/v1/chats")
+    async def list_chats(req: Request) -> Response:
+        user = me(req)
+        return Response.json(_paginate(req, chats.list(user["username"])))
+
+    @router.get("/api/v1/chats/{chat_id}")
+    async def get_chat(req: Request) -> Response:
+        user = me(req)
+        chat = chats.get(user["username"], req.path_params["chat_id"])
+        chat["messages"] = chats.messages(user["username"], chat["id"])
+        return Response.json(chat)
+
+    @router.put("/api/v1/chats/{chat_id}")
+    async def update_chat(req: Request) -> Response:
+        user = me(req)
+        b = req.json()
+        return Response.json(
+            chats.update(user["username"], req.path_params["chat_id"],
+                         title=b.get("title"))
+        )
+
+    @router.delete("/api/v1/chats/{chat_id}")
+    async def delete_chat(req: Request) -> Response:
+        user = me(req)
+        chats.delete(user["username"], req.path_params["chat_id"])
+        return Response.no_content()
+
+    @router.post("/api/v1/chats/{chat_id}/documents")
+    async def upload_chat_file(req: Request) -> Response:
+        """Chat-scoped upload (reference api/chat.py:358)."""
+        user = me(req)
+        created = []
+        for part in req.multipart():
+            if part["filename"]:
+                created.append(
+                    chats.upload_chat_file(
+                        user["username"], req.path_params["chat_id"],
+                        part["filename"], part["data"],
+                    )
+                )
+        if not created:
+            raise HttpError(422, "no files in upload")
+        return Response.json(created, status=201)
+
+    @router.get("/api/v1/chats/{chat_id}/documents/{did}")
+    async def chat_document_detail(req: Request) -> Response:
+        # reference api/chat.py:369 chat file detail
+        user = me(req)
+        return Response.json(
+            chats.chat_document(user["username"], req.path_params["chat_id"],
+                                req.path_params["did"])
+        )
+
+    @router.post("/api/v1/chats/{chat_id}/files/search")
+    async def search_chat_files(req: Request) -> Response:
+        """Chat-file search (reference api/chat.py:311)."""
+        user = me(req)
+        b = req.json()
+        if not b.get("query"):
+            raise HttpError(422, "query required")
+        return Response.json(
+            await chats.search_chat_files(
+                user["username"], req.path_params["chat_id"], b["query"],
+                top_k=b.get("top_k", 5),
+            )
+        )
+
+    # reference path dialect (api/chat.py:311 mounts chat-file search at
+    # /chats/{chat_id}/search)
+    router.add("POST", "/api/v1/chats/{chat_id}/search", search_chat_files)
+
+    @router.post("/api/v1/chats/{chat_id}/messages/{mid}/feedback")
+    async def message_feedback(req: Request) -> Response:
+        user = me(req)
+        b = req.json()
+        chats.feedback(user["username"], req.path_params["chat_id"],
+                       req.path_params["mid"], b.get("feedback"))
+        return Response.json({"ok": True})
+
+    @router.post("/api/v1/chats/{chat_id}/title")
+    async def generate_chat_title(req: Request) -> Response:
+        """Explicit title generation (reference api/chat.py:260)."""
+        user = me(req)
+        chat = await chats.generate_title(user["username"],
+                                          req.path_params["chat_id"])
+        return Response.json({"id": chat["id"], "title": chat["title"]})
+
+    @router.post("/api/v1/chat/completions/frontend")
+    async def frontend_completions(req: Request) -> Response:
+        """Reference api/chat.py:281: message in body (JSON or raw text),
+        chat_id/stream in query params.  Streams SSE when stream=true,
+        otherwise returns the final text in one JSON payload."""
+        user = me(req)
+        try:
+            b = req.json()
+            text = b.get("message", "") if isinstance(b, dict) else str(b)
+        except HttpError:
+            text = req.body.decode("utf-8", "replace")
+        if not text:
+            raise HttpError(422, "message required")
+        chat_id = req.query.get("chat_id", "")
+        if not chat_id:
+            chat_id = chats.create(user["username"], title="")["id"]
+        stream = req.query.get("stream", "false").lower() == "true"
+        events = chats.process_message(user["username"], chat_id, text)
+        if stream:
+            return Response.sse(events)
+        parts, msg_id = [], ""
+        async for ev in events:
+            if ev.get("event") == "delta":
+                parts.append(ev["data"].get("text", ""))
+            elif ev.get("event") == "done":
+                msg_id = ev["data"].get("message_id", "")
+        return Response.json({"chat_id": chat_id, "message_id": msg_id,
+                              "text": "".join(parts)})
+
+    @router.post("/api/v1/chats/{chat_id}/completions")
+    async def chat_completions(req: Request) -> Response:
+        """SSE chat completion (reference frontend_chat_completions)."""
+        user = me(req)
+        b = req.json()
+        text = b.get("message", b.get("query", ""))
+        if not text:
+            raise HttpError(422, "message required")
+        events = chats.process_message(
+            user["username"], req.path_params["chat_id"], text,
+            collection_ids=b.get("collection_ids"),
+        )
+        return Response.sse(events)
+
+    @router.websocket("/api/v1/chats/{chat_id}/connect")
+    async def chat_ws(req: Request, ws: WebSocket) -> None:
+        """WebSocket chat (reference api/chat.py:75-105)."""
+        user = auth.resolve(req)
+        if user is None:
+            await ws.send_json({"event": "error", "data": "unauthorized"})
+            return
+        chat_id = req.path_params["chat_id"]
+
+        def turn(msg: dict, text: str):
+            events = chats.process_message(
+                user["username"], chat_id, text,
+                collection_ids=msg.get("collection_ids"))
+            return events, lambda sent: None
+
+        await _ws_turns(ws, turn)
 
     return router

@@ -10,7 +10,7 @@ clean stop.  Run with:
 configured by the same ``SUPER_RAG_*`` environment variables as the JAX
 package (``config.py``).  ``App(device="cpu")`` serves from the CPU, as
 the tests do; without a card and without that, the app refuses to start.
-The MCP and web UI routes wait (ROADMAP A6).
+The MCP and web UI routes wait (ROADMAP A6i).
 """
 
 from __future__ import annotations

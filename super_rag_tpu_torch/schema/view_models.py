@@ -141,6 +141,26 @@ class WorkflowRunRequest(Model):
     inputs: dict = Field(default_factory=dict)
 
 
+# -- chats / agents -----------------------------------------------------------------
+
+
+class ChatCreate(Model):
+    title: str = Field(default="", max_length=256)
+    collection_ids: list[str] = Field(default_factory=list)
+
+
+class AgentCreate(Model):
+    title: str = Field(min_length=1, max_length=256)
+    description: str = ""
+    config: dict = Field(default_factory=dict)
+
+
+class AgentUpdate(Model):
+    title: Optional[str] = Field(default=None, min_length=1, max_length=256)
+    description: Optional[str] = None
+    config: Optional[dict] = None
+
+
 # -- llm providers ---------------------------------------------------------------
 
 
@@ -185,6 +205,17 @@ class ChangePasswordRequest(Model):
 
 class ApiKeyCreate(Model):
     description: str = ""
+
+
+# -- web search -----------------------------------------------------------------------
+
+
+class WebSearchRequest(Model):
+    # query may be empty when ``source`` drives llms.txt discovery
+    query: str = Field(default="")
+    max_results: int = Field(default=5, ge=1, le=50)
+    source: Optional[str] = None
+    providers: Optional[list] = None
 
 
 def parse_body(model: type[Model], data: Any):

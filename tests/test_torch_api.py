@@ -512,11 +512,21 @@ def test_auth_aliases_and_metrics(clients):
 
 def test_waiting_routes_answer_404(clients):
     port = clients[1]
-    for method, path in (("GET", "/api/v1/audit_logs"), ("GET", "/api/v1/chats"),
-                         ("GET", "/api/v1/marketplace/collections"), ("GET", "/mcp"),
-                         ("GET", "/")):
+    for method, path in (("GET", "/mcp"), ("POST", "/mcp"), ("GET", "/")):
         status, body = port.call(method, path, {} if method == "POST" else None)
         assert status == 404, (path, status, body)
+
+
+def test_route_sets_equal_apart_from_mcp_and_the_console(apps):
+    """Every (method, path) the JAX app serves, the port serves, except the
+    MCP endpoint and the web console (ROADMAP A6i); the port serves nothing
+    the JAX app lacks."""
+    def routes(app):
+        return {(m, rx.pattern) for m, rx, *_ in app.router.routes}
+
+    ref, port = routes(apps[0].app), routes(apps[1].app)
+    assert ref - port == {("GET", "^/mcp$"), ("POST", "^/mcp$"), ("GET", "^/$")}
+    assert port - ref == set()
 
 
 def test_port_refuses_what_it_lacks(clients, corpus):

@@ -53,13 +53,19 @@ MODULES = [
     "super_rag_tpu_torch.nodeflow.yamlsub", "super_rag_tpu_torch.nodeflow.parser",
     "super_rag_tpu_torch.nodeflow.registry",
     "super_rag_tpu_torch.nodeflow.runners.fulltext_search",
-    "super_rag_tpu_torch.service.workflow_service",
+    "super_rag_tpu_torch.service.workflow_service", "super_rag_tpu_torch.agent",
+    "super_rag_tpu_torch.agent.ag_ui", "super_rag_tpu_torch.agent.code_runner",
+    "super_rag_tpu_torch.agent.planner", "super_rag_tpu_torch.agent.runtime",
+    "super_rag_tpu_torch.agent.session_manager", "super_rag_tpu_torch.agent.skills",
+    "super_rag_tpu_torch.websearch", "super_rag_tpu_torch.websearch.service",
+    "super_rag_tpu_torch.websearch.readability", "super_rag_tpu_torch.api.wsflow",
+    "super_rag_tpu_torch.service.chat_service",
 ]
 # third-party packages the JAX package's serving seam uses and the card's
 # machine may lack; the port replaces each (jinja2, torch's own dependency,
 # is allowed)
 FORBIDDEN = ("pydantic", "pydantic_core", "yaml", "httpx", "markdown_it", "PIL", "ray",
-             "cryptography")
+             "cryptography", "websockets", "httpcore")
 
 
 def test_import_pulls_no_jax_and_nothing_of_the_jax_package():
@@ -81,7 +87,8 @@ def test_source_names_no_jax_import_or_jax_package_path():
     pattern = re.compile(
         r"^\s*(import jax|from jax)|from super_rag_tpu\.|import super_rag_tpu\b"
         r"|super_rag_tpu/|import bench\b|from bench\b"
-        r"|^\s*(import|from) (pydantic|yaml|httpx|markdown_it|cryptography)\b", re.M)
+        r"|^\s*(import|from) (pydantic|yaml|httpx|httpcore|websockets|markdown_it|cryptography)"
+        r"\b", re.M)
     scanned = 0
     for dirpath, _, files in os.walk(PORT):
         if "_build" in dirpath:

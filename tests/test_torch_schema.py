@@ -115,6 +115,27 @@ CASES = {
     ],
     "WorkflowRunRequest": [{}, {"inputs": {"query": "q"}}, {"inputs": "q"},
                            {"inputs": None}],
+    "ChatCreate": [
+        {}, {"title": "t", "collection_ids": ["a", "b"]}, {"title": "x" * 257},
+        {"title": None}, {"title": 5}, {"collection_ids": "a"}, {"collection_ids": [1]},
+        {"collection_ids": None}, {"collection_ids": ("a",)}, {"unknown": 1},
+    ],
+    "AgentCreate": [
+        {"title": "helper"}, {}, {"title": ""}, {"title": "x" * 257},
+        {"title": "a", "config": []}, {"title": "a", "config": None},
+        {"title": "a", "description": None}, {"title": "a", "config": {"k": [1]}},
+        {"description": "no title", "config": 5},
+    ],
+    "AgentUpdate": [
+        {}, {"title": ""}, {"title": None, "config": None}, {"config": 5},
+        {"description": 3}, {"title": "x" * 300, "config": []}, {"config": {"a": 1}},
+    ],
+    "WebSearchRequest": [
+        {}, {"query": "q"}, {"query": None}, {"query": 5}, {"max_results": 0},
+        {"max_results": 51}, {"max_results": "7"}, {"max_results": 2.5},
+        {"providers": "x"}, {"providers": ["a", 1]}, {"providers": None},
+        {"source": 5}, {"source": "docs.example.com"}, {"max_results": 0, "source": 1},
+    ],
 }
 
 PARAMS = [(name, i) for name, bodies in CASES.items() for i in range(len(bodies))]

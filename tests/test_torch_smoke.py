@@ -1,5 +1,5 @@
-"""chip_smoke.py on the CPU: its phase selection, and a rehearsal of its
-[workflows] phase at a small size (the card's kernels replaced by their
+"""chip_smoke.py on the CPU: its phase selection, and rehearsals of its
+[workflows] and [chat] phases at a small size (the card's kernels replaced by their
 plain versions, which move the same launch counters)."""
 
 import pytest
@@ -15,6 +15,8 @@ import chip_smoke as cs
     ([], {"SMOKE_PHASES": "workflows"}, ["workflows"]),
     (["--phases", "serve"], {}, ["full", "serve"]),
     (["--phases", "ivf-serve,docs"], {"SMOKE_PHASES": "csr"}, ["ivf", "ivf-serve", "docs"]),
+    (["--phases", "chat"], {}, ["chat"]),
+    (["--phases=chat,workflows,http"], {}, ["http", "workflows", "chat"]),
 ])
 def test_select_phases(argv, env, want):
     assert cs.select_phases(argv, env) == want
@@ -43,7 +45,8 @@ def test_every_kernel_row_belongs_to_a_phase():
     assert {phase for *_, phase in cs.KERNEL_ROWS} <= set(cs.PHASES)
     names = [name for name, *_ in cs.KERNEL_ROWS]
     assert len(names) == len(set(names))
-    assert {"dense_topk_workflow_bf16", "dense_topk_workflow_int8"} <= set(names)
+    assert {"dense_topk_workflow_bf16", "dense_topk_workflow_int8",
+            "dense_topk_chat"} <= set(names)
 
 
 def test_workflow_yaml_parses_to_the_definition():
@@ -100,3 +103,49 @@ def test_workflows_phase_rehearsed_on_the_cpu(monkeypatch):
     assert set(results["workflows"]["runs"]) == {"saved, 1 client", "saved, 2 clients",
                                                  "one-shot (YAML), 1 client",
                                                  "streamed, 1 client"}
+
+
+def test_chat_phase_rehearsed_on_the_cpu(monkeypatch):
+    """The [chat] phase end to end at a small size: every gate runs (its
+    WebSockets through the script's stdlib client), and its kernel row
+    comes out with its keys."""
+    from super_rag_tpu_torch.engine.index import DeviceIndex
+    from super_rag_tpu_torch.ops import dense_topk as dt
+
+    for name, value in (("DEVICE", "cpu"), ("HTTP_SECTIONS", 16), ("CHAT_DOCS", 3),
+                        ("CHAT_SINGLE", 4), ("CHAT_SINGLE_CHATS", 2), ("CHAT_CONCURRENT", 4),
+                        ("CHAT_CLIENTS", 2), ("CHAT_FRONTEND", 2), ("CHAT_WS", 4),
+                        ("CHAT_WS_STOPS", 1), ("CHAT_FILE_SEARCHES", 2), ("CHAT_AGENT_WS", 2),
+                        ("CHAT_AGENT_AG_UI", 2), ("CHAT_SHARED_SEARCHES", 2),
+                        ("CHAT_STAGE_TURNS", 2),
+                        ("SEMANTIC_CONFIG", dict(cs.SEMANTIC_CONFIG, vocab_size=2000,
+                                                 hidden_dim=32, num_layers=1, num_heads=4,
+                                                 mlp_dim=64, max_len=64))):
+        monkeypatch.setattr(cs, name, value)
+
+    def plain_counting(*args):
+        q, _, values, *_, n, tile, kt = args
+        mode = dt._mode(q, values)
+        if dt.kernel_variant(mode, kt, q.shape[1], q.shape[0], -(-n // tile), 132) == "simt":
+            dt.simt_launches.count += 1
+        else:
+            dt.tc_launches.count += 1
+            dt.tc_mode_launches[mode].count += 1
+        return dt.tile_topk_plain(*args)
+
+    timed = lambda fn, *a, **kw: (fn(), 1.0)[1]  # noqa: E731
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    for name in ("cuda_ms", "host_ms", "burst_ms"):
+        monkeypatch.setattr(cs, name, timed)
+    monkeypatch.setattr(dt, "_sm_count", lambda i: 132)
+    monkeypatch.setattr(dt, "tile_topk", plain_counting)
+    monkeypatch.setattr(DeviceIndex, "_kernel_default", lambda self, *a: True)
+    torch.set_num_threads(2)
+    results = {"card": "CPU rehearsal", "dense_topk": {}}
+    cs.phase_chat(results)
+    row = results["dense_topk_chat"]
+    assert row["launches"] >= 1 and row["variant"] == "tcs"
+    assert {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"} <= set(row)
+    assert set(results["chat"]["latency"]) == {"SSE, 1 client", "SSE, 2 clients", "frontend",
+                                               "agent, WebSocket", "agent, AG-UI"}
