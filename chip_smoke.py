@@ -7,7 +7,7 @@
 With ``--phases`` (or ``SMOKE_PHASES``) it runs the device, build and two
 [small] phases, then the named phases (from full, wide, serve, ivf,
 ivf-serve, semantic, csr, engine, http, docs, graph, providers,
-workflows) in their usual order, with those that feed them ([serve]
+workflows, chat, mcp, train) in their usual order, with those that feed them ([serve]
 needs [full], [ivf-serve] needs [ivf]), and lists their kernel rows; an
 unknown phase exits non-zero before anything runs.
 
@@ -102,7 +102,7 @@ Phases, each printing one line with its seconds:
      documents/confirm and a .zip, 256 PNG and BMP images through the
      two-phase upload, a .zip and a .tar.gz into a collection with the
      vision index; gates: a. the chunk texts equal a thread-backend App's;
-     b. 64 image searches, each its own asset first, equal to a direct
+     b. DOCS_IMAGE_QUERIES image searches, each its own asset first, equal to a direct
      search_by_image, one tensor-core dense_topk launch each, the kernel
      held against its plain version; c. assets, preview and object with
      byte ranges, and a path outside the document refused; d. rebuilds;
@@ -118,8 +118,8 @@ Phases, each printing one line with its seconds:
      document COMPLETE, its chunks those of a parse here and holding its
      sentences; b. a ``KnowledgeGraphService(device="cpu")`` fed the same
      chunk texts holds the same nodes, facts and invalidations as the
-     served graph (``/graph/stats``, ``/graph``); c. 64 graph searches
-     and 64 ``use_graph`` searches from one client, each equal to the CPU
+     served graph (``/graph/stats``, ``/graph``); c. GRAPH_QUERIES graph searches
+     and as many ``use_graph`` searches from one client, each equal to the CPU
      graph's answer up to ties; d. each graph dispatch launched
      ``dense_topk_tcs_kernel`` with a mask, the kernel held against its
      plain version; e. a deleted document's facts leave both graphs;
@@ -134,8 +134,8 @@ Phases, each printing one line with its seconds:
      through the stub, the stub's rerank, the summary index) with
      PROV_DOCS documents; gates: a. every document COMPLETE with its
      vector and summary index, P's engine a RemoteEmbedder of dim 1,536,
-     the stub's calls as expected, no fallback logged; b. 64 unreranked
-     and 64 reranked searches (of other queries) equal an ``App(device="cpu")`` fed the same
+     the stub's calls as expected, no fallback logged; b. PROV_QUERIES unreranked
+     and as many reranked searches (of other queries) equal an ``App(device="cpu")`` fed the same
      documents by the same stub, up to ties; c. each dispatch launched
      dense_topk's sorted-selection tensor-core kernel (bf16, D = 1,536,
      queries streamed) and no SIMT one, the kernel held against its plain
@@ -165,15 +165,43 @@ Phases, each printing one line with its seconds:
      the largest served batch of each; d. the cross-encoder ran on the
      card once a run; e. a deleted workflow takes its versions and runs;
      f. no ERROR record;
-  16. a ``{"kernels": [...]}`` JSON line;
-  17. last line: ``{"ok": true, "device": {...}}``.
+  16. chats, agents, sharing and the audit log ([chat], gates a-g);
+  17. the MCP endpoint, the console, the CLI and the evals: the App as
+     [chat] sets it up, collection M (bf16) of MCP_DOCS documents; over an
+     API key, initialize, tools/list, MCP_QUERIES ``search_collection``
+     calls reranked and as many not from one client, MCP_CONCURRENT from
+     MCP_CLIENTS clients (p50, p99, requests/s), ``search_chat_files``
+     over a chat's file, a batch with a notification, an offline
+     ``web_search``; gates: a. the protocol, and each single-client call's
+     items equal a direct ``POST /searches``; b. the chat-file search
+     answers from the chat's file; c. each dispatch over M launched
+     ``dense_topk_tcs_kernel`` once, none SIMT, the kernel held against its
+     plain version at the largest served batch; d. ``GET /`` the console,
+     ``GET /mcp`` 405; e. the CLI as subprocesses on the card (ingest,
+     collections, search with the hits of an in-process
+     ``execute_search``, snapshot); f. ``evaluate_engine`` over M (each
+     query a section's own words) above MCP_EVAL_FLOOR;
+  18. one-card training at the checkpoints' width (6 x 256, bf16 over f32
+     parameters, flax-init weights from a seed) on docstrings harvested
+     from the card machine's site-packages, cut to ICT pairs:
+     TRAIN_STEPS contrastive steps at batch TRAIN_BATCH (ms a step,
+     pairs/s, idle share), 19 hard negatives mined for MINE_PAIRS pairs,
+     CE_STEPS cross-encoder steps at CE_QUERIES x 20 candidates
+     warm-started from the trained backbone; gates: a. one f32 step on the
+     card equals the CPU's (loss, gradient norm); b. both losses fall; c.
+     the checkpoints read back and serve: hybrid + rerank over rows the
+     trained encoder embedded launches one tensor-core dense_topk, bit for
+     bit against its plain version; d. every parameter finite;
+  19. a ``{"kernels": [...]}`` JSON line;
+  20. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  There is no CPU path: without a
 CUDA device, or without the package beside it, it exits non-zero and
 prints no result.  Nothing is written under the repo except the kernel
 and analyzer libraries in super_rag_tpu_torch/_build/; the engine, HTTP,
-docs, graph, providers and workflows phases' data (the providers'
-response caches too) go to temporary directories that they remove.
+docs, graph, providers, workflows, chat, MCP and training phases' data
+(the providers' response caches and the CLI's data dir too) go to
+temporary directories that they remove.
 """
 
 from __future__ import annotations
@@ -239,6 +267,7 @@ ENGINE_TEXTS = 65_536
 ENGINE_WORDS = 128
 ENGINE_INGEST_BATCH = 2048
 ENGINE_QUERIES = 64
+ENGINE_PY_TEXTS = 16_384  # of them, ingested again with the Python analyzer; all until [train]
 # the HTTP serving seam: the port's App at the deployment's defaults, each
 # collection fed HTTP_DOCS markdown documents of HTTP_SECTIONS sections (one
 # chunk each) of HTTP_WORDS zipfian words
@@ -248,26 +277,28 @@ HTTP_WORDS = 96
 HTTP_UPLOADERS = 8
 HTTP_QUERIES = 64  # 128 until [chat] joined the smoke (608 s); 256 before a 900 s run
 HTTP_CLIENTS = 64
+HTTP_SINGLE_QUERIES = 32  # of HTTP_QUERIES, from one client; all 64 until [mcp], [train] joined
 HTTP_TOP_K = 5
 HTTP_CANDIDATES = 100
-HTTP_STAGE_REQUESTS = 16  # 32 until the [workflows] phase joined the smoke
+HTTP_STAGE_REQUESTS = 8  # 32 until [workflows] joined the smoke, 16 until [mcp], [train]
 HTTP_RESTART_QUERIES = 32  # a collection; 64 until [workflows] joined
 HTTP_INGEST_TIMEOUT_S = 600.0
 # [docs]: the rest of the search and document routes, the process ingest
 # backend, archives and the image route
 DOCS_TEXT_DOCS = 32  # 16 staged + confirmed, 16 in one .zip
 DOCS_TEXT_SECTIONS = 128
-DOCS_IMAGES = 256  # 192 PNG (32 staged + 160 in one .zip), 64 BMP in one .tar.gz
+DOCS_IMAGES = 128  # 3/4 PNG (32 staged, the rest in one .zip), 1/4 BMP in one .tar.gz; was 256
 DOCS_IMAGE_SIZE = 256
-DOCS_IMAGE_QUERIES = 64  # 48 PNG + 16 BMP
+DOCS_IMAGE_QUERIES = 32  # PNG and BMP; 64 until [mcp] and [train] joined the smoke
 DOCS_WORKERS = 2
-DOCS_PHOTOS = ((1080, 1920), (3000, 4000))  # JPEG decode timed on photos: HD, 12 MP
+DOCS_PHOTOS = ((1080, 1920), (3000, 4000))  # HD, 12 MP: the largest is searched
+DOCS_TIMED_PHOTOS = 1  # of them, decoded and timed on the host too; both until [train] joined
 # [graph]: the stdlib document formats into a collection with the knowledge graph
 GRAPH_DOCS_PER_FORMAT = 4  # x 6 formats: .pdf .docx .xlsx .pptx .doc .ppt
 GRAPH_SENTENCES = 48  # a document's seeded sentences, each one or two facts
 GRAPH_ORGS = 200
 GRAPH_PEOPLE = 150
-GRAPH_QUERIES = 64  # POST graph/search, and as many searches with use_graph
+GRAPH_QUERIES = 16  # POST graph/search, and as many with use_graph; was 64
 GRAPH_TOP_K = 5
 GRAPH_IMAGE = 48  # each PDF's FlateDecode RGB image is 48 x 48
 GRAPH_MIN_FACTS = 1000  # gate a: the graph the documents make is at least this big
@@ -277,11 +308,11 @@ PROV_WIDE_DIM = 3072  # text-embedding-3-large: its kernel rows, over P's shape
 STUB_KEY = "sk-smoke-stub-key"
 # collection P: 16 documents x PROV_SECTIONS sections of the [http] recipe (32
 # until [workflows] joined the smoke: P's ingest and its CPU twin's halve)
-PROV_DOCS = 16
+PROV_DOCS = 8  # 16 until [mcp] and [train] joined the smoke, 32 until [workflows]
 # 256, not 512: at 512 (16,416 rows) the phase ran 160.7 s on an H100, the CPU
 # twin repeating the host-bound ingest and every App's stop snapshotting it
 PROV_SECTIONS = 256
-PROV_QUERIES = 64  # unreranked, and as many other queries reranked, from one client
+PROV_QUERIES = 16  # unreranked, and as many others reranked, from one client; was 64
 PROV_S_DOCS = 8  # collections O (onboard encoder) and S (O's encoder through /v1/embeddings)
 PROV_S_SECTIONS = 64
 PROV_S_QUERIES = 16
@@ -292,27 +323,54 @@ PROV_EMBED_BATCH = 64  # RemoteEmbedder's batch
 PROV_MAP_BATCH = 8  # index/summary.py's map batch
 WF_DOCS_A = 16  # [workflows] collection A (bf16): 16 x HTTP_SECTIONS sections, 8,192 chunks
 WF_DOCS_B = 8  # collection B (int8): 4,096 chunks
-WF_SINGLE = 64  # saved-workflow runs from one client
-WF_CONCURRENT = 64  # saved-workflow runs from WF_CLIENTS clients
+WF_SINGLE = 16  # saved-workflow runs from one client; was 64
+WF_CONCURRENT = 32  # saved-workflow runs from WF_CLIENTS clients; 64 before
 WF_CLIENTS = 16
-WF_ONE_SHOT = 16  # POST /workflows/run of the definition's YAML text
-WF_STREAM = 16  # POST /workflows/run/stream
+WF_ONE_SHOT = 8  # POST /workflows/run of the definition's YAML text
+WF_STREAM = 8  # POST /workflows/run/stream
 WF_STAGE_RUNS = 16
 WF_TOP_K = 50  # vector_search and fulltext_search, each over A and B
 WF_RERANK_TOP_K = 5
 CHAT_DOCS = 8  # [chat] collection K (bf16): 8 x HTTP_SECTIONS sections, 4,096 chunks
-CHAT_SINGLE = 64  # SSE turns from one client, over CHAT_SINGLE_CHATS chats
+CHAT_SINGLE = 32  # SSE turns from one client, over CHAT_SINGLE_CHATS chats; 64 before
 CHAT_SINGLE_CHATS = 8
-CHAT_CONCURRENT = 64  # SSE turns from CHAT_CLIENTS clients, one chat each
+CHAT_CONCURRENT = 32  # SSE turns from CHAT_CLIENTS clients, one chat each; 64 before
 CHAT_CLIENTS = 16
-CHAT_FRONTEND = 16  # POST /chat/completions/frontend, half JSON, half SSE
-CHAT_WS = 16  # chat WebSocket turns, CHAT_WS_STOPS of them stopped mid-stream
-CHAT_WS_STOPS = 4
-CHAT_FILE_SEARCHES = 16
-CHAT_AGENT_WS = 16  # agent WebSocket turns
-CHAT_AGENT_AG_UI = 16  # AG-UI turns
-CHAT_SHARED_SEARCHES = 16  # user B's searches of the shared collection
-CHAT_STAGE_TURNS = 16
+CHAT_FRONTEND = 8  # POST /chat/completions/frontend, half JSON, half SSE
+CHAT_WS = 8  # chat WebSocket turns, CHAT_WS_STOPS of them stopped mid-stream
+CHAT_WS_STOPS = 2  # was 4 of 16
+CHAT_FILE_SEARCHES = 8
+CHAT_AGENT_WS = 8  # agent WebSocket turns
+CHAT_AGENT_AG_UI = 8  # AG-UI turns
+CHAT_SHARED_SEARCHES = 8  # user B's searches of the shared collection
+CHAT_STAGE_TURNS = 8
+MCP_DOCS = 8  # [mcp] collection M (bf16): 8 x HTTP_SECTIONS sections, 4,096 chunks
+MCP_QUERIES = 32  # search_collection calls from one client, reranked; as many unreranked
+MCP_CONCURRENT = 32  # reranked search_collection calls from MCP_CLIENTS clients
+MCP_CLIENTS = 16
+MCP_FILE_SEARCHES = 8
+MCP_EVAL_PER_DOC = 8  # evaluate_engine: sections of each document, each its own query
+MCP_EVAL_WORDS = 24  # a query: the first words of its section
+# floors by mode: the hybrid fuses BM25 with the seeded (untrained) encoder's
+# ranking, which puts the section in the top 10 but rarely first (on an H100:
+# recall@1 0.25, @10 1.0, MRR 0.4627); BM25 alone ranks it first
+MCP_EVAL_FLOOR = {"hybrid": {"recall@10": 0.9, "mrr": 0.35},
+                  "fulltext": {"recall@1": 0.9, "recall@10": 0.95}}
+CLI_DOCS = 2  # the CLI ingests this many of M's documents into a data dir of its own
+CLI_TIMEOUT_S = 300
+TRAIN_FILES_PER_PKG = 300  # [train]: the docstring harvest of the card's site-packages
+TRAIN_MAX_DOCS = 4_000
+TRAIN_BATCH = 256  # contrastive pairs a step, each side at [256, <= 128]
+TRAIN_STEPS = 40
+TRAIN_LR = 3e-4  # scripts/semantic_eval.py's accelerator recipe
+TRAIN_CHECK_BATCH = 8  # gate a: one f32 step on the card and on the CPU
+MINE_PAIRS = 4096
+MINE_NEGATIVES = 19
+CE_QUERIES = 8  # a CE step: 8 queries x (1 + 19) candidates = [160, <= 128]
+CE_STEPS = 100
+CE_LR = 2e-4  # at 1e-4 (RerankTrainConfig's default) the loss fell only 3.005 -> 2.971 on an H100
+TRAIN_SERVE_ROWS = 1024  # gate c: harvested rows embedded by the trained encoder, int8
+TRAIN_SERVE_QUERIES = 32
 SEM_ROWS = 1_000_000
 SEM_WORDS = 128  # words a row's text holds: every (query, row) pair fills 128 tokens
 SEM_CHUNKS = 16_384  # 65,536 until [workflows] joined the smoke
@@ -320,8 +378,9 @@ SEM_CHUNK_BATCH = 128
 SEM_QUERY_BATCH = 512
 SEM_RERANK_QUERIES = 32
 SEM_RERANK_BATCH = 32
-SEM_SERVE_REQUESTS = 64
+SEM_SERVE_REQUESTS = 32  # 64 until [mcp] and [train] joined the smoke
 SEM_CHECK_TEXTS = 128
+SEM_STAGE_REPS = 2  # c's stage timing (~3.4 s a round); was 10
 SEM_CPU_TEXTS = 16  # a full-width CPU forward at [16, 128] takes about a second
 # the semantic tier: the in-repo encoder_semantic checkpoints' config
 # (checkpoints/encoder_semantic{,_reranker}.json); the weights are drawn
@@ -1488,11 +1547,12 @@ def interleaved_ms(fns: dict, reps: int = 10, warmup: int = 1) -> dict:
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def device_busy(fn, wall_ms: float, reps: int = 5) -> str:
+def device_busy(fn, wall_ms: float, reps: int = 5, top: int = 0) -> str:
     """The card's kernel time and kernel count per call of ``fn``, from a
     torch.profiler trace, and the idle share of ``wall_ms`` (the call's
     untraced CUDA-event time) that leaves: the card waiting on the host's
-    launches."""
+    launches.  ``top`` > 0 adds the kernels that took the most device time
+    a call, by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1507,8 +1567,19 @@ def device_busy(fn, wall_ms: float, reps: int = 5) -> str:
     if not kernels:
         return "device busy time not measured (the trace holds no kernel)"
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
-    return (f"{len(kernels) / reps:.0f} kernels, busy {busy:.3f} ms "
-            f"(idle {max(0.0, 1 - busy / wall_ms):.1%} of the call)")
+    out = (f"{len(kernels) / reps:.0f} kernels, busy {busy:.3f} ms "
+           f"(idle {max(0.0, 1 - busy / wall_ms):.1%} of the call)")
+    if top:
+        by_name: dict = {}
+        for e in kernels:
+            k = by_name.setdefault(e.name, [0, 0.0])
+            k[0] += 1
+            k[1] += e.time_range.elapsed_us() / 1e3 / reps
+        ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+        out += "; top kernels a call: " + "; ".join(
+            f"{name[:70]} x{n / reps:.0f} {ms:.3f} ms ({ms / busy:.1%})"
+            for name, (n, ms) in ranked)
+    return out
 
 
 def burst_ms(fn, calls: int = 50, reps: int = 5) -> float:
@@ -1762,7 +1833,7 @@ def phase_semantic(results: dict):
         "search_hybrid": lambda: idx.search_hybrid(q_emb, q32, k=CANDIDATES,
                                                    candidates=CANDIDATES),
         "rerank": lambda: [rr(q, t) for q, t in zip(q32, cand_texts)],
-    })
+    }, reps=SEM_STAGE_REPS)
     pids, pmask, ptt = rr.tokenizer.encode_pairs([q32[0]] * SEM_RERANK_BATCH,
                                                  cand_texts[0][:SEM_RERANK_BATCH],
                                                  max_len=rr.max_len)
@@ -2199,13 +2270,13 @@ def phase_engine(results: dict) -> None:
             finally:
                 analyzer_s["t"] += time.perf_counter() - t0
 
-        def ingest(eng, **kw):
+        def ingest(eng, count=None, **kw):
             analyzer_s["t"] = 0.0
             with mock.patch.object(Analyzer, "batch_doc_entries",
                                    lambda self, t, s: timed(self, t, s, **kw)):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                for lo in range(0, len(texts), ENGINE_INGEST_BATCH):
+                for lo in range(0, count or len(texts), ENGINE_INGEST_BATCH):
                     eng.ingest(texts[lo:lo + ENGINE_INGEST_BATCH])
                 torch.cuda.synchronize()
                 return time.perf_counter() - t0, analyzer_s["t"]
@@ -2217,17 +2288,18 @@ def phase_engine(results: dict) -> None:
             raise AssertionError(f"engine built with {eng.hybrid_opts} on {eng.index.device}")
         wall, ana = ingest(eng)
         py_eng = manager("p").get("py", config)
-        py_wall, py_ana = ingest(py_eng, prefer_native=False)
-        if not (torch.equal(py_eng.index.terms, eng.index.terms)
-                and torch.equal(py_eng.index.tfs, eng.index.tfs)):
+        n_py = ENGINE_PY_TEXTS
+        py_wall, py_ana = ingest(py_eng, count=n_py, prefer_native=False)
+        if not (torch.equal(py_eng.index.terms[:n_py], eng.index.terms[:n_py])
+                and torch.equal(py_eng.index.tfs[:n_py], eng.index.tfs[:n_py])):
             raise AssertionError("the native and Python analyzers indexed other terms")
         del py_eng
         log(f"[engine] on {results['card']}: EngineManager engine (int8, {DIM}-dim hash embedder, hybrid keys "
             f"{sorted(config['hybrid'])}) ingested {len(texts)} texts of {ENGINE_WORDS} "
             f"words in batches of {ENGINE_INGEST_BATCH}: {wall:.3f} s, "
             f"{len(texts) / wall:.0f} chunks/s, analyzer {ana:.3f} s ({ana / wall:.1%}, "
-            f"native); with prefer_native=False {py_wall:.3f} s, "
-            f"{len(texts) / py_wall:.0f} chunks/s, analyzer {py_ana:.3f} s "
+            f"native); the first {n_py} again with prefer_native=False {py_wall:.3f} s, "
+            f"{n_py / py_wall:.0f} chunks/s, analyzer {py_ana:.3f} s "
             f"({py_ana / py_wall:.1%}); both indexed the same terms and tfs")
 
         t0 = time.perf_counter()
@@ -2868,7 +2940,7 @@ def phase_http(results: dict) -> None:
                     body = {"use_rerank": rerank, "top_k": HTTP_TOP_K}
                     lat, items = [], []
                     counts0 = _counts()
-                    for q in queries:
+                    for q in queries[:HTTP_SINGLE_QUERIES]:
                         t1 = time.perf_counter()
                         st, out = c.call("POST", f"/api/v1/collections/{cid}/searches",
                                          {**body, "query": q})
@@ -2931,7 +3003,7 @@ def phase_http(results: dict) -> None:
             extra = (f", {r['rps']:.1f} requests/s" if clients > 1 else "")
             launched = {k: v for k, v in r["launches"].items() if v}
             hlog(f"search {name} use_rerank={rerank}, {clients} client(s), "
-                 f"{HTTP_QUERIES} requests: p50 {r['p50']:.3f} ms, p99 {r['p99']:.3f} ms"
+                 f"{HTTP_SINGLE_QUERIES if clients == 1 else HTTP_QUERIES} requests: p50 {r['p50']:.3f} ms, p99 {r['p99']:.3f} ms"
                  f"{extra}; batcher {r['dispatches']:.0f} dispatches, average batch "
                  f"{r['queries'] / max(r['dispatches'], 1):.2f}; launches {launched}")
 
@@ -3010,7 +3082,7 @@ def phase_http(results: dict) -> None:
                     worst = max(worst, _close(torch.tensor([it["score"] for it in its]),
                                               torch.tensor([float(scores[int(i)])
                                                             for i in order]), 2e-2))
-        hlog(f"gate b: all {4 * HTTP_QUERIES} single-client answers equal a direct "
+        hlog(f"gate b: all {4 * HTTP_SINGLE_QUERIES} single-client answers equal a direct "
              f"search_batch (unreranked: items, rows, recall types and scores to the "
              f"bit) or search_batch + RerankService in-process (reranked: items, rows, "
              f"recall types; scores within {worst:.3g} (1 + |s|), limit 2e-2)")
@@ -3590,8 +3662,10 @@ def phase_docs(results: dict) -> None:
 
         # -- gate b: image searches over HTTP, each equal to a direct call
         blob = dict(files)
-        picks = pngs[:: max(1, len(pngs) // 48)][:48] + bmps[:: max(1, len(bmps) // 16)][:16]
-        picks = picks[:DOCS_IMAGE_QUERIES]
+        n_png = DOCS_IMAGE_QUERIES * 3 // 4  # three PNG to one BMP
+        n_bmp = DOCS_IMAGE_QUERIES - n_png
+        picks = (pngs[:: max(1, len(pngs) // n_png)][:n_png]
+                 + bmps[:: max(1, len(bmps) // n_bmp)][:n_bmp])
         calls: dict = {}
         real_tile_topk = dt.tile_topk
 
@@ -3731,8 +3805,10 @@ def phase_docs(results: dict) -> None:
         from super_rag_tpu_torch.models.image_decode import gray64
 
         photos = {}
-        for h, w in DOCS_PHOTOS:
+        for i, (h, w) in enumerate(DOCS_PHOTOS):
             data = jpeg_file(photo_image(h, w, SEED + 13))
+            if i >= DOCS_TIMED_PHOTOS:
+                continue
             t1 = time.perf_counter()
             px = gray64(data)
             dec_s = time.perf_counter() - t1
@@ -6332,10 +6408,700 @@ def phase_chat(results: dict) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _mcp_call(mid, name: str, args: dict) -> dict:
+    return {"jsonrpc": "2.0", "id": mid, "method": "tools/call",
+            "params": {"name": name, "arguments": args}}
+
+
+def _tool_items(status, body, what: str) -> list:
+    """The search items of a tools/call reply, each score a JSON number."""
+    _expect(status, body, 200, what)
+    if "result" not in body or body["result"].get("isError"):
+        raise AssertionError(f"{what}: {str(body)[:300]}")
+    items = json.loads(body["result"]["content"][0]["text"])["items"]
+    if any(type(it["score"]) is not float for it in items):
+        raise AssertionError(f"{what}: a score is not a JSON number")
+    return items
+
+
+def _cli(args: list, data_dir: str) -> str:
+    """One command of the port's CLI as a subprocess, its stdout."""
+    env = dict(os.environ, SUPER_RAG_DATA_DIR=data_dir)
+    env.pop("SUPER_RAG_FORCE_CPU", None)
+    if DEVICE == "cpu":  # the CPU rehearsal of this phase
+        env["SUPER_RAG_FORCE_CPU"] = "1"
+    out = subprocess.run([sys.executable, "-m", "super_rag_tpu_torch.cli", *args], cwd=HERE,
+                         env=env, capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    if out.returncode != 0:
+        raise AssertionError(f"cli {args[0]} exited {out.returncode}: {out.stderr[-1500:]}")
+    return out.stdout
+
+
+def phase_mcp(results: dict) -> None:
+    """The MCP endpoint, the web console, the CLI and the evals on the
+    port's own App, as [chat] sets it up (ThreadScheduler ingest, the
+    [semantic] encoder and cross-encoder as checkpoints the port writes,
+    the QueryBatcher).  Collection M (bf16) of MCP_DOCS documents; over an
+    API key: initialize, tools/list, MCP_QUERIES search_collection calls
+    reranked and as many not from one client, MCP_CONCURRENT reranked from
+    MCP_CLIENTS clients, MCP_FILE_SEARCHES search_chat_files over a chat's
+    file, a batch with a notification, one offline web_search; GET / and
+    GET /mcp; the CLI as subprocesses on a data dir of its own (ingest,
+    collections, search, snapshot); evaluate_engine over M.  Gates a-f."""
+    import dataclasses
+    import logging
+    import shutil
+    import tempfile
+
+    from super_rag_tpu_torch.api.webui import PAGE
+    from super_rag_tpu_torch.config import Settings
+    from super_rag_tpu_torch.engine.collection import CollectionEngine
+    from super_rag_tpu_torch.evals import LabeledQuery, evaluate_engine
+    from super_rag_tpu_torch.models.encoder import flax_params
+    from super_rag_tpu_torch.models.encoder_service import EncoderService, save_params
+    from super_rag_tpu_torch.ops import dense_topk as dt
+    from super_rag_tpu_torch.service.collection_service import CollectionService
+    from super_rag_tpu_torch.service.context import build_context
+    from super_rag_tpu_torch.service.rerank_service import RerankService
+    from super_rag_tpu_torch.websearch.service import WebSearchService
+
+    card = results["card"]
+    t_phase = time.perf_counter()
+
+    def mlog(msg: str) -> None:
+        log(f"[mcp] {msg} (on {card})")
+
+    class _Errors(logging.Handler):
+        def __init__(self):
+            super().__init__(level=logging.ERROR)
+            self.records = []
+
+        def emit(self, record):
+            self.records.append(f"{record.name}: {record.getMessage()}")
+
+    errors = _Errors()
+    port_logger = logging.getLogger("super_rag_tpu_torch")
+    port_logger.addHandler(errors)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mcp_")
+    srv = None
+    open_clients: list = []
+
+    def client(token: str = ""):
+        c = _Client(srv.app.port, token)
+        open_clients.append(c)
+        return c
+
+    try:
+        # -- the deployment: checkpoints, the App, an API key, collection M
+        t0 = time.perf_counter()
+        cfg = semantic_config(torch.bfloat16)
+        enc = EncoderService(cfg, max_len=cfg.max_len, seed=SEED, device=DEVICE)
+        rr = RerankService(cfg, max_len=cfg.max_len, seed=SEED + 1, device=DEVICE)
+        save_params(flax_params(enc.model), os.path.join(tmp, "enc"), cfg)
+        save_params(flax_params(rr.model), os.path.join(tmp, "ce"), cfg)
+        del enc, rr
+        settings = dataclasses.replace(
+            Settings(), data_dir=os.path.join(tmp, "data"), port=0,
+            reranker_checkpoint=os.path.join(tmp, "ce"), ingest_backend="thread",
+            batch_max=64, chunk_size=400, encoder_checkpoint="")
+        srv = _AppThread(settings)
+        port = srv.app.port
+        _expect(*client().call("POST", "/api/v1/auth/register",
+                               {"username": "smoke", "password": "smoke-password"}), 201,
+                "register")
+        a = client(_login(port))
+        key = _expect(*a.call("POST", "/api/v1/apikeys", {"description": "mcp"}), 201,
+                      "api key")["key"]
+        mcp = client(key)
+        config = {"embedding": {"provider": "onboard", "model": os.path.join(tmp, "enc")}}
+        mid = _expect(*a.call("POST", "/api/v1/collections",
+                              {"title": "M", "config": config}), 201, "collection M")["id"]
+        engine = srv.app.ctx.engines.get(mid)
+        if engine.index.spec.dtype != torch.bfloat16:
+            raise AssertionError(f"M stores {engine.index.spec.dtype}")
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 71)
+        docs, queries = http_corpus(gen, MCP_DOCS, HTTP_SECTIONS,
+                                    2 * MCP_QUERIES + MCP_CONCURRENT)
+        t1 = time.perf_counter()
+        for dname, text in docs:
+            _expect(*a.call("POST", f"/api/v1/collections/{mid}/documents",
+                            {"name": dname, "content": text}), 201, "upload")
+        while True:
+            listing = _expect(*a.call("GET", f"/api/v1/collections/{mid}/documents"), 200,
+                              "list documents")
+            status = [d["status"] for d in listing]
+            if "FAILED" in status:
+                raise AssertionError("a document of M FAILED")
+            if len(status) == MCP_DOCS and set(status) == {"COMPLETE"}:
+                break
+            if time.perf_counter() - t1 > HTTP_INGEST_TIMEOUT_S:
+                raise AssertionError("ingest of M not complete")
+            time.sleep(0.1)
+        if engine.index.live_count != MCP_DOCS * HTTP_SECTIONS:
+            raise AssertionError(f"M holds {engine.index.live_count} chunks")
+        _expect(*a.call("POST", f"/api/v1/collections/{mid}/searches",
+                        {"query": queries[0]}), 201, "warm-up")
+        mlog(f"App on port {port}; encoder and cross-encoder {cfg.num_layers} x "
+             f"{cfg.hidden_dim} bf16; M {MCP_DOCS} documents ({MCP_DOCS * HTTP_SECTIONS} "
+             f"chunks, D {engine.index.spec.dim}) COMPLETE after {time.perf_counter() - t1:.3f}"
+             f" s; set-up {time.perf_counter() - t0:.2f} s")
+
+        # -- the protocol
+        init = _expect(*mcp.call("POST", "/mcp", {"jsonrpc": "2.0", "id": 1,
+                                                  "method": "initialize", "params": {}}),
+                       200, "initialize")
+        tools = _expect(*mcp.call("POST", "/mcp", {"jsonrpc": "2.0", "id": 2,
+                                                   "method": "tools/list"}), 200, "tools/list")
+        names = [t["name"] for t in tools["result"]["tools"]]
+        if init["result"]["serverInfo"]["name"] != "super-rag-tpu" or names != [
+                "list_collections", "search_collection", "search_chat_files", "web_search",
+                "web_read"]:
+            raise AssertionError(f"gate a: initialize {init}, tools {names}")
+
+        # -- the traffic, with dense dispatches counted
+        real_tile_topk = dt.tile_topk
+        real_search_batch = CollectionEngine.search_batch
+        local = threading.local()
+        dense = {"M": 0, "files": 0}
+        variants: dict = {}
+        biggest: list = []
+
+        def search_batch(self, queries_, *args, **kw):
+            local.name = "M" if self is engine else "files"
+            dense[local.name] += 1
+            try:
+                return real_search_batch(self, queries_, *args, **kw)
+            finally:
+                local.name = None
+
+        def tile_topk(*args):
+            name = getattr(local, "name", None)
+            q, _, values, *_, n_scan, tile, kt = args
+            v = dt.kernel_variant(dt._mode(q, values), kt, q.shape[1], q.shape[0],
+                                  -(-n_scan // tile), dt._sm_count(torch.cuda.current_device()))
+            variants[(name, v)] = variants.get((name, v), 0) + 1
+            if name == "M" and (not biggest or q.shape[0] >= biggest[0][0].shape[0]):
+                biggest[:] = [args]
+            return real_tile_topk(*args)
+
+        pool = iter(queries)
+        lat: dict = {}
+        single: list = []  # (use_rerank, query, items)
+        _reset_counts()
+        with mock.patch.object(dt, "tile_topk", tile_topk), \
+                mock.patch.object(CollectionEngine, "search_batch", search_batch):
+            for rerank in (True, False):
+                ms = []
+                for j in range(MCP_QUERIES):
+                    q = next(pool)
+                    t2 = time.perf_counter()
+                    items = _tool_items(*mcp.call("POST", "/mcp", _mcp_call(
+                        j, "search_collection", {"collection_id": mid, "query": q,
+                                                 "use_rerank": rerank})), "search_collection")
+                    ms.append((time.perf_counter() - t2) * 1e3)
+                    single.append((rerank, q, items))
+                lat[f"search_collection{'' if rerank else ', unreranked'}, 1 client"] = ms
+
+            mine = [next(pool) for _ in range(MCP_CONCURRENT)]
+            per = MCP_CONCURRENT // MCP_CLIENTS
+            cms: list = []
+            fails: list = []
+            barrier = threading.Barrier(MCP_CLIENTS + 1)
+
+            def caller(k):
+                cc = _Client(port, key)
+                try:
+                    barrier.wait()
+                    for j, q in enumerate(mine[k * per:(k + 1) * per]):
+                        t2 = time.perf_counter()
+                        items = _tool_items(*cc.call("POST", "/mcp", _mcp_call(
+                            j, "search_collection", {"collection_id": mid, "query": q})),
+                            "concurrent search_collection")
+                        cms.append((time.perf_counter() - t2) * 1e3)
+                        if len(items) != HTTP_TOP_K:
+                            fails.append((q, len(items)))
+                except Exception as e:  # noqa: BLE001 — reported below
+                    fails.append(repr(e))
+                finally:
+                    cc.close()
+
+            threads = [threading.Thread(target=caller, args=(k,)) for k in range(MCP_CLIENTS)]
+            for th in threads:
+                th.start()
+            barrier.wait()
+            t2 = time.perf_counter()
+            for th in threads:
+                th.join(600)
+            cwall = time.perf_counter() - t2
+            if fails or any(th.is_alive() for th in threads):
+                raise AssertionError(f"concurrent tool calls failed: {fails[:3]}")
+            lat[f"search_collection, {MCP_CLIENTS} clients"] = cms
+
+            # a chat with one uploaded file, searched through search_chat_files
+            f_chat = _expect(*a.call("POST", "/api/v1/chats", {"title": "files"}), 201,
+                             "files chat")["id"]
+            boundary = "mcpsmokeboundary"
+            raw = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+                   f"filename=\"note.md\"\r\nContent-Type: text/markdown\r\n\r\n").encode() \
+                + docs[0][1][:4000].encode() + f"\r\n--{boundary}--\r\n".encode()
+            a.conn.request("POST", f"/api/v1/chats/{f_chat}/documents", body=raw, headers={
+                "Authorization": f"Bearer {a.token}",
+                "Content-Type": f"multipart/form-data; boundary={boundary}"})
+            resp = a.conn.getresponse()
+            upload = json.loads(resp.read())
+            _expect(resp.status, upload, 201, "chat file upload")
+            t2 = time.perf_counter()
+            while _expect(*a.call("GET", f"/api/v1/chats/{f_chat}/documents/"
+                                         f"{upload[0]['id']}"), 200,
+                          "chat file")["status"] != "COMPLETE":
+                if time.perf_counter() - t2 > HTTP_INGEST_TIMEOUT_S:
+                    raise AssertionError("the chat file was not indexed")
+                time.sleep(0.05)
+            files_cid = next(c["id"] for c in _expect(*a.call("GET", "/api/v1/collections"),
+                                                       200, "collections")
+                             if c["title"].startswith("__chat_files__"))
+            file_hits = []
+            for j, q in enumerate(queries[:MCP_FILE_SEARCHES]):
+                file_hits.append(_tool_items(*mcp.call("POST", "/mcp", _mcp_call(
+                    j, "search_chat_files", {"collection_id": files_cid, "chat_id": f_chat,
+                                             "query": q, "top_k": 3})), "search_chat_files"))
+
+            # a batch with a notification, and a notification alone
+            batch = _expect(*mcp.call("POST", "/mcp", [
+                {"jsonrpc": "2.0", "id": 1, "method": "ping"},
+                {"jsonrpc": "2.0", "method": "notifications/initialized"},
+                _mcp_call(2, "search_collection", {"collection_id": mid, "query": queries[1]}),
+            ]), 200, "batch")
+            note = mcp.call("POST", "/mcp", {"jsonrpc": "2.0", "method": "initialized"})
+            launched = _counts()
+        torch.cuda.synchronize()
+        for what, ms in lat.items():
+            mlog(f"{what}: {len(ms)} calls, p50 {_pctl(ms, 50):.3f} ms, p99 "
+                 f"{_pctl(ms, 99):.3f} ms")
+        rps = len(cms) / cwall
+        mlog(f"search_collection from {MCP_CLIENTS} clients: {rps:.2f} requests/s")
+
+        # -- gate a: the protocol; each single-client call's items are a direct
+        # REST search of the same query
+        if [m["id"] for m in batch] != [1, 2] or batch[0]["result"] != {} or \
+                note != (202, ""):
+            raise AssertionError(f"gate a: batch {str(batch)[:300]}, notification {note}")
+        worst, bit_equal = 0.0, 0
+        key_of = lambda r: (r["rank"], r["text"], r["metadata"], r["recall_type"])  # noqa: E731
+        for rerank, q, items in single:
+            direct = _expect(*a.call("POST", f"/api/v1/collections/{mid}/searches",
+                                     {"query": q, "use_rerank": rerank}), 201,
+                             "direct search")["items"]
+            if [key_of(r) for r in items] != [key_of(r) for r in direct] or \
+                    len(items) != HTTP_TOP_K:
+                raise AssertionError(f"gate a: search_collection of {q!r} (rerank {rerank}) "
+                                     f"!= the REST search")
+            got = torch.tensor([r["score"] for r in items])
+            want = torch.tensor([r["score"] for r in direct])
+            bit_equal += int(torch.equal(got, want))
+            worst = max(worst, _close(got, want, 2e-2))
+        reranked = sum(it["recall_type"] == "reranked" for r, _, its in single if r for it in its)
+        if reranked != MCP_QUERIES * HTTP_TOP_K or any(
+                it["recall_type"] == "reranked" for r, _, its in single if not r for it in its):
+            raise AssertionError(f"gate a: {reranked} reranked items")
+        mlog(f"gate a: initialize, tools/list (5 tools), a batch of ping + notification + "
+             f"search (2 replies), a notification (202); each of {len(single)} single-client "
+             f"search_collection calls equals a direct POST /searches: items equal, scores "
+             f"bit-equal in {bit_equal}, all within {worst:.3g} (1 + |s|) (limit 2e-2)")
+
+        # -- gate b: search_chat_files answers from the chat's file
+        for q, hits in zip(queries, file_hits):
+            if not hits or any(h["metadata"].get("document_id") != upload[0]["id"]
+                               for h in hits):
+                raise AssertionError(f"gate b: search_chat_files of {q!r}: {hits[:1]}")
+        mlog(f"gate b: {len(file_hits)} search_chat_files calls answer from the chat's file")
+
+        # -- gate c: every dense dispatch over M one tcs launch, none SIMT; the
+        # kernel at the largest served batch
+        tcs_m = variants.get(("M", "tcs"), 0)
+        others = {k: v for k, v in variants.items() if k[1] != "tcs"}
+        if others or launched["dense_topk_simt"] or tcs_m != dense["M"] or \
+                launched["dense_topk_tc_bf16"] != tcs_m + variants.get(("files", "tcs"), 0):
+            raise AssertionError(f"gate c: dispatches {dense}, launches by variant "
+                                 f"{variants}, counters {launched}")
+        results["dense_topk_mcp"] = _served_kernel_row(biggest[0], tcs_m, dense["M"], mlog)
+        mlog(f"gate c: each of {dense['M']} dense dispatches over M launched dense_topk's "
+             f"tcs kernel once, bf16 x bf16; the {dense['files']} over the chat files too; "
+             f"none SIMT; counters {({k: v for k, v in launched.items() if v})}")
+
+        # -- gate d: the console, GET /mcp, one offline web_search
+        st, page = client().call("GET", "/")
+        if st != 200 or page != PAGE:
+            raise AssertionError(f"gate d: GET / answered {st}")
+        st, body = mcp.call("GET", "/mcp")
+        _expect(st, body, 405, "GET /mcp")
+
+        def no_network(req):
+            raise OSError(101, "Network is unreachable")
+
+        server = next(h.__self__ for m, rx, h, _ in srv.app.router.routes
+                      if m == "POST" and rx.pattern == "^/mcp$")
+        server.web = WebSearchService(transport=no_network)
+        web = _expect(*mcp.call("POST", "/mcp", _mcp_call(9, "web_search", {"query": "x"})),
+                      200, "web_search")
+        if json.loads(web["result"]["content"][0]["text"]) != {"results": []}:
+            raise AssertionError(f"gate d: offline web_search answered {web}")
+        mlog("gate d: GET / answered the console page (200), GET /mcp 405, an offline "
+             "web_search {'results': []}")
+
+        # -- gate e: the CLI on a data dir of its own: the same hits as an
+        # in-process execute_search of the same data
+        cli_dir = os.path.join(tmp, "cli")
+        paths = []
+        for dname, text in docs[:CLI_DOCS]:
+            paths.append(os.path.join(tmp, dname))
+            with open(paths[-1], "w") as f:
+                f.write(text)
+        t2 = time.perf_counter()
+        out = _cli(["ingest", "cli-notes", *paths], cli_dir)
+        cli_ms = {"ingest": (time.perf_counter() - t2) * 1e3}
+        cid = out.strip().splitlines()[-1].split("collection: ")[1]
+        if len(out.strip().splitlines()) != CLI_DOCS + 1 or \
+                "{'vector': 'ACTIVE'}" not in out:
+            raise AssertionError(f"gate e: cli ingest printed {out[:300]!r}")
+        # collections, search and snapshot run together: the first two only
+        # read the data dir, and a snapshot replaces each file whole with the
+        # same rows
+        outs: dict = {}
+
+        def cli_timed(name, args):
+            t3 = time.perf_counter()
+            try:
+                outs[name] = _cli(args, cli_dir)
+            except AssertionError as e:  # raised below, on the phase's thread
+                outs[name] = e
+            cli_ms[name] = (time.perf_counter() - t3) * 1e3
+
+        readers = [threading.Thread(target=cli_timed, args=a) for a in (
+            ("collections", ["collections"]),
+            ("search", ["search", cid, queries[3], "--top-k", "5"]),
+            ("snapshot", ["snapshot"]))]
+        for th in readers:
+            th.start()
+        for th in readers:
+            th.join()
+        for value in outs.values():
+            if isinstance(value, AssertionError):
+                raise value
+        if outs["collections"].split() != [cid, "ACTIVE", "cli-notes"]:
+            raise AssertionError(f"gate e: cli collections printed {outs['collections']!r}")
+        out = outs["search"]
+        ctx = build_context(dataclasses.replace(Settings(), data_dir=cli_dir), device=DEVICE)
+        try:
+            coll = ctx.db.get_collection(cid)
+            want = asyncio.run(CollectionService(ctx).execute_search(
+                coll["user"], cid, queries[3], top_k=5))
+        finally:
+            ctx.batcher.close()
+            ctx.scheduler.shutdown()
+            ctx.close()
+            ctx.db.close()
+        printed = "".join(f"#{item['rank']} score={item['score']:.4f} "
+                          f"[{item['recall_type']}]\n   {item['text'][:200]}\n"
+                          for item in want["items"])
+        if out != printed or not want["items"]:
+            raise AssertionError(f"gate e: cli search printed {out[:300]!r}, in-process "
+                                 f"{printed[:300]!r}")
+        if outs["snapshot"].strip() != \
+                f"snapshots written to {os.path.join(cli_dir, 'snapshots')}":
+            raise AssertionError(f"gate e: cli snapshot printed {outs['snapshot']!r}")
+        mlog(f"gate e: the CLI as subprocesses on the card: ingest of {CLI_DOCS} documents, "
+             f"then collections, search (the same {len(want['items'])} hits and lines as an "
+             f"in-process execute_search) and snapshot together; ms per command (process "
+             f"start, torch, the card included): "
+             + ", ".join(f"{k} {v:.0f}" for k, v in cli_ms.items()))
+
+        # -- gate f: evaluate_engine over M, each query its section's own words,
+        # that section (its chunk's title path) relevant
+        labeled = []
+        step = HTTP_SECTIONS // MCP_EVAL_PER_DOC
+        for d, (dname, text) in enumerate(docs):
+            sections = text.split("\n## ")[1:]
+            for s in range(0, HTTP_SECTIONS, step):
+                words = sections[s].split("\n\n", 1)[1].split()[:MCP_EVAL_WORDS]
+                labeled.append(LabeledQuery(" ".join(words), {f"doc {d} > section {d}.{s}"}))
+        reports = {}
+        for mode, floor in MCP_EVAL_FLOOR.items():
+            t2 = time.perf_counter()
+            report = evaluate_engine(engine, labeled, ks=(1, 5, 10), mode=mode,
+                                     doc_id_key="title_path")
+            eval_s = time.perf_counter() - t2
+            got = {"recall@1": report.recall_at_k[1], "recall@10": report.recall_at_k[10],
+                   "mrr": report.mrr}
+            if any(got[k] < v for k, v in floor.items()):
+                raise AssertionError(f"gate f: {mode} {report.to_dict()} below {floor}")
+            reports[mode] = report.to_dict()
+            mlog(f"gate f: evaluate_engine({mode}) over M, {report.n_queries} queries (the "
+                 f"first {MCP_EVAL_WORDS} words of a section, that section relevant): "
+                 f"recall@1 {report.recall_at_k[1]}, @5 {report.recall_at_k[5]}, @10 "
+                 f"{report.recall_at_k[10]}, MRR {report.mrr:.4f}, NDCG@10 "
+                 f"{report.ndcg_at_10:.4f} (floors {floor}) in {eval_s:.2f} s")
+
+        if errors.records:
+            raise AssertionError(f"{len(errors.records)} ERROR records: {errors.records[:3]}")
+        results["mcp"] = {"latency": {k: {"p50": _pctl(v, 50), "p99": _pctl(v, 99)}
+                                      for k, v in lat.items()},
+                          "requests_s": rps, "cli_ms": cli_ms, "eval": reports,
+                          "phase_s": time.perf_counter() - t_phase}
+        mlog("gates a-f passed; no ERROR record from the port's loggers")
+    finally:
+        for c in open_clients:
+            c.close()
+        if srv is not None:
+            srv.stop()
+        port_logger.removeHandler(errors)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _timed_steps(step, count: int) -> tuple[float, list]:
+    """``count`` calls of ``step()`` between two synchronizes: (ms a call on
+    the host clock, the calls' results)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = [step() for _ in range(count)]
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / count, out
+
+
+def phase_train(results: dict) -> None:
+    """One-card training at the checkpoints' full width (6 x 256, 8 heads,
+    MLP 1,024, max_len 128, bf16 activations over f32 parameters, flax-init
+    weights from a seed): docstrings harvested from the card machine's own
+    site-packages, cut to ICT pairs; TRAIN_STEPS contrastive steps at batch
+    TRAIN_BATCH with scripts/semantic_eval.py's accelerator settings (lr
+    3e-4, warmup max(20, steps / 20), cosine to total_steps); 19 hard
+    negatives mined for MINE_PAIRS pairs by the trained encoder; CE_STEPS
+    cross-encoder steps at CE_QUERIES x 20 candidates, warm-started from the
+    trained backbone.  Gates: a. one f32 step on the card equals the same
+    step on the CPU; b. the loss falls, for both models; c. the checkpoints
+    serve: a hybrid + rerank search_batch over rows embedded by the trained
+    encoder launches one tensor-core dense_topk, held bit for bit against
+    its plain version; d. no parameter is non-finite."""
+    import itertools
+    import shutil
+    import tempfile
+    import warnings
+
+    from super_rag_tpu_torch.engine.collection import CollectionEngine
+    from super_rag_tpu_torch.engine.index import IndexSpec
+    from super_rag_tpu_torch.models.cross_encoder import CrossEncoder
+    from super_rag_tpu_torch.models.encoder import (
+        TextEncoder, flatten_tree, flax_params, init_params, load_flax_params)
+    from super_rag_tpu_torch.models.encoder_service import (
+        EncoderService, load_params, save_params)
+    from super_rag_tpu_torch.models.tokenization import HashTokenizer
+    from super_rag_tpu_torch.ops import dense_topk as dt
+    from super_rag_tpu_torch.service.rerank_service import RerankService
+    from super_rag_tpu_torch.train.contrastive import (
+        TrainConfig, create_train_state, make_train_step)
+    from super_rag_tpu_torch.train.corpus import harvest_docstrings
+    from super_rag_tpu_torch.train.pairs import ict_pairs, pairs_to_batches
+    from super_rag_tpu_torch.train.rerank import (
+        RerankTrainConfig, ce_batches, create_ce_state, make_ce_train_step,
+        mine_hard_negatives)
+
+    card = results["card"]
+    t_phase = time.perf_counter()
+
+    def tlog(msg: str) -> None:
+        log(f"[train] {msg} (on {card})")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        # -- the text: docstrings of the card machine's packages, ICT pairs
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():  # the parsed sources' own SyntaxWarnings
+            warnings.simplefilter("ignore")
+            docs = harvest_docstrings(packages=None, max_files_per_pkg=TRAIN_FILES_PER_PKG,
+                                      max_docs=TRAIN_MAX_DOCS)
+        serve_docs, train_docs = docs[:TRAIN_SERVE_ROWS], docs[TRAIN_SERVE_ROWS:]
+        rng = np.random.default_rng(SEED)
+        pairs = list(ict_pairs(train_docs, rng, samples_per_chunk=2, keep_prob=0.1))
+        rng.shuffle(pairs)
+        if len(pairs) < max(MINE_PAIRS, TRAIN_BATCH * 8):
+            raise AssertionError(f"only {len(pairs)} ICT pairs from {len(docs)} docstrings")
+        cfg = semantic_config(torch.bfloat16)
+        tok = HashTokenizer(vocab_size=cfg.vocab_size)
+        batches = list(pairs_to_batches(pairs, tok, TRAIN_BATCH, max_len=cfg.max_len))
+        seq = sorted({b["q_ids"].shape[1] for b in batches})
+        tlog(f"{len(docs)} docstrings harvested ({TRAIN_SERVE_ROWS} kept for serving), "
+             f"{len(pairs)} ICT pairs, {len(batches)} batches of {TRAIN_BATCH} at sequence "
+             f"{seq}, in {time.perf_counter() - t0:.2f} s")
+
+        # the encoder: flax-init weights from a seed, on the card
+        model = init_params(TextEncoder(cfg), torch.Generator().manual_seed(SEED + 61))
+        params0 = flax_params(model)
+        model = model.to(DEVICE)
+
+        # -- gate a: one f32 step on the card equals the same step on the CPU
+        cfg32 = semantic_config(torch.float32)
+        tc32 = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=0, total_steps=TRAIN_STEPS)
+        check = {k: v[:TRAIN_CHECK_BATCH] for k, v in batches[0].items()}
+        metrics = {}
+        for dev in (DEVICE, "cpu"):
+            m32 = load_flax_params(TextEncoder(cfg32), params0).to(dev)
+            st32 = create_train_state(m32, None, tc32)
+            _, metrics[dev] = make_train_step(m32, tc32)(st32, check)
+            metrics[dev] = {k: float(v) for k, v in metrics[dev].items()}
+            del m32, st32
+        a_loss = abs(metrics[DEVICE]["loss"] - metrics["cpu"]["loss"]) / abs(metrics["cpu"]["loss"])
+        a_norm = (abs(metrics[DEVICE]["grad_norm"] - metrics["cpu"]["grad_norm"])
+                  / metrics["cpu"]["grad_norm"])
+        if not (a_loss <= 1e-4 and a_norm <= 1e-3):
+            raise AssertionError(f"gate a: f32 step card {metrics[DEVICE]} vs CPU "
+                                 f"{metrics['cpu']}")
+        tlog(f"gate a: one f32 contrastive step (TF32 off) at [{TRAIN_CHECK_BATCH}, "
+             f"{check['q_ids'].shape[1]}] from the same weights and batch: loss card "
+             f"{metrics[DEVICE]['loss']:.6f} / CPU {metrics['cpu']['loss']:.6f} (rel "
+             f"{a_loss:.3g}, limit 1e-4), gradient norm {metrics[DEVICE]['grad_norm']:.6f} / "
+             f"{metrics['cpu']['grad_norm']:.6f} (rel {a_norm:.3g}, limit 1e-3)")
+
+        # -- the contrastive steps
+        tcfg = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=max(20, TRAIN_STEPS // 20),
+                           total_steps=TRAIN_STEPS)
+        state = [create_train_state(model, None, tcfg)]
+        train_step = make_train_step(model, tcfg)
+        losses: list = []
+
+        def one_step():
+            state[0], m = train_step(state[0], batches[len(losses) % len(batches)])
+            losses.append(m["loss"])
+            return m
+
+        warm = 5
+        _timed_steps(one_step, warm)  # first launches, cuBLAS handles
+        ms_step, _ = _timed_steps(one_step, TRAIN_STEPS - warm - 6)
+        s = batches[0]["q_ids"].shape[1]
+        flops = 3 * 2 * encoder_flops(TRAIN_BATCH, s, cfg)  # q and d, forward + backward
+        idle = device_busy(one_step, ms_step, top=6)  # 6 more steps, the last 5 traced
+        loss = torch.stack(losses).float().cpu()
+        if len(losses) != TRAIN_STEPS or not bool(loss[-10:].mean() < loss[:10].mean()):
+            raise AssertionError(f"gate b: contrastive loss {loss[:10].mean():.4f} -> "
+                                 f"{loss[-10:].mean():.4f} over {len(losses)} steps")
+        pairs_s = TRAIN_BATCH / ms_step * 1e3
+        tlog(f"contrastive: {TRAIN_STEPS} steps at batch {TRAIN_BATCH} x [{s}] (q and d), "
+             f"lr {TRAIN_LR} warmup {tcfg.warmup_steps} cosine to {TRAIN_STEPS}: {ms_step:.3f} "
+             f"ms a step ({pairs_s:.1f} pairs/s, {flops / ms_step / 1e9:.1f} TFLOP/s of "
+             f"{flops / 1e12:.3f} TFLOP a step); {idle}; loss {float(loss[0]):.4f} -> "
+             f"{float(loss[-1]):.4f} (gate b: mean of the last 10 "
+             f"{float(loss[-10:].mean()):.4f} < the first 10 {float(loss[:10].mean()):.4f})")
+
+        # -- mining: the trained encoder's 19 hardest wrong positives
+        enc_path = os.path.join(tmp, "enc")
+        save_params(flax_params(model), enc_path, cfg)
+        svc = EncoderService.from_checkpoint(enc_path, batch_size=TRAIN_BATCH,
+                                             max_len=cfg.max_len, device=DEVICE)
+        mine_pairs = pairs[:MINE_PAIRS]
+        t0 = time.perf_counter()
+        hard = mine_hard_negatives(mine_pairs, svc.embed, n_hard=MINE_NEGATIVES,
+                                   rng=np.random.default_rng(7), device=DEVICE)
+        mine_s = time.perf_counter() - t0
+        full = sum(len(h) == MINE_NEGATIVES for h in hard)
+        if len(hard) != MINE_PAIRS or full < MINE_PAIRS // 2:
+            raise AssertionError(f"mining: {full} of {len(hard)} pairs got "
+                                 f"{MINE_NEGATIVES} negatives")
+        tlog(f"mining: {MINE_NEGATIVES} negatives for each of {MINE_PAIRS} pairs ({full} "
+             f"with all {MINE_NEGATIVES} after the overlap filter) in {mine_s:.2f} s "
+             f"(embedding {2 * MINE_PAIRS} texts + an exact f32 dense_search on the card)")
+
+        # -- the cross-encoder, warm-started from the trained backbone
+        ce = init_params(CrossEncoder(cfg), torch.Generator().manual_seed(SEED + 62)).to(DEVICE)
+        rcfg = RerankTrainConfig(total_steps=CE_STEPS, warmup_steps=max(10, CE_STEPS // 20),
+                                 n_negatives=MINE_NEGATIVES, learning_rate=CE_LR)
+        ce_state = [create_ce_state(ce, None, rcfg,
+                                    backbone_params=flax_params(model)["backbone"])]
+        ce_step = make_ce_train_step(ce, rcfg)
+        ce_batch = list(itertools.islice(ce_batches(
+            mine_pairs, hard, tok, np.random.default_rng(2), rcfg, batch_queries=CE_QUERIES,
+            max_len=cfg.max_len), CE_STEPS))
+        ce_losses: list = []
+
+        def one_ce_step():
+            ce_state[0], m = ce_step(ce_state[0], ce_batch[len(ce_losses) % len(ce_batch)])
+            ce_losses.append(m["loss"])
+            return m
+
+        _timed_steps(one_ce_step, warm)
+        ce_ms, _ = _timed_steps(one_ce_step, CE_STEPS - warm - 6)
+        ce_idle = device_busy(one_ce_step, ce_ms, top=6)
+        cl = torch.stack(ce_losses).float().cpu()
+        if len(ce_losses) != CE_STEPS or not bool(cl[-10:].mean() < cl[:10].mean()):
+            raise AssertionError(f"gate b: CE loss {cl[:10].mean():.4f} -> "
+                                 f"{cl[-10:].mean():.4f} over {len(ce_losses)} steps")
+        ce_s = ce_batch[0]["ids"].shape[1]
+        ce_flops = 3 * encoder_flops(CE_QUERIES * (1 + MINE_NEGATIVES), ce_s, cfg, pooler=True)
+        tlog(f"cross-encoder: {CE_STEPS} steps at {CE_QUERIES} queries x "
+             f"{1 + MINE_NEGATIVES} candidates x [{ce_s}], lr {CE_LR}: {ce_ms:.3f} ms a step "
+             f"({CE_QUERIES / ce_ms * 1e3:.1f} queries/s, {ce_flops / ce_ms / 1e9:.1f} "
+             f"TFLOP/s); {ce_idle}; loss {float(cl[0]):.4f} -> {float(cl[-1]):.4f} (gate b: "
+             f"{float(cl[-10:].mean()):.4f} < {float(cl[:10].mean()):.4f})")
+
+        # -- gate d: every parameter finite
+        for name, mod in (("encoder", model), ("cross-encoder", ce)):
+            bad = [n for n, p in mod.named_parameters() if not bool(torch.isfinite(p).all())]
+            if bad:
+                raise AssertionError(f"gate d: non-finite {name} parameters {bad[:3]}")
+
+        # -- gate c: the checkpoints serve through dense_topk
+        ce_path = os.path.join(tmp, "ce")
+        save_params(flax_params(ce), ce_path, cfg)
+        for path, mod in ((enc_path, model), (ce_path, ce)):
+            back = flatten_tree(load_params(path)[0])
+            mine = flatten_tree(flax_params(mod))
+            if set(back) != set(mine) or any(not np.array_equal(back[k], mine[k]) for k in mine):
+                raise AssertionError(f"gate c: {path} does not read back")
+        rr = RerankService.from_checkpoint(ce_path, max_len=cfg.max_len, device=DEVICE)
+        engine = CollectionEngine(
+            IndexSpec(dim=cfg.out_dim, dtype=torch.int8, vocab_size=VOCAB, min_capacity=4096),
+            embedder=svc, reranker=rr, device=DEVICE)
+        engine.ingest(serve_docs, metadata=[{"document_id": f"doc{i}"}
+                                            for i in range(len(serve_docs))])
+        qrng = np.random.default_rng(3)
+        asked = []  # (an ICT query of a serving row, the row's document id)
+        for i, d in enumerate(serve_docs):
+            asked += [(p.query, f"doc{i}") for p in ict_pairs([d], qrng)][:1]
+            if len(asked) == TRAIN_SERVE_QUERIES:
+                break
+        queries = [q for q, _ in asked]
+        engine.search_batch(queries[:1], mode="hybrid")  # compaction, calibration
+        calls: dict = {}
+        _reset_counts()
+        with mock.patch.object(dt, "tile_topk", _recording(calls, "tile", dt.tile_topk)):
+            hits = engine.search_batch(queries, mode="hybrid", rerank=True,
+                                       candidates=CANDIDATES, top_k=5)
+        torch.cuda.synchronize()
+        counts = _counts()
+        if counts["dense_topk_tc"] != 1 or counts["dense_topk_simt"]:
+            raise AssertionError(f"gate c: hybrid + rerank B={len(queries)} launched {counts}")
+        if any(len(h) != 5 or not all(np.isfinite(x.score) and x.recall_type == "reranked"
+                                      for x in h) for h in hits):
+            raise AssertionError("gate c: reranked hits malformed")
+        own = sum(h[0].metadata["document_id"] == did for h, (_, did) in zip(hits, asked))
+        results["dense_topk_train"] = _served_kernel_row(calls["tile"], 1, 1, tlog)
+        tlog(f"gate c: checkpoints read back bit for bit; {len(serve_docs)} rows embedded by "
+             f"the trained encoder (int8), hybrid + rerank (the trained CE) B="
+             f"{len(queries)}: launches {({k: v for k, v in counts.items() if v})}, the "
+             f"kernel bit-equal to its plain version; {own} of {len(queries)} ICT queries "
+             f"rank their own docstring first")
+        results["train"] = {"ms_step": ms_step, "pairs_s": pairs_s, "idle": idle,
+                            "ce_ms_step": ce_ms, "ce_idle": ce_idle, "mine_s": mine_s,
+                            "loss": [float(loss[:10].mean()), float(loss[-10:].mean())],
+                            "ce_loss": [float(cl[:10].mean()), float(cl[-10:].mean())],
+                            "gate_a": metrics, "phase_s": time.perf_counter() - t_phase}
+        tlog("gates a-d passed")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # the phases after [small], in the order they run; a phase that another
 # feeds (its index and texts) pulls that one in
 PHASES = ("full", "wide", "serve", "ivf", "ivf-serve", "semantic", "csr", "engine", "http",
-          "docs", "graph", "providers", "workflows", "chat")
+          "docs", "graph", "providers", "workflows", "chat", "mcp", "train")
 PHASE_NEEDS = {"serve": ("full",), "ivf-serve": ("ivf",)}
 _DT = "super_rag_tpu/ops/pallas_topk.py:36"
 # each row of the kernels line: (name, source, replaces, key in results, phase)
@@ -6356,6 +7122,8 @@ KERNEL_ROWS = (
     ("dense_topk_workflow_int8", "dense_topk.cu", _DT, "dense_topk_workflow_int8",
      "workflows"),
     ("dense_topk_chat", "dense_topk.cu", _DT, "dense_topk_chat", "chat"),
+    ("dense_topk_mcp", "dense_topk.cu", _DT, "dense_topk_mcp", "mcp"),
+    ("dense_topk_train", "dense_topk.cu", _DT, "dense_topk_train", "train"),
 )
 
 
@@ -6480,7 +7248,9 @@ def main(argv: list = None) -> int:
                      ("graph", lambda: phase_graph(results)),
                      ("providers", lambda: phase_providers(results)),
                      ("workflows", lambda: phase_workflows(results)),
-                     ("chat", lambda: phase_chat(results))):
+                     ("chat", lambda: phase_chat(results)),
+                     ("mcp", lambda: phase_mcp(results)),
+                     ("train", lambda: phase_train(results))):
         run(name, fn)
 
     source = "super_rag_tpu_torch/csrc/"

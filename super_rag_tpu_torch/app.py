@@ -1,16 +1,16 @@
 """Application assembly of the port: context + router + HTTP server (port
 of the JAX package's app.py).
 
-Serves the routes of ``api/routes.py`` on the CUDA card, starts the
-periodic reconciler and snapshots the device indexes on a timer and on a
-clean stop.  Run with:
+Serves the routes of ``api/routes.py``, the MCP endpoint (``mcp/server.py``,
+``POST /mcp``) and the web console (``api/webui.py``, ``GET /``) on the
+CUDA card, starts the periodic reconciler and snapshots the device
+indexes on a timer and on a clean stop.  Run with:
 
     python -m super_rag_tpu_torch.app
 
 configured by the same ``SUPER_RAG_*`` environment variables as the JAX
 package (``config.py``).  ``App(device="cpu")`` serves from the CPU, as
 the tests do; without a card and without that, the app refuses to start.
-The MCP and web UI routes wait (ROADMAP A6i).
 """
 
 from __future__ import annotations
@@ -21,8 +21,10 @@ from typing import Optional
 
 from super_rag_tpu_torch.api.http import HttpServer
 from super_rag_tpu_torch.api.routes import build_router
+from super_rag_tpu_torch.api.webui import register_webui_routes
 from super_rag_tpu_torch.config import Settings, settings as default_settings
 from super_rag_tpu_torch.device import DeviceLike
+from super_rag_tpu_torch.mcp.server import register_mcp_routes
 from super_rag_tpu_torch.service.context import AppContext, build_context
 
 logger = logging.getLogger(__name__)
@@ -37,6 +39,8 @@ class App:
         self.ctx = ctx or build_context(self.cfg, background_tasks=background_tasks,
                                         device=device)
         self.router = build_router(self.ctx)
+        register_mcp_routes(self.router, self.ctx)
+        register_webui_routes(self.router)
         self.server = HttpServer(self.router)
         self._snapshot_task: Optional[asyncio.Task] = None
 
@@ -85,9 +89,13 @@ async def main() -> None:
     app = App()
     await app.start()
     try:
-        await app.server.serve_forever()
+        await self_serve(app)
     finally:
         await app.stop()
+
+
+async def self_serve(app: App) -> None:
+    await app.server.serve_forever()
 
 
 if __name__ == "__main__":

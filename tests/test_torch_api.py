@@ -508,25 +508,31 @@ def test_auth_aliases_and_metrics(clients):
         assert "super_rag_documents_total" in text
 
 
-# -- the port alone: what waits, and what it refuses ---------------------------
+# -- the route sets, the MCP endpoint and the console -------------------------
 
 def test_waiting_routes_answer_404(clients):
-    port = clients[1]
+    """The three routes that once waited (the MCP endpoint and the web
+    console) now answer as the JAX app does: ``GET /mcp`` 405, a
+    ``POST /mcp`` of an empty object the JSON-RPC "method not found", and
+    ``GET /`` the console page (tests/test_torch_mcp.py holds the rest)."""
     for method, path in (("GET", "/mcp"), ("POST", "/mcp"), ("GET", "/")):
-        status, body = port.call(method, path, {} if method == "POST" else None)
-        assert status == 404, (path, status, body)
+        out = both(clients, method, path, {} if method == "POST" else None)
+        assert out[0] == out[1], (path, out)
+        assert out[1][0] == {"/mcp": 405 if method == "GET" else 200, "/": 200}[path]
+    assert both(clients, "POST", "/mcp", {})[1][1]["error"]["code"] == -32601
 
 
 def test_route_sets_equal_apart_from_mcp_and_the_console(apps):
-    """Every (method, path) the JAX app serves, the port serves, except the
-    MCP endpoint and the web console (ROADMAP A6i); the port serves nothing
-    the JAX app lacks."""
+    """Every (method, path) the JAX app serves, the port serves, and the
+    port serves nothing the JAX app lacks: the MCP endpoint and the web
+    console included, 148 = 148."""
     def routes(app):
         return {(m, rx.pattern) for m, rx, *_ in app.router.routes}
 
     ref, port = routes(apps[0].app), routes(apps[1].app)
-    assert ref - port == {("GET", "^/mcp$"), ("POST", "^/mcp$"), ("GET", "^/$")}
-    assert port - ref == set()
+    assert ref == port
+    assert len(ref) == len(port) == 148
+    assert {("GET", "^/mcp$"), ("POST", "^/mcp$"), ("GET", "^/$")} <= port
 
 
 def test_port_refuses_what_it_lacks(clients, corpus):

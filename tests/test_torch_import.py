@@ -6,6 +6,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -59,13 +60,18 @@ MODULES = [
     "super_rag_tpu_torch.agent.session_manager", "super_rag_tpu_torch.agent.skills",
     "super_rag_tpu_torch.websearch", "super_rag_tpu_torch.websearch.service",
     "super_rag_tpu_torch.websearch.readability", "super_rag_tpu_torch.api.wsflow",
-    "super_rag_tpu_torch.service.chat_service",
+    "super_rag_tpu_torch.service.chat_service", "super_rag_tpu_torch.evals",
+    "super_rag_tpu_torch.mcp", "super_rag_tpu_torch.mcp.server",
+    "super_rag_tpu_torch.api.webui", "super_rag_tpu_torch.cli", "super_rag_tpu_torch.train",
+    "super_rag_tpu_torch.train.pairs", "super_rag_tpu_torch.train.corpus",
+    "super_rag_tpu_torch.train.optim", "super_rag_tpu_torch.train.contrastive",
+    "super_rag_tpu_torch.train.rerank",
 ]
-# third-party packages the JAX package's serving seam uses and the card's
-# machine may lack; the port replaces each (jinja2, torch's own dependency,
-# is allowed)
+# third-party packages the JAX package's serving seam and trainers use and the
+# card's machine may lack; the port replaces each (jinja2, torch's own
+# dependency, is allowed)
 FORBIDDEN = ("pydantic", "pydantic_core", "yaml", "httpx", "markdown_it", "PIL", "ray",
-             "cryptography", "websockets", "httpcore")
+             "cryptography", "websockets", "httpcore", "optax", "flax")
 
 
 def test_import_pulls_no_jax_and_nothing_of_the_jax_package():
@@ -87,7 +93,8 @@ def test_source_names_no_jax_import_or_jax_package_path():
     pattern = re.compile(
         r"^\s*(import jax|from jax)|from super_rag_tpu\.|import super_rag_tpu\b"
         r"|super_rag_tpu/|import bench\b|from bench\b"
-        r"|^\s*(import|from) (pydantic|yaml|httpx|httpcore|websockets|markdown_it|cryptography)"
+        r"|^\s*(import|from) (pydantic|yaml|httpx|httpcore|websockets|markdown_it|cryptography"
+        r"|optax|flax)"
         r"\b", re.M)
     scanned = 0
     for dirpath, _, files in os.walk(PORT):
@@ -109,7 +116,7 @@ def test_source_names_no_jax_import_or_jax_package_path():
                                    "RerankService", "encoder_from_jax",
                                    "cross_encoder_from_jax", "csr_from_jax",
                                    "EngineManager", "build_context", "App",
-                                   "KnowledgeGraphService"])
+                                   "KnowledgeGraphService", "cli", "mine_hard_negatives"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, monkeypatch, tmp_path):
     from super_rag_tpu_torch import convert, resolve_device
     from super_rag_tpu_torch.engine import CollectionEngine, DeviceIndex, IndexSpec
@@ -128,6 +135,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, monkeypatch, t
     from super_rag_tpu_torch.service.context import build_context
     from super_rag_tpu_torch.store.db import Database
     from super_rag_tpu_torch.service.rerank_service import RerankService
+    from super_rag_tpu_torch.train.pairs import Pair
+    from super_rag_tpu_torch.train.rerank import mine_hard_negatives
+
+    def cli_context():
+        from super_rag_tpu_torch import cli
+
+        monkeypatch.delenv("SUPER_RAG_FORCE_CPU", raising=False)
+        with cli._ctx():
+            pass
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     spec = IndexSpec(dim=16, vocab_size=1 << 10, min_capacity=256)
@@ -158,6 +174,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, monkeypatch, t
         "build_context": lambda: build_context(Settings(data_dir=str(tmp_path))),
         "App": lambda: App(Settings(data_dir=str(tmp_path))),
         "KnowledgeGraphService": lambda: KnowledgeGraphService(Database(":memory:")),
+        "cli": lambda: cli_context(),
+        "mine_hard_negatives": lambda: mine_hard_negatives(
+            [Pair("q", "d"), Pair("r", "e")], lambda t: np.eye(len(t), 4, dtype=np.float32)),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

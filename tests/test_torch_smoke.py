@@ -1,6 +1,6 @@
 """chip_smoke.py on the CPU: its phase selection, and rehearsals of its
-[workflows] and [chat] phases at a small size (the card's kernels replaced by their
-plain versions, which move the same launch counters)."""
+[workflows], [chat], [mcp] and [train] phases at a small size (the card's kernels
+replaced by their plain versions, which move the same launch counters)."""
 
 import pytest
 import torch
@@ -17,6 +17,10 @@ import chip_smoke as cs
     (["--phases", "ivf-serve,docs"], {"SMOKE_PHASES": "csr"}, ["ivf", "ivf-serve", "docs"]),
     (["--phases", "chat"], {}, ["chat"]),
     (["--phases=chat,workflows,http"], {}, ["http", "workflows", "chat"]),
+    (["--phases", "mcp"], {}, ["mcp"]),
+    (["--phases", "train"], {}, ["train"]),
+    (["--phases", "train,mcp"], {}, ["mcp", "train"]),
+    ([], {"SMOKE_PHASES": "train,chat"}, ["chat", "train"]),
 ])
 def test_select_phases(argv, env, want):
     assert cs.select_phases(argv, env) == want
@@ -46,7 +50,8 @@ def test_every_kernel_row_belongs_to_a_phase():
     names = [name for name, *_ in cs.KERNEL_ROWS]
     assert len(names) == len(set(names))
     assert {"dense_topk_workflow_bf16", "dense_topk_workflow_int8",
-            "dense_topk_chat"} <= set(names)
+            "dense_topk_chat", "dense_topk_mcp", "dense_topk_train"} <= set(names)
+    assert cs.PHASES[-2:] == ("mcp", "train")
 
 
 def test_workflow_yaml_parses_to_the_definition():
@@ -149,3 +154,78 @@ def test_chat_phase_rehearsed_on_the_cpu(monkeypatch):
     assert {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"} <= set(row)
     assert set(results["chat"]["latency"]) == {"SSE, 1 client", "SSE, 2 clients", "frontend",
                                                "agent, WebSocket", "agent, AG-UI"}
+
+
+NARROW = dict(cs.SEMANTIC_CONFIG, vocab_size=2000, hidden_dim=32, num_layers=1, num_heads=4,
+              mlp_dim=64, max_len=64)
+
+
+def stub_card(monkeypatch, **consts):
+    """The smoke on the CPU: ``consts`` set on chip_smoke, the timers and
+    the profiler stubbed, dense_topk's plain version in place of the kernel
+    (moving the variant's counters), the index's kernel route taken."""
+    from super_rag_tpu_torch.engine.index import DeviceIndex
+    from super_rag_tpu_torch.ops import dense_topk as dt
+
+    for name, value in {"DEVICE": "cpu", "SEMANTIC_CONFIG": NARROW, **consts}.items():
+        monkeypatch.setattr(cs, name, value)
+
+    def plain_counting(*args):
+        q, _, values, *_, n, tile, kt = args
+        mode = dt._mode(q, values)
+        if dt.kernel_variant(mode, kt, q.shape[1], q.shape[0], -(-n // tile), 132) == "simt":
+            dt.simt_launches.count += 1
+        else:
+            dt.tc_launches.count += 1
+            dt.tc_mode_launches[mode].count += 1
+        return dt.tile_topk_plain(*args)
+
+    timed = lambda fn, *a, **kw: (fn(), 1.0)[1]  # noqa: E731
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    for name in ("cuda_ms", "host_ms", "burst_ms"):
+        monkeypatch.setattr(cs, name, timed)
+    monkeypatch.setattr(cs, "device_busy", lambda fn, wall_ms, reps=5, top=0: (
+        [fn() for _ in range(reps + 1)], "device busy not measured (CPU rehearsal)")[1])
+    monkeypatch.setattr(dt, "_sm_count", lambda i: 132)
+    monkeypatch.setattr(dt, "tile_topk", plain_counting)
+    monkeypatch.setattr(DeviceIndex, "_kernel_default", lambda self, *a: True)
+    torch.set_num_threads(2)
+    return {"card": "CPU rehearsal", "dense_topk": {}}
+
+
+def test_mcp_phase_rehearsed_on_the_cpu(monkeypatch):
+    """The [mcp] phase end to end at a small size: the protocol, the tools,
+    the console, the CLI subprocesses (on the CPU here) and the evals; its
+    kernel row comes out with its keys."""
+    results = stub_card(monkeypatch, HTTP_SECTIONS=16, MCP_DOCS=3, MCP_QUERIES=4,
+                        MCP_CONCURRENT=4, MCP_CLIENTS=2, MCP_FILE_SEARCHES=2,
+                        MCP_EVAL_PER_DOC=4, CLI_DOCS=1)
+    cs.phase_mcp(results)
+    row = results["dense_topk_mcp"]
+    assert row["launches"] >= 1 and row["variant"] == "tcs"
+    assert {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"} <= set(row)
+    out = results["mcp"]
+    assert set(out["latency"]) == {"search_collection, 1 client",
+                                   "search_collection, unreranked, 1 client",
+                                   "search_collection, 2 clients"}
+    assert set(out["cli_ms"]) == {"ingest", "collections", "search", "snapshot"}
+    assert set(out["eval"]) == {"hybrid", "fulltext"}
+    assert out["eval"]["hybrid"]["n_queries"] == 12
+
+
+def test_train_phase_rehearsed_on_the_cpu(monkeypatch):
+    """The [train] phase end to end at a small size: the harvest of this
+    machine's site-packages, gate a (here CPU against CPU), the contrastive
+    and CE steps with their loss gates, mining, and the trained checkpoints
+    serving through dense_topk (bit for bit, int8)."""
+    results = stub_card(monkeypatch, TRAIN_FILES_PER_PKG=8, TRAIN_MAX_DOCS=900,
+                        TRAIN_SERVE_ROWS=64, TRAIN_BATCH=16, TRAIN_STEPS=30, TRAIN_LR=2e-3,
+                        TRAIN_CHECK_BATCH=2, MINE_PAIRS=32, MINE_NEGATIVES=7, CE_QUERIES=4,
+                        CE_STEPS=48, CE_LR=3e-3, TRAIN_SERVE_QUERIES=8)
+    cs.phase_train(results)
+    row = results["dense_topk_train"]
+    assert row["launches"] == 1 and row["max_abs_err"] == 0
+    assert {"ms", "plain_ms", "bound_ms", "bound_by", "library_ms"} <= set(row)
+    out = results["train"]
+    assert out["loss"][1] < out["loss"][0] and out["ce_loss"][1] < out["ce_loss"][0]
