@@ -7,7 +7,7 @@
 With ``--phases`` (or ``SMOKE_PHASES``) it runs the device, build and two
 [small] phases, then the named phases (from full, wide, serve, ivf,
 ivf-serve, semantic, csr, engine, http, docs, graph, providers,
-workflows, chat, mcp, train) in their usual order, with those that feed them ([serve]
+workflows, chat, mcp, train, multi) in their usual order, with those that feed them ([serve]
 needs [full], [ivf-serve] needs [ivf]), and lists their kernel rows; an
 unknown phase exits non-zero before anything runs.
 
@@ -192,16 +192,36 @@ Phases, each printing one line with its seconds:
      the checkpoints read back and serve: hybrid + rerank over rows the
      trained encoder embedded launches one tensor-core dense_topk, bit for
      bit against its plain version; d. every parameter finite;
-  19. a ``{"kernels": [...]}`` JSON line;
-  20. last line: ``{"ok": true, "device": {...}}``.
+  19. the multi-device path over torch.distributed ranks spawned by
+     ``parallel/launch.py``: NCCL with a rank a card (up to 4) where there
+     are two or more cards, else two gloo ranks sharing the one (the
+     candidates staged through the host); every rank makes the [full]
+     recipe's seeded 1M x 768 int8 corpus and keeps its block of rows;
+     gates: a. ``sharded_dense_search`` at B = 512, 100 candidates, at
+     exact per-tile depth equals the one-device ``dense_topk`` bit for bit
+     (ids too), and at per_tile_k 2 each rank's kernel equals its plain
+     version bit for bit (recall@10 against the exact printed); b.
+     ``sharded_hybrid_search`` over per-shard table postings on the kernels
+     equals itself on the plain versions (its top-10 overlap with the
+     one-device ``hybrid_search`` printed); c. ``entry.dryrun_multichip``
+     on the same backend and world; d. dp x tp steps of the [semantic]
+     encoder in f32 (tp 2) equal the one-device steps; e. a traced span
+     (``trace_function(device_profile_dir=...)``) around a sharded search
+     writes a Chrome trace holding the dense_topk kernel's events; each
+     rank's kernel time at its shard (bound, plain, library), the
+     all_gather and merge times, the sharded call against the one-device
+     call;
+  20. a ``{"kernels": [...]}`` JSON line;
+  21. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  There is no CPU path: without a
 CUDA device, or without the package beside it, it exits non-zero and
 prints no result.  Nothing is written under the repo except the kernel
 and analyzer libraries in super_rag_tpu_torch/_build/; the engine, HTTP,
 docs, graph, providers, workflows, chat, MCP and training phases' data
-(the providers' response caches and the CLI's data dir too) go to
-temporary directories that they remove.
+(the providers' response caches and the CLI's data dir too) and the
+[multi] phase's trace and rendezvous files go to temporary directories
+that they remove; its ranks are stopped before it returns.
 """
 
 from __future__ import annotations
@@ -7098,10 +7118,364 @@ def phase_train(results: dict) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- [multi]: the row-sharded index and the (dp, tp) trainer over ranks ----------
+
+MULTI_MAX_RANKS = 4  # NCCL: one rank a card, up to four cards
+MULTI_ONE_CARD_RANKS = 2  # one card: two gloo ranks share it
+MULTI_TIMEOUT_S = 600.0
+MULTI_PER_TILE_K = 2  # the calibrated depth of gate a's second search and of gate b
+MULTI_TRAIN_BATCH = 16  # gate d: one dp x tp step of the [semantic] encoder in f32
+MULTI_TRAIN_LEN = 64
+# two steps with one of warmup, the JAX mesh test's schedule: the first
+# moves nothing, the second one step size.  One step with no warmup made
+# Adam's first update g / (|g| + eps) of the gradients near eps differ by
+# up to 4.6e-5 between the mesh and the one-device step on an H100
+MULTI_TRAIN_STEPS = 2
+MULTI_TRAIN_LR = 3e-4
+# gate d's tolerances: tests/test_torch_train.py's for one f32 step
+MULTI_LOSS_RTOL = 1e-5
+MULTI_GRAD_NORM_RTOL = 1e-4
+MULTI_PARAM_ATOL = 2e-5
+
+
+def multi_backend() -> tuple[str, int]:
+    """``(backend, ranks)`` of the [multi] phase: NCCL with a rank a card
+    where there are two or more cards, else two gloo ranks on the one."""
+    cards = torch.cuda.device_count() if DEVICE != "cpu" else 0
+    if cards >= 2:
+        return "nccl", min(cards, MULTI_MAX_RANKS)
+    return "gloo", MULTI_ONE_CARD_RANKS
+
+
+def _alone(rank: int, world: int, fn):
+    """``fn()`` on each rank in turn, the others waiting at a barrier (the
+    ranks of one card would otherwise share its SMs while timing)."""
+    import torch.distributed as dist
+
+    out = None
+    for r in range(world):
+        if r == rank:
+            out = fn()
+        dist.barrier()
+    return out
+
+
+def multi_rank(rank: int, world: int, device, cfg: dict, setup=None) -> dict:
+    """One rank of the [multi] phase: gates a, b, d and e over this rank's
+    block of the seeded corpus (rank 0 also holds the whole corpus for the
+    one-device references).  ``setup`` runs first (the CPU rehearsal's
+    stubs); ``cfg`` carries the phase's sizes, since a spawned rank
+    imports this module afresh."""
+    global DEVICE, N_ROWS, DIM, VOCAB, BATCH, SEMANTIC_CONFIG, MULTI_TRAIN_BATCH, \
+        MULTI_TRAIN_LEN
+    import tempfile
+
+    import torch.distributed as dist
+
+    from super_rag_tpu_torch.ops import dense_topk as dt
+    from super_rag_tpu_torch.ops.bm25 import LexicalCorpus
+    from super_rag_tpu_torch.ops.bm25_inverted import build_inverted
+    from super_rag_tpu_torch.ops.dense import DenseCorpus
+    from super_rag_tpu_torch.ops.hybrid import hybrid_search
+    from super_rag_tpu_torch.ops.topk import stable_topk
+    from super_rag_tpu_torch.parallel.mesh import corpus_mesh, shard_corpus
+    from super_rag_tpu_torch.parallel.sharded import (
+        gather_candidates, sharded_dense_search)
+    from super_rag_tpu_torch.parallel.sharded_hybrid import sharded_hybrid_search
+    from super_rag_tpu_torch.tokenize.analyzer import Analyzer, DocFrequency
+    from super_rag_tpu_torch.trace import trace_function
+
+    if setup is not None:
+        setup()
+    (DEVICE, N_ROWS, DIM, VOCAB, BATCH, SEMANTIC_CONFIG, MULTI_TRAIN_BATCH,
+     MULTI_TRAIN_LEN) = (str(device), cfg["n_rows"], cfg["dim"], cfg["vocab"], cfg["batch"],
+                         cfg["semantic"], cfg["train_batch"], cfg["train_len"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cand, tile = cfg["candidates"], 2048
+    out: dict = {"rank": rank}
+    mesh = corpus_mesh(device=device)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    arrays, host, ranks, df_host = make_corpus(N_ROWS, gen, dim=DIM, vocab=VOCAB)
+    q_emb = torch.randn(BATCH, DIM, device=DEVICE, generator=gen)
+    texts = make_query_texts(ranks, df_host, gen, BATCH, vocab=VOCAB)
+    del ranks
+    codes, scales, terms, tfs, doc_len = shard_corpus(
+        mesh, arrays["emb"], arrays["scales"], arrays["terms"], arrays["tfs"],
+        arrays["doc_len"])
+    keep = shard_corpus(mesh, torch.ones(N_ROWS, dtype=torch.bool, device=DEVICE))
+    n_local = codes.shape[0]
+    corpus = DenseCorpus(values=codes, scales=scales)
+    full = None
+    if rank == 0:
+        full = DenseCorpus(values=arrays["emb"], scales=arrays["scales"])
+        full_mask = torch.ones(N_ROWS, dtype=torch.bool, device=DEVICE)
+    else:
+        del arrays
+    df = DocFrequency.from_state(host["df"])
+    analyzer = Analyzer(vocab_size=VOCAB)
+    qt = np.full((BATCH, 16), analyzer.pad_id, np.int32)
+    qi = np.zeros((BATCH, 16), np.float32)
+    for i, t in enumerate(texts):
+        qt[i], qi[i] = analyzer.query_entry(t, df, 16)
+    qt, qi = torch.from_numpy(qt).to(DEVICE), torch.from_numpy(qi).to(DEVICE)
+    t0 = time.perf_counter()
+    inv = build_inverted(terms, tfs, doc_len, VOCAB,
+                         postings_per_term=max(256, n_local // 500), avgdl=df.avgdl)
+    lexical = LexicalCorpus(terms=terms, tfs=tfs.to(torch.bfloat16), doc_len=doc_len)
+    torch.cuda.synchronize()
+    out["inverted_s"] = time.perf_counter() - t0
+
+    def dense(per_tile_k):
+        return sharded_dense_search(q_emb, corpus, cand, mesh, mask=keep, use_kernel=True,
+                                    int8_queries=True, per_tile_k=per_tile_k)
+
+    def hybrid():
+        return sharded_hybrid_search(
+            q_emb, qt, qi, corpus, lexical, keep, df.avgdl, mesh, vocab_size=VOCAB,
+            k=TOP_K, candidates=cand, inverted=inv, use_kernel=True,
+            per_tile_k=MULTI_PER_TILE_K, int8_queries=True)
+
+    # the main path, counted: gate a's two depths and gate b
+    dist.barrier()
+    _reset_counts()
+    exact_v, exact_i = dense(None)
+    cal_v, cal_i = dense(MULTI_PER_TILE_K)
+    res = hybrid()
+    torch.cuda.synchronize()
+    out["counts"] = _counts()
+
+    # gate a, exact depth: bit for bit the one-device dense_topk at that depth
+    if rank == 0:
+        gv, gi = dt.dense_topk(q_emb, full, cand, mask=full_mask, tile=tile,
+                               int8_queries=True, device=DEVICE)
+        if not (torch.equal(gv, exact_v) and torch.equal(gi, exact_i)):
+            bad = int((gi != exact_i).any(1).sum())
+            raise AssertionError(f"gate a: exact-depth sharded search differs from the "
+                                 f"one-device dense_topk in {bad} of {BATCH} queries")
+        out["recall_calibrated"] = recall_at_k(cal_i[:, :TOP_K], exact_i[:, :TOP_K])
+    # gate a, calibrated depth: this rank's kernel bit for bit its plain version
+    q, qs, kt, _ = dt.prepare(q_emb, corpus, cand, tile=tile, int8_queries=True,
+                              per_tile_k=MULTI_PER_TILE_K)
+    args = (q, qs, codes, scales, None, keep, n_local, tile, kt)
+    kv, ki = dt.tile_topk(*args)
+    pv, pi = dt.tile_topk_plain(*args)
+    out["max_abs_err"] = _compare(kv, ki, pv, pi, exact=True, tol=0.0)
+    out["kt"], out["num_tiles"] = kt, int(kv.shape[0])
+    out["variant"] = dt.kernel_variant(dt.MODE_INT8, kt, DIM, BATCH, kv.shape[0],
+                                       dt._sm_count(torch.cuda.current_device()))
+
+    # gate b: the sharded hybrid on the kernels equals itself on the plain version
+    with mock.patch.object(dt, "tile_topk", dt.tile_topk_plain):
+        res_plain = hybrid()
+    if not (torch.equal(res.indices, res_plain.indices)
+            and torch.equal(res.scores, res_plain.scores)):
+        raise AssertionError("gate b: sharded hybrid differs between kernel and plain version")
+    ids = res.indices.cpu().numpy()
+    if ids.shape != (BATCH, TOP_K) or not torch.isfinite(res.scores).all() or ids.min() < 0:
+        raise AssertionError("gate b: sharded hybrid result malformed")
+    if rank == 0:
+        full_inv = build_inverted(arrays["terms"], arrays["tfs"], arrays["doc_len"], VOCAB,
+                                  postings_per_term=max(256, N_ROWS // 500), avgdl=df.avgdl)
+        one = hybrid_search(
+            q_emb, qt, qi, full, LexicalCorpus(terms=arrays["terms"],
+                                               tfs=arrays["tfs"].to(torch.bfloat16),
+                                               doc_len=arrays["doc_len"]),
+            df.avgdl, inverted=full_inv, vocab_size=VOCAB, k=TOP_K, candidates=cand,
+            mask=full_mask, use_kernel=True, per_tile_k=MULTI_PER_TILE_K,
+            int8_queries=True, postings_per_query_term=256, device=DEVICE)
+        out["hybrid_overlap"] = float(np.mean([
+            len(set(a) & set(b)) / TOP_K
+            for a, b in zip(ids.tolist(), one.indices.cpu().tolist())]))
+        del full_inv, one
+
+    # times: each rank's kernel alone, then the collective steps together
+    def kernel_times():
+        return {"ms": cuda_ms(lambda: dt.tile_topk(*args)),
+                "plain_ms": cuda_ms(lambda: dt.tile_topk_plain(*args), reps=5),
+                "library_ms": cuda_ms(lambda: library_topk(q, qs, codes, scales, keep,
+                                                           n_local, tile, kt))}
+
+    out.update(_alone(rank, world, kernel_times))
+    nbytes = (n_local * DIM + n_local * 4 + n_local + BATCH * DIM + BATCH * 4
+              + out["num_tiles"] * BATCH * kt * 8)
+    out["bound_ms"], out["bound_by"] = bound_ms(nbytes, 2.0 * BATCH * n_local * DIM,
+                                                INT8_OPS_PER_S)
+    lv, li = dt.dense_topk(q_emb, corpus, cand, mask=keep, tile=tile, int8_queries=True,
+                           per_tile_k=MULTI_PER_TILE_K, device=DEVICE)
+    group = mesh.group("corpus")
+    out["all_gather_ms"] = host_ms(lambda: gather_candidates(lv, li, group))
+    av, ai = gather_candidates(lv, li, group)
+    out["merge_ms"] = cuda_ms(lambda: torch.gather(ai, -1, stable_topk(av, cand)[1]))
+    out["sharded_ms"] = host_ms(lambda: dense(MULTI_PER_TILE_K))
+    out["sharded_hybrid_ms"] = host_ms(hybrid, reps=5)
+    if rank == 0:
+        one_ms = host_ms(lambda: dt.dense_topk(q_emb, full, cand, mask=full_mask, tile=tile,
+                                               int8_queries=True, per_tile_k=MULTI_PER_TILE_K,
+                                               device=DEVICE))
+    dist.barrier()
+    if rank == 0:
+        out["one_device_ms"] = one_ms
+        del full, arrays
+
+    # gate e: a traced span around one sharded search holds the kernel's events
+    tmp = tempfile.mkdtemp(prefix="multi-trace-")
+    try:
+        traced = trace_function("sharded_dense_search", device_profile_dir=tmp)(
+            lambda: dense(MULTI_PER_TILE_K))
+        (traced if rank == 0 else (lambda: dense(MULTI_PER_TILE_K)))()
+        if rank == 0:
+            from super_rag_tpu_torch.trace import get_tracer
+
+            path = get_tracer().recent(1)[-1]["attributes"]["torch_trace"]
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+            want = "dense_topk" if DEVICE != "cpu" else "aten::"
+            hits = [e["name"] for e in events if want in e.get("name", "")
+                    and (DEVICE == "cpu" or e.get("cat") == "kernel")]
+            if not hits:
+                raise AssertionError(f"gate e: the trace holds no {want} events")
+            out["trace_events"], out["trace_kernel"] = len(events), hits[0]
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    out["train"] = _multi_train(rank, world, device)
+    return out
+
+
+def _multi_train(rank: int, world: int, device) -> dict:
+    """Gate d: MULTI_TRAIN_STEPS dp x tp steps of the [semantic] encoder in
+    f32 (tp 2 where the world allows it), and on rank 0 the one-device
+    steps from the same weights; rank 0 compares them."""
+    from super_rag_tpu_torch.models.encoder import (
+        TextEncoder, flatten_tree, flax_params, init_params)
+    from super_rag_tpu_torch.train.contrastive import (
+        TrainConfig, create_train_state, gather_params, make_train_step, train_mesh)
+
+    tp = 2 if world % 2 == 0 else 1
+    cfg = semantic_config(torch.float32)
+    tc = TrainConfig(learning_rate=MULTI_TRAIN_LR, warmup_steps=1)
+    rng = np.random.default_rng(SEED + 90)
+    b, s = MULTI_TRAIN_BATCH, MULTI_TRAIN_LEN
+    batches = [{"q_ids": rng.integers(3, cfg.vocab_size, (b, s)).astype(np.int32),
+                "q_mask": np.arange(s)[None] < rng.integers(s // 2, s + 1, (b, 1)),
+                "d_ids": rng.integers(3, cfg.vocab_size, (b, s)).astype(np.int32),
+                "d_mask": np.arange(s)[None] < rng.integers(s // 2, s + 1, (b, 1))}
+               for _ in range(MULTI_TRAIN_STEPS)]
+    mesh = train_mesh(tp=tp, device=device)
+    model = init_params(TextEncoder(cfg), torch.Generator().manual_seed(SEED + 91)).to(device)
+    state = create_train_state(model, None, tc, mesh=mesh)
+    step = make_train_step(model, tc, mesh=mesh)
+    t0 = time.perf_counter()
+    got = []
+    for batch in batches:
+        state, m = step(state, batch)
+        got.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    mesh_ms = (time.perf_counter() - t0) * 1e3 / MULTI_TRAIN_STEPS
+    params = gather_params(model, mesh)
+    out = {"tp": tp, "dp": world // tp, "metrics": got, "ms_step": mesh_ms}
+    if rank != 0:
+        return out
+    one = init_params(TextEncoder(cfg), torch.Generator().manual_seed(SEED + 91)).to(device)
+    ostate = create_train_state(one, None, tc)
+    ostep = make_train_step(one, tc)
+    want = []
+    for batch in batches:
+        ostate, m = ostep(ostate, batch)
+        want.append({k: float(v) for k, v in m.items()})
+    for g, w in zip(got, want):
+        if not (abs(g["loss"] - w["loss"]) <= MULTI_LOSS_RTOL * abs(w["loss"])
+                and abs(g["grad_norm"] - w["grad_norm"]) <= MULTI_GRAD_NORM_RTOL * w["grad_norm"]):
+            raise AssertionError(f"gate d: mesh step {g} != one-device step {w}")
+    # the attention's key biases have a zero gradient in exact arithmetic:
+    # Adam moves them by rounding noise, up to a step size an update
+    noise = 2 * MULTI_TRAIN_LR * MULTI_TRAIN_STEPS
+    mine, ref = flatten_tree(params), flatten_tree(flax_params(one))
+    err = {k: float(np.abs(mine[k] - ref[k]).max()) for k in ref}
+    bad = [k for k, e in err.items()
+           if e > (max(MULTI_PARAM_ATOL, noise) if k.endswith("key/bias") else MULTI_PARAM_ATOL)]
+    if set(mine) != set(ref) or bad:
+        raise AssertionError(f"gate d: parameters differ: {[(k, err[k]) for k in bad[:3]]}")
+    out.update(one_device=want, param_err=max(e for k, e in err.items()
+                                              if not k.endswith("key/bias")))
+    return out
+
+
+def phase_multi(results: dict, rank_setup=None) -> None:
+    """The multi-device path: gates a, b, d, e on the phase's ranks (one
+    spawned group), gate c (``entry.dryrun_multichip``) on as many."""
+    from super_rag_tpu_torch import entry
+    from super_rag_tpu_torch.parallel.launch import spawn
+
+    backend, world = multi_backend()
+    log(f"[multi] backend {backend}, world {world} (cards: "
+        f"{torch.cuda.device_count() if DEVICE != 'cpu' else 0}); a seeded {N_ROWS} x "
+        f"{DIM} int8 corpus, {N_ROWS // world} rows a rank")
+    cfg = {"n_rows": N_ROWS, "dim": DIM, "vocab": VOCAB, "batch": BATCH,
+           "candidates": CANDIDATES, "semantic": SEMANTIC_CONFIG,
+           "train_batch": MULTI_TRAIN_BATCH, "train_len": MULTI_TRAIN_LEN}
+    t0 = time.perf_counter()
+    ranks = spawn(multi_rank, world, backend=backend, device=DEVICE,
+                  timeout_s=MULTI_TIMEOUT_S, args=(cfg, rank_setup))
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    launches = sum(r["counts"]["dense_topk_tc"] + r["counts"]["dense_topk_simt"]
+                   for r in ranks)
+    if any(r["counts"]["dense_topk_tc"] < 3 for r in ranks):
+        raise AssertionError(f"[multi] a rank's main path missed the tensor-core kernel: "
+                             f"{[r['counts'] for r in ranks]}")
+    tag = f"[multi] ({backend}, {world} ranks)"
+    log(f"{tag} gate a: the exact-depth (kt = {CANDIDATES}) sharded search equals the "
+        f"one-device dense_topk over the {N_ROWS} rows bit for bit, ids included; at "
+        f"per_tile_k {MULTI_PER_TILE_K} (kt {r0['kt']}, the {r0['variant']} kernel) each rank's "
+        f"kernel equals its plain version bit for bit; recall@{TOP_K} of the calibrated "
+        f"depth against the exact: {r0['recall_calibrated']:.4f}")
+    log(f"{tag} gate b: sharded hybrid (per-shard table postings, built in "
+        f"{r0['inverted_s']:.2f} s) on the kernels = on the plain versions; top-{TOP_K} "
+        f"overlap with the one-device hybrid_search: {r0['hybrid_overlap']:.4f}")
+    for r in ranks:
+        log(f"{tag} rank {r['rank']}: dense_topk at its shard ({N_ROWS // world} rows, "
+            f"B={BATCH}, kt={r['kt']}) {r['ms']:.3f} ms alone (plain {r['plain_ms']:.3f} ms, "
+            f"library {r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms, "
+            f"{r['bound_by']}); all_gather of [{BATCH}, {CANDIDATES}] x 2 "
+            f"{r['all_gather_ms']:.3f} ms, merge {r['merge_ms']:.3f} ms; launches "
+            f"{ {k: v for k, v in r['counts'].items() if v} }")
+    log(f"{tag} sharded_dense_search B={BATCH}: {r0['sharded_ms']:.3f} ms against the "
+        f"one-device dense_topk {r0['one_device_ms']:.3f} ms; sharded_hybrid_search "
+        f"{r0['sharded_hybrid_ms']:.3f} ms"
+        + (" (the ranks share one card's SMs: no speedup)" if backend == "gloo" else ""))
+    tr = r0["train"]
+    log(f"{tag} gate d: dp {tr['dp']} x tp {tr['tp']} steps of the [semantic] encoder "
+        f"(f32, [{MULTI_TRAIN_BATCH}, {MULTI_TRAIN_LEN}]) equal the one-device steps: loss "
+        f"{[round(m['loss'], 6) for m in tr['metrics']]} vs "
+        f"{[round(m['loss'], 6) for m in tr['one_device']]}, grad_norm "
+        f"{[round(m['grad_norm'], 5) for m in tr['metrics']]}, max |param diff| "
+        f"{tr['param_err']:.3g} (key biases aside); {tr['ms_step']:.1f} ms a mesh step")
+    log(f"{tag} gate e: the traced sharded search's Chrome trace holds "
+        f"{r0['trace_events']} events, the kernel {r0['trace_kernel']}")
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(world, device=DEVICE, backend=backend, timeout_s=MULTI_TIMEOUT_S)
+    log(f"{tag} gate c: entry.dryrun_multichip({world}) passed in "
+        f"{time.perf_counter() - t0:.2f} s (train step, sharded search, the mutable index "
+        f"against a one-rank gold, IVF at full probe"
+        + (", multislice" if world >= 4 else "") + f"); ranks ran {spawn_s:.2f} s")
+    results["dense_topk_sharded"] = {
+        "variant": r0["variant"], "launches": launches, "max_abs_err": max(
+            r["max_abs_err"] for r in ranks),
+        "ms": r0["ms"], "plain_ms": r0["plain_ms"], "bound_ms": r0["bound_ms"],
+        "bound_by": r0["bound_by"], "library_ms": r0["library_ms"], "backend": backend,
+        "world": world, "all_gather_ms": r0["all_gather_ms"], "merge_ms": r0["merge_ms"],
+        "sharded_ms": r0["sharded_ms"], "one_device_ms": r0["one_device_ms"],
+    }
+    results["multi"] = {"backend": backend, "world": world, "ranks": ranks}
+
+
 # the phases after [small], in the order they run; a phase that another
 # feeds (its index and texts) pulls that one in
 PHASES = ("full", "wide", "serve", "ivf", "ivf-serve", "semantic", "csr", "engine", "http",
-          "docs", "graph", "providers", "workflows", "chat", "mcp", "train")
+          "docs", "graph", "providers", "workflows", "chat", "mcp", "train", "multi")
 PHASE_NEEDS = {"serve": ("full",), "ivf-serve": ("ivf",)}
 _DT = "super_rag_tpu/ops/pallas_topk.py:36"
 # each row of the kernels line: (name, source, replaces, key in results, phase)
@@ -7124,6 +7498,7 @@ KERNEL_ROWS = (
     ("dense_topk_chat", "dense_topk.cu", _DT, "dense_topk_chat", "chat"),
     ("dense_topk_mcp", "dense_topk.cu", _DT, "dense_topk_mcp", "mcp"),
     ("dense_topk_train", "dense_topk.cu", _DT, "dense_topk_train", "train"),
+    ("dense_topk_sharded", "dense_topk.cu", _DT, "dense_topk_sharded", "multi"),
 )
 
 
@@ -7250,7 +7625,8 @@ def main(argv: list = None) -> int:
                      ("workflows", lambda: phase_workflows(results)),
                      ("chat", lambda: phase_chat(results)),
                      ("mcp", lambda: phase_mcp(results)),
-                     ("train", lambda: phase_train(results))):
+                     ("train", lambda: phase_train(results)),
+                     ("multi", lambda: phase_multi(results))):
         run(name, fn)
 
     source = "super_rag_tpu_torch/csrc/"

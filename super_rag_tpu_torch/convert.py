@@ -10,6 +10,12 @@ output (the JAX package's ``engine/index.py:843``) into the port's
 ``encoder_from_jax`` / ``cross_encoder_from_jax`` put a flax parameter
 tree of the JAX ``TextEncoder`` / ``CrossEncoder`` into the port's
 modules.
+
+Across ranks: ``sharded_index_from_jax_snapshot`` restores the JAX
+snapshot into the port's ``ShardedDeviceIndex`` (each rank its block of
+rows); ``shard_params`` cuts a one-device encoder into this rank's
+tensor-parallel shards and ``gather_params`` puts them back together as
+the flax tree both packages load.
 """
 
 from __future__ import annotations
@@ -21,12 +27,19 @@ import torch
 
 from super_rag_tpu_torch.device import DeviceLike, resolve_device
 from super_rag_tpu_torch.engine.index import DTYPES, DeviceIndex
+from super_rag_tpu_torch.engine.sharded_index import ShardedDeviceIndex
 from super_rag_tpu_torch.models.cross_encoder import CrossEncoder
 from super_rag_tpu_torch.models.encoder import (
     EncoderConfig, TextEncoder, load_flax_params)
 from super_rag_tpu_torch.ops.bm25_inverted import CSRInvertedIndex
 from super_rag_tpu_torch.ops.dense import DenseCorpus
 from super_rag_tpu_torch.ops.ivf import IVFIndex
+from super_rag_tpu_torch.parallel.mesh import Mesh
+from super_rag_tpu_torch.train.contrastive import gather_params, shard_params
+
+__all__ = ["index_from_jax_snapshot", "sharded_index_from_jax_snapshot",
+           "ivf_from_jax", "csr_from_jax", "encoder_from_jax",
+           "cross_encoder_from_jax", "shard_params", "gather_params"]
 
 # array name -> numpy dtype the JAX snapshot writes it in
 _ARRAY_DTYPES = {
@@ -43,6 +56,11 @@ def index_from_jax_snapshot(arrays: dict[str, np.ndarray], host: dict,
     Checks that every array the layout needs is present with the dtype
     the JAX package writes (bf16 embeddings arrive as f32, int8 ones as
     int8 codes with ``scales``) before restoring."""
+    _check_jax_snapshot(arrays, host)
+    return DeviceIndex.from_snapshot(arrays, host, device=device)
+
+
+def _check_jax_snapshot(arrays: dict, host: dict) -> None:
     spec = host["spec"]
     if spec["dtype"] not in DTYPES:
         raise ValueError(f"unsupported storage dtype {spec['dtype']!r}")
@@ -59,7 +77,16 @@ def index_from_jax_snapshot(arrays: dict[str, np.ndarray], host: dict,
             raise ValueError(f"JAX snapshot array {name!r} is "
                              f"{np.asarray(arrays[name]).dtype}, expected "
                              f"{np.dtype(dtype)}")
-    return DeviceIndex.from_snapshot(arrays, host, device=device)
+
+
+def sharded_index_from_jax_snapshot(arrays: dict[str, np.ndarray], host: dict,
+                                    mesh: Mesh) -> ShardedDeviceIndex:
+    """The port's ``ShardedDeviceIndex`` over a JAX snapshot (of a
+    ``DeviceIndex`` or a ``ShardedDeviceIndex``: one layout), each rank of
+    ``mesh`` keeping its block of the rows; checked as
+    ``index_from_jax_snapshot`` checks it."""
+    _check_jax_snapshot(arrays, host)
+    return ShardedDeviceIndex.from_snapshot(arrays, host, mesh)
 
 
 # IVFIndex array name -> numpy dtype (None: the storage dtype's)

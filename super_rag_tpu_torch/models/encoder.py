@@ -140,18 +140,19 @@ class SelfAttention(nn.Module):
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         b, s, h = x.shape
-        nh = cfg.num_heads
-        hd = h // nh
-        q = self.query(x).view(b, s, nh, hd)
-        k = self.key(x).view(b, s, nh, hd)
-        v = self.value(x).view(b, s, nh, hd)
+        hd = h // cfg.num_heads
+        # the heads this module holds: all of them, or a tensor-parallel
+        # rank's share (train/contrastive.py shard_params)
+        q = self.query(x).view(b, s, -1, hd)
+        k = self.key(x).view(b, s, -1, hd)
+        v = self.value(x).view(b, s, -1, hd)
         # sqrt is taken in f32 and rounded to the activation dtype
         scale = torch.tensor(math.sqrt(hd), dtype=torch.float32,
                              device=x.device).to(cfg.dtype)
         att = torch.einsum("bqhd,bkhd->bhqk", q, k) / scale
         att = att.masked_fill(~mask[:, None, None, :], MASK_VALUE)
         att = torch.softmax(att.float(), dim=-1).to(cfg.dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(b, s, h)
+        out = torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(b, s, -1)
         return self.out(out)
 
 

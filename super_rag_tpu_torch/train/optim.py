@@ -118,12 +118,16 @@ class ClippedAdamW:
 
     @torch.no_grad()
     def update(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
-               state: AdamWState) -> tuple[AdamWState, torch.Tensor]:
+               state: AdamWState, g_norm: Optional[torch.Tensor] = None
+               ) -> tuple[AdamWState, torch.Tensor]:
         """Apply one update to ``params`` in place; returns the new state
         and the gradients' global norm before clipping (an f32 scalar on
-        the parameters' device)."""
+        the parameters' device).  ``g_norm`` is that norm when the caller
+        holds only part of the gradients (a tensor-parallel rank's
+        shards), so it must come from every rank's."""
         dev = params[0].device
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        if g_norm is None:
+            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
         keep = g_norm < self.grad_clip  # on the device: no host sync
         grads = [torch.where(keep, g, (g / g_norm) * self.grad_clip) for g in grads]
         count = state.count + 1

@@ -65,8 +65,16 @@ MODULES = [
     "super_rag_tpu_torch.api.webui", "super_rag_tpu_torch.cli", "super_rag_tpu_torch.train",
     "super_rag_tpu_torch.train.pairs", "super_rag_tpu_torch.train.corpus",
     "super_rag_tpu_torch.train.optim", "super_rag_tpu_torch.train.contrastive",
-    "super_rag_tpu_torch.train.rerank",
+    "super_rag_tpu_torch.train.rerank", "super_rag_tpu_torch.parallel",
+    "super_rag_tpu_torch.parallel.mesh", "super_rag_tpu_torch.parallel.launch",
+    "super_rag_tpu_torch.parallel.sharded", "super_rag_tpu_torch.parallel.sharded_hybrid",
+    "super_rag_tpu_torch.engine.sharded_index", "super_rag_tpu_torch.entry",
+    "super_rag_tpu_torch.trace", "super_rag_tpu_torch.trace.tracing",
 ]
+# the multi-device slice's modules, also imported in a spawned rank
+MULTI_DEVICE = [m for m in MODULES if m.startswith((
+    "super_rag_tpu_torch.parallel", "super_rag_tpu_torch.engine.sharded_index",
+    "super_rag_tpu_torch.entry", "super_rag_tpu_torch.trace"))]
 # third-party packages the JAX package's serving seam and trainers use and the
 # card's machine may lack; the port replaces each (jinja2, torch's own
 # dependency, is allowed)
@@ -87,6 +95,18 @@ def test_import_pulls_no_jax_and_nothing_of_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[] True"
+
+
+def test_a_spawned_rank_imports_no_jax():
+    """A rank that ``parallel/launch.py`` spawns imports the multi-device
+    modules and nothing of JAX, though this test process holds both."""
+    import torch_rank_cases as rc
+    from super_rag_tpu_torch.parallel.launch import spawn
+
+    assert len(MULTI_DEVICE) == 9
+    out = spawn(rc.imported_modules, 2, device="cpu", timeout_s=rc.SPAWN_TIMEOUT_S,
+                args=(MULTI_DEVICE,))
+    assert out == [[], []]
 
 
 def test_source_names_no_jax_import_or_jax_package_path():
@@ -116,7 +136,8 @@ def test_source_names_no_jax_import_or_jax_package_path():
                                    "RerankService", "encoder_from_jax",
                                    "cross_encoder_from_jax", "csr_from_jax",
                                    "EngineManager", "build_context", "App",
-                                   "KnowledgeGraphService", "cli", "mine_hard_negatives"])
+                                   "KnowledgeGraphService", "cli", "mine_hard_negatives",
+                                   "entry", "dryrun_multichip", "spawn"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, monkeypatch, tmp_path):
     from super_rag_tpu_torch import convert, resolve_device
     from super_rag_tpu_torch.engine import CollectionEngine, DeviceIndex, IndexSpec
@@ -137,6 +158,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, monkeypatch, t
     from super_rag_tpu_torch.service.rerank_service import RerankService
     from super_rag_tpu_torch.train.pairs import Pair
     from super_rag_tpu_torch.train.rerank import mine_hard_negatives
+    from super_rag_tpu_torch import entry as entries
+    from super_rag_tpu_torch.parallel.launch import spawn
 
     def cli_context():
         from super_rag_tpu_torch import cli
@@ -177,6 +200,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, monkeypatch, t
         "cli": lambda: cli_context(),
         "mine_hard_negatives": lambda: mine_hard_negatives(
             [Pair("q", "d"), Pair("r", "e")], lambda t: np.eye(len(t), 4, dtype=np.float32)),
+        "entry": lambda: entries.entry(),
+        "dryrun_multichip": lambda: entries.dryrun_multichip(2),
+        "spawn": lambda: spawn(entries._dryrun_rank, 2),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

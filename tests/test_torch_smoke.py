@@ -1,5 +1,5 @@
 """chip_smoke.py on the CPU: its phase selection, and rehearsals of its
-[workflows], [chat], [mcp] and [train] phases at a small size (the card's kernels
+[workflows], [chat], [mcp], [train] and [multi] phases at a small size (the card's kernels
 replaced by their plain versions, which move the same launch counters)."""
 
 import pytest
@@ -21,6 +21,8 @@ import chip_smoke as cs
     (["--phases", "train"], {}, ["train"]),
     (["--phases", "train,mcp"], {}, ["mcp", "train"]),
     ([], {"SMOKE_PHASES": "train,chat"}, ["chat", "train"]),
+    (["--phases", "multi"], {}, ["multi"]),
+    (["--phases=multi,train"], {}, ["train", "multi"]),
 ])
 def test_select_phases(argv, env, want):
     assert cs.select_phases(argv, env) == want
@@ -51,7 +53,8 @@ def test_every_kernel_row_belongs_to_a_phase():
     assert len(names) == len(set(names))
     assert {"dense_topk_workflow_bf16", "dense_topk_workflow_int8",
             "dense_topk_chat", "dense_topk_mcp", "dense_topk_train"} <= set(names)
-    assert cs.PHASES[-2:] == ("mcp", "train")
+    assert "dense_topk_sharded" in names
+    assert cs.PHASES[-3:] == ("mcp", "train", "multi")
 
 
 def test_workflow_yaml_parses_to_the_definition():
@@ -229,3 +232,24 @@ def test_train_phase_rehearsed_on_the_cpu(monkeypatch):
     assert {"ms", "plain_ms", "bound_ms", "bound_by", "library_ms"} <= set(row)
     out = results["train"]
     assert out["loss"][1] < out["loss"][0] and out["ce_loss"][1] < out["ce_loss"][0]
+
+
+def test_multi_phase_rehearsed_on_the_cpu(monkeypatch):
+    """The [multi] phase end to end at a small size on two gloo ranks:
+    gates a (exact depth bit for bit the one-device search; the calibrated
+    kernel = its plain version), b, c (``entry.dryrun_multichip``), d (a
+    dp 1 x tp 2 step = the one-device step) and e (the profiler trace);
+    its kernel row comes out with its keys."""
+    import torch_rank_cases as rc
+
+    results = stub_card(monkeypatch, N_ROWS=20_000, DIM=64, VOCAB=4096, BATCH=8,
+                        CANDIDATES=32, MULTI_TRAIN_BATCH=4, MULTI_TRAIN_LEN=16)
+    cs.phase_multi(results, rank_setup=rc.stub_card_rank)
+    row = results["dense_topk_sharded"]
+    assert row["backend"] == "gloo" and row["world"] == 2
+    assert row["launches"] == 6 and row["max_abs_err"] == 0
+    assert {"ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "all_gather_ms",
+            "merge_ms", "sharded_ms", "one_device_ms"} <= set(row)
+    r0 = results["multi"]["ranks"][0]
+    assert r0["train"]["tp"] == 2 and r0["train"]["dp"] == 1
+    assert 0.0 <= r0["recall_calibrated"] <= 1.0 and 0.0 <= r0["hybrid_overlap"] <= 1.0

@@ -532,3 +532,130 @@ def test_trained_checkpoint_loads_in_both_packages(tmp_path):
         trained = tenc.flax_params(model)["backbone"]["layer_0"]["mlp_in"]["kernel"]
     assert np.array_equal(np.asarray(jparams["backbone"]["layer_0"]["mlp_in"]["kernel"]),
                           trained)
+
+
+# -- the (dp, tp) mesh -----------------------------------------------------------
+
+# the mesh step against the one-device step: the same f32 operations with
+# the row-parallel products and the dp gradients summed in another order
+MESH_LOSS_RTOL = LOSS_RTOL
+MESH_PARAM_ATOL = PARAM_ATOL
+MESH_STEPS = 2
+
+
+def test_param_shardings_cover_tree():
+    """Every parameter has a split, the JAX ``_spec_for`` rule in the port's
+    ``[out, in]`` layout: the JAX kernel spec transposed, biases alike."""
+    from jax.sharding import PartitionSpec
+
+    jcfg, tcfg = cfgs()
+    model = tenc.TextEncoder(tcfg)
+    specs = ttc.param_shardings(model)
+    flax_leaf = {}
+    for mname, m in model.named_modules():
+        leaves = {tenc.Dense: ("kernel", "bias"), tenc.Embed: ("embedding",),
+                  tenc.LayerNorm: ("scale", "bias")}.get(type(m), ())
+        for attr, leaf in zip(("weight", "bias"), leaves):
+            flax_leaf[f"{mname}.{attr}"] = leaf
+    jparams = jenc.TextEncoder(jcfg).init_params(jax.random.PRNGKey(0))
+    jspecs = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(jparams)[0]:
+        key = "/".join(str(getattr(p, "key", p)) for p in path)
+        spec = tuple(jtc._spec_for(path, leaf))
+        jspecs[key] = spec + (None,) * (leaf.ndim - len(spec))
+    assert len(specs) == len(jspecs)
+    for name, spec in specs.items():
+        leaf = flax_leaf[name]
+        want = jspecs["/".join(name.split(".")[:-1] + [leaf])]
+        assert spec == (want[::-1] if leaf == "kernel" else want), name
+    assert specs["backbone.layer_0.attention.query.weight"] == ("tp", None)
+    assert specs["backbone.layer_0.mlp_out.weight"] == (None, "tp")
+    assert specs["backbone.layer_0.mlp_out.bias"] == (None,)
+    assert PartitionSpec("tp") == jtc._spec_for(
+        (jax.tree_util.DictKey("query"), jax.tree_util.DictKey("bias")), np.zeros(4))
+
+
+@pytest.mark.parametrize("tp", [3, 5])
+def test_tp_must_divide_heads_and_mlp(tp):
+    from super_rag_tpu_torch.parallel.mesh import Mesh
+
+    _, tcfg = cfgs()
+    mesh = Mesh(("dp", "tp"), (1, tp), (0, 0), (None, None), torch.device("cpu"))
+    with pytest.raises(ValueError, match="must divide"):
+        ttc.param_shardings(tenc.TextEncoder(tcfg), mesh)
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(eight_devices):
+    """Two steps from the same flax-init parameters and batches: the JAX
+    package's (2, 2) mesh step, the port's on 2 x 2 gloo ranks, and the
+    port's one-device step."""
+    import torch_rank_cases as rc
+    from super_rag_tpu_torch.parallel.launch import spawn
+
+    jcfg, tcfg = cfgs()
+    cfg = jtc.TrainConfig(learning_rate=1e-3, warmup_steps=1)
+    jmodel = jenc.TextEncoder(jcfg)
+    mesh = jtc.train_mesh(eight_devices[:4], tp=2)
+    jstate = jtc.create_train_state(jmodel, jax.random.PRNGKey(3), cfg, mesh=mesh)
+    init = to_numpy(jstate.params)
+    jstep = jtc.make_train_step(jmodel, cfg, mesh=mesh)
+    batches = [token_batch(40 + i) for i in range(MESH_STEPS)]
+    jax_metrics = []
+    for batch in batches:
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        norm = _jax_grad_norm(jmodel, jstate.params, jb, cfg.temperature)
+        jstate, jm = jstep(jstate, jstep.place_batch(batch))
+        jax_metrics.append({"loss": float(jm["loss"]), "grad_norm": norm})
+
+    tmodel = convert.encoder_from_jax(init, tcfg, device="cpu")
+    tc = ttc.TrainConfig(**dataclasses.asdict(cfg))
+    tstate = ttc.create_train_state(tmodel, None, tc)
+    tstep = ttc.make_train_step(tmodel, tc)
+    one = []
+    for batch in batches:
+        tstate, tm = tstep(tstate, batch)
+        one.append({k: float(v) for k, v in tm.items()})
+
+    cfg_dict = {**TINY, "dtype": torch.float32}
+    ranks = spawn(rc.mesh_train_steps, 4, device="cpu", timeout_s=rc.SPAWN_TIMEOUT_S,
+                  args=(2, cfg_dict, dataclasses.asdict(cfg), init, batches))
+    lr_sum = sum(float(topt.trainer_schedule(1e-3, 1, None)(i)) for i in range(MESH_STEPS))
+    return {"jax": (jax_metrics, jstate.params), "one": (one, tmodel),
+            "ranks": ranks, "lr_sum": lr_sum}
+
+
+def test_mesh_step_matches_one_device_and_jax(mesh_runs):
+    """dp 2 x tp 2: loss, gradient norm and every parameter after two
+    steps equal the port's one-device step and the JAX package's mesh
+    step (``tests/test_train.py test_sharded_matches_unsharded``), within
+    the one-device step's tolerances."""
+    jax_metrics, jparams = mesh_runs["jax"]
+    one, tmodel = mesh_runs["one"]
+    for run in mesh_runs["ranks"]:
+        for got, want_one, want_jax in zip(run["metrics"], one, jax_metrics):
+            np.testing.assert_allclose(got["loss"], want_one["loss"], rtol=MESH_LOSS_RTOL)
+            np.testing.assert_allclose(got["loss"], want_jax["loss"], rtol=MESH_LOSS_RTOL)
+            np.testing.assert_allclose(got["grad_norm"], want_one["grad_norm"],
+                                       rtol=GRAD_NORM_RTOL)
+            np.testing.assert_allclose(got["grad_norm"], want_jax["grad_norm"],
+                                       rtol=GRAD_NORM_RTOL)
+            assert got["accuracy"] == want_one["accuracy"]
+        whole = tenc.TextEncoder(cfgs()[1])
+        tenc.load_flax_params(whole, run["params"])
+        assert_params_close(jparams, whole, MESH_PARAM_ATOL, "mesh vs JAX mesh",
+                            mesh_runs["lr_sum"])
+        assert_params_close(tenc.flax_params(tmodel), whole, MESH_PARAM_ATOL,
+                            "mesh vs one device", mesh_runs["lr_sum"])
+
+
+def test_mesh_ranks_hold_their_shards(mesh_runs):
+    """rank = dp * 2 + tp; a column-parallel weight holds half the rows, a
+    row-parallel one half the columns, the rest whole."""
+    specs = ttc.param_shardings(tenc.TextEncoder(cfgs()[1]))
+    full = {n: tuple(p.shape) for n, p in tenc.TextEncoder(cfgs()[1]).named_parameters()}
+    for rank, run in enumerate(mesh_runs["ranks"]):
+        assert tuple(run["coords"]) == (rank // 2, rank % 2)
+        for name, shape in run["shapes"].items():
+            want = tuple(s // 2 if ax == "tp" else s for s, ax in zip(full[name], specs[name]))
+            assert shape == want, name
