@@ -535,11 +535,11 @@ def phase_small() -> int:
                                  scores=dt.plain_scores(*args[:6], 0, n))
                         cases += 1
     # int8 x int8 at every list depth: the register-list kernel (kt <= 8,
-    # D <= 1024, forced here: these grids are too small for it to be
-    # chosen), the sorted-selection kernel (kt <= 128; above D = 1,024 its
-    # queries streamed) and the SIMT one above the cap (kt 129); ragged B
-    # and D, a mask with an all-masked tile, duplicate rows (ties); every
-    # one bit-equal to the plain version
+    # any D, forced here: these grids are too small for it to be chosen),
+    # the sorted-selection kernel (kt <= 128; above D = 1,024 its queries
+    # streamed) and the SIMT one above the cap (kt 129); ragged B and D, a
+    # mask with an all-masked tile, duplicate rows (ties); every one
+    # bit-equal to the plain version
     sms = dt._sm_count(torch.cuda.current_device())
     wide = ((1, 1040), (17, 1536), (130, 3072), (1, 4096))  # the streamed form
     for bq, dq in ((1, 16), (17, 48), (130, 768), *wide):
@@ -558,7 +558,7 @@ def phase_small() -> int:
             got_variant = dt.kernel_variant(dt.MODE_INT8, kt, dq, bq, -(-n // 2048), sms)
             if got_variant != want:
                 raise AssertionError(f"kt={kt}, D={dq} took {got_variant}, not {want}")
-            forced = kt <= dt.LIST_MAX_KT and dq <= dt.TC_MAX_D
+            forced = kt <= dt.LIST_MAX_KT
             for variant in (want, "tc") if forced else (want,):
                 for mask in (None, keep):
                     args = (q8, qs8, codes, row_scale, None, mask, n, 2048, kt)
@@ -604,8 +604,13 @@ def phase_small() -> int:
     return cases
 
 
-# the _counts() key of each tensor-core mode (ops/dense_topk.py MODE_*)
+# the _counts() key of each tensor-core mode (ops/dense_topk.py MODE_*), and
+# of the register-list kernel's launches alone (dense_topk_tc counts both
+# tensor-core kernels)
 TC_MODE_KEYS = {0: "dense_topk_tc_int8", 1: "dense_topk_tc_int8_bf16", 2: "dense_topk_tc_bf16"}
+LIST_KEY = "dense_topk_tc_list"
+# the kernels line's variant of the register-list kernel's rows
+LIST_VARIANT = "tc (persistent, TMA ring, wgmma m64n128k32 s8)"
 
 
 def _expect_launch(before: dict, variant: str, mode: int) -> None:
@@ -614,7 +619,8 @@ def _expect_launch(before: dict, variant: str, mode: int) -> None:
     after = _counts()
     moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     want = ({"dense_topk_simt": 1} if variant == "simt" else
-            {"dense_topk_tc": 1, TC_MODE_KEYS[mode]: 1})
+            {"dense_topk_tc": 1, TC_MODE_KEYS[mode]: 1,
+             **({LIST_KEY: 1} if variant == "tc" else {})})
     if moved != want:
         raise AssertionError(f"{variant} (mode {mode}) launched {moved}, not {want}")
 
@@ -812,8 +818,8 @@ def phase_full(results: dict):
     launches = counts["dense_topk_tc"]
     log(f"[full] search_hybrid batch {BATCH}: first call {time.perf_counter() - t0:.3f} s, "
         f"launches {counts}")
-    if launches < 1:
-        raise AssertionError("search_hybrid did not launch the tensor-core dense_topk kernel")
+    if launches < 1 or counts[LIST_KEY] < 1:
+        raise AssertionError("search_hybrid did not launch the register-list dense_topk kernel")
     ids = res.indices.cpu().numpy()
     if ids.shape != (BATCH, TOP_K) or not np.isfinite(res.scores.cpu().numpy()).all():
         raise AssertionError("hybrid result has the wrong shape or non-finite scores")
@@ -869,7 +875,7 @@ def phase_full(results: dict):
     nbytes = (n * DIM + n * 4 + n + BATCH * DIM + BATCH * 4
               + num_tiles * BATCH * kt * 8)
     bound, bound_by = bound_ms(nbytes, 2.0 * BATCH * n * DIM, INT8_OPS_PER_S)
-    log(f"[full] dense_topk tensor-core kernel {kernel_ms:.3f} ms (SIMT kernel "
+    log(f"[full] dense_topk register-list kernel {kernel_ms:.3f} ms (SIMT kernel "
         f"{simt_ms:.3f} ms, sorted-selection tensor-core kernel {other_ms['tcs']:.3f} ms, "
         f"{other_ms['tcs streamed']:.3f} ms with its queries streamed, each bit-equal), "
         f"plain {plain_ms:.3f} ms, "
@@ -916,7 +922,7 @@ def phase_full(results: dict):
         f"{hybrid_ms - analyze_ms - dense_ms - lex_ms:.3f} ms; kernel at "
         f"batch 64: {kernel64_ms:.3f} ms (bound {bound64:.3f} ms, {bound64_by})")
     results["dense_topk"] = {
-        "variant": "tc (mma.sync m16n8k32 s8)", "launches": launches,
+        "variant": LIST_VARIANT, "launches": counts[LIST_KEY],
         "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": bound_by, "library_ms": lib_ms, "simt_ms": simt_ms,
         "tcs_ms": other_ms["tcs"], "tcs_streamed_ms": other_ms["tcs streamed"],
@@ -930,12 +936,13 @@ WIDE_DIM = 1536  # phase_wide: the flat 1M-row int8 corpus at text-embedding-3-s
 
 
 def phase_wide(results: dict) -> None:
-    """int8 x int8 at 1M x WIDE_DIM (the remote embeddings' width, which
-    the register-list kernel does not take), B = BATCH, per-tile cap 2:
-    one ``dense_topk`` call through the sorted-selection kernel with its
-    queries streamed, held bit for bit against its plain version, and
-    timed beside the SIMT kernel (the route it took before), the library
-    call and its bound."""
+    """int8 x int8 at 1M x WIDE_DIM (the remote embeddings' width), B =
+    BATCH, per-tile cap 2: one ``dense_topk`` call through the
+    register-list kernel (its queries stream through the ring like the
+    rows), held bit for bit against its plain version and timed beside the
+    library call and its bound, and beside the routes it took before on
+    the same inputs: the sorted-selection kernel with its queries streamed
+    (PR 15 to 19), and the SIMT kernel before that."""
     from super_rag_tpu_torch.ops import dense_topk as dt
     from super_rag_tpu_torch.ops.dense import build_corpus
 
@@ -954,19 +961,23 @@ def phase_wide(results: dict) -> None:
                       device=DEVICE)
     torch.cuda.synchronize()
     launched = {k: v - counts0[k] for k, v in _counts().items() if v - counts0[k]}
-    if launched != {"dense_topk_tc": 1, TC_MODE_KEYS[dt.MODE_INT8]: 1}:
+    if launched != {"dense_topk_tc": 1, TC_MODE_KEYS[dt.MODE_INT8]: 1, LIST_KEY: 1}:
         raise AssertionError(f"[wide] dense_topk at D = {WIDE_DIM} launched {launched}")
     args = calls["tile"]
     row = _served_kernel_row(args, 1, 1, wlog)
-    if row["variant"] != "tcs" or not dt.tcs_streams(WIDE_DIM):
+    if row["variant"] != "tc":
         raise AssertionError(f"[wide] took {row['variant']}")
-    with mock.patch.object(dt, "kernel_variant", lambda *a, **kw: "simt"):
-        sv, si = dt.tile_topk(*args)
-        kv, ki = dt.tile_topk_plain(*args)
-        if not (torch.equal(sv, kv) and torch.equal(si, ki)):
-            raise AssertionError("[wide] the SIMT kernel differs from the plain version")
-        row["simt_ms"] = cuda_ms(lambda: dt.tile_topk(*args), reps=5)
-    wlog(f"the SIMT kernel on the same inputs (the route before): {row['simt_ms']:.3f} ms")
+    row["variant"] = LIST_VARIANT
+    kv, ki = dt.tile_topk_plain(*args)
+    for variant, key, reps in (("tcs", "tcs_streamed_ms", TIMED_REPS), ("simt", "simt_ms", 5)):
+        with mock.patch.object(dt, "kernel_variant", lambda *a, v=variant, **kw: v):
+            sv, si = dt.tile_topk(*args)
+            if not (torch.equal(sv, kv) and torch.equal(si, ki)):
+                raise AssertionError(f"[wide] the {variant} kernel differs from the plain version")
+            row[key] = cuda_ms(lambda: dt.tile_topk(*args), reps=reps)
+    wlog(f"on the same inputs, the routes before: the sorted-selection kernel with its "
+         f"queries streamed {row['tcs_streamed_ms']:.3f} ms (PR 15 to 19), the SIMT kernel "
+         f"{row['simt_ms']:.3f} ms; both bit-equal")
     results["dense_topk_1m_wide"] = row
 
 
@@ -1121,9 +1132,9 @@ def _reset_counts() -> None:
     from super_rag_tpu_torch.ops import dense_topk as dt
     from super_rag_tpu_torch.ops import ivf_topk as it
 
-    for counter in (dt.tc_launches, dt.simt_launches, *dt.tc_mode_launches.values(),
-                    it.union_tc_launches, it.union_simt_launches, it.probe_tc_launches,
-                    it.probe_simt_launches):
+    for counter in (dt.tc_launches, dt.list_launches, dt.simt_launches,
+                    *dt.tc_mode_launches.values(), it.union_tc_launches,
+                    it.union_simt_launches, it.probe_tc_launches, it.probe_simt_launches):
         counter.count = 0
 
 
@@ -1133,6 +1144,7 @@ def _counts() -> dict:
 
     return {"dense_topk_tc": dt.tc_launches.count,
             **{TC_MODE_KEYS[m]: c.count for m, c in dt.tc_mode_launches.items()},
+            LIST_KEY: dt.list_launches.count,
             "dense_topk_simt": dt.simt_launches.count,
             "ivf_union_tc": it.union_tc_launches.count,
             "ivf_union_simt": it.union_simt_launches.count,
@@ -1753,9 +1765,9 @@ def phase_semantic(results: dict):
     torch.cuda.synchronize()
     counts = _counts()
     n_fwd = dict(forwards)
-    if counts["dense_topk_tc"] != 1:
+    if counts["dense_topk_tc"] != 1 or counts[LIST_KEY] != 1:
         raise AssertionError(f"hybrid + rerank B={len(q32)} launched {counts}, not one "
-                             f"tensor-core dense_topk")
+                             f"register-list dense_topk")
     want_ce = len(q32) * -(-CANDIDATES // SEM_RERANK_BATCH)
     if n_fwd["encoder"] < 1 or n_fwd["cross_encoder"] != want_ce:
         raise AssertionError(f"forwards on cuda {n_fwd}; expected >= 1 encoder and "
@@ -1791,12 +1803,12 @@ def phase_semantic(results: dict):
     num_tiles = kv.shape[0]
     nbytes = n * dim + n * 4 + n + b * dim + b * 4 + num_tiles * b * kt * 8
     k_bound, k_by = bound_ms(nbytes, 2.0 * b * n * dim, INT8_OPS_PER_S)
-    log(f"[semantic] dense_topk tensor-core kernel vs plain [num_tiles={num_tiles}, "
+    log(f"[semantic] dense_topk register-list kernel vs plain [num_tiles={num_tiles}, "
         f"B={b}, D={dim}, kt={kt}]: bit-equal (max |diff| {err}); kernel {k_ms:.3f} ms, "
         f"plain {p_ms:.3f} ms, library (_int_mm + topk) {lib_ms:.3f} ms, bound "
         f"{k_bound:.3f} ms ({k_by})")
     results["dense_topk"]["semantic"] = {
-        "launches": counts["dense_topk_tc"], "batch": b, "dim": dim,
+        "launches": counts[LIST_KEY], "batch": b, "dim": dim,
         "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": k_bound,
         "bound_by": k_by, "library_ms": lib_ms}
 
@@ -2094,8 +2106,9 @@ def phase_csr(results: dict) -> None:
         res = idx.search_hybrid(q_all, texts, k=TOP_K, candidates=CANDIDATES, **opts)
     torch.cuda.synchronize()
     counts = _counts()
-    if counts["dense_topk_tc"] < 1:
-        raise AssertionError(f"search_hybrid on the CSR tier launched {counts}")
+    if counts["dense_topk_tc"] < 1 or counts[LIST_KEY] < 1:
+        raise AssertionError(f"search_hybrid on the CSR tier launched {counts}, not the "
+                             f"register-list dense_topk")
     ids = res.indices.cpu().numpy()
     if (ids.shape != (CSR_BATCH, TOP_K) or ids.min() < 0
             or not np.isfinite(res.scores.cpu().numpy()).all()):
@@ -2126,7 +2139,7 @@ def phase_csr(results: dict) -> None:
         f"in 32-tile chunks) {lib_ms:.3f} ms, bound {k_bound:.3f} ms ({k_by}; "
         f"{nbytes / 1e9:.2f} GB, {2.0 * b * n_scan * DIM / 1e12:.2f} T int8 operations)")
     results["dense_topk_10m"] = {
-        "variant": "tc (mma.sync m16n8k32 s8)", "launches": counts["dense_topk_tc"],
+        "variant": LIST_VARIANT, "launches": counts[LIST_KEY],
         "rows": n_scan, "batch": b, "max_abs_err": k_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": k_bound, "bound_by": k_by, "library_ms": lib_ms}
 
@@ -7423,9 +7436,13 @@ def phase_multi(results: dict, rank_setup=None) -> None:
     r0 = ranks[0]
     launches = sum(r["counts"]["dense_topk_tc"] + r["counts"]["dense_topk_simt"]
                    for r in ranks)
-    if any(r["counts"]["dense_topk_tc"] < 3 for r in ranks):
-        raise AssertionError(f"[multi] a rank's main path missed the tensor-core kernel: "
-                             f"{[r['counts'] for r in ranks]}")
+    if any(r["counts"]["dense_topk_tc"] < 3 for r in ranks) or any(
+            (r["counts"][LIST_KEY] >= 1) != (r["variant"] == "tc") for r in ranks):
+        raise AssertionError(f"[multi] a rank's main path missed the tensor-core kernel its "
+                             f"shape takes: {[(r['variant'], r['counts']) for r in ranks]}")
+    if DEVICE != "cpu" and r0["variant"] != "tc":
+        raise AssertionError(f"[multi] a rank's shard took {r0['variant']}, not the "
+                             f"register-list kernel")
     tag = f"[multi] ({backend}, {world} ranks)"
     log(f"{tag} gate a: the exact-depth (kt = {CANDIDATES}) sharded search equals the "
         f"one-device dense_topk over the {N_ROWS} rows bit for bit, ids included; at "
@@ -7462,8 +7479,9 @@ def phase_multi(results: dict, rank_setup=None) -> None:
         f"against a one-rank gold, IVF at full probe"
         + (", multislice" if world >= 4 else "") + f"); ranks ran {spawn_s:.2f} s")
     results["dense_topk_sharded"] = {
-        "variant": r0["variant"], "launches": launches, "max_abs_err": max(
-            r["max_abs_err"] for r in ranks),
+        "variant": LIST_VARIANT if r0["variant"] == "tc" else r0["variant"],
+        "launches": launches, "list_launches": sum(r["counts"][LIST_KEY] for r in ranks),
+        "max_abs_err": max(r["max_abs_err"] for r in ranks),
         "ms": r0["ms"], "plain_ms": r0["plain_ms"], "bound_ms": r0["bound_ms"],
         "bound_by": r0["bound_by"], "library_ms": r0["library_ms"], "backend": backend,
         "world": world, "all_gather_ms": r0["all_gather_ms"], "merge_ms": r0["merge_ms"],
@@ -7570,7 +7588,8 @@ def main(argv: list = None) -> int:
     analyzer_build.join()
     for name in ("dense_topk", "ivf_scan"):
         for ln in _build.build_logs.get(name, "").splitlines():
-            if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
+            if ("registers" in ln or "spill" in ln or "Compiling entry" in ln
+                    or "Performance Loss" in ln):
                 log(f"[build] {name} ptxas: {ln.strip()}")
     log(f"[build] nvcc {took}, native analyzer {native.available()}, in "
         f"{time.perf_counter() - t0:.2f} s")

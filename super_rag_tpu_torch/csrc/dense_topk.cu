@@ -51,34 +51,35 @@
 //   in both forms): a query's sums are the same bits alone or in any batch
 //   and any split; the selection is exact, so int8 x int8 is bit-equal to
 //   the plain version.
-// * dense_topk_tc_kernel, the int8 x int8 mode with register lists (its
-//   whole query block in shared memory), for kt <= 8 and D <= 1024 where
-//   the grid of tiles already fills the card
-//   (the 1M and 10M flat search_hybrid):
-//   mma.sync.m16n8k32.s32.s8.s8 fed by ldmatrix from padded shared memory
-//   (row strides of 16 mod 32 bytes, so the 8 rows of an ldmatrix hit 8
-//   distinct bank groups).  A block keeps its whole [queries, D] block in
-//   shared memory and walks its tile in row chunks; corpus k-slices of 128
-//   bytes stream through a 3-stage cp.async ring, so the next two slices
-//   load while the tensor cores work on this one.  The grid puts the query
-//   blocks of a tile next to each other, so a tile is read from HBM once
-//   and from L2 by its neighbours.  The int32 sums are exact; the epilogue
-//   takes them in the reference's order (__fmul_rn by qscale, then
-//   row_scale, then 2 s - norm, then the mask), so the result is bit-equal
-//   to the plain version whatever the block shape.  No score tile is kept:
-//   each thread carries a running top-kt (registers, KT in {1, 2, 4, 8}) of
-//   the columns it owns across the tile's chunks; at the tile's end the
-//   four lanes that share a query merge with a fixed xor-shuffle tree and
-//   the warps that share it through shared memory, in the order above.
-//   Block shapes (timed on an H100 at the smoke's shapes): for kt <= 2,
-//   128 queries x 256-row chunks in 16 warps of 32 queries x 64 rows, one
-//   block an SM (2.3 ms at B = 512, where 64 x 128 blocks of 16 x 64 warp
-//   tiles took 3.6 ms: wider warp tiles halve the ldmatrix bytes per mma;
-//   still ~6x the operation bound: the fragments' shared-memory reads and
-//   the per-column epilogue, not the tensor cores, set its pace);
-//   for kt 3..8, whose longer lists do not fit beside that tile's
-//   registers, or D > 896, 64 queries x 128 rows in 8 warps of 16 x 64, two
-//   blocks an SM.
+// * dense_topk_tc_kernel, the int8 x int8 mode with register lists, for
+//   kt <= 8 at any D (to 65,536) where its work items (a tile against a
+//   block of 128 queries) fill the card: the 1M and 10M flat
+//   search_hybrid, the reranked batch behind the encoder, each rank's
+//   shard, the 1M x 1,536 wide corpus.  Built for Hopper (the design note
+//   above namespace tc): a persistent grid of one block an SM walks the
+//   work items tile by tile; a producer warp keeps a 6-stage TMA ring of
+//   128-byte k-slices (128 queries and 128 corpus rows, 128-byte swizzle,
+//   zeros past D and the last row, so any D % 16 == 0 streams the same
+//   way) and each chunk's row data (scales, norms, mask) in slots of their
+//   own, which a second warp folds (NaN scales for dead rows); two
+//   consumer warpgroups of 64 queries each run
+//   wgmma.m64n128k32.s32.s8.s8 from shared memory, and take a chunk's
+//   scores into their register lists during the next chunk's products
+//   (the sums move to a second register array).  The int32 sums are
+//   exact; the epilogue takes them in the reference's order (__fmul_rn by
+//   qscale, then row_scale, then 2 s - norm, then the mask), so the result
+//   is bit-equal to the plain version whatever the block shape.  A thread
+//   visits its columns in increasing order, so a new score enters its list
+//   only by beating an entry strictly (ties keep the lower column), with
+//   selects and no branch; at the item's end the four lanes of a query
+//   merge with a fixed xor-shuffle tree.  What bounds it on an H100 (80GB
+//   HBM3, 700 W): the epilogue's issue rate (about half a consumer warp's
+//   cycles), not the tensor cores or the ring: ~0.9 ms at 1M x 768, B =
+//   512 (operation bound 0.40; the mma.sync form it replaces took 2.43),
+//   ~9 ms at 10M (bound 3.98; 23.0 before), ~1.45 ms at 1M x 1,536 (bound
+//   0.80; the sorted-selection route took 7.7), ~0.21 ms at 1M x 256, B =
+//   32 (bytes bound 0.078; 0.38 before): scripts/ab_dense_topk.py,
+//   scripts/tune_dense_topk.py and PERF.md §6.
 // * dense_topk_kernel, the rest: f32 queries (whose only tensor-core path,
 //   TF32, cannot hold the f32 tolerance) and kt > 128: the first
 //   version, dp4a or FMA on CUDA cores from shared memory with a 4 x 4
@@ -95,10 +96,12 @@
 // 1M x 768: 0.23 ms at 3.35 TB/s) at small batches, and the int8 work
 // (2 B N D operations: 0.40 ms at 1,979 TOP/s) at batch 512.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <cooperative_groups.h>
 
@@ -310,293 +313,479 @@ int launch(const void* q, const float* qscale, const void* c, const float* scale
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- tensor-core variant: int8 x int8, kt <= 8 ------------------------------
-
+// ---- register-list variant: int8 x int8, kt <= 8, any D ---------------------
+//
+// A persistent grid (a block an SM) walks work items (tile, block of QB
+// queries) in tile-major order, each tile in chunks of BN rows.  Warpgroup
+// 0 is the producer: one thread keeps a ring of NST stages filled by TMA,
+// each stage one 128-byte k-slice of the block's queries and of a chunk's
+// rows (128-byte swizzle, zeros past D and past the last row), completing
+// on the stage's mbarrier, and loads each chunk's row data (scales, norms,
+// mask: [1, N] maps) into one of NM slots, where a second warp folds the
+// mask and the tile's end into the scales (NaN for a dead row), aligned
+// for the epilogue's paired loads.  Warpgroups 1 and 2 each own 64
+// of the block's queries and run wgmma.m64nBNk32.s32.s8.s8 from shared
+// memory on every stage.  At a chunk's end its sums move to a second
+// register array; the next chunk's first PIECES k-slices are each followed
+// by a piece of that chunk's epilogue, so the warps take one chunk's scores
+// while the tensor cores work on the next (a wgmma issue blocks while they
+// are busy: without the interleaving, products and epilogue take turns).
+// The epilogue takes each of a thread's 2 queries x BN/4 columns into its
+// two running top-KT register lists, merged over the four lanes of a query
+// at the item's end.
+//
+// ptxas serializes every wgmma of a kernel (each issue waits for the last
+// to finish: C7518 in its -v report) where a wgmma, or a read of registers
+// that a wgmma in flight may still write, lies on a path it cannot prove
+// uniform, or where the accumulators are touched between an issue and its
+// wait.  So: every warpgroup issues every product (one of padding queries
+// multiplies TMA's zeros; a phase with no k-slice, an A block of zeros),
+// the epilogue reads a copy of the sums that no wgmma writes, the pieces
+// are unrolled phases (a switch on the k-slice compiles to an indirect
+// jump, which counts as divergent), and the epilogue has no branch on the
+// launch's flags (absent row data is filled in its slots).
 namespace tc {
 
-constexpr int MAX_D = 1024;
-
-// A block holds QB queries and walks its tile in chunks of RC rows; warp
-// tiles are 16 * MT queries x 64 rows; corpus k-slices of KS bytes stream
-// through an NST-stage cp.async ring; MINB blocks are meant to share an SM.
-template <int QB_, int RC_, int MT_, int KS_, int NST_, int MINB_>
-struct Cfg {
-  static constexpr int QB = QB_, RC = RC_, MT = MT_, KS = KS_, NST = NST_, MINB = MINB_;
-  static constexpr int CS = KS + 16;  // corpus row stride: 16 mod 32 bytes
-  static constexpr int WARPS_M = QB / (16 * MT);
-  static constexpr int WARPS_N = RC / 64;
-  static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
-
-  // query row stride: D rounded up to a stage, + 16 bytes (16 mod 32: the
-  // 8 rows of an ldmatrix land in 8 distinct bank groups)
-  __host__ __device__ static int query_stride(int D) { return (D + KS - 1) / KS * KS + 16; }
-
-  __host__ static size_t smem_bytes(int D, int kt_cap) {
-    const size_t ring = static_cast<size_t>(NST) * RC * CS;
-    const size_t merge = static_cast<size_t>(WARPS_N - 1) * QB * kt_cap * 8;
-    return static_cast<size_t>(QB) * query_stride(D) + (ring > merge ? ring : merge);
-  }
-};
-
-// the configurations the port runs (chosen by timing on an H100; the note
-// at the top of this file): for kt <= 2, 128 queries and 256-row chunks in
-// 16 warps of 32 queries x 64 rows (two blocks' worth of registers, one
-// block an SM); for kt 3..8, or where that block's shared memory does not
-// fit (D > 896), 64 queries and 128-row chunks in 8 warps of 16 x 64
-using Wide = Cfg<128, 256, 2, 128, 3, 1>;
-using Narrow = Cfg<64, 128, 1, 128, 3, 2>;
+constexpr int QB = 128;          // queries a work item: 64 a consumer warpgroup
+constexpr int KS = 128;          // bytes of a row a ring stage (one swizzle row)
+constexpr int THREADS = 384;     // warpgroup 0 loads, warpgroups 1 and 2 compute
+constexpr int CONSUMER_WARPS = 8;
+constexpr int NM = 3;            // row-data slots: an epilogue's, the next chunk's, one ahead
+constexpr int PIECES = 4;        // an epilogue in pieces, after each of the next chunk's issues
+constexpr int MAX_D = 65536;     // int32 sums of any int8 codes exact (D * 128^2 <= 2^30)
 constexpr size_t SMEM_MAX = 232448;  // an H100 block's dynamic shared memory
+// which row maps a launch has (the rest are absent: scale 1, no norm, all kept)
+constexpr int HAS_SCALES = 1, HAS_NORMS = 2, HAS_MASK = 4;
 
-template <typename G, int KT>
-__global__ void __launch_bounds__(G::THREADS, G::MINB)
-dense_topk_tc_kernel(const int8_t* __restrict__ q, const float* __restrict__ qscale,
-                     const int8_t* __restrict__ c, const float* __restrict__ scales,
-                     const float* __restrict__ norms, const uint8_t* __restrict__ mask,
-                     int B, int N, int D, int tile, int kt, float* __restrict__ out_vals,
-                     int* __restrict__ out_ids) {
-  constexpr int QB = G::QB, RC = G::RC, MT = G::MT, KS = G::KS, NST = G::NST, CS = G::CS;
-  constexpr int WARPS_M = G::WARPS_M, WARPS_N = G::WARPS_N, THREADS = G::THREADS;
-  constexpr int NL = 2 * MT;  // running lists per thread (queries it owns)
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int QS = G::query_stride(D);
-  uint8_t* sq = smem;                 // [QB][QS]
-  uint8_t* sc = smem + QB * QS;       // ring: [NST][RC][CS]; merge lists after the loop
+constexpr int BN = 128;          // corpus rows a chunk: the wgmma's N
+constexpr int NST = 6;           // ring stages
+constexpr int Q_BYTES = QB * KS;
+constexpr int STAGE = Q_BYTES + BN * KS;  // 32 KB
+// a chunk's row data, from its first row rounded down to 16 (a TMA box
+// starts on 16 bytes): two boxes of BN each of mask bytes, scales and
+// norms, each array on a 128-byte boundary
+constexpr int SLOT = 2 * BN * (1 + 4 + 4);
+static_assert(BN % 128 == 0 && BN / 8 % PIECES == 0, "whole pieces, 128-byte row arrays");
+// a chunk's row data as the epilogue reads it, from its first row: the
+// scales with the mask and the tile's end folded in (NaN for a dead row:
+// NaN beats no entry of a list), then the norms
+constexpr int FOLDED = 2 * BN * 4;
+// a warpgroup's A operand of zeros (64 rows of a k-slice): the product a
+// phase with no k-slice to take issues, so that every wgmma is issued on a
+// uniform path
+constexpr int ZERO_A = 64 * KS;
+// 1,024 bytes of slack to put the ring on the swizzle's 1,024-byte period,
+// the ring, the zero block, the row-data slots and their folded forms,
+// then a full and an empty barrier a stage, and a full, a folded and an
+// empty barrier a slot
+constexpr size_t SMEM = 1024 + static_cast<size_t>(NST) * STAGE + ZERO_A + NM * (SLOT + FOLDED) +
+                        (2 * NST + 3 * NM) * 8;
+static_assert(SMEM <= SMEM_MAX, "the ring does not fit a block's shared memory");
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp % WARPS_M;      // query group: queries 16 MT wm ..
-  const int wn = warp / WARPS_M;      // row group: chunk rows 64 wn .. 64 wn + 63
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-  const int b0 = blockIdx.x * QB;
-  const int tile_idx = blockIdx.y;
-  const long long base = static_cast<long long>(tile_idx) * tile;
+// rows of tile t that are scanned: all but the last tile's, tile
+__device__ __forceinline__ int tile_rows(int t, int tile, int N) { return min(tile, N - t * tile); }
 
-  const int nks = (D + KS - 1) / KS;
-  const int total = (tile + RC - 1) / RC * nks;
-
-  // the query block, once: rows past B and bytes past D are zeros
-  {
-    const int vpr = (QS - 16) / 16;
-    for (int idx = tid; idx < QB * vpr; idx += THREADS) {
-      const int r = idx / vpr, kb = (idx - r * vpr) * 16;
-      const bool ok = b0 + r < B && kb < D;
-      sm90::cp_async16(sq + r * QS + kb,
-                       ok ? q + static_cast<long long>(b0 + r) * D + kb : q, ok ? 16 : 0);
-    }
+// (v, c) into a sorted register list whose columns are all below c (a
+// thread visits its columns in increasing order): v enters before the
+// first entry it beats strictly (an equal value keeps its lower column
+// ahead), the entries it beats move down one; -inf enters nowhere.  No
+// branch: every slot is a select on the old list's compares.
+template <int KT>
+__device__ __forceinline__ void list_push(float (&lv)[KT], int (&lc)[KT], float v, int c) {
+  bool beat[KT];
+#pragma unroll
+  for (int i = 0; i < KT; ++i) beat[i] = v > lv[i];
+#pragma unroll
+  for (int i = KT - 1; i > 0; --i) {
+    lv[i] = beat[i - 1] ? lv[i - 1] : (beat[i] ? v : lv[i]);
+    lc[i] = beat[i - 1] ? lc[i - 1] : (beat[i] ? c : lc[i]);
   }
-  auto load_stage = [&](int s) {
-    const int r0 = s / nks * RC;
-    const int k0 = s % nks * KS;
-    uint8_t* dst = sc + (s % NST) * (RC * CS);
-    for (int idx = tid; idx < RC * (KS / 16); idx += THREADS) {
-      const int r = idx / (KS / 16), kb = k0 + (idx % (KS / 16)) * 16;
-      const int col = r0 + r;
-      const long long t = base + col;
-      const bool ok = col < tile && t < N && kb < D;
-      sm90::cp_async16(dst + r * CS + (kb - k0), ok ? c + t * D + kb : c, ok ? 16 : 0);
-    }
-  };
-#pragma unroll
-  for (int s = 0; s < NST - 1; ++s) {
-    if (s < total) load_stage(s);
-    sm90::cp_async_commit();
-  }
-
-  // this thread's queries: list l = 2 mt + h is query 16 (MT wm + mt) + gid + 8 h
-  int ql[NL];
-  float qsc[NL];
-  float lv[NL][KT];
-  int lc[NL][KT];
-#pragma unroll
-  for (int l = 0; l < NL; ++l) {
-    ql[l] = (MT * wm + l / 2) * 16 + gid + 8 * (l & 1);
-    qsc[l] = b0 + ql[l] < B ? qscale[b0 + ql[l]] : 0.0f;
-#pragma unroll
-    for (int i = 0; i < KT; ++i) {
-      lv[l][i] = -INFINITY;
-      lc[l][i] = 0x7fffffff;
-    }
-  }
-  int acc[MT][8][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0;
-
-  // per-lane ldmatrix row offsets (see the m16n8k32 fragment layouts)
-  const uint8_t* a_row =
-      sq + ((MT * wm) * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * QS + (lane >> 4) * 16;
-  const int b_off = (wn * 64 + (lane & 7) + (lane >> 4) * 8) * CS + ((lane >> 3) & 1) * 16;
-
-  for (int s = 0; s < total; ++s) {
-    sm90::cp_async_wait<NST - 2>();
-    __syncthreads();
-    if (s + NST - 1 < total) load_stage(s + NST - 1);
-    sm90::cp_async_commit();
-
-    const int ks = s % nks;
-    const int k0 = ks * KS;
-    const uint8_t* buf = sc + (s % NST) * (RC * CS) + b_off;
-    const int nsub = min(KS / 32, (D - k0 + 31) / 32);
-#pragma unroll
-    for (int sub = 0; sub < KS / 32; ++sub) {
-      if (sub < nsub) {
-        uint32_t a[MT][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) sm90::ldmatrix_x4(a_row + mt * 16 * QS + k0 + sub * 32, a[mt]);
-#pragma unroll
-        for (int jp = 0; jp < 4; ++jp) {
-          uint32_t bb[4];
-          sm90::ldmatrix_x4(buf + jp * 16 * CS + sub * 32, bb);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            sm90::mma_s8_16832(acc[mt][2 * jp], a[mt], bb[0], bb[1]);
-            sm90::mma_s8_16832(acc[mt][2 * jp + 1], a[mt], bb[2], bb[3]);
-          }
-        }
-      }
-    }
-
-    if (ks == nks - 1) {
-      // the chunk's sums are complete: epilogue in the reference's order,
-      // then into the running lists
-      const int r0 = s / nks * RC + wn * 64;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = r0 + j * 8 + tig * 2 + e;
-          if (col < tile) {
-            const long long t = base + col;
-            const bool live = t < N && (mask == nullptr || mask[t] != 0);
-            const float rs = (scales != nullptr && t < N) ? scales[t] : 1.0f;
-            const float nn = (norms != nullptr && t < N) ? norms[t] : 0.0f;
-#pragma unroll
-            for (int l = 0; l < NL; ++l) {
-              float v = __fmul_rn(__int2float_rn(acc[l / 2][j][2 * (l & 1) + e]), qsc[l]);
-              if (scales != nullptr) v = __fmul_rn(v, rs);
-              if (norms != nullptr) v = __fsub_rn(__fmul_rn(2.0f, v), nn);
-              sm90::list_insert<KT>(lv[l], lc[l], live ? v : -INFINITY, col);
-            }
-          }
-#pragma unroll
-          for (int l = 0; l < NL; ++l) acc[l / 2][j][2 * (l & 1) + e] = 0;
-        }
-      }
-    }
-  }
-
-  // the four lanes of a query (tig 0..3): a fixed xor-shuffle tree; each
-  // step takes the partner's whole list before inserting it
-#pragma unroll
-  for (int m = 1; m <= 2; m <<= 1) {
-#pragma unroll
-    for (int l = 0; l < NL; ++l) {
-      float ov[KT];
-      int oc[KT];
-#pragma unroll
-      for (int i = 0; i < KT; ++i) {
-        ov[i] = __shfl_xor_sync(0xffffffffu, lv[l][i], m);
-        oc[i] = __shfl_xor_sync(0xffffffffu, lc[l][i], m);
-      }
-#pragma unroll
-      for (int i = 0; i < KT; ++i) sm90::list_insert<KT>(lv[l], lc[l], ov[i], oc[i]);
-    }
-  }
-
-  // the warps of a query group (wn = 0 .. WARPS_N - 1) through shared
-  // memory: warps wn > 0 post their lists, warp 0 merges them in wn order
-  sm90::cp_async_wait<0>();
-  __syncthreads();
-  float* mv = reinterpret_cast<float*>(sc);                    // [WARPS_N - 1][QB][KT]
-  int* mc = reinterpret_cast<int*>(sc) + (WARPS_N - 1) * QB * KT;
-  if (WARPS_N > 1) {
-    if (wn > 0 && tig == 0) {
-#pragma unroll
-      for (int l = 0; l < NL; ++l)
-#pragma unroll
-        for (int i = 0; i < KT; ++i) {
-          const int o = ((wn - 1) * QB + ql[l]) * KT + i;
-          mv[o] = lv[l][i];
-          mc[o] = lc[l][i];
-        }
-    }
-    __syncthreads();
-  }
-  if (wn == 0 && tig == 0) {
-#pragma unroll
-    for (int l = 0; l < NL; ++l) {
-      for (int w = 1; w < WARPS_N; ++w)
-#pragma unroll
-        for (int i = 0; i < KT; ++i) {
-          const int o = ((w - 1) * QB + ql[l]) * KT + i;
-          sm90::list_insert<KT>(lv[l], lc[l], mv[o], mc[o]);
-        }
-      const int b = b0 + ql[l];
-      if (b < B) {
-        const long long out0 = (static_cast<long long>(tile_idx) * B + b) * kt;
-#pragma unroll
-        for (int i = 0; i < KT; ++i) {
-          if (i < kt) {
-            out_vals[out0 + i] = lv[l][i];
-            out_ids[out0 + i] = static_cast<int>(base + (lv[l][i] == -INFINITY ? 0 : lc[l][i]));
-          }
-        }
-      }
-    }
-  }
+  lv[0] = beat[0] ? v : lv[0];
+  lc[0] = beat[0] ? c : lc[0];
 }
 
-template <typename G, int KT>
-int launch_kt(const int8_t* q, const float* qscale, const int8_t* c, const float* scales,
-              const float* norms, const uint8_t* mask, int B, int N, int D, int tile,
-              int num_tiles, int kt, float* out_vals, int* out_ids, cudaStream_t stream) {
-  const size_t smem = G::smem_bytes(D, KT);
-  auto kern = dense_topk_tc_kernel<G, KT>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((B + G::QB - 1) / G::QB, num_tiles);  // the query blocks of a tile run together
-  kern<<<grid, G::THREADS, smem, stream>>>(q, qscale, c, scales, norms, mask, B, N, D, tile, kt,
-                                           out_vals, out_ids);
-  return static_cast<int>(cudaGetLastError());
+// piece P of a chunk's epilogue: column groups j in [P JP, P JP + JP) of
+// `acc`, in the reference's order (__fmul_rn by qscale, then row_scale, then
+// 2 s - norm as one fma with two = 2: 2 s is exact; where a launch has no
+// scales or norms its slots hold 1 and 0, and two is 1: x 1 and 1 s - 0 are
+// exact), from the folded row data (`fs`: the scales, NaN for a dead row,
+// whose score then enters no list; `fn`: the norms), a pair of columns a
+// load.  Selects, no branch: neighbouring scores overlap, and the reads of
+// the accumulators stay on a path ptxas knows is uniform
+template <int P, int JP, int KT, int R>
+__device__ __forceinline__ void epilogue_piece(const int (&acc)[R], float (&lv)[2][KT],
+                                               int (&lc)[2][KT], const float (&qsc)[2],
+                                               const float* fs, const float* fn, int r0, int cq,
+                                               float two) {
+#pragma unroll
+  for (int jj = 0; jj < JP; ++jj) {
+    const int j = P * JP + jj;
+    const float2 r = *reinterpret_cast<const float2*>(fs + 8 * j + cq);
+    const float2 nn = *reinterpret_cast<const float2*>(fn + 8 * j + cq);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + e]), qsc[h]),
+                            e ? r.y : r.x);
+        v = __fmaf_rn(two, v, -(e ? nn.y : nn.x));
+        list_push<KT>(lv[h], lc[h], v, r0 + 8 * j + cq + e);
+      }
+    }
+  }
 }
 
 template <int KT>
-int launch_default(const int8_t* q, const float* qscale, const int8_t* c, const float* scales,
-                   const float* norms, const uint8_t* mask, int B, int N, int D, int tile,
-                   int num_tiles, int kt, float* out_vals, int* out_ids, cudaStream_t s) {
-  if constexpr (KT <= 2) {
-    if (Wide::smem_bytes(D, KT) <= SMEM_MAX)
-      return launch_kt<Wide, KT>(q, qscale, c, scales, norms, mask, B, N, D, tile, num_tiles, kt,
-                                 out_vals, out_ids, s);
+__global__ void __launch_bounds__(THREADS, 1)
+dense_topk_tc_kernel(__grid_constant__ const CUtensorMap qmap,
+                     __grid_constant__ const CUtensorMap cmap,
+                     __grid_constant__ const CUtensorMap smap,
+                     __grid_constant__ const CUtensorMap nmap,
+                     __grid_constant__ const CUtensorMap mmap, int maps,
+                     const float* __restrict__ qscale, int B, int N, int D, int tile,
+                     int num_tiles, int kt, float* __restrict__ out_vals,
+                     int* __restrict__ out_ids) {
+  constexpr int R = BN / 2;             // accumulator registers a thread
+  constexpr int JP = BN / 8 / PIECES;   // column groups of 8 a piece
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint32_t ring = (sm90::smem_addr(smem) + 1023u) & ~1023u;
+  const uint32_t zero_a = ring + NST * STAGE;  // on the swizzle's period too
+  // slot m at rows0 + m SLOT: mask bytes [2 BN], then scales [2 BN], then norms [2 BN]
+  const uint32_t rows0 = zero_a + ZERO_A;
+  const uint8_t* rows0_ptr = smem + (rows0 - sm90::smem_addr(smem));
+  // slot m's folded form at folded0_ptr + m FOLDED / 4: scales [BN], norms [BN]
+  float* folded0_ptr = reinterpret_cast<float*>(const_cast<uint8_t*>(rows0_ptr) + NM * SLOT);
+  const uint32_t full0 = rows0 + NM * (SLOT + FOLDED);  // stage s's full barrier: full0 + 8 s
+  const uint32_t empty0 = full0 + NST * 8;
+  const uint32_t rfull0 = empty0 + NST * 8;  // slot m's: rfull0 + 8 m
+  const uint32_t rready0 = rfull0 + NM * 8;  // its folded form's
+  const uint32_t rempty0 = rready0 + NM * 8;
+  const int qblocks = (B + QB - 1) / QB;
+  const int items = num_tiles * qblocks;
+  const int nks = (D + KS - 1) / KS;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NST; ++s) {
+      sm90::mbar_init(full0 + 8 * s, 1);
+      sm90::mbar_init(empty0 + 8 * s, CONSUMER_WARPS);
+    }
+    for (int m = 0; m < NM; ++m) {
+      sm90::mbar_init(rfull0 + 8 * m, 1);
+      sm90::mbar_init(rready0 + 8 * m, 32);
+      sm90::mbar_init(rempty0 + 8 * m, CONSUMER_WARPS);
+    }
+    sm90::mbar_init_fence();
   }
-  return launch_kt<Narrow, KT>(q, qscale, c, scales, norms, mask, B, N, D, tile, num_tiles, kt,
-                               out_vals, out_ids, s);
+  // the row arrays a launch does not load hold mask 1, scale 1 and norm 0
+  // in every slot, for good; the zero block, seen by the tensor cores
+  for (int i = threadIdx.x; i < NM * 2 * BN; i += THREADS) {
+    uint8_t* slot = const_cast<uint8_t*>(rows0_ptr) + i / (2 * BN) * SLOT;
+    const int k = i % (2 * BN);
+    if (!(maps & HAS_MASK)) slot[k] = 1;
+    if (!(maps & HAS_SCALES)) reinterpret_cast<float*>(slot + 2 * BN)[k] = 1.0f;
+    if (!(maps & HAS_NORMS)) reinterpret_cast<float*>(slot + 10 * BN)[k] = 0.0f;
+  }
+  for (int i = threadIdx.x; i < ZERO_A / 16; i += THREADS)
+    reinterpret_cast<uint4*>(const_cast<uint8_t*>(rows0_ptr) - ZERO_A)[i] = make_uint4(0, 0, 0, 0);
+  sm90::fence_proxy_async();
+  __syncthreads();
+
+  if (wg == 0) {
+    // the producer: the consumers' sequence of slots and stages, item by item
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      sm90::tma_prefetch_map(&qmap);
+      sm90::tma_prefetch_map(&cmap);
+      const uint32_t row_bytes = 2 * BN * ((maps & HAS_SCALES ? 4 : 0) +
+                                           (maps & HAS_NORMS ? 4 : 0) + (maps & HAS_MASK ? 1 : 0));
+      int s = 0, m = 0;
+      uint32_t ph = 0, rph = 0;
+      for (int it = blockIdx.x; it < items; it += gridDim.x) {
+        const int t = it / qblocks;
+        const int b0 = (it - t * qblocks) * QB;
+        const int nch = (tile_rows(t, tile, N) + BN - 1) / BN;
+        for (int ch = 0; ch < nch; ++ch) {
+          const int row = t * tile + ch * BN;
+          sm90::mbar_wait(rempty0 + 8 * m, rph ^ 1);
+          const uint32_t slot = rows0 + m * SLOT;
+          const uint32_t bar = rfull0 + 8 * m;
+          sm90::mbar_arrive_expect_tx(bar, row_bytes);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int x = (row & ~15) + h * BN;
+            if (maps & HAS_MASK) sm90::tma_load_2d(slot + h * BN, &mmap, bar, x, 0);
+            if (maps & HAS_SCALES) sm90::tma_load_2d(slot + (2 + 4 * h) * BN, &smap, bar, x, 0);
+            if (maps & HAS_NORMS) sm90::tma_load_2d(slot + (10 + 4 * h) * BN, &nmap, bar, x, 0);
+          }
+          if (++m == NM) {
+            m = 0;
+            rph ^= 1;
+          }
+          for (int ks = 0; ks < nks; ++ks) {
+            sm90::mbar_wait(empty0 + 8 * s, ph ^ 1);
+            const uint32_t st = ring + s * STAGE;
+            sm90::mbar_arrive_expect_tx(full0 + 8 * s, STAGE);
+            sm90::tma_load_2d(st, &qmap, full0 + 8 * s, ks * KS, b0);
+            sm90::tma_load_2d(st + Q_BYTES, &cmap, full0 + 8 * s, ks * KS, row);
+            if (++s == NST) {
+              s = 0;
+              ph ^= 1;
+            }
+          }
+        }
+      }
+    } else if (threadIdx.x >= 32 && threadIdx.x < 64) {
+      // the folding warp: each chunk's row data as the epilogue reads it,
+      // aligned to the chunk's first row; a row is dead when masked or past
+      // the tile's scanned rows
+      const int lane = threadIdx.x - 32;
+      int m = 0;
+      uint32_t rph = 0;
+      for (int it = blockIdx.x; it < items; it += gridDim.x) {
+        const int t = it / qblocks;
+        const int rows = tile_rows(t, tile, N);
+        const int nch = (rows + BN - 1) / BN;
+        for (int ch = 0; ch < nch; ++ch) {
+          sm90::mbar_wait(rfull0 + 8 * m, rph);
+          const int off = (t * tile + ch * BN) & 15;  // the chunk's first row in its slot
+          const uint8_t* mk = rows0_ptr + m * SLOT + off;
+          const float* rs = reinterpret_cast<const float*>(rows0_ptr + m * SLOT + 2 * BN) + off;
+          const float* rn = rs + 2 * BN;
+          float* fs = folded0_ptr + m * (FOLDED / 4);
+          for (int c = lane; c < BN; c += 32) {
+            fs[c] = mk[c] != 0 && ch * BN + c < rows ? rs[c] : __int_as_float(0x7fc00000);
+            fs[BN + c] = rn[c];
+          }
+          sm90::mbar_arrive(rready0 + 8 * m);
+          if (++m == NM) {
+            m = 0;
+            rph ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    sm90::setmaxnreg_inc<232>();
+    const int cw = wg - 1;  // queries 64 cw .. 64 cw + 63 of the block
+    const int ctid = threadIdx.x - 128 * wg;
+    const int lane = ctid & 31;
+    // this thread's queries qr and qr + 8; its columns of each group of 8:
+    // cq and cq + 1 (the wgmma accumulator layout: acc[4 j + 2 h + e] is
+    // query qr + 8 h, column 8 j + cq + e)
+    const int qr = cw * 64 + (ctid >> 5) * 16 + (lane >> 2);
+    const int cq = 2 * (lane & 3);
+    const uint32_t a_off = cw * (64 * KS);
+    const float two = maps & HAS_NORMS ? 2.0f : 1.0f;
+    int acc[R], prv[R];  // the products in flight; the last chunk's sums for its epilogue
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] = prv[i] = 0;
+    float qsc[2];
+    float lv[2][KT];
+    int lc[2][KT];
+    // the lists and query scales of the item whose chunks' epilogues come next
+    auto start_item = [&](int b0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int b = b0 + qr + 8 * h;
+        qsc[h] = b < B ? qscale[b] : 0.0f;
+#pragma unroll
+        for (int i = 0; i < KT; ++i) {
+          lv[h][i] = -INFINITY;
+          lc[h][i] = 0x7fffffff;
+        }
+      }
+    };
+    // the four lanes of a query (lane & 3): a fixed xor-shuffle tree; each
+    // step takes the partner's whole list before inserting it; then the
+    // item's rows of the output
+    auto finish_item = [&](int t, int b0) {
+#pragma unroll
+      for (int mm = 1; mm <= 2; mm <<= 1) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float ov[KT];
+          int oc[KT];
+#pragma unroll
+          for (int i = 0; i < KT; ++i) {
+            ov[i] = __shfl_xor_sync(0xffffffffu, lv[h][i], mm);
+            oc[i] = __shfl_xor_sync(0xffffffffu, lc[h][i], mm);
+          }
+#pragma unroll
+          for (int i = 0; i < KT; ++i) sm90::list_insert<KT>(lv[h], lc[h], ov[i], oc[i]);
+        }
+      }
+      if ((lane & 3) == 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int b = b0 + qr + 8 * h;
+          if (b < B) {
+            const long long out0 = (static_cast<long long>(t) * B + b) * kt;
+#pragma unroll
+            for (int i = 0; i < KT; ++i) {
+              if (i < kt) {
+                out_vals[out0 + i] = lv[h][i];
+                out_ids[out0 + i] = t * tile + (lv[h][i] == -INFINITY ? 0 : lc[h][i]);
+              }
+            }
+          }
+        }
+      }
+    };
+
+    int s = 0, m = 0;
+    uint32_t ph = 0, rph = 0;
+    int held = -1;  // the stage whose products may still be reading it
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const int t = it / qblocks;
+      const int b0 = (it - t * qblocks) * QB;
+      const bool active = b0 + cw * 64 < B;  // a warpgroup of padding queries: no epilogue
+      const int rows = tile_rows(t, tile, N);
+      const int nch = (rows + BN - 1) / BN;
+      start_item(b0);
+      // chunk ch's products into acc, chunk ch - 1's epilogue from prv in
+      // pieces between the issues; a last pass issues nothing and takes the
+      // item's last chunk's epilogue.  Every branch here is uniform: a
+      // wgmma or an accumulator read that ptxas cannot prove uniform makes
+      // it serialize every wgmma of the kernel
+      for (int ch = 0; ch <= nch; ++ch) {
+        const bool issue = ch < nch, epi = ch > 0;
+        const int pm = m == 0 ? NM - 1 : m - 1;  // chunk ch - 1's row-data slot
+        const uint32_t prph = m == 0 ? rph ^ 1 : rph;
+        const int r0 = (ch - 1) * BN;
+        const float* fs = folded0_ptr + pm * (FOLDED / 4);  // its folded row data
+        const float* fn = fs + BN;
+        // k-slice ks's products, issued by every warpgroup (one of padding
+        // queries too: its rows are TMA's zeros) whatever the phase: where
+        // there is no k-slice (the pass that only takes an epilogue, or D
+        // below PIECES k-slices) on the zero block.  No access to acc between
+        // an issue and its wait
+        auto issue_stage = [&](int ks, bool real) {
+          if (real) sm90::mbar_wait(full0 + 8 * s, ph);
+          const uint32_t st = ring + s * STAGE;
+          const uint64_t da = sm90::wgmma_desc_sw128(real ? st + a_off : zero_a);
+          const uint64_t db = sm90::wgmma_desc_sw128(st + Q_BYTES);
+          sm90::fence_regs(acc);
+          sm90::wgmma_fence();
+#pragma unroll
+          for (int k = 0; k < KS / 32; ++k)  // + 32 bytes a step: + 2 in the descriptor
+            sm90::wgmma_s8_n128(acc, da + 2 * k, db + 2 * k, (ks > 0 || k > 0) ? 1 : 0);
+          sm90::wgmma_commit();
+          sm90::wgmma_wait<1>();  // the held stage's products are done
+          sm90::fence_regs(acc);
+          if (real) {
+            if (held >= 0 && lane == 0) sm90::mbar_arrive(empty0 + 8 * held);
+            held = s;
+            if (++s == NST) {
+              s = 0;
+              ph ^= 1;
+            }
+          }
+        };
+        // the first PIECES k-slices, each followed by a piece of chunk ch -
+        // 1's epilogue (unrolled: a piece's accumulator indices are
+        // constants, and a switch would be an indirect jump, which ptxas
+        // counts as divergent), then the chunk's other k-slices
+        auto phase = [&](auto piece) {
+          constexpr int P = decltype(piece)::value;
+          issue_stage(P, issue && P < nks);
+          if (epi && P == 0) sm90::mbar_wait(rready0 + 8 * pm, prph);
+          // a warpgroup of padding queries skips it: prv is no wgmma's
+          // register, so this branch costs the pipeline nothing
+          if (epi && active) epilogue_piece<P, JP>(prv, lv, lc, qsc, fs, fn, r0, cq, two);
+        };
+        static_assert(PIECES == 4, "a phase a piece");
+        phase(std::integral_constant<int, 0>{});
+        phase(std::integral_constant<int, 1>{});
+        phase(std::integral_constant<int, 2>{});
+        phase(std::integral_constant<int, 3>{});
+        for (int ks = PIECES; ks < (issue ? nks : 0); ++ks) issue_stage(ks, true);
+        if (epi) {
+          __syncwarp();
+          if (lane == 0) sm90::mbar_arrive(rempty0 + 8 * pm);
+        }
+        // the chunk's sums are complete: its last stage goes back, and its
+        // accumulators move over for its epilogue during the next chunk
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(acc);
+#pragma unroll
+        for (int i = 0; i < R; ++i) prv[i] = acc[i];
+        if (issue) {
+          if (lane == 0) sm90::mbar_arrive(empty0 + 8 * held);
+          held = -1;
+          if (++m == NM) {
+            m = 0;
+            rph ^= 1;
+          }
+        }
+      }
+      if (active) finish_item(t, b0);
+    }
+  }
 }
 
-int launch(const void* q, const float* qscale, const void* c, const float* scales,
-           const float* norms, const uint8_t* mask, int B, int N, int D, int tile,
-           int num_tiles, int kt, float* out_vals, int* out_ids, cudaStream_t s) {
-  if (kt < 1 || kt > 8 || D > MAX_D || D % 16 != 0)
+template <int KT>
+int launch_kt(const CUtensorMap* m, int maps, int q_box, int c_box, const float* qscale, int B,
+              int N, int D, int tile, int num_tiles, int kt, int grid, float* out_vals,
+              int* out_ids, cudaStream_t stream) {
+  // the maps' boxes are what each stage's and slot's expected bytes count
+  if (q_box != QB || c_box != BN) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = SMEM;
+  auto kern = dense_topk_tc_kernel<KT>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<grid, THREADS, smem, stream>>>(m[0], m[1], m[2], m[3], m[4], maps, qscale, B, N, D, tile,
+                                        num_tiles, kt, out_vals, out_ids);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch(const void* const* maps_in, int q_box, int c_box, const float* qscale, int B, int N,
+           int D, int tile, int num_tiles, int kt, int grid, float* out_vals, int* out_ids,
+           cudaStream_t s) {
+  if (kt < 1 || kt > 8 || D > MAX_D || D % 16 != 0 || B < 1 || N < 1 || tile < 1 ||
+      num_tiles != (N + tile - 1) / tile || grid < 1 || maps_in[0] == nullptr ||
+      maps_in[1] == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int8_t* qi = static_cast<const int8_t*>(q);
-  const int8_t* ci = static_cast<const int8_t*>(c);
-  if (kt == 1)
-    return launch_default<1>(qi, qscale, ci, scales, norms, mask, B, N, D, tile, num_tiles, kt,
-                             out_vals, out_ids, s);
-  if (kt == 2)
-    return launch_default<2>(qi, qscale, ci, scales, norms, mask, B, N, D, tile, num_tiles, kt,
-                             out_vals, out_ids, s);
-  if (kt <= 4)
-    return launch_default<4>(qi, qscale, ci, scales, norms, mask, B, N, D, tile, num_tiles, kt,
-                             out_vals, out_ids, s);
-  return launch_default<8>(qi, qscale, ci, scales, norms, mask, B, N, D, tile, num_tiles, kt,
-                           out_vals, out_ids, s);
+  // by value into the kernel's parameters (64-byte aligned copies); an
+  // absent row map stays zeros and its bit of `maps` clear
+  CUtensorMap m[5];
+  memset(m, 0, sizeof(m));
+  int maps = 0;
+  for (int i = 0; i < 5; ++i) {
+    if (maps_in[i] == nullptr) continue;
+    memcpy(&m[i], maps_in[i], sizeof(CUtensorMap));
+    if (i >= 2) maps |= 1 << (i - 2);  // HAS_SCALES, HAS_NORMS, HAS_MASK
+  }
+  // lists of 2 for kt <= 2 (the main path's depth), of 8 above
+  if (kt <= 2)
+    return launch_kt<2>(m, maps, q_box, c_box, qscale, B, N, D, tile, num_tiles, kt, grid,
+                        out_vals, out_ids, s);
+  return launch_kt<8>(m, maps, q_box, c_box, qscale, B, N, D, tile, num_tiles, kt, grid,
+                      out_vals, out_ids, s);
+}
+
+// cuTensorMapEncodeTiled from the driver the runtime loaded (no link
+// dependency on libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
 
 }  // namespace tc
@@ -1145,16 +1334,69 @@ extern "C" int dense_topk_launch(int mode, const void* q, const float* qscale,
   }
 }
 
-// The tensor-core variant (int8 x int8, kt <= 8, D <= 1024, D % 16 == 0);
-// same operands as dense_topk_launch's mode 0.  Returns the cudaError_t of
-// the launch (0 = success); cudaErrorInvalidValue outside its shapes.
-extern "C" int dense_topk_tc_launch(const void* q, const float* qscale, const void* c,
-                                    const float* scales, const float* norms,
-                                    const uint8_t* mask, int B, int N, int D, int tile,
-                                    int num_tiles, int kt, float* out_vals, int* out_ids,
-                                    void* stream) {
-  return tc::launch(q, qscale, c, scales, norms, mask, B, N, D, tile, num_tiles,
-                                 kt, out_vals, out_ids, static_cast<cudaStream_t>(stream));
+// A tensor map of the register-list variant, written (128 bytes, a
+// CUtensorMap) to `map`.  d > 0: a row-major int8 [rows, d] array at
+// `base` (d % 16 == 0) in boxes of 128 bytes x box_rows rows with the
+// 128-byte swizzle; d = 0: a vector of `rows` elements of elem_bytes (4:
+// f32 scales or norms, 1: mask bytes) in boxes of box_rows (a [1, rows]
+// matrix: load its boxes at (x, 0)).  Zeros outside
+// the array.  `base` 16-byte aligned.  Returns 0, cudaErrorInvalidValue
+// outside those shapes, 1000 + the CUresult of a failed encode, or 999
+// where the driver has no cuTensorMapEncodeTiled.
+extern "C" int dense_topk_tc_map(void* map, const void* base, long long rows, int d,
+                                 int elem_bytes, int box_rows) {
+  const bool matrix = d > 0;
+  if (rows < 1 || rows > 0x7fffffffLL || box_rows < 1 || box_rows > 256 ||
+      reinterpret_cast<uintptr_t>(base) % 16 != 0 ||
+      (matrix ? (d % 16 != 0 || elem_bytes != 1)
+              : ((elem_bytes != 1 && elem_bytes != 4) || box_rows * elem_bytes % 16 != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  tc::EncodeTiled encode = tc::encode_tiled();
+  if (encode == nullptr) return 999;
+  CUtensorMap m;
+  CUresult r;
+  if (matrix) {
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d)};
+    const cuuint32_t box[2] = {static_cast<cuuint32_t>(tc::KS), static_cast<cuuint32_t>(box_rows)};
+    const cuuint32_t elem_strides[2] = {1, 1};
+    r = encode(&m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box,
+               elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  } else {
+    // a [1, rows] matrix: the driver refuses rank-1 maps with no strides;
+    // the one stride (16-byte multiple) is never stepped
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(rows), 1};
+    const cuuint64_t strides[1] = {(static_cast<cuuint64_t>(rows) * elem_bytes + 15) / 16 * 16};
+    const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_rows), 1};
+    const cuuint32_t elem_strides[2] = {1, 1};
+    r = encode(&m, elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+               2, const_cast<void*>(base), dims, strides, box, elem_strides,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  }
+  if (r != CUDA_SUCCESS) return 1000 + static_cast<int>(r);
+  memcpy(map, &m, sizeof(CUtensorMap));
+  return 0;
+}
+
+// The register-list variant (int8 x int8, 1 <= kt <= 8, D % 16 == 0, D <=
+// 65536).  Tensor maps from dense_topk_tc_map: qmap, the queries [B, D]
+// (q_box = 128 rows a box); cmap, the corpus's first N rows (c_box = the
+// chunk's rows, 256); smap, nmap, mmap, the row scales, norms (L2) and
+// mask bytes of those rows in boxes of c_box, each null where absent.
+// The rest as dense_topk_launch's mode 0, and `grid` blocks walking the
+// ceil(B / 128) x num_tiles work items.  Returns the cudaError_t of the
+// launch (0 = success); cudaErrorInvalidValue outside its shapes or for
+// boxes other than the kernel's.
+extern "C" int dense_topk_tc_launch(const void* qmap, const void* cmap, const void* smap,
+                                    const void* nmap, const void* mmap, int q_box, int c_box,
+                                    const float* qscale, int B, int N, int D, int tile,
+                                    int num_tiles, int kt, int grid, float* out_vals,
+                                    int* out_ids, void* stream) {
+  const void* maps[5] = {qmap, cmap, smap, nmap, mmap};
+  return tc::launch(maps, q_box, c_box, qscale, B, N, D, tile, num_tiles, kt, grid, out_vals,
+                    out_ids, static_cast<cudaStream_t>(stream));
 }
 
 // The tensor-core variant with sorted selection: modes 0 (int8 x int8),

@@ -19,12 +19,18 @@ in three variants, chosen by shape (``kernel_variant``):
   tiles split 8 ways, the last tile 32 rows), so by the ring's latency:
   each block keeps three 64-byte k-slices of its 256 rows in flight;
 * ``"tc"``, the int8 x int8 kernel with register lists (``kt <=
-  LIST_MAX_KT``, ``D <= TC_MAX_D``), taken where the grid of tiles
-  already fills the card;
+  LIST_MAX_KT``, any D up to ``LIST_MAX_D``), taken where its work items
+  (a tile against a block of ``LIST_QB`` queries) fill the card: a
+  persistent grid of one block an SM, a TMA ring of 128-byte k-slices of
+  the queries and of ``LIST_RC`` corpus rows, ``wgmma`` s8 from shared
+  memory in two consumer warpgroups, each chunk's epilogue during the
+  next chunk's products.  The launch takes the tensor maps of
+  ``list_tensor_maps``, encoded by the library for each call;
 * ``"simt"`` for the rest (f32, kt above the cap).
 
 ``tc_launches`` counts every tensor-core launch (``tc_mode_launches``
-splits them by mode), ``simt_launches`` the rest.  ``tile_topk_plain``
+splits them by mode, ``list_launches`` counts the register-list kernel's
+alone), ``simt_launches`` the rest (``count_launch``).  ``tile_topk_plain``
 beside them is the plain PyTorch version with the same per-tile
 semantics.  ``tile_topk`` launches a kernel for CUDA tensors and runs the
 plain version only for CPU tensors.
@@ -56,9 +62,9 @@ MODE_BF16 = 2
 MODE_F32 = 3
 
 # the tensor-core route's shapes: kt <= TC_MAX_KT (the sorted lists of
-# "tcs"); the register lists of "tc" hold up to LIST_MAX_KT.  "tc" and
-# the resident form of "tcs" hold a block's queries whole for D <=
-# TC_MAX_D; "tcs" streams them above it
+# "tcs"); the register lists of "tc" hold up to LIST_MAX_KT.  The resident
+# form of "tcs" holds a block's queries whole for D <= TC_MAX_D and streams
+# them above it; "tc" streams them at every D
 TC_MAX_KT = 128
 TC_MAX_D = 1024
 LIST_MAX_KT = 8
@@ -66,9 +72,17 @@ LIST_MAX_KT = 8
 TCS_QB = 32
 TCS_RC = 256
 TCS_MAX_SLICES = 8
-# "tc" takes the grid where it holds at least a block an SM (its narrow
-# block: 64 queries)
-LIST_QB = 64
+# "tc": queries a work item (two consumer warpgroups of 64), corpus rows a
+# chunk (the wgmma's N), bytes of a row a ring stage (one 128-byte swizzle
+# row), ring stages, slots of a chunk's row data; int32 sums of any int8
+# codes are exact to LIST_MAX_D
+LIST_QB = 128
+LIST_RC = 128
+LIST_KS = 128
+LIST_STAGES = 6
+LIST_ROW_SLOTS = 3
+LIST_MAX_D = 65536
+SMEM_MAX = 232448  # an H100 block's dynamic shared memory
 H100_SMS = 132
 # rows of one plain-version chunk: bounds its [B, rows] f32 score block
 PLAIN_CHUNK_ROWS = 32768
@@ -83,10 +97,22 @@ class _Launches:
 
 
 tc_launches = _Launches()  # every tensor-core launch ("tc" and "tcs")
+list_launches = _Launches()  # the register-list kernel ("tc") alone
 simt_launches = _Launches()  # the SIMT variant
 # tc_launches by mode
 tc_mode_launches = {m: _Launches() for m in (MODE_INT8, MODE_INT8_BF16,
                                          MODE_BF16)}
+
+
+def count_launch(variant: str, mode: int) -> None:
+    """Add one launch of ``variant`` in ``mode`` to its counters."""
+    if variant == "simt":
+        simt_launches.count += 1
+        return
+    tc_launches.count += 1
+    tc_mode_launches[mode].count += 1
+    if variant == "tc":
+        list_launches.count += 1
 
 
 @functools.cache
@@ -98,8 +124,10 @@ def _lib() -> ctypes.CDLL:
     lib.dense_topk_launch.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i,
                                       p, p, p]
     lib.dense_topk_launch.restype = i
-    lib.dense_topk_tc_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
-                                         p, p, p]
+    lib.dense_topk_tc_map.argtypes = [p, p, ctypes.c_longlong, i, i, i]
+    lib.dense_topk_tc_map.restype = i
+    lib.dense_topk_tc_launch.argtypes = [p, p, p, p, p, i, i, p, i, i, i, i,
+                                         i, i, i, p, p, p]
     lib.dense_topk_tc_launch.restype = i
     lib.dense_topk_tcs_launch.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i,
                                           i, i, i, i, p, p, p]
@@ -128,19 +156,70 @@ def _mode(q: torch.Tensor, values: torch.Tensor) -> int:
 def kernel_variant(mode: int, kt: int, d: int, b: int, num_tiles: int,
                    sms: int = H100_SMS) -> str:
     """Which kernel takes a call of ``b`` queries over ``num_tiles`` tiles:
-    ``"tc"`` (int8 x int8 register lists) where ``kt <= LIST_MAX_KT`` and
-    the tiles alone give every one of ``sms`` SMs a block and ``d <=
-    TC_MAX_D``; ``"tcs"`` for the other int8 and bf16 calls at ``kt <=
-    TC_MAX_KT``, whatever ``d``; ``"simt"`` for f32 queries and kt above
-    the cap.  Every variant of a mode gives the same bits for a query
-    whatever the batch (int8 x int8: all equal the plain version), so the
-    choice by ``b`` changes no answer."""
+    ``"tc"`` (int8 x int8 register lists, at any ``d``) where ``kt <=
+    LIST_MAX_KT`` and its work items (``list_work_items``: a tile against
+    a block of ``LIST_QB`` queries) give each of ``sms`` SMs at least one;
+    ``"tcs"`` for the other int8 and bf16 calls at ``kt <= TC_MAX_KT``,
+    whatever ``d``; ``"simt"`` for f32 queries and kt above the cap.  Every
+    variant of a mode gives the same bits for a query whatever the batch
+    (int8 x int8: all equal the plain version), so the choice by ``b``
+    changes no answer."""
     if mode == MODE_F32 or not 1 <= kt <= TC_MAX_KT:
         return "simt"
-    if mode == MODE_INT8 and kt <= LIST_MAX_KT and d <= TC_MAX_D and \
-            -(-b // LIST_QB) * num_tiles >= sms:
+    if mode == MODE_INT8 and kt <= LIST_MAX_KT and \
+            list_work_items(b, num_tiles) >= sms:
         return "tc"
     return "tcs"
+
+
+def list_work_items(b: int, num_tiles: int) -> int:
+    """Work items of a "tc" launch: each tile against each block of
+    ``LIST_QB`` queries, walked tile-major so that the blocks of a tile run
+    together and read it from HBM once."""
+    return -(-b // LIST_QB) * num_tiles
+
+
+def list_grid(b: int, num_tiles: int, sms: int = H100_SMS) -> int:
+    """Blocks of a "tc" launch: one an SM (its ring takes most of an SM's
+    shared memory), fewer where there are fewer work items."""
+    return max(1, min(list_work_items(b, num_tiles), sms))
+
+
+def list_smem_bytes() -> int:
+    """Dynamic shared memory of a "tc" block: 1,024 bytes of slack to put
+    the ring on the 128-byte swizzle's 1,024-byte period, ``LIST_STAGES``
+    stages of a k-slice of ``LIST_QB`` query rows and ``LIST_RC`` corpus
+    rows, a warpgroup's 64-row k-slice of zeros (the A operand of a phase
+    with no k-slice), ``LIST_ROW_SLOTS`` slots of a chunk's row data (a
+    mask byte, a scale and a norm a row, two boxes of ``LIST_RC`` rows from
+    its first row rounded down to 16: a TMA box starts on 16 bytes) and of
+    its folded form (``LIST_RC`` scales with the mask folded in, and
+    norms), and 8-byte barriers: a full and an empty one a stage, a full, a
+    folded and an empty one a slot."""
+    return (1024 + LIST_STAGES * LIST_KS * (LIST_QB + LIST_RC)
+            + 64 * LIST_KS + LIST_ROW_SLOTS * (2 * LIST_RC * 9 + 2 * LIST_RC * 4)
+            + (2 * LIST_STAGES + 3 * LIST_ROW_SLOTS) * 8)
+
+
+def list_tensor_maps(b: int, n: int, d: int, scales: bool = True,
+                     norms: bool = False, mask: bool = False) -> dict:
+    """The TMA maps of a "tc" launch, in the launch's order.  ``queries``
+    and ``corpus``: row-major int8 ``[rows, d]`` arrays in boxes of
+    ``LIST_KS`` bytes x ``box_rows`` rows (128-byte swizzle; a box reads
+    zeros past d and past the last row, so the ragged ends add zeros to
+    exact sums): the ``[b, d]`` queries a work item's ``LIST_QB`` rows at a
+    time, the first ``n`` rows (the scanned ones) a chunk at a time.
+    ``scales``, ``norms`` (f32) and ``mask`` (bytes), where present: the
+    chunk's row data, vectors of ``n`` elements of ``elem_bytes`` in boxes
+    of a chunk's rows (``d`` 0)."""
+    geo = {"queries": {"rows": b, "d": d, "elem_bytes": 1, "box_rows": LIST_QB},
+           "corpus": {"rows": n, "d": d, "elem_bytes": 1, "box_rows": LIST_RC}}
+    for name, present, size in (("scales", scales, 4), ("norms", norms, 4),
+                                ("mask", mask, 1)):
+        if present:
+            geo[name] = {"rows": n, "d": 0, "elem_bytes": size,
+                         "box_rows": LIST_RC}
+    return geo
 
 
 def tcs_streams(d: int) -> bool:
@@ -206,7 +285,8 @@ def _launch_kernel(q, qscale, values, scales, norms, mask, n, tile, kt):
                     torch.cuda.current_device())
     variant = kernel_variant(mode, kt, d, b, num_tiles, sms)
     if variant == "tc":
-        err = lib.dense_topk_tc_launch(*operands)
+        err = _launch_list(lib, q, qscale, values, scales, norms, mask_u8, n,
+                           tile, kt, out_v, out_i, stream, sms)
     elif variant == "tcs":
         slices, rows = tcs_split(b, num_tiles, tile, sms)
         err = lib.dense_topk_tcs_launch(mode, *operands[:12], slices, rows,
@@ -217,12 +297,41 @@ def _launch_kernel(q, qscale, values, scales, norms, mask, n, tile, kt):
         # e.g. a tile whose score block exceeds the card's shared memory
         raise RuntimeError(f"dense_topk {variant} kernel launch failed: "
                            f"cudaError {err}")
-    if variant == "simt":
-        simt_launches.count += 1
-    else:
-        tc_launches.count += 1
-        tc_mode_launches[mode].count += 1
+    count_launch(variant, mode)
     return out_v, out_i
+
+
+def _launch_list(lib, q, qscale, values, scales, norms, mask, n, tile, kt,
+                 out_v, out_i, stream, sms: int) -> int:
+    """The "tc" launch: its tensor maps encoded, then the kernel over
+    ``list_grid`` blocks.  Returns the launch's cudaError (an encoding
+    failure raises)."""
+    b, d = q.shape
+    num_tiles = -(-n // tile)
+    if kt > LIST_MAX_KT or d > LIST_MAX_D:
+        raise ValueError(f"the register-list kernel takes kt <= {LIST_MAX_KT} "
+                         f"and D <= {LIST_MAX_D}, got kt={kt}, D={d}")
+    arrays = {"queries": q, "corpus": values, "scales": scales, "norms": norms,
+              "mask": mask}
+    geo = list_tensor_maps(b, n, d, scales is not None, norms is not None,
+                           mask is not None)
+    maps = dict.fromkeys(arrays)
+    for name, g in geo.items():
+        t = arrays[name]
+        if t.data_ptr() % 16:  # a map's base is 16-byte aligned: a fresh copy is
+            t = t.clone()
+            arrays[name] = t  # (held until the launch is queued)
+        buf = ctypes.create_string_buffer(128)  # a CUtensorMap
+        err = lib.dense_topk_tc_map(buf, t.data_ptr(), g["rows"], g["d"],
+                                    g["elem_bytes"], g["box_rows"])
+        if err != 0:
+            raise RuntimeError(f"dense_topk tc: the {name} tensor map failed "
+                               f"(code {err})")
+        maps[name] = buf
+    return lib.dense_topk_tc_launch(
+        *maps.values(), geo["queries"]["box_rows"], geo["corpus"]["box_rows"],
+        _ptr(qscale), b, n, d, tile, num_tiles, kt,
+        list_grid(b, num_tiles, sms), out_v.data_ptr(), out_i.data_ptr(), stream)
 
 
 def plain_scores(q, qscale, values, scales, norms, mask, r0: int, r1: int

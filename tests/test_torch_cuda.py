@@ -101,14 +101,14 @@ def _launched(variant, mode, before):
     """One launch of ``variant`` (and of no other) since the counts
     ``before`` (``_counts()``)."""
     after = _counts(mode)
-    want = (after[0] - before[0], after[1] - before[1], after[2] - before[2])
-    return want == ((0, 1, 0) if variant == "simt" else (1, 0, 1))
+    moved = tuple(a - b for a, b in zip(after, before))
+    return moved == {"simt": (0, 1, 0, 0), "tc": (1, 0, 1, 1)}.get(variant, (1, 0, 1, 0))
 
 
 def _counts(mode):
     per_mode = dt.tc_mode_launches.get(mode)
     return (dt.tc_launches.count, dt.simt_launches.count,
-            per_mode.count if per_mode is not None else 0)
+            per_mode.count if per_mode is not None else 0, dt.list_launches.count)
 
 
 @pytest.mark.cuda
@@ -148,9 +148,9 @@ def test_int8_kernel_bit_equal_at_ragged_shapes(card, force_variant, b, d, kt):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kt", [1, 2, 5])
 def test_int8_kernel_bit_equal_at_the_largest_d(card, force_variant, kt):
-    """D = 1024: the kt <= 2 block's shared memory does not fit there, so
-    the register-list kernel takes its narrower block for every kt; the
-    sorted-selection kernel's query block is at its largest."""
+    """D = 1024, where the sorted-selection kernel's resident query block
+    is at its largest; the register-list kernel streams its queries at
+    this D as at every other."""
     n, b, d = 4100, 130, dt.TC_MAX_D
     q, qs, values, scales, norms, mask = _int8_operands(
         card, b, n, d, seed=kt, masked=True, l2=True)
@@ -163,6 +163,57 @@ def test_int8_kernel_bit_equal_at_the_largest_d(card, force_variant, kt):
         assert _launched(variant, dt.MODE_INT8, before)
         torch.cuda.synchronize()
         assert torch.equal(kv, pv) and torch.equal(ki, pi), variant
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kt", [1, 2, 3, 8])
+@pytest.mark.parametrize("d", [16, 48, 768, 1040, 1536, 4096])
+def test_register_list_kernel_bit_equal_at_every_d(card, force_variant, d, kt):
+    """The register-list kernel (a TMA ring of 128-byte k-slices, wgmma
+    s8) at D from 16 (one k-slice, mostly zeros) to 4,096 (32 k-slices),
+    B 1, 17, 130 and 512 (a block of padding rows, ragged query blocks,
+    four blocks), kt 1 to 8: equal to tile_topk_plain bit for bit, values
+    and ids.  5,000 of 5,200 rows scanned (live_rows below N: the map stops
+    at row 5,000), so the last 2048-row tile is ragged; duplicate rows
+    (ties inside and across tiles); with and without a mask whose second
+    tile is all masked; L2 norms at B = 17."""
+    rows, n, tile = 5200, 5000, 2048
+    force_variant("tc")
+    for b in (1, 17, 130, 512):
+        for masked in (False, True):
+            q, qs, values, scales, norms, mask = _int8_operands(
+                card, b, rows, d, seed=b * 7 + d + kt, masked=masked, l2=b == 17)
+            args = (q, qs, values, scales, norms, mask, n, tile, kt)
+            pv, pi = dt.tile_topk_plain(*args)
+            before = _counts(dt.MODE_INT8)
+            kv, ki = dt.tile_topk(*args)
+            assert _launched("tc", dt.MODE_INT8, before)
+            torch.cuda.synchronize()
+            assert torch.equal(kv, pv) and torch.equal(ki, pi), (b, masked)
+            if masked:
+                assert torch.isinf(kv[1]).all() and (ki[1] == tile).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sms", [1, 7, 132])
+def test_register_list_kernel_persistent_grid(card, monkeypatch, sms):
+    """The persistent grid: 300,000 rows of D = 256 at B = 512 (147 tiles x
+    4 query blocks = 588 work items) walked by 1, 7 or 132 blocks, each
+    taking every grid-th item through one ring: the same bits as the plain
+    version whatever the grid, and the route the shape picks on its own."""
+    n, d, b, tile = 300_000, 256, 512, 2048
+    monkeypatch.setattr(dt, "_sm_count", lambda i: sms)
+    q, qs, values, scales, norms, mask = _int8_operands(
+        card, b, n, d, seed=sms, masked=True, l2=False)
+    assert dt.list_grid(b, -(-n // tile), sms) == sms
+    for kt in (2, 5):
+        args = (q, qs, values, scales, None, mask, n, tile, kt)
+        assert dt.kernel_variant(dt.MODE_INT8, kt, d, b, -(-n // tile), sms) == "tc"
+        before = _counts(dt.MODE_INT8)
+        kv, ki = dt.tile_topk(*args)
+        assert _launched("tc", dt.MODE_INT8, before)
+        pv, pi = dt.tile_topk_plain(*args)
+        assert torch.equal(kv, pv) and torch.equal(ki, pi), kt
 
 
 @pytest.mark.cuda

@@ -131,20 +131,105 @@ def test_live_rows_scan_changes_no_bit(live, per_tile_k):
     # one above each cap, and f32
     (dt.MODE_INT8, 129, 768, 1, 1, "simt"), (dt.MODE_INT8_BF16, 129, 256, 32, 8, "simt"),
     (dt.MODE_BF16, 129, 256, 64, 8, "simt"), (dt.MODE_F32, 2, 96, 20, 3, "simt"),
-    # above D = 1,024 the sorted-selection kernel streams its queries:
-    # never the register lists, whose query block is held whole
-    (dt.MODE_INT8, 2, 1040, 512, 489, "tcs"), (dt.MODE_BF16, 5, 1040, 64, 8, "tcs"),
+    # above D = 1,024: the register lists stream their queries at every D;
+    # the sorted-selection kernel streams them there
+    (dt.MODE_INT8, 2, 1040, 512, 489, "tc"), (dt.MODE_BF16, 5, 1040, 64, 8, "tcs"),
     # the served remote-embedding collection (1,536 wide, 8,224 rows)
     (dt.MODE_BF16, 5, 1536, 1, 5, "tcs"), (dt.MODE_BF16, 32, 1536, 1, 5, "tcs"),
-    (dt.MODE_INT8, 2, 1536, 512, 489, "tcs"),
+    (dt.MODE_INT8, 2, 1536, 512, 489, "tc"),
     (dt.MODE_INT8_BF16, 5, 3072, 1, 5, "tcs"), (dt.MODE_INT8_BF16, 5, 4096, 1, 5, "tcs"),
     (dt.MODE_BF16, 129, 1536, 1, 5, "simt"), (dt.MODE_F32, 5, 1536, 1, 5, "simt")])
 def test_kernel_variant_by_shape(mode, kt, d, b, tiles, want):
-    """The int8 register-list kernel takes int8 x int8 at kt <= 8 and D <=
-    1024 where the tiles alone fill the card's 132 SMs; the
-    sorted-selection tensor-core kernel every other int8 and bf16 call at
-    kt <= 128, whatever D; the SIMT kernel f32 and kt above the cap."""
+    """The int8 register-list kernel takes int8 x int8 at kt <= 8, at any
+    D, where its work items (a tile against 128 queries) fill the card's
+    132 SMs; the sorted-selection tensor-core kernel every other int8 and
+    bf16 call at kt <= 128, whatever D; the SIMT kernel f32 and kt above
+    the cap."""
     assert dt.kernel_variant(mode, kt, d, b, tiles) == want
+
+
+@pytest.mark.parametrize("b,tiles,items,grid", [
+    (512, 489, 4 * 489, 132), (32, 489, 489, 132), (128, 132, 132, 132),
+    (129, 66, 132, 132), (1, 5, 5, 5), (130, 3, 6, 6), (512, 245, 4 * 245, 132)])
+def test_list_work_items_and_grid(b, tiles, items, grid):
+    """The register-list kernel's work items are every tile against every
+    block of 128 queries; its persistent grid is a block an SM, or one a
+    work item where there are fewer."""
+    assert dt.list_work_items(b, tiles) == items
+    assert dt.list_grid(b, tiles) == grid
+    assert dt.list_grid(b, tiles, sms=1000) == min(items, 1000)
+
+
+@pytest.mark.parametrize("b,tiles,sms,want", [
+    (64, 132, 132, "tc"), (64, 131, 132, "tcs"), (128, 132, 132, "tc"), (129, 66, 132, "tc"),
+    (129, 65, 132, "tcs"), (256, 66, 132, "tc"), (512, 33, 132, "tc"), (512, 32, 132, "tcs"),
+    (32, 489, 1000, "tcs"), (512, 489, 1000, "tc")])
+def test_list_kernel_fills_the_card(b, tiles, sms, want):
+    """The rule for filling the card: the register lists where their work
+    items give every SM one (at any D), the sorted selection, whose tiles
+    split over clusters, where they do not."""
+    for d in (16, 768, 1536, 4096):
+        assert dt.kernel_variant(dt.MODE_INT8, 2, d, b, tiles, sms) == want
+        assert dt.kernel_variant(dt.MODE_INT8, 8, d, b, tiles, sms) == want
+        assert dt.kernel_variant(dt.MODE_INT8, 9, d, b, tiles, sms) == "tcs"
+        assert dt.kernel_variant(dt.MODE_INT8_BF16, 2, d, b, tiles, sms) == "tcs"
+
+
+def test_list_shared_memory_budget():
+    """The ring: 6 stages of one 128-byte k-slice of 128 query rows and
+    128 corpus rows (32 KB), a warpgroup's 64-row A operand of zeros (8
+    KB), 3 slots of a chunk's row data (two boxes of 128 mask bytes,
+    scales and norms: 2,304 bytes) and of its folded form (128 scales and
+    norms: 1,024 bytes), 1,024 bytes of slack for the swizzle's alignment
+    and 21 barriers: inside an H100 block's 232,448 bytes."""
+    assert dt.LIST_KS * (dt.LIST_QB + dt.LIST_RC) == 32 * 1024
+    assert dt.list_smem_bytes() == (1024 + 6 * 32 * 1024 + 8 * 1024 + 3 * (2304 + 1024)
+                                    + 21 * 8)
+    assert dt.list_smem_bytes() == 215_976
+    assert dt.list_smem_bytes() <= dt.SMEM_MAX == 232_448
+
+
+@pytest.mark.parametrize("b,n,d", [(512, 1_000_000, 768), (1, 5000, 16), (17, 4100, 1040),
+                                   (130, 10_002_432, 4096)])
+def test_list_tensor_map_geometry(b, n, d):
+    """The maps: the [b, d] queries in boxes of 128 bytes x 128 rows, the
+    scanned [n, d] rows in boxes of 128 bytes x 256 rows (a stage's
+    expected bytes are the two boxes whatever the ragged ends: TMA fills
+    past d and past the last row with zeros), and the row scales, norms
+    and mask that are present, a chunk's 256 rows a box."""
+    geo = dt.list_tensor_maps(b, n, d, scales=True, norms=False, mask=True)
+    assert list(geo) == ["queries", "corpus", "scales", "mask"]
+    assert geo["queries"] == {"rows": b, "d": d, "elem_bytes": 1, "box_rows": dt.LIST_QB}
+    assert geo["corpus"] == {"rows": n, "d": d, "elem_bytes": 1, "box_rows": dt.LIST_RC}
+    assert geo["scales"] == {"rows": n, "d": 0, "elem_bytes": 4, "box_rows": dt.LIST_RC}
+    assert geo["mask"] == {"rows": n, "d": 0, "elem_bytes": 1, "box_rows": dt.LIST_RC}
+    stage = sum(geo[k]["box_rows"] * dt.LIST_KS for k in ("queries", "corpus"))
+    assert stage == dt.LIST_KS * (dt.LIST_QB + dt.LIST_RC)
+    # a chunk's row data fits its slot (a mask byte, a scale, a norm a row),
+    # each box a multiple of 16 bytes
+    full = dt.list_tensor_maps(b, n, d, scales=True, norms=True, mask=True)
+    rows = [full[k] for k in ("scales", "norms", "mask")]
+    assert sum(g["box_rows"] * g["elem_bytes"] for g in rows) == dt.LIST_RC * 9
+    assert all(g["box_rows"] * g["elem_bytes"] % 16 == 0 for g in rows)
+    assert list(dt.list_tensor_maps(b, n, d, scales=False)) == ["queries", "corpus"]
+    # the kernel's k-slices: ceil(d / 128) a chunk, the last zero-padded
+    assert -(-d // dt.LIST_KS) * dt.LIST_KS >= d > (-(-d // dt.LIST_KS) - 1) * dt.LIST_KS
+    assert d % 16 == 0 and d <= dt.LIST_MAX_D
+
+
+@pytest.mark.parametrize("variant,mode,moved", [
+    ("tc", dt.MODE_INT8, (1, 1, 1, 0)), ("tcs", dt.MODE_INT8, (1, 0, 1, 0)),
+    ("tcs", dt.MODE_BF16, (1, 0, 1, 0)), ("simt", dt.MODE_F32, (0, 0, 0, 1))])
+def test_count_launch_moves_the_variants_counters(variant, mode, moved):
+    """``tc_launches`` counts both tensor-core kernels, ``list_launches``
+    the register-list kernel alone, ``tc_mode_launches`` by mode."""
+    def snap():
+        per = dt.tc_mode_launches.get(mode)
+        return (dt.tc_launches.count, dt.list_launches.count,
+                per.count if per is not None else 0, dt.simt_launches.count)
+    before = snap()
+    dt.count_launch(variant, mode)
+    assert tuple(a - b for a, b in zip(snap(), before)) == moved
 
 
 @pytest.mark.parametrize("d,want", [(16, False), (768, False), (1024, False),

@@ -85,11 +85,8 @@ def test_workflows_phase_rehearsed_on_the_cpu(monkeypatch):
     def plain_counting(*args):
         q, _, values, *_, n, tile, kt = args
         mode = dt._mode(q, values)
-        if dt.kernel_variant(mode, kt, q.shape[1], q.shape[0], -(-n // tile), 132) == "simt":
-            dt.simt_launches.count += 1
-        else:
-            dt.tc_launches.count += 1
-            dt.tc_mode_launches[mode].count += 1
+        dt.count_launch(dt.kernel_variant(mode, kt, q.shape[1], q.shape[0], -(-n // tile), 132),
+                        mode)
         return dt.tile_topk_plain(*args)
 
     timed = lambda fn, *a, **kw: (fn(), 1.0)[1]  # noqa: E731
@@ -134,11 +131,8 @@ def test_chat_phase_rehearsed_on_the_cpu(monkeypatch):
     def plain_counting(*args):
         q, _, values, *_, n, tile, kt = args
         mode = dt._mode(q, values)
-        if dt.kernel_variant(mode, kt, q.shape[1], q.shape[0], -(-n // tile), 132) == "simt":
-            dt.simt_launches.count += 1
-        else:
-            dt.tc_launches.count += 1
-            dt.tc_mode_launches[mode].count += 1
+        dt.count_launch(dt.kernel_variant(mode, kt, q.shape[1], q.shape[0], -(-n // tile), 132),
+                        mode)
         return dt.tile_topk_plain(*args)
 
     timed = lambda fn, *a, **kw: (fn(), 1.0)[1]  # noqa: E731
@@ -176,11 +170,8 @@ def stub_card(monkeypatch, **consts):
     def plain_counting(*args):
         q, _, values, *_, n, tile, kt = args
         mode = dt._mode(q, values)
-        if dt.kernel_variant(mode, kt, q.shape[1], q.shape[0], -(-n // tile), 132) == "simt":
-            dt.simt_launches.count += 1
-        else:
-            dt.tc_launches.count += 1
-            dt.tc_mode_launches[mode].count += 1
+        dt.count_launch(dt.kernel_variant(mode, kt, q.shape[1], q.shape[0], -(-n // tile), 132),
+                        mode)
         return dt.tile_topk_plain(*args)
 
     timed = lambda fn, *a, **kw: (fn(), 1.0)[1]  # noqa: E731

@@ -189,11 +189,8 @@ def stub_card_rank() -> None:
     def plain_counting(*args):
         q, _, values, *_, n, tile, kt = args
         mode = dt._mode(q, values)
-        if dt.kernel_variant(mode, kt, q.shape[1], q.shape[0], -(-n // tile), 132) == "simt":
-            dt.simt_launches.count += 1
-        else:
-            dt.tc_launches.count += 1
-            dt.tc_mode_launches[mode].count += 1
+        dt.count_launch(dt.kernel_variant(mode, kt, q.shape[1], q.shape[0], -(-n // tile), 132),
+                        mode)
         return dt.tile_topk_plain(*args)
 
     def timed(fn, *a, **kw):
