@@ -18,7 +18,7 @@ Phases, each printing one line with its seconds:
      match bit for bit, the float modes within a stated tolerance), for
      the dense top-k (all three variants: the sorted-selection tensor-core
      kernel for int8 and bf16 queries at kt <= 128, split tiles included,
-     at D up to 4,096 with the queries streamed above 1,024; the int8
+     at D up to 4,096 in its one form; the int8
      register-list kernel at kt <= 8; SIMT above the cap and for f32),
      each launch checked against the variant and mode counters, and
      both IVF kernels; prints the ptxas report (registers, shared memory,
@@ -32,8 +32,13 @@ Phases, each printing one line with its seconds:
      sorted-selection kernels on the same inputs, the plain version, a
      library yardstick, the whole search_hybrid batch and its stages;
      then [wide]: a seeded 1M x 1,536 int8 corpus searched at batch 512
-     through dense_topk (the sorted-selection kernel, queries streamed),
-     bit for bit against its plain version, timed beside the SIMT kernel;
+     through dense_topk (the register-list kernel), bit for bit against
+     its plain version, timed beside the sorted-selection and SIMT
+     kernels; and a default (bf16) collection at scale, a seeded 1M x 768
+     bf16 corpus searched at batch 512, per-tile cap 2, through dense_topk
+     (the sorted-selection kernel, one launch in mode bf16), within the
+     bf16 tolerance of its plain version, timed beside the library call
+     (bf16 matmul + topk) and its bound;
   5. serving: >= 256 concurrent text requests through QueryBatcher over
      a CollectionEngine on that index, each checked against a direct
      search_batch of the same query;
@@ -137,8 +142,8 @@ Phases, each printing one line with its seconds:
      the stub's calls as expected, no fallback logged; b. PROV_QUERIES unreranked
      and as many reranked searches (of other queries) equal an ``App(device="cpu")`` fed the same
      documents by the same stub, up to ties; c. each dispatch launched
-     dense_topk's sorted-selection tensor-core kernel (bf16, D = 1,536,
-     queries streamed) and no SIMT one, the kernel held against its plain
+     dense_topk's sorted-selection tensor-core kernel (bf16, D = 1,536)
+     and no SIMT one, the kernel held against its plain
      version at the served shapes and timed beside its bound and the
      library call, and the same at text-embedding-3-large's 3,072 over as
      many seeded rows, driven through ``dense_topk``; d. ``POST
@@ -536,12 +541,12 @@ def phase_small() -> int:
                         cases += 1
     # int8 x int8 at every list depth: the register-list kernel (kt <= 8,
     # any D, forced here: these grids are too small for it to be chosen),
-    # the sorted-selection kernel (kt <= 128; above D = 1,024 its queries
-    # streamed) and the SIMT one above the cap (kt 129); ragged B and D, a
+    # the sorted-selection kernel (kt <= 128, any D) and the SIMT one above
+    # the cap (kt 129); ragged B and D, a
     # mask with an all-masked tile, duplicate rows (ties); every one
     # bit-equal to the plain version
     sms = dt._sm_count(torch.cuda.current_device())
-    wide = ((1, 1040), (17, 1536), (130, 3072), (1, 4096))  # the streamed form
+    wide = ((1, 1040), (17, 1536), (130, 3072), (1, 4096))  # D above 1,024
     for bq, dq in ((1, 16), (17, 48), (130, 768), *wide):
         codes = torch.randint(-127, 128, (n, dq), device=DEVICE, generator=gen,
                               dtype=torch.int8)
@@ -609,8 +614,10 @@ def phase_small() -> int:
 # tensor-core kernels)
 TC_MODE_KEYS = {0: "dense_topk_tc_int8", 1: "dense_topk_tc_int8_bf16", 2: "dense_topk_tc_bf16"}
 LIST_KEY = "dense_topk_tc_list"
-# the kernels line's variant of the register-list kernel's rows
+# the kernels line's variant of the register-list kernel's rows, and of
+# the sorted-selection kernel's row at scale
 LIST_VARIANT = "tc (persistent, TMA ring, wgmma m64n128k32 s8)"
+TCS_VARIANT = "tcs (TMA ring, wgmma m64nNk16 bf16 / k32 s8, rows as M, rank-merged lists)"
 
 
 def _expect_launch(before: dict, variant: str, mode: int) -> None:
@@ -854,17 +861,13 @@ def phase_full(results: dict):
         raise AssertionError(f"the main path's kt={kt} left the register-list kernel")
     kernel_ms = cuda_ms(lambda: dt.tile_topk(*args))
     # the other kernels on the same inputs, for the record: the first
-    # (SIMT dp4a) and the sorted-selection tensor-core one (its queries
-    # held whole, and streamed as above D = 1,024)
+    # (SIMT dp4a) and the sorted-selection tensor-core one
     other_ms = {}
-    for variant, streams, reps in (("simt", False, 5), ("tcs", False, TIMED_REPS),
-                                   ("tcs", True, TIMED_REPS)):
-        with mock.patch.object(dt, "kernel_variant", lambda *a, v=variant, **kw: v), \
-                mock.patch.object(dt, "tcs_streams", lambda d, f=streams: f):
+    for variant, reps in (("simt", 5), ("tcs", TIMED_REPS)):
+        with mock.patch.object(dt, "kernel_variant", lambda *a, v=variant, **kw: v):
             sv, si = dt.tile_topk(*args)
             _compare(sv, si, pv, pi, exact=True, tol=0.0)
-            other_ms[variant + " streamed" * streams] = cuda_ms(lambda: dt.tile_topk(*args),
-                                                                reps=reps)
+            other_ms[variant] = cuda_ms(lambda: dt.tile_topk(*args), reps=reps)
     simt_ms = other_ms["simt"]
     plain_ms = cuda_ms(lambda: dt.tile_topk_plain(*args))
     lib_ms = cuda_ms(lambda: library_topk(q, qs, corpus.values, corpus.scales,
@@ -877,7 +880,7 @@ def phase_full(results: dict):
     bound, bound_by = bound_ms(nbytes, 2.0 * BATCH * n * DIM, INT8_OPS_PER_S)
     log(f"[full] dense_topk register-list kernel {kernel_ms:.3f} ms (SIMT kernel "
         f"{simt_ms:.3f} ms, sorted-selection tensor-core kernel {other_ms['tcs']:.3f} ms, "
-        f"{other_ms['tcs streamed']:.3f} ms with its queries streamed, each bit-equal), "
+        f"each bit-equal), "
         f"plain {plain_ms:.3f} ms, "
         f"library (_int_mm + topk) {lib_ms:.3f} ms, bound {bound:.3f} ms "
         f"({bound_by}); search_hybrid batch {BATCH}: {hybrid_ms:.3f} ms "
@@ -925,7 +928,7 @@ def phase_full(results: dict):
         "variant": LIST_VARIANT, "launches": counts[LIST_KEY],
         "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": bound_by, "library_ms": lib_ms, "simt_ms": simt_ms,
-        "tcs_ms": other_ms["tcs"], "tcs_streamed_ms": other_ms["tcs streamed"],
+        "tcs_ms": other_ms["tcs"],
         "batch64_ms": kernel64_ms,
     }
     results["hybrid_ms"] = hybrid_ms
@@ -940,45 +943,69 @@ def phase_wide(results: dict) -> None:
     BATCH, per-tile cap 2: one ``dense_topk`` call through the
     register-list kernel (its queries stream through the ring like the
     rows), held bit for bit against its plain version and timed beside the
-    library call and its bound, and beside the routes it took before on
-    the same inputs: the sorted-selection kernel with its queries streamed
-    (PR 15 to 19), and the SIMT kernel before that."""
+    library call and its bound, and beside the other kernels on the same
+    inputs: the sorted-selection kernel (this width's route before the
+    register-list kernel took it) and the SIMT kernel before that.  Then a
+    default collection at scale: a seeded 1M x DIM bf16 corpus (``IndexSpec``'s default dtype), B = BATCH,
+    per-tile cap 2, one ``dense_topk`` call, which must launch the
+    sorted-selection kernel once in mode bf16, held within the bf16
+    tolerance of its plain version and timed beside the library call (bf16
+    matmul + topk) and its bound."""
     from super_rag_tpu_torch.ops import dense_topk as dt
     from super_rag_tpu_torch.ops.dense import build_corpus
 
     def wlog(msg: str) -> None:
         log(f"[wide] {msg} (on {results['card']})")
 
+    def one_call(corpus, q_emb, int8_queries: bool) -> tuple:
+        """One counted dense_topk call: its tile_topk arguments and the
+        counters it moved."""
+        calls: dict = {}
+        _reset_counts()
+        counts0 = _counts()
+        with mock.patch.object(dt, "tile_topk", _recording(calls, "tile", dt.tile_topk)):
+            dt.dense_topk(q_emb, corpus, TOP_K, tile=2048, int8_queries=int8_queries,
+                          per_tile_k=2, device=DEVICE)
+        torch.cuda.synchronize()
+        return calls["tile"], {k: v - counts0[k] for k, v in _counts().items() if v - counts0[k]}
+
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 40)
     corpus = build_corpus(torch.randn(N_ROWS, WIDE_DIM, device=DEVICE, generator=gen),
                           dtype=torch.int8)
     q_emb = torch.randn(BATCH, WIDE_DIM, device=DEVICE, generator=gen)
-    calls: dict = {}
-    _reset_counts()
-    counts0 = _counts()
-    with mock.patch.object(dt, "tile_topk", _recording(calls, "tile", dt.tile_topk)):
-        dt.dense_topk(q_emb, corpus, TOP_K, tile=2048, int8_queries=True, per_tile_k=2,
-                      device=DEVICE)
-    torch.cuda.synchronize()
-    launched = {k: v - counts0[k] for k, v in _counts().items() if v - counts0[k]}
+    args, launched = one_call(corpus, q_emb, True)
     if launched != {"dense_topk_tc": 1, TC_MODE_KEYS[dt.MODE_INT8]: 1, LIST_KEY: 1}:
         raise AssertionError(f"[wide] dense_topk at D = {WIDE_DIM} launched {launched}")
-    args = calls["tile"]
     row = _served_kernel_row(args, 1, 1, wlog)
     if row["variant"] != "tc":
         raise AssertionError(f"[wide] took {row['variant']}")
     row["variant"] = LIST_VARIANT
     kv, ki = dt.tile_topk_plain(*args)
-    for variant, key, reps in (("tcs", "tcs_streamed_ms", TIMED_REPS), ("simt", "simt_ms", 5)):
+    for variant, key, reps in (("tcs", "tcs_ms", TIMED_REPS), ("simt", "simt_ms", 5)):
         with mock.patch.object(dt, "kernel_variant", lambda *a, v=variant, **kw: v):
             sv, si = dt.tile_topk(*args)
             if not (torch.equal(sv, kv) and torch.equal(si, ki)):
                 raise AssertionError(f"[wide] the {variant} kernel differs from the plain version")
             row[key] = cuda_ms(lambda: dt.tile_topk(*args), reps=reps)
-    wlog(f"on the same inputs, the routes before: the sorted-selection kernel with its "
-         f"queries streamed {row['tcs_streamed_ms']:.3f} ms (PR 15 to 19), the SIMT kernel "
+    wlog(f"on the same inputs, the other kernels: the sorted-selection kernel "
+         f"{row['tcs_ms']:.3f} ms (this width's route before), the SIMT kernel "
          f"{row['simt_ms']:.3f} ms; both bit-equal")
     results["dense_topk_1m_wide"] = row
+    del corpus, q_emb, args, kv, ki, sv, si
+    torch.cuda.empty_cache()
+
+    # a default (bf16) collection at scale, through the sorted-selection kernel
+    corpus = build_corpus(torch.randn(N_ROWS, DIM, device=DEVICE, generator=gen),
+                          dtype=torch.bfloat16)
+    q_emb = torch.randn(BATCH, DIM, device=DEVICE, generator=gen)
+    args, launched = one_call(corpus, q_emb, False)
+    if launched != {"dense_topk_tc": 1, TC_MODE_KEYS[dt.MODE_BF16]: 1}:
+        raise AssertionError(f"[wide] the bf16 1M x {DIM} dense_topk launched {launched}")
+    row = _served_kernel_row(args, 1, 1, wlog)
+    if row["variant"] != "tcs":
+        raise AssertionError(f"[wide] the bf16 1M x {DIM} call took {row['variant']}")
+    row["variant"] = TCS_VARIANT
+    results["dense_topk_1m_bf16"] = row
 
 
 # -- phase 5: serving through CollectionEngine + QueryBatcher ----------------
@@ -2742,28 +2769,16 @@ def _served_kernel_row(args, launches: int, dispatches: int, hlog) -> dict:
     k_burst = burst_ms(lambda: dt.tile_topk(*args))
     lib_burst = burst_ms(lambda: _library_topk_bf16(q, values, scales, keep, n, tile, kt)
                          if not exact else library_topk(*args[:4], keep, n, tile, kt))
-    # where the queries fit whole (D <= 1,024), the streamed form of the
-    # same kernel beside it: the same bits, timed in the same call
-    streamed = {}
-    if variant == "tcs" and not dt.tcs_streams(d):
-        with mock.patch.object(dt, "tcs_streams", lambda _d: True):
-            sv, si = dt.tile_topk(*args)
-            if not (torch.equal(sv, kv) and torch.equal(si, ki)):
-                raise AssertionError("the streamed form differs from the resident one")
-            streamed = {"streamed_ms": cuda_ms(lambda: dt.tile_topk(*args)),
-                        "streamed_burst_ms": burst_ms(lambda: dt.tile_topk(*args))}
     hlog(f"dense_topk {variant} kernel vs plain at the served batch [num_tiles="
          f"{num_tiles}, B={b}, D={d}, kt={kt}, {str(values.dtype)[6:]}]: "
          f"{'bit-equal' if exact else f'within {tol:.3g}'} (max |diff| {err:.3g}); "
          f"kernel {k_ms:.3f} ms ({k_burst:.4f} ms a call in bursts of 50), plain "
          f"{p_ms:.3f} ms, library ({lib}) {lib_ms:.3f} ms ({lib_burst:.4f} ms in "
          f"bursts), bound {k_bound:.4f} ms ({k_by}); {launches} launches over "
-         f"{dispatches} dispatches" + (
-             f"; with its queries streamed (the same bits) {streamed['streamed_ms']:.3f} ms "
-             f"({streamed['streamed_burst_ms']:.4f} ms in bursts)" if streamed else ""))
+         f"{dispatches} dispatches")
     return {"launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": k_bound, "bound_by": k_by, "library_ms": lib_ms,
-            "burst_ms": k_burst, "library_burst_ms": lib_burst, **streamed,
+            "burst_ms": k_burst, "library_burst_ms": lib_burst,
             "batch": b, "dim": d, "kt": kt, "variant": variant,
             "launches_per_dispatch": launches / max(dispatches, 1)}
 
@@ -5023,13 +5038,13 @@ def phase_providers(results: dict) -> None:
 
         def on_the_tensor_cores(record: list, launched: dict, d: int) -> list:
             """Dispatches of ``record`` off dense_topk's bf16 tensor-core
-            route at ``d`` (the queries streamed), or counts other than one
-            launch of it a dispatch and no SIMT one."""
+            route at ``d``, or counts other than one launch of it a
+            dispatch and no SIMT one."""
             bad = [(r["d"], r["variant"], r["mode"]) for r in record
                    if (r["d"], r["variant"], r["mode"]) != (d, "tcs", dt.MODE_BF16)]
             if launched.get("dense_topk_tc", 0) != len(record) or launched.get(
                     TC_MODE_KEYS[dt.MODE_BF16], 0) != len(record) or \
-                    launched.get("dense_topk_simt", 0) or not dt.tcs_streams(d):
+                    launched.get("dense_topk_simt", 0):
                 bad.append(launched)
             return bad
 
@@ -5055,7 +5070,7 @@ def phase_providers(results: dict) -> None:
             raise AssertionError("gate a: recall types of the reranked / unreranked searches")
 
         # gate c: every dispatch launched dense_topk on the tensor cores,
-        # bf16 x bf16 with the queries streamed, and none SIMT
+        # bf16 x bf16, and none SIMT
         bad = on_the_tensor_cores(calls, launched, PROV_DIM)
         if bad:
             raise AssertionError(f"gate c: {len(calls)} dispatches launched {launched}; "
@@ -5068,8 +5083,8 @@ def phase_providers(results: dict) -> None:
              f"ms; each search embedded its query through the stub: stub calls {search_calls}")
         plog(f"gate c: every one of the {len(calls)} dispatches ({n_plain} unreranked, "
              f"{len(calls) - n_plain} reranked) launched dense_topk's sorted-selection "
-             f"tensor-core kernel in mode bf16 x bf16 at D = {PROV_DIM} (kt {kts}; the "
-             f"queries streamed above D = {dt.TC_MAX_D}), none the SIMT one; counters "
+             f"tensor-core kernel in mode bf16 x bf16 at D = {PROV_DIM} (kt {kts}), none "
+             f"the SIMT one; counters "
              f"{launched}")
 
         # -- stub round trip through the port's client (no cache)
@@ -7509,6 +7524,7 @@ KERNEL_ROWS = (
                        (f"remote_{PROV_WIDE_DIM}", "providers"),
                        (f"remote_rerank_{PROV_WIDE_DIM}", "providers"))),
     ("dense_topk_1m_wide", "dense_topk.cu", _DT, "dense_topk_1m_wide", "wide"),
+    ("dense_topk_1m_bf16", "dense_topk.cu", _DT, "dense_topk_1m_bf16", "wide"),
     ("dense_topk_workflow_bf16", "dense_topk.cu", _DT, "dense_topk_workflow_bf16",
      "workflows"),
     ("dense_topk_workflow_int8", "dense_topk.cu", _DT, "dense_topk_workflow_int8",

@@ -9,19 +9,35 @@ one), builds its ``csrc/dense_topk.cu`` there, and times ``tile_topk`` on
 seeded operands.  The main-path shapes (``--only main``): int8 codes x
 int8 queries at per-tile cap 2 over the flat 1M x 768 search_hybrid at
 B = 512, the 10,002,432-row CSR one, the reranked query batch behind the
-encoder (1M x 256, B = 32) and the 1M x 1,536 wide corpus at B = 512.  The
+encoder (1M x 256, B = 32) and the 1M x 1,536 wide corpus at B = 512; a
+default (bf16) collection of 1M x 768 at B = 512 and at a served batch
+of 64, cap 2, and the int8 1M x 768 at B = 512 with deep lists (kt 32),
+the last three through the sorted-selection kernel.  The
 served shapes (``--only served``): the default bf16 and int8 collections
 (16,384 rows of D = 256 at B = 64, kt 5 and 32), an image search (256
 rows, B = 1), a graph search (1,913 masked rows of D = 128, kt 50), and
 the remote embeddings (8,224 rows of D = 1,536 and 3,072 at B = 1, kt 5
 and 32).  Each shape: CUDA events around one call
-(median of 20 after 3 warm-ups) and the time a call in bursts of 50
-(median of 5 bursts), the kernel's own device time a launch
+(median of 50 after 3 warm-ups), the time a call in bursts of 50
+(median of 5 bursts), the host's own time a call (the wall time of 50
+calls issued with no sync between them, the least of 5 such bursts: the
+launch path alone, whatever the kernel takes), the host cost of the
+sorted-selection launch's plan (``_tcs_plan``) computed and from its
+cache, where the checkout has one, the kernel's own device time a launch
 (torch.profiler over 50 calls, the kernels whose names hold
 ``dense_topk``), the variant ``kernel_variant`` picks, the card's name and
-power limit.  Prints a line per shape and a JSON line.  To compare two
+power limit, and the call's bound (the larger of its bytes, each input
+read once and the output written once, over 3.35 TB/s, and its
+operations over 1,979 TOP/s in int8 or 989 TFLOP/s in bf16).  Prints a
+line per shape and a JSON line.  To compare two
 checkouts on one card, run it in turns in one command: parent, change,
-change, parent.
+change, parent.  The host-bound times (one call, bursts, host) vary with
+the host's load from minute to minute; ``--against DIR`` compares them
+in one process instead: it imports the other checkout's package first
+(renamed), then times the two in turns, 30 rounds a shape, and prints
+each one's medians and its kernel's device time:
+
+    python3 scripts/ab_dense_topk.py --only served --against PARENT_DIR
 """
 
 from __future__ import annotations
@@ -32,17 +48,22 @@ import os
 import statistics
 import subprocess
 import sys
+import time
+import timeit
 
 import torch
 
-# the main path's int8 x int8 calls: (name, rows, D, B, kt, keep share);
-# codes and row scales are drawn directly (a 10M x 768 f32 draw would not
-# fit beside them)
+# the main path's calls: (name, storage dtype, int8 queries, rows, D, B,
+# kt, keep share); int8 codes and row scales are drawn directly (a 10M x
+# 768 f32 draw would not fit beside them)
 MAIN = [
-    ("flat 1M", 1_000_000, 768, 512, 2, 0.99),
-    ("csr 10M", 10_002_432, 768, 512, 2, 0.99),
-    ("encoder 1M x 256", 1_000_000, 256, 32, 2, 0.99),
-    ("wide 1M x 1536", 1_000_000, 1536, 512, 2, 1.0),
+    ("flat 1M", None, True, 1_000_000, 768, 512, 2, 0.99),
+    ("csr 10M", None, True, 10_002_432, 768, 512, 2, 0.99),
+    ("encoder 1M x 256", None, True, 1_000_000, 256, 32, 2, 0.99),
+    ("wide 1M x 1536", None, True, 1_000_000, 1536, 512, 2, 1.0),
+    ("bf16 1M B 512", torch.bfloat16, False, 1_000_000, 768, 512, 2, 0.99),
+    ("bf16 1M B 64", torch.bfloat16, False, 1_000_000, 768, 64, 2, 0.99),
+    ("int8 1M B 512 kt 32", None, True, 1_000_000, 768, 512, 32, 0.99),
 ]
 # the served shapes: (name, storage dtype, int8 queries, rows, D, B, kt, keep share)
 SHAPES = [
@@ -58,9 +79,27 @@ SHAPES = [
     ("remote 3072 kt 32", torch.bfloat16, False, 8224, 3072, 1, 32, 1.0),
 ]
 TILE = 2048
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+BF16_OPS_PER_S = 989e12
 
 
-def event_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def bound_ms(args) -> tuple[float, str]:
+    """The least time the card could take for one tile_topk call: its
+    bytes (each input read once, the output written once) over the HBM
+    rate, or its operations over the tensor cores' peak for the type."""
+    q, qs, values, scales, norms, keep, n, tile, kt = args
+    b, d = q.shape
+    tiles = -(-n // tile)
+    nbytes = (n * d * values.element_size() + (n * 4 if scales is not None else 0) + n
+              + b * d * q.element_size() + (b * 4 if qs is not None else 0)
+              + tiles * b * kt * 8)
+    ops = 2.0 * b * n * d / (INT8_OPS_PER_S if q.dtype == torch.int8 else BF16_OPS_PER_S)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (t_bytes * 1e3, "bytes") if t_bytes >= ops else (ops * 1e3, "operations")
+
+
+def event_ms(fn, reps: int = 50, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     times = []
@@ -88,6 +127,21 @@ def burst_ms(fn, calls: int = 50, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def host_us(fn, calls: int = 50, reps: int = 5) -> float:
+    """Host microseconds a call: ``calls`` calls issued with no sync between
+    them (the launch queue holds them all), the least of ``reps`` bursts."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return best
 
 
 def device_us(fn, calls: int = 50) -> float:
@@ -124,15 +178,54 @@ def operands(n, d, b, kt, share, dt, build_corpus, DenseCorpus, dtype=None, i8q=
     return (q, qs, corpus.values, corpus.scales, None, keep, n, TILE, kt)
 
 
+def load_other(root: str, alias: str = "ab_other"):
+    """Import ``super_rag_tpu_torch`` from the checkout at ``root``, build and
+    load its dense_topk library, then rename its modules to ``alias`` so
+    that this checkout's package can be imported beside it.  Returns its
+    ``ops.dense_topk`` module."""
+    sys.path.insert(0, root)
+    from super_rag_tpu_torch import _build
+    from super_rag_tpu_torch.ops import dense_topk as other
+
+    _build.build(["dense_topk"])
+    other._lib()  # loaded while the package's name still points at root
+    for key in [k for k in sys.modules
+                if k == "super_rag_tpu_torch" or k.startswith("super_rag_tpu_torch.")]:
+        sys.modules[alias + key[len("super_rag_tpu_torch"):]] = sys.modules.pop(key)
+    sys.path.remove(root)
+    return other
+
+
+def paired(fns, rounds: int = 30) -> list[dict]:
+    """The one-call ms, the ms a call in bursts of 20 and the host µs a call
+    (20 calls, no sync) of each function, the median of ``rounds`` rounds
+    that take the functions in turn (the order reversed every other round),
+    so that each sees the same host."""
+    res = [{"ms": [], "burst_ms": [], "host_us": []} for _ in fns]
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    for r in range(rounds):
+        order = list(zip(fns, res))
+        for f, got in (order if r % 2 == 0 else order[::-1]):
+            got["ms"].append(event_ms(f, reps=5, warmup=1))
+            got["burst_ms"].append(burst_ms(f, calls=20, reps=1))
+            got["host_us"].append(host_us(f, calls=20, reps=1))
+    return [{k: statistics.median(v) for k, v in got.items()} for got in res]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--only", choices=("main", "served"), default=None)
+    ap.add_argument("--against", default=None,
+                    help="another checkout, timed in the same process in turns with --root")
     opts = ap.parse_args()
     root = os.path.abspath(opts.root)
     if not torch.cuda.is_available():
         print("ab_dense_topk: no CUDA device", file=sys.stderr)
         return 2
+    other = load_other(os.path.abspath(opts.against)) if opts.against else None
     sys.path.insert(0, root)
     from super_rag_tpu_torch import _build
     from super_rag_tpu_torch.ops import dense_topk as dt
@@ -142,20 +235,47 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     _build.build(["dense_topk"])
     out = {"root": root, "card": card, "shapes": {}}
-    todo = [] if opts.only == "served" else [(m[0], None, True, *m[1:]) for m in MAIN]
+    todo = [] if opts.only == "served" else list(MAIN)
     todo += [] if opts.only == "main" else SHAPES
     for name, dtype, i8q, n, d, b, kt, share in todo:
         args = operands(n, d, b, kt, share, dt, build_corpus, DenseCorpus, dtype, i8q)
         q, values = args[0], args[2]
         variant = dt.kernel_variant(dt._mode(q, values), kt, d, b, -(-n // TILE),
                                     dt._sm_count(torch.cuda.current_device()))
+        bound, bound_by = bound_ms(args)
+        if other is not None:
+            mods = {opts.against: other, root: dt}
+            times = paired([lambda m=m: m.tile_topk(*args) for m in mods.values()])
+            out["shapes"][name] = {}
+            for (which, m), row in zip(mods.items(), times):
+                row["kernel_us"] = device_us(lambda: m.tile_topk(*args))
+                out["shapes"][name][which] = row
+                print(f"{name} [{n} rows, D={d}, B={b}, kt={kt}]: {variant} {row['ms']:.4f} ms "
+                      f"a call, {row['burst_ms']:.4f} ms in bursts, host {row['host_us']:.2f} "
+                      f"us, the kernel {row['kernel_us']:.2f} us, bound {bound:.4f} ms "
+                      f"({which}; {card})", flush=True)
+            del args, q, values
+            torch.cuda.empty_cache()
+            continue
         row = {"variant": variant, "ms": event_ms(lambda: dt.tile_topk(*args)),
                "burst_ms": burst_ms(lambda: dt.tile_topk(*args)),
-               "kernel_us": device_us(lambda: dt.tile_topk(*args))}
+               "host_us": host_us(lambda: dt.tile_topk(*args)),
+               "kernel_us": device_us(lambda: dt.tile_topk(*args)),
+               "bound_ms": bound, "bound_by": bound_by}
+        plan = getattr(dt, "_tcs_plan", None)
+        if plan is not None and variant == "tcs":
+            # the launch plan's host cost: computed (as each call would
+            # without its cache) against a cache hit
+            key = (q.dtype, values.dtype, b, n, d, TILE, kt, dt._sm_count(0))
+            row["plan_us"] = [min(timeit.repeat(lambda: f(*key), number=2000, repeat=5))
+                              / 2000 * 1e6 for f in (plan.__wrapped__, plan)]
         out["shapes"][name] = row
         print(f"{name} [{n} rows, D={d}, B={b}, kt={kt}]: {variant} {row['ms']:.4f} ms, "
-              f"{row['burst_ms']:.4f} ms a call in bursts, the kernel {row['kernel_us']:.2f} us "
-              f"({root}; {card})", flush=True)
+              f"{row['burst_ms']:.4f} ms a call in bursts, host {row['host_us']:.2f} us a call, "
+              f"the kernel {row['kernel_us']:.2f} us, "
+              f"bound {bound:.4f} ms ({bound_by})"
+              + (" plan {:.2f} / {:.2f} us computed / cached".format(*row["plan_us"])
+                 if "plan_us" in row else "") + f" ({root}; {card})", flush=True)
         del args, q, values
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)

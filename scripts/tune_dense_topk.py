@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time variants of the register-list kernel (``dense_topk_tc_kernel``) on one card.
+"""Time variants of the dense_topk tensor-core kernels (``dense_topk_tc_kernel``, or ``dense_topk_tcs_kernel`` with ``VARIANT=tcs``) on one card.
 
     python3 scripts/tune_dense_topk.py VARIANTS.json
 
@@ -15,8 +15,12 @@ against ``tile_topk_plain`` at small ragged shapes; then each shape (env
 ``SHAPES``, a JSON list of ``[rows, D, B, kt]``; default the main path's:
 1M x 768 at B = 512, 1M x 256 at B = 32, 1M x 1,536 at B = 512, 10,002,432
 x 768 at B = 512) times every variant twice in turns (CUDA events, median
-of 10 after 3 warm-ups) beside the sorted-selection kernel on the same
-inputs.  A variant that exports ``prof_read(unsigned long long* out, int
+of 10 after 3 warm-ups, and the kernel's own device time a launch from
+torch.profiler over 20 calls) beside the sorted-selection kernel on the
+same inputs.  ``VARIANT=tcs`` forces the sorted-selection kernel instead
+(its variants of ``dense_topk_tcs_kernel`` then; the check and every
+timing take it), and ``DTYPE=bf16`` times bf16 rows and queries instead
+of int8 codes.  A variant that exports ``prof_read(unsigned long long* out, int
 reset)`` (eight counters its kernel adds to: per consumer warp, cycles
 waiting on a stage, issuing, in wgmma waits, in the epilogue, waiting on
 row data, at the chunk's end, in all, and the warp count) is profiled once
@@ -93,7 +97,7 @@ def load(path: str) -> ctypes.CDLL:
     lib.dense_topk_launch.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, p, p, p]
     lib.dense_topk_tc_map.argtypes = [p, p, ctypes.c_longlong, i, i, i]
     lib.dense_topk_tc_launch.argtypes = [p, p, p, p, p, i, i, p, i, i, i, i, i, i, i, p, p, p]
-    lib.dense_topk_tcs_launch.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p]
+    lib.dense_topk_tcs_launch.argtypes = [i, p, p, p, p, p, p, p, p, p, p]
     for fn in (lib.dense_topk_launch, lib.dense_topk_tc_map, lib.dense_topk_tc_launch,
                lib.dense_topk_tcs_launch):
         fn.restype = i
@@ -113,6 +117,31 @@ def event_ms(fn, reps: int = 10, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_us(fn, calls: int = 20) -> float:
+    """Mean device microseconds a launch of the dense_topk kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if "dense_topk" in ev.key:
+            total += getattr(ev, "device_time_total", None) or ev.cuda_time_total
+            count += ev.count
+    return total / count if count else float("nan")
+
+
+def bf16_operands(b, n, d, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    values = torch.randn(n, d, device="cuda", generator=gen).to(torch.bfloat16)
+    q = torch.randn(b, d, device="cuda", generator=gen).to(torch.bfloat16)
+    return q, None, values, None, None, None
 
 
 def int8_operands(b, n, d, seed, l2, extra=0):
@@ -147,7 +176,10 @@ def main() -> int:
     built = build(variants, _build.BUILD, _build.CSRC, [_build.nvcc_path(), *_build.NVCC_FLAGS])
     libs = {name: (load(path), patch) for name, (path, patch) in built.items()}
 
-    def using(name, variant="tc"):
+    forced = os.environ.get("VARIANT", "tc")
+    bf16 = os.environ.get("DTYPE") == "bf16"
+
+    def using(name, variant=forced):
         lib, patch = libs[name]
         stack = contextlib.ExitStack()
         stack.enter_context(mock.patch.object(dt, "_lib", lambda: lib))
@@ -171,18 +203,25 @@ def main() -> int:
     print(f"{first}: bit-equal to the plain version at {len(CHECKS)} shapes", flush=True)
 
     for n, d, b, kt in shapes:
-        q, qs, values, scales, _, mask = int8_operands(b, n, d, 1, False)
+        if bf16:
+            q, qs, values, scales, _, _ = bf16_operands(b, n, d, 1)
+        else:
+            q, qs, values, scales, _, _ = int8_operands(b, n, d, 1, False)
         mask = torch.rand(n, device="cuda") < 0.99
         args = (q, qs, values, scales, None, mask, n, 2048, kt)
         times = []
         for _ in range(2):
             for name in libs:
                 with using(name):
-                    times.append((name, event_ms(lambda: dt.tile_topk(*args))))
-        with using(first, "tcs"):
-            times.append(("tcs", event_ms(lambda: dt.tile_topk(*args))))
-        print(f"{n} x {d}, B={b}, kt={kt}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in times)
-              + f" ({card})", flush=True)
+                    times.append((name, event_ms(lambda: dt.tile_topk(*args)),
+                                  device_us(lambda: dt.tile_topk(*args))))
+        if forced != "tcs":
+            with using(first, "tcs"):
+                times.append(("tcs", event_ms(lambda: dt.tile_topk(*args)),
+                              device_us(lambda: dt.tile_topk(*args))))
+        print(f"{n} x {d}, B={b}, kt={kt}{' bf16' if bf16 else ''}: " + ", ".join(
+            f"{k} {v:.3f} ms (device {u:.1f} us)" for k, v, u in times) + f" ({card})",
+            flush=True)
         for name, (lib, _) in libs.items():
             if not hasattr(lib, "prof_read"):
                 continue

@@ -26,9 +26,12 @@ logger = logging.getLogger(__name__)
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD = os.path.join(HERE, "_build")
+# --split-compile 0: nvcc optimises a source's kernels in parallel, on
+# every core (the sorted-selection kernel alone has nine instantiations)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--split-compile", "0",
 ]
 
 GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]

@@ -19,38 +19,33 @@
 // kernel_variant), counted by the wrapper per route and mode:
 //
 // * dense_topk_tcs_kernel, the tensor cores for every mode but f32 at
-//   kt <= 128 and any D (the served searches, calibration, deep per-tile
-//   lists, remote embeddings of 1,536 to 4,096 dimensions): int8 x int8
-//   on mma.sync.m16n8k32.s8, bf16 queries on m16n8k16.bf16 with f32 sums,
-//   over bf16 rows or over int8 codes widened exactly to bf16 in registers
-//   (ldmatrix -> s8x4_to_bf16x2, the k order permuted alike for queries
-//   and codes).  A block of 32 queries walks its slice of a tile in
-//   256-row chunks (8 warps of 16 queries x 64 rows, a 4-stage cp.async
-//   ring of 64-byte k-slices); the chunk's epilogued scores go to shared
-//   memory, and a warp per query takes their top-kp (kp = kt rounded up
-//   to a power of two, >= 8) over 64-bit (value, column) keys held 8 a
-//   lane -- kt rounds of a warp max for kt <= 8, bitonic networks above --
-//   merging it into the query's running list; a chunk none of whose keys
-//   beats the list's kt-th is skipped.  Where the tiles alone would leave
-//   SMs idle, each tile's rows split over up to 8 blocks of a cluster,
-//   whose lists merge through distributed shared memory.  Up to D = 1024
-//   the block's queries are held whole in shared memory; above it (the
-//   query block alone would be 98,816 B at D = 1,536 in bf16, 197,120 B at
-//   3,072) they stream through a ring of their own, one 64-byte k-slice a
-//   row a stage (128 in the int8-codes mode) beside the corpus's, so
-//   shared memory is 94-135 KB whatever D; only the block's live queries
-//   are loaded (rows past B are zeros written once), so at B = 1 a stage
-//   adds one row.  What bounds it: at the served shapes (16,384 rows of
-//   D = 256 at B = 64; 8,224 rows of D = 1,536 at B = 1, 25.3 MB of bf16
-//   rows, 0.0075 ms at 3.35 TB/s) the launch, the ring's latency and the
-//   selection, not bytes or tensor operations: the split puts 128 blocks
-//   on the 132 SMs at D = 256 and 40 (33 with rows) at the 1,536-wide
-//   collection's 5 tiles, each keeping three of a 256-row chunk's 48
-//   stages in flight (0.047-0.054 ms on an H100, 6-7x the bytes bound).
-//   No split of D and a k loop whose order is fixed by D alone (the same
-//   in both forms): a query's sums are the same bits alone or in any batch
-//   and any split; the selection is exact, so int8 x int8 is bit-equal to
-//   the plain version.
+//   kt <= 128 and any D to 65,536 (every bf16 collection, the served
+//   searches, calibration, deep per-tile lists, int8 calls too small to
+//   fill the card, remote embeddings of 1,536 to 4,096 dimensions), in one
+//   form at every D.  Built for Hopper (the design note above namespace
+//   tcs): a block of 16, 64 or 128 queries (the wgmma's N) against a slice
+//   of a tile in chunks of 128 corpus rows (the wgmma's M, 64 a consumer
+//   warpgroup); a producer warp keeps a TMA ring of 128-byte k-slices of
+//   the rows and the queries; wgmma.m64nNk32.s8 (int8 x int8) or
+//   m64nNk16.bf16 with f32 sums (bf16 queries on bf16 rows, or on int8
+//   codes widened exactly to bf16 in shared memory); the epilogued scores
+//   go to a buffer of their own, while the ring keeps loading, from which
+//   the consumers' threads keep each query's kt best in register lists
+//   (kt <= 8), or twelve warps merge the few scores above a query's
+//   list's kt-th into its sorted list by rank.  Where the tiles alone
+//   would leave SMs idle, each tile's rows split over up to 8 blocks of a
+//   cluster, whose lists merge through distributed shared memory.  What
+//   bounds it: at scale (1M x 768 bf16 at B = 512: 1.9 ms on an H100
+//   against the tensor cores' 0.81) the L2 stream of the k-slices (each
+//   128-row chunk re-reads the query block) and the epilogue and
+//   selection, which the products do not overlap; at the served shapes
+//   (16,384 x 256 at B = 64; 8,224 x 1,536 at B = 1: 19-52 us) the
+//   launch, the ring's latency and the selection of a slice's first
+//   chunk, not bytes or tensor operations (scripts/ab_dense_topk.py,
+//   PERF.md §6).  No split of
+//   D and a k loop whose order is fixed by D alone: a query's sums are the
+//   same bits alone or in any batch and any split; the selection is exact,
+//   so int8 x int8 is bit-equal to the plain version.
 // * dense_topk_tc_kernel, the int8 x int8 mode with register lists, for
 //   kt <= 8 at any D (to 65,536) where its work items (a tile against a
 //   block of 128 queries) fill the card: the 1M and 10M flat
@@ -669,7 +664,7 @@ dense_topk_tc_kernel(__grid_constant__ const CUtensorMap qmap,
           sm90::wgmma_fence();
 #pragma unroll
           for (int k = 0; k < KS / 32; ++k)  // + 32 bytes a step: + 2 in the descriptor
-            sm90::wgmma_s8_n128(acc, da + 2 * k, db + 2 * k, (ks > 0 || k > 0) ? 1 : 0);
+            sm90::wgmma_s8<128>(acc, da + 2 * k, db + 2 * k, (ks > 0 || k > 0) ? 1 : 0);
           sm90::wgmma_commit();
           sm90::wgmma_wait<1>();  // the held stage's products are done
           sm90::fence_regs(acc);
@@ -792,66 +787,97 @@ EncodeTiled encode_tiled() {
 
 // ---- tensor-core variant with sorted selection ------------------------------
 //
-// Every tensor-core mode (int8 x int8 on m16n8k32 s8; bf16 queries on bf16
-// rows or on int8 codes widened exactly to bf16, m16n8k16 with f32 sums),
-// kt <= 128, and a tile's rows split over the blocks of one cluster.
+// Every tensor-core mode (int8 x int8 on wgmma m64nNk32 s8; bf16 queries on
+// bf16 rows, or on int8 codes widened exactly to bf16, on m64nNk16 bf16
+// with f32 sums), 1 <= kt <= 128, any D to 65,536, and a tile's rows split
+// over the blocks of one cluster.
 //
-// A block holds QB queries and walks its slice of the tile in chunks of RC
-// rows; the chunk's corpus k-slices stream through a cp.async ring (and,
-// above D = MAX_D, the query block's k-slices through a ring of their own,
-// stage by stage beside them, so that no shared memory grows with D), the
-// chunk's epilogued f32 scores go to shared memory (over the drained ring),
-// and a warp per query takes the chunk's top-KP over (value, column) keys
-// (rounds of a warp max, or bitonic networks) and merges it into the
-// query's running list in shared memory.  A chunk none of whose keys beats the list's kt-th is
-// skipped.  The S blocks of a tile (a cluster along z) then merge their
-// lists through distributed shared memory: block r takes the queries
-// q = r (mod S).  The top-kt of a union under a strict total order is the
-// same whatever the split, so the result depends on the logical tile only.
+// A block takes QN queries (16, 64 or 128: the wgmma's N, chosen by the
+// batch and the shared-memory budget) against one slice of one tile, in
+// chunks of R = 128 corpus rows (the wgmma's M: 64 rows a consumer
+// warpgroup).  Warp 12 keeps a ring of `nst` stages filled by TMA, each one
+// 128-byte k-slice of the chunk's rows and of the query block (128-byte
+// swizzle; zeros past D and past the last row, so any D % 16 == 0 streams
+// the same way, and a query's k order is fixed by D alone).  Consumer
+// warpgroups 0 and 1 run wgmma from shared memory on every stage (mode 1
+// first widens its 64 rows' codes into a bf16 buffer of its own:
+// s8x4_to_bf16x2, exact), then take the chunk's epilogue in the
+// reference's order (__fmul_rn by qscale, then the row scale, then 2 s -
+// norm as one fma with two = 2; a dead row's scale is NaN, so its score
+// enters no list) into a score buffer [QN][SR] that does not alias the
+// ring, so the loads run on during the selection.  At kt <= 8 the
+// consumers' 256 threads, 256 / QN a query, keep the 2 (kt <= 2) or 8 best
+// of their share of the chunks in registers (a thread visits its columns
+// in increasing order, so a score enters only by beating an entry
+// strictly), merged by a xor-shuffle tree at the slice's end.  Deeper lists are kept sorted in
+// shared memory: the consumers' threads flag the queries one of whose
+// scores beats the query's list's kt-th by value (the list holds lower
+// columns only, so an equal value keeps its place): the skip test of a
+// chunk none of whose keys beats the kt-th, which most chunks of a slice
+// pass.  The 12 warps other than the producer take the flagged queries in
+// turn, a lane four of the chunk's scores, and keep the survivors.  The survivors are sorted (by counting, or a bitonic network of
+// the chunk's 128 where more than 32 survive, as in a slice's first chunk)
+// and merged into the sorted list by rank: each key's place is its index
+// plus the number of keys above it in the other list (binary searches).
+// At the slice's end the S blocks of a tile (a cluster along z) merge
+// their lists: block r copies the lists of queries q = r (mod S) from
+// every block's shared memory, then merges them in slice order.  The
+// top-kt of a union under a strict total order is the same whatever the
+// split, so the result depends on the logical tile only.  The int32 sums
+// are exact; the bf16 modes' f32 sums run through the same wgmma steps in
+// the same order for a query in any batch.
 namespace tcs {
 
-constexpr int QB = 32;         // queries per block: 2 warp rows of 16
-constexpr int RC = 256;        // corpus rows per chunk: 4 warp columns of 64
-constexpr int KS = 64;         // corpus bytes of a row per ring stage
-constexpr int NST = 4;         // ring stages (82 KB: two blocks an SM where
-                               // the query block is small or streamed, so
-                               // the clusters of a launch are resident
-                               // together)
-constexpr int CS = KS + 16;    // ring row stride: 16 mod 32 bytes
-constexpr int WARPS = 8;
+constexpr int R = 128;              // corpus rows a chunk: the wgmma's M, 64 a consumer warpgroup
+constexpr int KS = 128;             // bytes of a row a k-slice (one 128-byte swizzle row)
+constexpr int SR = R + 4;           // score row stride (floats): conflict-free stores, float4 reads
+constexpr int WARPS = 13;           // warpgroups 0 and 1 compute, all but warp 12 select; 12 loads
 constexpr int THREADS = 32 * WARPS;
-constexpr int E = RC / 32;     // keys per lane in the selection
-constexpr int SS = RC + 8;     // score row stride (floats): conflict-free float2 stores
+constexpr int CONSUMER_WARPS = 8;
+constexpr int WORKERS = 12;         // warps that select: the 8 consumers and 4 more
+constexpr int E = 8;                // keys a lane in the lists' merge
+constexpr int LIST = 8;             // kt <= LIST: register lists (of 2 or 8) in the consumers' threads
 constexpr int MAX_KT = 128;
-constexpr int MAX_SLICES = 8;  // a portable cluster
-constexpr int MAX_D = 1024;    // the resident query block (32 x 2,064 B at bf16)
-// the streamed form: int32 sums of int8 x int8 are exact while
-// D * 127^2 < 2^31 (the quantizer's codes), i.e. to D = 133,143; 2^16
-// keeps them exact for any int8 codes (D * 128^2 <= 2^30)
-constexpr int MAX_D_STREAMED = 65536;
+constexpr int MAX_SLICES = 8;       // a portable cluster
+constexpr int MAX_STAGES = 4;
+constexpr int MAX_D = 65536;        // int32 sums of any int8 codes exact (D * 128^2 <= 2^30)
+constexpr int HALF = 64 * KS;       // mode 1: 64 rows x 64 bf16, one swizzled half of a k-slice
+constexpr int WIDE = 2 * 2 * HALF;  // mode 1: both warpgroups' widened codes
+constexpr size_t SMEM_MAX = 232448;  // an H100 block's dynamic shared memory
 
 using u64 = unsigned long long;
 
-// query bytes of one ring stage (the int8-codes mode's bf16 queries are
-// twice its code bytes), and the padding of a query row: + 16 (ldmatrix
-// rows: 16 mod 32) or, for the int8-codes mode whose query fragments are
-// 8-byte loads, + 32 (four rows cover 128 bytes)
-__host__ __device__ constexpr int stage_query_bytes(int mode) { return mode == 1 ? 2 * KS : KS; }
-__host__ __device__ constexpr int query_pad(int mode) { return mode == 1 ? 32 : 16; }
-
-// query row stride in bytes: the whole row rounded up to one stage of
-// query bytes (resident), or one stage (streamed), + the padding
-__host__ __device__ inline int query_stride(int mode, int D, bool streamed) {
-  const int stage = stage_query_bytes(mode);
-  const int bytes = mode == 0 ? D : 2 * D;
-  return (streamed ? stage : (bytes + stage - 1) / stage * stage) + query_pad(mode);
+// a ring stage: a k-slice of the chunk's R rows (128 codes or 64 bf16) and
+// of the block's qn queries (mode 1: 128 bf16 in two 64-element boxes)
+__host__ __device__ constexpr int stage_bytes(int mode, int qn) {
+  return R * KS + (mode == 1 ? 2 : 1) * qn * KS;
 }
 
-// resident: [QB] query rows + the corpus ring + the lists; streamed: a
-// query ring of NST stages beside the corpus ring, nothing that grows with D
-inline size_t smem_bytes(int mode, int D, int kp, bool streamed) {
-  return static_cast<size_t>(streamed ? NST : 1) * QB * query_stride(mode, D, streamed) +
-         static_cast<size_t>(NST) * RC * CS + static_cast<size_t>(QB) * kp * sizeof(u64);
+__host__ __device__ inline int kp_of(int kt) {
+  int kp = E;
+  while (kp < kt) kp <<= 1;
+  return kp;
+}
+
+// 1,024 bytes of slack to put the ring on the swizzle's 1,024-byte period,
+// the ring, mode 1's widened codes, the scores [qn][SR] f32, the sorted
+// lists [qn][kp], a warp's 128 keys of scratch for each selecting warp,
+// the queries' thresholds, scales and flags, and a full and an empty
+// barrier a stage
+__host__ __device__ inline size_t smem_bytes(int mode, int qn, int kt, int nst) {
+  return 1024 + static_cast<size_t>(nst) * stage_bytes(mode, qn) + (mode == 1 ? WIDE : 0) +
+         static_cast<size_t>(qn) * SR * 4 + static_cast<size_t>(qn) * kp_of(kt) * 8 +
+         static_cast<size_t>(WORKERS) * R * 8 + static_cast<size_t>(qn) * 12 +
+         static_cast<size_t>(nst) * 16;
+}
+
+// the merge copies the lists of a block's queries from every block of the
+// cluster, (qn + MAX_SLICES) x kp keys at most, over the ring, the
+// widened codes and the scores
+__host__ __device__ inline bool merge_fits(int mode, int qn, int kt, int nst) {
+  return static_cast<size_t>(qn + MAX_SLICES) * kp_of(kt) * 8 <=
+         static_cast<size_t>(nst) * stage_bytes(mode, qn) + (mode == 1 ? WIDE : 0) +
+             static_cast<size_t>(qn) * SR * 4;
 }
 
 // (value, column) as one key whose unsigned order is the reference's:
@@ -899,7 +925,7 @@ __device__ __forceinline__ void stage(u64 (&k)[E], int kk, int d, int g) {
     for (int j = 0; j < E; ++j) {
       const u64 o = __shfl_xor_sync(0xffffffffu, k[j], m);
       const bool desc = ((g * E + j) & kk) == 0;
-      k[j] = (lower == desc) ? (o > k[j] ? o : k[j]) : (o < k[j] ? o : k[j]);
+      k[j] = (o > k[j]) == (lower == desc) ? o : k[j];
     }
   } else if (d == 4) {
     stage_in_lane<4>(k, kk, g);
@@ -925,329 +951,539 @@ __device__ __forceinline__ void merge_list(u64 (&k)[E], const u64* L, int kp, in
   merge_cascade(k, kp, g);
 }
 
-// kt <= E: the warp's 32 * E keys (any order) -> their top kt, sorted, in
-// registers 0 .. kt - 1 of every lane (the rest empty): kt rounds of a
-// warp-wide max, whose owner drops it and takes its next best
-__device__ __forceinline__ void warp_top_rounds(u64 (&k)[E], int kt) {
-  u64 best = k[0];
+// the number of keys of a[0 .. len) above x: a sorted descending, its
+// keys distinct but the empty ones at its end
+__device__ __forceinline__ int count_above(const u64* a, int len, u64 x) {
+  int lo = 0, hi = len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] > x)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// the warp's 128 keys (element 4 lane + j in k[j]) sorted descending: a
+// bitonic network, pairs across lanes by shuffles
+__device__ __forceinline__ void sort128(u64 (&k)[4], int lane) {
 #pragma unroll
-  for (int j = 1; j < E; ++j) best = k[j] > best ? k[j] : best;
-  u64 out[E];
+  for (int kk = 2; kk <= 128; kk <<= 1) {
 #pragma unroll
-  for (int r = 0; r < E; ++r) {
-    out[r] = 0ull;
-    if (r < kt) {
-      u64 w = best;
+    for (int d = kk >> 1; d > 0; d >>= 1) {
+      if (d >= 4) {
+        const int m = d >> 2;
+        const bool lower = (lane & m) == 0;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const u64 o = __shfl_xor_sync(0xffffffffu, w, off);
-        w = o > w ? o : w;
-      }
-      out[r] = w;
-      if (best == w) {  // the owner (or, once w is empty, every lane: no-op)
+        for (int j = 0; j < 4; ++j) {
+          const u64 o = __shfl_xor_sync(0xffffffffu, k[j], m);
+          const bool desc = ((4 * lane + j) & kk) == 0;
+          // keep the larger where lower == desc (the keys are distinct
+          // but the empty ones, which are equal anyway)
+          k[j] = (o > k[j]) == (lower == desc) ? o : k[j];
+        }
+      } else {
 #pragma unroll
-        for (int j = 0; j < E; ++j) k[j] = k[j] == w ? 0ull : k[j];
-        best = k[0];
-#pragma unroll
-        for (int j = 1; j < E; ++j) best = k[j] > best ? k[j] : best;
+        for (int j = 0; j < 4; ++j) {
+          if ((j & d) == 0) {
+            const bool desc = ((4 * lane + j) & kk) == 0;
+            const u64 x = k[j], y = k[j | d];
+            if (desc ? x < y : x > y) {
+              k[j] = y;
+              k[j | d] = x;
+            }
+          }
+        }
       }
     }
   }
-#pragma unroll
-  for (int j = 0; j < E; ++j) k[j] = out[j];
 }
 
-// the warp's 32 * E keys (any order) -> their top KP, sorted, in every group
-__device__ __forceinline__ void warp_top(u64 (&k)[E], int kp, int lane) {
-  const int G = kp / E;
-  const int g = lane & (G - 1);
-  for (int kk = 2; kk <= kp; kk <<= 1)
-    for (int d = kk >> 1; d > 0; d >>= 1) stage(k, kk, d, g);
-  // groups pairwise: my run against the partner's, reversed, then merge
-  for (int m = G; m < 32; m <<= 1) {
-    const int src = ((lane ^ m) & ~(G - 1)) | (G - 1 - g);
-    u64 o[E];
+// a warp: the chunk's 128 scores of one query (srow, columns c0 ..) into
+// its sorted list L of kt keys (zeros empty) and its threshold, the value
+// of L's kt-th key (-inf while L is not full).  A score survives only by
+// beating the threshold (L holds lower columns only); the survivors,
+// sorted in scr (128 keys: by counting up to 32, else a bitonic network),
+// and L merge by rank.  Only kt > 8 comes here: the register lists take
+// the rest
+__device__ __forceinline__ void select_chunk(const float* srow, u64* L, float* thr_q, int kt,
+                                             int c0, int lane, u64* scr) {
+  const float4 v4 = *reinterpret_cast<const float4*>(srow + 4 * lane);
+  const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+  const float thr = *thr_q;
+  u64 k[4];
+  unsigned bal[4];
+  int s = 0;
 #pragma unroll
-    for (int j = 0; j < E; ++j) o[j] = __shfl_sync(0xffffffffu, k[E - 1 - j], src);
+  for (int e = 0; e < 4; ++e) {
+    const bool p = v[e] > thr;
+    k[e] = p ? make_key(v[e], c0 + 4 * lane + e) : 0ull;
+    bal[e] = __ballot_sync(0xffffffffu, p);
+    s += __popc(bal[e]);
+  }
+  if (s == 0) return;
+  if (s <= 32) {
+    // compacted, then sorted by counting (the keys are distinct)
+    const unsigned below = (1u << lane) - 1u;
+    int base = 0;
 #pragma unroll
-    for (int j = 0; j < E; ++j) k[j] = o[j] > k[j] ? o[j] : k[j];
-    merge_cascade(k, kp, g);
+    for (int e = 0; e < 4; ++e) {
+      if (k[e] != 0ull) scr[base + __popc(bal[e] & below)] = k[e];
+      base += __popc(bal[e]);
+    }
+    __syncwarp();
+    const u64 x = lane < s ? scr[lane] : 0ull;
+    int r = 0;
+    for (int i = 0; i < s; ++i) r += scr[i] > x;
+    __syncwarp();
+    if (lane < s) scr[r] = x;
+  } else {
+    sort128(k, lane);  // the empty keys sink to the end
+    if (L[0] == 0ull) {
+      // an empty list (a slice's first chunk): the sorted keys are its kt
+      // best, written in place
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (4 * lane + j < kt) L[4 * lane + j] = k[j];
+      __syncwarp();
+      if (lane == 0) {
+        const u64 y = L[kt - 1];
+        *thr_q = y != 0ull ? key_value(y) : -INFINITY;
+      }
+      __syncwarp();
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) scr[4 * lane + j] = k[j];
+  }
+  __syncwarp();
+  // each key's place in the merged list: its index plus the keys above it
+  // in the other list; those at kt or beyond drop out
+  const int sl = min(s, kt);
+  u64 ly[4], cx[4];
+  int lp[4], cp[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = lane + 32 * r;
+    ly[r] = i < kt ? L[i] : 0ull;
+    lp[r] = ly[r] != 0ull ? i + count_above(scr, s, ly[r]) : kt;
+    cx[r] = i < sl ? scr[i] : 0ull;
+    cp[r] = cx[r] != 0ull ? i + count_above(L, kt, cx[r]) : kt;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    if (lp[r] < kt) L[lp[r]] = ly[r];
+    if (cp[r] < kt) L[cp[r]] = cx[r];
+  }
+  __syncwarp();
+  if (lane == 0) {
+    const u64 y = L[kt - 1];
+    *thr_q = y != 0ull ? key_value(y) : -INFINITY;
+  }
+  __syncwarp();
+}
+
+// mode 1: a warpgroup's 64 rows (64 wg ..) of a stage's 128 codes (a
+// 128-byte swizzled row each) as bf16 in `wide`: two 64 x 128-byte halves
+// (k 0-63, 64-127) in the layout a TMA load with the 128-byte swizzle leaves
+__device__ __forceinline__ void widen(const uint8_t* codes, uint8_t* wide, int wg, int ctid) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int u = ctid + 128 * i;  // 16 codes: row r, 16-byte unit c
+    const int r = u >> 3, c = u & 7;
+    const int rr = 64 * wg + r;
+    const uint4 v = *reinterpret_cast<const uint4*>(codes + rr * KS + ((c ^ (rr & 7)) << 4));
+    uint32_t o[8];
+    sm90::s8x4_to_bf16x2(v.x, o[0], o[1]);
+    sm90::s8x4_to_bf16x2(v.y, o[2], o[3]);
+    sm90::s8x4_to_bf16x2(v.z, o[4], o[5]);
+    sm90::s8x4_to_bf16x2(v.w, o[6], o[7]);
+    uint8_t* dst = wide + (c >> 2) * HALF + r * KS;
+    const int u0 = (2 * c) & 7;  // its two 16-byte units in the half's row
+    *reinterpret_cast<uint4*>(dst + ((u0 ^ (r & 7)) << 4)) = make_uint4(o[0], o[1], o[2], o[3]);
+    *reinterpret_cast<uint4*>(dst + (((u0 + 1) ^ (r & 7)) << 4)) =
+        make_uint4(o[4], o[5], o[6], o[7]);
   }
 }
 
-// STREAMED: the query block's k-slices stream through a ring of their
-// own beside the corpus's (D > MAX_D), else the block is held whole
-template <int MODE, bool STREAMED>
-__global__ void __launch_bounds__(THREADS, 2)
-dense_topk_tcs_kernel(const void* __restrict__ q, const float* __restrict__ qscale,
-                      const void* __restrict__ c, const float* __restrict__ scales,
+// kt <= L: a thread's share of a chunk's row of scores (every PARTS-th
+// group of four columns from `part`, columns c0 ..) into its register list
+// of the L best.  It visits its columns in increasing order, so a score
+// enters only by beating an entry strictly, and only a group with a score
+// above the list's kt-th (thr) is pushed: what it skips could only take
+// places past kt
+template <int L, int PARTS>
+__device__ __forceinline__ void scan_row(float (&lv)[L], int (&lc)[L], float& thr,
+                                         const float* row, int c0, int part, int kt) {
+  for (int g = part; g < R / 4; g += PARTS) {
+    const float4 v = *reinterpret_cast<const float4*>(row + 4 * g);
+    if (fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w)) > thr) {
+      tc::list_push<L>(lv, lc, v.x, c0 + 4 * g);
+      tc::list_push<L>(lv, lc, v.y, c0 + 4 * g + 1);
+      tc::list_push<L>(lv, lc, v.z, c0 + 4 * g + 2);
+      tc::list_push<L>(lv, lc, v.w, c0 + 4 * g + 3);
+#pragma unroll
+      for (int i = 0; i < L; ++i) thr = i == kt - 1 ? lv[i] : thr;
+    }
+  }
+}
+
+// a query's PARTS lists (lanes of one warp) merged by a fixed xor-shuffle
+// tree, then, by its part 0, its kt best into its sorted list L as keys
+template <int L, int PARTS>
+__device__ __forceinline__ void finish_rows(float (&lv)[L], int (&lc)[L], u64* list, bool first,
+                                            int kt) {
+#pragma unroll
+  for (int mm = 1; mm < PARTS; mm <<= 1) {
+    float ov[L];
+    int oc[L];
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      ov[i] = __shfl_xor_sync(0xffffffffu, lv[i], mm);
+      oc[i] = __shfl_xor_sync(0xffffffffu, lc[i], mm);
+    }
+#pragma unroll
+    for (int i = 0; i < L; ++i) sm90::list_insert<L>(lv, lc, ov[i], oc[i]);
+  }
+  if (first) {
+#pragma unroll
+    for (int i = 0; i < L; ++i)
+      if (i < kt) list[i] = make_key(lv[i], lc[i]);
+  }
+}
+
+template <int MODE, int QN, typename Acc>
+__device__ __forceinline__ void mma(Acc (&acc)[QN / 2], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (MODE == 0)
+    sm90::wgmma_s8<QN>(acc, da, db, scale_d);
+  else
+    sm90::wgmma_bf16<QN>(acc, da, db, scale_d);
+}
+
+template <int MODE, int QN>
+__global__ void __launch_bounds__(THREADS, 1)
+dense_topk_tcs_kernel(__grid_constant__ const CUtensorMap qmap,
+                      __grid_constant__ const CUtensorMap cmap,
+                      const float* __restrict__ qscale, const float* __restrict__ scales,
                       const float* __restrict__ norms, const uint8_t* __restrict__ mask,
-                      int B, int N, int D, int tile, int kt, int kp, int slice_rows,
+                      int B, int N, int D, int tile, int kt, int kp, int nst, int slice_rows,
                       float* __restrict__ out_vals, int* __restrict__ out_ids) {
   namespace cg = cooperative_groups;
   using Acc = typename std::conditional<MODE == 0, int, float>::type;
-  constexpr int QK = stage_query_bytes(MODE);
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int QS = query_stride(MODE, D, STREAMED);
-  uint8_t* sq = smem;                                        // [QB][QS] or [NST][QB][QS]
-  uint8_t* ring = smem + (STREAMED ? NST : 1) * QB * QS;     // [NST][RC][CS]
-  float* ss = reinterpret_cast<float*>(ring);                // [QB][SS], after a chunk
-  u64* lists = reinterpret_cast<u64*>(ring + NST * RC * CS);  // [QB][kp]
+  constexpr int NR = QN / 2;  // accumulator registers a thread
+  constexpr int STAGE = stage_bytes(MODE, QN);
+  constexpr int Q_OFF = R * KS;  // a stage's query box(es), after its rows
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024u - (sm90::smem_addr(smem_raw) & 1023u)) & 1023u);
+  const uint32_t ring = sm90::smem_addr(smem);
+  uint8_t* wide = smem + nst * STAGE;
+  float* scores = reinterpret_cast<float*>(wide + (MODE == 1 ? WIDE : 0));  // [QN][SR]
+  u64* lists = reinterpret_cast<u64*>(scores + QN * SR);                    // [QN][kp]
+  u64* scratch = lists + QN * kp;                                           // [WORKERS][R]
+  float* thr = reinterpret_cast<float*>(scratch + WORKERS * R);             // [QN]
+  float* qsc = thr + QN;                                                    // [QN]
+  int* flag = reinterpret_cast<int*>(qsc + QN);  // [QN]: a score of the chunk beats the list
+  const uint32_t full0 = sm90::smem_addr(flag + QN);  // stage s's full barrier: full0 + 8 s
+  const uint32_t empty0 = full0 + 8 * nst;
+  u64* gathered = reinterpret_cast<u64*>(smem);  // the merge's copies, over the ring
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int wm = warp & 1;         // queries 16 wm ..
-  const int wn = warp >> 1;        // chunk rows 64 wn ..
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-  const int b0 = blockIdx.x * QB;
-  const int nb = min(QB, B - b0);  // the block's live queries (streamed form)
+  const int lane = tid & 31;
+  const int b0 = blockIdx.x * QN;
+  const int nb = min(QN, B - b0);  // the block's live queries
   const int tile_idx = blockIdx.y;
   const int slice = blockIdx.z;
   const int S = gridDim.z;
   const long long base = static_cast<long long>(tile_idx) * tile;
+  const int rows = static_cast<int>(min(static_cast<long long>(tile), N - base));  // scanned
   const int r_begin = slice * slice_rows;
-  const int r_end = min(tile, r_begin + slice_rows);
-  const int rowc = MODE == 2 ? 2 * D : D;  // corpus bytes a row
-  const int rowq = MODE == 0 ? D : 2 * D;  // query bytes a row
-  const int nks = (rowc + KS - 1) / KS;
-  const uint8_t* cb = static_cast<const uint8_t*>(c);
-  const uint8_t* qb = static_cast<const uint8_t*>(q);
+  const int r_lim = min(rows, r_begin + slice_rows);
+  const int nch = r_lim > r_begin ? (r_lim - r_begin + R - 1) / R : 0;
+  const int kslice = MODE == 2 ? KS / 2 : KS;  // elements of a row a k-slice
+  const int nks = (D + kslice - 1) / kslice;
 
-  if constexpr (STREAMED) {
-    // query rows past B are zeros in every stage, written once: the
-    // stage loads below fill rows < B only
-    for (int i = tid; i < NST * QB * (QS / 16); i += THREADS) {
-      if (i / (QS / 16) % QB >= nb) reinterpret_cast<uint4*>(sq)[i] = make_uint4(0u, 0u, 0u, 0u);
+  if (tid == 0) {
+    for (int s = 0; s < nst; ++s) {
+      sm90::mbar_init(full0 + 8 * s, 1);
+      sm90::mbar_init(empty0 + 8 * s, CONSUMER_WARPS);
+    }
+    sm90::mbar_init_fence();
+  }
+  for (int i = tid; i < QN * kp; i += THREADS) lists[i] = 0ull;
+  for (int i = tid; i < QN; i += THREADS) {
+    thr[i] = -INFINITY;
+    qsc[i] = (MODE == 0 && i < nb) ? qscale[b0 + i] : 0.0f;
+  }
+  __syncthreads();
+
+  // kt <= 8: the consumers' 256 threads, 256 / QN a query, each keep the
+  // best of their share of every chunk in registers: lists of 2 for kt <=
+  // 2 (a default collection's depth at scale), of 8 above
+  constexpr int PARTS = 256 / QN;
+  const int lq = tid / PARTS, lpart = tid % PARTS;
+  float lv2[2], lv8[LIST], thr2 = -INFINITY, thr8 = -INFINITY;
+  int lc2[2], lc8[LIST];
+#pragma unroll
+  for (int i = 0; i < LIST; ++i) {
+    lv8[i] = -INFINITY;
+    lc8[i] = 0x7fffffff;
+    if (i < 2) {
+      lv2[i] = -INFINITY;
+      lc2[i] = 0x7fffffff;
+    }
+  }
+  auto scan_lists = [&](int ch) {
+    if (lq < nb) {
+      const float* row = scores + lq * SR;
+      const int c0 = r_begin + ch * R;
+      if (kt <= 2)
+        scan_row<2, PARTS>(lv2, lc2, thr2, row, c0, lpart, kt);
+      else
+        scan_row<LIST, PARTS>(lv8, lc8, thr8, row, c0, lpart, kt);
+    }
+  };
+  // the selection of a chunk, in two passes.  First the consumers' 256
+  // threads, 256 / QN a query, flag the queries one of whose scores beats
+  // the list's kt-th (most chunks of a slice flag none)
+  auto flag_queries = [&]() {
+    const int q = lq, part = lpart;
+    int any = 0;
+    if (q < nb) {
+      const float th = thr[q];
+      const float* row = scores + q * SR;
+      for (int g = part; g < R / 4; g += PARTS) {
+        const float4 v = *reinterpret_cast<const float4*>(row + 4 * g);
+        any |= fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w)) > th;
+      }
+    }
+#pragma unroll
+    for (int o = 1; o < PARTS; o <<= 1) any |= __shfl_xor_sync(0xffffffffu, any, o);
+    if (part == 0) flag[q] = any;
+  };
+  // then the flagged queries merge their survivors, a selecting warp each
+  // in turn
+  auto merge_flagged = [&](int ch) {
+    const int c0 = r_begin + ch * R;
+    int seen = 0;
+    for (int b = 0; b < nb; b += 32) {
+      unsigned m = __ballot_sync(0xffffffffu, b + lane < nb && flag[b + lane] != 0);
+      while (m != 0u) {
+        const int qi = b + __ffs(m) - 1;
+        m &= m - 1u;
+        if (seen++ % WORKERS == warp)
+          select_chunk(scores + qi * SR, lists + qi * kp, thr + qi, kt, c0, lane,
+                       scratch + warp * R);
+      }
+    }
+  };
+
+  if (warp == WARPS - 1) {
+    // the producer: every chunk's k-slices, in the consumers' order
+    if (lane == 0) {
+      sm90::tma_prefetch_map(&qmap);
+      sm90::tma_prefetch_map(&cmap);
+      int s = 0;
+      uint32_t ph = 0;
+      for (int ch = 0; ch < nch; ++ch) {
+        const int row = static_cast<int>(base) + r_begin + ch * R;
+        for (int ks = 0; ks < nks; ++ks) {
+          sm90::mbar_wait(empty0 + 8 * s, ph ^ 1);
+          const uint32_t st = ring + s * STAGE;
+          const uint32_t bar = full0 + 8 * s;
+          sm90::mbar_arrive_expect_tx(bar, STAGE);
+          sm90::tma_load_2d(st, &cmap, bar, ks * kslice, row);
+          if constexpr (MODE == 1) {
+            sm90::tma_load_2d(st + Q_OFF, &qmap, bar, ks * KS, b0);
+            sm90::tma_load_2d(st + Q_OFF + QN * KS, &qmap, bar, ks * KS + KS / 2, b0);
+          } else {
+            sm90::tma_load_2d(st + Q_OFF, &qmap, bar, ks * kslice, b0);
+          }
+          if (++s == nst) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+  } else if (warp >= CONSUMER_WARPS) {
+    // the other selecting warps: the consumers' barriers, chunk by chunk
+    for (int ch = 0; ch <= nch; ++ch) {
+      if (ch > 0 && kt > LIST) {
+        sm90::named_barrier(1, 32 * WORKERS);  // the flags of chunk ch - 1
+        merge_flagged(ch - 1);
+      }
+      sm90::named_barrier(1, 32 * WORKERS);  // the lists hold chunk ch - 1
+      if (ch == nch) break;
+      sm90::named_barrier(1, 32 * WORKERS);  // the scores hold chunk ch
     }
   } else {
-    // the query block, once (committed with the first chunk's first stage):
-    // rows past B and bytes past D are zeros
-    const int vpr = (QS - query_pad(MODE)) / 16;
-    for (int idx = tid; idx < QB * vpr; idx += THREADS) {
-      const int r = idx / vpr, kb = (idx - r * vpr) * 16;
-      const bool ok = b0 + r < B && kb < rowq;
-      sm90::cp_async16(sq + r * QS + kb, ok ? qb + static_cast<long long>(b0 + r) * rowq + kb : qb,
-                       ok ? 16 : 0);
-    }
-  }
-  for (int i = tid; i < QB * kp; i += THREADS) lists[i] = 0ull;
-  float qsc[2] = {0.0f, 0.0f};
-  if constexpr (MODE == 0) {
+    // the consumers: warpgroup wg takes rows 64 wg .. of every chunk; this
+    // thread rows rr0 and rr0 + 8, queries 8 j + 2 t + e
+    const int wg = warp >> 2;
+    const int t = lane & 3;
+    const int rr0 = 64 * wg + 16 * (warp & 3) + (lane >> 2);
+    const uint32_t a_off = wg * 64 * KS;
+    uint8_t* my_wide = wide + wg * 2 * HALF;
+    const uint32_t wide_s = sm90::smem_addr(my_wide);
+    const float two = norms != nullptr ? 2.0f : 1.0f;
+    Acc acc[NR];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int b = b0 + wm * 16 + gid + 8 * h;
-      qsc[h] = b < B ? qscale[b] : 0.0f;
-    }
-  }
-
-  const uint8_t* a_row =
-      sq + (wm * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * QS + (lane >> 4) * 16;
-  const int b_off = (wn * 64 + (lane & 7) + (lane >> 4) * 8) * CS + ((lane >> 3) & 1) * 16;
-  const int G = kp / E;
-
-  for (int r0 = r_begin; r0 < r_end; r0 += RC) {
-    auto load_stage = [&](int s) {
-      const int kb0 = s * KS;
-      uint8_t* dst = ring + (s % NST) * (RC * CS);
-      for (int idx = tid; idx < RC * (KS / 16); idx += THREADS) {
-        const int r = idx / (KS / 16), kb = kb0 + (idx % (KS / 16)) * 16;
-        const int col = r0 + r;
-        const long long t = base + col;
-        const bool ok = col < r_end && t < N && kb < rowc;
-        sm90::cp_async16(dst + r * CS + (kb - kb0), ok ? cb + t * rowc + kb : cb, ok ? 16 : 0);
-      }
-      if constexpr (STREAMED) {
-        // the live queries' bytes of the same k-slice; bytes past D zeros
-        const int qb0 = s * QK;
-        uint8_t* qdst = sq + (s % NST) * (QB * QS);
-        for (int idx = tid; idx < nb * (QK / 16); idx += THREADS) {
-          const int r = idx / (QK / 16), kb = qb0 + (idx % (QK / 16)) * 16;
-          const bool ok = kb < rowq;
-          sm90::cp_async16(qdst + r * QS + (kb - qb0),
-                           ok ? qb + static_cast<long long>(b0 + r) * rowq + kb : qb, ok ? 16 : 0);
-        }
+    for (int i = 0; i < NR; ++i) acc[i] = 0;
+    int s = 0, rel = 0, pending = 0;  // the next stage; the oldest issued one not released
+    uint32_t ph = 0;
+    // stages whose products are done go back to the producer, all but `keep`
+    auto release = [&](int keep) {
+      while (pending > keep) {
+        if (lane == 0) sm90::mbar_arrive(empty0 + 8 * rel);
+        if (++rel == nst) rel = 0;
+        --pending;
       }
     };
+    // k-slice ks of the current chunk's products, issued and committed
+    auto issue_stage = [&](int ks) {
+      sm90::mbar_wait(full0 + 8 * s, ph);
+      const uint32_t st = ring + s * STAGE;
+      if constexpr (MODE == 1) {
+        sm90::wgmma_wait<0>();  // the widened codes are rewritten
+        sm90::fence_regs(acc);
+        release(0);
+        widen(smem + s * STAGE, my_wide, wg, tid & 127);
+        sm90::fence_proxy_async();
+        sm90::named_barrier(2 + wg, 128);
+        const uint64_t da = sm90::wgmma_desc_sw128(wide_s);
+        const uint64_t db = sm90::wgmma_desc_sw128(st + Q_OFF);
+        sm90::fence_regs(acc);
+        sm90::wgmma_fence();
 #pragma unroll
-    for (int s = 0; s < NST - 1; ++s) {
-      if (s < nks) load_stage(s);
-      sm90::cp_async_commit();
-    }
-    Acc acc[8][4];
+        for (int k = 0; k < 8; ++k)  // two halves of 64 k, four k16 steps each
+          mma<MODE, QN>(acc, da + (k >> 2) * (HALF >> 4) + 2 * (k & 3),
+                        db + (k >> 2) * ((QN * KS) >> 4) + 2 * (k & 3),
+                        (ks > 0 || k > 0) ? 1 : 0);
+      } else {
+        const uint64_t da = sm90::wgmma_desc_sw128(st + a_off);
+        const uint64_t db = sm90::wgmma_desc_sw128(st + Q_OFF);
+        sm90::fence_regs(acc);
+        sm90::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+        for (int k = 0; k < 4; ++k)  // + 32 bytes a step: + 2 in the descriptor
+          mma<MODE, QN>(acc, da + 2 * k, db + 2 * k, (ks > 0 || k > 0) ? 1 : 0);
+      }
+      sm90::wgmma_commit();
+      ++pending;
+      if (++s == nst) {
+        s = 0;
+        ph ^= 1;
+      }
+    };
+    for (int ch = 0; ch <= nch; ++ch) {
+      if (ch > 0 && kt <= LIST) {
+        scan_lists(ch - 1);
+      } else if (ch > 0) {
+        flag_queries();
+        sm90::named_barrier(1, 32 * WORKERS);  // the flags of chunk ch - 1
+        merge_flagged(ch - 1);
+      }
+      sm90::named_barrier(1, 32 * WORKERS);  // the lists hold chunk ch - 1
+      if (ch == nch) break;
+      // the chunk's row data, folded: a dead row (masked, past the slice or
+      // the scanned rows) scales by NaN
+      float rs[2], nn[2];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = 0;
-
-    for (int s = 0; s < nks; ++s) {
-      sm90::cp_async_wait<NST - 2>();
-      __syncthreads();
-      if (s + NST - 1 < nks) load_stage(s + NST - 1);
-      sm90::cp_async_commit();
-      const uint8_t* buf = ring + (s % NST) * (RC * CS) + b_off;
-      const int qstage = (s % NST) * (QB * QS);  // the streamed form's query stage
+      for (int h = 0; h < 2; ++h) {
+        const int col = r_begin + ch * R + rr0 + 8 * h;
+        const long long tt = base + col;
+        const bool live = col < r_lim && (mask == nullptr || mask[tt] != 0);
+        rs[h] = live ? (scales != nullptr ? scales[tt] : 1.0f) : __int_as_float(0x7fc00000);
+        nn[h] = live && norms != nullptr ? norms[tt] : 0.0f;
+      }
+      for (int ks = 0; ks < nks; ++ks) {
+        issue_stage(ks);
+        sm90::wgmma_wait<1>();  // all but the last stage's products are done
+        sm90::fence_regs(acc);
+        release(1);
+      }
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      release(0);
 #pragma unroll
-      for (int sub = 0; sub < KS / 32; ++sub) {
-        const int kb = s * KS + sub * 32;  // corpus byte of this 32-byte step
-        if (kb < rowc) {
-          if constexpr (MODE == 1) {
-            // int8 codes: one ldmatrix.x4 holds 16 rows x 32 codes (two k16
-            // steps of two n-tiles), widened to bf16 in registers; the
-            // k order within a k16 step is permuted (logical 2t + j <-
-            // physical 4t + j, 8 + 2t + j <- 4t + 2 + j) the same way for
-            // the queries, whose fragments are then 8-byte loads
-            uint32_t bb[4][4];
+      for (int j = 0; j < QN / 8; ++j) {
 #pragma unroll
-            for (int jp = 0; jp < 4; ++jp) sm90::ldmatrix_x4(buf + jp * 16 * CS + sub * 32, bb[jp]);
+        for (int e = 0; e < 2; ++e) {
+          const int q = 8 * j + 2 * t + e;
+          const float qs = MODE == 0 ? qsc[q] : 1.0f;
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              if (kb + h * 16 < rowc) {
-                // the resident rows hold the whole query, a stage its k-slice
-                const uint8_t* qa =
-                    STREAMED ? sq + qstage + (wm * 16 + gid) * QS + 2 * (sub * 32 + h * 16) + tig * 8
-                             : sq + (wm * 16 + gid) * QS + 2 * (kb + h * 16) + tig * 8;
-                const uint2 lo = *reinterpret_cast<const uint2*>(qa);
-                const uint2 hi = *reinterpret_cast<const uint2*>(qa + 8 * QS);
-                const uint32_t a[4] = {lo.x, hi.x, lo.y, hi.y};
-#pragma unroll
-                for (int jp = 0; jp < 4; ++jp) {
-                  uint32_t x0, x1;
-                  sm90::s8x4_to_bf16x2(bb[jp][h], x0, x1);
-                  sm90::mma_bf16_16816(acc[2 * jp], a, x0, x1);
-                  sm90::s8x4_to_bf16x2(bb[jp][2 + h], x0, x1);
-                  sm90::mma_bf16_16816(acc[2 * jp + 1], a, x0, x1);
-                }
-              }
-            }
-          } else {
-            uint32_t a[4];
-            sm90::ldmatrix_x4(STREAMED ? a_row + qstage + sub * 32 : a_row + kb, a);
-#pragma unroll
-            for (int jp = 0; jp < 4; ++jp) {
-              uint32_t bb[4];
-              sm90::ldmatrix_x4(buf + jp * 16 * CS + sub * 32, bb);
-              if constexpr (MODE == 0) {
-                sm90::mma_s8_16832(acc[2 * jp], a, bb[0], bb[1]);
-                sm90::mma_s8_16832(acc[2 * jp + 1], a, bb[2], bb[3]);
-              } else {
-                sm90::mma_bf16_16816(acc[2 * jp], a, bb[0], bb[1]);
-                sm90::mma_bf16_16816(acc[2 * jp + 1], a, bb[2], bb[3]);
-              }
-            }
+          for (int h = 0; h < 2; ++h) {
+            float v;
+            if constexpr (MODE == 0)
+              v = __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + e]), qs);
+            else
+              v = acc[4 * j + 2 * h + e];
+            scores[q * SR + rr0 + 8 * h] = __fmaf_rn(two, __fmul_rn(v, rs[h]), -nn[h]);
           }
         }
       }
+      sm90::named_barrier(1, 32 * WORKERS);  // the scores hold chunk ch
     }
-    sm90::cp_async_wait<0>();
-    __syncthreads();
-
-    // the chunk's scores over the drained ring, in the reference's order:
-    // (s * qscale) * row_scale, then 2 s - norm, then the mask
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int cc = wn * 64 + j * 8 + 2 * tig + e;
-        const int col = r0 + cc;
-        const long long t = base + col;
-        const bool live = col < r_end && t < N && (mask == nullptr || mask[t] != 0);
-        const float rs = (scales != nullptr && live) ? scales[t] : 1.0f;
-        const float nn = (norms != nullptr && live) ? norms[t] : 0.0f;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float v;
-          if constexpr (MODE == 0) {
-            v = __fmul_rn(__int2float_rn(acc[j][2 * h + e]), qsc[h]);
-          } else {
-            v = acc[j][2 * h + e];
-          }
-          if (scales != nullptr) v = __fmul_rn(v, rs);
-          if (norms != nullptr) v = __fsub_rn(__fmul_rn(2.0f, v), nn);
-          ss[(wm * 16 + gid + 8 * h) * SS + cc] = live ? v : -INFINITY;
-        }
-      }
-    }
-    __syncthreads();
-
-    // a warp per query: the chunk's top-kp merged into the running list
-    for (int qi = warp; qi < QB && b0 + qi < B; qi += WARPS) {
-      const float* row = ss + qi * SS + lane * E;
-      const float4 v0 = *reinterpret_cast<const float4*>(row);
-      const float4 v1 = *reinterpret_cast<const float4*>(row + 4);
-      const float v[E] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-      u64* L = lists + qi * kp;
-      const u64 thr = L[kt - 1];
-      u64 k[E];
-      bool any = false;
-#pragma unroll
-      for (int j = 0; j < E; ++j) {
-        k[j] = make_key(v[j], r0 + lane * E + j);
-        any |= k[j] > thr;
-      }
-      if (!__any_sync(0xffffffffu, any)) continue;
-      if (kp == E)
-        warp_top_rounds(k, kt);  // kt <= 8: cheaper than a network of 8
-      else
-        warp_top(k, kp, lane);
-      merge_list(k, L, kp, lane & (G - 1));
-      __syncwarp();
-      if (lane < G) {
-#pragma unroll
-        for (int j = 0; j < E; ++j) L[lane * E + j] = k[j];
-      }
-      __syncwarp();
-    }
-    __syncthreads();
+    if (kt <= 2)
+      finish_rows<2, PARTS>(lv2, lc2, lists + lq * kp, lpart == 0 && lq < nb, kt);
+    else if (kt <= LIST)
+      finish_rows<LIST, PARTS>(lv8, lc8, lists + lq * kp, lpart == 0 && lq < nb, kt);
   }
 
-  // the tile's slices, through distributed shared memory: block r merges
-  // the lists of queries r, r + S, ... in slice order and writes them
-  sm90::cp_async_wait<0>();  // an empty slice never waited for its queries
+  // the tile's slices: block r copies the lists of queries r, r + S, ..
+  // from every block of the cluster (distributed shared memory), then
+  // merges them in slice order and writes them
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
-  {
-    const int g = lane & (G - 1);
-    int m = 0;
-    for (int qi = slice; qi < QB && b0 + qi < B; qi += S, ++m) {
-      if (m % WARPS != warp) continue;
-      u64 k[E];
-      const u64* L0 = cluster.map_shared_rank(lists, 0) + qi * kp;
+  const int owned = nb > slice ? (nb - slice + S - 1) / S : 0;
+  if (S > 1) {
+    for (int idx = tid; idx < owned * S * kp; idx += THREADS) {
+      const int m = idx / (S * kp), r = idx / kp % S, i = idx % kp;
+      gathered[idx] = cluster.map_shared_rank(lists, r)[(slice + S * m) * kp + i];
+    }
+  }
+  cluster.sync();  // every copy made: no block reads another's lists any more
+  const int G = kp / E;
+  const int g = lane & (G - 1);
+  for (int m = warp; m < owned; m += WARPS) {
+    const int qi = slice + S * m;
+    const u64* Lm = S > 1 ? gathered + m * S * kp : lists + qi * kp;
+    u64 k[E];
 #pragma unroll
-      for (int j = 0; j < E; ++j) k[j] = L0[g * E + j];
-      for (int r = 1; r < S; ++r) merge_list(k, cluster.map_shared_rank(lists, r) + qi * kp, kp, g);
-      if (lane < G) {
-        const long long out0 = (static_cast<long long>(tile_idx) * B + b0 + qi) * kt;
+    for (int j = 0; j < E; ++j) k[j] = Lm[g * E + j];
+    for (int r = 1; r < S; ++r) merge_list(k, Lm + r * kp, kp, g);
+    if (lane < G) {
+      const long long out0 = (static_cast<long long>(tile_idx) * B + b0 + qi) * kt;
 #pragma unroll
-        for (int j = 0; j < E; ++j) {
-          const int i = lane * E + j;
-          if (i < kt) {
-            // once only -inf is left, every further slot is (-inf, column 0)
-            out_vals[out0 + i] = k[j] == 0ull ? -INFINITY : key_value(k[j]);
-            out_ids[out0 + i] = static_cast<int>(base + (k[j] == 0ull ? 0 : key_col(k[j])));
-          }
+      for (int j = 0; j < E; ++j) {
+        const int i = lane * E + j;
+        if (i < kt) {
+          // once only -inf is left, every further slot is (-inf, column 0)
+          out_vals[out0 + i] = k[j] == 0ull ? -INFINITY : key_value(k[j]);
+          out_ids[out0 + i] = static_cast<int>(base + (k[j] == 0ull ? 0 : key_col(k[j])));
         }
       }
     }
   }
-  cluster.sync();  // no block leaves while another still reads its lists
 }
 
-template <int MODE, bool STREAMED>
-int launch_mode(const void* q, const float* qscale, const void* c, const float* scales,
-                const float* norms, const uint8_t* mask, int B, int N, int D, int tile,
-                int num_tiles, int kt, int kp, int slices, int slice_rows, float* out_vals,
-                int* out_ids, cudaStream_t stream) {
-  const size_t smem = smem_bytes(MODE, D, kp, STREAMED);
-  auto kern = dense_topk_tcs_kernel<MODE, STREAMED>;
+template <int MODE, int QN>
+int launch_qn(const CUtensorMap& qmap, const CUtensorMap& cmap, const float* qscale,
+              const float* scales, const float* norms, const uint8_t* mask, int B, int N, int D,
+              int tile, int num_tiles, int kt, int kp, int nst, int slices, int slice_rows,
+              float* out_vals, int* out_ids, cudaStream_t stream) {
+  const size_t smem = smem_bytes(MODE, QN, kt, nst);
+  auto kern = dense_topk_tcs_kernel<MODE, QN>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   // the query blocks of a tile slice run together, so the slice is read
   // from HBM once and from L2 by its neighbours
-  cfg.gridDim = dim3((B + QB - 1) / QB, num_tiles, slices);
+  cfg.gridDim = dim3((B + QN - 1) / QN, num_tiles, slices);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -1258,47 +1494,60 @@ int launch_mode(const void* q, const float* qscale, const void* c, const float* 
   attr[0].val.clusterDim.z = slices;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kern, q, qscale, c, scales, norms, mask, B, N, D, tile, kt, kp,
-                           slice_rows, out_vals, out_ids);
+  err = cudaLaunchKernelEx(&cfg, kern, qmap, cmap, qscale, scales, norms, mask, B, N, D, tile, kt,
+                           kp, nst, slice_rows, out_vals, out_ids);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool STREAMED>
-int launch_form(int mode, const void* q, const float* qscale, const void* c, const float* scales,
-                const float* norms, const uint8_t* mask, int B, int N, int D, int tile,
-                int num_tiles, int kt, int kp, int slices, int slice_rows, float* out_vals,
-                int* out_ids, cudaStream_t s) {
-  switch (mode) {
-    case 0:
-      return launch_mode<0, STREAMED>(q, qscale, c, scales, norms, mask, B, N, D, tile, num_tiles,
-                                      kt, kp, slices, slice_rows, out_vals, out_ids, s);
-    case 1:
-      return launch_mode<1, STREAMED>(q, qscale, c, scales, norms, mask, B, N, D, tile, num_tiles,
-                                      kt, kp, slices, slice_rows, out_vals, out_ids, s);
-    case 2:
-      return launch_mode<2, STREAMED>(q, qscale, c, scales, norms, mask, B, N, D, tile, num_tiles,
-                                      kt, kp, slices, slice_rows, out_vals, out_ids, s);
+template <int MODE>
+int launch_mode(int qn, const CUtensorMap& qmap, const CUtensorMap& cmap, const float* qscale,
+                const float* scales, const float* norms, const uint8_t* mask, int B, int N, int D,
+                int tile, int num_tiles, int kt, int kp, int nst, int slices, int slice_rows,
+                float* out_vals, int* out_ids, cudaStream_t s) {
+  switch (qn) {
+    case 16:
+      return launch_qn<MODE, 16>(qmap, cmap, qscale, scales, norms, mask, B, N, D, tile, num_tiles,
+                                 kt, kp, nst, slices, slice_rows, out_vals, out_ids, s);
+    case 64:
+      return launch_qn<MODE, 64>(qmap, cmap, qscale, scales, norms, mask, B, N, D, tile, num_tiles,
+                                 kt, kp, nst, slices, slice_rows, out_vals, out_ids, s);
+    case 128:
+      return launch_qn<MODE, 128>(qmap, cmap, qscale, scales, norms, mask, B, N, D, tile,
+                                  num_tiles, kt, kp, nst, slices, slice_rows, out_vals, out_ids, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-int launch(int mode, const void* q, const float* qscale, const void* c, const float* scales,
-           const float* norms, const uint8_t* mask, int B, int N, int D, int tile,
-           int num_tiles, int kt, int slices, int slice_rows, int streamed, float* out_vals,
-           int* out_ids, cudaStream_t s) {
-  if (kt < 1 || kt > MAX_KT || D > (streamed ? MAX_D_STREAMED : MAX_D) || D % 16 != 0 ||
-      slices < 1 || slices > MAX_SLICES || slice_rows < 1 || slice_rows % RC != 0 ||
-      static_cast<long long>(slices) * slice_rows < tile)
+int launch(int mode, const void* qmap_in, const void* cmap_in, int q_box, int c_box,
+           const float* qscale, const float* scales, const float* norms, const uint8_t* mask,
+           int B, int N, int D, int tile, int num_tiles, int kt, int qn, int nst, int slices,
+           int slice_rows, float* out_vals, int* out_ids, cudaStream_t s) {
+  if (mode < 0 || mode > 2 || kt < 1 || kt > MAX_KT || D < 16 || D > MAX_D || D % 16 != 0 ||
+      B < 1 || N < 1 || tile < 1 || num_tiles != (N + tile - 1) / tile || q_box != qn ||
+      c_box != R || nst < 2 || nst > MAX_STAGES || slices < 1 || slices > MAX_SLICES ||
+      slice_rows < R || slice_rows % R != 0 || static_cast<long long>(slices) * slice_rows < tile ||
+      qmap_in == nullptr || cmap_in == nullptr || (mode == 0 && qscale == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  int kp = E;
-  while (kp < kt) kp <<= 1;
-  if (streamed)
-    return launch_form<true>(mode, q, qscale, c, scales, norms, mask, B, N, D, tile, num_tiles,
-                             kt, kp, slices, slice_rows, out_vals, out_ids, s);
-  return launch_form<false>(mode, q, qscale, c, scales, norms, mask, B, N, D, tile, num_tiles, kt,
-                            kp, slices, slice_rows, out_vals, out_ids, s);
+  const int kp = kp_of(kt);
+  if (smem_bytes(mode, qn, kt, nst) > SMEM_MAX || !merge_fits(mode, qn, kt, nst))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // by value into the kernel's parameters (64-byte aligned copies)
+  CUtensorMap qmap, cmap;
+  memcpy(&qmap, qmap_in, sizeof(CUtensorMap));
+  memcpy(&cmap, cmap_in, sizeof(CUtensorMap));
+  switch (mode) {
+    case 0:
+      return launch_mode<0>(qn, qmap, cmap, qscale, scales, norms, mask, B, N, D, tile, num_tiles,
+                            kt, kp, nst, slices, slice_rows, out_vals, out_ids, s);
+    case 1:
+      return launch_mode<1>(qn, qmap, cmap, qscale, scales, norms, mask, B, N, D, tile, num_tiles,
+                            kt, kp, nst, slices, slice_rows, out_vals, out_ids, s);
+    default:
+      return launch_mode<2>(qn, qmap, cmap, qscale, scales, norms, mask, B, N, D, tile, num_tiles,
+                            kt, kp, nst, slices, slice_rows, out_vals, out_ids, s);
+  }
 }
 
 }  // namespace tcs
@@ -1334,21 +1583,21 @@ extern "C" int dense_topk_launch(int mode, const void* q, const float* qscale,
   }
 }
 
-// A tensor map of the register-list variant, written (128 bytes, a
-// CUtensorMap) to `map`.  d > 0: a row-major int8 [rows, d] array at
-// `base` (d % 16 == 0) in boxes of 128 bytes x box_rows rows with the
-// 128-byte swizzle; d = 0: a vector of `rows` elements of elem_bytes (4:
-// f32 scales or norms, 1: mask bytes) in boxes of box_rows (a [1, rows]
-// matrix: load its boxes at (x, 0)).  Zeros outside
-// the array.  `base` 16-byte aligned.  Returns 0, cudaErrorInvalidValue
-// outside those shapes, 1000 + the CUresult of a failed encode, or 999
-// where the driver has no cuTensorMapEncodeTiled.
+// A tensor map of the tensor-core variants, written (128 bytes, a
+// CUtensorMap) to `map`.  d > 0: a row-major [rows, d] matrix at `base` of
+// int8 (elem_bytes 1) or bf16 (2) elements, d % 16 == 0, in boxes of 128
+// bytes (128 or 64 elements) x box_rows rows with the 128-byte swizzle;
+// d = 0: a vector of `rows` elements of elem_bytes (4: f32 scales or norms,
+// 1: mask bytes) in boxes of box_rows (a [1, rows] matrix: load its boxes
+// at (x, 0)).  Zeros outside the array.  `base` 16-byte aligned.  Returns
+// 0, cudaErrorInvalidValue outside those shapes, 1000 + the CUresult of a
+// failed encode, or 999 where the driver has no cuTensorMapEncodeTiled.
 extern "C" int dense_topk_tc_map(void* map, const void* base, long long rows, int d,
                                  int elem_bytes, int box_rows) {
   const bool matrix = d > 0;
   if (rows < 1 || rows > 0x7fffffffLL || box_rows < 1 || box_rows > 256 ||
       reinterpret_cast<uintptr_t>(base) % 16 != 0 ||
-      (matrix ? (d % 16 != 0 || elem_bytes != 1)
+      (matrix ? (d % 16 != 0 || (elem_bytes != 1 && elem_bytes != 2))
               : ((elem_bytes != 1 && elem_bytes != 4) || box_rows * elem_bytes % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   tc::EncodeTiled encode = tc::encode_tiled();
@@ -1357,10 +1606,12 @@ extern "C" int dense_topk_tc_map(void* map, const void* base, long long rows, in
   CUresult r;
   if (matrix) {
     const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows)};
-    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d)};
-    const cuuint32_t box[2] = {static_cast<cuuint32_t>(tc::KS), static_cast<cuuint32_t>(box_rows)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * elem_bytes};
+    const cuuint32_t box[2] = {static_cast<cuuint32_t>(tc::KS / elem_bytes),
+                               static_cast<cuuint32_t>(box_rows)};
     const cuuint32_t elem_strides[2] = {1, 1};
-    r = encode(&m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box,
+    r = encode(&m, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+               2, const_cast<void*>(base), dims, strides, box,
                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   } else {
@@ -1400,20 +1651,26 @@ extern "C" int dense_topk_tc_launch(const void* qmap, const void* cmap, const vo
 }
 
 // The tensor-core variant with sorted selection: modes 0 (int8 x int8),
-// 1 (int8 codes, bf16 queries) and 2 (bf16 x bf16), 1 <= kt <= 128,
-// D % 16 == 0; each tile's rows split into `slices` slices of
-// `slice_rows` rows (a multiple of 256), the blocks of one cluster
-// (slices <= 8, slices * slice_rows >= tile).  `streamed` = 0 holds the
-// query block whole in shared memory (D <= 1024); 1 streams its k-slices
-// through a ring beside the corpus's (D <= 65536: int32 sums exact), the
-// same sums in the same order, so the same bits.  Same operands and output
-// as dense_topk_launch.  Returns the cudaError_t of the launch (0 =
+// 1 (int8 codes, bf16 queries) and 2 (bf16 x bf16), 1 <= kt <= 128, D %
+// 16 == 0, D <= 65536.  Tensor maps from dense_topk_tc_map: qmap, the
+// queries [B, D] (int8 in mode 0, else bf16) in boxes of q_box = qn rows;
+// cmap, the corpus's first N rows (int8 in modes 0 and 1, bf16 in mode 2)
+// in boxes of c_box = 128 rows.  `shape` holds twelve ints, {q_box, c_box,
+// B, N, D, tile, num_tiles, kt, qn, nst, slices, slice_rows} (one argument,
+// which a caller builds once a shape): qn (16, 64 or 128) queries a block,
+// nst (2 to 4) ring stages, within the block's 232,448 bytes of shared
+// memory (tcs::smem_bytes); each tile's rows split into `slices` slices of
+// `slice_rows` rows (a multiple of 128), the blocks of one cluster (slices
+// <= 8, slices * slice_rows >= tile).  The row data, qscale and the output
+// as dense_topk_launch's.  Returns the cudaError_t of the launch (0 =
 // success); cudaErrorInvalidValue outside its shapes.
-extern "C" int dense_topk_tcs_launch(int mode, const void* q, const float* qscale, const void* c,
-                                     const float* scales, const float* norms,
-                                     const uint8_t* mask, int B, int N, int D, int tile,
-                                     int num_tiles, int kt, int slices, int slice_rows,
-                                     int streamed, float* out_vals, int* out_ids, void* stream) {
-  return tcs::launch(mode, q, qscale, c, scales, norms, mask, B, N, D, tile, num_tiles, kt, slices,
-                     slice_rows, streamed, out_vals, out_ids, static_cast<cudaStream_t>(stream));
+extern "C" int dense_topk_tcs_launch(int mode, const void* qmap, const void* cmap,
+                                     const int* shape, const float* qscale, const float* scales,
+                                     const float* norms, const uint8_t* mask, float* out_vals,
+                                     int* out_ids, void* stream) {
+  if (shape == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int* h = shape;
+  return tcs::launch(mode, qmap, cmap, h[0], h[1], qscale, scales, norms, mask, h[2], h[3], h[4],
+                     h[5], h[6], h[7], h[8], h[9], h[10], h[11], out_vals, out_ids,
+                     static_cast<cudaStream_t>(stream));
 }

@@ -6,26 +6,30 @@ is ``csrc/dense_topk.cu`` (CUDA C++ for sm_90a, built by ``_build.py``)
 in three variants, chosen by shape (``kernel_variant``):
 
 * ``"tcs"``, the tensor cores for every mode but f32 (int8 x int8, int8
-  codes with bf16 queries, bf16 x bf16) at ``kt <= TC_MAX_KT`` and any
-  D: per-tile lists selected from scores in shared memory (rounds of a
-  warp max for kt <= 8, bitonic networks above), each tile's rows split
-  over the blocks of a cluster (``tcs_split``) where the tiles alone
-  would leave the card idle.  Up to ``TC_MAX_D`` a block holds its
-  queries whole in shared memory; above it (``tcs_streams``: the remote
-  embeddings of 1,536 to 4,096 dimensions) their k-slices stream through
-  a ring beside the corpus's, the same sums in the same order.  What
-  bounds it there: the bytes of the rows (25.3 MB at 8,224 x 1,536 bf16,
-  0.0075 ms at 3.35 TB/s), read at B = 1 by 33 busy blocks of 40 (5
-  tiles split 8 ways, the last tile 32 rows), so by the ring's latency:
-  each block keeps three 64-byte k-slices of its 256 rows in flight;
+  codes with bf16 queries, bf16 x bf16) at ``kt <= TC_MAX_KT`` and any D to
+  ``TCS_MAX_D``, in one form: a block of 16, 64 or 128 queries
+  (``tcs_geometry``: by the batch, then the shared-memory budget) against a
+  slice of a tile in chunks of ``TCS_RC`` rows, a TMA ring of 128-byte
+  k-slices of the rows and the queries, ``wgmma`` with the rows as M and
+  the queries as N, the epilogued scores in a buffer of their own, from
+  which each query's kt best are kept in register lists (kt <= 8) or, by
+  twelve warps, in sorted lists the few scores above the kt-th merge into
+  by rank; each tile's rows split over the blocks of a cluster
+  (``tcs_split``) where the tiles alone would leave the card idle.  What
+  bounds it: at scale the L2 stream of the k-slices and the epilogue and
+  selection, which the products do not overlap; at the served shapes the
+  launch, the ring's latency and a slice's first selection;
 * ``"tc"``, the int8 x int8 kernel with register lists (``kt <=
   LIST_MAX_KT``, any D up to ``LIST_MAX_D``), taken where its work items
   (a tile against a block of ``LIST_QB`` queries) fill the card: a
   persistent grid of one block an SM, a TMA ring of 128-byte k-slices of
   the queries and of ``LIST_RC`` corpus rows, ``wgmma`` s8 from shared
   memory in two consumer warpgroups, each chunk's epilogue during the
-  next chunk's products.  The launch takes the tensor maps of
-  ``list_tensor_maps``, encoded by the library for each call;
+  next chunk's products.  Both tensor-core launches take TMA maps
+  (``list_tensor_maps``, ``tcs_tensor_maps``), encoded by the library and
+  cached (``_tensor_map``): a served call encodes only its new queries'
+  map, and takes the rest of its launch from its shape's plan
+  (``_tcs_plan``);
 * ``"simt"`` for the rest (f32, kt above the cap).
 
 ``tc_launches`` counts every tensor-core launch (``tc_mode_launches``
@@ -44,8 +48,10 @@ of it a block of the kernel scans.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
+import threading
 from typing import Optional
 
 import torch
@@ -62,16 +68,22 @@ MODE_BF16 = 2
 MODE_F32 = 3
 
 # the tensor-core route's shapes: kt <= TC_MAX_KT (the sorted lists of
-# "tcs"); the register lists of "tc" hold up to LIST_MAX_KT.  The resident
-# form of "tcs" holds a block's queries whole for D <= TC_MAX_D and streams
-# them above it; "tc" streams them at every D
+# "tcs"); the register lists of "tc" hold up to LIST_MAX_KT
 TC_MAX_KT = 128
-TC_MAX_D = 1024
 LIST_MAX_KT = 8
-# "tcs": queries a block, rows a chunk, at most a cluster's blocks a tile
-TCS_QB = 32
-TCS_RC = 256
+# "tcs": corpus rows a chunk (the wgmma's M, 64 a consumer warpgroup),
+# bytes of a row a k-slice, the block's query counts (the wgmma's N),
+# selecting warps, ring stages at most, at most a cluster's blocks a
+# tile; int32 sums of any int8 codes are exact to TCS_MAX_D
+TCS_RC = 128
+TCS_KS = 128
+TCS_QN = (16, 64, 128)
+TCS_WORKERS = 12  # warps that select (the 8 consumers and 4 more)
+TCS_MAX_STAGES = 4
 TCS_MAX_SLICES = 8
+TCS_MAX_D = 65536
+TCS_SR = TCS_RC + 4  # the score buffer's row stride (floats)
+TCS_WIDE = 4 * 64 * TCS_KS  # mode 1: both consumer warpgroups' widened codes
 # "tc": queries a work item (two consumer warpgroups of 64), corpus rows a
 # chunk (the wgmma's N), bytes of a row a ring stage (one 128-byte swizzle
 # row), ring stages, slots of a chunk's row data; int32 sums of any int8
@@ -129,8 +141,7 @@ def _lib() -> ctypes.CDLL:
     lib.dense_topk_tc_launch.argtypes = [p, p, p, p, p, i, i, p, i, i, i, i,
                                          i, i, i, p, p, p]
     lib.dense_topk_tc_launch.restype = i
-    lib.dense_topk_tcs_launch.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i,
-                                          i, i, i, i, p, p, p]
+    lib.dense_topk_tcs_launch.argtypes = [i, p, p, p, p, p, p, p, p, p, p]
     lib.dense_topk_tcs_launch.restype = i
     return lib
 
@@ -141,16 +152,19 @@ def _sm_count(index: int) -> int:
 
 
 def _mode(q: torch.Tensor, values: torch.Tensor) -> int:
-    if q.dtype == torch.int8 and values.dtype == torch.int8:
+    return _dtype_mode(q.dtype, values.dtype)
+
+
+def _dtype_mode(q_dtype: torch.dtype, c_dtype: torch.dtype) -> int:
+    if q_dtype == torch.int8 and c_dtype == torch.int8:
         return MODE_INT8
-    if q.dtype == torch.bfloat16 and values.dtype == torch.int8:
+    if q_dtype == torch.bfloat16 and c_dtype == torch.int8:
         return MODE_INT8_BF16
-    if q.dtype == torch.bfloat16 and values.dtype == torch.bfloat16:
+    if q_dtype == torch.bfloat16 and c_dtype == torch.bfloat16:
         return MODE_BF16
-    if q.dtype == torch.float32 and values.dtype == torch.float32:
+    if q_dtype == torch.float32 and c_dtype == torch.float32:
         return MODE_F32
-    raise ValueError(f"no kernel mode for queries {q.dtype} x corpus "
-                     f"{values.dtype}")
+    raise ValueError(f"no kernel mode for queries {q_dtype} x corpus {c_dtype}")
 
 
 def kernel_variant(mode: int, kt: int, d: int, b: int, num_tiles: int,
@@ -222,25 +236,132 @@ def list_tensor_maps(b: int, n: int, d: int, scales: bool = True,
     return geo
 
 
-def tcs_streams(d: int) -> bool:
-    """Whether a "tcs" launch streams its query block's k-slices through
-    shared memory (``d > TC_MAX_D``) instead of holding the block whole.
-    Both forms take the same sums in the same order: the same bits."""
-    return d > TC_MAX_D
+def tcs_stage_bytes(mode: int, qn: int) -> int:
+    """A "tcs" ring stage: one 128-byte k-slice of the chunk's ``TCS_RC``
+    rows (128 int8 codes or 64 bf16) and of the block's ``qn`` queries (the
+    int8-codes mode: 128 bf16 query elements, two 64-element boxes)."""
+    return TCS_RC * TCS_KS + (2 if mode == MODE_INT8_BF16 else 1) * qn * TCS_KS
 
 
-def tcs_split(b: int, num_tiles: int, tile: int,
+def tcs_kp(kt: int) -> int:
+    """The sorted lists' length: kt rounded up to a power of two, >= 8."""
+    return max(8, 1 << (kt - 1).bit_length())
+
+
+def tcs_smem_bytes(mode: int, qn: int, kt: int, nst: int) -> int:
+    """Dynamic shared memory of a "tcs" block: 1,024 bytes of slack for
+    the 128-byte swizzle's 1,024-byte period, ``nst`` ring stages, the
+    int8-codes mode's widened codes (two warpgroups x 64 rows x 128 bf16),
+    the chunk's scores (``qn`` x ``TCS_SR`` f32), the sorted lists (``qn``
+    x kp keys of 8 bytes), 128 keys of scratch for each of the
+    ``TCS_WORKERS`` selecting warps, the queries' thresholds, scales and
+    flags, and 8-byte barriers (a full and an empty one a stage).  It does not
+    depend on D: the queries stream through the ring like the rows."""
+    return (1024 + nst * tcs_stage_bytes(mode, qn)
+            + (TCS_WIDE if mode == MODE_INT8_BF16 else 0)
+            + qn * TCS_SR * 4 + qn * tcs_kp(kt) * 8 + TCS_WORKERS * TCS_RC * 8
+            + qn * 12 + nst * 16)
+
+
+def tcs_merge_fits(mode: int, qn: int, kt: int, nst: int) -> bool:
+    """Whether the cluster merge's copies (the lists of a block's queries
+    from every block of its cluster: at most ``qn + TCS_MAX_SLICES`` lists
+    of kp keys) fit over the ring, the widened codes and the scores, where
+    they go once the scan is done."""
+    return (qn + TCS_MAX_SLICES) * tcs_kp(kt) * 8 <= (
+        nst * tcs_stage_bytes(mode, qn) + (TCS_WIDE if mode == MODE_INT8_BF16 else 0)
+        + qn * TCS_SR * 4)
+
+
+def tcs_geometry(mode: int, b: int, kt: int) -> tuple[int, int]:
+    """``(qn, nst)`` of a "tcs" launch: ``qn`` queries a block, the smallest
+    of ``TCS_QN`` that holds the batch (128 above 64), or a smaller one
+    where 2 ring stages do not fit beside its lists in ``SMEM_MAX``; ``nst``
+    as many stages as fit, up to ``TCS_MAX_STAGES``."""
+    first = next((qn for qn in TCS_QN if b <= qn), TCS_QN[-1])
+    for qn in reversed(TCS_QN):
+        if qn > first:
+            continue
+        nst = min(TCS_MAX_STAGES, (SMEM_MAX - tcs_smem_bytes(mode, qn, kt, 0))
+                  // (tcs_stage_bytes(mode, qn) + 16))
+        if nst >= 2 and tcs_merge_fits(mode, qn, kt, nst):
+            return qn, nst
+    raise ValueError(f"no sorted-selection geometry fits kt={kt} in mode {mode}")
+
+
+def tcs_tensor_maps(mode: int, b: int, n: int, d: int, qn: int) -> dict:
+    """The TMA maps of a "tcs" launch: the ``[b, d]`` queries (int8 in the
+    int8 x int8 mode, else bf16) in boxes of 128 bytes x ``qn`` rows, and
+    the first ``n`` rows (the scanned ones; bf16 in the bf16 mode, else
+    int8) in boxes of 128 bytes x ``TCS_RC`` rows; 128-byte swizzle, zeros
+    past d and past the last row."""
+    return {"queries": {"rows": b, "d": d, "elem_bytes": 1 if mode == MODE_INT8 else 2,
+                        "box_rows": qn},
+            "corpus": {"rows": n, "d": d, "elem_bytes": 2 if mode == MODE_BF16 else 1,
+                       "box_rows": TCS_RC}}
+
+
+def tcs_split(b: int, num_tiles: int, tile: int, qn: int,
               sms: int = H100_SMS) -> tuple[int, int]:
-    """``(slices, slice_rows)`` of a "tcs" launch: each tile's rows in
-    ``slices`` slices of ``slice_rows`` (whole 256-row chunks), at least as
-    many as it takes to give each of ``sms`` SMs a block where the tiles
-    alone do not, at most a portable cluster of 8."""
-    blocks = -(-b // TCS_QB) * num_tiles
+    """``(slices, slice_rows)`` of a "tcs" launch whose blocks take ``qn``
+    queries: each tile's rows in ``slices`` slices of ``slice_rows`` (whole
+    ``TCS_RC``-row chunks), at least as many as it takes to give each of
+    ``sms`` SMs a block where the tiles alone do not, at most a portable
+    cluster of 8."""
+    blocks = -(-b // qn) * num_tiles
     chunks = -(-tile // TCS_RC)
     want = max(1, -(-sms // max(blocks, 1)))
     per = max(1, chunks // want, -(-chunks // TCS_MAX_SLICES))
     rows = per * TCS_RC
     return -(-tile // rows), rows
+
+
+MAP_CACHE_SIZE = 64
+_maps: "collections.OrderedDict[tuple, ctypes.Array]" = collections.OrderedDict()
+_maps_lock = threading.Lock()
+
+
+def _tensor_map(lib, ptr: int, rows: int, d: int, elem_bytes: int,
+                box_rows: int) -> ctypes.Array:
+    """The ``CUtensorMap`` (128 bytes) of one array, from a cache of the
+    last ``MAP_CACHE_SIZE`` maps used: a map is a pure function of the
+    address, the shape, the element size and the box, so an index's corpus
+    map is encoded once and a served call encodes only its new queries'
+    map.  A hit takes no lock; an encoding failure raises."""
+    key = (ptr, rows, d, elem_bytes, box_rows)
+    buf = _maps.get(key)
+    if buf is not None:
+        try:
+            _maps.move_to_end(key)
+        except KeyError:  # evicted meanwhile by another thread: still valid
+            pass
+        return buf
+    buf = ctypes.create_string_buffer(128)
+    err = lib.dense_topk_tc_map(buf, ptr, rows, d, elem_bytes, box_rows)
+    if err != 0:
+        raise RuntimeError(f"dense_topk: a tensor map failed (code {err}) for "
+                           f"{rows} x {d} elements of {elem_bytes} bytes")
+    with _maps_lock:
+        _maps[key] = buf
+        while len(_maps) > MAP_CACHE_SIZE:
+            _maps.popitem(last=False)
+    return buf
+
+
+def _encode_maps(lib, arrays: dict, geo: dict) -> tuple[list, list]:
+    """The maps of ``geo`` over ``arrays``, in ``geo``'s order, and the
+    arrays they address: one whose address is not 16-byte aligned (a map's
+    base must be) is copied first, and the copy is held until the launch is
+    queued."""
+    maps, held = [], []
+    for name, g in geo.items():
+        t = arrays[name]
+        if t.data_ptr() % 16:
+            t = t.clone()
+        held.append(t)
+        maps.append(_tensor_map(lib, t.data_ptr(), g["rows"], g["d"],
+                                g["elem_bytes"], g["box_rows"]))
+    return maps, held
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -276,23 +397,21 @@ def _launch_kernel(q, qscale, values, scales, norms, mask, n, tile, kt):
     out_i = torch.empty((num_tiles, b, kt), dtype=torch.int32, device=dev)
     if b == 0 or num_tiles == 0:
         return out_v, out_i
-    mask_u8 = None if mask is None else mask.view(torch.uint8)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    operands = (q.data_ptr(), _ptr(qscale), values.data_ptr(), _ptr(scales),
-                _ptr(norms), _ptr(mask_u8), b, n, d, tile, num_tiles, kt,
-                out_v.data_ptr(), out_i.data_ptr(), stream)
     sms = _sm_count(dev.index if dev.index is not None else
                     torch.cuda.current_device())
     variant = kernel_variant(mode, kt, d, b, num_tiles, sms)
     if variant == "tc":
-        err = _launch_list(lib, q, qscale, values, scales, norms, mask_u8, n,
+        err = _launch_list(lib, q, qscale, values, scales, norms, mask, n,
                            tile, kt, out_v, out_i, stream, sms)
     elif variant == "tcs":
-        slices, rows = tcs_split(b, num_tiles, tile, sms)
-        err = lib.dense_topk_tcs_launch(mode, *operands[:12], slices, rows,
-                                        int(tcs_streams(d)), *operands[12:])
+        err = _launch_tcs(lib, q, qscale, values, scales, norms, mask, n,
+                          tile, kt, out_v, out_i, stream, sms)
     else:
-        err = lib.dense_topk_launch(mode, *operands)
+        err = lib.dense_topk_launch(mode, q.data_ptr(), _ptr(qscale),
+                                    values.data_ptr(), _ptr(scales), _ptr(norms),
+                                    _ptr(mask), b, n, d, tile, num_tiles, kt,
+                                    out_v.data_ptr(), out_i.data_ptr(), stream)
     if err != 0:
         # e.g. a tile whose score block exceeds the card's shared memory
         raise RuntimeError(f"dense_topk {variant} kernel launch failed: "
@@ -303,7 +422,7 @@ def _launch_kernel(q, qscale, values, scales, norms, mask, n, tile, kt):
 
 def _launch_list(lib, q, qscale, values, scales, norms, mask, n, tile, kt,
                  out_v, out_i, stream, sms: int) -> int:
-    """The "tc" launch: its tensor maps encoded, then the kernel over
+    """The "tc" launch: its tensor maps (cached), then the kernel over
     ``list_grid`` blocks.  Returns the launch's cudaError (an encoding
     failure raises)."""
     b, d = q.shape
@@ -315,23 +434,51 @@ def _launch_list(lib, q, qscale, values, scales, norms, mask, n, tile, kt,
               "mask": mask}
     geo = list_tensor_maps(b, n, d, scales is not None, norms is not None,
                            mask is not None)
-    maps = dict.fromkeys(arrays)
-    for name, g in geo.items():
-        t = arrays[name]
-        if t.data_ptr() % 16:  # a map's base is 16-byte aligned: a fresh copy is
-            t = t.clone()
-            arrays[name] = t  # (held until the launch is queued)
-        buf = ctypes.create_string_buffer(128)  # a CUtensorMap
-        err = lib.dense_topk_tc_map(buf, t.data_ptr(), g["rows"], g["d"],
-                                    g["elem_bytes"], g["box_rows"])
-        if err != 0:
-            raise RuntimeError(f"dense_topk tc: the {name} tensor map failed "
-                               f"(code {err})")
-        maps[name] = buf
+    maps, _held = _encode_maps(lib, arrays, geo)
+    by_name = dict(zip(geo, maps))  # an absent row map is null
     return lib.dense_topk_tc_launch(
-        *maps.values(), geo["queries"]["box_rows"], geo["corpus"]["box_rows"],
-        _ptr(qscale), b, n, d, tile, num_tiles, kt,
+        *(by_name.get(k) for k in arrays), geo["queries"]["box_rows"],
+        geo["corpus"]["box_rows"], _ptr(qscale), b, n, d, tile, num_tiles, kt,
         list_grid(b, num_tiles, sms), out_v.data_ptr(), out_i.data_ptr(), stream)
+
+
+@functools.lru_cache(maxsize=256)
+def _tcs_plan(q_dtype: torch.dtype, c_dtype: torch.dtype, b: int, n: int, d: int,
+              tile: int, kt: int, sms: int) -> tuple:
+    """What a "tcs" launch derives from its shape alone: ``(mode, shape,
+    query map geometry, corpus map geometry)``, ``shape`` the launch's
+    twelve ints (q_box, c_box, B, N, D, tile, num_tiles, kt, qn, nst,
+    slices, slice_rows) as one C array, the geometries ``_tensor_map``'s
+    arguments after the address.  Computed once a shape (a served
+    collection repeats a few; at most 256 are kept), so a call pays neither
+    ``tcs_geometry`` and ``tcs_split`` nor a conversion of each int."""
+    mode = _dtype_mode(q_dtype, c_dtype)
+    if not 1 <= kt <= TC_MAX_KT or d > TCS_MAX_D or mode == MODE_F32:
+        raise ValueError(f"the sorted-selection kernel takes int8 and bf16 at "
+                         f"kt <= {TC_MAX_KT} and D <= {TCS_MAX_D}, got mode "
+                         f"{mode}, kt={kt}, D={d}")
+    qn, nst = tcs_geometry(mode, b, kt)
+    num_tiles = -(-n // tile)
+    slices, rows = tcs_split(b, num_tiles, tile, qn, sms)
+    geo = tcs_tensor_maps(mode, b, n, d, qn)
+    shape = (ctypes.c_int * 12)(qn, TCS_RC, b, n, d, tile, num_tiles, kt, qn, nst,
+                                slices, rows)
+    return (mode, shape, tuple(geo["queries"].values()),
+            tuple(geo["corpus"].values()))
+
+
+def _launch_tcs(lib, q, qscale, values, scales, norms, mask, n, tile, kt,
+                out_v, out_i, stream, sms: int) -> int:
+    """The "tcs" launch: the plan of its shape (``_tcs_plan``), the queries'
+    and rows' tensor maps (cached; both arrays are 16-byte aligned, as
+    ``_launch_kernel`` checks), then the kernel.  Returns the launch's
+    cudaError (an encoding failure raises)."""
+    b, d = q.shape
+    mode, shape, qgeo, cgeo = _tcs_plan(q.dtype, values.dtype, b, n, d, tile, kt, sms)
+    return lib.dense_topk_tcs_launch(
+        mode, _tensor_map(lib, q.data_ptr(), *qgeo),
+        _tensor_map(lib, values.data_ptr(), *cgeo), shape, _ptr(qscale), _ptr(scales),
+        _ptr(norms), _ptr(mask), out_v.data_ptr(), out_i.data_ptr(), stream)
 
 
 def plain_scores(q, qscale, values, scales, norms, mask, r0: int, r1: int

@@ -148,10 +148,10 @@ def test_int8_kernel_bit_equal_at_ragged_shapes(card, force_variant, b, d, kt):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kt", [1, 2, 5])
 def test_int8_kernel_bit_equal_at_the_largest_d(card, force_variant, kt):
-    """D = 1024, where the sorted-selection kernel's resident query block
-    is at its largest; the register-list kernel streams its queries at
-    this D as at every other."""
-    n, b, d = 4100, 130, dt.TC_MAX_D
+    """D = 1,024 (the largest D of the sorted-selection kernel's former
+    resident form) at B = 130: both tensor-core kernels stream their
+    queries through their rings at this D as at every other."""
+    n, b, d = 4100, 130, 1024
     q, qs, values, scales, norms, mask = _int8_operands(
         card, b, n, d, seed=kt, masked=True, l2=True)
     args = (q, qs, values, scales, norms, mask, n, 2048, kt)
@@ -294,13 +294,12 @@ def test_bf16_tensor_core_kernel_within_tolerance(card, mode, kt):
 @pytest.mark.parametrize("mode", [dt.MODE_INT8, dt.MODE_INT8_BF16, dt.MODE_BF16])
 def test_tensor_core_kernel_above_the_resident_block(card, mode, d):
     """D above 1,024 (the remote embeddings' 1,536, 3,072 and 4,096): the
-    sorted-selection kernel streams its queries through its ring, at B 1,
-    17 and 130, kt 1 to 128, tiles of 200 and 2048 rows, with a mask (an
-    all-masked tile) and duplicate rows: int8 x int8 equals the plain
-    version bit for bit, the bf16 modes are within D * 2^-23 *
-    (max|score| + 1) with ids equal but at near-ties."""
+    sorted-selection kernel in its one form (the queries stream through
+    the ring like the rows), at B 1, 17 and 130, kt 1 to 128, tiles of 200
+    and 2048 rows, with a mask (an all-masked tile) and duplicate rows:
+    int8 x int8 equals the plain version bit for bit, the bf16 modes are
+    within D * 2^-23 * (max|score| + 1) with ids equal but at near-ties."""
     n = 5000
-    assert dt.tcs_streams(d)
     for b in (1, 17, 130):
         if mode == dt.MODE_INT8:
             q, qs, values, scales, norms, mask = _int8_operands(
@@ -328,52 +327,64 @@ def test_tensor_core_kernel_above_the_resident_block(card, mode, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [256, 1024])
+@pytest.mark.parametrize("d", [1024, 1040])
 @pytest.mark.parametrize("mode", [dt.MODE_INT8, dt.MODE_INT8_BF16, dt.MODE_BF16])
 def test_streamed_queries_give_the_resident_bits(card, monkeypatch, mode, d):
-    """Where both forms of the sorted-selection kernel fit (D <= 1,024),
-    streaming the queries through the ring gives the bits of holding them
-    whole: the same sums in the same order (B 1 and 64, kt 5 and 32)."""
+    """At D = 1,024 and 1,040 (either side of the former forms' border)
+    the one form's bits agree with the plain version (int8 x int8 bit for
+    bit, the bf16 modes within D * 2^-23 * (max|score| + 1)), and a query's
+    lists are the same bits alone and in a batch of 64 (B 1 and 64, kt 5
+    and 32, 16,384 rows: eight tiles split over clusters)."""
     n, tile = 16384, 2048
-    for b in (1, 64):
+    if mode == dt.MODE_INT8:
+        q, qs, values, scales, norms, mask = _int8_operands(
+            card, 64, n, d, seed=d, masked=True, l2=False)
+    else:
+        q, values, scales, mask = _bf16q_operands(card, mode, 64, n, d, seed=d)
+        qs = None
+    for kt in (5, 32):
+        args = (q, qs, values, scales, None, mask, n, tile, kt)
+        before = _counts(mode)
+        kv, ki = dt.tile_topk(*args)
+        assert _launched("tcs", mode, before)
+        pv, pi = dt.tile_topk_plain(*args)
         if mode == dt.MODE_INT8:
-            q, qs, values, scales, norms, mask = _int8_operands(
-                card, b, n, d, seed=d + b, masked=True, l2=False)
+            assert torch.equal(kv, pv) and torch.equal(ki, pi)
         else:
-            q, values, scales, mask = _bf16q_operands(card, mode, b, n, d, seed=d + b)
-            qs = None
-        for kt in (5, 32):
-            args = (q, qs, values, scales, None, mask, n, tile, kt)
-            assert not dt.tcs_streams(d)
-            resident = dt.tile_topk(*args)
-            with monkeypatch.context() as m:
-                m.setattr(dt, "tcs_streams", lambda _d: True)
-                before = _counts(mode)
-                streamed = dt.tile_topk(*args)
-                assert _launched("tcs", mode, before)
-            assert torch.equal(resident[0], streamed[0])
-            assert torch.equal(resident[1], streamed[1])
+            fin = torch.isfinite(pv)
+            tol = d * 2.0 ** -23 * (float(pv[fin].abs().max()) + 1.0)
+            assert_topk_match(pv.cpu(), pi.cpu(), kv.cpu(), ki.cpu(), rtol=0.0, atol=tol,
+                              scores=dt.plain_scores(*args[:6], 0, n))
+        one = dt.tile_topk(q[5:6], None if qs is None else qs[5:6], *args[2:])
+        assert torch.equal(kv[:, 5:6], one[0]) and torch.equal(ki[:, 5:6], one[1])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", [dt.MODE_INT8, dt.MODE_INT8_BF16, dt.MODE_BF16])
 @pytest.mark.parametrize("kt", [5, 32])
 def test_tensor_core_kernel_is_batch_invariant(card, mode, kt):
-    """A query's lists are the same bits alone (B = 1) and at row 37 of a
-    batch of 64, whatever the split of the tiles' rows each batch takes."""
+    """A query's lists are the same bits alone (B = 1: a block of 16, the
+    wgmma's N 16) and at row 37 of batches of 64 and 130 (blocks of 64 and
+    128: N 64 and 128; 64 for the int8-codes mode at kt 32, whose stages
+    are larger), whatever the split of the tiles' rows each batch takes."""
     n, d, tile = 16384, 256, 2048
     if mode == dt.MODE_INT8:
         q, qs, values, scales, norms, mask = _int8_operands(
-            card, 64, n, d, seed=kt, masked=True, l2=False)
+            card, 130, n, d, seed=kt, masked=True, l2=False)
     else:
-        q, values, scales, mask = _bf16q_operands(card, mode, 64, n, d, seed=kt)
+        q, values, scales, mask = _bf16q_operands(card, mode, 130, n, d, seed=kt)
         qs = None
-    full = dt.tile_topk(q, qs, values, scales, None, mask, n, tile, kt)
-    one = dt.tile_topk(q[37:38], None if qs is None else qs[37:38], values, scales,
-                       None, mask, n, tile, kt)
-    assert dt.tcs_split(64, 8, tile) == dt.tcs_split(1, 8, tile) == (8, 256)
-    assert torch.equal(full[0][:, 37:38], one[0])
-    assert torch.equal(full[1][:, 37:38], one[1])
+    rows = (values, scales, None, mask, n, tile, kt)
+    full = dt.tile_topk(q, qs, *rows)
+    mid = dt.tile_topk(q[:64], None if qs is None else qs[:64], *rows)
+    one = dt.tile_topk(q[37:38], None if qs is None else qs[37:38], *rows)
+    assert [dt.tcs_geometry(mode, b, kt)[0] for b in (64, 1)] == [64, 16]
+    assert dt.tcs_geometry(mode, 130, kt)[0] == (
+        64 if (mode, kt) == (dt.MODE_INT8_BF16, 32) else 128)
+    assert dt.tcs_split(64, 8, tile, 64) == dt.tcs_split(1, 8, tile, 16) == (8, 256)
+    for got in (full, mid):
+        assert torch.equal(got[0][:, 37:38], one[0])
+        assert torch.equal(got[1][:, 37:38], one[1])
 
 
 @pytest.mark.cuda
@@ -392,7 +403,8 @@ def test_served_shape_takes_the_split_grid(card, mode, kt):
         q, values, scales, mask = _bf16q_operands(card, mode, b, n, d, seed=3)
         qs = None
     assert dt.kernel_variant(mode, kt, d, b, n // tile, dt._sm_count(0)) == "tcs"
-    assert dt.tcs_split(b, n // tile, tile, dt._sm_count(0)) == (8, 256)
+    qn, _ = dt.tcs_geometry(mode, b, kt)
+    assert dt.tcs_split(b, n // tile, tile, qn, dt._sm_count(0)) == (8, 256)
     args = (q, qs, values, scales, None, mask, n, tile, kt)
     before = _counts(mode)
     kv, ki = dt.tile_topk(*args)

@@ -7,6 +7,8 @@ ragged N.  The CUDA kernel itself is held against the plain version by
 tests/test_torch_cuda.py (skips without a card) and by chip_smoke.py.
 """
 
+import collections
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -131,8 +133,8 @@ def test_live_rows_scan_changes_no_bit(live, per_tile_k):
     # one above each cap, and f32
     (dt.MODE_INT8, 129, 768, 1, 1, "simt"), (dt.MODE_INT8_BF16, 129, 256, 32, 8, "simt"),
     (dt.MODE_BF16, 129, 256, 64, 8, "simt"), (dt.MODE_F32, 2, 96, 20, 3, "simt"),
-    # above D = 1,024: the register lists stream their queries at every D;
-    # the sorted-selection kernel streams them there
+    # above D = 1,024: both tensor-core kernels stream their queries at
+    # every D
     (dt.MODE_INT8, 2, 1040, 512, 489, "tc"), (dt.MODE_BF16, 5, 1040, 64, 8, "tcs"),
     # the served remote-embedding collection (1,536 wide, 8,224 rows)
     (dt.MODE_BF16, 5, 1536, 1, 5, "tcs"), (dt.MODE_BF16, 32, 1536, 1, 5, "tcs"),
@@ -232,12 +234,39 @@ def test_count_launch_moves_the_variants_counters(variant, mode, moved):
     assert tuple(a - b for a, b in zip(snap(), before)) == moved
 
 
-@pytest.mark.parametrize("d,want", [(16, False), (768, False), (1024, False),
-                                    (1040, True), (1536, True), (4096, True)])
-def test_tcs_streams_queries_above_the_resident_block(d, want):
-    """The sorted-selection kernel holds a block's queries whole up to
-    D = 1,024 and streams their k-slices above it."""
-    assert dt.tcs_streams(d) is want
+@pytest.mark.parametrize("d", [16, 768, 1024, 1040, 1536, 4096])
+def test_tcs_shared_memory_budget_at_every_d(d):
+    """One form at every D: the sorted-selection kernel's shared memory (the
+    ring of k-slices, the widened codes, the scores, the sorted lists, the
+    selecting warps' scratch, the barriers) does not depend on D, since its
+    queries stream through the ring like the rows.  At kp 8 and 128, in
+    every mode and at every batch, the geometry it takes fits an H100
+    block's 232,448 bytes with 2 to 4 ring stages, the cluster merge's
+    copies fit over the ring, and the block's queries shrink as kp grows:
+    128 at kp 8, 64 at kp 128 for B = 512."""
+    for mode in (dt.MODE_INT8, dt.MODE_INT8_BF16, dt.MODE_BF16):
+        for kt in (8, 128):  # kp 8 and 128
+            for b in (1, 16, 17, 64, 65, 512):
+                qn, nst = dt.tcs_geometry(mode, b, kt)
+                assert qn in dt.TCS_QN and 2 <= nst <= dt.TCS_MAX_STAGES
+                assert qn >= min(b, 16) and (qn >= b or qn < 128 or b > 128)
+                assert dt.tcs_smem_bytes(mode, qn, kt, nst) <= dt.SMEM_MAX == 232_448
+                assert dt.tcs_merge_fits(mode, qn, kt, nst)
+                # the next stage (if any) does not fit: as many as fit
+                assert nst == dt.TCS_MAX_STAGES or \
+                    dt.tcs_smem_bytes(mode, qn, kt, nst + 1) > dt.SMEM_MAX
+                # a stage's expected bytes are its boxes, whatever d
+                geo = dt.tcs_tensor_maps(mode, b, 1000, d, qn)
+                boxes = {k: dt.TCS_KS * g["box_rows"] for k, g in geo.items()}
+                q_boxes = 2 if mode == dt.MODE_INT8_BF16 else 1
+                assert boxes["corpus"] + q_boxes * boxes["queries"] == \
+                    dt.tcs_stage_bytes(mode, qn)
+                assert geo["queries"]["d"] == geo["corpus"]["d"] == d
+        assert dt.tcs_geometry(mode, 512, 128)[0] == 64
+    assert dt.tcs_geometry(dt.MODE_BF16, 512, 8) == (128, 4)
+    assert dt.tcs_geometry(dt.MODE_INT8, 512, 32) == (128, 3)
+    assert dt.tcs_geometry(dt.MODE_BF16, 1, 32) == (16, 4)
+    assert d % 16 == 0 and d <= dt.TCS_MAX_D
 
 
 @pytest.mark.parametrize("d", [1536, 3072])
@@ -283,49 +312,68 @@ def test_int8_plain_version_is_exact_above_2_to_the_24(d):
 @pytest.mark.parametrize("b,tiles,tile,want", [
     (64, 8, 2048, (8, 256)), (1, 8, 2048, (8, 256)), (32, 8, 2048, (8, 256)),
     (32, 489, 2048, (1, 2048)), (512, 489, 2048, (1, 2048)),
-    (64, 100, 2048, (1, 2048)), (32, 40, 2048, (4, 512)), (32, 30, 2048, (8, 256)),
-    (32, 20, 2048, (8, 256)), (1, 1, 200, (1, 256)), (1, 5, 1000, (4, 256)),
-    (7, 2, 600, (3, 256))])
+    (64, 100, 2048, (2, 1024)), (32, 40, 2048, (4, 512)), (32, 30, 2048, (6, 384)),
+    (32, 20, 2048, (8, 256)), (1, 1, 200, (2, 128)), (1, 5, 1000, (8, 128)),
+    (7, 2, 600, (5, 128))])
 def test_tcs_split_fills_the_card(b, tiles, tile, want):
-    """Each tile's rows split into whole 256-row chunks over at most 8
+    """Each tile's rows split into whole 128-row chunks over at most 8
     blocks, at least as many as it takes to give the 132 SMs a block
-    each."""
-    slices, rows = dt.tcs_split(b, tiles, tile)
+    each, where a block takes the batch's query block (16 queries at B <=
+    16, 64 at B <= 64, 128 above)."""
+    qn, _ = dt.tcs_geometry(dt.MODE_BF16, b, 5)
+    assert qn == (16 if b <= 16 else 64 if b <= 64 else 128)
+    slices, rows = dt.tcs_split(b, tiles, tile, qn)
     assert (slices, rows) == want
     assert rows % dt.TCS_RC == 0 and slices * rows >= tile > (slices - 1) * rows
 
 
-def _kernel_selection_model(scores, kt, slices, rows):
-    """The "tcs" kernel's selection rule, written out: per slice, chunks of
-    256 columns; a chunk none of whose live keys beats the running list's
-    kt-th is skipped, else its top-kp merges into the list; then the
-    slices' lists merge in slice order.  Keys order value descending,
-    lowest column first; -inf is no key; missing slots are (-inf,
-    column 0)."""
-    kp = 8
-    while kp < kt:
-        kp *= 2
+def _kernel_selection_model(scores, kt, slices, rows, parts):
+    """The "tcs" kernel's selection rules, written out, per slice of
+    ``rows`` columns in chunks of 128.  kt <= 8: ``parts`` threads a query,
+    each taking every parts-th group of four columns of every chunk in
+    increasing order, skipping a group none of whose scores beats its
+    list's kt-th value, and keeping its L best (2 at kt <= 2, else 8) in a
+    list a score enters only by beating an entry strictly by value; the
+    parts' lists ranked together.  Deeper lists: a chunk's scores survive only by beating the
+    slice's list's kt-th value strictly (while the list holds fewer than
+    kt, any but -inf), and the survivors merge into the sorted list, which
+    keeps its kt best.  Then the slices' lists merge in slice order.  Keys
+    order value descending, lowest column first; -inf is no key; missing
+    slots are (-inf, column 0)."""
     b, tile = scores.shape
-    order = lambda kv: (-kv[0], kv[1])  # noqa: E731
     out_v = torch.empty((b, kt))
     out_i = torch.empty((b, kt), dtype=torch.int32)
     for qi in range(b):
         lists = []
         for s in range(slices):
-            lst = []
-            for c0 in range(s * rows, min(tile, (s + 1) * rows), dt.TCS_RC):
-                c1 = min(tile, (s + 1) * rows, c0 + dt.TCS_RC)
-                keys = [(float(scores[qi, c]), c) for c in range(c0, c1)
-                        if scores[qi, c] != float("-inf")]
-                if len(lst) >= kt and all(order(k) >= order(lst[kt - 1]) for k in keys):
-                    continue
-                top = sorted(keys, key=order)[:kp]
-                lst = sorted(lst + top, key=order)[:kp]
-            lists.append(lst)
-        merged = lists[0]
-        for lst in lists[1:]:
-            merged = sorted(merged + lst, key=order)[:kp]
-        merged = (merged + [(float("-inf"), 0)] * kt)[:kt]
+            chunks = [(c0, min(tile, (s + 1) * rows, c0 + dt.TCS_RC))
+                      for c0 in range(s * rows, min(tile, (s + 1) * rows), dt.TCS_RC)]
+            if kt <= 8:
+                size = 2 if kt <= 2 else 8
+                keys = []
+                for part in range(parts):
+                    best = []  # (-value, column), sorted, at most size
+                    for c0, c1 in chunks:
+                        for g0 in range(c0 + 4 * part, c1, 4 * parts):
+                            group = [(float(scores[qi, c]), c) for c in range(g0, min(g0 + 4, c1))]
+                            thr = -best[kt - 1][0] if len(best) >= kt else float("-inf")
+                            if max(v for v, _ in group) <= thr:
+                                continue  # the group could only take places past kt
+                            for v, c in group:
+                                if (len(best) < size and v > float("-inf")
+                                        or len(best) == size and v > -best[-1][0]):
+                                    best = sorted(best + [(-v, c)])[:size]
+                    keys += best
+                lists.append(sorted(keys)[:kt])
+                continue
+            best = []
+            for c0, c1 in chunks:
+                thr = -best[kt - 1][0] if len(best) >= kt else float("-inf")
+                best = sorted(best + [(-float(scores[qi, c]), c) for c in range(c0, c1)
+                                      if float(scores[qi, c]) > thr])[:kt]
+            lists.append(best)
+        merged = sorted(sum(lists, []))[:kt]
+        merged = ([(-v, c) for v, c in merged] + [(float("-inf"), 0)] * kt)[:kt]
         out_v[qi] = torch.tensor([v for v, _ in merged])
         out_i[qi] = torch.tensor([c for _, c in merged], dtype=torch.int32)
     return out_v, out_i
@@ -352,12 +400,87 @@ def test_sliced_selection_equals_the_plain_version(kt, b, sms):
     values = torch.zeros((n, 16))
     values[:, :b] = t(scores.T.copy())
     pv, pi = dt.tile_topk_plain(q, None, values, None, None, t(keep), n, tile, kt)
-    slices, rows = dt.tcs_split(b, num_tiles, tile, sms)
+    qn, _ = dt.tcs_geometry(dt.MODE_BF16, b, kt)
+    slices, rows = dt.tcs_split(b, num_tiles, tile, qn, sms)
     assert (slices > 1) == (sms > 1)
     masked = torch.where(t(keep)[None, :], t(scores), float("-inf"))
     masked = torch.nn.functional.pad(masked, (0, num_tiles * tile - n),
                                      value=float("-inf"))
     for ti in range(num_tiles):
         mv, mi = _kernel_selection_model(masked[:, ti * tile:(ti + 1) * tile], kt,
-                                         slices, rows)
+                                         slices, rows, 256 // qn)
         assert torch.equal(mv, pv[ti]) and torch.equal(mi + ti * tile, pi[ti])
+
+
+class _StubMapLib:
+    """The library's map and launch entry points, recording what they are
+    asked for (no card needed: nothing is launched)."""
+
+    def __init__(self):
+        self.encoded = []
+        self.launches = []
+
+    def dense_topk_tc_map(self, buf, ptr, rows, d, elem_bytes, box_rows):
+        self.encoded.append((ptr, rows, d, elem_bytes, box_rows))
+        return 0
+
+    def dense_topk_tcs_launch(self, *args):
+        self.launches.append(("tcs",) + args)
+        return 0
+
+    def dense_topk_tc_launch(self, *args):
+        self.launches.append(("tc",) + args)
+        return 0
+
+
+def test_tensor_maps_are_cached(monkeypatch):
+    """The launches' TMA maps come from a cache keyed by (address, rows, d,
+    element bytes, box rows): a second call on the same corpus encodes only
+    the new queries' map, the same queries again nothing; a new corpus, a
+    new shape (other scanned rows) or a new box (another query block)
+    encodes anew; the register-list launch shares the cache; the cache
+    keeps the last MAP_CACHE_SIZE maps."""
+    monkeypatch.setattr(dt, "_maps", collections.OrderedDict())
+    lib = _StubMapLib()
+    values = torch.zeros((5000, 256), dtype=torch.bfloat16)
+
+    def call(q, corpus, n=5000, kt=5, route=dt._launch_tcs, qscale=None, scales=None):
+        out_v = torch.empty((-(-n // 2048), q.shape[0], kt))
+        out_i = torch.empty((-(-n // 2048), q.shape[0], kt), dtype=torch.int32)
+        before = len(lib.encoded)
+        assert route(lib, q, qscale, corpus, scales, None, None, n, 2048, kt, out_v, out_i,
+                     0, dt.H100_SMS) == 0
+        return lib.encoded[before:]
+
+    q1 = torch.zeros((64, 256), dtype=torch.bfloat16)
+    first = call(q1, values)
+    assert first == [(q1.data_ptr(), 64, 256, 2, 64), (values.data_ptr(), 5000, 256, 2, 128)]
+    q2 = torch.ones((64, 256), dtype=torch.bfloat16)
+    assert call(q2, values) == [(q2.data_ptr(), 64, 256, 2, 64)]
+    assert call(q2, values) == [] and call(q1, values) == []
+    other = torch.zeros((5000, 256), dtype=torch.bfloat16)
+    assert call(q1, other) == [(other.data_ptr(), 5000, 256, 2, 128)]
+    assert call(q1, values, n=4000) == [(values.data_ptr(), 4000, 256, 2, 128)]
+    q3 = q1[:1].clone()  # one query: a block of 16, its own box
+    assert call(q3, values) == [(q3.data_ptr(), 1, 256, 2, 16)]
+    # every launch took its geometry: mode bf16, then the shape's twelve
+    # ints (the boxes, B, N, D, tile, tiles, kt, (qn, nst), the split)
+    qn, nst = dt.tcs_geometry(dt.MODE_BF16, 64, 5)
+    assert lib.launches[0][1] == dt.MODE_BF16
+    assert list(lib.launches[0][4]) == [qn, dt.TCS_RC, 64, 5000, 256, 2048, 3, 5, qn, nst,
+                                        *dt.tcs_split(64, 3, 2048, qn)]
+    assert list(lib.launches[-1][4])[2:4] == [1, 5000]  # the one query's launch
+    # the register-list launch (int8) through the same cache
+    codes = torch.zeros((5000, 256), dtype=torch.int8)
+    scales = torch.ones(5000)
+    q8 = torch.zeros((64, 256), dtype=torch.int8)
+    qs = torch.ones(64)
+    got = call(q8, codes, kt=2, route=dt._launch_list, qscale=qs, scales=scales)
+    assert [g[3:] for g in got] == [(1, 128), (1, 128), (4, 128)]
+    assert call(q8, codes, kt=2, route=dt._launch_list, qscale=qs, scales=scales) == []
+    # bounded: the oldest maps go first
+    keep = [torch.zeros((16 + i, 256), dtype=torch.bfloat16) for i in range(dt.MAP_CACHE_SIZE)]
+    for q in keep:
+        call(q, values)
+    assert len(dt._maps) == dt.MAP_CACHE_SIZE
+    assert call(q1, values) == [(q1.data_ptr(), 64, 256, 2, 64)]

@@ -1,6 +1,6 @@
 """chip_smoke.py on the CPU: its phase selection, and rehearsals of its
-[workflows], [chat], [mcp], [train] and [multi] phases at a small size (the card's kernels
-replaced by their plain versions, which move the same launch counters)."""
+[wide], [workflows], [chat], [mcp], [train] and [multi] phases at a small size (the card's
+kernels replaced by their plain versions, which move the same launch counters)."""
 
 import pytest
 import torch
@@ -54,6 +54,8 @@ def test_every_kernel_row_belongs_to_a_phase():
     assert {"dense_topk_workflow_bf16", "dense_topk_workflow_int8",
             "dense_topk_chat", "dense_topk_mcp", "dense_topk_train"} <= set(names)
     assert "dense_topk_sharded" in names
+    assert ("dense_topk_1m_bf16", "dense_topk.cu", cs._DT, "dense_topk_1m_bf16",
+            "wide") in cs.KERNEL_ROWS
     assert cs.PHASES[-3:] == ("mcp", "train", "multi")
 
 
@@ -186,6 +188,23 @@ def stub_card(monkeypatch, **consts):
     monkeypatch.setattr(DeviceIndex, "_kernel_default", lambda self, *a: True)
     torch.set_num_threads(2)
     return {"card": "CPU rehearsal", "dense_topk": {}}
+
+
+def test_wide_phase_rehearsed_on_the_cpu(monkeypatch):
+    """The [wide] phase at a small size: the int8 call on the register-list
+    route (147 tiles of one query block fill the 132 SMs), held bit for bit
+    beside the sorted-selection and SIMT kernels' routes, then the default
+    bf16 collection's call, which must take the sorted-selection route
+    once in mode bf16; both kernel rows come out with their keys."""
+    results = stub_card(monkeypatch, N_ROWS=300_000, DIM=64, WIDE_DIM=64, BATCH=8)
+    cs.phase_wide(results)
+    wide, bf16 = results["dense_topk_1m_wide"], results["dense_topk_1m_bf16"]
+    assert wide["variant"] == cs.LIST_VARIANT and {"tcs_ms", "simt_ms"} <= set(wide)
+    assert bf16["variant"] == cs.TCS_VARIANT and bf16["launches"] == 1
+    for row in (wide, bf16):
+        assert {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"} <= set(row)
+    assert wide["max_abs_err"] == 0 and bf16["kt"] == 2 and bf16["dim"] == 64
 
 
 def test_mcp_phase_rehearsed_on_the_cpu(monkeypatch):
