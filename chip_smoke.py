@@ -17,9 +17,9 @@ Phases, each printing one line with its seconds:
   3. kernel vs plain version at small shapes, every mode (int8 x int8 must
      match bit for bit, the float modes within a stated tolerance), for
      the dense top-k (all three variants: the sorted-selection tensor-core
-     kernel for int8 and bf16 queries at kt <= 128, split tiles included,
-     at D up to 4,096 in its one form; the int8
-     register-list kernel at kt <= 8; SIMT above the cap and for f32),
+     kernel for every mode at kt <= 128 (f32 as three TF32 products),
+     split tiles included, at D up to 4,096 in its one form; the int8
+     register-list kernel at kt <= 8; SIMT above the cap),
      each launch checked against the variant and mode counters, and
      both IVF kernels; prints the ptxas report (registers, shared memory,
      spills) of every kernel built;
@@ -37,8 +37,12 @@ Phases, each printing one line with its seconds:
      kernels; and a default (bf16) collection at scale, a seeded 1M x 768
      bf16 corpus searched at batch 512, per-tile cap 2, through dense_topk
      (the sorted-selection kernel, one launch in mode bf16), within the
-     bf16 tolerance of its plain version, timed beside the library call
-     (bf16 matmul + topk) and its bound;
+     bf16 tolerance of its plain version, and an f32 collection at scale,
+     a seeded 1M x 768 f32 corpus searched at batch 512 and 64 (the
+     sorted-selection kernel's TF32 mode, one launch each, within the f32
+     tolerance, timed beside the SIMT kernel on the same inputs), each
+     timed beside the library call
+     (bf16 or f32 matmul + topk) and its bound;
   5. serving: >= 256 concurrent text requests through QueryBatcher over
      a CollectionEngine on that index, each checked against a direct
      search_batch of the same query;
@@ -88,8 +92,9 @@ Phases, each printing one line with its seconds:
      nodeflow, QueryBatcher, ThreadScheduler ingest) on the card at the
      deployment's defaults, driven over a socket with http.client: the
      [semantic] encoder and cross-encoder as checkpoints the port writes,
-     a bf16 collection (the deployment's default) and an int8 one (both
-     on dense_topk's tensor cores), HTTP_DOCS markdown documents uploaded
+     a bf16 collection (the deployment's default), an int8 one and an f32
+     one (all on dense_topk's tensor cores; the f32 one with half the
+     request counts), HTTP_DOCS markdown documents uploaded
      to each by 8 clients (chunks/s to the last COMPLETE), HTTP_QUERIES
      queries from one client and from 64, with and without rerank (p50, p99, requests/s,
      batcher dispatches), one request split into stages by wrapped
@@ -307,6 +312,9 @@ HTTP_TOP_K = 5
 HTTP_CANDIDATES = 100
 HTTP_STAGE_REQUESTS = 8  # 32 until [workflows] joined the smoke, 16 until [mcp], [train]
 HTTP_RESTART_QUERIES = 32  # a collection; 64 until [workflows] joined
+# the f32 collection ("index_dtype": "float32") takes 1 / HTTP_F32_SHARE of
+# every request count above
+HTTP_F32_SHARE = 2
 HTTP_INGEST_TIMEOUT_S = 600.0
 # [docs]: the rest of the search and document routes, the process ingest
 # backend, archives and the image route
@@ -420,6 +428,8 @@ SEMANTIC_CONFIG = {"vocab_size": 30522, "hidden_dim": 256, "num_layers": 6,
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12  # the f32 mode's three products a multiply-add
+F32_CUDA_CORE_OPS_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -578,29 +588,37 @@ def phase_small() -> int:
                         raise AssertionError(f"int8 {variant} kernel differs from plain at "
                                              f"B={bq}, D={dq}, kt={kt}")
                     cases += 1
-    # bf16 queries on the tensor cores, bf16 rows and int8 codes, at every
-    # list depth and split: within _tolerance, ids equal but at near-ties
-    for mode in (dt.MODE_BF16, dt.MODE_INT8_BF16):
+    # bf16 queries on the tensor cores, bf16 rows and int8 codes, and f32
+    # queries on f32 rows (three TF32 products), at every list depth and
+    # split: within _tolerance, ids equal but at near-ties; above the cap
+    # (kt 129) every mode takes the SIMT kernel
+    for mode in (dt.MODE_BF16, dt.MODE_INT8_BF16, dt.MODE_F32):
         for bq, dq in ((1, 16), (17, 96), (64, 256), (130, 768), *wide):
             x = torch.randn(n, dq, device=DEVICE, generator=gen)
             x[64:96] = x[:32]
             if mode == dt.MODE_BF16:
                 values, row_scale = x.to(torch.bfloat16), None
+            elif mode == dt.MODE_F32:
+                values, row_scale = x, None
             else:
                 values = torch.clamp(torch.round(x * 40), -127, 127).to(torch.int8)
                 row_scale = torch.rand(n, device=DEVICE, generator=gen) * 0.01 + 0.001
-            qb = torch.randn(bq, dq, device=DEVICE, generator=gen).to(torch.bfloat16)
+            qb = torch.randn(bq, dq, device=DEVICE, generator=gen)
+            qb = qb if mode == dt.MODE_F32 else qb.to(torch.bfloat16)
             keep = torch.rand(n, device=DEVICE, generator=gen) < 0.7
             keep[2048:4096] = False
-            for kt in (1, 5, 9, 32, 100, dt.TC_MAX_KT):
+            for kt in (1, 5, 9, 32, 100, dt.TC_MAX_KT, dt.TC_MAX_KT + 1):
                 for tile in (200, 2048):
-                    if dt.kernel_variant(mode, kt, dq, bq, -(-n // tile), sms) != "tcs":
-                        raise AssertionError(f"bf16 queries at kt={kt}, D={dq} left the "
-                                             f"tensor cores")
+                    want = "tcs" if kt <= dt.TC_MAX_KT else "simt"
+                    if kt > dt.TC_MAX_KT and (mode != dt.MODE_F32 or tile != 2048):
+                        continue  # the SIMT kernel once a shape, in f32
+                    if dt.kernel_variant(mode, kt, dq, bq, -(-n // tile), sms) != want:
+                        raise AssertionError(f"mode {mode} at kt={kt}, D={dq} did not take "
+                                             f"the {want} kernel")
                     args = (qb, None, values, row_scale, None, keep, n, tile, kt)
                     before = _counts()
                     got = dt.tile_topk(*args)
-                    _expect_launch(before, "tcs", mode)
+                    _expect_launch(before, want, mode)
                     ref = dt.tile_topk_plain(*args)
                     torch.cuda.synchronize()
                     _compare(*got, *ref, exact=False, tol=_tolerance(dq, ref[0]),
@@ -612,12 +630,14 @@ def phase_small() -> int:
 # the _counts() key of each tensor-core mode (ops/dense_topk.py MODE_*), and
 # of the register-list kernel's launches alone (dense_topk_tc counts both
 # tensor-core kernels)
-TC_MODE_KEYS = {0: "dense_topk_tc_int8", 1: "dense_topk_tc_int8_bf16", 2: "dense_topk_tc_bf16"}
+TC_MODE_KEYS = {0: "dense_topk_tc_int8", 1: "dense_topk_tc_int8_bf16", 2: "dense_topk_tc_bf16",
+                3: "dense_topk_tc_f32"}
 LIST_KEY = "dense_topk_tc_list"
 # the kernels line's variant of the register-list kernel's rows, and of
 # the sorted-selection kernel's row at scale
 LIST_VARIANT = "tc (persistent, TMA ring, wgmma m64n128k32 s8)"
 TCS_VARIANT = "tcs (TMA ring, wgmma m64nNk16 bf16 / k32 s8, rows as M, rank-merged lists)"
+TCS_F32_VARIANT = "tcs f32 (TMA ring, 3 x wgmma m64nNk8 tf32 on rna planes, A from registers)"
 
 
 def _expect_launch(before: dict, variant: str, mode: int) -> None:
@@ -936,6 +956,7 @@ def phase_full(results: dict):
 
 
 WIDE_DIM = 1536  # phase_wide: the flat 1M-row int8 corpus at text-embedding-3-small's width
+WIDE_F32_SMALL_BATCH = 64  # phase_wide: the f32 corpus's second batch (a served batch_max)
 
 
 def phase_wide(results: dict) -> None:
@@ -950,7 +971,13 @@ def phase_wide(results: dict) -> None:
     per-tile cap 2, one ``dense_topk`` call, which must launch the
     sorted-selection kernel once in mode bf16, held within the bf16
     tolerance of its plain version and timed beside the library call (bf16
-    matmul + topk) and its bound."""
+    matmul + topk) and its bound.  Then an f32 collection at scale: a
+    seeded 1M x DIM f32 corpus, B = BATCH and WIDE_F32_SMALL_BATCH, cap 2,
+    one ``dense_topk`` call each, which must launch the sorted-selection
+    kernel once in mode f32 (three TF32 products), held within the f32
+    tolerance of its plain version and timed beside the SIMT kernel on the
+    same inputs (forced, within the tolerance too), the library call (f32
+    matmul with TF32 off + topk) and its bound."""
     from super_rag_tpu_torch.ops import dense_topk as dt
     from super_rag_tpu_torch.ops.dense import build_corpus
 
@@ -1006,6 +1033,37 @@ def phase_wide(results: dict) -> None:
         raise AssertionError(f"[wide] the bf16 1M x {DIM} call took {row['variant']}")
     row["variant"] = TCS_VARIANT
     results["dense_topk_1m_bf16"] = row
+    del corpus, q_emb, args
+    torch.cuda.empty_cache()
+
+    # an f32 collection at scale (3.07 GB of rows): the sorted-selection
+    # kernel's TF32 mode at B = BATCH and WIDE_F32_SMALL_BATCH, each beside
+    # the SIMT kernel (f32's route before) on the same inputs
+    corpus = build_corpus(torch.randn(N_ROWS, DIM, device=DEVICE, generator=gen),
+                          dtype=torch.float32)
+    for b, key in ((BATCH, "dense_topk_1m_f32"), (WIDE_F32_SMALL_BATCH, "dense_topk_1m_f32_b64")):
+        q_emb = torch.randn(b, DIM, device=DEVICE, generator=gen)
+        args, launched = one_call(corpus, q_emb, False)
+        if launched != {"dense_topk_tc": 1, TC_MODE_KEYS[dt.MODE_F32]: 1}:
+            raise AssertionError(f"[wide] the f32 1M x {DIM} dense_topk at B = {b} "
+                                 f"launched {launched}")
+        row = _served_kernel_row(args, 1, 1, wlog)
+        if row["variant"] != "tcs":
+            raise AssertionError(f"[wide] the f32 call at B = {b} took {row['variant']}")
+        row["variant"] = TCS_F32_VARIANT
+        pv, pi = dt.tile_topk_plain(*args)
+        with mock.patch.object(dt, "kernel_variant", lambda *a, **kw: "simt"):
+            sv, si = dt.tile_topk(*args)
+            torch.cuda.synchronize()
+            _compare(sv, si, pv, pi, exact=False, tol=_tolerance(DIM, pv),
+                     scores=dt.plain_scores(*args[:6], 0, args[6]))
+            row["simt_ms"] = cuda_ms(lambda: dt.tile_topk(*args), reps=5)
+        wlog(f"f32 B = {b}: on the same inputs the SIMT kernel (f32's route before) "
+             f"{row['simt_ms']:.3f} ms, within the tolerance too; the TF32 mode "
+             f"{row['ms']:.3f} ms ({row['simt_ms'] / row['ms']:.1f}x)")
+        results[key] = row
+        del q_emb, args, pv, pi, sv, si
+        torch.cuda.empty_cache()
 
 
 # -- phase 5: serving through CollectionEngine + QueryBatcher ----------------
@@ -2707,10 +2765,11 @@ class _Stages:
             p.stop()
 
 
-def _library_topk_bf16(q, values, scales, mask, n, tile, kt):
-    """Yardstick only, never used by the port: torch.matmul in bf16 (a
-    cuBLAS GEMM with f32 output; an int8 corpus converted to bf16 chunk by
-    chunk) + the same epilogue + torch.topk per tile, in chunks."""
+def _library_topk_float(q, values, scales, mask, n, tile, kt):
+    """Yardstick only, never used by the port: torch.matmul in the queries'
+    type (bf16: a cuBLAS GEMM with f32 output, an int8 corpus converted to
+    bf16 chunk by chunk; f32: SGEMM, TF32 off as main sets it) + the same
+    epilogue + torch.topk per tile, in chunks."""
     b = q.shape[0]
     num_tiles = -(-n // tile)
     out_v = torch.empty((num_tiles, b, kt), dtype=torch.float32, device=DEVICE)
@@ -2732,8 +2791,10 @@ def _library_topk_bf16(q, values, scales, mask, n, tile, kt):
 
 def _served_kernel_row(args, launches: int, dispatches: int, hlog) -> dict:
     """dense_topk at one served batch's shape: the kernel against its plain
-    version (bit for bit for int8 x int8, within _tolerance for bf16), and
-    the kernel, plain, library and bound times."""
+    version (bit for bit for int8 x int8, within _tolerance for bf16 and
+    f32), and the kernel, plain, library and bound times.  An f32 call's
+    operations are its three TF32 products at the TF32 rate (the CUDA
+    cores' f32 time for the same work is logged beside it)."""
     from super_rag_tpu_torch.ops import dense_topk as dt
 
     q, qs, values, scales, norms, mask, n, tile, kt = args
@@ -2748,33 +2809,37 @@ def _served_kernel_row(args, launches: int, dispatches: int, hlog) -> dict:
     k_ms = cuda_ms(lambda: dt.tile_topk(*args))
     p_ms = cuda_ms(lambda: dt.tile_topk_plain(*args), reps=10)
     keep = mask if mask is not None else torch.ones(n, dtype=torch.bool, device=DEVICE)
+    f32 = q.dtype == torch.float32
     if exact:
         lib_ms = cuda_ms(lambda: library_topk(*args[:4], keep, n, tile, kt), reps=10)
         lib = "_int_mm + topk"
     else:
-        lib_ms = cuda_ms(lambda: _library_topk_bf16(q, values, scales, keep, n, tile, kt),
+        lib_ms = cuda_ms(lambda: _library_topk_float(q, values, scales, keep, n, tile, kt),
                          reps=10)
-        lib = "bf16 matmul + topk"
+        lib = "f32 matmul, TF32 off, + topk" if f32 else "bf16 matmul + topk"
     num_tiles = kv.shape[0]
     esize = values.element_size()
     nbytes = (n * d * esize + (n * 4 if scales is not None else 0) + n
               + b * d * q.element_size() + (b * 4 if qs is not None else 0)
               + num_tiles * b * kt * 8)
-    k_bound, k_by = bound_ms(nbytes, 2.0 * b * n * d,
-                             INT8_OPS_PER_S if exact else BF16_OPS_PER_S)
+    k_bound, k_by = bound_ms(nbytes, (3 if f32 else 1) * 2.0 * b * n * d,
+                             INT8_OPS_PER_S if exact else
+                             TF32_OPS_PER_S if f32 else BF16_OPS_PER_S)
+    cuda_core = (f"; f32 on the CUDA cores alone {2.0 * b * n * d / F32_CUDA_CORE_OPS_PER_S * 1e3:.4f} "
+                 f"ms" if f32 else "")
     variant = dt.kernel_variant(dt._mode(q, values), kt, d, b, -(-n // tile),
                                 dt._sm_count(torch.cuda.current_device()))
     # in bursts, where the card's time shows once it outpaces the host's
     # launch path (one call between two events includes that path)
     k_burst = burst_ms(lambda: dt.tile_topk(*args))
-    lib_burst = burst_ms(lambda: _library_topk_bf16(q, values, scales, keep, n, tile, kt)
+    lib_burst = burst_ms(lambda: _library_topk_float(q, values, scales, keep, n, tile, kt)
                          if not exact else library_topk(*args[:4], keep, n, tile, kt))
     hlog(f"dense_topk {variant} kernel vs plain at the served batch [num_tiles="
          f"{num_tiles}, B={b}, D={d}, kt={kt}, {str(values.dtype)[6:]}]: "
          f"{'bit-equal' if exact else f'within {tol:.3g}'} (max |diff| {err:.3g}); "
          f"kernel {k_ms:.3f} ms ({k_burst:.4f} ms a call in bursts of 50), plain "
          f"{p_ms:.3f} ms, library ({lib}) {lib_ms:.3f} ms ({lib_burst:.4f} ms in "
-         f"bursts), bound {k_bound:.4f} ms ({k_by}); {launches} launches over "
+         f"bursts), bound {k_bound:.4f} ms ({k_by}{cuda_core}); {launches} launches over "
          f"{dispatches} dispatches")
     return {"launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": k_bound, "bound_by": k_by, "library_ms": lib_ms,
@@ -2788,13 +2853,15 @@ def phase_http(results: dict) -> None:
     ThreadScheduler ingest) on the card, driven over a socket by the
     standard library's http.client at the deployment's defaults: the
     [semantic] encoder and cross-encoder (6 x 256, bf16, seeded weights
-    written as checkpoints by the port), two collections (the default
-    bf16 index and an int8 one, both on dense_topk's tensor-core
-    route), HTTP_DOCS markdown documents uploaded to each by
-    HTTP_UPLOADERS clients; then searches from one client and from
-    HTTP_CLIENTS, with and without rerank, one request split into stages,
-    and gates a-f (statuses and sizes, served = direct, no degrade, the
-    kernel ran and matches its plain version, delete, restart)."""
+    written as checkpoints by the port), three collections (the default
+    bf16 index, an int8 one and an f32 one, all on dense_topk's
+    tensor-core route: f32 as three TF32 products), HTTP_DOCS markdown
+    documents uploaded to each by HTTP_UPLOADERS clients; then searches
+    from one client and from HTTP_CLIENTS, with and without rerank (the
+    f32 collection 1 / HTTP_F32_SHARE of every request count), one
+    request split into stages, and gates a-f (statuses and sizes, served
+    = direct, no degrade, the kernel ran, never the SIMT one, and matches
+    its plain version, delete, restart)."""
     import dataclasses
     import logging
     import shutil
@@ -2859,7 +2926,8 @@ def phase_http(results: dict) -> None:
         token = _login(port)
         c = _Client(port, token)
         colls = {}
-        for name, extra in (("default", {}), ("int8", {"index_dtype": "int8"})):
+        for name, extra in (("default", {}), ("int8", {"index_dtype": "int8"}),
+                            ("f32", {"index_dtype": "float32"})):
             config = {"embedding": {"provider": "onboard",
                                     "model": os.path.join(tmp, "enc")}, **extra}
             body = _expect(*c.call("POST", "/api/v1/collections",
@@ -2879,7 +2947,9 @@ def phase_http(results: dict) -> None:
         if not (isinstance(reranker, RerankService)
                 and reranker.device.type == torch.device(DEVICE).type):
             raise AssertionError(f"gate c: the reranker is {type(reranker).__name__}")
-        want_dtypes = {"default": torch.bfloat16, "int8": torch.int8}
+        want_dtypes = {"default": torch.bfloat16, "int8": torch.int8, "f32": torch.float32}
+        # each collection's divisor of the request counts
+        share = {name: HTTP_F32_SHARE if name == "f32" else 1 for name in colls}
         for name, eng in engines.items():
             if eng.index.spec.dtype != want_dtypes[name]:
                 raise AssertionError(f"collection {name} stores {eng.index.spec.dtype}")
@@ -2888,7 +2958,7 @@ def phase_http(results: dict) -> None:
              f"candidates {HTTP_CANDIDATES}, chunk_size {settings.chunk_size}); encoder and "
              f"cross-encoder {cfg.num_layers} x {cfg.hidden_dim} ({cfg.num_heads} heads, MLP "
              f"{cfg.mlp_dim}, max_len {cfg.max_len}, bf16) from checkpoints the port wrote "
-             f"(seeds {SEED}, {SEED + 1}); collections default (bf16 index) and int8; "
+             f"(seeds {SEED}, {SEED + 1}); collections default (bf16 index), int8 and f32; "
              f"{len(docs)} documents x {HTTP_SECTIONS} sections of {HTTP_WORDS} words; set-up "
              f"{time.perf_counter() - t0:.2f} s")
 
@@ -2988,7 +3058,7 @@ def phase_http(results: dict) -> None:
                     body = {"use_rerank": rerank, "top_k": HTTP_TOP_K}
                     lat, items = [], []
                     counts0 = _counts()
-                    for q in queries[:HTTP_SINGLE_QUERIES]:
+                    for q in queries[:HTTP_SINGLE_QUERIES // share[name]]:
                         t1 = time.perf_counter()
                         st, out = c.call("POST", f"/api/v1/collections/{cid}/searches",
                                          {**body, "query": q})
@@ -2998,18 +3068,19 @@ def phase_http(results: dict) -> None:
                     served[(name, rerank)] = items
                     m1 = _metrics(port, token)
                     runs[(name, rerank, 1)] = {
-                        "p50": _pctl(lat, 50), "p99": _pctl(lat, 99),
+                        "requests": len(lat), "p50": _pctl(lat, 50), "p99": _pctl(lat, 99),
                         "dispatches": m1["dispatches"] - m0["dispatches"],
                         "queries": m1["queries"] - m0["queries"],
                         "launches": delta(counts0)}
                     m0 = m1
 
+                    n_clients = HTTP_CLIENTS // share[name]
                     per = HTTP_QUERIES // HTTP_CLIENTS
                     clat: list = []
                     cfail: list = []
                     calls["keep"] = (name, rerank)
                     counts0 = _counts()
-                    barrier = threading.Barrier(HTTP_CLIENTS + 1)
+                    barrier = threading.Barrier(n_clients + 1)
 
                     def client(k):
                         cc = _Client(port, token)
@@ -3027,7 +3098,7 @@ def phase_http(results: dict) -> None:
                             cc.close()
 
                     threads = [threading.Thread(target=client, args=(k,))
-                               for k in range(HTTP_CLIENTS)]
+                               for k in range(n_clients)]
                     for th in threads:
                         th.start()
                     barrier.wait()
@@ -3038,8 +3109,8 @@ def phase_http(results: dict) -> None:
                     if cfail or any(th.is_alive() for th in threads):
                         raise AssertionError(f"gate a: concurrent searches failed: {cfail[:3]}")
                     m1 = _metrics(port, token)
-                    runs[(name, rerank, HTTP_CLIENTS)] = {
-                        "p50": _pctl(clat, 50), "p99": _pctl(clat, 99),
+                    runs[(name, rerank, n_clients)] = {
+                        "requests": len(clat), "p50": _pctl(clat, 50), "p99": _pctl(clat, 99),
                         "rps": len(clat) / cwall,
                         "dispatches": m1["dispatches"] - m0["dispatches"],
                         "queries": m1["queries"] - m0["queries"],
@@ -3051,7 +3122,7 @@ def phase_http(results: dict) -> None:
             extra = (f", {r['rps']:.1f} requests/s" if clients > 1 else "")
             launched = {k: v for k, v in r["launches"].items() if v}
             hlog(f"search {name} use_rerank={rerank}, {clients} client(s), "
-                 f"{HTTP_SINGLE_QUERIES if clients == 1 else HTTP_QUERIES} requests: p50 {r['p50']:.3f} ms, p99 {r['p99']:.3f} ms"
+                 f"{r['requests']} requests: p50 {r['p50']:.3f} ms, p99 {r['p99']:.3f} ms"
                  f"{extra}; batcher {r['dispatches']:.0f} dispatches, average batch "
                  f"{r['queries'] / max(r['dispatches'], 1):.2f}; launches {launched}")
 
@@ -3089,7 +3160,8 @@ def phase_http(results: dict) -> None:
                                      f"at kt {kt}")
             key = TC_MODE_KEYS[mode]
             variants[(name, rerank)] = (variant, kt, key)
-            if r["launches"][key] < r["dispatches"] or r["dispatches"] < 1:
+            if r["launches"][key] < r["dispatches"] or r["dispatches"] < 1 or \
+                    r["launches"]["dense_topk_simt"]:
                 raise AssertionError(f"gate d: {name} rerank={rerank} {clients} client(s): "
                                      f"{r['launches']} over {r['dispatches']} dispatches")
         hlog("gate d: every dispatch launched dense_topk on the tensor cores: " + "; ".join(
@@ -3130,7 +3202,8 @@ def phase_http(results: dict) -> None:
                     worst = max(worst, _close(torch.tensor([it["score"] for it in its]),
                                               torch.tensor([float(scores[int(i)])
                                                             for i in order]), 2e-2))
-        hlog(f"gate b: all {4 * HTTP_SINGLE_QUERIES} single-client answers equal a direct "
+        hlog(f"gate b: all {sum(len(v) for v in served.values())} single-client answers "
+             f"equal a direct "
              f"search_batch (unreranked: items, rows, recall types and scores to the "
              f"bit) or search_batch + RerankService in-process (reranked: items, rows, "
              f"recall types; scores within {worst:.3g} (1 + |s|), limit 2e-2)")
@@ -3143,12 +3216,13 @@ def phase_http(results: dict) -> None:
             row = _served_kernel_row(calls[(name, rerank)],
                                      sum(r["launches"][key] for r in mine),
                                      sum(r["dispatches"] for r in mine), hlog)
-            results[f"dense_topk_http_{'bf16' if name == 'default' else 'int8'}"
-                    f"{'_rerank' if rerank else ''}"] = row
+            tag = {"default": "bf16"}.get(name, name)
+            results[f"dense_topk_http_{tag}{'_rerank' if rerank else ''}"] = row
 
         # -- one reranked request split into stages, by wrapped methods
         stage_rows = {}
         for name, cid in colls.items():
+            staged = HTTP_STAGE_REQUESTS // share[name]
             st_ = _Stages()
             st_.wrap_async(HttpServer, "_dispatch", "dispatch")
             st_.wrap_async(CollectionService, "execute_search", "execute_search")
@@ -3160,7 +3234,7 @@ def phase_http(results: dict) -> None:
             st_.wrap_sync(RerankService, "__call__", "rerank")
             client_ms = []
             with st_:
-                for q in queries[:HTTP_STAGE_REQUESTS]:
+                for q in queries[:staged]:
                     t1 = time.perf_counter()
                     _expect(*c.call("POST", f"/api/v1/collections/{cid}/searches",
                                     {"query": q}), 201, "staged search")
@@ -3168,12 +3242,12 @@ def phase_http(results: dict) -> None:
             # the server's dispatch wrapper records its time after the
             # response is written, so the client may see it first
             deadline = time.perf_counter() + 5.0
-            while (len(st_.ms.get("dispatch", ())) < HTTP_STAGE_REQUESTS
+            while (len(st_.ms.get("dispatch", ())) < staged
                    and time.perf_counter() < deadline):
                 time.sleep(0.01)
             ms = {k: np.asarray(v) for k, v in st_.ms.items()}
             ms["client"] = np.asarray(client_ms)
-            if any(len(v) != HTTP_STAGE_REQUESTS for v in ms.values()):
+            if any(len(v) != staged for v in ms.values()):
                 raise AssertionError(f"stage counts {({k: len(v) for k, v in ms.items()})}")
             split = {
                 "client total": ms["client"],
@@ -3191,7 +3265,7 @@ def phase_http(results: dict) -> None:
             }
             stage_rows[name] = {k: float(np.median(v)) for k, v in split.items()}
             hlog(f"stages of one served request ({name}, use_rerank=True, median of "
-                 f"{HTTP_STAGE_REQUESTS}): " + "; ".join(
+                 f"{staged}): " + "; ".join(
                      f"{k.strip()} {v:.3f} ms" for k, v in stage_rows[name].items()))
 
         # -- gate e: a deleted document's rows leave the search
@@ -3223,12 +3297,12 @@ def phase_http(results: dict) -> None:
              f"had them")
 
         # -- gate f: stop (snapshot), a fresh App on the same data_dir
-        restart_q = queries[:HTTP_RESTART_QUERIES]
+        restart_q = {name: queries[:HTTP_RESTART_QUERIES // share[name]] for name in colls}
         before = {}
         for name, cid in colls.items():
             before[name] = [_expect(*c.call("POST", f"/api/v1/collections/{cid}/searches",
                                             {"query": q}), 201, "search")["items"]
-                            for q in restart_q]
+                            for q in restart_q[name]]
         c.close()
         t1 = time.perf_counter()
         srv.stop()
@@ -3244,7 +3318,7 @@ def phase_http(results: dict) -> None:
         worst = 0.0
         first_ms = None
         for name, cid in colls.items():
-            for q, want in zip(restart_q, before[name]):
+            for q, want in zip(restart_q[name], before[name]):
                 t1 = time.perf_counter()
                 got = _expect(*c.call("POST", f"/api/v1/collections/{cid}/searches",
                                       {"query": q}), 201, "search after restart")["items"]
@@ -3260,7 +3334,7 @@ def phase_http(results: dict) -> None:
         c.close()
         hlog(f"gate f: App.stop() (snapshots) {stop_s:.3f} s; a fresh App on the same "
              f"data_dir started in {start_s:.3f} s and, after a new login, answered "
-             f"{len(colls) * len(restart_q)} searches with the same items (first request "
+             f"{sum(map(len, restart_q.values()))} searches with the same items (first request "
              f"{first_ms:.3f} ms; scores within {worst:.3g} (1 + |s|), limit 2e-2)")
 
         # gate c: no degrade anywhere in the phase
@@ -7519,12 +7593,15 @@ KERNEL_ROWS = (
     ("ivf_probe", "ivf_scan.cu", "super_rag_tpu/ops/pallas_ivf.py:48", "ivf_probe", "ivf"),
     *((f"dense_topk_http_{t}", "dense_topk.cu", _DT, f"dense_topk_http_{t}", phase)
       for t, phase in (("bf16", "http"), ("bf16_rerank", "http"), ("int8", "http"),
-                       ("int8_rerank", "http"), ("image", "docs"), ("graph", "graph"),
+                       ("int8_rerank", "http"), ("f32", "http"), ("f32_rerank", "http"),
+                       ("image", "docs"), ("graph", "graph"),
                        ("remote", "providers"), ("remote_rerank", "providers"),
                        (f"remote_{PROV_WIDE_DIM}", "providers"),
                        (f"remote_rerank_{PROV_WIDE_DIM}", "providers"))),
     ("dense_topk_1m_wide", "dense_topk.cu", _DT, "dense_topk_1m_wide", "wide"),
     ("dense_topk_1m_bf16", "dense_topk.cu", _DT, "dense_topk_1m_bf16", "wide"),
+    ("dense_topk_1m_f32", "dense_topk.cu", _DT, "dense_topk_1m_f32", "wide"),
+    ("dense_topk_1m_f32_b64", "dense_topk.cu", _DT, "dense_topk_1m_f32_b64", "wide"),
     ("dense_topk_workflow_bf16", "dense_topk.cu", _DT, "dense_topk_workflow_bf16",
      "workflows"),
     ("dense_topk_workflow_int8", "dense_topk.cu", _DT, "dense_topk_workflow_int8",

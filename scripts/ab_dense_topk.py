@@ -2,7 +2,7 @@
 """Time the port's dense_topk kernel at the main-path and served shapes,
 for one checkout.
 
-    python3 scripts/ab_dense_topk.py --root DIR [--only main|served]
+    python3 scripts/ab_dense_topk.py --root DIR [--only main|served|ivf]
 
 Imports ``super_rag_tpu_torch`` from the checkout at ``DIR`` (default: this
 one), builds its ``csrc/dense_topk.cu`` there, and times ``tile_topk`` on
@@ -12,24 +12,36 @@ B = 512, the 10,002,432-row CSR one, the reranked query batch behind the
 encoder (1M x 256, B = 32) and the 1M x 1,536 wide corpus at B = 512; a
 default (bf16) collection of 1M x 768 at B = 512 and at a served batch
 of 64, cap 2, and the int8 1M x 768 at B = 512 with deep lists (kt 32),
-the last three through the sorted-selection kernel.  The
-served shapes (``--only served``): the default bf16 and int8 collections
-(16,384 rows of D = 256 at B = 64, kt 5 and 32), an image search (256
-rows, B = 1), a graph search (1,913 masked rows of D = 128, kt 50), and
-the remote embeddings (8,224 rows of D = 1,536 and 3,072 at B = 1, kt 5
-and 32).  Each shape: CUDA events around one call
+the last three through the sorted-selection kernel; an f32 collection of
+1M x 768 at B = 512 and 64, cap 2 (the sorted-selection kernel's TF32
+mode; the SIMT kernel before it).  The served shapes (``--only
+served``): the default bf16, int8 and f32 collections (16,384 rows of D =
+256 at B = 64, kt 5 and 32; f32 at kt 129 too, the SIMT kernel's depth),
+an image search (256 rows, B = 1), a graph search (1,913 masked rows of
+D = 128, kt 50), and the remote embeddings (8,224 rows of D = 1,536 and
+3,072 at B = 1, kt 5 and 32).  Each shape: CUDA events around one call
 (median of 50 after 3 warm-ups), the time a call in bursts of 50
 (median of 5 bursts), the host's own time a call (the wall time of 50
 calls issued with no sync between them, the least of 5 such bursts: the
-launch path alone, whatever the kernel takes), the host cost of the
+launch path alone, whatever the kernel takes; 10 in place of each 50
+where a call takes over 20 ms), the host cost of the
 sorted-selection launch's plan (``_tcs_plan``) computed and from its
 cache, where the checkout has one, the kernel's own device time a launch
 (torch.profiler over 50 calls, the kernels whose names hold
-``dense_topk``), the variant ``kernel_variant`` picks, the card's name and
-power limit, and the call's bound (the larger of its bytes, each input
-read once and the output written once, over 3.35 TB/s, and its
-operations over 1,979 TOP/s in int8 or 989 TFLOP/s in bf16).  Prints a
-line per shape and a JSON line.  To compare two
+``dense_topk``, summed a call: the f32 mode's call is two kernels, the
+query planes and the scan), the variant ``kernel_variant`` picks, the
+card's name and power limit, and the call's bound (the larger of its
+bytes, each input read once and the output written once, over 3.35 TB/s,
+and its operations over 1,979 TOP/s in int8, 989 TFLOP/s in bf16, or, in
+f32, three TF32 products over 495 TFLOP/s).  Prints a line per shape and
+a JSON line.
+
+``--only ivf`` times the IVF kernels' f32 (SIMT) variants once, at the
+smoke's [ivf] shapes with f32 values (1,024 tiles of 1,024 rows, D = 768,
+16 probes a query): the union kernel at B = 32 and the per-query kernel
+at B = 512, each beside its plain version, a library call on the tiles
+gathered beforehand (f32 ``matmul`` / ``bmm``, TF32 off) and its bound,
+with the launches each call made.  To compare two
 checkouts on one card, run it in turns in one command: parent, change,
 change, parent.  The host-bound times (one call, bursts, host) vary with
 the host's load from minute to minute; ``--against DIR`` compares them
@@ -38,6 +50,10 @@ in one process instead: it imports the other checkout's package first
 each one's medians and its kernel's device time:
 
     python3 scripts/ab_dense_topk.py --only served --against PARENT_DIR
+
+``--shape NAME`` times one shape alone; ``--yardsticks`` adds each shape's
+plain-version time and, for float queries, the library call's (one
+matmul, TF32 off, and a ``torch.topk`` a tile).
 """
 
 from __future__ import annotations
@@ -64,6 +80,8 @@ MAIN = [
     ("bf16 1M B 512", torch.bfloat16, False, 1_000_000, 768, 512, 2, 0.99),
     ("bf16 1M B 64", torch.bfloat16, False, 1_000_000, 768, 64, 2, 0.99),
     ("int8 1M B 512 kt 32", None, True, 1_000_000, 768, 512, 32, 0.99),
+    ("f32 1M B 512", torch.float32, False, 1_000_000, 768, 512, 2, 0.99),
+    ("f32 1M B 64", torch.float32, False, 1_000_000, 768, 64, 2, 0.99),
 ]
 # the served shapes: (name, storage dtype, int8 queries, rows, D, B, kt, keep share)
 SHAPES = [
@@ -71,6 +89,9 @@ SHAPES = [
     ("bf16 kt 32", torch.bfloat16, False, 16384, 256, 64, 32, 0.99),
     ("int8 kt 5", torch.int8, True, 16384, 256, 64, 5, 0.99),
     ("int8 kt 32", torch.int8, True, 16384, 256, 64, 32, 0.99),
+    ("f32 kt 5", torch.float32, False, 16384, 256, 64, 5, 0.99),
+    ("f32 kt 32", torch.float32, False, 16384, 256, 64, 32, 0.99),
+    ("f32 kt 129", torch.float32, False, 16384, 256, 64, 129, 0.99),
     ("image", torch.bfloat16, False, 256, 256, 1, 5, 1.0),
     ("graph", torch.bfloat16, False, 1913, 128, 1, 50, 0.7),
     ("remote kt 5", torch.bfloat16, False, 8224, 1536, 1, 5, 1.0),
@@ -82,6 +103,7 @@ TILE = 2048
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12  # f32: three TF32 products a multiply-add
 
 
 def bound_ms(args) -> tuple[float, str]:
@@ -94,9 +116,21 @@ def bound_ms(args) -> tuple[float, str]:
     nbytes = (n * d * values.element_size() + (n * 4 if scales is not None else 0) + n
               + b * d * q.element_size() + (b * 4 if qs is not None else 0)
               + tiles * b * kt * 8)
-    ops = 2.0 * b * n * d / (INT8_OPS_PER_S if q.dtype == torch.int8 else BF16_OPS_PER_S)
+    ops = 2.0 * b * n * d / (INT8_OPS_PER_S if q.dtype == torch.int8 else
+                             TF32_OPS_PER_S / 3 if q.dtype == torch.float32 else BF16_OPS_PER_S)
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (t_bytes * 1e3, "bytes") if t_bytes >= ops else (ops * 1e3, "operations")
+
+
+def library_topk(args):
+    """Yardstick only: one matmul in the queries' float type (TF32 off) and
+    a ``torch.topk`` a tile, over whole tiles, with the mask applied."""
+    q, _, values, _, _, keep, n, tile, kt = args
+    tiles = -(-n // tile)
+    s = torch.matmul(q, values[:n].to(q.dtype).T).to(torch.float32)
+    s = torch.where(keep[None, :n], s, float("-inf"))
+    s = torch.nn.functional.pad(s, (0, tiles * tile - n), value=float("-inf"))
+    return torch.topk(s.view(q.shape[0], tiles, tile), kt, dim=-1)
 
 
 def event_ms(fn, reps: int = 50, warmup: int = 3) -> float:
@@ -144,8 +178,9 @@ def host_us(fn, calls: int = 50, reps: int = 5) -> float:
     return best
 
 
-def device_us(fn, calls: int = 50) -> float:
-    """Mean device microseconds a launch of the dense_topk kernels."""
+def device_us(fn, calls: int = 50, match: str = "dense_topk") -> float:
+    """Mean device microseconds a call of the kernels whose names hold
+    ``match`` (all of a call's launches summed)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -156,10 +191,10 @@ def device_us(fn, calls: int = 50) -> float:
         torch.cuda.synchronize()
     total, count = 0.0, 0
     for ev in prof.key_averages():
-        if "dense_topk" in ev.key:
+        if match in ev.key:
             total += getattr(ev, "device_time_total", None) or ev.cuda_time_total
             count += ev.count
-    return total / count if count else float("nan")
+    return total / calls if count else float("nan")
 
 
 def operands(n, d, b, kt, share, dt, build_corpus, DenseCorpus, dtype=None, i8q=True):
@@ -214,13 +249,82 @@ def paired(fns, rounds: int = 30) -> list[dict]:
     return [{k: statistics.median(v) for k, v in got.items()} for got in res]
 
 
+IVF_NLIST, IVF_CAP, IVF_D, IVF_NPROBE = 1024, 1024, 768, 16
+
+
+def ivf_f32(card: str) -> dict:
+    """The IVF kernels' f32 variants at the [ivf] shapes: seeded f32 tiles,
+    each query's 16 probes drawn without repeats; the union kernel at B =
+    32 over the batch's probe union, the per-query kernel at B = 512."""
+    from super_rag_tpu_torch.ops import ivf_topk as it
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    values = torch.randn(IVF_NLIST, IVF_CAP, IVF_D, device="cuda", generator=gen)
+    row_ids = torch.arange(IVF_NLIST * IVF_CAP, device="cuda", dtype=torch.int32).view(
+        IVF_NLIST, IVF_CAP)
+    rows = {}
+    for name, b in (("ivf union f32, B 32", 32), ("ivf probe f32, B 512", 512)):
+        q = torch.randn(b, IVF_D, device="cuda", generator=gen)
+        probes = torch.argsort(torch.rand(b, IVF_NLIST, device="cuda", generator=gen),
+                               dim=1)[:, :IVF_NPROBE].to(torch.int32).contiguous()
+        if b == 32:
+            ids = it.probe_union(probes, IVF_NLIST)
+            fn, plain, counter = it.union_scores, it.union_scores_plain, it.union_simt_launches
+            gathered = values[ids.long()].reshape(-1, IVF_D)
+            lib = lambda: torch.matmul(q, gathered.T)  # noqa: E731
+            tiles = ids.numel()
+            work = b * tiles * IVF_CAP
+        else:
+            ids = probes
+            fn, plain, counter = it.probe_scores, it.probe_scores_plain, it.probe_simt_launches
+            gathered = values[probes.long()].reshape(b, -1, IVF_D)
+            lib = lambda: torch.bmm(gathered, q[:, :, None])  # noqa: E731
+            tiles = int(torch.unique(probes).numel())
+            work = b * IVF_NPROBE * IVF_CAP
+        args = (q, ids, values, None, None, row_ids, None)
+        before = counter.count
+        got = fn(*args)
+        launches = counter.count - before
+        ref = plain(*args)
+        fin = torch.isfinite(ref)
+        err = float((got - ref)[fin].abs().max())
+        tol = IVF_D * 2.0 ** -23 * (float(ref[fin].abs().max()) + 1.0)
+        nbytes = tiles * IVF_CAP * (IVF_D * 4 + 4) + b * IVF_D * 4 + got.numel() * 4
+        ops = 2.0 * work * IVF_D
+        row = {"launches": launches, "max_abs_err": err, "tol": tol,
+               "ms": event_ms(lambda: fn(*args), reps=20),
+               "kernel_us": device_us(lambda: fn(*args), calls=20, match="ivf"),
+               "plain_ms": event_ms(lambda: plain(*args), reps=5, warmup=1),
+               "library_ms": event_ms(lib, reps=10),
+               "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / (TF32_OPS_PER_S / 3)) * 1e3,
+               "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / (TF32_OPS_PER_S / 3)
+               else "operations",
+               "cuda_core_ms": ops / 67e12 * 1e3}
+        if err > tol or launches != 1:
+            raise AssertionError(f"{name}: max |diff| {err} (tolerance {tol}), {launches} launches")
+        rows[name] = row
+        print(f"{name} [{tiles} tiles of {IVF_CAP} rows, D={IVF_D}]: {row['ms']:.4f} ms (kernel "
+              f"{row['kernel_us']:.1f} us), plain {row['plain_ms']:.3f} ms, library "
+              f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+              f"f32 on the CUDA cores {row['cuda_core_ms']:.4f} ms), {launches} launch, "
+              f"max |diff| {err:.3g} within {tol:.3g} ({card})", flush=True)
+        del gathered, got, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    ap.add_argument("--only", choices=("main", "served"), default=None)
+    ap.add_argument("--only", choices=("main", "served", "ivf"), default=None)
+    ap.add_argument("--shape", default=None, help="time only the shape of this name")
+    ap.add_argument("--yardsticks", action="store_true",
+                    help="also time the plain version and, for float queries, the library call")
     ap.add_argument("--against", default=None,
                     help="another checkout, timed in the same process in turns with --root")
     opts = ap.parse_args()
+    torch.backends.cuda.matmul.allow_tf32 = False
     root = os.path.abspath(opts.root)
     if not torch.cuda.is_available():
         print("ab_dense_topk: no CUDA device", file=sys.stderr)
@@ -235,8 +339,14 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     _build.build(["dense_topk"])
     out = {"root": root, "card": card, "shapes": {}}
+    if opts.only == "ivf":
+        out["shapes"] = ivf_f32(card)
+        print(json.dumps(out), flush=True)
+        return 0
     todo = [] if opts.only == "served" else list(MAIN)
     todo += [] if opts.only == "main" else SHAPES
+    if opts.shape is not None:
+        todo = [s for s in todo if s[0] == opts.shape]
     for name, dtype, i8q, n, d, b, kt, share in todo:
         args = operands(n, d, b, kt, share, dt, build_corpus, DenseCorpus, dtype, i8q)
         q, values = args[0], args[2]
@@ -257,11 +367,19 @@ def main() -> int:
             del args, q, values
             torch.cuda.empty_cache()
             continue
-        row = {"variant": variant, "ms": event_ms(lambda: dt.tile_topk(*args)),
-               "burst_ms": burst_ms(lambda: dt.tile_topk(*args)),
-               "host_us": host_us(lambda: dt.tile_topk(*args)),
-               "kernel_us": device_us(lambda: dt.tile_topk(*args)),
+        # a call of tens of ms (the SIMT kernel at 1M rows) takes a fifth
+        # of the repetitions
+        calls = 10 if event_ms(lambda: dt.tile_topk(*args), reps=1, warmup=1) > 20 else 50
+        row = {"variant": variant,
+               "ms": event_ms(lambda: dt.tile_topk(*args), reps=calls),
+               "burst_ms": burst_ms(lambda: dt.tile_topk(*args), calls=calls),
+               "host_us": host_us(lambda: dt.tile_topk(*args), calls=calls),
+               "kernel_us": device_us(lambda: dt.tile_topk(*args), calls=calls),
                "bound_ms": bound, "bound_by": bound_by}
+        if opts.yardsticks:
+            row["plain_ms"] = event_ms(lambda: dt.tile_topk_plain(*args), reps=10)
+            if q.dtype != torch.int8:
+                row["library_ms"] = event_ms(lambda: library_topk(args), reps=10)
         plan = getattr(dt, "_tcs_plan", None)
         if plan is not None and variant == "tcs":
             # the launch plan's host cost: computed (as each call would
@@ -274,6 +392,8 @@ def main() -> int:
               f"{row['burst_ms']:.4f} ms a call in bursts, host {row['host_us']:.2f} us a call, "
               f"the kernel {row['kernel_us']:.2f} us, "
               f"bound {bound:.4f} ms ({bound_by})"
+              + "".join(f", {k[:-3]} {row[k]:.4f} ms" for k in ("plain_ms", "library_ms")
+                        if k in row)
               + (" plan {:.2f} / {:.2f} us computed / cached".format(*row["plan_us"])
                  if "plan_us" in row else "") + f" ({root}; {card})", flush=True)
         del args, q, values

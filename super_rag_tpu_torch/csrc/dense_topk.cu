@@ -18,17 +18,21 @@
 // Three variants, chosen by shape in the wrapper (ops/dense_topk.py
 // kernel_variant), counted by the wrapper per route and mode:
 //
-// * dense_topk_tcs_kernel, the tensor cores for every mode but f32 at
-//   kt <= 128 and any D to 65,536 (every bf16 collection, the served
+// * dense_topk_tcs_kernel, the tensor cores for every mode at kt <= 128
+//   and any D to 65,536 (every bf16 and f32 collection, the served
 //   searches, calibration, deep per-tile lists, int8 calls too small to
 //   fill the card, remote embeddings of 1,536 to 4,096 dimensions), in one
 //   form at every D.  Built for Hopper (the design note above namespace
 //   tcs): a block of 16, 64 or 128 queries (the wgmma's N) against a slice
 //   of a tile in chunks of 128 corpus rows (the wgmma's M, 64 a consumer
 //   warpgroup); a producer warp keeps a TMA ring of 128-byte k-slices of
-//   the rows and the queries; wgmma.m64nNk32.s8 (int8 x int8) or
+//   the rows and the queries; wgmma.m64nNk32.s8 (int8 x int8),
 //   m64nNk16.bf16 with f32 sums (bf16 queries on bf16 rows, or on int8
-//   codes widened exactly to bf16 in shared memory); the epilogued scores
+//   codes widened exactly to bf16 in shared memory), or, for f32, three
+//   m64nNk8.tf32 products a k8 step on round-to-nearest tf32 planes (x = hi
+//   + lo: hi x hi + hi x lo + lo x hi, each product exact, f32 sums; the
+//   rows' planes made in registers from the ring, the queries' by
+//   dense_topk_tf32_planes_kernel first); the epilogued scores
 //   go to a buffer of their own, while the ring keeps loading, from which
 //   the consumers' threads keep each query's kt best in register lists
 //   (kt <= 8), or twelve warps merge the few scores above a query's
@@ -42,7 +46,11 @@
 //   (16,384 x 256 at B = 64; 8,224 x 1,536 at B = 1: 19-52 us) the
 //   launch, the ring's latency and the selection of a slice's first
 //   chunk, not bytes or tensor operations (scripts/ab_dense_topk.py,
-//   PERF.md §6).  No split of
+//   PERF.md §6).  In f32 (1M x 768 at B = 512: ~7.1 ms against the three
+//   products' 4.77) the ring's depth: a stage of 128 queries' two planes
+//   and 128 rows is 48 KB, and three fit beside the scores and register
+//   lists (with two it took 9.3 ms; the sorted lists, kt > 8, leave room
+//   for two).  No split of
 //   D and a k loop whose order is fixed by D alone: a query's sums are the
 //   same bits alone or in any batch and any split; the selection is exact,
 //   so int8 x int8 is bit-equal to the plain version.
@@ -75,11 +83,12 @@
 //   0.80; the sorted-selection route took 7.7), ~0.21 ms at 1M x 256, B =
 //   32 (bytes bound 0.078; 0.38 before): scripts/ab_dense_topk.py,
 //   scripts/tune_dense_topk.py and PERF.md §6.
-// * dense_topk_kernel, the rest: f32 queries (whose only tensor-core path,
-//   TF32, cannot hold the f32 tolerance) and kt > 128: the first
+// * dense_topk_kernel, the rest: kt > 128 in every mode (the served
+//   routes cap top_k at 100, so no served path takes it): the first
 //   version, dp4a or FMA on CUDA cores from shared memory with a 4 x 4
 //   register tile per thread and the [16 x tile] score tile in shared
-//   memory.
+//   memory.  Until the f32 mode's three-pass TF32 form it took every f32
+//   search too (37.7 ms for int8 at 1M x 768, B = 512).
 //
 // Modes (dense_topk_launch):
 //   int8 x int8 : q int8 [B, D] + qscale f32 [B]; corpus int8
@@ -787,10 +796,25 @@ EncodeTiled encode_tiled() {
 
 // ---- tensor-core variant with sorted selection ------------------------------
 //
-// Every tensor-core mode (int8 x int8 on wgmma m64nNk32 s8; bf16 queries on
-// bf16 rows, or on int8 codes widened exactly to bf16, on m64nNk16 bf16
-// with f32 sums), 1 <= kt <= 128, any D to 65,536, and a tile's rows split
-// over the blocks of one cluster.
+// Every mode (int8 x int8 on wgmma m64nNk32 s8; bf16 queries on bf16 rows,
+// or on int8 codes widened exactly to bf16, on m64nNk16 bf16 with f32 sums;
+// f32 on three m64nNk8 tf32 products, below), 1 <= kt <= 128, any D to
+// 65,536, and a tile's rows split over the blocks of one cluster.
+//
+// The f32 mode (3).  One TF32 product keeps 11 significant bits, too few
+// for the float modes' tolerance (D 2^-23 (max|s| + 1)); three keep it.
+// Each operand splits into two tf32 planes, x = h + l with h =
+// tf32_rna(x), l = x - h (exact) and l' = tf32_rna(l), and x y ~ h g + h
+// m' + l' g: the products are exact, what is dropped (l m, and the
+// roundings of l and m) is at most ~3 2^-22 |x||y|, so a sum is within ~3
+// 2^-22 sum |x_i||y_i| plus its f32 accumulation.  The rows' planes are
+// made in the consumers' registers from each ring stage (wgmma with A from
+// registers: no buffer to rewrite, so no wait for the products before
+// it); the queries' are a [2B, D] array made once a call, whose hi and lo
+// boxes a stage holds side by side.  A k-slice holds 32 f32: four k8 steps
+// of three products each, committed step by step, so that a step's
+// registers are rewritten only after the wait that covers the step before
+// it.
 //
 // A block takes QN queries (16, 64 or 128: the wgmma's N, chosen by the
 // batch and the shared-memory budget) against one slice of one tile, in
@@ -801,7 +825,8 @@ EncodeTiled encode_tiled() {
 // the same way, and a query's k order is fixed by D alone).  Consumer
 // warpgroups 0 and 1 run wgmma from shared memory on every stage (mode 1
 // first widens its 64 rows' codes into a bf16 buffer of its own:
-// s8x4_to_bf16x2, exact), then take the chunk's epilogue in the
+// s8x4_to_bf16x2, exact; mode 3 takes its rows' planes as A from
+// registers), then take the chunk's epilogue in the
 // reference's order (__fmul_rn by qscale, then the row scale, then 2 s -
 // norm as one fma with two = 2; a dead row's scale is NaN, so its score
 // enters no list) into a score buffer [QN][SR] that does not alias the
@@ -824,7 +849,7 @@ EncodeTiled encode_tiled() {
 // every block's shared memory, then merges them in slice order.  The
 // top-kt of a union under a strict total order is the same whatever the
 // split, so the result depends on the logical tile only.  The int32 sums
-// are exact; the bf16 modes' f32 sums run through the same wgmma steps in
+// are exact; the float modes' f32 sums run through the same wgmma steps in
 // the same order for a query in any batch.
 namespace tcs {
 
@@ -847,10 +872,11 @@ constexpr size_t SMEM_MAX = 232448;  // an H100 block's dynamic shared memory
 
 using u64 = unsigned long long;
 
-// a ring stage: a k-slice of the chunk's R rows (128 codes or 64 bf16) and
-// of the block's qn queries (mode 1: 128 bf16 in two 64-element boxes)
+// a ring stage: a k-slice of the chunk's R rows (128 codes, 64 bf16 or 32
+// f32) and of the block's qn queries (mode 1: 128 bf16 in two 64-element
+// boxes; mode 3: 32 f32 of each of the queries' two tf32 planes)
 __host__ __device__ constexpr int stage_bytes(int mode, int qn) {
-  return R * KS + (mode == 1 ? 2 : 1) * qn * KS;
+  return R * KS + (mode == 1 || mode == 3 ? 2 : 1) * qn * KS;
 }
 
 __host__ __device__ inline int kp_of(int kt) {
@@ -859,15 +885,18 @@ __host__ __device__ inline int kp_of(int kt) {
   return kp;
 }
 
+// the selecting warps' scratch, 128 keys a warp: only the sorted lists
+// (kt > LIST) merge through it
+__host__ __device__ inline int scratch_keys(int kt) { return kt > LIST ? WORKERS * R : 0; }
+
 // 1,024 bytes of slack to put the ring on the swizzle's 1,024-byte period,
 // the ring, mode 1's widened codes, the scores [qn][SR] f32, the sorted
-// lists [qn][kp], a warp's 128 keys of scratch for each selecting warp,
-// the queries' thresholds, scales and flags, and a full and an empty
-// barrier a stage
+// lists [qn][kp], the selecting warps' scratch, the queries' thresholds,
+// scales and flags, and a full and an empty barrier a stage
 __host__ __device__ inline size_t smem_bytes(int mode, int qn, int kt, int nst) {
   return 1024 + static_cast<size_t>(nst) * stage_bytes(mode, qn) + (mode == 1 ? WIDE : 0) +
          static_cast<size_t>(qn) * SR * 4 + static_cast<size_t>(qn) * kp_of(kt) * 8 +
-         static_cast<size_t>(WORKERS) * R * 8 + static_cast<size_t>(qn) * 12 +
+         static_cast<size_t>(scratch_keys(kt)) * 8 + static_cast<size_t>(qn) * 12 +
          static_cast<size_t>(nst) * 16;
 }
 
@@ -1181,8 +1210,8 @@ dense_topk_tcs_kernel(__grid_constant__ const CUtensorMap qmap,
   uint8_t* wide = smem + nst * STAGE;
   float* scores = reinterpret_cast<float*>(wide + (MODE == 1 ? WIDE : 0));  // [QN][SR]
   u64* lists = reinterpret_cast<u64*>(scores + QN * SR);                    // [QN][kp]
-  u64* scratch = lists + QN * kp;                                           // [WORKERS][R]
-  float* thr = reinterpret_cast<float*>(scratch + WORKERS * R);             // [QN]
+  u64* scratch = lists + QN * kp;                                  // [WORKERS][R] (kt > LIST)
+  float* thr = reinterpret_cast<float*>(scratch + scratch_keys(kt));  // [QN]
   float* qsc = thr + QN;                                                    // [QN]
   int* flag = reinterpret_cast<int*>(qsc + QN);  // [QN]: a score of the chunk beats the list
   const uint32_t full0 = sm90::smem_addr(flag + QN);  // stage s's full barrier: full0 + 8 s
@@ -1202,7 +1231,7 @@ dense_topk_tcs_kernel(__grid_constant__ const CUtensorMap qmap,
   const int r_begin = slice * slice_rows;
   const int r_lim = min(rows, r_begin + slice_rows);
   const int nch = r_lim > r_begin ? (r_lim - r_begin + R - 1) / R : 0;
-  const int kslice = MODE == 2 ? KS / 2 : KS;  // elements of a row a k-slice
+  const int kslice = KS / (MODE == 3 ? 4 : MODE == 2 ? 2 : 1);  // elements of a row a k-slice
   const int nks = (D + kslice - 1) / kslice;
 
   if (tid == 0) {
@@ -1298,6 +1327,10 @@ dense_topk_tcs_kernel(__grid_constant__ const CUtensorMap qmap,
           if constexpr (MODE == 1) {
             sm90::tma_load_2d(st + Q_OFF, &qmap, bar, ks * KS, b0);
             sm90::tma_load_2d(st + Q_OFF + QN * KS, &qmap, bar, ks * KS + KS / 2, b0);
+          } else if constexpr (MODE == 3) {
+            // the [2B, D] planes: hi in rows 0 .. B - 1, lo in rows B ..
+            sm90::tma_load_2d(st + Q_OFF, &qmap, bar, ks * kslice, b0);
+            sm90::tma_load_2d(st + Q_OFF + QN * KS, &qmap, bar, ks * kslice, B + b0);
           } else {
             sm90::tma_load_2d(st + Q_OFF, &qmap, bar, ks * kslice, b0);
           }
@@ -1346,7 +1379,40 @@ dense_topk_tcs_kernel(__grid_constant__ const CUtensorMap qmap,
     auto issue_stage = [&](int ks) {
       sm90::mbar_wait(full0 + 8 * s, ph);
       const uint32_t st = ring + s * STAGE;
-      if constexpr (MODE == 1) {
+      if constexpr (MODE == 3) {
+        // four k8 steps of 32 bytes (+ 2 in the descriptor), each its own
+        // group of three products, always in this order: hi x hi, hi x lo,
+        // lo x hi.  The rows' planes are made here, in registers (A from
+        // registers: this thread's rows rr0 and rr0 + 8, columns t and t +
+        // 4 of the step, from the stage's swizzled rows); the queries'
+        // planes are the stage's two boxes.  A step's registers are
+        // rewritten only after the wait that covers the step before it
+        const float* rows = reinterpret_cast<const float*>(smem + s * STAGE);
+        const uint64_t dh = sm90::wgmma_desc_sw128(st + Q_OFF);
+        const uint64_t dl = sm90::wgmma_desc_sw128(st + Q_OFF + QN * KS);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          uint32_t hi[4], lo[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = rr0 + 8 * (i & 1);
+            const int c = 8 * k + t + 4 * (i >> 1);
+            const float x = rows[r * 32 + (((c >> 2) ^ (r & 7)) << 2) + (c & 3)];
+            hi[i] = sm90::tf32_rna(x);
+            lo[i] = sm90::tf32_rna(__fsub_rn(x, __uint_as_float(hi[i])));
+          }
+          sm90::fence_regs(hi);
+          sm90::fence_regs(lo);
+          sm90::fence_regs(acc);
+          sm90::wgmma_fence();
+          sm90::wgmma_tf32<QN>(acc, hi, dh + 2 * k, (ks > 0 || k > 0) ? 1 : 0);
+          sm90::wgmma_tf32<QN>(acc, hi, dl + 2 * k, 1);
+          sm90::wgmma_tf32<QN>(acc, lo, dh + 2 * k, 1);
+          sm90::wgmma_commit();
+          sm90::wgmma_wait<1>();  // the step before: its registers are free
+          sm90::fence_regs(acc);
+        }
+      } else if constexpr (MODE == 1) {
         sm90::wgmma_wait<0>();  // the widened codes are rewritten
         sm90::fence_regs(acc);
         release(0);
@@ -1362,6 +1428,7 @@ dense_topk_tcs_kernel(__grid_constant__ const CUtensorMap qmap,
           mma<MODE, QN>(acc, da + (k >> 2) * (HALF >> 4) + 2 * (k & 3),
                         db + (k >> 2) * ((QN * KS) >> 4) + 2 * (k & 3),
                         (ks > 0 || k > 0) ? 1 : 0);
+        sm90::wgmma_commit();
       } else {
         const uint64_t da = sm90::wgmma_desc_sw128(st + a_off);
         const uint64_t db = sm90::wgmma_desc_sw128(st + Q_OFF);
@@ -1370,8 +1437,8 @@ dense_topk_tcs_kernel(__grid_constant__ const CUtensorMap qmap,
 #pragma unroll
         for (int k = 0; k < 4; ++k)  // + 32 bytes a step: + 2 in the descriptor
           mma<MODE, QN>(acc, da + 2 * k, db + 2 * k, (ks > 0 || k > 0) ? 1 : 0);
+        sm90::wgmma_commit();
       }
-      sm90::wgmma_commit();
       ++pending;
       if (++s == nst) {
         s = 0;
@@ -1524,7 +1591,7 @@ int launch(int mode, const void* qmap_in, const void* cmap_in, int q_box, int c_
            const float* qscale, const float* scales, const float* norms, const uint8_t* mask,
            int B, int N, int D, int tile, int num_tiles, int kt, int qn, int nst, int slices,
            int slice_rows, float* out_vals, int* out_ids, cudaStream_t s) {
-  if (mode < 0 || mode > 2 || kt < 1 || kt > MAX_KT || D < 16 || D > MAX_D || D % 16 != 0 ||
+  if (mode < 0 || mode > 3 || kt < 1 || kt > MAX_KT || D < 16 || D > MAX_D || D % 16 != 0 ||
       B < 1 || N < 1 || tile < 1 || num_tiles != (N + tile - 1) / tile || q_box != qn ||
       c_box != R || nst < 2 || nst > MAX_STAGES || slices < 1 || slices > MAX_SLICES ||
       slice_rows < R || slice_rows % R != 0 || static_cast<long long>(slices) * slice_rows < tile ||
@@ -1544,9 +1611,32 @@ int launch(int mode, const void* qmap_in, const void* cmap_in, int q_box, int c_
     case 1:
       return launch_mode<1>(qn, qmap, cmap, qscale, scales, norms, mask, B, N, D, tile, num_tiles,
                             kt, kp, nst, slices, slice_rows, out_vals, out_ids, s);
-    default:
+    case 2:
       return launch_mode<2>(qn, qmap, cmap, qscale, scales, norms, mask, B, N, D, tile, num_tiles,
                             kt, kp, nst, slices, slice_rows, out_vals, out_ids, s);
+    default:
+      return launch_mode<3>(qn, qmap, cmap, qscale, scales, norms, mask, B, N, D, tile, num_tiles,
+                            kt, kp, nst, slices, slice_rows, out_vals, out_ids, s);
+  }
+}
+
+// mode 3's queries as two tf32 planes for the kernel: q [count] f32 (a
+// [B, D] array) into out [2 count], hi = tf32_rna(q) first, then lo =
+// tf32_rna(q - hi) (q - hi is exact); four elements a thread a step
+__global__ void __launch_bounds__(256)
+dense_topk_tf32_planes_kernel(const float4* __restrict__ q, float4* __restrict__ out,
+                              long long quads) {
+  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < quads; i += gridDim.x * 256ll) {
+    const float4 x = q[i];
+    const float v[4] = {x.x, x.y, x.z, x.w};
+    float h[4], l[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      h[e] = __uint_as_float(sm90::tf32_rna(v[e]));
+      l[e] = __uint_as_float(sm90::tf32_rna(__fsub_rn(v[e], h[e])));
+    }
+    out[i] = make_float4(h[0], h[1], h[2], h[3]);
+    out[quads + i] = make_float4(l[0], l[1], l[2], l[3]);
   }
 }
 
@@ -1554,6 +1644,7 @@ int launch(int mode, const void* qmap_in, const void* cmap_in, int q_box, int c_
 
 }  // namespace
 
+// The SIMT variant (every mode, 1 <= kt; the wrapper takes it for kt > 128).
 // mode: 0 = int8 x int8, 1 = int8 corpus + bf16 queries,
 //       2 = bf16 corpus + bf16 queries, 3 = f32 x f32.
 // Null scales / norms / mask pointers mean the feature is absent.
@@ -1585,8 +1676,9 @@ extern "C" int dense_topk_launch(int mode, const void* q, const float* qscale,
 
 // A tensor map of the tensor-core variants, written (128 bytes, a
 // CUtensorMap) to `map`.  d > 0: a row-major [rows, d] matrix at `base` of
-// int8 (elem_bytes 1) or bf16 (2) elements, d % 16 == 0, in boxes of 128
-// bytes (128 or 64 elements) x box_rows rows with the 128-byte swizzle;
+// int8 (elem_bytes 1), bf16 (2) or f32 (4) elements, d % 16 == 0, in boxes
+// of 128 bytes (128, 64 or 32 elements) x box_rows rows with the 128-byte
+// swizzle;
 // d = 0: a vector of `rows` elements of elem_bytes (4: f32 scales or norms,
 // 1: mask bytes) in boxes of box_rows (a [1, rows] matrix: load its boxes
 // at (x, 0)).  Zeros outside the array.  `base` 16-byte aligned.  Returns
@@ -1597,7 +1689,7 @@ extern "C" int dense_topk_tc_map(void* map, const void* base, long long rows, in
   const bool matrix = d > 0;
   if (rows < 1 || rows > 0x7fffffffLL || box_rows < 1 || box_rows > 256 ||
       reinterpret_cast<uintptr_t>(base) % 16 != 0 ||
-      (matrix ? (d % 16 != 0 || (elem_bytes != 1 && elem_bytes != 2))
+      (matrix ? (d % 16 != 0 || (elem_bytes != 1 && elem_bytes != 2 && elem_bytes != 4))
               : ((elem_bytes != 1 && elem_bytes != 4) || box_rows * elem_bytes % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   tc::EncodeTiled encode = tc::encode_tiled();
@@ -1610,7 +1702,10 @@ extern "C" int dense_topk_tc_map(void* map, const void* base, long long rows, in
     const cuuint32_t box[2] = {static_cast<cuuint32_t>(tc::KS / elem_bytes),
                                static_cast<cuuint32_t>(box_rows)};
     const cuuint32_t elem_strides[2] = {1, 1};
-    r = encode(&m, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+    r = encode(&m,
+               elem_bytes == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+               : elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
                2, const_cast<void*>(base), dims, strides, box,
                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -1629,6 +1724,23 @@ extern "C" int dense_topk_tc_map(void* map, const void* base, long long rows, in
   if (r != CUDA_SUCCESS) return 1000 + static_cast<int>(r);
   memcpy(map, &m, sizeof(CUtensorMap));
   return 0;
+}
+
+// Mode 3's query planes for dense_topk_tcs_launch: q, a row-major [B, D] f32
+// array (count = B D elements, a multiple of 4, 16-byte aligned), into out
+// [2B, D]: rows 0 .. B - 1 tf32_rna(q), rows B .. 2B - 1 tf32_rna(q - that).
+// Returns the cudaError_t of the launch.
+extern "C" int dense_topk_tf32_planes(const float* q, float* out, long long count,
+                                      void* stream) {
+  if (count < 4 || count % 4 != 0 || reinterpret_cast<uintptr_t>(q) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long quads = count / 4;
+  const long long blocks = (quads + 255) / 256;
+  const int grid = static_cast<int>(blocks < 2048 ? blocks : 2048);
+  tcs::dense_topk_tf32_planes_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(q), reinterpret_cast<float4*>(out), quads);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The register-list variant (int8 x int8, 1 <= kt <= 8, D % 16 == 0, D <=
@@ -1651,11 +1763,12 @@ extern "C" int dense_topk_tc_launch(const void* qmap, const void* cmap, const vo
 }
 
 // The tensor-core variant with sorted selection: modes 0 (int8 x int8),
-// 1 (int8 codes, bf16 queries) and 2 (bf16 x bf16), 1 <= kt <= 128, D %
-// 16 == 0, D <= 65536.  Tensor maps from dense_topk_tc_map: qmap, the
-// queries [B, D] (int8 in mode 0, else bf16) in boxes of q_box = qn rows;
-// cmap, the corpus's first N rows (int8 in modes 0 and 1, bf16 in mode 2)
-// in boxes of c_box = 128 rows.  `shape` holds twelve ints, {q_box, c_box,
+// 1 (int8 codes, bf16 queries), 2 (bf16 x bf16) and 3 (f32 x f32), 1 <= kt
+// <= 128, D % 16 == 0, D <= 65536.  Tensor maps from dense_topk_tc_map:
+// qmap, the queries [B, D] (int8 in mode 0, bf16 in modes 1 and 2; in mode
+// 3 the [2B, D] f32 planes of dense_topk_tf32_planes) in boxes of q_box =
+// qn rows; cmap, the corpus's first N rows (int8 in modes 0 and 1, bf16 in
+// mode 2, f32 in mode 3) in boxes of c_box = 128 rows.  `shape` holds twelve ints, {q_box, c_box,
 // B, N, D, tile, num_tiles, kt, qn, nst, slices, slice_rows} (one argument,
 // which a caller builds once a shape): qn (16, 64 or 128) queries a block,
 // nst (2 to 4) ring stages, within the block's 232,448 bytes of shared

@@ -5,9 +5,10 @@ Port of the TPU kernel in the JAX package's ``ops/pallas_topk.py``
 is ``csrc/dense_topk.cu`` (CUDA C++ for sm_90a, built by ``_build.py``)
 in three variants, chosen by shape (``kernel_variant``):
 
-* ``"tcs"``, the tensor cores for every mode but f32 (int8 x int8, int8
-  codes with bf16 queries, bf16 x bf16) at ``kt <= TC_MAX_KT`` and any D to
-  ``TCS_MAX_D``, in one form: a block of 16, 64 or 128 queries
+* ``"tcs"``, the tensor cores for every mode (int8 x int8, int8 codes
+  with bf16 queries, bf16 x bf16, and f32 x f32 as three TF32 products on
+  round-to-nearest planes, ``tf32_planes``) at ``kt <= TC_MAX_KT`` and any
+  D to ``TCS_MAX_D``, in one form: a block of 16, 64 or 128 queries
   (``tcs_geometry``: by the batch, then the shared-memory budget) against a
   slice of a tile in chunks of ``TCS_RC`` rows, a TMA ring of 128-byte
   k-slices of the rows and the queries, ``wgmma`` with the rows as M and
@@ -17,8 +18,11 @@ in three variants, chosen by shape (``kernel_variant``):
   by rank; each tile's rows split over the blocks of a cluster
   (``tcs_split``) where the tiles alone would leave the card idle.  What
   bounds it: at scale the L2 stream of the k-slices and the epilogue and
-  selection, which the products do not overlap; at the served shapes the
-  launch, the ring's latency and a slice's first selection;
+  selection, which the products do not overlap (f32: the three products'
+  tensor work, six times bf16's an element); at the served shapes the launch,
+  the ring's latency and a slice's first selection.  An f32 call launches
+  the queries' planes kernel first (``dense_topk_tf32_planes``: ``[2B,
+  D]``, counted with the call's one "tcs" launch);
 * ``"tc"``, the int8 x int8 kernel with register lists (``kt <=
   LIST_MAX_KT``, any D up to ``LIST_MAX_D``), taken where its work items
   (a tile against a block of ``LIST_QB`` queries) fill the card: a
@@ -30,7 +34,8 @@ in three variants, chosen by shape (``kernel_variant``):
   cached (``_tensor_map``): a served call encodes only its new queries'
   map, and takes the rest of its launch from its shape's plan
   (``_tcs_plan``);
-* ``"simt"`` for the rest (f32, kt above the cap).
+* ``"simt"`` for the rest: kt above the cap, in every mode (the served
+  routes cap top_k at 100).
 
 ``tc_launches`` counts every tensor-core launch (``tc_mode_launches``
 splits them by mode, ``list_launches`` counts the register-list kernel's
@@ -79,6 +84,7 @@ TCS_RC = 128
 TCS_KS = 128
 TCS_QN = (16, 64, 128)
 TCS_WORKERS = 12  # warps that select (the 8 consumers and 4 more)
+TCS_LIST_KT = 8  # kt <= this: register lists in the consumers, no selection scratch
 TCS_MAX_STAGES = 4
 TCS_MAX_SLICES = 8
 TCS_MAX_D = 65536
@@ -113,7 +119,7 @@ list_launches = _Launches()  # the register-list kernel ("tc") alone
 simt_launches = _Launches()  # the SIMT variant
 # tc_launches by mode
 tc_mode_launches = {m: _Launches() for m in (MODE_INT8, MODE_INT8_BF16,
-                                         MODE_BF16)}
+                                         MODE_BF16, MODE_F32)}
 
 
 def count_launch(variant: str, mode: int) -> None:
@@ -143,6 +149,8 @@ def _lib() -> ctypes.CDLL:
     lib.dense_topk_tc_launch.restype = i
     lib.dense_topk_tcs_launch.argtypes = [i, p, p, p, p, p, p, p, p, p, p]
     lib.dense_topk_tcs_launch.restype = i
+    lib.dense_topk_tf32_planes.argtypes = [p, p, ctypes.c_longlong, p]
+    lib.dense_topk_tf32_planes.restype = i
     return lib
 
 
@@ -173,12 +181,12 @@ def kernel_variant(mode: int, kt: int, d: int, b: int, num_tiles: int,
     ``"tc"`` (int8 x int8 register lists, at any ``d``) where ``kt <=
     LIST_MAX_KT`` and its work items (``list_work_items``: a tile against
     a block of ``LIST_QB`` queries) give each of ``sms`` SMs at least one;
-    ``"tcs"`` for the other int8 and bf16 calls at ``kt <= TC_MAX_KT``,
-    whatever ``d``; ``"simt"`` for f32 queries and kt above the cap.  Every
-    variant of a mode gives the same bits for a query whatever the batch
-    (int8 x int8: all equal the plain version), so the choice by ``b``
-    changes no answer."""
-    if mode == MODE_F32 or not 1 <= kt <= TC_MAX_KT:
+    ``"tcs"`` for every other call at ``kt <= TC_MAX_KT`` (f32 too),
+    whatever ``d``; ``"simt"`` for kt above the cap.  Every variant of a
+    mode gives the same bits for a query whatever the batch (int8 x int8:
+    all equal the plain version), so the choice by ``b`` changes no
+    answer."""
+    if not 1 <= kt <= TC_MAX_KT:
         return "simt"
     if mode == MODE_INT8 and kt <= LIST_MAX_KT and \
             list_work_items(b, num_tiles) >= sms:
@@ -238,9 +246,11 @@ def list_tensor_maps(b: int, n: int, d: int, scales: bool = True,
 
 def tcs_stage_bytes(mode: int, qn: int) -> int:
     """A "tcs" ring stage: one 128-byte k-slice of the chunk's ``TCS_RC``
-    rows (128 int8 codes or 64 bf16) and of the block's ``qn`` queries (the
-    int8-codes mode: 128 bf16 query elements, two 64-element boxes)."""
-    return TCS_RC * TCS_KS + (2 if mode == MODE_INT8_BF16 else 1) * qn * TCS_KS
+    rows (128 int8 codes, 64 bf16 or 32 f32) and of the block's ``qn``
+    queries (two boxes: the int8-codes mode's 128 bf16 query elements in
+    64-element halves; the f32 mode's 32 elements of each tf32 plane)."""
+    two = mode in (MODE_INT8_BF16, MODE_F32)
+    return TCS_RC * TCS_KS + (2 if two else 1) * qn * TCS_KS
 
 
 def tcs_kp(kt: int) -> int:
@@ -254,12 +264,14 @@ def tcs_smem_bytes(mode: int, qn: int, kt: int, nst: int) -> int:
     int8-codes mode's widened codes (two warpgroups x 64 rows x 128 bf16),
     the chunk's scores (``qn`` x ``TCS_SR`` f32), the sorted lists (``qn``
     x kp keys of 8 bytes), 128 keys of scratch for each of the
-    ``TCS_WORKERS`` selecting warps, the queries' thresholds, scales and
+    ``TCS_WORKERS`` selecting warps (only above ``TCS_LIST_KT``, where the
+    sorted lists merge through it), the queries' thresholds, scales and
     flags, and 8-byte barriers (a full and an empty one a stage).  It does not
     depend on D: the queries stream through the ring like the rows."""
+    scratch = TCS_WORKERS * TCS_RC * 8 if kt > TCS_LIST_KT else 0
     return (1024 + nst * tcs_stage_bytes(mode, qn)
             + (TCS_WIDE if mode == MODE_INT8_BF16 else 0)
-            + qn * TCS_SR * 4 + qn * tcs_kp(kt) * 8 + TCS_WORKERS * TCS_RC * 8
+            + qn * TCS_SR * 4 + qn * tcs_kp(kt) * 8 + scratch
             + qn * 12 + nst * 16)
 
 
@@ -291,14 +303,16 @@ def tcs_geometry(mode: int, b: int, kt: int) -> tuple[int, int]:
 
 def tcs_tensor_maps(mode: int, b: int, n: int, d: int, qn: int) -> dict:
     """The TMA maps of a "tcs" launch: the ``[b, d]`` queries (int8 in the
-    int8 x int8 mode, else bf16) in boxes of 128 bytes x ``qn`` rows, and
-    the first ``n`` rows (the scanned ones; bf16 in the bf16 mode, else
-    int8) in boxes of 128 bytes x ``TCS_RC`` rows; 128-byte swizzle, zeros
+    int8 x int8 mode, bf16 in the bf16-query modes; in the f32 mode their
+    ``[2b, d]`` f32 planes, ``tf32_planes``) in boxes of 128 bytes x ``qn``
+    rows, and the first ``n`` rows (the scanned ones; int8 codes, bf16 or
+    f32) in boxes of 128 bytes x ``TCS_RC`` rows; 128-byte swizzle, zeros
     past d and past the last row."""
-    return {"queries": {"rows": b, "d": d, "elem_bytes": 1 if mode == MODE_INT8 else 2,
-                        "box_rows": qn},
-            "corpus": {"rows": n, "d": d, "elem_bytes": 2 if mode == MODE_BF16 else 1,
-                       "box_rows": TCS_RC}}
+    q_bytes = {MODE_INT8: 1, MODE_F32: 4}.get(mode, 2)
+    c_bytes = {MODE_BF16: 2, MODE_F32: 4}.get(mode, 1)
+    return {"queries": {"rows": 2 * b if mode == MODE_F32 else b, "d": d,
+                        "elem_bytes": q_bytes, "box_rows": qn},
+            "corpus": {"rows": n, "d": d, "elem_bytes": c_bytes, "box_rows": TCS_RC}}
 
 
 def tcs_split(b: int, num_tiles: int, tile: int, qn: int,
@@ -453,10 +467,9 @@ def _tcs_plan(q_dtype: torch.dtype, c_dtype: torch.dtype, b: int, n: int, d: int
     collection repeats a few; at most 256 are kept), so a call pays neither
     ``tcs_geometry`` and ``tcs_split`` nor a conversion of each int."""
     mode = _dtype_mode(q_dtype, c_dtype)
-    if not 1 <= kt <= TC_MAX_KT or d > TCS_MAX_D or mode == MODE_F32:
-        raise ValueError(f"the sorted-selection kernel takes int8 and bf16 at "
-                         f"kt <= {TC_MAX_KT} and D <= {TCS_MAX_D}, got mode "
-                         f"{mode}, kt={kt}, D={d}")
+    if not 1 <= kt <= TC_MAX_KT or d > TCS_MAX_D:
+        raise ValueError(f"the sorted-selection kernel takes kt <= {TC_MAX_KT} "
+                         f"and D <= {TCS_MAX_D}, got mode {mode}, kt={kt}, D={d}")
     qn, nst = tcs_geometry(mode, b, kt)
     num_tiles = -(-n // tile)
     slices, rows = tcs_split(b, num_tiles, tile, qn, sms)
@@ -469,16 +482,40 @@ def _tcs_plan(q_dtype: torch.dtype, c_dtype: torch.dtype, b: int, n: int, d: int
 
 def _launch_tcs(lib, q, qscale, values, scales, norms, mask, n, tile, kt,
                 out_v, out_i, stream, sms: int) -> int:
-    """The "tcs" launch: the plan of its shape (``_tcs_plan``), the queries'
-    and rows' tensor maps (cached; both arrays are 16-byte aligned, as
-    ``_launch_kernel`` checks), then the kernel.  Returns the launch's
-    cudaError (an encoding failure raises)."""
+    """The "tcs" launch: the plan of its shape (``_tcs_plan``), in the f32
+    mode the queries' tf32 planes (``dense_topk_tf32_planes``, a kernel of
+    its own on the same stream), the queries' and rows' tensor maps
+    (cached; both arrays are 16-byte aligned, as ``_launch_kernel``
+    checks), then the kernel.  Returns the first failed launch's cudaError,
+    else 0 (an encoding failure raises)."""
     b, d = q.shape
     mode, shape, qgeo, cgeo = _tcs_plan(q.dtype, values.dtype, b, n, d, tile, kt, sms)
+    if mode == MODE_F32:
+        planes = torch.empty((2 * b, d), dtype=torch.float32, device=q.device)
+        err = lib.dense_topk_tf32_planes(q.data_ptr(), planes.data_ptr(), b * d, stream)
+        if err != 0:
+            return err
+        q = planes  # freed after the launch is queued: the stream orders reuse
     return lib.dense_topk_tcs_launch(
         mode, _tensor_map(lib, q.data_ptr(), *qgeo),
         _tensor_map(lib, values.data_ptr(), *cgeo), shape, _ptr(qscale), _ptr(scales),
         _ptr(norms), _ptr(mask), out_v.data_ptr(), out_i.data_ptr(), stream)
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to tf32 (10 mantissa bits), to nearest with ties
+    away from zero, as f32 with the 13 low bits cleared: the kernel's
+    ``cvt.rna.tf32.f32``."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_planes(q: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``dense_topk_tf32_planes`` (the f32 mode's query
+    planes): ``[2B, D]``, ``hi = tf32_rna(q)`` then ``lo = tf32_rna(q -
+    hi)`` (``q - hi`` is exact), so that ``hi x hi + hi x lo + lo x hi``
+    leaves out only ~3 * 2^-22 |x||y| of a product."""
+    hi = tf32_rna(q.to(torch.float32))
+    return torch.cat([hi, tf32_rna(q - hi)])
 
 
 def plain_scores(q, qscale, values, scales, norms, mask, r0: int, r1: int

@@ -50,7 +50,7 @@ def test_kernel_matches_plain_version(card, mode):
             variant = dt.kernel_variant(dt._mode(qq, corpus.values), kt, 96, 20,
                                         -(-5000 // tile))
             counter = dt.simt_launches if variant == "simt" else dt.tc_launches
-            assert variant == ("simt" if mode == "f32" else "tcs")
+            assert variant == "tcs"  # f32 too: three TF32 products
             before = counter.count
             kv, ki = dt.tile_topk(*args)
             assert counter.count == before + 1
@@ -417,6 +417,121 @@ def test_served_shape_takes_the_split_grid(card, mode, kt):
         tol = d * 2.0 ** -23 * (float(pv[fin].abs().max()) + 1.0)
         assert_topk_match(pv.cpu(), pi.cpu(), kv.cpu(), ki.cpu(), rtol=0.0, atol=tol,
                           scores=dt.plain_scores(*args[:6], 0, n))
+
+
+def _f32_operands(card, b, n, d, seed, metric="ip"):
+    """f32 rows built as an index builds them (cosine rows normalised, L2
+    norms kept), f32 queries as ``prepare`` leaves them; rows 64.. repeat
+    rows 0.. (ties); a keep-mask whose second tile is all masked."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn(n, d, device=card, generator=gen)
+    x[64:96] = x[0:32]
+    corpus = build_corpus(x, metric=metric, dtype=torch.float32)
+    q, _, _, _ = dt.prepare(torch.randn(b, d, device=card, generator=gen), corpus, 1, metric)
+    mask = torch.rand(n, device=card, generator=gen) < 0.7
+    mask[2048:4096] = False
+    return q, corpus.values, corpus.norms_sq if metric == "l2" else None, mask
+
+
+def _f32_check(args, n):
+    """One f32 call on the tensor cores (one launch of mode 3, nothing
+    else), against the plain version: -inf slots equal, values within
+    D * 2^-23 * (max|score| + 1), ids equal but at near-ties."""
+    q, d = args[0], args[0].shape[1]
+    before = _counts(dt.MODE_F32)
+    kv, ki = dt.tile_topk(*args)
+    assert _launched("tcs", dt.MODE_F32, before)
+    pv, pi = dt.tile_topk_plain(*args)
+    fin = torch.isfinite(pv)
+    tol = d * 2.0 ** -23 * (float(pv[fin].abs().max()) + 1.0)
+    assert_topk_match(pv.cpu(), pi.cpu(), kv.cpu(), ki.cpu(), rtol=0.0, atol=tol,
+                      scores=dt.plain_scores(*args[:6], 0, n))
+    return kv, ki
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kt", [1, 2, 3, 8, 9, 32, 100, 128])
+@pytest.mark.parametrize("metric", ["cosine", "ip", "l2"])
+def test_f32_tensor_core_kernel_within_tolerance(card, metric, kt):
+    """f32 collections on the tensor cores (three TF32 products on
+    round-to-nearest planes) at ragged B (1, 17, 64, 130) and D (16 to
+    4,096), tiles of 200 and 2048 rows, masked (an all-masked tile) and
+    not, duplicate rows, every metric: within D * 2^-23 * (max|score| + 1)
+    of tile_topk_plain, ids equal but at near-ties; the route is "tcs" at
+    every kt <= 128 and the SIMT kernel is never launched."""
+    n = 5000
+    for b, d in ((1, 16), (17, 48), (64, 96), (130, 768), (17, 1040), (1, 1536),
+                 (130, 4096)):
+        q, values, norms, mask = _f32_operands(card, b, n, d, seed=b + d + kt, metric=metric)
+        for tile in (200, 2048):
+            for msk in (None, mask):
+                assert dt.kernel_variant(dt.MODE_F32, kt, d, b, -(-n // tile)) == "tcs"
+                args = (q, None, values, None, norms, msk, n, tile, kt)
+                kv, ki = _f32_check(args, n)
+                if msk is not None and tile == 2048:
+                    assert torch.isinf(kv[1]).all() and (ki[1] == 2048).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sms,slices", [(1, 1), (20, 4), (132, 8)])
+@pytest.mark.parametrize("kt", [5, 32, 128])
+def test_f32_tensor_core_kernel_in_every_split(card, monkeypatch, sms, slices, kt):
+    """16,384 rows of D = 256 at B = 64 (the served shape) with the tiles'
+    rows split for 1, 20 or 132 SMs (1, 4 or 8 blocks a cluster): within
+    the tolerance of the plain version, and the same bits whatever the
+    split."""
+    n, d, b, tile = 16384, 256, 64, 2048
+    q, values, norms, mask = _f32_operands(card, b, n, d, seed=kt)
+    monkeypatch.setattr(dt, "_sm_count", lambda i: sms)
+    args = (q, None, values, None, None, mask, n, tile, kt)
+    qn, _ = dt.tcs_geometry(dt.MODE_F32, b, kt)
+    assert dt.tcs_split(b, n // tile, tile, qn, sms)[0] == slices
+    got = _f32_check(args, n)
+    monkeypatch.setattr(dt, "_sm_count", lambda i: 1)
+    one = dt.tile_topk(*args)  # one block a tile
+    assert torch.equal(got[0], one[0]) and torch.equal(got[1], one[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kt", [5, 32, 129])
+def test_f32_kernel_is_batch_invariant(card, kt):
+    """A query's f32 lists are the same bits alone (B = 1: a block of 16)
+    and at row 37 of batches of 64 and 130 (blocks of 64 and 128, 2 ring
+    stages at 128), whatever the split each batch takes; kt 129 (above the
+    tensor cores' cap) takes the SIMT kernel, which keeps kt > 128."""
+    n, d, tile = 16384, 256, 2048
+    q, values, norms, mask = _f32_operands(card, 130, n, d, seed=kt)
+    rows = (values, None, None, mask, n, tile, kt)
+    want = "simt" if kt > dt.TC_MAX_KT else "tcs"
+    for b in (1, 64, 130):
+        assert dt.kernel_variant(dt.MODE_F32, kt, d, b, n // tile) == want
+    before = _counts(dt.MODE_F32)
+    full = dt.tile_topk(q, None, *rows)
+    assert _launched(want, dt.MODE_F32, before)
+    mid = dt.tile_topk(q[:64], None, *rows)
+    one = dt.tile_topk(q[37:38], None, *rows)
+    if kt <= dt.TC_MAX_KT:
+        assert [dt.tcs_geometry(dt.MODE_F32, b, kt)[0] for b in (1, 64, 130)] == [16, 64, 128]
+    for got in (full, mid):
+        assert torch.equal(got[0][:, 37:38], one[0])
+        assert torch.equal(got[1][:, 37:38], one[1])
+
+
+@pytest.mark.cuda
+def test_f32_query_planes_kernel_equals_its_plain_version(card):
+    """dense_topk_tf32_planes (the f32 mode's query planes, [2B, D]) equals
+    tf32_planes bit for bit: round-to-nearest tf32 with ties away from
+    zero, ties, signs, subnormals and zeros included."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    q = torch.randn(130, 768, device=card, generator=gen)
+    q[0, :8] = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0 + 3 * 2.0 ** -11,
+                             0.0, -0.0, 1e-40, -3e-39, 2.0 ** -149], device=card)
+    out = torch.empty((260, 768), device=card)
+    err = dt._lib().dense_topk_tf32_planes(q.data_ptr(), out.data_ptr(), q.numel(),
+                                           torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    want = dt.tf32_planes(q)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.cuda

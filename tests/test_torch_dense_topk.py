@@ -130,9 +130,12 @@ def test_live_rows_scan_changes_no_bit(live, per_tile_k):
     # deep lists on a full grid; calibration's uncapped gold (kt 100)
     (dt.MODE_INT8, 9, 768, 512, 489, "tcs"), (dt.MODE_INT8, 128, 768, 512, 489, "tcs"),
     (dt.MODE_INT8_BF16, 100, 768, 32, 489, "tcs"), (dt.MODE_INT8_BF16, 2, 768, 32, 489, "tcs"),
-    # one above each cap, and f32
+    # one above each cap, and f32 (three TF32 products on the tensor cores)
     (dt.MODE_INT8, 129, 768, 1, 1, "simt"), (dt.MODE_INT8_BF16, 129, 256, 32, 8, "simt"),
-    (dt.MODE_BF16, 129, 256, 64, 8, "simt"), (dt.MODE_F32, 2, 96, 20, 3, "simt"),
+    (dt.MODE_BF16, 129, 256, 64, 8, "simt"), (dt.MODE_F32, 2, 96, 20, 3, "tcs"),
+    (dt.MODE_F32, 1, 768, 512, 489, "tcs"), (dt.MODE_F32, 8, 768, 512, 489, "tcs"),
+    (dt.MODE_F32, 9, 256, 64, 8, "tcs"), (dt.MODE_F32, 128, 256, 1, 8, "tcs"),
+    (dt.MODE_F32, 129, 256, 64, 8, "simt"),
     # above D = 1,024: both tensor-core kernels stream their queries at
     # every D
     (dt.MODE_INT8, 2, 1040, 512, 489, "tc"), (dt.MODE_BF16, 5, 1040, 64, 8, "tcs"),
@@ -140,13 +143,13 @@ def test_live_rows_scan_changes_no_bit(live, per_tile_k):
     (dt.MODE_BF16, 5, 1536, 1, 5, "tcs"), (dt.MODE_BF16, 32, 1536, 1, 5, "tcs"),
     (dt.MODE_INT8, 2, 1536, 512, 489, "tc"),
     (dt.MODE_INT8_BF16, 5, 3072, 1, 5, "tcs"), (dt.MODE_INT8_BF16, 5, 4096, 1, 5, "tcs"),
-    (dt.MODE_BF16, 129, 1536, 1, 5, "simt"), (dt.MODE_F32, 5, 1536, 1, 5, "simt")])
+    (dt.MODE_BF16, 129, 1536, 1, 5, "simt"), (dt.MODE_F32, 5, 1536, 1, 5, "tcs")])
 def test_kernel_variant_by_shape(mode, kt, d, b, tiles, want):
     """The int8 register-list kernel takes int8 x int8 at kt <= 8, at any
     D, where its work items (a tile against 128 queries) fill the card's
-    132 SMs; the sorted-selection tensor-core kernel every other int8 and
-    bf16 call at kt <= 128, whatever D; the SIMT kernel f32 and kt above
-    the cap."""
+    132 SMs; the sorted-selection tensor-core kernel every other call at
+    kt <= 128 (f32 too), whatever D; the SIMT kernel kt above the cap, in
+    every mode."""
     assert dt.kernel_variant(mode, kt, d, b, tiles) == want
 
 
@@ -221,7 +224,8 @@ def test_list_tensor_map_geometry(b, n, d):
 
 @pytest.mark.parametrize("variant,mode,moved", [
     ("tc", dt.MODE_INT8, (1, 1, 1, 0)), ("tcs", dt.MODE_INT8, (1, 0, 1, 0)),
-    ("tcs", dt.MODE_BF16, (1, 0, 1, 0)), ("simt", dt.MODE_F32, (0, 0, 0, 1))])
+    ("tcs", dt.MODE_BF16, (1, 0, 1, 0)), ("tcs", dt.MODE_F32, (1, 0, 1, 0)),
+    ("simt", dt.MODE_F32, (0, 0, 0, 1))])
 def test_count_launch_moves_the_variants_counters(variant, mode, moved):
     """``tc_launches`` counts both tensor-core kernels, ``list_launches``
     the register-list kernel alone, ``tc_mode_launches`` by mode."""
@@ -484,3 +488,176 @@ def test_tensor_maps_are_cached(monkeypatch):
         call(q, values)
     assert len(dt._maps) == dt.MAP_CACHE_SIZE
     assert call(q1, values) == [(q1.data_ptr(), 64, 256, 2, 64)]
+
+
+@pytest.mark.parametrize("kt", [5, 32, 128])
+@pytest.mark.parametrize("b,qn", [(1, 16), (64, 64), (512, 128)])
+def test_tcs_f32_geometry_and_maps(b, qn, kt):
+    """The f32 mode (3) on the sorted-selection kernel: its maps hold f32
+    (4-byte elements, so a 128-byte box is 32 of them): the queries' [2b,
+    d] tf32 planes (hi rows, then lo rows) and the scanned rows; a ring
+    stage holds a k-slice of the 128 rows and of both query planes; the
+    block takes 16, 64 or 128 queries by the batch (64 at kt 128 for B =
+    512, where 128 queries' lists leave no room for 2 stages), with 2 to
+    4 stages inside an H100 block's 232,448 bytes (the selecting warps'
+    scratch only where kt > 8) and the cluster merge's copies over the
+    ring."""
+    mode = dt.MODE_F32
+    geo = dt.tcs_tensor_maps(mode, b, 1_000_000, 768, qn)
+    assert geo["queries"] == {"rows": 2 * b, "d": 768, "elem_bytes": 4, "box_rows": qn}
+    assert geo["corpus"] == {"rows": 1_000_000, "d": 768, "elem_bytes": 4,
+                             "box_rows": dt.TCS_RC}
+    assert dt.TCS_KS // geo["corpus"]["elem_bytes"] == 32
+    assert dt.tcs_stage_bytes(mode, qn) == dt.TCS_KS * (dt.TCS_RC + 2 * qn)
+    got_qn, nst = dt.tcs_geometry(mode, b, kt)
+    assert got_qn == (64 if (b, kt) == (512, 128) else qn)
+    assert 2 <= nst <= dt.TCS_MAX_STAGES
+    assert dt.tcs_smem_bytes(mode, got_qn, kt, nst) <= dt.SMEM_MAX
+    assert nst == dt.TCS_MAX_STAGES or \
+        dt.tcs_smem_bytes(mode, got_qn, kt, nst + 1) > dt.SMEM_MAX
+    assert dt.tcs_merge_fits(mode, got_qn, kt, nst)
+    # no widened-codes buffer: the rows' planes are made in registers
+    assert dt.tcs_smem_bytes(mode, got_qn, kt, nst) == dt.tcs_smem_bytes(
+        dt.MODE_BF16, got_qn, kt, 0) + nst * (dt.tcs_stage_bytes(mode, got_qn) + 16)
+    # 3 stages of 128 queries where the lists are registers (kt <= 8: no
+    # selection scratch), 2 where the sorted lists take their room
+    assert {(512, 5): (128, 3), (512, 32): (128, 2), (64, 32): (64, 4),
+            (1, 128): (16, 4)}.get((b, kt), (got_qn, nst)) == (got_qn, nst)
+    scratch = dt.TCS_WORKERS * dt.TCS_RC * 8
+    assert dt.tcs_smem_bytes(mode, 128, 8, 3) + scratch + 8 * 128 * 8 == \
+        dt.tcs_smem_bytes(mode, 128, 9, 3)  # kp 8 -> 16, and the scratch
+
+
+def test_f32_launch_makes_the_query_planes_first(monkeypatch):
+    """An f32 call's launch: the queries' planes (one launch of
+    dense_topk_tf32_planes over the B D elements into a [2B, D] array) on
+    the call's stream, then the sorted-selection kernel in mode 3 with the
+    query map over the planes (2B rows of f32) and the corpus map over the
+    f32 rows."""
+    monkeypatch.setattr(dt, "_maps", collections.OrderedDict())
+    lib = _StubMapLib()
+    planes = []
+    lib.dense_topk_tf32_planes = lambda q, out, count, stream: planes.append(
+        (q, out, count, stream)) or 0
+    q = torch.zeros((20, 96))
+    values = torch.zeros((5000, 96))
+    out_v = torch.empty((3, 20, 5))
+    out_i = torch.empty((3, 20, 5), dtype=torch.int32)
+    assert dt._launch_tcs(lib, q, None, values, None, None, None, 5000, 2048, 5, out_v,
+                          out_i, 7, dt.H100_SMS) == 0
+    assert len(planes) == 1 and planes[0][0] == q.data_ptr() and planes[0][2:] == (20 * 96, 7)
+    qn, nst = dt.tcs_geometry(dt.MODE_F32, 20, 5)
+    assert lib.encoded == [(planes[0][1], 40, 96, 4, qn), (values.data_ptr(), 5000, 96, 4, 128)]
+    assert lib.launches[0][1] == dt.MODE_F32
+    assert list(lib.launches[0][4])[:10] == [qn, dt.TCS_RC, 20, 5000, 96, 2048, 3, 5, qn, nst]
+    # a failed planes launch is the call's error: no kernel after it
+    lib.dense_topk_tf32_planes = lambda *a: 700
+    assert dt._launch_tcs(lib, q, None, values, None, None, None, 5000, 2048, 5, out_v,
+                          out_i, 7, dt.H100_SMS) == 700
+    assert len(lib.launches) == 1
+
+
+def _tf32_rna_np(x):
+    """tf32 rounding to nearest, ties away from zero, on the f32 bits."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_tf32_rounding_and_planes():
+    """tf32_rna rounds an f32 to 10 mantissa bits, to nearest with ties
+    away from zero (both signs, subnormals, zeros); tf32_planes stacks hi
+    = tf32_rna(q) over lo = tf32_rna(q - hi), and hi + lo is q within
+    2^-22 |q|."""
+    ulp = 2.0 ** -10
+    x = np.array([1.0, 1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2.0 ** -23,
+                  1 + 3 * ulp / 2, 0.0, -0.0, 1e-40, -3e-39, 2.0 ** -149,
+                  3.0e38], np.float32)
+    want = np.array([1.0, 1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 0.0, -0.0],
+                    np.float32)
+    got = dt.tf32_rna(t(x))
+    assert np.array_equal(n(got)[:7].view(np.uint32), want.view(np.uint32))
+    assert np.array_equal(n(got).view(np.uint32), _tf32_rna_np(x).view(np.uint32))
+    assert (n(got).view(np.uint32) & 0x1FFF == 0).all()
+    rng = np.random.default_rng(17)
+    q = rng.standard_normal((5, 48)).astype(np.float32)
+    planes = n(dt.tf32_planes(t(q)))
+    hi = _tf32_rna_np(q)
+    assert np.array_equal(planes[:5], hi)
+    assert np.array_equal(planes[5:], _tf32_rna_np(q - hi))
+    assert (np.abs(planes[:5].astype(np.float64) + planes[5:] - q)
+            <= 2.0 ** -22 * np.abs(q)).all()
+
+
+def _three_pass_scores(q, rows):
+    """[B, N] dot products as the f32 mode forms them on the tensor cores:
+    both sides split into tf32 planes (x = h + l, h and l' = tf32_rna(l)
+    round to nearest), then, a k8 step at a time, hi x hi, hi x lo and lo x
+    hi, each step's sum of 8 exact products rounded into an f32 sum."""
+    qh = _tf32_rna_np(q)
+    ql = _tf32_rna_np(q - qh)
+    rh = _tf32_rna_np(rows)
+    rl = _tf32_rna_np(rows - rh)
+    acc = np.zeros((q.shape[0], rows.shape[0]), np.float32)
+    for s0 in range(0, q.shape[1], 8):
+        for a, g in ((rh, qh), (rh, ql), (rl, qh)):
+            part = g[:, s0:s0 + 8].astype(np.float64) @ a[:, s0:s0 + 8].astype(np.float64).T
+            acc = acc + part.astype(np.float32)
+    return acc
+
+
+def _tile_topk_merge_np(scores, tile, kt, k):
+    """Per-tile top-kt (value descending, lowest column first), then the
+    stable top-k of the tiles' candidates in tile order: dense_topk's
+    selection on given [B, N] scores."""
+    b, rows = scores.shape
+    tiles = -(-rows // tile)
+    s = np.full((b, tiles * tile), -np.inf, np.float32)
+    s[:, :rows] = scores
+    s = s.reshape(b, tiles, tile)
+    col = np.argsort(-s, axis=-1, kind="stable")[..., :kt]
+    cv = np.take_along_axis(s, col, -1).reshape(b, -1)
+    ci = (col + np.arange(tiles)[None, :, None] * tile).reshape(b, -1)
+    pos = np.argsort(-cv, axis=-1, kind="stable")[:, :k]
+    return np.take_along_axis(cv, pos, -1), np.take_along_axis(ci, pos, -1).astype(np.int32)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("metric", ["cosine", "ip", "l2"])
+@pytest.mark.parametrize("d", [16, 96, 768, 1536])
+def test_three_pass_tf32_holds_the_f32_tolerance(d, metric, masked):
+    """The f32 mode's arithmetic, emulated in numpy (tf32 planes rounded to
+    nearest, three products a k8 step, f32 sums, the epilogue, the per-tile
+    selection), against the JAX package's f32 pallas_dense_topk
+    (interpret=True): values within the float modes' tolerance D * 2^-23 *
+    (max|score| + 1), ids equal but at near-ties, at D from 16 to 1,536,
+    every metric, with a mask and with duplicate rows (ties); every
+    emulated score of every row within that tolerance of the exact
+    (float64) score."""
+    rng = np.random.default_rng(18 + d)
+    rows, b, tile, k = 1000, 8, 256, 10
+    x = rng.standard_normal((rows, d)).astype(np.float32)
+    x[64:96] = x[:32]
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    mask = rng.random(rows) < 0.6 if masked else None
+    jc = jdense.build_corpus(jnp.asarray(x), metric=metric, dtype=jnp.float32)
+    jv, ji = pallas_dense_topk(jnp.asarray(q), jc, k=k, metric=metric,
+                               mask=None if mask is None else jnp.asarray(mask),
+                               tile=tile, interpret=True, per_tile_k=2)
+    tc = build_corpus(t(x), metric=metric, dtype=torch.float32)
+    qq, _, kt, _ = dt.prepare(t(q), tc, k, metric, tile, False, 2)
+    qf, cf = n(qq), n(tc.values)
+    emu = _three_pass_scores(qf, cf)
+    exact = qf.astype(np.float64) @ cf.astype(np.float64).T
+    if metric == "l2":
+        norms = n(tc.norms_sq)
+        emu = np.float32(2.0) * emu - norms[None, :]
+        exact = 2.0 * exact - norms[None, :]
+    if mask is not None:
+        emu = np.where(mask[None, :], emu, -np.inf).astype(np.float32)
+        exact = np.where(mask[None, :], exact, -np.inf)
+    jvn = np.asarray(jv)
+    tol = d * 2.0 ** -23 * (float(np.abs(jvn[np.isfinite(jvn)]).max()) + 1.0)
+    fin = np.isfinite(exact)
+    assert np.abs(emu[fin] - exact[fin]).max() <= tol
+    ev, ei = _tile_topk_merge_np(emu, tile, kt, k)
+    assert_topk_match(jv, ji, ev, ei, rtol=0.0, atol=tol, scores=exact.astype(np.float32))
