@@ -16,10 +16,11 @@ Phases, each printing one line with its seconds:
   2. build: nvcc builds the kernels from super_rag_tpu_torch/csrc;
   3. kernel vs plain version at small shapes, every mode (int8 x int8 must
      match bit for bit, the float modes within a stated tolerance), for
-     the dense top-k (all three variants: the sorted-selection tensor-core
-     kernel for every mode at kt <= 128 (f32 as three TF32 products),
-     split tiles included, at D up to 4,096 in its one form; the int8
-     register-list kernel at kt <= 8; SIMT above the cap),
+     the dense top-k (both variants: the sorted-selection tensor-core
+     kernel for every mode at every kt (f32 as three TF32 products; the
+     deep selection above kt 128, to the tile's 2,048), split tiles
+     included, at D up to 4,096 in its one form; the int8 register-list
+     kernel at kt <= 8),
      each launch checked against the variant and mode counters, and
      both IVF kernels; prints the ptxas report (registers, shared memory,
      spills) of every kernel built;
@@ -28,20 +29,19 @@ Phases, each printing one line with its seconds:
      search_hybrid at batch 512 (the tensor-core kernel launched and held
      bit for bit against its plain version, the hybrid result against the
      same path on the plain version, the dense top-10 against an exact
-     f32 search: recall >= 0.9), and timings of the kernel, the SIMT and
-     sorted-selection kernels on the same inputs, the plain version, a
+     f32 search: recall >= 0.9), and timings of the kernel, the
+     sorted-selection kernel on the same inputs, the plain version, a
      library yardstick, the whole search_hybrid batch and its stages;
      then [wide]: a seeded 1M x 1,536 int8 corpus searched at batch 512
      through dense_topk (the register-list kernel), bit for bit against
-     its plain version, timed beside the sorted-selection and SIMT
-     kernels; and a default (bf16) collection at scale, a seeded 1M x 768
+     its plain version, timed beside the sorted-selection kernel; and a
+     default (bf16) collection at scale, a seeded 1M x 768
      bf16 corpus searched at batch 512, per-tile cap 2, through dense_topk
      (the sorted-selection kernel, one launch in mode bf16), within the
      bf16 tolerance of its plain version, and an f32 collection at scale,
      a seeded 1M x 768 f32 corpus searched at batch 512 and 64 (the
      sorted-selection kernel's TF32 mode, one launch each, within the f32
-     tolerance, timed beside the SIMT kernel on the same inputs), each
-     timed beside the library call
+     tolerance), each timed beside the library call
      (bf16 or f32 matmul + topk) and its bound;
   5. serving: >= 256 concurrent text requests through QueryBatcher over
      a CollectionEngine on that index, each checked against a direct
@@ -59,6 +59,10 @@ Phases, each printing one line with its seconds:
      cores' sums), recall@10 against an exact f32 dot (gated) and cosine
      search, timings of the calls, the kernels, the plain versions and
      a library yardstick each, and search_dense B = 512 stage by stage;
+     then an f32 collection (IVF_F32_ROWS x 768 f32 rows by the same
+     recipe over the same texts, compact_dense(nlist 1024, nprobe 16)):
+     search_hybrid at batch 32 through the union kernel's f32 mode
+     (three TF32 products), held against its plain version and timed;
   7. IVF serving: >= 128 concurrent requests through
      QueryBatcher(max_batch=32) on the IVF index, each answer equal to a
      direct search_batch of its dispatch's batch, one union-kernel launch
@@ -103,7 +107,9 @@ Phases, each printing one line with its seconds:
      record, exactly the reranked requests' items reranked (an unreranked
      request runs no cross-encoder), the encoders on the card; d. each
      dispatch launched dense_topk in the variant its kt selects, held
-     against its plain version at the largest served batch; e. a
+     against its plain version at the largest served batch, and a direct
+     search_dense(k=200) over the default collection (the deep selection)
+     against its plain version; e. a
      deleted document leaves the search; f. a fresh App on the same
      data directory answers as before the restart;
   12. the rest of the search and document routes: the App with the
@@ -147,8 +153,8 @@ Phases, each printing one line with its seconds:
      the stub's calls as expected, no fallback logged; b. PROV_QUERIES unreranked
      and as many reranked searches (of other queries) equal an ``App(device="cpu")`` fed the same
      documents by the same stub, up to ties; c. each dispatch launched
-     dense_topk's sorted-selection tensor-core kernel (bf16, D = 1,536)
-     and no SIMT one, the kernel held against its plain
+     dense_topk's sorted-selection tensor-core kernel (bf16, D = 1,536),
+     the kernel held against its plain
      version at the served shapes and timed beside its bound and the
      library call, and the same at text-embedding-3-large's 3,072 over as
      many seeded rows, driven through ``dense_topk``; d. ``POST
@@ -185,7 +191,7 @@ Phases, each printing one line with its seconds:
      ``web_search``; gates: a. the protocol, and each single-client call's
      items equal a direct ``POST /searches``; b. the chat-file search
      answers from the chat's file; c. each dispatch over M launched
-     ``dense_topk_tcs_kernel`` once, none SIMT, the kernel held against its
+     ``dense_topk_tcs_kernel`` once, the kernel held against its
      plain version at the largest served batch; d. ``GET /`` the console,
      ``GET /mcp`` 405; e. the CLI as subprocesses on the card (ingest,
      collections, search with the hits of an in-process
@@ -274,6 +280,7 @@ IVF_NPROBE = 16
 IVF_HYBRID_BATCH = 32
 IVF_DENSE_BATCH = 512
 IVF_SERVE_REQUESTS = 128
+IVF_F32_ROWS = N_ROWS  # the f32 collection of [ivf] (the union's f32 mode)
 # the CSR lexical tier at the north star's scale: scripts/bench_10m.py's
 # rows and lexical recipe (48 slots over 2^17 buckets, 16 discriminative
 # query terms, pq 2048 + deep 4 x 16384, lex_gen 250), the flat dense tier
@@ -312,6 +319,8 @@ HTTP_TOP_K = 5
 HTTP_CANDIDATES = 100
 HTTP_STAGE_REQUESTS = 8  # 32 until [workflows] joined the smoke, 16 until [mcp], [train]
 HTTP_RESTART_QUERIES = 32  # a collection; 64 until [workflows] joined
+HTTP_DEEP_K = 200  # a direct search_dense over the default collection: the deep selection
+HTTP_DEEP_QUERIES = 32
 # the f32 collection ("index_dtype": "float32") takes 1 / HTTP_F32_SHARE of
 # every request count above
 HTTP_F32_SHARE = 2
@@ -550,9 +559,10 @@ def phase_small() -> int:
                                  scores=dt.plain_scores(*args[:6], 0, n))
                         cases += 1
     # int8 x int8 at every list depth: the register-list kernel (kt <= 8,
-    # any D, forced here: these grids are too small for it to be chosen),
-    # the sorted-selection kernel (kt <= 128, any D) and the SIMT one above
-    # the cap (kt 129); ragged B and D, a
+    # any D, forced here: these grids are too small for it to be chosen)
+    # and the sorted-selection kernel (any D: sorted lists at kt <= 128,
+    # the deep selection at kt 129, 256 and the tile's 2,048); ragged B
+    # and D, a
     # mask with an all-masked tile, duplicate rows (ties); every one
     # bit-equal to the plain version
     sms = dt._sm_count(torch.cuda.current_device())
@@ -568,13 +578,12 @@ def phase_small() -> int:
         qs8 = torch.rand(bq, device=DEVICE, generator=gen) * 0.01 + 0.001
         keep = torch.rand(n, device=DEVICE, generator=gen) < 0.7
         keep[2048:4096] = False
-        for kt in (1, 2, 3, 8, 9, 32, 100, dt.TC_MAX_KT, dt.TC_MAX_KT + 1):
-            want = "tcs" if kt <= dt.TC_MAX_KT else "simt"
+        for kt in (1, 2, 3, 8, 9, 32, 100, dt.TC_MAX_KT, dt.TC_MAX_KT + 1, 256, 2048):
             got_variant = dt.kernel_variant(dt.MODE_INT8, kt, dq, bq, -(-n // 2048), sms)
-            if got_variant != want:
-                raise AssertionError(f"kt={kt}, D={dq} took {got_variant}, not {want}")
+            if got_variant != "tcs":
+                raise AssertionError(f"kt={kt}, D={dq} took {got_variant}, not tcs")
             forced = kt <= dt.LIST_MAX_KT
-            for variant in (want, "tc") if forced else (want,):
+            for variant in ("tcs", "tc") if forced else ("tcs",):
                 for mask in (None, keep):
                     args = (q8, qs8, codes, row_scale, None, mask, n, 2048, kt)
                     before = _counts()
@@ -590,8 +599,8 @@ def phase_small() -> int:
                     cases += 1
     # bf16 queries on the tensor cores, bf16 rows and int8 codes, and f32
     # queries on f32 rows (three TF32 products), at every list depth and
-    # split: within _tolerance, ids equal but at near-ties; above the cap
-    # (kt 129) every mode takes the SIMT kernel
+    # split, the deep selection's kt 129, 256 and the tile's own included:
+    # within _tolerance, ids equal but at near-ties
     for mode in (dt.MODE_BF16, dt.MODE_INT8_BF16, dt.MODE_F32):
         for bq, dq in ((1, 16), (17, 96), (64, 256), (130, 768), *wide):
             x = torch.randn(n, dq, device=DEVICE, generator=gen)
@@ -607,18 +616,16 @@ def phase_small() -> int:
             qb = qb if mode == dt.MODE_F32 else qb.to(torch.bfloat16)
             keep = torch.rand(n, device=DEVICE, generator=gen) < 0.7
             keep[2048:4096] = False
-            for kt in (1, 5, 9, 32, 100, dt.TC_MAX_KT, dt.TC_MAX_KT + 1):
+            for depth in (1, 5, 9, 32, 100, dt.TC_MAX_KT, dt.TC_MAX_KT + 1, 256, "tile"):
                 for tile in (200, 2048):
-                    want = "tcs" if kt <= dt.TC_MAX_KT else "simt"
-                    if kt > dt.TC_MAX_KT and (mode != dt.MODE_F32 or tile != 2048):
-                        continue  # the SIMT kernel once a shape, in f32
-                    if dt.kernel_variant(mode, kt, dq, bq, -(-n // tile), sms) != want:
+                    kt = tile if depth == "tile" else depth
+                    if dt.kernel_variant(mode, kt, dq, bq, -(-n // tile), sms) != "tcs":
                         raise AssertionError(f"mode {mode} at kt={kt}, D={dq} did not take "
-                                             f"the {want} kernel")
+                                             f"the tcs kernel")
                     args = (qb, None, values, row_scale, None, keep, n, tile, kt)
                     before = _counts()
                     got = dt.tile_topk(*args)
-                    _expect_launch(before, want, mode)
+                    _expect_launch(before, "tcs", mode)
                     ref = dt.tile_topk_plain(*args)
                     torch.cuda.synchronize()
                     _compare(*got, *ref, exact=False, tol=_tolerance(dq, ref[0]),
@@ -638,16 +645,17 @@ LIST_KEY = "dense_topk_tc_list"
 LIST_VARIANT = "tc (persistent, TMA ring, wgmma m64n128k32 s8)"
 TCS_VARIANT = "tcs (TMA ring, wgmma m64nNk16 bf16 / k32 s8, rows as M, rank-merged lists)"
 TCS_F32_VARIANT = "tcs f32 (TMA ring, 3 x wgmma m64nNk8 tf32 on rna planes, A from registers)"
+TCS_DEEP_VARIANT = ("tcs deep (TMA ring, wgmma, the slice's scores kept; radix select, "
+                    "bitonic sort a warp a query)")
 
 
 def _expect_launch(before: dict, variant: str, mode: int) -> None:
     """Raise unless exactly one dense_topk kernel launched since ``before``
-    (``_counts()``): the SIMT one, or a tensor-core one of ``mode``."""
+    (``_counts()``): the ``variant`` ("tc" or "tcs") in ``mode``."""
     after = _counts()
     moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-    want = ({"dense_topk_simt": 1} if variant == "simt" else
-            {"dense_topk_tc": 1, TC_MODE_KEYS[mode]: 1,
-             **({LIST_KEY: 1} if variant == "tc" else {})})
+    want = {"dense_topk_tc": 1, TC_MODE_KEYS[mode]: 1,
+            **({LIST_KEY: 1} if variant == "tc" else {})}
     if moved != want:
         raise AssertionError(f"{variant} (mode {mode}) launched {moved}, not {want}")
 
@@ -880,15 +888,12 @@ def phase_full(results: dict):
     if dt.kernel_variant(dt.MODE_INT8, kt, DIM, BATCH, kv.shape[0], sms) != "tc":
         raise AssertionError(f"the main path's kt={kt} left the register-list kernel")
     kernel_ms = cuda_ms(lambda: dt.tile_topk(*args))
-    # the other kernels on the same inputs, for the record: the first
-    # (SIMT dp4a) and the sorted-selection tensor-core one
-    other_ms = {}
-    for variant, reps in (("simt", 5), ("tcs", TIMED_REPS)):
-        with mock.patch.object(dt, "kernel_variant", lambda *a, v=variant, **kw: v):
-            sv, si = dt.tile_topk(*args)
-            _compare(sv, si, pv, pi, exact=True, tol=0.0)
-            other_ms[variant] = cuda_ms(lambda: dt.tile_topk(*args), reps=reps)
-    simt_ms = other_ms["simt"]
+    # the other kernel on the same inputs, for the record: the
+    # sorted-selection one
+    with mock.patch.object(dt, "kernel_variant", lambda *a, **kw: "tcs"):
+        sv, si = dt.tile_topk(*args)
+        _compare(sv, si, pv, pi, exact=True, tol=0.0)
+        tcs_ms = cuda_ms(lambda: dt.tile_topk(*args))
     plain_ms = cuda_ms(lambda: dt.tile_topk_plain(*args))
     lib_ms = cuda_ms(lambda: library_topk(q, qs, corpus.values, corpus.scales,
                                           mask, n, tile, kt))
@@ -898,9 +903,8 @@ def phase_full(results: dict):
     nbytes = (n * DIM + n * 4 + n + BATCH * DIM + BATCH * 4
               + num_tiles * BATCH * kt * 8)
     bound, bound_by = bound_ms(nbytes, 2.0 * BATCH * n * DIM, INT8_OPS_PER_S)
-    log(f"[full] dense_topk register-list kernel {kernel_ms:.3f} ms (SIMT kernel "
-        f"{simt_ms:.3f} ms, sorted-selection tensor-core kernel {other_ms['tcs']:.3f} ms, "
-        f"each bit-equal), "
+    log(f"[full] dense_topk register-list kernel {kernel_ms:.3f} ms (sorted-selection "
+        f"kernel {tcs_ms:.3f} ms, bit-equal), "
         f"plain {plain_ms:.3f} ms, "
         f"library (_int_mm + topk) {lib_ms:.3f} ms, bound {bound:.3f} ms "
         f"({bound_by}); search_hybrid batch {BATCH}: {hybrid_ms:.3f} ms "
@@ -947,8 +951,7 @@ def phase_full(results: dict):
     results["dense_topk"] = {
         "variant": LIST_VARIANT, "launches": counts[LIST_KEY],
         "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
-        "bound_by": bound_by, "library_ms": lib_ms, "simt_ms": simt_ms,
-        "tcs_ms": other_ms["tcs"],
+        "bound_by": bound_by, "library_ms": lib_ms, "tcs_ms": tcs_ms,
         "batch64_ms": kernel64_ms,
     }
     results["hybrid_ms"] = hybrid_ms
@@ -964,9 +967,9 @@ def phase_wide(results: dict) -> None:
     BATCH, per-tile cap 2: one ``dense_topk`` call through the
     register-list kernel (its queries stream through the ring like the
     rows), held bit for bit against its plain version and timed beside the
-    library call and its bound, and beside the other kernels on the same
-    inputs: the sorted-selection kernel (this width's route before the
-    register-list kernel took it) and the SIMT kernel before that.  Then a
+    library call and its bound, and beside the sorted-selection kernel on
+    the same inputs (this width's route before the register-list kernel
+    took it).  Then a
     default collection at scale: a seeded 1M x DIM bf16 corpus (``IndexSpec``'s default dtype), B = BATCH,
     per-tile cap 2, one ``dense_topk`` call, which must launch the
     sorted-selection kernel once in mode bf16, held within the bf16
@@ -975,8 +978,7 @@ def phase_wide(results: dict) -> None:
     seeded 1M x DIM f32 corpus, B = BATCH and WIDE_F32_SMALL_BATCH, cap 2,
     one ``dense_topk`` call each, which must launch the sorted-selection
     kernel once in mode f32 (three TF32 products), held within the f32
-    tolerance of its plain version and timed beside the SIMT kernel on the
-    same inputs (forced, within the tolerance too), the library call (f32
+    tolerance of its plain version and timed beside the library call (f32
     matmul with TF32 off + topk) and its bound."""
     from super_rag_tpu_torch.ops import dense_topk as dt
     from super_rag_tpu_torch.ops.dense import build_corpus
@@ -1008,15 +1010,13 @@ def phase_wide(results: dict) -> None:
         raise AssertionError(f"[wide] took {row['variant']}")
     row["variant"] = LIST_VARIANT
     kv, ki = dt.tile_topk_plain(*args)
-    for variant, key, reps in (("tcs", "tcs_ms", TIMED_REPS), ("simt", "simt_ms", 5)):
-        with mock.patch.object(dt, "kernel_variant", lambda *a, v=variant, **kw: v):
-            sv, si = dt.tile_topk(*args)
-            if not (torch.equal(sv, kv) and torch.equal(si, ki)):
-                raise AssertionError(f"[wide] the {variant} kernel differs from the plain version")
-            row[key] = cuda_ms(lambda: dt.tile_topk(*args), reps=reps)
-    wlog(f"on the same inputs, the other kernels: the sorted-selection kernel "
-         f"{row['tcs_ms']:.3f} ms (this width's route before), the SIMT kernel "
-         f"{row['simt_ms']:.3f} ms; both bit-equal")
+    with mock.patch.object(dt, "kernel_variant", lambda *a, **kw: "tcs"):
+        sv, si = dt.tile_topk(*args)
+        if not (torch.equal(sv, kv) and torch.equal(si, ki)):
+            raise AssertionError("[wide] the tcs kernel differs from the plain version")
+        row["tcs_ms"] = cuda_ms(lambda: dt.tile_topk(*args))
+    wlog(f"on the same inputs, the sorted-selection kernel (this width's route before) "
+         f"{row['tcs_ms']:.3f} ms, bit-equal")
     results["dense_topk_1m_wide"] = row
     del corpus, q_emb, args, kv, ki, sv, si
     torch.cuda.empty_cache()
@@ -1037,8 +1037,7 @@ def phase_wide(results: dict) -> None:
     torch.cuda.empty_cache()
 
     # an f32 collection at scale (3.07 GB of rows): the sorted-selection
-    # kernel's TF32 mode at B = BATCH and WIDE_F32_SMALL_BATCH, each beside
-    # the SIMT kernel (f32's route before) on the same inputs
+    # kernel's TF32 mode at B = BATCH and WIDE_F32_SMALL_BATCH
     corpus = build_corpus(torch.randn(N_ROWS, DIM, device=DEVICE, generator=gen),
                           dtype=torch.float32)
     for b, key in ((BATCH, "dense_topk_1m_f32"), (WIDE_F32_SMALL_BATCH, "dense_topk_1m_f32_b64")):
@@ -1051,18 +1050,8 @@ def phase_wide(results: dict) -> None:
         if row["variant"] != "tcs":
             raise AssertionError(f"[wide] the f32 call at B = {b} took {row['variant']}")
         row["variant"] = TCS_F32_VARIANT
-        pv, pi = dt.tile_topk_plain(*args)
-        with mock.patch.object(dt, "kernel_variant", lambda *a, **kw: "simt"):
-            sv, si = dt.tile_topk(*args)
-            torch.cuda.synchronize()
-            _compare(sv, si, pv, pi, exact=False, tol=_tolerance(DIM, pv),
-                     scores=dt.plain_scores(*args[:6], 0, args[6]))
-            row["simt_ms"] = cuda_ms(lambda: dt.tile_topk(*args), reps=5)
-        wlog(f"f32 B = {b}: on the same inputs the SIMT kernel (f32's route before) "
-             f"{row['simt_ms']:.3f} ms, within the tolerance too; the TF32 mode "
-             f"{row['ms']:.3f} ms ({row['simt_ms'] / row['ms']:.1f}x)")
         results[key] = row
-        del q_emb, args, pv, pi, sv, si
+        del q_emb, args
         torch.cuda.empty_cache()
 
 
@@ -1217,9 +1206,8 @@ def _reset_counts() -> None:
     from super_rag_tpu_torch.ops import dense_topk as dt
     from super_rag_tpu_torch.ops import ivf_topk as it
 
-    for counter in (dt.tc_launches, dt.list_launches, dt.simt_launches,
-                    *dt.tc_mode_launches.values(), it.union_tc_launches,
-                    it.union_simt_launches, it.probe_tc_launches, it.probe_simt_launches):
+    for counter in (dt.tc_launches, dt.list_launches, *dt.tc_mode_launches.values(),
+                    it.union_tc_launches, it.probe_tc_launches, it.probe_simt_launches):
         counter.count = 0
 
 
@@ -1230,9 +1218,7 @@ def _counts() -> dict:
     return {"dense_topk_tc": dt.tc_launches.count,
             **{TC_MODE_KEYS[m]: c.count for m, c in dt.tc_mode_launches.items()},
             LIST_KEY: dt.list_launches.count,
-            "dense_topk_simt": dt.simt_launches.count,
             "ivf_union_tc": it.union_tc_launches.count,
-            "ivf_union_simt": it.union_simt_launches.count,
             "ivf_probe_tc": it.probe_tc_launches.count,
             "ivf_probe_simt": it.probe_simt_launches.count}
 
@@ -1319,7 +1305,8 @@ def phase_ivf(results: dict):
     the card, DeviceIndex + compact_lexical + compact_dense(nlist 1024,
     nprobe 16) (the streaming build), then search_hybrid at B = 32 (union
     kernel) and search_dense at B = 512 (per-query kernel), each kernel
-    held against its plain version at those calls' inputs."""
+    held against its plain version at those calls' inputs; then the f32
+    collection (``_ivf_f32``)."""
     from super_rag_tpu_torch.engine.index import DeviceIndex
     from super_rag_tpu_torch.ops import ivf_topk as it
     from super_rag_tpu_torch.ops.bm25_inverted import inverted_bm25_search
@@ -1329,6 +1316,8 @@ def phase_ivf(results: dict):
     centers = torch.randn(IVF_CENTERS, DIM, device=DEVICE, generator=gen) * 3.0
     arrays, host, ranks, df_host = make_corpus(N_ROWS, gen, centers=centers)
     idx = DeviceIndex.from_snapshot(arrays, host, device=DEVICE)
+    # the lexical table, kept for the f32 collection over the same texts
+    lex = {k: v for k, v in arrays.items() if k not in ("emb", "scales")}
     del arrays
     idx.compact_lexical(postings_per_term=max(256, N_ROWS // 500))
     torch.cuda.synchronize()
@@ -1535,7 +1524,117 @@ def phase_ivf(results: dict):
         "bound_ms": p_bound, "bound_by": p_by, "library_ms": probe_lib_ms,
         "with_work_list_ms": probe_wrapper_ms,
     }
+    del uargs, pargs, calls
+    torch.cuda.empty_cache()
+    _ivf_f32(results, gen, centers, lex, host, q32, t32)
     return idx, texts
+
+
+def _ivf_f32(results: dict, gen, centers, lex: dict, host: dict, q32, t32) -> None:
+    """An f32 IVF collection at D = DIM: IVF_F32_ROWS rows by [ivf]'s
+    clustered recipe (its centres, fresh noise), f32 rows as an f32
+    collection stores them, over [ivf]'s lexical table (the same texts);
+    compact_lexical + compact_dense(nlist 1024, nprobe 16); search_hybrid
+    at B = 32 through the union route, which must launch the union kernel
+    in its f32 mode (three TF32 products on the tensor cores), held
+    against its plain version at the call's inputs (scores within the
+    float tolerance, the candidate top-k's ids equal up to near-ties),
+    and the whole hybrid result against the same path on the plain
+    versions; the kernel timed beside its plain version, the library call
+    (an f32 matmul, TF32 off, over the union tiles gathered beforehand)
+    and its bound."""
+    from super_rag_tpu_torch.engine.index import DeviceIndex
+    from super_rag_tpu_torch.ops import ivf_topk as it
+    from super_rag_tpu_torch.ops.dense import build_corpus
+    from super_rag_tpu_torch.ops.topk import stable_topk
+
+    n = IVF_F32_ROWS
+    t0 = time.perf_counter()
+    emb = torch.empty((n, DIM), dtype=torch.float32, device=DEVICE)
+    step = 131072
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        x = torch.randn(hi - lo, DIM, device=DEVICE, generator=gen)
+        x += centers[torch.randint(0, centers.shape[0], (hi - lo,), device=DEVICE,
+                                   generator=gen)]
+        emb[lo:hi] = build_corpus(x, dtype=torch.float32).values
+    arrays = {"emb": emb, **{k: v[:n] for k, v in lex.items()}}
+    spec = dict(host["spec"], dtype="float32")
+    idx = DeviceIndex.from_snapshot(arrays, dict(host, spec=spec, size=n,
+                                                 row_meta=host["row_meta"][:n]),
+                                    device=DEVICE)
+    del arrays, emb
+    idx.compact_lexical(postings_per_term=max(256, n // 500))
+    torch.cuda.synchronize()
+    t_make = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx.compact_dense(nlist=IVF_NLIST, nprobe=IVF_NPROBE)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    ivf = idx._ivf
+    if ivf.values.dtype != torch.float32:
+        raise AssertionError(f"[ivf] the f32 collection's IVF holds {ivf.values.dtype}")
+    log(f"[ivf] f32 collection: {n} x {DIM} f32 rows (the clustered recipe) + "
+        f"DeviceIndex + compact_lexical in {t_make:.2f} s; compact_dense(nlist="
+        f"{IVF_NLIST}, nprobe={IVF_NPROBE}) in {t_build:.2f} s: capacity "
+        f"C={ivf.capacity}, residual {ivf.residual}")
+
+    calls: dict = {}
+    _reset_counts()
+    with mock.patch.object(it, "union_scores", _recording(calls, "union", it.union_scores)):
+        res = idx.search_hybrid(q32, t32, k=TOP_K, candidates=CANDIDATES)
+    torch.cuda.synchronize()
+    counts = _counts()
+    uargs = calls["union"]
+    if counts["ivf_union_tc"] < 1 or uargs[2].dtype != torch.float32 or \
+            counts["ivf_probe_tc"] or counts["ivf_probe_simt"]:
+        raise AssertionError(f"[ivf] f32 search_hybrid B={IVF_HYBRID_BATCH} launched "
+                             f"{counts} (values {uargs[2].dtype})")
+    ids = res.indices.cpu().numpy()
+    if (ids.shape != (IVF_HYBRID_BATCH, TOP_K) or ids.min() < 0
+            or not np.isfinite(res.scores.cpu().numpy()).all()):
+        raise AssertionError("[ivf] f32 hybrid result has the wrong shape or empty slots")
+    uk, up = it.union_scores(*uargs), it.union_scores_plain(*uargs)
+    err = _compare_candidates(uk, up, DIM, CANDIDATES)
+    b = IVF_HYBRID_BATCH
+    same_cands = (stable_topk(uk.reshape(b, -1), CANDIDATES)[1]
+                  == stable_topk(up.reshape(b, -1), CANDIDATES)[1]).all(1)
+    del uk, up
+    with mock.patch.object(it, "union_scores", it.union_scores_plain), \
+            mock.patch.object(it, "probe_scores", it.probe_scores_plain):
+        res_plain = idx.search_hybrid(q32, t32, k=TOP_K, candidates=CANDIDATES)
+    rows_eq = ((res.indices == res_plain.indices).all(1)
+               & (res.scores == res_plain.scores).all(1))
+    if bool((same_cands & ~rows_eq).any()):
+        raise AssertionError("[ivf] f32 hybrid differs between kernel and plain version "
+                             "for a query with the same candidates")
+    same_ids = res.indices == res_plain.indices
+    if not torch.equal(res.scores[same_ids], res_plain.scores[same_ids]):
+        raise AssertionError("[ivf] f32 hybrid RRF scores differ where the ids agree")
+
+    q_in, union = uargs[0], uargs[1]
+    n_union, cap = union.shape[0], ivf.capacity
+    k_ms = cuda_ms(lambda: it.union_scores(*uargs))
+    p_ms = cuda_ms(lambda: it.union_scores_plain(*uargs), reps=5)
+    tiles = ivf.values[union.long()].reshape(n_union * cap, DIM)
+    lib_ms = cuda_ms(lambda: q_in @ tiles.T)
+    del tiles
+    nbytes = (n_union * cap * (DIM * 4 + 4 + 1) + b * DIM * 4 + n_union * 4
+              + b * n_union * 4 + b * n_union * cap * 4)
+    bound, by = bound_ms(nbytes, 3 * 2.0 * b * n_union * cap * DIM, TF32_OPS_PER_S)
+    log(f"[ivf] f32 search_hybrid B={b}: launches {counts}; {int(same_cands.sum())} of {b} "
+        f"queries have the plain version's candidate list and equal its result bit for "
+        f"bit, RRF scores equal where ids agree; union kernel (f32: 3 x mma.sync m16n8k8 "
+        f"tf32) vs plain [B={b}, U={n_union}, C={cap}]: max |diff| {err:.3g} (tolerance "
+        f"D * 2^-23 * (max|s| + 1)); kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, library "
+        f"(f32 matmul, TF32 off, over the pre-gathered tiles) {lib_ms:.3f} ms, bound "
+        f"{bound:.3f} ms ({by}: {nbytes / 1e9:.3f} GB) (on {results['card']})")
+    results["ivf_union_f32"] = {
+        "variant": "tc f32 (3 x mma.sync m16n8k8 tf32 on rna planes)",
+        "launches": counts["ivf_union_tc"], "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": bound, "bound_by": by, "library_ms": lib_ms, "rows": n,
+        "union_tiles": n_union, "capacity": cap,
+    }
 
 
 def phase_ivf_serve(idx, texts) -> dict:
@@ -2860,8 +2959,9 @@ def phase_http(results: dict) -> None:
     from one client and from HTTP_CLIENTS, with and without rerank (the
     f32 collection 1 / HTTP_F32_SHARE of every request count), one
     request split into stages, and gates a-f (statuses and sizes, served
-    = direct, no degrade, the kernel ran, never the SIMT one, and matches
-    its plain version, delete, restart)."""
+    = direct, no degrade, the kernel ran on the tensor cores and matches
+    its plain version, also a direct search_dense at k 200 (the deep
+    selection), delete, restart)."""
     import dataclasses
     import logging
     import shutil
@@ -3155,13 +3255,9 @@ def phase_http(results: dict) -> None:
             mode = dt._mode(q, values)
             variant = dt.kernel_variant(mode, kt, q.shape[1], q.shape[0],
                                         -(-n_scan // tile), sms)
-            if variant == "simt":
-                raise AssertionError(f"gate d: {name} rerank={rerank} left the tensor cores "
-                                     f"at kt {kt}")
             key = TC_MODE_KEYS[mode]
             variants[(name, rerank)] = (variant, kt, key)
-            if r["launches"][key] < r["dispatches"] or r["dispatches"] < 1 or \
-                    r["launches"]["dense_topk_simt"]:
+            if r["launches"][key] < r["dispatches"] or r["dispatches"] < 1:
                 raise AssertionError(f"gate d: {name} rerank={rerank} {clients} client(s): "
                                      f"{r['launches']} over {r['dispatches']} dispatches")
         hlog("gate d: every dispatch launched dense_topk on the tensor cores: " + "; ".join(
@@ -3218,6 +3314,41 @@ def phase_http(results: dict) -> None:
                                      sum(r["dispatches"] for r in mine), hlog)
             tag = {"default": "bf16"}.get(name, name)
             results[f"dense_topk_http_{tag}{'_rerank' if rerank else ''}"] = row
+
+        # the deep selection: a direct search_dense(k = HTTP_DEEP_K) over the
+        # default collection's engine (the flat scan at the exact per-tile
+        # depth, kt = k > 128), one sorted-selection launch in its mode,
+        # against the same call on the plain version
+        eng = engines["default"]
+        q_deep = eng._embed(queries[:HTTP_DEEP_QUERIES])
+        deep_calls: dict = {}
+        c0 = _counts()
+        with mock.patch.object(dt, "tile_topk", _recording(deep_calls, "tile", dt.tile_topk)):
+            dv, di = eng.index.search_dense(q_deep, k=HTTP_DEEP_K)
+        torch.cuda.synchronize()
+        moved = {k: v - c0[k] for k, v in _counts().items() if v - c0[k]}
+        dargs = deep_calls["tile"]
+        d_mode = dt._mode(dargs[0], dargs[2])
+        if moved != {"dense_topk_tc": 1, TC_MODE_KEYS[d_mode]: 1} or dargs[8] != HTTP_DEEP_K:
+            raise AssertionError(f"gate d: search_dense(k={HTTP_DEEP_K}) launched {moved} "
+                                 f"at kt {dargs[8]}")
+        with mock.patch.object(dt, "tile_topk", dt.tile_topk_plain):
+            pdv, pdi = eng.index.search_dense(q_deep, k=HTTP_DEEP_K)
+        deep_err = _compare(dv[None], di[None], pdv[None], pdi[None], exact=False,
+                            tol=_tolerance(dargs[0].shape[1], pdv),
+                            scores=dt.plain_scores(*dargs[:6], 0, dargs[6]))
+        if tuple(di.shape) != (HTTP_DEEP_QUERIES, HTTP_DEEP_K) or not bool(
+                torch.isfinite(dv).all()):
+            raise AssertionError(f"gate d: search_dense(k={HTTP_DEEP_K}) answered "
+                                 f"{tuple(di.shape)}, finite {bool(torch.isfinite(dv).all())}")
+        row = _served_kernel_row(dargs, 1, 1, hlog)
+        row["variant"] = TCS_DEEP_VARIANT
+        results["dense_topk_deep"] = row
+        hlog(f"gate d: search_dense(k={HTTP_DEEP_K}) over the default collection "
+             f"({dargs[6]} rows, B={HTTP_DEEP_QUERIES}): one sorted-selection launch in "
+             f"mode {d_mode} at kt {dargs[8]} (the deep selection), its top-{HTTP_DEEP_K} "
+             f"within the tolerance of the plain version's (max |diff| {deep_err:.3g}), "
+             f"ids equal but at near-ties")
 
         # -- one reranked request split into stages, by wrapped methods
         stage_rows = {}
@@ -4650,7 +4781,7 @@ def phase_graph(results: dict) -> None:
                 served_s.append(out)
         torch.cuda.synchronize()
         launched = {k: v - counts0[k] for k, v in _counts().items() if v - counts0[k]}
-        if launched.get("dense_topk_tc", 0) != len(calls) or launched.get("dense_topk_simt"):
+        if launched.get("dense_topk_tc", 0) != len(calls):
             raise AssertionError(f"gate d: {len(calls)} dense_topk calls launched {launched}")
         graph_launches = 0
         for what, rc in per_request:
@@ -5113,12 +5244,11 @@ def phase_providers(results: dict) -> None:
         def on_the_tensor_cores(record: list, launched: dict, d: int) -> list:
             """Dispatches of ``record`` off dense_topk's bf16 tensor-core
             route at ``d``, or counts other than one launch of it a
-            dispatch and no SIMT one."""
+            dispatch."""
             bad = [(r["d"], r["variant"], r["mode"]) for r in record
                    if (r["d"], r["variant"], r["mode"]) != (d, "tcs", dt.MODE_BF16)]
             if launched.get("dense_topk_tc", 0) != len(record) or launched.get(
-                    TC_MODE_KEYS[dt.MODE_BF16], 0) != len(record) or \
-                    launched.get("dense_topk_simt", 0):
+                    TC_MODE_KEYS[dt.MODE_BF16], 0) != len(record):
                 bad.append(launched)
             return bad
 
@@ -5144,7 +5274,7 @@ def phase_providers(results: dict) -> None:
             raise AssertionError("gate a: recall types of the reranked / unreranked searches")
 
         # gate c: every dispatch launched dense_topk on the tensor cores,
-        # bf16 x bf16, and none SIMT
+        # bf16 x bf16
         bad = on_the_tensor_cores(calls, launched, PROV_DIM)
         if bad:
             raise AssertionError(f"gate c: {len(calls)} dispatches launched {launched}; "
@@ -5157,9 +5287,8 @@ def phase_providers(results: dict) -> None:
              f"ms; each search embedded its query through the stub: stub calls {search_calls}")
         plog(f"gate c: every one of the {len(calls)} dispatches ({n_plain} unreranked, "
              f"{len(calls) - n_plain} reranked) launched dense_topk's sorted-selection "
-             f"tensor-core kernel in mode bf16 x bf16 at D = {PROV_DIM} (kt {kts}), none "
-             f"the SIMT one; counters "
-             f"{launched}")
+             f"tensor-core kernel in mode bf16 x bf16 at D = {PROV_DIM} (kt {kts}); "
+             f"counters {launched}")
 
         # -- stub round trip through the port's client (no cache)
         rt_client = OpenAICompatClient(stub.url, api_key=STUB_KEY,
@@ -5815,22 +5944,21 @@ def phase_workflows(results: dict) -> None:
         # rows and over B's int8 rows
         want_keys = {"A": TC_MODE_KEYS[dt.MODE_BF16], "B": TC_MODE_KEYS[dt.MODE_INT8_BF16]}
         got_launched = {k: v for k, v in launched.items() if v}
-        if launched["dense_topk_simt"] or any(
-                launched[want_keys[n]] != dense[n] or dense[n] < 1 for n in dense):
+        if any(launched[want_keys[n]] != dense[n] or dense[n] < 1 for n in dense):
             raise AssertionError(f"gate c: dense dispatches {dense}, launches {got_launched}")
         for name in ("A", "B"):
             q, _, values, *_, n_scan, tile, kt = biggest[name]
             mode = dt._mode(q, values)
             variant = dt.kernel_variant(mode, kt, q.shape[1], q.shape[0],
                                         -(-n_scan // tile), sms)
-            if variant == "simt" or TC_MODE_KEYS[mode] != want_keys[name]:
+            if variant != "tcs" or TC_MODE_KEYS[mode] != want_keys[name]:
                 raise AssertionError(f"gate c: {name} took {variant} in mode {mode}")
             row = _served_kernel_row(biggest[name], launched[want_keys[name]], dense[name],
                                      wlog)
             results[f"dense_topk_workflow_{'bf16' if name == 'A' else 'int8'}"] = row
         wlog(f"gate c: every vector_search dispatch launched dense_topk's tensor-core kernel "
              f"in its collection's mode (A {dense['A']} dispatches, bf16 x bf16; B "
-             f"{dense['B']}, bf16 queries x int8 rows), none the SIMT one; counters "
+             f"{dense['B']}, bf16 queries x int8 rows); counters "
              f"{got_launched}")
 
         # -- gate d: the cross-encoder ran on the card, once a run
@@ -6448,11 +6576,11 @@ def phase_chat(results: dict) -> None:
              f"{len(everyone)} rows of users {sorted({r['user'] for r in everyone})}, the "
              f"phase's routes among them")
 
-        # -- gate f: every dense dispatch over K one tcs launch, none SIMT; the
+        # -- gate f: every dense dispatch over K one tcs launch; the
         # kernel at the largest served batch
         tcs_k = variants.get(("K", "tcs"), 0)
         others = {k: v for k, v in variants.items() if k[1] != "tcs"}
-        if others or launched["dense_topk_simt"] or tcs_k != dense["K"] or \
+        if others or tcs_k != dense["K"] or \
                 launched["dense_topk_tc_bf16"] != tcs_k + variants.get(("files", "tcs"), 0):
             raise AssertionError(f"gate f: dispatches {dense}, launches by variant "
                                  f"{variants}, counters {launched}")
@@ -6460,8 +6588,8 @@ def phase_chat(results: dict) -> None:
         results["dense_topk_chat"] = row
         clog(f"gate f: each of {dense['K']} dense dispatches over K (chat turns, agent "
              f"tools, B's searches) launched dense_topk's tcs kernel once, "
-             f"bf16 x bf16; the {dense['files']} over the chat-file collection too; none "
-             f"SIMT; counters {({k: v for k, v in launched.items() if v})}")
+             f"bf16 x bf16; the {dense['files']} over the chat-file collection too; "
+             f"counters {({k: v for k, v in launched.items() if v})}")
 
         # -- one turn split into stages (a titled chat, single client)
         st_ = _Stages()
@@ -6838,18 +6966,18 @@ def phase_mcp(results: dict) -> None:
                 raise AssertionError(f"gate b: search_chat_files of {q!r}: {hits[:1]}")
         mlog(f"gate b: {len(file_hits)} search_chat_files calls answer from the chat's file")
 
-        # -- gate c: every dense dispatch over M one tcs launch, none SIMT; the
+        # -- gate c: every dense dispatch over M one tcs launch; the
         # kernel at the largest served batch
         tcs_m = variants.get(("M", "tcs"), 0)
         others = {k: v for k, v in variants.items() if k[1] != "tcs"}
-        if others or launched["dense_topk_simt"] or tcs_m != dense["M"] or \
+        if others or tcs_m != dense["M"] or \
                 launched["dense_topk_tc_bf16"] != tcs_m + variants.get(("files", "tcs"), 0):
             raise AssertionError(f"gate c: dispatches {dense}, launches by variant "
                                  f"{variants}, counters {launched}")
         results["dense_topk_mcp"] = _served_kernel_row(biggest[0], tcs_m, dense["M"], mlog)
         mlog(f"gate c: each of {dense['M']} dense dispatches over M launched dense_topk's "
              f"tcs kernel once, bf16 x bf16; the {dense['files']} over the chat files too; "
-             f"none SIMT; counters {({k: v for k, v in launched.items() if v})}")
+             f"counters {({k: v for k, v in launched.items() if v})}")
 
         # -- gate d: the console, GET /mcp, one offline web_search
         st, page = client().call("GET", "/")
@@ -7198,7 +7326,7 @@ def phase_train(results: dict) -> None:
                                        candidates=CANDIDATES, top_k=5)
         torch.cuda.synchronize()
         counts = _counts()
-        if counts["dense_topk_tc"] != 1 or counts["dense_topk_simt"]:
+        if counts["dense_topk_tc"] != 1:
             raise AssertionError(f"gate c: hybrid + rerank B={len(queries)} launched {counts}")
         if any(len(h) != 5 or not all(np.isfinite(x.score) and x.recall_type == "reranked"
                                       for x in h) for h in hits):
@@ -7523,8 +7651,7 @@ def phase_multi(results: dict, rank_setup=None) -> None:
                   timeout_s=MULTI_TIMEOUT_S, args=(cfg, rank_setup))
     spawn_s = time.perf_counter() - t0
     r0 = ranks[0]
-    launches = sum(r["counts"]["dense_topk_tc"] + r["counts"]["dense_topk_simt"]
-                   for r in ranks)
+    launches = sum(r["counts"]["dense_topk_tc"] for r in ranks)
     if any(r["counts"]["dense_topk_tc"] < 3 for r in ranks) or any(
             (r["counts"][LIST_KEY] >= 1) != (r["variant"] == "tc") for r in ranks):
         raise AssertionError(f"[multi] a rank's main path missed the tensor-core kernel its "
@@ -7591,6 +7718,9 @@ KERNEL_ROWS = (
     ("dense_topk_10m", "dense_topk.cu", _DT, "dense_topk_10m", "csr"),
     ("ivf_union", "ivf_scan.cu", "super_rag_tpu/ops/pallas_ivf.py:93", "ivf_union", "ivf"),
     ("ivf_probe", "ivf_scan.cu", "super_rag_tpu/ops/pallas_ivf.py:48", "ivf_probe", "ivf"),
+    ("ivf_union_f32", "ivf_scan.cu", "super_rag_tpu/ops/pallas_ivf.py:93", "ivf_union_f32",
+     "ivf"),
+    ("dense_topk_deep", "dense_topk.cu", _DT, "dense_topk_deep", "http"),
     *((f"dense_topk_http_{t}", "dense_topk.cu", _DT, f"dense_topk_http_{t}", phase)
       for t, phase in (("bf16", "http"), ("bf16_rerank", "http"), ("int8", "http"),
                        ("int8_rerank", "http"), ("f32", "http"), ("f32_rerank", "http"),

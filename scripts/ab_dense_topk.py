@@ -14,9 +14,10 @@ default (bf16) collection of 1M x 768 at B = 512 and at a served batch
 of 64, cap 2, and the int8 1M x 768 at B = 512 with deep lists (kt 32),
 the last three through the sorted-selection kernel; an f32 collection of
 1M x 768 at B = 512 and 64, cap 2 (the sorted-selection kernel's TF32
-mode; the SIMT kernel before it).  The served shapes (``--only
-served``): the default bf16, int8 and f32 collections (16,384 rows of D =
-256 at B = 64, kt 5 and 32; f32 at kt 129 too, the SIMT kernel's depth),
+mode).  The served shapes (``--only served``): the default bf16, int8
+and f32 collections (16,384 rows of D = 256 at B = 64, kt 5 and 32; kt
+129 in each mode, and f32 at kt 256 and 2,048 too: the deep selection,
+search_dense(k > 128)'s exact per-tile depth),
 an image search (256 rows, B = 1), a graph search (1,913 masked rows of
 D = 128, kt 50), and the remote embeddings (8,224 rows of D = 1,536 and
 3,072 at B = 1, kt 5 and 32).  Each shape: CUDA events around one call
@@ -28,20 +29,21 @@ where a call takes over 20 ms), the host cost of the
 sorted-selection launch's plan (``_tcs_plan``) computed and from its
 cache, where the checkout has one, the kernel's own device time a launch
 (torch.profiler over 50 calls, the kernels whose names hold
-``dense_topk``, summed a call: the f32 mode's call is two kernels, the
-query planes and the scan), the variant ``kernel_variant`` picks, the
+``dense_topk`` or ``tf32_planes``, summed a call: the f32 mode's call is
+two kernels, the query planes and the scan), the variant ``kernel_variant`` picks, the
 card's name and power limit, and the call's bound (the larger of its
 bytes, each input read once and the output written once, over 3.35 TB/s,
 and its operations over 1,979 TOP/s in int8, 989 TFLOP/s in bf16, or, in
 f32, three TF32 products over 495 TFLOP/s).  Prints a line per shape and
 a JSON line.
 
-``--only ivf`` times the IVF kernels' f32 (SIMT) variants once, at the
-smoke's [ivf] shapes with f32 values (1,024 tiles of 1,024 rows, D = 768,
-16 probes a query): the union kernel at B = 32 and the per-query kernel
-at B = 512, each beside its plain version, a library call on the tiles
-gathered beforehand (f32 ``matmul`` / ``bmm``, TF32 off) and its bound,
-with the launches each call made.  To compare two
+``--only ivf`` times both IVF kernels at the smoke's [ivf] shapes
+(1,024 tiles of 1,024 rows, D = 768, 16 probes a query) with int8, bf16
+and f32 values: the union kernel at B = 32 (f32: three TF32 products on
+the tensor cores) and the per-query kernel at B = 512 (f32: CUDA cores),
+each beside its plain version, a library call on the tiles gathered
+beforehand (``matmul`` / ``bmm`` in the queries' type, TF32 off) and its
+bound, with the launches each call made.  To compare two
 checkouts on one card, run it in turns in one command: parent, change,
 change, parent.  The host-bound times (one call, bursts, host) vary with
 the host's load from minute to minute; ``--against DIR`` compares them
@@ -92,6 +94,10 @@ SHAPES = [
     ("f32 kt 5", torch.float32, False, 16384, 256, 64, 5, 0.99),
     ("f32 kt 32", torch.float32, False, 16384, 256, 64, 32, 0.99),
     ("f32 kt 129", torch.float32, False, 16384, 256, 64, 129, 0.99),
+    ("f32 kt 256", torch.float32, False, 16384, 256, 64, 256, 0.99),
+    ("f32 kt 2048", torch.float32, False, 16384, 256, 64, 2048, 0.99),
+    ("bf16 kt 129", torch.bfloat16, False, 16384, 256, 64, 129, 0.99),
+    ("int8 kt 129", torch.int8, True, 16384, 256, 64, 129, 0.99),
     ("image", torch.bfloat16, False, 256, 256, 1, 5, 1.0),
     ("graph", torch.bfloat16, False, 1913, 128, 1, 50, 0.7),
     ("remote kt 5", torch.bfloat16, False, 8224, 1536, 1, 5, 1.0),
@@ -123,11 +129,15 @@ def bound_ms(args) -> tuple[float, str]:
 
 
 def library_topk(args):
-    """Yardstick only: one matmul in the queries' float type (TF32 off) and
-    a ``torch.topk`` a tile, over whole tiles, with the mask applied."""
-    q, _, values, _, _, keep, n, tile, kt = args
+    """Yardstick only: one matmul in the queries' type (float: TF32 off;
+    int8: ``torch._int_mm``, cuBLASLt's int8 GEMM, then the scales) and a
+    ``torch.topk`` a tile, over whole tiles, with the mask applied."""
+    q, qs, values, scales, _, keep, n, tile, kt = args
     tiles = -(-n // tile)
-    s = torch.matmul(q, values[:n].to(q.dtype).T).to(torch.float32)
+    if q.dtype == torch.int8:
+        s = torch._int_mm(q, values[:n].T).to(torch.float32) * qs[:, None] * scales[None, :n]
+    else:
+        s = torch.matmul(q, values[:n].to(q.dtype).T).to(torch.float32)
     s = torch.where(keep[None, :n], s, float("-inf"))
     s = torch.nn.functional.pad(s, (0, tiles * tile - n), value=float("-inf"))
     return torch.topk(s.view(q.shape[0], tiles, tile), kt, dim=-1)
@@ -178,9 +188,10 @@ def host_us(fn, calls: int = 50, reps: int = 5) -> float:
     return best
 
 
-def device_us(fn, calls: int = 50, match: str = "dense_topk") -> float:
-    """Mean device microseconds a call of the kernels whose names hold
-    ``match`` (all of a call's launches summed)."""
+def device_us(fn, calls: int = 50, match: tuple = ("dense_topk", "tf32_planes")) -> float:
+    """Mean device microseconds a call of the kernels whose names hold one
+    of ``match`` (all of a call's launches summed: an f32 call's query
+    planes kernel too)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -191,7 +202,7 @@ def device_us(fn, calls: int = 50, match: str = "dense_topk") -> float:
         torch.cuda.synchronize()
     total, count = 0.0, 0
     for ev in prof.key_averages():
-        if match in ev.key:
+        if any(m in ev.key for m in match):
             total += getattr(ev, "device_time_total", None) or ev.cuda_time_total
             count += ev.count
     return total / calls if count else float("nan")
@@ -252,64 +263,84 @@ def paired(fns, rounds: int = 30) -> list[dict]:
 IVF_NLIST, IVF_CAP, IVF_D, IVF_NPROBE = 1024, 1024, 768, 16
 
 
-def ivf_f32(card: str) -> dict:
-    """The IVF kernels' f32 variants at the [ivf] shapes: seeded f32 tiles,
-    each query's 16 probes drawn without repeats; the union kernel at B =
-    32 over the batch's probe union, the per-query kernel at B = 512."""
+def ivf_rows(card: str) -> dict:
+    """Both IVF kernels at the [ivf] shapes with int8, bf16 and f32 values:
+    seeded tiles, each query's 16 probes drawn without repeats; the union
+    kernel at B = 32 over the batch's probe union, the per-query kernel at
+    B = 512.  The launches are counted over every counter the checkout has
+    (a parent's SIMT union counter too)."""
     from super_rag_tpu_torch.ops import ivf_topk as it
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    values = torch.randn(IVF_NLIST, IVF_CAP, IVF_D, device="cuda", generator=gen)
-    row_ids = torch.arange(IVF_NLIST * IVF_CAP, device="cuda", dtype=torch.int32).view(
-        IVF_NLIST, IVF_CAP)
     rows = {}
-    for name, b in (("ivf union f32, B 32", 32), ("ivf probe f32, B 512", 512)):
-        q = torch.randn(b, IVF_D, device="cuda", generator=gen)
-        probes = torch.argsort(torch.rand(b, IVF_NLIST, device="cuda", generator=gen),
-                               dim=1)[:, :IVF_NPROBE].to(torch.int32).contiguous()
-        if b == 32:
-            ids = it.probe_union(probes, IVF_NLIST)
-            fn, plain, counter = it.union_scores, it.union_scores_plain, it.union_simt_launches
-            gathered = values[ids.long()].reshape(-1, IVF_D)
-            lib = lambda: torch.matmul(q, gathered.T)  # noqa: E731
-            tiles = ids.numel()
-            work = b * tiles * IVF_CAP
+    for dtype, tag in ((torch.int8, "int8"), (torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        x = torch.randn(IVF_NLIST, IVF_CAP, IVF_D, device="cuda", generator=gen)
+        if dtype == torch.int8:
+            values = torch.clamp(torch.round(x * 40), -127, 127).to(torch.int8)
+            scales = torch.rand(IVF_NLIST, IVF_CAP, device="cuda", generator=gen) * 0.01
         else:
-            ids = probes
-            fn, plain, counter = it.probe_scores, it.probe_scores_plain, it.probe_simt_launches
-            gathered = values[probes.long()].reshape(b, -1, IVF_D)
-            lib = lambda: torch.bmm(gathered, q[:, :, None])  # noqa: E731
-            tiles = int(torch.unique(probes).numel())
-            work = b * IVF_NPROBE * IVF_CAP
-        args = (q, ids, values, None, None, row_ids, None)
-        before = counter.count
-        got = fn(*args)
-        launches = counter.count - before
-        ref = plain(*args)
-        fin = torch.isfinite(ref)
-        err = float((got - ref)[fin].abs().max())
-        tol = IVF_D * 2.0 ** -23 * (float(ref[fin].abs().max()) + 1.0)
-        nbytes = tiles * IVF_CAP * (IVF_D * 4 + 4) + b * IVF_D * 4 + got.numel() * 4
-        ops = 2.0 * work * IVF_D
-        row = {"launches": launches, "max_abs_err": err, "tol": tol,
-               "ms": event_ms(lambda: fn(*args), reps=20),
-               "kernel_us": device_us(lambda: fn(*args), calls=20, match="ivf"),
-               "plain_ms": event_ms(lambda: plain(*args), reps=5, warmup=1),
-               "library_ms": event_ms(lib, reps=10),
-               "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / (TF32_OPS_PER_S / 3)) * 1e3,
-               "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / (TF32_OPS_PER_S / 3)
-               else "operations",
-               "cuda_core_ms": ops / 67e12 * 1e3}
-        if err > tol or launches != 1:
-            raise AssertionError(f"{name}: max |diff| {err} (tolerance {tol}), {launches} launches")
-        rows[name] = row
-        print(f"{name} [{tiles} tiles of {IVF_CAP} rows, D={IVF_D}]: {row['ms']:.4f} ms (kernel "
-              f"{row['kernel_us']:.1f} us), plain {row['plain_ms']:.3f} ms, library "
-              f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
-              f"f32 on the CUDA cores {row['cuda_core_ms']:.4f} ms), {launches} launch, "
-              f"max |diff| {err:.3g} within {tol:.3g} ({card})", flush=True)
-        del gathered, got, ref
+            values, scales = x.to(dtype), None
+        del x
+        qdt = torch.float32 if dtype == torch.float32 else torch.bfloat16
+        row_ids = torch.arange(IVF_NLIST * IVF_CAP, device="cuda", dtype=torch.int32).view(
+            IVF_NLIST, IVF_CAP)
+        for route, b in (("union", 32), ("probe", 512)):
+            name = f"ivf {route} {tag}, B {b}"
+            q = torch.randn(b, IVF_D, device="cuda", generator=gen).to(qdt)
+            probes = torch.argsort(torch.rand(b, IVF_NLIST, device="cuda", generator=gen),
+                                   dim=1)[:, :IVF_NPROBE].to(torch.int32).contiguous()
+            if route == "union":
+                ids = it.probe_union(probes, IVF_NLIST)
+                fn, plain = it.union_scores, it.union_scores_plain
+                gathered = values[ids.long()].reshape(-1, IVF_D).to(qdt)
+                lib = lambda: torch.matmul(q, gathered.T)  # noqa: E731
+                tiles = ids.numel()
+                work = b * tiles * IVF_CAP
+            else:
+                ids = probes
+                fn, plain = it.probe_scores, it.probe_scores_plain
+                gathered = values[probes.long()].reshape(b, -1, IVF_D).to(qdt)
+                lib = lambda: torch.bmm(gathered, q[:, :, None])  # noqa: E731
+                tiles = int(torch.unique(probes).numel())
+                work = b * IVF_NPROBE * IVF_CAP
+            counters = [getattr(it, c) for c in dir(it)
+                        if c.startswith(route) and c.endswith("_launches")]
+            args = (q, ids, values, scales, None, row_ids, None)
+            before = sum(c.count for c in counters)
+            got = fn(*args)
+            launches = sum(c.count for c in counters) - before
+            ref = plain(*args)
+            fin = torch.isfinite(ref)
+            err = float((got - ref)[fin].abs().max())
+            tol = IVF_D * 2.0 ** -23 * (float(ref[fin].abs().max()) + 1.0)
+            nbytes = (tiles * IVF_CAP * (IVF_D * values.element_size() + 4
+                                         + (4 if scales is not None else 0))
+                      + b * IVF_D * q.element_size() + got.numel() * 4)
+            rate = TF32_OPS_PER_S / 3 if dtype == torch.float32 and route == "union" else \
+                67e12 if dtype == torch.float32 else BF16_OPS_PER_S
+            ops = 2.0 * work * IVF_D
+            row = {"launches": launches, "max_abs_err": err, "tol": tol,
+                   "ms": event_ms(lambda: fn(*args), reps=20),
+                   "kernel_us": device_us(lambda: fn(*args), calls=20,
+                                          match=("ivf", "tf32_planes")),
+                   "plain_ms": event_ms(lambda: plain(*args), reps=5, warmup=1),
+                   "library_ms": event_ms(lib, reps=10),
+                   "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / rate) * 1e3,
+                   "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / rate
+                   else "operations"}
+            if err > tol or launches != 1:
+                raise AssertionError(f"{name}: max |diff| {err} (tolerance {tol}), "
+                                     f"{launches} launches")
+            rows[name] = row
+            print(f"{name} [{tiles} tiles of {IVF_CAP} rows, D={IVF_D}]: {row['ms']:.4f} ms "
+                  f"(kernel {row['kernel_us']:.1f} us), plain {row['plain_ms']:.3f} ms, "
+                  f"library {row['library_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']}), {launches} launch, max |diff| {err:.3g} within "
+                  f"{tol:.3g} ({card})", flush=True)
+            del gathered, got, ref
+            torch.cuda.empty_cache()
+        del values, scales
         torch.cuda.empty_cache()
     return rows
 
@@ -340,7 +371,7 @@ def main() -> int:
     _build.build(["dense_topk"])
     out = {"root": root, "card": card, "shapes": {}}
     if opts.only == "ivf":
-        out["shapes"] = ivf_f32(card)
+        out["shapes"] = ivf_rows(card)
         print(json.dumps(out), flush=True)
         return 0
     todo = [] if opts.only == "served" else list(MAIN)
@@ -367,8 +398,7 @@ def main() -> int:
             del args, q, values
             torch.cuda.empty_cache()
             continue
-        # a call of tens of ms (the SIMT kernel at 1M rows) takes a fifth
-        # of the repetitions
+        # a call of tens of ms takes a fifth of the repetitions
         calls = 10 if event_ms(lambda: dt.tile_topk(*args), reps=1, warmup=1) > 20 else 50
         row = {"variant": variant,
                "ms": event_ms(lambda: dt.tile_topk(*args), reps=calls),
@@ -378,8 +408,7 @@ def main() -> int:
                "bound_ms": bound, "bound_by": bound_by}
         if opts.yardsticks:
             row["plain_ms"] = event_ms(lambda: dt.tile_topk_plain(*args), reps=10)
-            if q.dtype != torch.int8:
-                row["library_ms"] = event_ms(lambda: library_topk(args), reps=10)
+            row["library_ms"] = event_ms(lambda: library_topk(args), reps=10)
         plan = getattr(dt, "_tcs_plan", None)
         if plan is not None and variant == "tcs":
             # the launch plan's host cost: computed (as each call would

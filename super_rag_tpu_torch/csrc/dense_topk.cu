@@ -15,28 +15,32 @@
 // slot is (-inf, column 0).  Output: vals/ids [num_tiles, B, kt],
 // ids = tile*T + col.
 //
-// Three variants, chosen by shape in the wrapper (ops/dense_topk.py
-// kernel_variant), counted by the wrapper per route and mode:
+// Two kernels, both on the tensor cores, chosen by shape in the wrapper
+// (ops/dense_topk.py kernel_variant), counted by the wrapper per route and
+// mode:
 //
-// * dense_topk_tcs_kernel, the tensor cores for every mode at kt <= 128
-//   and any D to 65,536 (every bf16 and f32 collection, the served
-//   searches, calibration, deep per-tile lists, int8 calls too small to
-//   fill the card, remote embeddings of 1,536 to 4,096 dimensions), in one
-//   form at every D.  Built for Hopper (the design note above namespace
-//   tcs): a block of 16, 64 or 128 queries (the wgmma's N) against a slice
-//   of a tile in chunks of 128 corpus rows (the wgmma's M, 64 a consumer
-//   warpgroup); a producer warp keeps a TMA ring of 128-byte k-slices of
+// * dense_topk_tcs_kernel, every mode at every kt and any D to 65,536
+//   (every bf16 and f32 collection, the served searches, calibration,
+//   deep per-tile lists, search_dense(k > 128) at the exact per-tile
+//   depth, int8 calls too small to fill the card, remote embeddings of
+//   1,536 to 4,096 dimensions), in one form at every D.  Built for
+//   Hopper (the design note above namespace tcs): a block of 16, 64 or
+//   128 queries (the wgmma's N) against a slice of a tile in chunks of
+//   128 corpus rows (the wgmma's M, 64 a consumer warpgroup); a producer warp keeps a TMA ring of 128-byte k-slices of
 //   the rows and the queries; wgmma.m64nNk32.s8 (int8 x int8),
 //   m64nNk16.bf16 with f32 sums (bf16 queries on bf16 rows, or on int8
 //   codes widened exactly to bf16 in shared memory), or, for f32, three
 //   m64nNk8.tf32 products a k8 step on round-to-nearest tf32 planes (x = hi
 //   + lo: hi x hi + hi x lo + lo x hi, each product exact, f32 sums; the
 //   rows' planes made in registers from the ring, the queries' by
-//   dense_topk_tf32_planes_kernel first); the epilogued scores
+//   sm90::tf32_planes_kernel first); the epilogued scores
 //   go to a buffer of their own, while the ring keeps loading, from which
 //   the consumers' threads keep each query's kt best in register lists
 //   (kt <= 8), or twelve warps merge the few scores above a query's
-//   list's kt-th into its sorted list by rank.  Where the tiles alone
+//   list's kt-th into its sorted list by rank (kt <= 128); deeper (the
+//   deep selection) the block keeps its slice's scores whole and a warp a
+//   query takes them to its kt best at the end: a radix select of the
+//   kt-th key, a compaction, a bitonic sort.  Where the tiles alone
 //   would leave SMs idle, each tile's rows split over up to 8 blocks of a
 //   cluster, whose lists merge through distributed shared memory.  What
 //   bounds it: at scale (1M x 768 bf16 at B = 512: 1.9 ms on an H100
@@ -83,22 +87,16 @@
 //   0.80; the sorted-selection route took 7.7), ~0.21 ms at 1M x 256, B =
 //   32 (bytes bound 0.078; 0.38 before): scripts/ab_dense_topk.py,
 //   scripts/tune_dense_topk.py and PERF.md §6.
-// * dense_topk_kernel, the rest: kt > 128 in every mode (the served
-//   routes cap top_k at 100, so no served path takes it): the first
-//   version, dp4a or FMA on CUDA cores from shared memory with a 4 x 4
-//   register tile per thread and the [16 x tile] score tile in shared
-//   memory.  Until the f32 mode's three-pass TF32 form it took every f32
-//   search too (37.7 ms for int8 at 1M x 768, B = 512).
 //
-// Modes (dense_topk_launch):
-//   int8 x int8 : q int8 [B, D] + qscale f32 [B]; corpus int8
-//   int8 corpus, bf16 queries; bf16 corpus, bf16 queries; f32 x f32.
+// Modes (dense_topk_tcs_launch):
+//   0 int8 x int8 : q int8 [B, D] + qscale f32 [B]; corpus int8
+//   1 int8 corpus, bf16 queries; 2 bf16 corpus, bf16 queries; 3 f32 x f32.
 // Requirements checked by the Python wrapper: D % 16 == 0, 16-byte aligned
-// row-major operands, tile <= 2048 (SIMT variant); the launches refuse
-// the rest (cudaErrorInvalidValue).  What bounds the work
-// at its largest: the corpus read (N x D bytes in int8, ~0.77 GB at
-// 1M x 768: 0.23 ms at 3.35 TB/s) at small batches, and the int8 work
-// (2 B N D operations: 0.40 ms at 1,979 TOP/s) at batch 512.
+// row-major operands; the launches refuse the rest
+// (cudaErrorInvalidValue).  What bounds the work at its largest: the
+// corpus read (N x D bytes in int8, ~0.77 GB at 1M x 768: 0.23 ms at 3.35
+// TB/s) at small batches, and the int8 work (2 B N D operations: 0.40 ms
+// at 1,979 TOP/s) at batch 512.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -114,208 +112,6 @@
 #include "sm90_util.cuh"
 
 namespace {
-
-constexpr int QB = 16;        // queries per block
-constexpr int RC = 128;       // corpus rows per staged chunk
-constexpr int KW = 64;        // 32-bit words per staged row chunk
-constexpr int SW = KW + 1;    // padded smem row stride (bank-conflict free)
-constexpr int THREADS = 128;  // 4 warps: warp w owns queries 4w..4w+3
-
-template <typename T> struct VecElems;
-template <> struct VecElems<int8_t> { static constexpr int value = 16; };
-template <> struct VecElems<__nv_bfloat16> { static constexpr int value = 8; };
-template <> struct VecElems<float> { static constexpr int value = 4; };
-
-// Stage one 16-byte vector of `src` into 32-bit smem words: raw int8 quads
-// for the dp4a path, one f32 per element otherwise.
-template <typename T, bool DP4A>
-__device__ __forceinline__ void stage_vec(const T* src, uint32_t* dst) {
-  const int4 v = *reinterpret_cast<const int4*>(src);
-  if constexpr (DP4A) {
-    dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
-  } else if constexpr (sizeof(T) == 1) {
-    const int8_t* e = reinterpret_cast<const int8_t*>(&v);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) dst[i] = __float_as_uint(static_cast<float>(e[i]));
-  } else if constexpr (sizeof(T) == 2) {
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[i] = __float_as_uint(__bfloat162float(e[i]));
-  } else {
-    dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
-  }
-}
-
-using sm90::better;
-
-template <typename TQ, typename TC, bool DP4A>
-__global__ void __launch_bounds__(THREADS)
-dense_topk_kernel(const TQ* __restrict__ q, const float* __restrict__ qscale,
-                  const TC* __restrict__ c, const float* __restrict__ scales,
-                  const float* __restrict__ norms, const uint8_t* __restrict__ mask,
-                  int B, int N, int D, int tile, int kt,
-                  float* __restrict__ out_vals, int* __restrict__ out_ids) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* sq = smem;                       // [QB][SW]
-  uint32_t* sc = sq + QB * SW;               // [RC][SW]
-  float* ss = reinterpret_cast<float*>(sc + RC * SW);  // [QB][tile]
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int b0 = blockIdx.x * QB;
-  const int tile_idx = blockIdx.y;
-  const long long base = static_cast<long long>(tile_idx) * tile;
-
-  constexpr int KC = DP4A ? 4 * KW : KW;     // elements per staged k-chunk
-  constexpr int EQ = VecElems<TQ>::value;
-  constexpr int EC = VecElems<TC>::value;
-  constexpr int WQ = DP4A ? 4 : EQ;          // smem words per 16-byte vector
-  constexpr int WC = DP4A ? 4 : EC;
-
-  for (int rc0 = 0; rc0 < tile; rc0 += RC) {
-    using Acc = typename std::conditional<DP4A, int, float>::type;
-    Acc acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-
-    for (int k0 = 0; k0 < D; k0 += KC) {
-      const int ce = min(KC, D - k0);
-      const int nvq = ce / EQ, nvc = ce / EC;
-      for (int idx = tid; idx < QB * nvq; idx += THREADS) {
-        const int r = idx / nvq, v = idx - r * nvq;
-        uint32_t* dst = sq + r * SW + v * WQ;
-        if (b0 + r < B) {
-          stage_vec<TQ, DP4A>(q + static_cast<long long>(b0 + r) * D + k0 + v * EQ, dst);
-        } else {
-#pragma unroll
-          for (int w = 0; w < WQ; ++w) dst[w] = 0u;
-        }
-      }
-      for (int idx = tid; idx < RC * nvc; idx += THREADS) {
-        const int r = idx / nvc, v = idx - r * nvc;
-        const int col = rc0 + r;
-        const long long t = base + col;
-        uint32_t* dst = sc + r * SW + v * WC;
-        if (col < tile && t < N) {
-          stage_vec<TC, DP4A>(c + t * D + k0 + v * EC, dst);
-        } else {
-#pragma unroll
-          for (int w = 0; w < WC; ++w) dst[w] = 0u;
-        }
-      }
-      __syncthreads();
-      const int nw = DP4A ? ce / 4 : ce;
-      const uint32_t* qrow = sq + (4 * warp) * SW;
-      const uint32_t* crow = sc + lane * SW;
-#pragma unroll 4
-      for (int kk = 0; kk < nw; ++kk) {
-        uint32_t qv[4], cv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) qv[i] = qrow[i * SW + kk];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) cv[j] = crow[j * 32 * SW + kk];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if constexpr (DP4A) {
-              acc[i][j] = __dp4a(static_cast<int>(qv[i]), static_cast<int>(cv[j]), acc[i][j]);
-            } else {
-              acc[i][j] = fmaf(__uint_as_float(qv[i]), __uint_as_float(cv[j]), acc[i][j]);
-            }
-          }
-      }
-      __syncthreads();
-    }
-
-    // epilogue, in the reference's order: (s * qscale) * row_scale, then
-    // 2 s - norm, then the mask; rows past N are padding and score -inf
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = rc0 + lane + 32 * j;
-      if (col >= tile) continue;
-      const long long t = base + col;
-      const bool live = t < N && (mask == nullptr || mask[t] != 0);
-      const float rs = (scales != nullptr && t < N) ? scales[t] : 1.0f;
-      const float nn = (norms != nullptr && t < N) ? norms[t] : 0.0f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qi = 4 * warp + i;
-        float s;
-        if constexpr (DP4A) {
-          const float qs = (b0 + qi < B) ? qscale[b0 + qi] : 0.0f;
-          s = __fmul_rn(__int2float_rn(acc[i][j]), qs);
-        } else {
-          s = acc[i][j];
-        }
-        if (scales != nullptr) s = __fmul_rn(s, rs);
-        if (norms != nullptr) s = __fsub_rn(__fmul_rn(2.0f, s), nn);
-        ss[qi * tile + col] = live ? s : -INFINITY;
-      }
-    }
-  }
-  __syncthreads();
-
-  // tile-local top-kt: each lane caches the best of the columns it owns
-  // (lane, lane + 32, ...); a round reduces the 32 candidates, writes the
-  // winner, suppresses it, and only the owning lane rescans.
-  for (int i = 0; i < 4; ++i) {
-    const int qi = 4 * warp + i;
-    const int b = b0 + qi;
-    if (b >= B) break;
-    float* row = ss + qi * tile;
-    float bv = -INFINITY;
-    int bc = 0x7fffffff;
-    for (int col = lane; col < tile; col += 32) {
-      const float v = row[col];
-      if (better(v, col, bv, bc)) { bv = v; bc = col; }
-    }
-    const long long out0 = (static_cast<long long>(tile_idx) * B + b) * kt;
-    for (int r = 0; r < kt; ++r) {
-      float wv = bv;
-      int wc = bc;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, wv, off);
-        const int oc = __shfl_xor_sync(0xffffffffu, wc, off);
-        if (better(ov, oc, wv, wc)) { wv = ov; wc = oc; }
-      }
-      if (lane == 0) {
-        out_vals[out0 + r] = wv;
-        out_ids[out0 + r] = static_cast<int>(base + wc);
-      }
-      if ((wc & 31) == lane) {
-        row[wc] = -INFINITY;
-        bv = -INFINITY;
-        bc = 0x7fffffff;
-        for (int col = lane; col < tile; col += 32) {
-          const float v = row[col];
-          if (better(v, col, bv, bc)) { bv = v; bc = col; }
-        }
-      }
-      __syncwarp();
-    }
-  }
-}
-
-template <typename TQ, typename TC, bool DP4A>
-int launch(const void* q, const float* qscale, const void* c, const float* scales,
-           const float* norms, const uint8_t* mask, int B, int N, int D, int tile,
-           int num_tiles, int kt, float* out_vals, int* out_ids, cudaStream_t stream) {
-  const size_t smem = sizeof(uint32_t) * (QB * SW + RC * SW) + sizeof(float) * QB * tile;
-  auto kern = dense_topk_kernel<TQ, TC, DP4A>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((B + QB - 1) / QB, num_tiles);
-  kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const TQ*>(q), qscale, static_cast<const TC*>(c), scales, norms,
-      mask, B, N, D, tile, kt, out_vals, out_ids);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---- register-list variant: int8 x int8, kt <= 8, any D ---------------------
 //
@@ -798,8 +594,8 @@ EncodeTiled encode_tiled() {
 //
 // Every mode (int8 x int8 on wgmma m64nNk32 s8; bf16 queries on bf16 rows,
 // or on int8 codes widened exactly to bf16, on m64nNk16 bf16 with f32 sums;
-// f32 on three m64nNk8 tf32 products, below), 1 <= kt <= 128, any D to
-// 65,536, and a tile's rows split over the blocks of one cluster.
+// f32 on three m64nNk8 tf32 products, below), every kt, any D to 65,536,
+// and a tile's rows split over the blocks of one cluster.
 //
 // The f32 mode (3).  One TF32 product keeps 11 significant bits, too few
 // for the float modes' tolerance (D 2^-23 (max|s| + 1)); three keep it.
@@ -848,7 +644,26 @@ EncodeTiled encode_tiled() {
 // their lists: block r copies the lists of queries q = r (mod S) from
 // every block's shared memory, then merges them in slice order.  The
 // top-kt of a union under a strict total order is the same whatever the
-// split, so the result depends on the logical tile only.  The int32 sums
+// split, so the result depends on the logical tile only.
+//
+// The deep selection (kt > 128, the first version's SIMT route: kt
+// serial rounds of max / suppress a query, 0.82 ms at 16,384 x 256 f32,
+// B = 64, kt 129 on an H100).  The sorted lists would need kp keys a
+// query (up to 2,048) and merge copies of (QN + 8) kp keys, so instead
+// the block keeps its whole slice's scores ([QN][slice_rows + 4] f32:
+// 128 KB at 16 queries x 2,048 rows), each chunk's epilogue writing its
+// own columns, with no selection and no barrier during the scan.  At the
+// end, split, block r copies the slices' scores of the queries it owns
+// from every block of the cluster (a tile row in tile order) over its
+// ring; then a warp a query runs select_deep on the tile's row (radix
+// select of the kt-th key, compaction, bitonic sort), as many warps at
+// once as the sort buffers fit in the ring (and, split, the block's own
+// scores).  The geometry (ops/dense_topk.py tcs_deep_geometry) takes the
+// sorted lists' query block and split where they fit, else more or fewer
+// slices, at 16 or 64 queries a block (its own forms, DEEP: the sorted
+// lists' forms keep their registers).  The same epilogue's bits are
+// selected under the same order, so a query's list at kt 129 begins with
+// its kt-128 list.  The int32 sums
 // are exact; the float modes' f32 sums run through the same wgmma steps in
 // the same order for a query in any batch.
 namespace tcs {
@@ -862,7 +677,7 @@ constexpr int CONSUMER_WARPS = 8;
 constexpr int WORKERS = 12;         // warps that select: the 8 consumers and 4 more
 constexpr int E = 8;                // keys a lane in the lists' merge
 constexpr int LIST = 8;             // kt <= LIST: register lists (of 2 or 8) in the consumers' threads
-constexpr int MAX_KT = 128;
+constexpr int MAX_KT = 128;         // sorted lists; deeper kt: the deep selection (select_deep)
 constexpr int MAX_SLICES = 8;       // a portable cluster
 constexpr int MAX_STAGES = 4;
 constexpr int MAX_D = 65536;        // int32 sums of any int8 codes exact (D * 128^2 <= 2^30)
@@ -885,17 +700,39 @@ __host__ __device__ inline int kp_of(int kt) {
   return kp;
 }
 
+// kt above MAX_KT: the block keeps its slice's scores whole and selects
+// each query's kt best once the scan is done (select_deep)
+__host__ __device__ inline bool deep(int kt) { return kt > MAX_KT; }
+
+// the deep selection's sort buffer: min(kt, tile) keys rounded up to a
+// power of two, at least 256 (a warp's registers' 8 a lane)
+__host__ __device__ inline int deep_kp(int kt, int tile) {
+  const int kp = kp_of(kt < tile ? kt : tile);
+  return kp < 256 ? 256 : kp;
+}
+
 // the selecting warps' scratch, 128 keys a warp: only the sorted lists
-// (kt > LIST) merge through it
-__host__ __device__ inline int scratch_keys(int kt) { return kt > LIST ? WORKERS * R : 0; }
+// above the register lists (LIST < kt <= MAX_KT) merge through it
+__host__ __device__ inline int scratch_keys(int kt) {
+  return kt > LIST && !deep(kt) ? WORKERS * R : 0;
+}
+
+// the score buffer's row stride (floats): a chunk's (SR), or in the deep
+// selection the whole slice's (slice_rows + 4: conflict-free stores, rows
+// 16-byte aligned)
+__host__ __device__ inline int score_stride(int kt, int slice_rows) {
+  return deep(kt) ? slice_rows + 4 : SR;
+}
 
 // 1,024 bytes of slack to put the ring on the swizzle's 1,024-byte period,
-// the ring, mode 1's widened codes, the scores [qn][SR] f32, the sorted
-// lists [qn][kp], the selecting warps' scratch, the queries' thresholds,
-// scales and flags, and a full and an empty barrier a stage
-__host__ __device__ inline size_t smem_bytes(int mode, int qn, int kt, int nst) {
+// the ring, mode 1's widened codes, the scores [qn][score_stride] f32, the
+// sorted lists [qn][kp] (none in the deep selection), the selecting warps'
+// scratch, the queries' thresholds, scales and flags, and a full and an
+// empty barrier a stage
+__host__ __device__ inline size_t smem_bytes(int mode, int qn, int kt, int nst, int slice_rows) {
   return 1024 + static_cast<size_t>(nst) * stage_bytes(mode, qn) + (mode == 1 ? WIDE : 0) +
-         static_cast<size_t>(qn) * SR * 4 + static_cast<size_t>(qn) * kp_of(kt) * 8 +
+         static_cast<size_t>(qn) * score_stride(kt, slice_rows) * 4 +
+         (deep(kt) ? 0 : static_cast<size_t>(qn) * kp_of(kt) * 8) +
          static_cast<size_t>(scratch_keys(kt)) * 8 + static_cast<size_t>(qn) * 12 +
          static_cast<size_t>(nst) * 16;
 }
@@ -907,6 +744,37 @@ __host__ __device__ inline bool merge_fits(int mode, int qn, int kt, int nst) {
   return static_cast<size_t>(qn + MAX_SLICES) * kp_of(kt) * 8 <=
          static_cast<size_t>(nst) * stage_bytes(mode, qn) + (mode == 1 ? WIDE : 0) +
              static_cast<size_t>(qn) * SR * 4;
+}
+
+// the deep selection's room once the scan is done.  Split over a cluster
+// (slices > 1), a block first copies the scores of the queries it owns
+// (ceil(qn / slices) of them) from every block of the cluster, over its
+// ring and widened codes (its own scores are still being read); then each
+// selecting warp takes a sort buffer of kp keys (deep_warp_bytes; its
+// radix histogram lies over the buffer's start before the keys are
+// written) after the copies, in the ring, the widened codes and, split,
+// its own scores.  At least one warp must find room
+__host__ __device__ inline size_t deep_gather_bytes(int qn, int slices, int slice_rows) {
+  return slices > 1 ? static_cast<size_t>((qn + slices - 1) / slices) * slices * slice_rows * 4
+                    : 0;
+}
+
+__host__ __device__ inline size_t deep_warp_bytes(int kt, int tile) {
+  return static_cast<size_t>(deep_kp(kt, tile)) * 8;
+}
+
+__host__ __device__ inline size_t deep_region_bytes(int mode, int qn, int nst, int slices,
+                                                    int slice_rows) {
+  return static_cast<size_t>(nst) * stage_bytes(mode, qn) + (mode == 1 ? WIDE : 0) +
+         (slices > 1 ? static_cast<size_t>(qn) * (slice_rows + 4) * 4 : 0);
+}
+
+__host__ __device__ inline bool deep_fits(int mode, int qn, int kt, int tile, int nst, int slices,
+                                          int slice_rows) {
+  const size_t gather = deep_gather_bytes(qn, slices, slice_rows);
+  return gather <= static_cast<size_t>(nst) * stage_bytes(mode, qn) + (mode == 1 ? WIDE : 0) &&
+         gather + deep_warp_bytes(kt, tile) <=
+             deep_region_bytes(mode, qn, nst, slices, slice_rows);
 }
 
 // (value, column) as one key whose unsigned order is the reference's:
@@ -926,6 +794,203 @@ __device__ __forceinline__ float key_value(u64 k) {
 }
 
 __device__ __forceinline__ int key_col(u64 k) { return static_cast<int>(~static_cast<uint32_t>(k)); }
+
+// the upper half of make_key: a score's value as an unsigned key in the
+// reference's order, 0 for -inf and for NaN (a dead row's score)
+__device__ __forceinline__ uint32_t value_key(float v) {
+  if (!(v > -INFINITY)) return 0u;
+  uint32_t u = __float_as_uint(v);
+  if ((u << 1) == 0u) u = 0u;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// A bitonic stage over a warp's 256 keys in registers, element i = base +
+// 32 j + lane in k[j]: pairs (i, i ^ d), the lower keeping the larger key
+// where i & kk == 0 (kk: the length of the runs being built), across
+// lanes by shuffles (d < 32) or within a lane (d = 32, 64, 128)
+template <int DJ>
+__device__ __forceinline__ void wide_in_lane(u64 (&k)[8], int kk, int base, int lane) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if ((j & DJ) == 0) {
+      const bool desc = ((base + 32 * j + lane) & kk) == 0;
+      const u64 a = k[j], b = k[j | DJ];
+      if (desc ? a < b : a > b) {
+        k[j] = b;
+        k[j | DJ] = a;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void wide_stage(u64 (&k)[8], int kk, int d, int base, int lane) {
+  if (d >= 32) {
+    if (d == 32)
+      wide_in_lane<1>(k, kk, base, lane);
+    else if (d == 64)
+      wide_in_lane<2>(k, kk, base, lane);
+    else
+      wide_in_lane<4>(k, kk, base, lane);
+    return;
+  }
+  const bool lower = (lane & d) == 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const u64 o = __shfl_xor_sync(0xffffffffu, k[j], d);
+    const bool desc = ((base + 32 * j + lane) & kk) == 0;
+    k[j] = (o > k[j]) == (lower == desc) ? o : k[j];
+  }
+}
+
+// keys[0 .. m) (m a power of two >= 256) sorted descending by one warp:
+// each 256-key block sorted in registers (its runs' directions those of
+// the whole network), then each merge level's stages of d >= 256 across
+// the buffer in shared memory and its stages of d < 256 block by block
+// in registers; loads and stores lane by lane, conflict-free
+__device__ __forceinline__ void sort_keys(u64* keys, int m, int lane) {
+  // levels 2 .. 256: each 256-key block in registers
+  for (int base = 0; base < m; base += 256) {
+    u64 k[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) k[j] = keys[base + 32 * j + lane];
+    for (int kk = 2; kk <= 256; kk <<= 1)
+      for (int d = kk >> 1; d > 0; d >>= 1) wide_stage(k, kk, d, base, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) keys[base + 32 * j + lane] = k[j];
+  }
+  __syncwarp();
+  // levels 512 .. m: pair (lo, lo + d), lo with a zero at bit d
+  for (int kk = 512; kk <= m; kk <<= 1) {
+    for (int d = kk >> 1; d >= 256; d >>= 1) {
+      for (int i = lane; i < m / 2; i += 32) {
+        const int lo = 2 * i - (i & (d - 1));
+        const u64 a = keys[lo], b = keys[lo + d];
+        if ((lo & kk) == 0 ? a < b : a > b) {
+          keys[lo] = b;
+          keys[lo + d] = a;
+        }
+      }
+      __syncwarp();
+    }
+    for (int base = 0; base < m; base += 256) {
+      u64 k[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) k[j] = keys[base + 32 * j + lane];
+      for (int d = 128; d > 0; d >>= 1) wide_stage(k, kk, d, base, lane);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) keys[base + 32 * j + lane] = k[j];
+    }
+    __syncwarp();
+  }
+}
+
+// The deep selection (kt > MAX_KT), a warp a query: the n scores of `row`
+// (a tile's columns 0 .. n - 1, in shared memory) to the query's kt best,
+// sorted, into out_vals / out_ids (base + column; (-inf, base) past the
+// live keys).  With at most kt live keys, all of them; else first the
+// kt-th value key exactly, by a radix select from the top, 8 bits a pass:
+// a histogram (`hist`, 256 counters, over the start of `keys`) of the keys
+// that share the bits found so far, warp-aggregated (__match_any_sync),
+// then the bin that holds the kt-th; `need` is then how many keys of that
+// value to take, lowest columns first.  Then one pass in column order
+// compacts the keys above it and the first `need` equal to it into `keys`
+// (ballots keep the order), and a bitonic network sorts them (sort_keys:
+// a power of two >= the count, at least 256; `keys` holds deep_kp).  O(n)
+// work a query, spread over the lanes, in place of kt serial rounds of
+// the first version's max / suppress
+__device__ __noinline__ void select_deep(const float* row, int n, int kt, u64* keys,
+                                         uint32_t* hist, int lane, float* out_vals,
+                                         int* out_ids, long long base) {
+  const unsigned below = (1u << lane) - 1u;
+  uint32_t prefix = 0u, need = static_cast<uint32_t>(kt);
+  int live = 0;
+  for (int c0 = 0; c0 < n; c0 += 32) {
+    const int c = c0 + lane;
+    live += __popc(__ballot_sync(0xffffffffu, c < n && value_key(row[c]) != 0u));
+  }
+  const bool all = live <= kt;  // at most kt live keys: take them all
+  for (int p = 0; p < 4 && !all; ++p) {
+    const int shift = 24 - 8 * p;
+    const uint32_t hmask = p == 0 ? 0u : ~0u << (shift + 8);
+    for (int i = lane; i < 256; i += 32) hist[i] = 0u;
+    __syncwarp();
+    for (int c0 = 0; c0 < n; c0 += 32) {
+      const int c = c0 + lane;
+      const uint32_t vk = c < n ? value_key(row[c]) : 0u;
+      const bool in = vk != 0u && (vk & hmask) == prefix;
+      const unsigned act = __ballot_sync(0xffffffffu, in);
+      if (in) {
+        const uint32_t dg = (vk >> shift) & 255u;
+        const unsigned peers = __match_any_sync(act, dg);
+        if ((peers & below) == 0u) atomicAdd(hist + dg, static_cast<uint32_t>(__popc(peers)));
+      }
+    }
+    __syncwarp();
+    // lane l holds bins 8 l .. 8 l + 7; incl: the keys in bins 8 l and up
+    uint32_t h[8], sum = 0u;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      h[j] = hist[8 * lane + j];
+      sum += h[j];
+    }
+    uint32_t incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t up = __shfl_down_sync(0xffffffffu, incl, o);
+      if (lane + o < 32) incl += up;
+    }
+    // the lane whose bins hold the need-th key from the top, then its bin
+    const uint32_t above = incl - sum;
+    const bool mine = above < need && need <= incl;
+    const int src = __ffs(__ballot_sync(0xffffffffu, mine)) - 1;
+    int dg = -1;
+    uint32_t left = 0u, acc = above;
+#pragma unroll
+    for (int j = 7; j >= 0; --j) {
+      if (dg < 0 && acc + h[j] >= need) {
+        dg = 8 * lane + j;
+        left = need - acc;
+      }
+      acc += h[j];
+    }
+    dg = __shfl_sync(0xffffffffu, dg, src);
+    need = __shfl_sync(0xffffffffu, left, src);
+    prefix |= static_cast<uint32_t>(dg) << shift;
+    __syncwarp();  // every lane has read the histogram (the keys overwrite it)
+  }
+  // the kept keys in column order: above the kt-th value, then the first
+  // `need` equal to it
+  int cnt = 0;
+  uint32_t eq_seen = 0u;
+  for (int c0 = 0; c0 < n; c0 += 32) {
+    const int c = c0 + lane;
+    const uint32_t vk = c < n ? value_key(row[c]) : 0u;
+    bool take;
+    if (all) {
+      take = vk != 0u;
+    } else {
+      const bool eq = vk == prefix;
+      const unsigned be = __ballot_sync(0xffffffffu, eq);
+      take = vk > prefix || (eq && eq_seen + __popc(be & below) < need);
+      eq_seen += __popc(be);
+    }
+    const unsigned bt = __ballot_sync(0xffffffffu, take);
+    if (take)
+      keys[cnt + __popc(bt & below)] = (static_cast<u64>(vk) << 32) | static_cast<uint32_t>(~c);
+    cnt += __popc(bt);
+  }
+  int m = 256;
+  while (m < cnt) m <<= 1;
+  for (int i = cnt + lane; i < m; i += 32) keys[i] = 0ull;
+  __syncwarp();
+  sort_keys(keys, m, lane);
+  for (int i = lane; i < kt; i += 32) {
+    const u64 k = i < cnt ? keys[i] : 0ull;
+    out_vals[i] = k == 0ull ? -INFINITY : key_value(k);
+    out_ids[i] = static_cast<int>(base + (k == 0ull ? 0 : key_col(k)));
+  }
+  __syncwarp();  // the keys are rewritten by the warp's next query
+}
 
 // Bitonic networks over the KP = G * E keys of a group of G lanes (element
 // i = g * E + j: lane g of the group, register j).  A stage compares pairs
@@ -1191,7 +1256,7 @@ __device__ __forceinline__ void mma(Acc (&acc)[QN / 2], uint64_t da, uint64_t db
     sm90::wgmma_bf16<QN>(acc, da, db, scale_d);
 }
 
-template <int MODE, int QN>
+template <int MODE, int QN, bool DEEP>
 __global__ void __launch_bounds__(THREADS, 1)
 dense_topk_tcs_kernel(__grid_constant__ const CUtensorMap qmap,
                       __grid_constant__ const CUtensorMap cmap,
@@ -1208,9 +1273,13 @@ dense_topk_tcs_kernel(__grid_constant__ const CUtensorMap qmap,
   uint8_t* smem = smem_raw + ((1024u - (sm90::smem_addr(smem_raw) & 1023u)) & 1023u);
   const uint32_t ring = sm90::smem_addr(smem);
   uint8_t* wide = smem + nst * STAGE;
-  float* scores = reinterpret_cast<float*>(wide + (MODE == 1 ? WIDE : 0));  // [QN][SR]
-  u64* lists = reinterpret_cast<u64*>(scores + QN * SR);                    // [QN][kp]
-  u64* scratch = lists + QN * kp;                                  // [WORKERS][R] (kt > LIST)
+  // DEEP (kt > MAX_KT, a form of its own, QN 16 or 64): the slice's scores
+  // kept whole and selected at the end
+  constexpr bool dp = DEEP;
+  const int sp = DEEP ? slice_rows + 4 : SR;
+  float* scores = reinterpret_cast<float*>(wide + (MODE == 1 ? WIDE : 0));  // [QN][sp]
+  u64* lists = reinterpret_cast<u64*>(scores + QN * sp);  // [QN][kp] (none in the deep selection)
+  u64* scratch = lists + (dp ? 0 : QN * kp);              // [WORKERS][R] (LIST < kt <= MAX_KT)
   float* thr = reinterpret_cast<float*>(scratch + scratch_keys(kt));  // [QN]
   float* qsc = thr + QN;                                                    // [QN]
   int* flag = reinterpret_cast<int*>(qsc + QN);  // [QN]: a score of the chunk beats the list
@@ -1241,7 +1310,8 @@ dense_topk_tcs_kernel(__grid_constant__ const CUtensorMap qmap,
     }
     sm90::mbar_init_fence();
   }
-  for (int i = tid; i < QN * kp; i += THREADS) lists[i] = 0ull;
+  if (!dp)
+    for (int i = tid; i < QN * kp; i += THREADS) lists[i] = 0ull;
   for (int i = tid; i < QN; i += THREADS) {
     thr[i] = -INFINITY;
     qsc[i] = (MODE == 0 && i < nb) ? qscale[b0 + i] : 0.0f;
@@ -1343,7 +1413,8 @@ dense_topk_tcs_kernel(__grid_constant__ const CUtensorMap qmap,
     }
   } else if (warp >= CONSUMER_WARPS) {
     // the other selecting warps: the consumers' barriers, chunk by chunk
-    for (int ch = 0; ch <= nch; ++ch) {
+    // (the deep selection has none: each chunk's scores have their own place)
+    for (int ch = 0; ch <= nch && !dp; ++ch) {
       if (ch > 0 && kt > LIST) {
         sm90::named_barrier(1, 32 * WORKERS);  // the flags of chunk ch - 1
         merge_flagged(ch - 1);
@@ -1446,14 +1517,16 @@ dense_topk_tcs_kernel(__grid_constant__ const CUtensorMap qmap,
       }
     };
     for (int ch = 0; ch <= nch; ++ch) {
-      if (ch > 0 && kt <= LIST) {
-        scan_lists(ch - 1);
-      } else if (ch > 0) {
-        flag_queries();
-        sm90::named_barrier(1, 32 * WORKERS);  // the flags of chunk ch - 1
-        merge_flagged(ch - 1);
+      if (!dp) {
+        if (ch > 0 && kt <= LIST) {
+          scan_lists(ch - 1);
+        } else if (ch > 0) {
+          flag_queries();
+          sm90::named_barrier(1, 32 * WORKERS);  // the flags of chunk ch - 1
+          merge_flagged(ch - 1);
+        }
+        sm90::named_barrier(1, 32 * WORKERS);  // the lists hold chunk ch - 1
       }
-      sm90::named_barrier(1, 32 * WORKERS);  // the lists hold chunk ch - 1
       if (ch == nch) break;
       // the chunk's row data, folded: a dead row (masked, past the slice or
       // the scanned rows) scales by NaN
@@ -1475,6 +1548,7 @@ dense_topk_tcs_kernel(__grid_constant__ const CUtensorMap qmap,
       sm90::wgmma_wait<0>();
       sm90::fence_regs(acc);
       release(0);
+      float* chunk_scores = scores + (dp ? ch * R : 0);  // the deep selection: the slice's columns
 #pragma unroll
       for (int j = 0; j < QN / 8; ++j) {
 #pragma unroll
@@ -1488,11 +1562,11 @@ dense_topk_tcs_kernel(__grid_constant__ const CUtensorMap qmap,
               v = __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + e]), qs);
             else
               v = acc[4 * j + 2 * h + e];
-            scores[q * SR + rr0 + 8 * h] = __fmaf_rn(two, __fmul_rn(v, rs[h]), -nn[h]);
+            chunk_scores[q * sp + rr0 + 8 * h] = __fmaf_rn(two, __fmul_rn(v, rs[h]), -nn[h]);
           }
         }
       }
-      sm90::named_barrier(1, 32 * WORKERS);  // the scores hold chunk ch
+      if (!dp) sm90::named_barrier(1, 32 * WORKERS);  // the scores hold chunk ch
     }
     if (kt <= 2)
       finish_rows<2, PARTS>(lv2, lc2, lists + lq * kp, lpart == 0 && lq < nb, kt);
@@ -1506,6 +1580,38 @@ dense_topk_tcs_kernel(__grid_constant__ const CUtensorMap qmap,
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
   const int owned = nb > slice ? (nb - slice + S - 1) / S : 0;
+  if constexpr (DEEP) {
+    // the deep selection: split, block r first copies the slices' scores of
+    // queries r, r + S, .. from every block (a row of S slice_rows columns,
+    // in tile order), over its ring and widened codes; then a warp a query
+    const int gs = S * slice_rows;
+    float* gathered_rows = reinterpret_cast<float*>(smem);
+    if (S > 1) {
+      const int per = slice_rows / 4;
+      for (int idx = tid; idx < owned * S * per; idx += THREADS) {
+        const int m = idx / (S * per), r = idx / per % S, i = idx % per;
+        const float4* src = reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(scores, r) + (slice + S * m) * sp);
+        reinterpret_cast<float4*>(gathered_rows + m * gs + r * slice_rows)[i] = src[i];
+      }
+    }
+    cluster.sync();  // every copy made: the block's own scores are free when split
+    const size_t gather = deep_gather_bytes(QN, S, slice_rows);
+    const size_t room = deep_region_bytes(MODE, QN, nst, S, slice_rows) - gather;
+    const size_t per_warp = deep_warp_bytes(kt, tile);
+    const int sel = room / per_warp < WARPS ? static_cast<int>(room / per_warp) : WARPS;
+    if (warp < sel) {
+      u64* keys = reinterpret_cast<u64*>(smem + gather + warp * per_warp);
+      uint32_t* hist = reinterpret_cast<uint32_t*>(keys);  // read before the keys are written
+      for (int m = warp; m < owned; m += sel) {
+        const int qi = slice + S * m;
+        const float* row = S > 1 ? gathered_rows + m * gs : scores + qi * sp;
+        const long long out0 = (static_cast<long long>(tile_idx) * B + b0 + qi) * kt;
+        select_deep(row, rows, kt, keys, hist, lane, out_vals + out0, out_ids + out0, base);
+      }
+    }
+    return;
+  }
   if (S > 1) {
     for (int idx = tid; idx < owned * S * kp; idx += THREADS) {
       const int m = idx / (S * kp), r = idx / kp % S, i = idx % kp;
@@ -1537,13 +1643,13 @@ dense_topk_tcs_kernel(__grid_constant__ const CUtensorMap qmap,
   }
 }
 
-template <int MODE, int QN>
+template <int MODE, int QN, bool DEEP>
 int launch_qn(const CUtensorMap& qmap, const CUtensorMap& cmap, const float* qscale,
               const float* scales, const float* norms, const uint8_t* mask, int B, int N, int D,
               int tile, int num_tiles, int kt, int kp, int nst, int slices, int slice_rows,
               float* out_vals, int* out_ids, cudaStream_t stream) {
-  const size_t smem = smem_bytes(MODE, QN, kt, nst);
-  auto kern = dense_topk_tcs_kernel<MODE, QN>;
+  const size_t smem = smem_bytes(MODE, QN, kt, nst, slice_rows);
+  auto kern = dense_topk_tcs_kernel<MODE, QN, DEEP>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1572,16 +1678,21 @@ int launch_mode(int qn, const CUtensorMap& qmap, const CUtensorMap& cmap, const 
                 const float* scales, const float* norms, const uint8_t* mask, int B, int N, int D,
                 int tile, int num_tiles, int kt, int kp, int nst, int slices, int slice_rows,
                 float* out_vals, int* out_ids, cudaStream_t s) {
+  const bool dp = deep(kt);
   switch (qn) {
     case 16:
-      return launch_qn<MODE, 16>(qmap, cmap, qscale, scales, norms, mask, B, N, D, tile, num_tiles,
-                                 kt, kp, nst, slices, slice_rows, out_vals, out_ids, s);
+      return (dp ? launch_qn<MODE, 16, true> : launch_qn<MODE, 16, false>)(
+          qmap, cmap, qscale, scales, norms, mask, B, N, D, tile, num_tiles, kt, kp, nst, slices,
+          slice_rows, out_vals, out_ids, s);
     case 64:
-      return launch_qn<MODE, 64>(qmap, cmap, qscale, scales, norms, mask, B, N, D, tile, num_tiles,
-                                 kt, kp, nst, slices, slice_rows, out_vals, out_ids, s);
-    case 128:
-      return launch_qn<MODE, 128>(qmap, cmap, qscale, scales, norms, mask, B, N, D, tile,
-                                  num_tiles, kt, kp, nst, slices, slice_rows, out_vals, out_ids, s);
+      return (dp ? launch_qn<MODE, 64, true> : launch_qn<MODE, 64, false>)(
+          qmap, cmap, qscale, scales, norms, mask, B, N, D, tile, num_tiles, kt, kp, nst, slices,
+          slice_rows, out_vals, out_ids, s);
+    case 128:  // no deep form: the deep geometry takes 16 or 64 queries a block
+      if (dp) return static_cast<int>(cudaErrorInvalidValue);
+      return launch_qn<MODE, 128, false>(qmap, cmap, qscale, scales, norms, mask, B, N, D, tile,
+                                         num_tiles, kt, kp, nst, slices, slice_rows, out_vals,
+                                         out_ids, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1591,14 +1702,16 @@ int launch(int mode, const void* qmap_in, const void* cmap_in, int q_box, int c_
            const float* qscale, const float* scales, const float* norms, const uint8_t* mask,
            int B, int N, int D, int tile, int num_tiles, int kt, int qn, int nst, int slices,
            int slice_rows, float* out_vals, int* out_ids, cudaStream_t s) {
-  if (mode < 0 || mode > 3 || kt < 1 || kt > MAX_KT || D < 16 || D > MAX_D || D % 16 != 0 ||
+  if (mode < 0 || mode > 3 || kt < 1 || D < 16 || D > MAX_D || D % 16 != 0 ||
       B < 1 || N < 1 || tile < 1 || num_tiles != (N + tile - 1) / tile || q_box != qn ||
       c_box != R || nst < 2 || nst > MAX_STAGES || slices < 1 || slices > MAX_SLICES ||
       slice_rows < R || slice_rows % R != 0 || static_cast<long long>(slices) * slice_rows < tile ||
       qmap_in == nullptr || cmap_in == nullptr || (mode == 0 && qscale == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int kp = kp_of(kt);
-  if (smem_bytes(mode, qn, kt, nst) > SMEM_MAX || !merge_fits(mode, qn, kt, nst))
+  const int kp = deep(kt) ? deep_kp(kt, tile) : kp_of(kt);
+  if (smem_bytes(mode, qn, kt, nst, slice_rows) > SMEM_MAX ||
+      !(deep(kt) ? deep_fits(mode, qn, kt, tile, nst, slices, slice_rows)
+                 : merge_fits(mode, qn, kt, nst)))
     return static_cast<int>(cudaErrorInvalidValue);
   // by value into the kernel's parameters (64-byte aligned copies)
   CUtensorMap qmap, cmap;
@@ -1620,59 +1733,9 @@ int launch(int mode, const void* qmap_in, const void* cmap_in, int q_box, int c_
   }
 }
 
-// mode 3's queries as two tf32 planes for the kernel: q [count] f32 (a
-// [B, D] array) into out [2 count], hi = tf32_rna(q) first, then lo =
-// tf32_rna(q - hi) (q - hi is exact); four elements a thread a step
-__global__ void __launch_bounds__(256)
-dense_topk_tf32_planes_kernel(const float4* __restrict__ q, float4* __restrict__ out,
-                              long long quads) {
-  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < quads; i += gridDim.x * 256ll) {
-    const float4 x = q[i];
-    const float v[4] = {x.x, x.y, x.z, x.w};
-    float h[4], l[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      h[e] = __uint_as_float(sm90::tf32_rna(v[e]));
-      l[e] = __uint_as_float(sm90::tf32_rna(__fsub_rn(v[e], h[e])));
-    }
-    out[i] = make_float4(h[0], h[1], h[2], h[3]);
-    out[quads + i] = make_float4(l[0], l[1], l[2], l[3]);
-  }
-}
-
 }  // namespace tcs
 
 }  // namespace
-
-// The SIMT variant (every mode, 1 <= kt; the wrapper takes it for kt > 128).
-// mode: 0 = int8 x int8, 1 = int8 corpus + bf16 queries,
-//       2 = bf16 corpus + bf16 queries, 3 = f32 x f32.
-// Null scales / norms / mask pointers mean the feature is absent.
-// Returns the cudaError_t of the launch (0 = success).
-extern "C" int dense_topk_launch(int mode, const void* q, const float* qscale,
-                                 const void* c, const float* scales, const float* norms,
-                                 const uint8_t* mask, int B, int N, int D, int tile,
-                                 int num_tiles, int kt, float* out_vals, int* out_ids,
-                                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case 0:
-      return launch<int8_t, int8_t, true>(q, qscale, c, scales, norms, mask, B, N, D,
-                                          tile, num_tiles, kt, out_vals, out_ids, s);
-    case 1:
-      return launch<__nv_bfloat16, int8_t, false>(q, qscale, c, scales, norms, mask, B, N,
-                                                  D, tile, num_tiles, kt, out_vals, out_ids, s);
-    case 2:
-      return launch<__nv_bfloat16, __nv_bfloat16, false>(q, qscale, c, scales, norms, mask,
-                                                         B, N, D, tile, num_tiles, kt,
-                                                         out_vals, out_ids, s);
-    case 3:
-      return launch<float, float, false>(q, qscale, c, scales, norms, mask, B, N, D, tile,
-                                         num_tiles, kt, out_vals, out_ids, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
 
 // A tensor map of the tensor-core variants, written (128 bytes, a
 // CUtensorMap) to `map`.  d > 0: a row-major [rows, d] matrix at `base` of
@@ -1732,15 +1795,7 @@ extern "C" int dense_topk_tc_map(void* map, const void* base, long long rows, in
 // Returns the cudaError_t of the launch.
 extern "C" int dense_topk_tf32_planes(const float* q, float* out, long long count,
                                       void* stream) {
-  if (count < 4 || count % 4 != 0 || reinterpret_cast<uintptr_t>(q) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(out) % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long quads = count / 4;
-  const long long blocks = (quads + 255) / 256;
-  const int grid = static_cast<int>(blocks < 2048 ? blocks : 2048);
-  tcs::dense_topk_tf32_planes_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float4*>(q), reinterpret_cast<float4*>(out), quads);
-  return static_cast<int>(cudaGetLastError());
+  return sm90::tf32_planes(q, out, count, static_cast<cudaStream_t>(stream));
 }
 
 // The register-list variant (int8 x int8, 1 <= kt <= 8, D % 16 == 0, D <=
@@ -1748,7 +1803,8 @@ extern "C" int dense_topk_tf32_planes(const float* q, float* out, long long coun
 // (q_box = 128 rows a box); cmap, the corpus's first N rows (c_box = the
 // chunk's rows, 256); smap, nmap, mmap, the row scales, norms (L2) and
 // mask bytes of those rows in boxes of c_box, each null where absent.
-// The rest as dense_topk_launch's mode 0, and `grid` blocks walking the
+// qscale [B] f32 (the queries' scales), out_vals / out_ids [num_tiles, B,
+// kt] (f32, int32: tile * tile + column), and `grid` blocks walking the
 // ceil(B / 128) x num_tiles work items.  Returns the cudaError_t of the
 // launch (0 = success); cudaErrorInvalidValue outside its shapes or for
 // boxes other than the kernel's.
@@ -1764,7 +1820,8 @@ extern "C" int dense_topk_tc_launch(const void* qmap, const void* cmap, const vo
 
 // The tensor-core variant with sorted selection: modes 0 (int8 x int8),
 // 1 (int8 codes, bf16 queries), 2 (bf16 x bf16) and 3 (f32 x f32), 1 <= kt
-// <= 128, D % 16 == 0, D <= 65536.  Tensor maps from dense_topk_tc_map:
+// (above 128 the deep selection, within the shared memory that
+// tcs::deep_fits asks for), D % 16 == 0, D <= 65536.  Tensor maps from dense_topk_tc_map:
 // qmap, the queries [B, D] (int8 in mode 0, bf16 in modes 1 and 2; in mode
 // 3 the [2B, D] f32 planes of dense_topk_tf32_planes) in boxes of q_box =
 // qn rows; cmap, the corpus's first N rows (int8 in modes 0 and 1, bf16 in
@@ -1774,9 +1831,11 @@ extern "C" int dense_topk_tc_launch(const void* qmap, const void* cmap, const vo
 // nst (2 to 4) ring stages, within the block's 232,448 bytes of shared
 // memory (tcs::smem_bytes); each tile's rows split into `slices` slices of
 // `slice_rows` rows (a multiple of 128), the blocks of one cluster (slices
-// <= 8, slices * slice_rows >= tile).  The row data, qscale and the output
-// as dense_topk_launch's.  Returns the cudaError_t of the launch (0 =
-// success); cudaErrorInvalidValue outside its shapes.
+// <= 8, slices * slice_rows >= tile).  qscale [B] (mode 0), the row
+// scales, L2 norms and keep-mask bytes [N] (each null where absent) and the
+// output [num_tiles, B, kt] (f32 values, int32 ids: tile * tile + column).
+// Returns the cudaError_t of the launch (0 = success);
+// cudaErrorInvalidValue outside its shapes.
 extern "C" int dense_topk_tcs_launch(int mode, const void* qmap, const void* cmap,
                                      const int* shape, const float* qscale, const float* scales,
                                      const float* norms, const uint8_t* mask, float* out_vals,

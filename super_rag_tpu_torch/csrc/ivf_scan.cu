@@ -35,10 +35,10 @@
 // 2.40 ms floor, and L2 caught little of what neighbouring blocks shared
 // (that SIMT kernel took 6.3 ms).
 //
-// * ivf_tc_kernel (modes 0 and 1: int8 or bf16 values, bf16 queries) is
-//   one kernel body for both routes, on the bf16 tensor cores:
-//   mma.sync.m16n8k16 with f32 accumulators, tile rows as M and queries
-//   as N.  A block holds RB rows of one tile and QN queries (the union
+// * ivf_tc_kernel (modes 0 and 1: int8 or bf16 values, bf16 queries; and
+//   on the union route mode 2, f32 values, below) is one kernel body for
+//   both routes, on the tensor cores: mma.sync.m16n8k16 bf16 with f32
+//   accumulators, tile rows as M and queries as N.  A block holds RB rows of one tile and QN queries (the union
 //   256 x 32, the per-query route 128 x 16).  A query-list policy says
 //   which queries a block takes and where each query's row of scores goes:
 //   - UnionList: queries z * 32 .. z * 32 + 31 against union tile u (at
@@ -77,15 +77,25 @@
 //   memory, streaming stores and the L2 prefetch brought it to 0.34 ms.
 //   Deeper or wider rings, a persistent grid and bulk (TMA) copies per
 //   row were slower.
-// * ivf_union_kernel and ivf_probe_kernel (mode 2, f32 x f32: TF32 would
-//   not keep the tolerance), the first versions, on CUDA cores.  The
-//   union: one block per (tile, 128 rows, 32 queries), 64-element slices
-//   staged in shared memory, a 4 x 4 register tile of f32 FMAs per
-//   thread.  The per-query: one block per (query, probe); each warp
-//   scores one row at a time, its lanes reading the row's 16-byte vectors
-//   side by side with their slice of the query in registers (so D <=
-//   1024), reduced by a fixed xor-shuffle tree; four rows in flight a
-//   warp.
+//   The union's f32 mode (2), as dense_topk's: one TF32 product keeps 11
+//   significant bits, too few for the float tolerance D 2^-23 (max|s| +
+//   1); three keep it.  Each operand splits into round-to-nearest tf32
+//   planes, x = h + l (h = tf32_rna(x), l' = tf32_rna(x - h)), and each k8
+//   step runs mma.sync.m16n8k8 tf32 three times, h g + h m' + l' g: the
+//   products are exact and what is dropped is ~3 2^-22 |x||y| a product.
+//   The rows' planes are made in registers from the f32 ring stage; the
+//   queries' are a [2B, D] array made by ivf_tf32_planes first, a stage
+//   holding both planes' rows.  f32 rows are 4x the bytes of int8 ones, so
+//   the f32 stage has its own shape (UnionShape<float>, tuned by
+//   scripts/tune_ivf_union.py).  The first version, a SIMT kernel of f32
+//   FMAs (a 4 x 4 register tile a thread from padded shared memory),
+//   took 1.23 ms device at 512 tiles x 1,024 rows x 768, B 32 on an H100,
+//   against a 0.50 ms bytes bound (PERF.md §6).
+// * ivf_probe_kernel (the per-query route's mode 2, f32 x f32), the first
+//   version, on CUDA cores: one block per (query, probe); each warp scores
+//   one row at a time, its lanes reading the row's 16-byte vectors side by
+//   side with their slice of the query in registers (so D <= 1024),
+//   reduced by a fixed xor-shuffle tree; four rows in flight a warp.
 //
 // Requirements checked by the Python wrapper: D % 16 == 0 (and D <= 1024
 // for the f32 per-query kernel), contiguous 16-byte aligned operands,
@@ -117,91 +127,6 @@ __device__ __forceinline__ float epilogue(float s, long long slot, int b, long l
   if (scales != nullptr) s = __fmul_rn(s, scales[slot]);
   if (cs != nullptr) s = __fadd_rn(s, cs[static_cast<long long>(b) * nlist + tile]);
   return live ? s : -INFINITY;
-}
-
-// ---- union kernel, SIMT variant (mode 2: f32 x f32) ------------------------------------------------------------
-
-constexpr int U_QB = 32;       // queries per block
-constexpr int U_RC = 128;      // tile rows per block
-constexpr int U_KC = 64;       // elements of D per staged slice
-constexpr int U_SW = U_KC + 1;  // padded shared row stride (conflict-free reads)
-constexpr int U_THREADS = 256;  // thread (ty, tx): queries ty + 8i, rows tx + 32j
-
-__global__ void __launch_bounds__(U_THREADS)
-ivf_union_kernel(const float* __restrict__ q, const int* __restrict__ union_ids,
-                 const float* __restrict__ values, const float* __restrict__ scales,
-                 const float* __restrict__ cs, const int* __restrict__ row_ids,
-                 const uint8_t* __restrict__ mask, int B, int U, int C, int D,
-                 int nlist, float* __restrict__ out) {
-  __shared__ float sq[U_QB * U_SW];
-  __shared__ float sr[U_RC * U_SW];
-  const int tid = threadIdx.x;
-  const int tx = tid & 31;
-  const int ty = tid >> 5;
-  const int u = blockIdx.x;
-  const int c0 = blockIdx.y * U_RC;
-  const int b0 = blockIdx.z * U_QB;
-  const long long tile = union_ids[u];
-  const float* vt = values + tile * static_cast<long long>(C) * D;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < D; k0 += U_KC) {
-    const int nv = min(U_KC, D - k0) / 4;
-    for (int idx = tid; idx < U_QB * nv; idx += U_THREADS) {
-      const int r = idx / nv, v = idx - r * nv;
-      float* dst = sq + r * U_SW + v * 4;
-      if (b0 + r < B) {
-        load4(q + static_cast<long long>(b0 + r) * D + k0 + v * 4, dst);
-      } else {
-#pragma unroll
-        for (int w = 0; w < 4; ++w) dst[w] = 0.0f;
-      }
-    }
-    for (int idx = tid; idx < U_RC * nv; idx += U_THREADS) {
-      const int r = idx / nv, v = idx - r * nv;
-      float* dst = sr + r * U_SW + v * 4;
-      if (c0 + r < C) {
-        load4(vt + static_cast<long long>(c0 + r) * D + k0 + v * 4, dst);
-      } else {
-#pragma unroll
-        for (int w = 0; w < 4; ++w) dst[w] = 0.0f;
-      }
-    }
-    __syncthreads();
-    const int ce = nv * 4;
-#pragma unroll 4
-    for (int kk = 0; kk < ce; ++kk) {
-      float a[4], r[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sq[(ty + 8 * i) * U_SW + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) r[j] = sr[(tx + 32 * j) * U_SW + kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], r[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = c0 + tx + 32 * j;
-    if (c >= C) continue;
-    const long long slot = tile * C + c;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int b = b0 + ty + 8 * i;
-      if (b >= B) continue;
-      out[(static_cast<long long>(b) * U + u) * C + c] =
-          epilogue(acc[i][j], slot, b, tile, nlist, scales, cs, row_ids, mask);
-    }
-  }
 }
 
 // ---- per-query kernel, SIMT variant (mode 2: f32 x f32) ------------------------
@@ -275,39 +200,49 @@ ivf_probe_kernel(const float* __restrict__ q, const int* __restrict__ probes,
   }
 }
 
-// ---- tensor-core kernel, both routes (modes 0 and 1) ----------------------------
+// ---- tensor-core kernel, both routes (int8 / bf16 values), and the union's f32 mode ----
 
 namespace utc {
 
 // RB tile rows per block (32 per warp), QN queries per block (the N side,
 // a multiple of 8, fixed: never chosen by B), KSB bytes of each value row
-// per stage, NST stages
+// per stage, NST stages.  f32 values (TV = float) take f32 queries as two
+// tf32 planes, so a stage holds 2 QN query rows: the hi planes, then the lo
 template <typename TV, int RB_, int QN_, int KSB_, int NST_>
 struct Cfg {
   static constexpr int RB = RB_, QN = QN_, KSB = KSB_, NST = NST_;
   static constexpr int THREADS = RB;  // RB / 32 warps
+  static constexpr bool F32 = sizeof(TV) == 4;
   static constexpr int KE = KSB / static_cast<int>(sizeof(TV));  // elements of D per stage
   // value row stride: int8 rows are read by ldmatrix (16 mod 32 bytes: 8
-  // rows, 8 bank groups); bf16 rows by 8-byte loads (32 mod 64: 4 rows,
-  // 32 banks)
+  // rows, 8 bank groups); bf16 and f32 rows by 8-byte loads (32 mod 64: 4
+  // rows, 32 banks)
   static constexpr int AS = sizeof(TV) == 1 ? KSB + 16 : KSB + 32;
-  static constexpr int QSB = KE * 2 + 32;  // bf16 query row stride (bytes)
-  static constexpr int QV = KE * 2 / 16;   // 16-byte pieces of a query row a stage
-  static constexpr int QLOADS = (QN * QV + THREADS - 1) / THREADS;  // of them a thread
-  static constexpr int STAGE = RB * AS + QN * QSB;
+  static constexpr int QE = F32 ? 4 : 2;                // bytes of a query element
+  static constexpr int QROWS = F32 ? 2 * QN : QN;       // query rows a stage
+  static constexpr int QSB = KE * QE + 32;  // query row stride (bytes), as the value rows'
+  static constexpr int QV = KE * QE / 16;   // 16-byte pieces of a query row a stage
+  static constexpr int QLOADS = (QROWS * QV + THREADS - 1) / THREADS;  // of them a thread
+  static constexpr int STAGE = RB * AS + QROWS * QSB;
   static constexpr int OS = RB + 4;  // f32 stride of the [QN][RB] output stage
   static constexpr int SMEM = NST * STAGE > QN * OS * 4 ? NST * STAGE : QN * OS * 4;
 };
 
 // the configurations the port runs (chosen by timing on an H100:
-// tune_ivf_probe.py, PERF.md); a block shape never changes a column's MMA
-// order, so both routes give the same bits
-template <typename TV> using UnionCfg = Cfg<TV, 256, 32, 64, 4>;
+// tune_ivf_probe.py, scripts/tune_ivf_union.py, PERF.md); a block shape
+// never changes a column's MMA order, so both routes give the same bits
+template <typename TV> struct UnionShape { using type = Cfg<TV, 256, 32, 64, 4>; };
+// f32: 256 rows x 32 queries, 128-byte slices (32 f32), 2 stages (102 KB:
+// two blocks an SM); 0.667 ms at 512 tiles x 1,024 x 768, B 32 against
+// 0.677-1.468 for the other shapes of scripts/tune_ivf_union.py (H100)
+template <> struct UnionShape<float> { using type = Cfg<float, 256, 32, 128, 2>; };
+template <typename TV> using UnionCfg = typename UnionShape<TV>::type;
 template <typename TV> using GroupCfg = Cfg<TV, 128, 16, 64, 4>;
 
-// the operands both routes share
+// the operands both routes share; q: bf16 [B, D], or for f32 values the
+// queries' tf32 planes [2B, D] (sm90::tf32_planes)
 struct Scan {
-  const __nv_bfloat16* q;
+  const void* q;
   const void* values;
   const float* scales;
   const float* cs;
@@ -413,14 +348,18 @@ ivf_tc_kernel(const Scan a, const List list) {
 
   // the 16-byte pieces of query rows this thread stages (the same piece of
   // the same row in every stage): their sources, null where the column has
-  // no query
+  // no query.  Staged row r holds plane r / QN of column r % QN (f32: hi,
+  // then lo, [2B, D]; else the one bf16 plane)
   const uint8_t* qsrc[L::QLOADS];
 #pragma unroll
   for (int i = 0; i < L::QLOADS; ++i) {
     const int idx = tid + i * THREADS;
+    const int r = idx / QV;
     long long row;
-    const int b = idx < QN * QV ? blk.query(idx / QV, row) : -1;
-    qsrc[i] = b >= 0 ? qb + b * 2LL * D + (idx % QV) * 16 : nullptr;
+    const int b = idx < L::QROWS * QV ? blk.query(r % QN, row) : -1;
+    qsrc[i] = b >= 0 ? qb + ((r / QN) * static_cast<long long>(a.B) + b) * L::QE * D +
+                           (idx % QV) * 16
+                     : nullptr;
   }
 
   auto load_stage = [&](int s) {
@@ -435,13 +374,13 @@ ivf_tc_kernel(const Scan a, const List list) {
       sm90::cp_async16_l2_256(sv + r * L::AS + v * 16, ok ? vt + (c0 + r) * row_bytes + kb : vt,
                               ok ? 16 : 0);
     }
-    const long long qb0 = static_cast<long long>(s) * KE * 2;  // byte offset in a query row
+    const long long qb0 = static_cast<long long>(s) * KE * L::QE;  // byte offset in a query row
 #pragma unroll
     for (int i = 0; i < L::QLOADS; ++i) {
       const int idx = tid + i * THREADS;
-      if (idx < QN * QV) {
+      if (idx < L::QROWS * QV) {
         const int r = idx / QV, v = idx % QV;
-        const bool ok = qsrc[i] != nullptr && qb0 + v * 16 < 2LL * D;
+        const bool ok = qsrc[i] != nullptr && qb0 + v * 16 < static_cast<long long>(L::QE) * D;
         sm90::cp_async16(sqs + r * L::QSB + v * 16, ok ? qsrc[i] + qb0 : qb, ok ? 16 : 0);
       }
     }
@@ -487,45 +426,85 @@ ivf_tc_kernel(const Scan a, const List list) {
     const uint8_t* sv = smem + (s % NST) * L::STAGE;
     const uint8_t* sqs = sv + RB * L::AS;
     const int nk16 = min(KE, D - s * KE) / 16;  // D % 16 == 0: no partial step
+    if constexpr (L::F32) {
+      // f32: each k8 step of the stage's KE elements runs three m16n8k8 tf32
+      // products a (row block, query block), always hi x hi, hi x lo, lo x
+      // hi: the rows' planes made here in registers from the f32 values,
+      // the queries' read from their two staged planes.  Within the step
+      // the k order is permuted alike for both sides (logical t <- physical
+      // 2t, t + 4 <- 2t + 1), so a lane's two elements are one 8-byte load
 #pragma unroll
-    for (int k32 = 0; k32 < KE / 32; ++k32) {
-      if (2 * k32 < nk16) {
-        // int8: one ldmatrix.x4 holds 16 rows x 32 codes: regs 0 / 1 are
-        // rows gid / gid + 8 of the even k16 step, regs 2 / 3 of the odd one
-        uint32_t r4v[2][4];
-        if constexpr (sizeof(TV) == 1) {
+      for (int k8 = 0; k8 < KE / 8; ++k8) {
+        if (k8 < 2 * nk16) {
+          uint32_t ah[2][4], al[2][4];
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-            sm90::ldmatrix_x4(sv + (warp * 32 + mi * 16 + a_lane) * L::AS + k32 * 32 +
-                                  (lane >> 4) * 16,
-                              r4v[mi]);
-        }
+          for (int mi = 0; mi < 2; ++mi) {
+            const uint8_t* row = sv + (warp * 32 + mi * 16 + gid) * L::AS + k8 * 32 + tig * 8;
+            const float2 x0 = *reinterpret_cast<const float2*>(row);
+            const float2 x1 = *reinterpret_cast<const float2*>(row + 8 * L::AS);
+            const float xs[4] = {x0.x, x1.x, x0.y, x1.y};
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int k16 = 2 * k32 + h;
-          if (k16 < nk16) {
-            uint32_t af[2][4];
+            for (int e = 0; e < 4; ++e) {
+              ah[mi][e] = sm90::tf32_rna(xs[e]);
+              al[mi][e] = sm90::tf32_rna(__fsub_rn(xs[e], __uint_as_float(ah[mi][e])));
+            }
+          }
+#pragma unroll
+          for (int ni = 0; ni < QN / 8; ++ni) {
+            const uint2 bh = *reinterpret_cast<const uint2*>(sqs + (ni * 8 + gid) * L::QSB +
+                                                             k8 * 32 + tig * 8);
+            const uint2 bl = *reinterpret_cast<const uint2*>(
+                sqs + (QN + ni * 8 + gid) * L::QSB + k8 * 32 + tig * 8);
 #pragma unroll
             for (int mi = 0; mi < 2; ++mi) {
-              if constexpr (sizeof(TV) == 1) {
-                sm90::s8x4_to_bf16x2(r4v[mi][2 * h], af[mi][0], af[mi][2]);
-                sm90::s8x4_to_bf16x2(r4v[mi][2 * h + 1], af[mi][1], af[mi][3]);
-              } else {
-                const uint8_t* row = sv + (warp * 32 + mi * 16 + gid) * L::AS + k16 * 32 + tig * 8;
-                const uint2 lo = *reinterpret_cast<const uint2*>(row);
-                const uint2 hi = *reinterpret_cast<const uint2*>(row + 8 * L::AS);
-                af[mi][0] = lo.x;
-                af[mi][2] = lo.y;
-                af[mi][1] = hi.x;
-                af[mi][3] = hi.y;
-              }
+              sm90::mma_tf32_1688(acc[mi][ni], ah[mi], bh.x, bh.y);
+              sm90::mma_tf32_1688(acc[mi][ni], ah[mi], bl.x, bl.y);
+              sm90::mma_tf32_1688(acc[mi][ni], al[mi], bh.x, bh.y);
             }
+          }
+        }
+      }
+    } else {
 #pragma unroll
-            for (int ni = 0; ni < QN / 8; ++ni) {
-              const uint2 bq = *reinterpret_cast<const uint2*>(sqs + (ni * 8 + gid) * L::QSB +
-                                                               k16 * 32 + tig * 8);
+      for (int k32 = 0; k32 < KE / 32; ++k32) {
+        if (2 * k32 < nk16) {
+          // int8: one ldmatrix.x4 holds 16 rows x 32 codes: regs 0 / 1 are
+          // rows gid / gid + 8 of the even k16 step, regs 2 / 3 of the odd one
+          uint32_t r4v[2][4];
+          if constexpr (sizeof(TV) == 1) {
 #pragma unroll
-              for (int mi = 0; mi < 2; ++mi) sm90::mma_bf16_16816(acc[mi][ni], af[mi], bq.x, bq.y);
+            for (int mi = 0; mi < 2; ++mi)
+              sm90::ldmatrix_x4(sv + (warp * 32 + mi * 16 + a_lane) * L::AS + k32 * 32 +
+                                    (lane >> 4) * 16,
+                                r4v[mi]);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int k16 = 2 * k32 + h;
+            if (k16 < nk16) {
+              uint32_t af[2][4];
+#pragma unroll
+              for (int mi = 0; mi < 2; ++mi) {
+                if constexpr (sizeof(TV) == 1) {
+                  sm90::s8x4_to_bf16x2(r4v[mi][2 * h], af[mi][0], af[mi][2]);
+                  sm90::s8x4_to_bf16x2(r4v[mi][2 * h + 1], af[mi][1], af[mi][3]);
+                } else {
+                  const uint8_t* row = sv + (warp * 32 + mi * 16 + gid) * L::AS + k16 * 32 + tig * 8;
+                  const uint2 lo = *reinterpret_cast<const uint2*>(row);
+                  const uint2 hi = *reinterpret_cast<const uint2*>(row + 8 * L::AS);
+                  af[mi][0] = lo.x;
+                  af[mi][2] = lo.y;
+                  af[mi][1] = hi.x;
+                  af[mi][3] = hi.y;
+                }
+              }
+#pragma unroll
+              for (int ni = 0; ni < QN / 8; ++ni) {
+                const uint2 bq = *reinterpret_cast<const uint2*>(sqs + (ni * 8 + gid) * L::QSB +
+                                                                 k16 * 32 + tig * 8);
+#pragma unroll
+                for (int mi = 0; mi < 2; ++mi) sm90::mma_bf16_16816(acc[mi][ni], af[mi], bq.x, bq.y);
+              }
             }
           }
         }
@@ -608,22 +587,13 @@ int launch_groups(const Scan& a, const int* order, const int* pair_off, const in
 }  // namespace
 
 // mode: 0 = int8 values + bf16 queries, 1 = bf16 values + bf16 queries,
-//       2 = f32 values + f32 queries.  Modes 0 and 1 take the tensor-core
-//       launchers, mode 2 the SIMT ones.  Null scales / cs / mask
-//       pointers mean the step is absent.  Each returns the cudaError_t of
-//       its launch (0 = success).
-extern "C" int ivf_union_launch(int mode, const void* q, const int* union_ids,
-                                const void* values, const float* scales, const float* cs,
-                                const int* row_ids, const uint8_t* mask, int B, int U, int C,
-                                int D, int nlist, float* out, void* stream) {
-  if (mode != 2) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(U, (C + U_RC - 1) / U_RC, (B + U_QB - 1) / U_QB);
-  ivf_union_kernel<<<grid, U_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), union_ids, static_cast<const float*>(values), scales, cs,
-      row_ids, mask, B, U, C, D, nlist, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
+//       2 = f32 values + f32 queries.  The union takes every mode on the
+//       tensor cores (mode 2 as three tf32 products, its queries the tf32
+//       planes of ivf_tf32_planes); the per-query route takes modes 0 and
+//       1 on the tensor cores (ivf_probe_tc_launch) and mode 2 on CUDA
+//       cores (ivf_probe_launch).  Null scales / cs / mask pointers mean
+//       the step is absent.  Each returns the cudaError_t of its launch (0
+//       = success).
 extern "C" int ivf_probe_launch(int mode, const void* q, const int* probes,
                                 const void* values, const float* scales, const float* cs,
                                 const int* row_ids, const uint8_t* mask, int B, int nprobe,
@@ -636,23 +606,33 @@ extern "C" int ivf_probe_launch(int mode, const void* q, const int* probes,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The union route on the tensor cores (modes 0 and 1), same operands.
+// The union route on the tensor cores, every mode, same operands (mode 2:
+// q the [2B, D] tf32 planes of the f32 queries, ivf_tf32_planes).
 extern "C" int ivf_union_tc_launch(int mode, const void* q, const int* union_ids,
                                    const void* values, const float* scales, const float* cs,
                                    const int* row_ids, const uint8_t* mask, int B, int U, int C,
                                    int D, int nlist, float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const utc::Scan a{static_cast<const __nv_bfloat16*>(q), values, scales, cs, row_ids, mask,
-                    B, C, D, nlist, out};
+  const utc::Scan a{q, values, scales, cs, row_ids, mask, B, C, D, nlist, out};
   switch (mode) {
     case 0:
       return utc::launch_union<int8_t, utc::UnionCfg<int8_t>>(a, union_ids, U, s);
     case 1:
       return utc::launch_union<__nv_bfloat16, utc::UnionCfg<__nv_bfloat16>>(a, union_ids, U, s);
+    case 2:
+      return utc::launch_union<float, utc::UnionCfg<float>>(a, union_ids, U, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The f32 union's query planes: q, a row-major [B, D] f32 array (count = B
+// D elements, a multiple of 4, 16-byte aligned), into out [2B, D]: rows 0
+// .. B - 1 tf32_rna(q), rows B .. 2B - 1 tf32_rna(q - that).  Returns the
+// cudaError_t of the launch.
+extern "C" int ivf_tf32_planes(const float* q, float* out, long long count, void* stream) {
+  return sm90::tf32_planes(q, out, count, static_cast<cudaStream_t>(stream));
 }
 
 // The per-query route on the tensor cores (modes 0 and 1): the union's
@@ -668,8 +648,7 @@ extern "C" int ivf_probe_tc_launch(int mode, const void* q, const int* order,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D % 16 != 0 || qg != utc::GroupCfg<int8_t>::QN)
     return static_cast<int>(cudaErrorInvalidValue);
-  const utc::Scan a{static_cast<const __nv_bfloat16*>(q), values, scales, cs, row_ids, mask,
-                    B, C, D, nlist, out};
+  const utc::Scan a{q, values, scales, cs, row_ids, mask, B, C, D, nlist, out};
   switch (mode) {
     case 0:
       return utc::launch_groups<int8_t, utc::GroupCfg<int8_t>>(a, order, pair_off, group_off,

@@ -2,8 +2,9 @@
 // ldmatrix and mma.sync wrappers; Hopper's mbarriers, TMA loads, wgmma
 // (shared-memory descriptors, fences, groups, the m64nNk16 bf16 and
 // m64nNk32 s8 products from shared memory, the m64nNk8 tf32 product with
-// A from registers), the tf32 rounding, named barriers and setmaxnreg;
-// and the (value, column) order of the tile-local top-k.
+// A from registers), the tf32 rounding, the f32 modes' query planes and the
+// m16n8k8 tf32 mma.sync, named barriers and setmaxnreg; and the (value,
+// column) order of the tile-local top-k.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -336,6 +337,54 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return r & 0xFFFFE000u;
+}
+
+// an f32 [B, D] array (count = B D elements) as two tf32 planes, out [2B,
+// D]: rows 0 .. B - 1 hi = tf32_rna(x), rows B .. 2B - 1 lo = tf32_rna(x -
+// hi) (x - hi is exact), so that hi g + hi m + lo g, the f32 modes' three
+// products a step, leave out only ~3 2^-22 |x||y| of x y; four elements a
+// thread a step
+__global__ void __launch_bounds__(256)
+tf32_planes_kernel(const float4* __restrict__ q, float4* __restrict__ out, long long quads) {
+  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < quads; i += gridDim.x * 256ll) {
+    const float4 x = q[i];
+    const float v[4] = {x.x, x.y, x.z, x.w};
+    float h[4], l[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      h[e] = __uint_as_float(tf32_rna(v[e]));
+      l[e] = __uint_as_float(tf32_rna(__fsub_rn(v[e], h[e])));
+    }
+    out[i] = make_float4(h[0], h[1], h[2], h[3]);
+    out[quads + i] = make_float4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// tf32_planes_kernel on `stream`: count a multiple of 4, both arrays
+// 16-byte aligned.  Returns the cudaError_t of the launch
+inline int tf32_planes(const float* q, float* out, long long count, cudaStream_t stream) {
+  if (count < 4 || count % 4 != 0 || reinterpret_cast<uintptr_t>(q) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long quads = count / 4;
+  const long long blocks = (quads + 255) / 256;
+  const int grid = static_cast<int>(blocks < 2048 ? blocks : 2048);
+  tf32_planes_kernel<<<grid, 256, 0, stream>>>(reinterpret_cast<const float4*>(q),
+                                                reinterpret_cast<float4*>(out), quads);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// D (16 x 8 f32) += A (16 x 8 tf32, row) * B (8 x 8 tf32, col): a[0] row
+// lane / 4, column lane % 4; a[1] row + 8; a[2] column + 4; a[3] both; b0
+// k = lane % 4, n = lane / 4; b1 k + 4; D as mma_bf16_16816's.  tf32 in
+// f32 registers, the 13 low bits clear (tf32_rna)
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                              uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // D (64 x N f32) += A (64 x 8 tf32, from registers) * B (N x 8 tf32)^T,

@@ -3,20 +3,24 @@
 Port of the TPU kernel in the JAX package's ``ops/pallas_topk.py``
 (``_make_kernel`` :36, driven by ``pallas_dense_topk`` :106).  The kernel
 is ``csrc/dense_topk.cu`` (CUDA C++ for sm_90a, built by ``_build.py``)
-in three variants, chosen by shape (``kernel_variant``):
+in two variants, both on the tensor cores, chosen by shape
+(``kernel_variant``):
 
-* ``"tcs"``, the tensor cores for every mode (int8 x int8, int8 codes
-  with bf16 queries, bf16 x bf16, and f32 x f32 as three TF32 products on
-  round-to-nearest planes, ``tf32_planes``) at ``kt <= TC_MAX_KT`` and any
-  D to ``TCS_MAX_D``, in one form: a block of 16, 64 or 128 queries
+* ``"tcs"``, every mode (int8 x int8, int8 codes with bf16 queries, bf16
+  x bf16, and f32 x f32 as three TF32 products on round-to-nearest
+  planes, ``tf32_planes``) at every kt and any D to ``TCS_MAX_D``, in one
+  form: a block of 16, 64 or 128 queries
   (``tcs_geometry``: by the batch, then the shared-memory budget) against a
   slice of a tile in chunks of ``TCS_RC`` rows, a TMA ring of 128-byte
   k-slices of the rows and the queries, ``wgmma`` with the rows as M and
   the queries as N, the epilogued scores in a buffer of their own, from
   which each query's kt best are kept in register lists (kt <= 8) or, by
   twelve warps, in sorted lists the few scores above the kt-th merge into
-  by rank; each tile's rows split over the blocks of a cluster
-  (``tcs_split``) where the tiles alone would leave the card idle.  What
+  by rank (kt <= ``TC_MAX_KT``); deeper, the block keeps its slice's
+  scores whole and a warp a query selects its kt best at the end (the
+  deep selection, ``tcs_deep_geometry``); each tile's rows split over the
+  blocks of a cluster (``tcs_split``) where the tiles alone would leave
+  the card idle.  What
   bounds it: at scale the L2 stream of the k-slices and the epilogue and
   selection, which the products do not overlap (f32: the three products'
   tensor work, six times bf16's an element); at the served shapes the launch,
@@ -33,13 +37,11 @@ in three variants, chosen by shape (``kernel_variant``):
   (``list_tensor_maps``, ``tcs_tensor_maps``), encoded by the library and
   cached (``_tensor_map``): a served call encodes only its new queries'
   map, and takes the rest of its launch from its shape's plan
-  (``_tcs_plan``);
-* ``"simt"`` for the rest: kt above the cap, in every mode (the served
-  routes cap top_k at 100).
+  (``_tcs_plan``).
 
-``tc_launches`` counts every tensor-core launch (``tc_mode_launches``
-splits them by mode, ``list_launches`` counts the register-list kernel's
-alone), ``simt_launches`` the rest (``count_launch``).  ``tile_topk_plain``
+``tc_launches`` counts every launch (``tc_mode_launches`` splits them by
+mode, ``list_launches`` counts the register-list kernel's alone:
+``count_launch``).  ``tile_topk_plain``
 beside them is the plain PyTorch version with the same per-tile
 semantics.  ``tile_topk`` launches a kernel for CUDA tensors and runs the
 plain version only for CPU tensors.
@@ -66,14 +68,15 @@ from super_rag_tpu_torch.ops.dense import DenseCorpus, Metric, normalize_queries
 from super_rag_tpu_torch.ops.quant import quantize_int8
 from super_rag_tpu_torch.ops.topk import NEG_INF, stable_topk
 
-# kernel modes (csrc/dense_topk.cu dense_topk_launch)
+# kernel modes (csrc/dense_topk.cu dense_topk_tcs_launch)
 MODE_INT8 = 0  # int8 x int8 -> int32, x qscale
 MODE_INT8_BF16 = 1  # int8 codes, bf16 queries
 MODE_BF16 = 2
 MODE_F32 = 3
 
-# the tensor-core route's shapes: kt <= TC_MAX_KT (the sorted lists of
-# "tcs"); the register lists of "tc" hold up to LIST_MAX_KT
+# "tcs" keeps sorted lists at kt <= TC_MAX_KT, and above it the slice's
+# scores whole (the deep selection); the register lists of "tc" hold up to
+# LIST_MAX_KT
 TC_MAX_KT = 128
 LIST_MAX_KT = 8
 # "tcs": corpus rows a chunk (the wgmma's M, 64 a consumer warpgroup),
@@ -83,6 +86,7 @@ LIST_MAX_KT = 8
 TCS_RC = 128
 TCS_KS = 128
 TCS_QN = (16, 64, 128)
+TCS_DEEP_QN = (16, 64)  # the deep selection's forms (kt above TC_MAX_KT)
 TCS_WORKERS = 12  # warps that select (the 8 consumers and 4 more)
 TCS_LIST_KT = 8  # kt <= this: register lists in the consumers, no selection scratch
 TCS_MAX_STAGES = 4
@@ -114,9 +118,8 @@ class _Launches:
         self.count = 0
 
 
-tc_launches = _Launches()  # every tensor-core launch ("tc" and "tcs")
+tc_launches = _Launches()  # every launch ("tc" and "tcs")
 list_launches = _Launches()  # the register-list kernel ("tc") alone
-simt_launches = _Launches()  # the SIMT variant
 # tc_launches by mode
 tc_mode_launches = {m: _Launches() for m in (MODE_INT8, MODE_INT8_BF16,
                                          MODE_BF16, MODE_F32)}
@@ -124,9 +127,6 @@ tc_mode_launches = {m: _Launches() for m in (MODE_INT8, MODE_INT8_BF16,
 
 def count_launch(variant: str, mode: int) -> None:
     """Add one launch of ``variant`` in ``mode`` to its counters."""
-    if variant == "simt":
-        simt_launches.count += 1
-        return
     tc_launches.count += 1
     tc_mode_launches[mode].count += 1
     if variant == "tc":
@@ -139,9 +139,6 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("dense_topk")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dense_topk_launch.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i,
-                                      p, p, p]
-    lib.dense_topk_launch.restype = i
     lib.dense_topk_tc_map.argtypes = [p, p, ctypes.c_longlong, i, i, i]
     lib.dense_topk_tc_map.restype = i
     lib.dense_topk_tc_launch.argtypes = [p, p, p, p, p, i, i, p, i, i, i, i,
@@ -181,13 +178,10 @@ def kernel_variant(mode: int, kt: int, d: int, b: int, num_tiles: int,
     ``"tc"`` (int8 x int8 register lists, at any ``d``) where ``kt <=
     LIST_MAX_KT`` and its work items (``list_work_items``: a tile against
     a block of ``LIST_QB`` queries) give each of ``sms`` SMs at least one;
-    ``"tcs"`` for every other call at ``kt <= TC_MAX_KT`` (f32 too),
-    whatever ``d``; ``"simt"`` for kt above the cap.  Every variant of a
-    mode gives the same bits for a query whatever the batch (int8 x int8:
-    all equal the plain version), so the choice by ``b`` changes no
-    answer."""
-    if not 1 <= kt <= TC_MAX_KT:
-        return "simt"
+    ``"tcs"`` for every other call, at every kt (f32 too), whatever ``d``.
+    Every variant of a mode gives the same bits for a query whatever the
+    batch (int8 x int8: all equal the plain version), so the choice by
+    ``b`` changes no answer."""
     if mode == MODE_INT8 and kt <= LIST_MAX_KT and \
             list_work_items(b, num_tiles) >= sms:
         return "tc"
@@ -258,20 +252,25 @@ def tcs_kp(kt: int) -> int:
     return max(8, 1 << (kt - 1).bit_length())
 
 
-def tcs_smem_bytes(mode: int, qn: int, kt: int, nst: int) -> int:
+def tcs_smem_bytes(mode: int, qn: int, kt: int, nst: int,
+                   slice_rows: int = TCS_RC) -> int:
     """Dynamic shared memory of a "tcs" block: 1,024 bytes of slack for
     the 128-byte swizzle's 1,024-byte period, ``nst`` ring stages, the
     int8-codes mode's widened codes (two warpgroups x 64 rows x 128 bf16),
-    the chunk's scores (``qn`` x ``TCS_SR`` f32), the sorted lists (``qn``
-    x kp keys of 8 bytes), 128 keys of scratch for each of the
-    ``TCS_WORKERS`` selecting warps (only above ``TCS_LIST_KT``, where the
-    sorted lists merge through it), the queries' thresholds, scales and
-    flags, and 8-byte barriers (a full and an empty one a stage).  It does not
-    depend on D: the queries stream through the ring like the rows."""
-    scratch = TCS_WORKERS * TCS_RC * 8 if kt > TCS_LIST_KT else 0
+    the scores (``qn`` x ``TCS_SR`` f32 of a chunk; in the deep selection,
+    kt above ``TC_MAX_KT``, ``qn`` x ``slice_rows + 4`` of the whole
+    slice), the sorted lists (``qn`` x kp keys of 8 bytes; none in the deep
+    selection), 128 keys of scratch for each of the ``TCS_WORKERS``
+    selecting warps (only where sorted lists above ``TCS_LIST_KT`` merge
+    through it), the queries' thresholds, scales and flags, and 8-byte
+    barriers (a full and an empty one a stage).  It does not depend on D:
+    the queries stream through the ring like the rows."""
+    deep = kt > TC_MAX_KT
+    scratch = TCS_WORKERS * TCS_RC * 8 if TCS_LIST_KT < kt <= TC_MAX_KT else 0
+    stride = slice_rows + 4 if deep else TCS_SR
     return (1024 + nst * tcs_stage_bytes(mode, qn)
             + (TCS_WIDE if mode == MODE_INT8_BF16 else 0)
-            + qn * TCS_SR * 4 + qn * tcs_kp(kt) * 8 + scratch
+            + qn * stride * 4 + (0 if deep else qn * tcs_kp(kt) * 8) + scratch
             + qn * 12 + nst * 16)
 
 
@@ -285,11 +284,64 @@ def tcs_merge_fits(mode: int, qn: int, kt: int, nst: int) -> bool:
         + qn * TCS_SR * 4)
 
 
+def tcs_deep_kp(kt: int, tile: int) -> int:
+    """The deep selection's sort buffer: ``min(kt, tile)`` keys (a tile has
+    no more) rounded up to a power of two, at least 256 (a warp sorts 256
+    keys in its registers, 8 a lane)."""
+    return max(256, tcs_kp(min(kt, tile)))
+
+
+def tcs_deep_fits(mode: int, qn: int, kt: int, tile: int, nst: int,
+                  slices: int, slice_rows: int) -> bool:
+    """Whether the deep selection finds its room once the scan is done.
+    Split (``slices > 1``), a block first copies the scores of the queries
+    it owns (``ceil(qn / slices)``) from every block of its cluster, a row
+    of ``slices * slice_rows`` f32 each, over its ring and widened codes;
+    then each selecting warp takes a sort buffer of ``tcs_deep_kp`` keys
+    (its radix histogram over the buffer's start) after the copies, in the
+    ring, the widened codes and (split) the block's own scores.  At least
+    one warp must fit."""
+    ring = nst * tcs_stage_bytes(mode, qn) + (TCS_WIDE if mode == MODE_INT8_BF16 else 0)
+    gather = -(-qn // slices) * slices * slice_rows * 4 if slices > 1 else 0
+    region = ring + (qn * (slice_rows + 4) * 4 if slices > 1 else 0)
+    return gather <= ring and gather + tcs_deep_kp(kt, tile) * 8 <= region
+
+
+def tcs_deep_geometry(mode: int, b: int, num_tiles: int, tile: int, kt: int,
+                      sms: int = H100_SMS) -> tuple[int, int, int, int]:
+    """``(qn, nst, slices, slice_rows)`` of a deep-selection "tcs" launch
+    (kt above ``TC_MAX_KT``): the smallest query block of ``TCS_DEEP_QN``
+    that holds the batch (64 above 16) and the sorted lists' split
+    (``tcs_split``) where ``tcs_deep_fits`` with as many ring stages as fit
+    (2 to ``TCS_MAX_STAGES``); else slices of fewer chunks (to a cluster
+    of 8), then of more (to one slice a tile), then a smaller query
+    block."""
+    first = next((qn for qn in TCS_DEEP_QN if b <= qn), TCS_DEEP_QN[-1])
+    chunks = -(-tile // TCS_RC)
+    for qn in reversed(TCS_DEEP_QN):
+        if qn > first:
+            continue
+        per0 = tcs_split(b, num_tiles, tile, qn, sms)[1] // TCS_RC
+        for per in (per0, *range(per0 - 1, 0, -1), *range(per0 + 1, chunks + 1)):
+            slices, rows = -(-tile // (per * TCS_RC)), per * TCS_RC
+            if slices > TCS_MAX_SLICES:
+                continue
+            nst = min(TCS_MAX_STAGES, (SMEM_MAX - tcs_smem_bytes(mode, qn, kt, 0, rows))
+                      // (tcs_stage_bytes(mode, qn) + 16))
+            if nst >= 2 and tcs_deep_fits(mode, qn, kt, tile, nst, slices, rows):
+                return qn, nst, slices, rows
+    raise ValueError(f"no deep-selection geometry fits kt={kt}, tile={tile} in mode {mode}")
+
+
 def tcs_geometry(mode: int, b: int, kt: int) -> tuple[int, int]:
-    """``(qn, nst)`` of a "tcs" launch: ``qn`` queries a block, the smallest
-    of ``TCS_QN`` that holds the batch (128 above 64), or a smaller one
-    where 2 ring stages do not fit beside its lists in ``SMEM_MAX``; ``nst``
-    as many stages as fit, up to ``TCS_MAX_STAGES``."""
+    """``(qn, nst)`` of a sorted-lists "tcs" launch (kt <= ``TC_MAX_KT``):
+    ``qn`` queries a block, the smallest of ``TCS_QN`` that holds the batch
+    (128 above 64), or a smaller one where 2 ring stages do not fit beside
+    its lists in ``SMEM_MAX``; ``nst`` as many stages as fit, up to
+    ``TCS_MAX_STAGES``."""
+    if not 1 <= kt <= TC_MAX_KT:
+        raise ValueError(f"the sorted lists take 1 <= kt <= {TC_MAX_KT}, got {kt}; "
+                         f"deeper kt: tcs_deep_geometry")
     first = next((qn for qn in TCS_QN if b <= qn), TCS_QN[-1])
     for qn in reversed(TCS_QN):
         if qn > first:
@@ -409,25 +461,16 @@ def _launch_kernel(q, qscale, values, scales, norms, mask, n, tile, kt):
     lib = _lib()
     out_v = torch.empty((num_tiles, b, kt), dtype=torch.float32, device=dev)
     out_i = torch.empty((num_tiles, b, kt), dtype=torch.int32, device=dev)
-    if b == 0 or num_tiles == 0:
+    if b == 0 or num_tiles == 0 or kt == 0:
         return out_v, out_i
     stream = torch.cuda.current_stream(dev).cuda_stream
     sms = _sm_count(dev.index if dev.index is not None else
                     torch.cuda.current_device())
     variant = kernel_variant(mode, kt, d, b, num_tiles, sms)
-    if variant == "tc":
-        err = _launch_list(lib, q, qscale, values, scales, norms, mask, n,
-                           tile, kt, out_v, out_i, stream, sms)
-    elif variant == "tcs":
-        err = _launch_tcs(lib, q, qscale, values, scales, norms, mask, n,
-                          tile, kt, out_v, out_i, stream, sms)
-    else:
-        err = lib.dense_topk_launch(mode, q.data_ptr(), _ptr(qscale),
-                                    values.data_ptr(), _ptr(scales), _ptr(norms),
-                                    _ptr(mask), b, n, d, tile, num_tiles, kt,
-                                    out_v.data_ptr(), out_i.data_ptr(), stream)
+    launch = _launch_list if variant == "tc" else _launch_tcs
+    err = launch(lib, q, qscale, values, scales, norms, mask, n, tile, kt, out_v, out_i,
+                 stream, sms)
     if err != 0:
-        # e.g. a tile whose score block exceeds the card's shared memory
         raise RuntimeError(f"dense_topk {variant} kernel launch failed: "
                            f"cudaError {err}")
     count_launch(variant, mode)
@@ -467,12 +510,15 @@ def _tcs_plan(q_dtype: torch.dtype, c_dtype: torch.dtype, b: int, n: int, d: int
     collection repeats a few; at most 256 are kept), so a call pays neither
     ``tcs_geometry`` and ``tcs_split`` nor a conversion of each int."""
     mode = _dtype_mode(q_dtype, c_dtype)
-    if not 1 <= kt <= TC_MAX_KT or d > TCS_MAX_D:
-        raise ValueError(f"the sorted-selection kernel takes kt <= {TC_MAX_KT} "
-                         f"and D <= {TCS_MAX_D}, got mode {mode}, kt={kt}, D={d}")
-    qn, nst = tcs_geometry(mode, b, kt)
+    if kt < 1 or d > TCS_MAX_D:
+        raise ValueError(f"the sorted-selection kernel takes kt >= 1 and D <= "
+                         f"{TCS_MAX_D}, got mode {mode}, kt={kt}, D={d}")
     num_tiles = -(-n // tile)
-    slices, rows = tcs_split(b, num_tiles, tile, qn, sms)
+    if kt > TC_MAX_KT:
+        qn, nst, slices, rows = tcs_deep_geometry(mode, b, num_tiles, tile, kt, sms)
+    else:
+        qn, nst = tcs_geometry(mode, b, kt)
+        slices, rows = tcs_split(b, num_tiles, tile, qn, sms)
     geo = tcs_tensor_maps(mode, b, n, d, qn)
     shape = (ctypes.c_int * 12)(qn, TCS_RC, b, n, d, tile, num_tiles, kt, qn, nst,
                                 slices, rows)

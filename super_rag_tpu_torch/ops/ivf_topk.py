@@ -7,8 +7,9 @@ with its plain PyTorch version and a launch counter beside it:
 
   * ``union_scores`` (TPU kernel: pallas_ivf.py:93 ``_make_union_kernel``)
     scores the whole query block against every tile of the batch's probe
-    union: ``[B, U, C]``; on the bf16 tensor cores for int8 / bf16 values,
-    on CUDA cores for f32 (``union_variant``), each variant counted;
+    union: ``[B, U, C]``; on the tensor cores for every values type (bf16
+    products for int8 / bf16 values, three TF32 products on the queries'
+    tf32 planes, ``dense_topk.tf32_planes``, for f32), counted;
   * ``probe_scores`` (TPU kernel: pallas_ivf.py:48 ``_make_kernel``)
     scores each query against its own probed tiles: ``[B, nprobe, C]``;
     for int8 / bf16 values the union's tensor-core kernel body run
@@ -63,8 +64,7 @@ class _Launches:
         self.count = 0
 
 
-union_tc_launches = _Launches()  # union kernel, tensor-core variant
-union_simt_launches = _Launches()  # union kernel, SIMT variant (f32)
+union_tc_launches = _Launches()  # union kernel (tensor cores, every mode)
 probe_tc_launches = _Launches()  # per-query kernel, tensor-core variant
 probe_simt_launches = _Launches()  # per-query kernel, SIMT variant (f32)
 
@@ -75,10 +75,11 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("ivf_scan")
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.ivf_union_launch, lib.ivf_union_tc_launch,
-               lib.ivf_probe_launch):
+    for fn in (lib.ivf_union_tc_launch, lib.ivf_probe_launch):
         fn.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, p, p]
         fn.restype = i
+    lib.ivf_tf32_planes.argtypes = [p, p, ctypes.c_longlong, p]
+    lib.ivf_tf32_planes.restype = i
     lib.ivf_probe_tc_launch.argtypes = [i, p, p, p, p, i, i, p, p, p, p, p,
                                         i, i, i, i, i, p, p]
     lib.ivf_probe_tc_launch.restype = i
@@ -86,16 +87,19 @@ def _lib() -> ctypes.CDLL:
 
 
 def union_variant(mode: int) -> str:
-    """Which union kernel takes a mode: ``"tc"`` (bf16 tensor cores) for
-    int8 or bf16 values, ``"simt"`` for f32 values (TF32 would not keep
-    the summation tolerance)."""
+    """Which union kernel takes a mode: ``"tc"``, the tensor cores, for
+    every values type (f32 as three TF32 products, which keep the
+    summation tolerance)."""
+    if mode not in MODES.values():
+        raise ValueError(f"no union kernel mode {mode}")
+    return "tc"
+
+
+def probe_variant(mode: int) -> str:
+    """Which per-query kernel takes a mode: ``"tc"`` (the tensor-core
+    kernel over the tile-major work list) for int8 or bf16 values,
+    ``"simt"`` (CUDA cores) for f32 values."""
     return "simt" if mode == MODES[torch.float32] else "tc"
-
-
-# which per-query kernel takes a mode, by the union's rule: "tc" (the
-# tensor-core kernel over the tile-major work list) for int8 or bf16
-# values, "simt" for f32 values
-probe_variant = union_variant
 
 
 class ProbeGroups(NamedTuple):
@@ -185,7 +189,9 @@ def union_scores_plain(q, union, values, scales, cs, row_ids,
                        mask) -> torch.Tensor:
     """Plain PyTorch version of ``union_scores``: ``[B, U, C]``.  The
     bf16 queries are exact in f32, so with int8 / bf16 values both
-    versions sum exact products; only the summation order differs."""
+    versions sum exact products; only the summation order differs.  With
+    f32 values the products are f32's; the kernel's three TF32 products
+    stay within the float tolerance D 2^-23 (max|s| + 1) of them."""
     b, d = q.shape
     _, cap, _ = values.shape
     u = union.long()
@@ -251,19 +257,24 @@ def union_scores(q, union, values, scales, cs, row_ids,
                       device=values.device)
     if b == 0 or n_union == 0 or cap == 0:
         return out
-    variant = union_variant(mode)
     lib = _lib()
-    launch = lib.ivf_union_tc_launch if variant == "tc" else lib.ivf_union_launch
-    err = launch(
+    stream = torch.cuda.current_stream(values.device).cuda_stream
+    if mode == MODES[torch.float32]:
+        # the queries' tf32 planes [2B, D], a kernel of their own on the
+        # same stream (counted with the union's one launch)
+        planes = torch.empty((2 * b, d), dtype=torch.float32, device=q.device)
+        err = lib.ivf_tf32_planes(q.data_ptr(), planes.data_ptr(), b * d, stream)
+        if err != 0:
+            raise RuntimeError(f"ivf_union tf32 planes launch failed: cudaError {err}")
+        q = planes  # freed after the launch is queued: the stream orders reuse
+    err = lib.ivf_union_tc_launch(
         mode, q.data_ptr(), union.data_ptr(), values.data_ptr(), _ptr(scales),
         _ptr(cs), row_ids.data_ptr(),
         _ptr(None if mask is None else mask.view(torch.uint8)),
-        b, n_union, cap, d, nlist, out.data_ptr(),
-        torch.cuda.current_stream(values.device).cuda_stream)
+        b, n_union, cap, d, nlist, out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"ivf_union {variant} kernel launch failed: "
-                           f"cudaError {err}")
-    (union_tc_launches if variant == "tc" else union_simt_launches).count += 1
+        raise RuntimeError(f"ivf_union tc kernel launch failed: cudaError {err}")
+    union_tc_launches.count += 1
     return out
 
 

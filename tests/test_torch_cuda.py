@@ -49,11 +49,10 @@ def test_kernel_matches_plain_version(card, mode):
                     tile, kt)
             variant = dt.kernel_variant(dt._mode(qq, corpus.values), kt, 96, 20,
                                         -(-5000 // tile))
-            counter = dt.simt_launches if variant == "simt" else dt.tc_launches
             assert variant == "tcs"  # f32 too: three TF32 products
-            before = counter.count
+            before = dt.tc_launches.count
             kv, ki = dt.tile_topk(*args)
-            assert counter.count == before + 1
+            assert dt.tc_launches.count == before + 1
             pv, pi = dt.tile_topk_plain(*args)
             fin = torch.isfinite(pv)
             if i8q:
@@ -102,32 +101,31 @@ def _launched(variant, mode, before):
     ``before`` (``_counts()``)."""
     after = _counts(mode)
     moved = tuple(a - b for a, b in zip(after, before))
-    return moved == {"simt": (0, 1, 0, 0), "tc": (1, 0, 1, 1)}.get(variant, (1, 0, 1, 0))
+    return moved == {"tc": (1, 1, 1)}.get(variant, (1, 1, 0))
 
 
 def _counts(mode):
     per_mode = dt.tc_mode_launches.get(mode)
-    return (dt.tc_launches.count, dt.simt_launches.count,
-            per_mode.count if per_mode is not None else 0, dt.list_launches.count)
+    return (dt.tc_launches.count, per_mode.count if per_mode is not None else 0,
+            dt.list_launches.count)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kt", [1, 2, 3, 8, 9, 32, 100, 128, 129])
+@pytest.mark.parametrize("kt", [1, 2, 3, 8, 9, 32, 100, 128, 129, 256, 2048])
 @pytest.mark.parametrize("d", [16, 48, 768])
 @pytest.mark.parametrize("b", [1, 17, 130])
 def test_int8_kernel_bit_equal_at_ragged_shapes(card, force_variant, b, d, kt):
     """int8 x int8 at B not a multiple of either query block, n = 5000
     (not a multiple of the 2048-row tile nor of either chunk), D in
-    {16, 48, 768}: the register-list kernel (kt <= 8), the sorted-selection
-    kernel (kt <= 128, every split of the tile's rows) and the SIMT one
-    (kt = 129, above the tensor cores' cap) equal tile_topk_plain bit for
-    bit, values and ids, -inf slots included; with and without a mask (an
-    all-masked tile), with L2 norms, with duplicate rows."""
+    {16, 48, 768}: the register-list kernel (kt <= 8) and the
+    sorted-selection kernel (sorted lists at kt <= 128, the deep selection
+    at kt 129, 256 and the tile's 2,048; every split of the tile's rows)
+    equal tile_topk_plain bit for bit, values and ids, -inf slots
+    included; with and without a mask (an all-masked tile), with L2
+    norms, with duplicate rows."""
     n, tile = 5000, 2048
-    variants = ["simt"] if kt > dt.TC_MAX_KT else (
-        ["tc", "tcs"] if kt <= dt.LIST_MAX_KT else ["tcs"])
-    assert dt.kernel_variant(dt.MODE_INT8, kt, d, b, 3) == (
-        "simt" if kt > dt.TC_MAX_KT else "tcs")
+    variants = ["tc", "tcs"] if kt <= dt.LIST_MAX_KT else ["tcs"]
+    assert dt.kernel_variant(dt.MODE_INT8, kt, d, b, 3) == "tcs"
     for masked, l2 in ((False, False), (True, False), (True, True)):
         q, qs, values, scales, norms, mask = _int8_operands(
             card, b, n, d, seed=b * 1000 + d + kt, masked=masked, l2=l2)
@@ -458,7 +456,7 @@ def test_f32_tensor_core_kernel_within_tolerance(card, metric, kt):
     4,096), tiles of 200 and 2048 rows, masked (an all-masked tile) and
     not, duplicate rows, every metric: within D * 2^-23 * (max|score| + 1)
     of tile_topk_plain, ids equal but at near-ties; the route is "tcs" at
-    every kt <= 128 and the SIMT kernel is never launched."""
+    every kt <= 128 (and in the deep selection, test_deep_selection_*)."""
     n = 5000
     for b, d in ((1, 16), (17, 48), (64, 96), (130, 768), (17, 1040), (1, 1536),
                  (130, 4096)):
@@ -497,17 +495,16 @@ def test_f32_tensor_core_kernel_in_every_split(card, monkeypatch, sms, slices, k
 def test_f32_kernel_is_batch_invariant(card, kt):
     """A query's f32 lists are the same bits alone (B = 1: a block of 16)
     and at row 37 of batches of 64 and 130 (blocks of 64 and 128, 2 ring
-    stages at 128), whatever the split each batch takes; kt 129 (above the
-    tensor cores' cap) takes the SIMT kernel, which keeps kt > 128."""
+    stages at 128), whatever the split each batch takes; kt 129 takes the
+    deep selection of the same kernel."""
     n, d, tile = 16384, 256, 2048
     q, values, norms, mask = _f32_operands(card, 130, n, d, seed=kt)
     rows = (values, None, None, mask, n, tile, kt)
-    want = "simt" if kt > dt.TC_MAX_KT else "tcs"
     for b in (1, 64, 130):
-        assert dt.kernel_variant(dt.MODE_F32, kt, d, b, n // tile) == want
+        assert dt.kernel_variant(dt.MODE_F32, kt, d, b, n // tile) == "tcs"
     before = _counts(dt.MODE_F32)
     full = dt.tile_topk(q, None, *rows)
-    assert _launched(want, dt.MODE_F32, before)
+    assert _launched("tcs", dt.MODE_F32, before)
     mid = dt.tile_topk(q[:64], None, *rows)
     one = dt.tile_topk(q[37:38], None, *rows)
     if kt <= dt.TC_MAX_KT:
@@ -604,8 +601,10 @@ def test_ivf_kernels_match_plain_versions(card, mode, route):
     with and without a mask: -inf slots equal, values within
     D * 2^-23 * (max|score| + 1) (sums of exact products, or of f32
     products, in other orders); nprobe >= nlist is one of the cases.  Each
-    call launches the variant its mode picks (tensor cores for int8 /
-    bf16 values, SIMT for f32) once, and no other kernel."""
+    call launches the variant its mode picks once, and no other kernel:
+    the union the tensor cores in every mode (f32 as three TF32
+    products), the per-query route the tensor cores for int8 / bf16
+    values, CUDA cores for f32."""
     from super_rag_tpu_torch.ops import ivf_topk as it
 
     for residual in (False, True):
@@ -617,8 +616,7 @@ def test_ivf_kernels_match_plain_versions(card, mode, route):
                 ids = torch.tensor([3, 0, 11, 7, 5], dtype=torch.int32,
                                    device=card)
                 fn = it.union_scores
-                counter = (it.union_tc_launches if mode != "f32"
-                           else it.union_simt_launches)
+                counter = it.union_tc_launches
                 plain = it.union_scores_plain
             else:
                 ids = torch.randint(0, 12, (b, 14), device=card,
@@ -627,8 +625,8 @@ def test_ivf_kernels_match_plain_versions(card, mode, route):
                 counter = (it.probe_tc_launches if mode != "f32"
                            else it.probe_simt_launches)
                 plain = it.probe_scores_plain
-            counters = (it.union_tc_launches, it.union_simt_launches,
-                        it.probe_tc_launches, it.probe_simt_launches)
+            counters = (it.union_tc_launches, it.probe_tc_launches,
+                        it.probe_simt_launches)
             before = [c.count for c in counters]
             got = fn(q, ids, values, scales, cs, row_ids, mask)
             moved = [c.count - n for c, n in zip(counters, before)]
@@ -652,21 +650,24 @@ def _union_operands(card, dtype, b, nlist, cap, d, seed=0):
     row_ids = torch.randperm(nlist * cap, device=card, generator=gen).to(
         torch.int32).reshape(nlist, cap)
     row_ids[torch.rand(nlist, cap, device=card, generator=gen) < 0.2] = -1
-    q = torch.randn(b, d, device=card, generator=gen).to(torch.bfloat16)
+    q = torch.randn(b, d, device=card, generator=gen)
+    q = q if dtype == torch.float32 else q.to(torch.bfloat16)
     cs = torch.randn(b, nlist, device=card, generator=gen)
     mask = torch.rand(nlist * cap, device=card, generator=gen) < 0.7
     return q, values, scales, cs, row_ids, mask
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,u,cap,d", [(1, 3, 200, 96), (20, 5, 257, 16),
-                                       (33, 7, 1280, 768), (70, 2, 300, 48)])
+                                       (33, 7, 1280, 768), (70, 2, 300, 48),
+                                       (5, 3, 130, 1536)])
 def test_union_tc_kernel_within_tolerance_at_ragged_shapes(card, dtype, b, u,
                                                            cap, d):
     """The tensor-core union kernel against union_scores_plain at B, U and
-    C off the 32-query / 256-row blocks and D off the 64-byte stage:
-    the same -inf slots, values within D * 2^-23 * (max|s| + 1)."""
+    C off the 32-query block and the 256-row (f32: 128-row) block, D off
+    the stage: the same -inf slots, values within D * 2^-23 * (max|s| +
+    1) (f32 values: three TF32 products on round-to-nearest planes)."""
     from super_rag_tpu_torch.ops import ivf_topk as it
 
     nlist = 9
@@ -676,9 +677,9 @@ def test_union_tc_kernel_within_tolerance_at_ragged_shapes(card, dtype, b, u,
     for residual, masked in ((False, False), (True, True)):
         args = (q, union, values, scales, cs if residual else None, row_ids,
                 mask if masked else None)
-        before = (it.union_tc_launches.count, it.union_simt_launches.count)
+        before = (it.union_tc_launches.count, it.probe_simt_launches.count)
         got = it.union_scores(*args)
-        assert (it.union_tc_launches.count, it.union_simt_launches.count) == (
+        assert (it.union_tc_launches.count, it.probe_simt_launches.count) == (
             before[0] + 1, before[1])
         ref = it.union_scores_plain(*args)
         torch.cuda.synchronize()
@@ -690,10 +691,11 @@ def test_union_tc_kernel_within_tolerance_at_ragged_shapes(card, dtype, b, u,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
 def test_union_tc_kernel_is_batch_invariant(card, dtype):
     """A query scores bit-alike alone and inside a batch of 32 (and of
-    40, a second query block): the MMA's order is fixed by D alone."""
+    40, a second query block): the MMA's order is fixed by D alone (f32:
+    the queries' planes are made a row at a time, so alike too)."""
     from super_rag_tpu_torch.ops import ivf_topk as it
 
     q, values, scales, cs, row_ids, mask = _union_operands(card, dtype, 40, 12,
@@ -821,6 +823,151 @@ def test_probe_tc_kernel_equals_union_kernel_gathered(card, dtype, kind):
         want = torch.gather(union, 1, probes.long()[:, :, None].expand(
             -1, -1, union.shape[2]))
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_f32_union_within_tolerance_of_the_per_query_route(card):
+    """f32 values: the union kernel (three TF32 products on the tensor
+    cores) and the per-query route (f32 FMAs on CUDA cores) over a fully
+    probed batch (every query probes every tile, so both score the same
+    pairs) agree within D * 2^-23 * (max|s| + 1), with the same -inf
+    slots, residual and mask included; each launches its own kernel once."""
+    from super_rag_tpu_torch.ops import ivf_topk as it
+
+    b, nlist, cap, d = 40, 10, 300, 768
+    q, values, scales, cs, row_ids, mask = _union_operands(card, torch.float32, b, nlist,
+                                                           cap, d, seed=9)
+    gen = torch.Generator(device=card).manual_seed(10)
+    probes = _probe_sets(card, "every_tile", b, nlist, nlist, gen)
+    every = torch.arange(nlist, dtype=torch.int32, device=card)
+    for residual in (False, True):
+        c = cs if residual else None
+        before = (it.union_tc_launches.count, it.probe_simt_launches.count)
+        union = it.union_scores(q, every, values, scales, c, row_ids, mask)
+        got = it.probe_scores(q, probes, values, scales, c, row_ids, mask)
+        assert (it.union_tc_launches.count, it.probe_simt_launches.count) == (
+            before[0] + 1, before[1] + 1)
+        want = torch.gather(union, 1, probes.long()[:, :, None].expand(-1, -1, cap))
+        fin = torch.isfinite(want)
+        assert torch.equal(fin, torch.isfinite(got))
+        tol = d * 2.0 ** -23 * (float(want[fin].abs().max()) + 1.0)
+        assert float((got - want)[fin].abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_f32_union_query_planes_equal_their_plain_version(card):
+    """ivf_tf32_planes (the f32 union's query planes, [2B, D]) equals the
+    plain tf32_planes bit for bit, as dense_topk's planes kernel does."""
+    from super_rag_tpu_torch.ops import ivf_topk as it
+
+    gen = torch.Generator(device=card).manual_seed(11)
+    q = torch.randn(33, 768, device=card, generator=gen)
+    q[0, :4] = torch.tensor([1.0 + 2.0 ** -11, -0.0, 1e-40, 2.0 ** -149], device=card)
+    out = torch.empty((66, 768), device=card)
+    assert it._lib().ivf_tf32_planes(q.data_ptr(), out.data_ptr(), q.numel(),
+                                     torch.cuda.current_stream().cuda_stream) == 0
+    assert torch.equal(out.view(torch.int32), dt.tf32_planes(q).view(torch.int32))
+
+
+def _deep_operands(card, mode, b, n, d, seed):
+    """Operands of a mode at the served shape, in tile_topk's order up to
+    the row data: int8 codes with scales and int8 queries, bf16 queries
+    on int8 codes or bf16 rows, or f32 rows and queries; duplicate rows
+    (ties) and a keep-mask whose second tile is all masked."""
+    if mode == dt.MODE_INT8:
+        q, qs, values, scales, norms, mask = _int8_operands(card, b, n, d, seed=seed,
+                                                           masked=True, l2=False)
+        return q, qs, values, scales, mask
+    if mode == dt.MODE_F32:
+        q, values, _, mask = _f32_operands(card, b, n, d, seed=seed)
+        return q, None, values, None, mask
+    q, values, scales, mask = _bf16q_operands(card, mode, b, n, d, seed=seed)
+    return q, None, values, scales, mask
+
+
+DEEP_MODES = {"int8xint8": dt.MODE_INT8, "int8+bf16q": dt.MODE_INT8_BF16,
+              "bf16": dt.MODE_BF16, "f32": dt.MODE_F32}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kt", [129, 256, 2048])
+@pytest.mark.parametrize("mode", list(DEEP_MODES))
+def test_deep_selection_in_every_split(card, monkeypatch, mode, kt):
+    """The deep selection (kt above the sorted lists' 128, to the tile) at
+    the served shape, 16,384 rows of D = 256 at B = 64, with the tiles'
+    rows split as the geometry takes them for 1, 20 and 132 SMs: one
+    sorted-selection launch of the mode each; int8 x int8 equal to
+    tile_topk_plain bit for bit, the float modes within D * 2^-23 *
+    (max|score| + 1) with ids equal but at near-ties; an all-masked tile
+    all (-inf, its first row); the same bits whatever the split."""
+    m = DEEP_MODES[mode]
+    n, d, b, tile = 16384, 256, 64, 2048
+    q, qs, values, scales, mask = _deep_operands(card, m, b, n, d, seed=kt)
+    args = (q, qs, values, scales, None, mask, n, tile, kt)
+    pv, pi = dt.tile_topk_plain(*args)
+    first = None
+    for sms in (132, 20, 1):
+        monkeypatch.setattr(dt, "_sm_count", lambda i, sms=sms: sms)
+        assert dt.kernel_variant(m, kt, d, b, n // tile, sms) == "tcs"
+        before = _counts(m)
+        kv, ki = dt.tile_topk(*args)
+        assert _launched("tcs", m, before)
+        torch.cuda.synchronize()
+        if m == dt.MODE_INT8:
+            assert torch.equal(kv, pv) and torch.equal(ki, pi), sms
+        else:
+            fin = torch.isfinite(pv)
+            tol = d * 2.0 ** -23 * (float(pv[fin].abs().max()) + 1.0)
+            assert_topk_match(pv.cpu(), pi.cpu(), kv.cpu(), ki.cpu(), rtol=0.0, atol=tol,
+                              scores=dt.plain_scores(*args[:6], 0, n))
+        assert torch.isinf(kv[1]).all() and (ki[1] == tile).all()
+        if first is None:
+            first = (kv, ki)
+        assert torch.equal(kv, first[0]) and torch.equal(ki, first[1]), sms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(DEEP_MODES))
+def test_deep_list_begins_with_the_sorted_list(card, mode):
+    """A query's kt-129 list (the deep selection) begins with its kt-128
+    list (the sorted lists) bit for bit, values and ids: the same products
+    and epilogue, selected under the same order; and the kt-2048 list
+    (the whole tile) with its kt-256 one."""
+    m = DEEP_MODES[mode]
+    n, d, b, tile = 16384, 256, 64, 2048
+    q, qs, values, scales, mask = _deep_operands(card, m, b, n, d, seed=77)
+    rows = (q, qs, values, scales, None, mask, n, tile)
+    v128, i128 = dt.tile_topk(*rows, 128)
+    v129, i129 = dt.tile_topk(*rows, 129)
+    assert torch.equal(v129[..., :128], v128) and torch.equal(i129[..., :128], i128)
+    v256, i256 = dt.tile_topk(*rows, 256)
+    v2048, i2048 = dt.tile_topk(*rows, 2048)
+    assert torch.equal(v2048[..., :256], v256) and torch.equal(i2048[..., :256], i256)
+    assert torch.equal(v256[..., :129], v129) and torch.equal(i256[..., :129], i129)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kt", [129, 2048, 5000])
+@pytest.mark.parametrize("mode", list(DEEP_MODES))
+def test_deep_selection_is_batch_invariant(card, mode, kt):
+    """A query's deep lists are the same bits alone (B = 1) and at row 37
+    of batches of 64 and 130, whatever the query block and split each
+    batch takes; kt 5,000 (past the tile: search_dense at k 5,000 over
+    2,048-row tiles) pads each list past the tile's rows with (-inf, its
+    first row)."""
+    m = DEEP_MODES[mode]
+    n, d, tile = 16384, 256, 2048
+    q, qs, values, scales, mask = _deep_operands(card, m, 130, n, d, seed=kt)
+    rows = (values, scales, None, mask, n, tile, kt)
+    full = dt.tile_topk(q, qs, *rows)
+    mid = dt.tile_topk(q[:64], None if qs is None else qs[:64], *rows)
+    one = dt.tile_topk(q[37:38], None if qs is None else qs[37:38], *rows)
+    for got in (full, mid):
+        assert torch.equal(got[0][:, 37:38], one[0])
+        assert torch.equal(got[1][:, 37:38], one[1])
+    if kt > tile:
+        assert torch.isinf(full[0][:, :, tile:]).all()
+        assert (full[1][:, :, tile:] == torch.arange(0, n, tile, device=card)[:, None, None]).all()
 
 
 def _ivf_to(ivf, device):

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import super_rag_tpu.ops.pallas_ivf as jpivf
 from super_rag_tpu.ops import dense as jdense
 from super_rag_tpu.ops.pallas_topk import pallas_dense_topk
 from super_rag_tpu_torch.ops import dense_topk as dt
@@ -53,12 +54,12 @@ def test_plain_version_matches_pallas_interpret(metric, mode, per_tile_k, masked
         jnp.asarray(q), jc, k=K, metric=metric,
         mask=None if mask is None else jnp.asarray(mask), tile=TILE,
         interpret=True, int8_queries=i8q, per_tile_k=per_tile_k)
-    before = (dt.tc_launches.count, dt.simt_launches.count)
+    before = (dt.tc_launches.count, dt.list_launches.count)
     tv, ti = dt.dense_topk(t(q), tc, k=K, metric=metric,
                            mask=None if mask is None else t(mask), tile=TILE,
                            int8_queries=i8q, per_tile_k=per_tile_k, device="cpu")
     # the CPU runs the plain version
-    assert (dt.tc_launches.count, dt.simt_launches.count) == before
+    assert (dt.tc_launches.count, dt.list_launches.count) == before
     assert ti.dtype == torch.int32
     assert_topk_match(jv, ji, tv, ti)
     if masked:
@@ -130,12 +131,14 @@ def test_live_rows_scan_changes_no_bit(live, per_tile_k):
     # deep lists on a full grid; calibration's uncapped gold (kt 100)
     (dt.MODE_INT8, 9, 768, 512, 489, "tcs"), (dt.MODE_INT8, 128, 768, 512, 489, "tcs"),
     (dt.MODE_INT8_BF16, 100, 768, 32, 489, "tcs"), (dt.MODE_INT8_BF16, 2, 768, 32, 489, "tcs"),
-    # one above each cap, and f32 (three TF32 products on the tensor cores)
-    (dt.MODE_INT8, 129, 768, 1, 1, "simt"), (dt.MODE_INT8_BF16, 129, 256, 32, 8, "simt"),
-    (dt.MODE_BF16, 129, 256, 64, 8, "simt"), (dt.MODE_F32, 2, 96, 20, 3, "tcs"),
+    # above the sorted lists (the deep selection), and f32 (three TF32
+    # products on the tensor cores)
+    (dt.MODE_INT8, 129, 768, 1, 1, "tcs"), (dt.MODE_INT8_BF16, 129, 256, 32, 8, "tcs"),
+    (dt.MODE_BF16, 129, 256, 64, 8, "tcs"), (dt.MODE_F32, 2, 96, 20, 3, "tcs"),
     (dt.MODE_F32, 1, 768, 512, 489, "tcs"), (dt.MODE_F32, 8, 768, 512, 489, "tcs"),
     (dt.MODE_F32, 9, 256, 64, 8, "tcs"), (dt.MODE_F32, 128, 256, 1, 8, "tcs"),
-    (dt.MODE_F32, 129, 256, 64, 8, "simt"),
+    (dt.MODE_F32, 129, 256, 64, 8, "tcs"), (dt.MODE_F32, 2048, 256, 64, 8, "tcs"),
+    (dt.MODE_INT8, 200, 768, 512, 489, "tcs"),
     # above D = 1,024: both tensor-core kernels stream their queries at
     # every D
     (dt.MODE_INT8, 2, 1040, 512, 489, "tc"), (dt.MODE_BF16, 5, 1040, 64, 8, "tcs"),
@@ -143,14 +146,26 @@ def test_live_rows_scan_changes_no_bit(live, per_tile_k):
     (dt.MODE_BF16, 5, 1536, 1, 5, "tcs"), (dt.MODE_BF16, 32, 1536, 1, 5, "tcs"),
     (dt.MODE_INT8, 2, 1536, 512, 489, "tc"),
     (dt.MODE_INT8_BF16, 5, 3072, 1, 5, "tcs"), (dt.MODE_INT8_BF16, 5, 4096, 1, 5, "tcs"),
-    (dt.MODE_BF16, 129, 1536, 1, 5, "simt"), (dt.MODE_F32, 5, 1536, 1, 5, "tcs")])
+    (dt.MODE_BF16, 129, 1536, 1, 5, "tcs"), (dt.MODE_F32, 5, 1536, 1, 5, "tcs")])
 def test_kernel_variant_by_shape(mode, kt, d, b, tiles, want):
     """The int8 register-list kernel takes int8 x int8 at kt <= 8, at any
     D, where its work items (a tile against 128 queries) fill the card's
-    132 SMs; the sorted-selection tensor-core kernel every other call at
-    kt <= 128 (f32 too), whatever D; the SIMT kernel kt above the cap, in
-    every mode."""
+    132 SMs; the sorted-selection tensor-core kernel every other call, at
+    every kt (f32 too), whatever D."""
     assert dt.kernel_variant(mode, kt, d, b, tiles) == want
+
+
+@pytest.mark.parametrize("mode", [dt.MODE_INT8, dt.MODE_INT8_BF16, dt.MODE_BF16, dt.MODE_F32])
+def test_kernel_variant_is_a_tensor_core_kernel_at_every_kt(mode):
+    """No call leaves the tensor cores: at every kt from 1 to 2,048, every
+    batch and grid, the variant is the register-list kernel ("tc", int8 x
+    int8 at kt <= 8 on a full grid) or the sorted-selection one ("tcs")."""
+    for kt in range(1, 2049):
+        for b, tiles in ((1, 1), (64, 8), (512, 489)):
+            got = dt.kernel_variant(mode, kt, 768, b, tiles)
+            assert got == ("tc" if mode == dt.MODE_INT8 and kt <= dt.LIST_MAX_KT
+                           and dt.list_work_items(b, tiles) >= dt.H100_SMS
+                           else "tcs"), (kt, b, tiles)
 
 
 @pytest.mark.parametrize("b,tiles,items,grid", [
@@ -223,16 +238,16 @@ def test_list_tensor_map_geometry(b, n, d):
 
 
 @pytest.mark.parametrize("variant,mode,moved", [
-    ("tc", dt.MODE_INT8, (1, 1, 1, 0)), ("tcs", dt.MODE_INT8, (1, 0, 1, 0)),
-    ("tcs", dt.MODE_BF16, (1, 0, 1, 0)), ("tcs", dt.MODE_F32, (1, 0, 1, 0)),
-    ("simt", dt.MODE_F32, (0, 0, 0, 1))])
+    ("tc", dt.MODE_INT8, (1, 1, 1)), ("tcs", dt.MODE_INT8, (1, 0, 1)),
+    ("tcs", dt.MODE_BF16, (1, 0, 1)), ("tcs", dt.MODE_F32, (1, 0, 1)),
+    ("tcs", dt.MODE_INT8_BF16, (1, 0, 1))])
 def test_count_launch_moves_the_variants_counters(variant, mode, moved):
     """``tc_launches`` counts both tensor-core kernels, ``list_launches``
     the register-list kernel alone, ``tc_mode_launches`` by mode."""
     def snap():
         per = dt.tc_mode_launches.get(mode)
         return (dt.tc_launches.count, dt.list_launches.count,
-                per.count if per is not None else 0, dt.simt_launches.count)
+                per.count if per is not None else 0)
     before = snap()
     dt.count_launch(variant, mode)
     assert tuple(a - b for a, b in zip(snap(), before)) == moved
@@ -331,9 +346,114 @@ def test_tcs_split_fills_the_card(b, tiles, tile, want):
     assert rows % dt.TCS_RC == 0 and slices * rows >= tile > (slices - 1) * rows
 
 
+def _value_keys(v):
+    """The kernel's value_key: f32 scores as uint32 keys in the reference's
+    order (-0 as +0), 0 for -inf and NaN (a dead row)."""
+    v = np.ascontiguousarray(v, np.float32)
+    u = v.view(np.uint32).copy()
+    u[(u & np.uint32(0x7FFFFFFF)) == 0] = 0
+    k = np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000)).astype(np.uint32)
+    k[~(v > -np.inf)] = 0
+    return k
+
+
+def _sort_keys_model(keys):
+    """The deep selection's bitonic network (csrc/dense_topk.cu sort_keys)
+    on uint64 keys, m a power of two >= 256: each 256-key block through
+    levels 2 .. 256 as a warp's registers hold it (element base + 32 j +
+    lane), then each level above: its stages of d >= 256 across the
+    buffer, its stages of d < 256 block by block.  A stage pairs (i, i ^
+    d); the lower keeps the larger key where i & kk == 0."""
+    k = np.array(keys, dtype=np.uint64)
+    m = len(k)
+    idx = np.arange(m)
+
+    def stage(kk, d, lo_blocks):
+        lo = idx[(idx & d) == 0]
+        lo = lo[np.isin(lo // 256, lo_blocks)] if lo_blocks is not None else lo
+        a, b = k[lo].copy(), k[lo + d].copy()
+        desc = (lo & kk) == 0
+        swap = np.where(desc, a < b, a > b)
+        k[lo[swap]], k[lo[swap] + d] = b[swap], a[swap]
+
+    for base in range(0, m, 256):
+        for kk in (2, 4, 8, 16, 32, 64, 128, 256):
+            d = kk // 2
+            while d > 0:
+                stage(kk, d, [base // 256])
+                d //= 2
+    kk = 512
+    while kk <= m:
+        d = kk // 2
+        while d >= 256:
+            stage(kk, d, None)
+            d //= 2
+        for base in range(0, m, 256):
+            d = 128
+            while d > 0:
+                stage(kk, d, [base // 256])
+                d //= 2
+        kk *= 2
+    return k
+
+
+def _deep_select_model(row, kt):
+    """The deep selection (csrc/dense_topk.cu select_deep), step by step, on
+    one query's row of a tile's scores (NaN or -inf dead): a radix select
+    of the kt-th value key from the top, 8 bits a pass, each pass's 256
+    bins held 8 a lane by 32 lanes (the lane whose bins hold the need-th
+    key from the top, then its bin); then the keys above that value and
+    the first ``need`` equal to it in column order; then sorted, value
+    descending, lowest column first; (-inf, column 0) past the live keys.
+    At most kt live keys: all of them, no radix pass."""
+    vk = _value_keys(row)
+    prefix, need = 0, kt
+    take_all = int((vk != 0).sum()) <= kt
+    for p in range(0 if take_all else 4):
+        shift = 24 - 8 * p
+        hmask = 0 if p == 0 else (0xFFFFFFFF << (shift + 8)) & 0xFFFFFFFF
+        live = (vk != 0) & ((vk & np.uint32(hmask)) == prefix)
+        hist = np.bincount(((vk[live] >> np.uint32(shift)) & 255).astype(np.int64),
+                           minlength=256)
+        lane_sum = hist.reshape(32, 8).sum(1)
+        incl = np.cumsum(lane_sum[::-1])[::-1]  # keys in bins 8 lane and up
+        above = incl - lane_sum
+        src = int(np.flatnonzero((above < need) & (need <= incl))[0])
+        acc = above[src]
+        for j in range(7, -1, -1):
+            if acc + hist[8 * src + j] >= need:
+                dg, need = 8 * src + j, need - acc
+                break
+            acc += hist[8 * src + j]
+        prefix |= dg << shift
+    cols = np.arange(len(row), dtype=np.uint64)
+    if take_all:
+        keep = vk != 0
+    else:
+        eq = vk == prefix
+        keep = (vk > prefix) | (eq & (np.cumsum(eq) - 1 < need))
+    keys = (vk[keep].astype(np.uint64) << np.uint64(32)) | (~cols[keep] & np.uint64(0xFFFFFFFF))
+    assert len(keys) == min(kt, int((vk != 0).sum()))
+    m = 256
+    while m < len(keys):
+        m *= 2
+    keys = _sort_keys_model(np.concatenate([keys, np.zeros(m - len(keys), np.uint64)]))
+    assert (keys[:-1] >= keys[1:]).all()
+    keys = keys[:int(keep.sum())]
+    hi = (keys >> np.uint64(32)).astype(np.uint32)
+    bits = np.where(hi & np.uint32(0x80000000), hi & np.uint32(0x7FFFFFFF), ~hi)
+    vals = np.full(kt, -np.inf, np.float32)
+    ids = np.zeros(kt, np.int32)
+    vals[:len(keys)] = bits.astype(np.uint32).view(np.float32)
+    ids[:len(keys)] = (~keys & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    return vals, ids
+
+
 def _kernel_selection_model(scores, kt, slices, rows, parts):
     """The "tcs" kernel's selection rules, written out, per slice of
-    ``rows`` columns in chunks of 128.  kt <= 8: ``parts`` threads a query,
+    ``rows`` columns in chunks of 128.  Deeper than the sorted lists (kt >
+    128): the slices' scores gathered in tile order, whatever the split,
+    and ``_deep_select_model``.  kt <= 8: ``parts`` threads a query,
     each taking every parts-th group of four columns of every chunk in
     increasing order, skipping a group none of whose scores beats its
     list's kt-th value, and keeping its L best (2 at kt <= 2, else 8) in a
@@ -347,6 +467,11 @@ def _kernel_selection_model(scores, kt, slices, rows, parts):
     b, tile = scores.shape
     out_v = torch.empty((b, kt))
     out_i = torch.empty((b, kt), dtype=torch.int32)
+    if kt > dt.TC_MAX_KT:
+        for qi in range(b):
+            v, i = _deep_select_model(n(scores[qi]), kt)
+            out_v[qi], out_i[qi] = t(v), t(i)
+        return out_v, out_i
     for qi in range(b):
         lists = []
         for s in range(slices):
@@ -414,6 +539,81 @@ def test_sliced_selection_equals_the_plain_version(kt, b, sms):
         mv, mi = _kernel_selection_model(masked[:, ti * tile:(ti + 1) * tile], kt,
                                          slices, rows, 256 // qn)
         assert torch.equal(mv, pv[ti]) and torch.equal(mi + ti * tile, pi[ti])
+
+
+@pytest.mark.parametrize("kt", [129, 256, 320, 700])
+def test_deep_selection_equals_the_plain_version_and_pallas(kt):
+    """The deep selection (kt above the sorted lists' 128, up to the tile
+    and past it), written out as the kernel takes it, on rows whose dead
+    slots are NaN (the kernel's epilogue scales a dead row by NaN): each
+    tile's list equals tile_topk_plain's values and ids exactly, and the
+    tiles' lists merged as dense_topk merges them equal the JAX package's
+    pallas_dense_topk (interpret=True, per_tile_k = kt) up to ties.  Ties
+    (integer scores, -0 beside +0) at the kt-th value, a tile with fewer
+    live rows than kt, an all-masked tile, a ragged last tile (padding)."""
+    from super_rag_tpu_torch.ops.topk import stable_topk
+
+    rng = np.random.default_rng(30 + kt)
+    b, tile = 3, 320
+    rows = 3 * tile + 70
+    num_tiles = -(-rows // tile)
+    scores = rng.integers(-6, 7, size=(b, rows)).astype(np.float32)
+    scores[:, 5::31] = -0.0
+    keep = rng.random(rows) < 0.8
+    keep[tile:tile + 100] = True
+    keep[tile + 100:2 * tile] = False  # tile 1 keeps 100 rows
+    keep[2 * tile:3 * tile] = False  # tile 2 all masked
+    keep[3 * tile + 20:] = False  # the ragged tile keeps 20 rows
+    q = np.eye(b, 16, dtype=np.float32)
+    x = np.zeros((rows, 16), np.float32)
+    x[:, :b] = scores.T
+    pv, pi = dt.tile_topk_plain(t(q), None, t(x), None, None, t(keep), rows, tile, kt)
+    dead = np.where(keep[None, :], scores, np.nan).astype(np.float32)
+    dead = np.pad(dead, ((0, 0), (0, num_tiles * tile - rows)), constant_values=np.nan)
+    lists = []
+    for ti in range(num_tiles):
+        scanned = min(tile, rows - ti * tile)
+        mv, mi = _kernel_selection_model(t(dead[:, ti * tile:ti * tile + scanned]), kt,
+                                         1, tile, 16)
+        assert torch.equal(mv, pv[ti]) and torch.equal(mi + ti * tile, pi[ti]), ti
+        lists.append((mv, mi + ti * tile))
+    assert torch.isinf(pv[2]).all() and (pi[2] == 2 * tile).all()
+    k = min(kt, 200)
+    cv = torch.cat([v for v, _ in lists], 1)
+    ci = torch.cat([i for _, i in lists], 1)
+    fv, pos = stable_topk(cv, k)
+    jc = jdense.build_corpus(jnp.asarray(x), metric="ip", dtype=jnp.float32)
+    jv, ji = pallas_dense_topk(jnp.asarray(q), jc, k=k, metric="ip", mask=jnp.asarray(keep),
+                               tile=tile, interpret=True, per_tile_k=kt)
+    assert_topk_match(jv, ji, fv, torch.gather(ci, 1, pos), rtol=0.0, atol=0.0,
+                      scores=np.where(keep[None, :], scores, -np.inf).astype(np.float32))
+
+
+@pytest.mark.parametrize("kt", [129, 256, 1024, 2047, 2048])
+@pytest.mark.parametrize("kind", ["gaussian", "ties", "wide"])
+def test_deep_select_model_at_tile_2048(kind, kt):
+    """The deep selection's radix select on a 2,048-column row: each of its
+    four 8-bit passes (values of every sign and many exponents: the top
+    passes split on sign and exponent, the last on the low mantissa bits;
+    integer ties at the kt-th value; -0 beside +0; NaN and -inf dead)
+    gives the kt best under the reference's order, which an argsort of
+    (value descending, column ascending) over the live columns gives."""
+    rng = np.random.default_rng(40 + kt)
+    row = {"gaussian": lambda: rng.standard_normal(2048),
+           "ties": lambda: rng.integers(-3, 4, 2048).astype(np.float64),
+           "wide": lambda: rng.standard_normal(2048) * 10.0 ** rng.integers(-30, 30, 2048)}[
+        kind]().astype(np.float32)
+    row[7::41] = -0.0
+    row[3::53] = 0.0
+    row[11::67] = np.nan
+    row[13::71] = -np.inf
+    vals, ids = _deep_select_model(row, kt)
+    live = np.flatnonzero(row > -np.inf)
+    order = live[np.lexsort((live, -row[live].astype(np.float64)))][:kt]
+    assert len(order) < kt or kind != "ties" or (row[order] == row[order[-1]]).sum() > 1
+    np.testing.assert_array_equal(ids[:len(order)], order)
+    np.testing.assert_array_equal(vals[:len(order)], row[order])
+    assert np.isneginf(vals[len(order):]).all() and (ids[len(order):] == 0).all()
 
 
 class _StubMapLib:
@@ -528,6 +728,43 @@ def test_tcs_f32_geometry_and_maps(b, qn, kt):
         dt.tcs_smem_bytes(mode, 128, 9, 3)  # kp 8 -> 16, and the scratch
 
 
+@pytest.mark.parametrize("kt", [129, 256, 1024, 2048])
+@pytest.mark.parametrize("mode", [dt.MODE_INT8, dt.MODE_INT8_BF16, dt.MODE_BF16, dt.MODE_F32])
+def test_tcs_deep_geometry_fits_at_every_d(mode, kt):
+    """The deep selection (kt above the sorted lists' 128): at tile 2,048,
+    every batch and tile count, D 16 to 4,096, the geometry it takes keeps
+    the whole slice's scores ([qn][slice_rows + 4] f32) beside 2 to 4
+    ring stages inside an H100 block's 232,448 bytes, whole 128-row chunks
+    a slice, at most a portable cluster of 8 slices covering the tile, and
+    room after the scan for the cluster's copies (over the ring) and at
+    least one warp's sort buffer (kp keys, its radix histogram over it)."""
+    tile = 2048
+    for b, tiles in ((1, 1), (1, 8), (17, 3), (64, 8), (130, 3), (512, 489), (512, 8)):
+        qn, nst, slices, rows = dt.tcs_deep_geometry(mode, b, tiles, tile, kt)
+        assert qn == (16 if b <= 16 else 64) and qn in dt.TCS_DEEP_QN
+        assert 2 <= nst <= dt.TCS_MAX_STAGES
+        assert rows % dt.TCS_RC == 0 and 1 <= slices <= dt.TCS_MAX_SLICES
+        assert slices * rows >= tile > (slices - 1) * rows
+        used = dt.tcs_smem_bytes(mode, qn, kt, nst, rows)
+        assert used <= dt.SMEM_MAX == 232_448
+        assert nst == dt.TCS_MAX_STAGES or \
+            dt.tcs_smem_bytes(mode, qn, kt, nst + 1, rows) > dt.SMEM_MAX
+        assert dt.tcs_deep_fits(mode, qn, kt, tile, nst, slices, rows)
+        # the scores of the whole slice, and no sorted lists or scratch
+        wide = dt.TCS_WIDE if mode == dt.MODE_INT8_BF16 else 0
+        assert used == (1024 + nst * (dt.tcs_stage_bytes(mode, qn) + 16) + wide
+                        + qn * (rows + 4) * 4 + qn * 12)
+        assert dt.tcs_deep_kp(kt, tile) == 1 << (kt - 1).bit_length()
+        # the maps do not depend on kt: D streams through the ring
+        for d in (16, 768, 1040, 4096):
+            geo = dt.tcs_tensor_maps(mode, b, tiles * tile, d, qn)
+            assert geo["queries"]["box_rows"] == qn and geo["corpus"]["d"] == d
+    # the served shape: 64 queries a block, split 8 ways like kt <= 128
+    assert dt.tcs_deep_geometry(mode, 64, 8, tile, kt)[::2] == (64, 8)
+    # past the tile, the sort stops at the tile's 2,048 keys
+    assert dt.tcs_deep_kp(5000, tile) == 2048
+
+
 def test_f32_launch_makes_the_query_planes_first(monkeypatch):
     """An f32 call's launch: the queries' planes (one launch of
     dense_topk_tf32_planes over the B D elements into a [2B, D] array) on
@@ -605,6 +842,15 @@ def _three_pass_scores(q, rows):
     return acc
 
 
+def _three_pass_union_scores(q, values, union):
+    """[B, U, C] raw union scores as the IVF union kernel's f32 mode forms
+    them (csrc/ivf_scan.cu, mma.sync m16n8k8 tf32): each union tile's rows
+    against the queries, three products a k8 step on round-to-nearest
+    planes, as ``_three_pass_scores`` (a step's k order, permuted alike on
+    both sides inside the product, does not change its exact sum)."""
+    return np.stack([_three_pass_scores(q, values[u]) for u in union], 1)
+
+
 def _tile_topk_merge_np(scores, tile, kt, k):
     """Per-tile top-kt (value descending, lowest column first), then the
     stable top-k of the tiles' candidates in tile order: dense_topk's
@@ -661,3 +907,29 @@ def test_three_pass_tf32_holds_the_f32_tolerance(d, metric, masked):
     assert np.abs(emu[fin] - exact[fin]).max() <= tol
     ev, ei = _tile_topk_merge_np(emu, tile, kt, k)
     assert_topk_match(jv, ji, ev, ei, rtol=0.0, atol=tol, scores=exact.astype(np.float32))
+
+
+@pytest.mark.parametrize("d", [16, 96, 768, 1536])
+def test_three_pass_tf32_union_holds_the_f32_tolerance(d):
+    """The IVF union kernel's f32 mode, emulated in numpy (tf32 planes
+    rounded to nearest, three products a k8 step, f32 sums), against the
+    JAX package's union kernel (``pallas_ivf._union_scores``,
+    interpret=True) on f32 values: every raw score within the float
+    tolerance D * 2^-23 * (max|score| + 1), and within it of the exact
+    (float64) score, at D from 16 to 1,536, with duplicate rows and
+    queries equal to rows (the self-match's large score)."""
+    rng = np.random.default_rng(50 + d)
+    nlist, cap, b = 6, 40, 5
+    values = rng.standard_normal((nlist, cap, d)).astype(np.float32)
+    values[:, 20:25] = values[:, :5]
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    q[0] = values[3, 7]
+    union = np.array([3, 0, 5, 1], np.int32)
+    ref = np.moveaxis(np.asarray(jpivf._union_scores(
+        jnp.asarray(q), jnp.asarray(union), jnp.asarray(values), interpret=True)), 1, 0)
+    emu = _three_pass_union_scores(q, values, union)
+    exact = np.einsum("bd,ucd->buc", q.astype(np.float64), values[union].astype(np.float64))
+    assert emu.shape == ref.shape == (b, len(union), cap)
+    tol = d * 2.0 ** -23 * (float(np.abs(ref).max()) + 1.0)
+    assert np.abs(emu - ref).max() <= tol
+    assert np.abs(emu - exact).max() <= tol

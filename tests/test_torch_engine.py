@@ -477,13 +477,13 @@ def test_batcher_on_the_ivf_tier_answers_as_direct_calls_of_its_batches():
         return await asyncio.gather(*(batcher.search(eng, q, top_k=5)
                                       for q in queries))
 
-    before = (tit.union_tc_launches.count, tit.union_simt_launches.count)
+    before = (tit.union_tc_launches.count, tit.probe_tc_launches.count)
     try:
         got = dict(zip(queries, asyncio.run(many())))
     finally:
         batcher.close()
     # plain versions on the CPU
-    assert (tit.union_tc_launches.count, tit.union_simt_launches.count) == before
+    assert (tit.union_tc_launches.count, tit.probe_tc_launches.count) == before
     assert 1 < len(batches) < 40 and sum(len(b) for b, _ in batches) == 40
     for qs, kw in batches:
         for q, want in zip(qs, direct(qs, **kw)):

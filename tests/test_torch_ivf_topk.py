@@ -146,8 +146,7 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     _, p, q, _ = _index("int8")
     qb = t(q).to(torch.bfloat16)
     tiles = torch.tensor([1, 4], dtype=torch.int32)
-    counters = (tit.union_tc_launches, tit.union_simt_launches,
-                tit.probe_tc_launches, tit.probe_simt_launches)
+    counters = (tit.union_tc_launches, tit.probe_tc_launches, tit.probe_simt_launches)
     before = [c.count for c in counters]
     tit.union_scores(qb, tiles, p.values, p.scales, None, p.row_ids, None)
     tit.probe_scores(qb, tiles[None].expand(5, -1).contiguous(), p.values,
@@ -161,8 +160,8 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
 
 @pytest.mark.parametrize("dtype,want", [(torch.int8, "tc"),
                                         (torch.bfloat16, "tc"),
-                                        (torch.float32, "simt")])
+                                        (torch.float32, "tc")])
 def test_union_variant_by_mode(dtype, want):
-    """int8 / bf16 values take the bf16 tensor-core union kernel, f32
-    values the SIMT one."""
+    """Every values type takes the tensor-core union kernel: int8 / bf16
+    values on bf16 products, f32 values on three TF32 products."""
     assert tit.union_variant(tit.MODES[dtype]) == want

@@ -195,22 +195,21 @@ def stub_card(monkeypatch, **consts):
 def test_wide_phase_rehearsed_on_the_cpu(monkeypatch):
     """The [wide] phase at a small size: the int8 call on the register-list
     route (147 tiles of one query block fill the 132 SMs), held bit for bit
-    beside the sorted-selection and SIMT kernels' routes, then the default
-    bf16 collection's call, which must take the sorted-selection route
-    once in mode bf16, and the f32 collection's two calls, each of which
-    must take it once in mode f32 (beside the SIMT kernel's route); every
-    kernel row comes out with its keys."""
+    beside the sorted-selection kernel's route, then the default bf16
+    collection's call, which must take the sorted-selection route once in
+    mode bf16, and the f32 collection's two calls, each of which must take
+    it once in mode f32; every kernel row comes out with its keys."""
     results = stub_card(monkeypatch, N_ROWS=300_000, DIM=64, WIDE_DIM=64, BATCH=8,
                         WIDE_F32_SMALL_BATCH=4)
     cs.phase_wide(results)
     wide, bf16 = results["dense_topk_1m_wide"], results["dense_topk_1m_bf16"]
     f32 = [results["dense_topk_1m_f32"], results["dense_topk_1m_f32_b64"]]
-    assert wide["variant"] == cs.LIST_VARIANT and {"tcs_ms", "simt_ms"} <= set(wide)
+    assert wide["variant"] == cs.LIST_VARIANT and "tcs_ms" in wide
     assert bf16["variant"] == cs.TCS_VARIANT and bf16["launches"] == 1
     assert [r["batch"] for r in f32] == [8, 4]
     for row in f32:
         assert row["variant"] == cs.TCS_F32_VARIANT and row["launches"] == 1
-        assert "simt_ms" in row and row["bound_by"] == "bytes"
+        assert row["kt"] == 2 and row["bound_by"] == "bytes"
     for row in (wide, bf16, *f32):
         assert {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms"} <= set(row)
