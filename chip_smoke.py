@@ -314,11 +314,14 @@ HTTP_WORDS = 96
 HTTP_UPLOADERS = 8
 HTTP_QUERIES = 64  # 128 until [chat] joined the smoke (608 s); 256 before a 900 s run
 HTTP_CLIENTS = 64
-HTTP_SINGLE_QUERIES = 32  # of HTTP_QUERIES, from one client; all 64 until [mcp], [train] joined
+HTTP_SINGLE_QUERIES = 16  # of HTTP_QUERIES, from one client; 32 until the f32 per-query
+# search joined [ivf], all 64 until [mcp], [train] joined
 HTTP_TOP_K = 5
 HTTP_CANDIDATES = 100
-HTTP_STAGE_REQUESTS = 8  # 32 until [workflows] joined the smoke, 16 until [mcp], [train]
-HTTP_RESTART_QUERIES = 32  # a collection; 64 until [workflows] joined
+HTTP_STAGE_REQUESTS = 4  # 8 until the f32 per-query search joined [ivf], 16 until [mcp],
+# [train], 32 until [workflows] joined the smoke
+HTTP_RESTART_QUERIES = 16  # a collection; 32 until the f32 per-query search joined [ivf],
+# 64 until [workflows] joined
 HTTP_DEEP_K = 200  # a direct search_dense over the default collection: the deep selection
 HTTP_DEEP_QUERIES = 32
 # the f32 collection ("index_dtype": "float32") takes 1 / HTTP_F32_SHARE of
@@ -387,8 +390,10 @@ CHAT_AGENT_AG_UI = 8  # AG-UI turns
 CHAT_SHARED_SEARCHES = 8  # user B's searches of the shared collection
 CHAT_STAGE_TURNS = 8
 MCP_DOCS = 8  # [mcp] collection M (bf16): 8 x HTTP_SECTIONS sections, 4,096 chunks
-MCP_QUERIES = 32  # search_collection calls from one client, reranked; as many unreranked
-MCP_CONCURRENT = 32  # reranked search_collection calls from MCP_CLIENTS clients
+MCP_QUERIES = 16  # search_collection calls from one client, reranked; as many unreranked
+# (32 until the f32 per-query search joined [ivf])
+MCP_CONCURRENT = 16  # reranked search_collection calls from MCP_CLIENTS clients (32 until
+# the f32 per-query search joined [ivf])
 MCP_CLIENTS = 16
 MCP_FILE_SEARCHES = 8
 MCP_EVAL_PER_DOC = 8  # evaluate_engine: sections of each document, each its own query
@@ -403,13 +408,13 @@ CLI_TIMEOUT_S = 300
 TRAIN_FILES_PER_PKG = 300  # [train]: the docstring harvest of the card's site-packages
 TRAIN_MAX_DOCS = 4_000
 TRAIN_BATCH = 256  # contrastive pairs a step, each side at [256, <= 128]
-TRAIN_STEPS = 40
+TRAIN_STEPS = 30  # 40 until the f32 per-query search joined [ivf]
 TRAIN_LR = 3e-4  # scripts/semantic_eval.py's accelerator recipe
 TRAIN_CHECK_BATCH = 8  # gate a: one f32 step on the card and on the CPU
 MINE_PAIRS = 4096
 MINE_NEGATIVES = 19
 CE_QUERIES = 8  # a CE step: 8 queries x (1 + 19) candidates = [160, <= 128]
-CE_STEPS = 100
+CE_STEPS = 80  # 100 until the f32 per-query search joined [ivf]
 CE_LR = 2e-4  # at 1e-4 (RerankTrainConfig's default) the loss fell only 3.005 -> 2.971 on an H100
 TRAIN_SERVE_ROWS = 1024  # gate c: harvested rows embedded by the trained encoder, int8
 TRAIN_SERVE_QUERIES = 32
@@ -1138,24 +1143,20 @@ def _compare_candidates(got: torch.Tensor, ref: torch.Tensor, d: int, k: int) ->
 
 
 def phase_small_ivf() -> int:
-    """Both IVF kernels against their plain versions at small shapes:
+    """Both IVF routes against their plain versions at small shapes:
     every values mode, a ragged capacity (200) and a 128-multiple one,
-    D = 96 and, on the tensor cores, 1536, empty slots, with and without
-    a keep-mask and the residual add-back; probe lists with repeats, that
-    cover every tile (nprobe = nlist), that all hold one tile, and that
-    put every query on the same two tiles (a tile over several groups of
-    the work list).  Each per-query call must launch the variant its mode
-    picks."""
+    D = 96 and 1536, empty slots, with and without a keep-mask and the
+    residual add-back; probe lists with repeats, that cover every tile
+    (nprobe = nlist), that all hold one tile, and that put every query on
+    the same two tiles (a tile over several groups of the work list).
+    Each per-query call must launch the tensor-core per-query kernel."""
     from super_rag_tpu_torch.ops import ivf_topk as it
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
     nlist, b = 12, 20
     cases = 0
     for dtype in (torch.int8, torch.bfloat16, torch.float32):
-        variant = it.probe_variant(it.MODES[dtype])
-        counter = it.probe_tc_launches if variant == "tc" else it.probe_simt_launches
-        shapes = ((200, 96), (256, 96)) + (((200, 1536),) if variant == "tc" else ())
-        for cap, d in shapes:
+        for cap, d in ((200, 96), (256, 96), (200, 1536)):
             x = torch.randn(nlist, cap, d, device=DEVICE, generator=gen)
             if dtype == torch.int8:
                 values = torch.clamp(torch.round(x * 40), -127, 127).to(torch.int8)
@@ -1191,11 +1192,11 @@ def phase_small_ivf() -> int:
                         cases += 1
                     for probes in probe_sets:
                         args = (q, probes, values, scales, cs, row_ids, mask)
-                        before = counter.count
+                        before = it.probe_tc_launches.count
                         got = it.probe_scores(*args)
-                        if counter.count != before + 1:
+                        if it.probe_tc_launches.count != before + 1:
                             raise AssertionError(f"{dtype} per-query call did not launch "
-                                                 f"the {variant} variant")
+                                                 f"the tensor-core per-query kernel")
                         _compare_candidates(got, it.probe_scores_plain(*args), d, 10)
                         cases += 1
     torch.cuda.synchronize()
@@ -1207,7 +1208,7 @@ def _reset_counts() -> None:
     from super_rag_tpu_torch.ops import ivf_topk as it
 
     for counter in (dt.tc_launches, dt.list_launches, *dt.tc_mode_launches.values(),
-                    it.union_tc_launches, it.probe_tc_launches, it.probe_simt_launches):
+                    it.union_tc_launches, it.probe_tc_launches):
         counter.count = 0
 
 
@@ -1219,8 +1220,7 @@ def _counts() -> dict:
             **{TC_MODE_KEYS[m]: c.count for m, c in dt.tc_mode_launches.items()},
             LIST_KEY: dt.list_launches.count,
             "ivf_union_tc": it.union_tc_launches.count,
-            "ivf_probe_tc": it.probe_tc_launches.count,
-            "ivf_probe_simt": it.probe_simt_launches.count}
+            "ivf_probe_tc": it.probe_tc_launches.count}
 
 
 def _recording(calls: dict, name: str, fn):
@@ -1237,9 +1237,11 @@ def _dense_stages(idx, qa, mask, want):
     the tensor-core kernel, top-k of the [B, nprobe * C] candidates, the
     overflow scan + sign-plane refine.  The staged result must equal
     ``want``, the (scores, ids) of the call itself.  Returns the stage
-    times, the work list, the kernel's ms and the library yardstick's ms:
-    one torch.bmm of the groups' tiles against their queries, padded to
-    the group size, both gathered and made bf16 beforehand (not timed)."""
+    times, the work list, the kernel's ms (f32 values: with the queries'
+    planes kernel) and the library yardstick's ms: one torch.bmm of the
+    groups' tiles against their queries, padded to the group size, both
+    gathered beforehand (not timed) in the queries' type, bf16 or f32
+    (TF32 off)."""
     from super_rag_tpu_torch.ops import ivf_topk as it
     from super_rag_tpu_torch.ops.dense import normalize_queries
     from super_rag_tpu_torch.ops.ivf import attach_overflow_and_refine
@@ -1257,14 +1259,14 @@ def _dense_stages(idx, qa, mask, want):
 
     q, cs, probes = select()
     groups = it.probe_groups(probes, nlist, it.PROBE_QG)
-    q_in = q.to(torch.bfloat16).contiguous()
+    compute = torch.float32 if ivf.values.dtype == torch.float32 else torch.bfloat16
+    q_in = q.to(compute).contiguous()
     cs_in = cs.contiguous() if ivf.residual else None
     out = torch.empty((b, nprobe, cap), dtype=torch.float32, device=DEVICE)
-    mode = it.MODES[ivf.values.dtype]
 
     def kernel():
-        it._probe_tc(mode, q_in, groups, nprobe, ivf.values, ivf.scales, cs_in,
-                     ivf.row_ids, mask, out)
+        it._probe_tc(q_in, groups, nprobe, ivf.values, ivf.scales, cs_in, ivf.row_ids,
+                     mask, out)
 
     kernel()
     cv = out.reshape(b, -1)
@@ -1283,7 +1285,8 @@ def _dense_stages(idx, qa, mask, want):
         "work-list build": cuda_ms(lambda: it.probe_groups(probes, nlist, it.PROBE_QG)),
         "tensor-core kernel": cuda_ms(kernel),
         f"top-{TOP_K} of [{b}, {nprobe * cap}]": cuda_ms(lambda: stable_topk(cv, TOP_K)),
-        "overflow scan + sign-plane refine": cuda_ms(tail),
+        "overflow scan" + (" + sign-plane refine" if ivf.sign_plane is not None else ""):
+            cuda_ms(tail),
     }
     # the yardstick's operands: group g's tile and its queries, padded
     n_groups = int(groups.group_off[-1])
@@ -1294,7 +1297,7 @@ def _dense_stages(idx, qa, mask, want):
     filled = slot < groups.pair_off[tile_of + 1][:, None]
     pairs = groups.order.long()[slot.clamp(max=b * nprobe - 1)]
     qblk = torch.where(filled[..., None], q_in[pairs // nprobe], 0).transpose(1, 2)
-    tiles = ivf.values[tile_of.long()].to(torch.bfloat16)
+    tiles = ivf.values[tile_of.long()].to(compute)
     lib_ms = cuda_ms(lambda: torch.bmm(tiles, qblk), reps=10)
     del tiles, qblk
     return stages, groups, stages["tensor-core kernel"], lib_ms
@@ -1526,11 +1529,11 @@ def phase_ivf(results: dict):
     }
     del uargs, pargs, calls
     torch.cuda.empty_cache()
-    _ivf_f32(results, gen, centers, lex, host, q32, t32)
+    _ivf_f32(results, gen, centers, lex, host, qa, t32)
     return idx, texts
 
 
-def _ivf_f32(results: dict, gen, centers, lex: dict, host: dict, q32, t32) -> None:
+def _ivf_f32(results: dict, gen, centers, lex: dict, host: dict, qa, t32) -> None:
     """An f32 IVF collection at D = DIM: IVF_F32_ROWS rows by [ivf]'s
     clustered recipe (its centres, fresh noise), f32 rows as an f32
     collection stores them, over [ivf]'s lexical table (the same texts);
@@ -1540,9 +1543,16 @@ def _ivf_f32(results: dict, gen, centers, lex: dict, host: dict, q32, t32) -> No
     against its plain version at the call's inputs (scores within the
     float tolerance, the candidate top-k's ids equal up to near-ties),
     and the whole hybrid result against the same path on the plain
-    versions; the kernel timed beside its plain version, the library call
-    (an f32 matmul, TF32 off, over the union tiles gathered beforehand)
-    and its bound."""
+    versions; then search_dense at B = IVF_DENSE_BATCH (``qa``) through
+    the per-query route (the batch's [B, U, C] union array would pass
+    UNION_OUT_BYTES_MAX), which must launch the per-query kernel in its
+    f32 mode and no union kernel, held alike, its whole result against
+    the plain versions' (within the tolerance, ids equal up to near-ties;
+    bit for bit for each query whose candidate list, ids and scores, is
+    the plain version's) and, bit for bit, against the same call on the
+    union kernel's scores of the probed tiles, and timed stage by stage.  Each kernel is timed
+    beside its plain version, the library call (f32, TF32 off, over the
+    tiles gathered beforehand) and its bound."""
     from super_rag_tpu_torch.engine.index import DeviceIndex
     from super_rag_tpu_torch.ops import ivf_topk as it
     from super_rag_tpu_torch.ops.dense import build_corpus
@@ -1579,6 +1589,7 @@ def _ivf_f32(results: dict, gen, centers, lex: dict, host: dict, q32, t32) -> No
         f"{IVF_NLIST}, nprobe={IVF_NPROBE}) in {t_build:.2f} s: capacity "
         f"C={ivf.capacity}, residual {ivf.residual}")
 
+    q32 = qa[:IVF_HYBRID_BATCH]
     calls: dict = {}
     _reset_counts()
     with mock.patch.object(it, "union_scores", _recording(calls, "union", it.union_scores)):
@@ -1587,7 +1598,7 @@ def _ivf_f32(results: dict, gen, centers, lex: dict, host: dict, q32, t32) -> No
     counts = _counts()
     uargs = calls["union"]
     if counts["ivf_union_tc"] < 1 or uargs[2].dtype != torch.float32 or \
-            counts["ivf_probe_tc"] or counts["ivf_probe_simt"]:
+            counts["ivf_probe_tc"]:
         raise AssertionError(f"[ivf] f32 search_hybrid B={IVF_HYBRID_BATCH} launched "
                              f"{counts} (values {uargs[2].dtype})")
     ids = res.indices.cpu().numpy()
@@ -1634,6 +1645,101 @@ def _ivf_f32(results: dict, gen, centers, lex: dict, host: dict, q32, t32) -> No
         "launches": counts["ivf_union_tc"], "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bound, "bound_by": by, "library_ms": lib_ms, "rows": n,
         "union_tiles": n_union, "capacity": cap,
+    }
+    del uargs
+    _ivf_f32_dense(results, idx, qa)
+
+
+def _ivf_f32_dense(results: dict, idx, qa) -> None:
+    """search_dense at B = IVF_DENSE_BATCH over the f32 collection: the
+    per-query kernel's f32 mode on a main path (``_ivf_f32``)."""
+    from super_rag_tpu_torch.ops import ivf_topk as it
+    from super_rag_tpu_torch.ops.dense import normalize_queries
+    from super_rag_tpu_torch.ops.topk import stable_topk
+
+    ivf = idx._ivf
+    b, cap = qa.shape[0], ivf.capacity
+    calls: dict = {}
+    _reset_counts()
+    with mock.patch.object(it, "probe_scores", _recording(calls, "probe", it.probe_scores)):
+        dv, di = idx.search_dense(qa, k=TOP_K)
+    torch.cuda.synchronize()
+    counts = _counts()
+    pargs = calls["probe"]
+    if counts["ivf_probe_tc"] < 1 or counts["ivf_union_tc"] or pargs[2].dtype != torch.float32:
+        raise AssertionError(f"[ivf] f32 search_dense B={b} launched {counts} (values "
+                             f"{pargs[2].dtype})")
+    if (tuple(di.shape) != (b, TOP_K) or int(di.min()) < 0
+            or not bool(torch.isfinite(dv).all())):
+        raise AssertionError("[ivf] f32 search_dense result has the wrong shape or empty slots")
+    probes = pargs[1]
+    nprobe = probes.shape[1]
+    pk, pp = it.probe_scores(*pargs), it.probe_scores_plain(*pargs)
+    err = _compare_candidates(pk, pp, DIM, TOP_K)
+    kv, ki = stable_topk(pk.reshape(b, -1), TOP_K)
+    rv, ri = stable_topk(pp.reshape(b, -1), TOP_K)
+    same_list = (ki == ri).all(1) & (kv == rv).all(1)
+    same_ids = (ki == ri).all(1)
+    del pk, pp, kv, ki, rv, ri
+    # the whole result against the same call on the plain versions, ids
+    # up to near-ties by the f32 score of every row (a row's stored f32
+    # values, in the IVF tiles or the overflow, against the normalised query)
+    mask = idx._mask(None)
+    with mock.patch.object(it, "union_scores", it.union_scores_plain), \
+            mock.patch.object(it, "probe_scores", it.probe_scores_plain):
+        pv, pi = idx.search_dense(qa, k=TOP_K)
+    tol = _tolerance(DIM, pv)
+    every = normalize_queries(qa, idx.spec.metric) @ idx.dense_corpus().values[:idx.size].T
+    res_err = _compare(dv[None], di[None], pv[None], pi[None], exact=False, tol=tol,
+                       scores=every)
+    del every
+    rows_eq = (di == pi).all(1) & (dv == pv).all(1)
+    if bool((same_list & ~rows_eq).any()):
+        raise AssertionError("[ivf] f32 search_dense differs from the plain versions' for a "
+                             "query with the same candidate list")
+
+    # and against the same call with each query's scores taken from the
+    # union kernel over the probed tiles: one kernel body, so bit for bit
+    def via_union(q, probes_, values, scales, cs_in, row_ids, mask_):
+        tiles = torch.unique(probes_)
+        u = it.union_scores(q, tiles, values, scales, cs_in, row_ids, mask_)
+        at = torch.searchsorted(tiles, probes_).long()
+        return torch.gather(u, 1, at[:, :, None].expand(-1, -1, u.shape[2]))
+
+    with mock.patch.object(it, "probe_scores", via_union):
+        uv, ui = idx.search_dense(qa, k=TOP_K)
+    if not (torch.equal(uv, dv) and torch.equal(ui, di)):
+        raise AssertionError("[ivf] f32 search_dense on the per-query route differs from the "
+                             "union kernel's scores gathered")
+    del uv, ui
+    stages, groups, k_ms, lib_ms = _dense_stages(idx, qa, mask, (dv, di))
+    p_ms = cuda_ms(lambda: it.probe_scores_plain(*pargs), reps=3, warmup=1)
+    distinct = int(torch.unique(probes).numel())
+    n_groups = int(groups.group_off[-1])
+    nbytes = (distinct * cap * (DIM * 4 + 4 + 1) + b * DIM * 4 + b * nprobe * (4 + 4)
+              + b * nprobe * cap * 4)
+    bound, by = bound_ms(nbytes, 3 * 2.0 * b * nprobe * cap * DIM, TF32_OPS_PER_S)
+    log(f"[ivf] f32 search_dense B={b} (per-query route): launches {counts}; per-query "
+        f"kernel (f32: 3 x mma.sync m16n8k8 tf32, tile-major over {n_groups} groups of <= "
+        f"{it.PROBE_QG} pairs on {distinct} tiles) vs plain [B={b}, nprobe={nprobe}, C={cap}]: "
+        f"max |diff| {err:.3g} (tolerance D * 2^-23 * (max|s| + 1)); the result vs the plain "
+        f"versions': max |diff| {res_err:.3g} within {tol:.3g}, ids equal up to near-ties; "
+        f"{int(same_ids.sum())} of {b} queries have the plain version's candidate ids, "
+        f"{int(same_list.sum())} its candidate ids and scores and equal its result bit for "
+        f"bit, {int(rows_eq.sum())} rows bit-equal in all; every row equals the same call on "
+        f"the union kernel's scores of the probed tiles bit for bit")
+    log(f"[ivf] f32 per-query kernel (with its query planes) {k_ms:.3f} ms, plain {p_ms:.3f} "
+        f"ms, library (torch.bmm, f32, TF32 off, of the {n_groups} groups' tiles against "
+        f"their queries padded to {it.PROBE_QG}, gathered beforehand) {lib_ms:.3f} ms, bound "
+        f"{bound:.3f} ms ({by}: {distinct} distinct tiles read once, {nbytes / 1e9:.3f} GB); "
+        f"search_dense B={b} stages: "
+        + ", ".join(f"{name} {ms:.3f} ms" for name, ms in stages.items())
+        + f" (on {results['card']})")
+    results["ivf_probe_f32"] = {
+        "variant": "tc f32 (3 x mma.sync m16n8k8 tf32 on rna planes)",
+        "launches": counts["ivf_probe_tc"], "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": bound, "bound_by": by, "library_ms": lib_ms, "distinct_tiles": distinct,
+        "groups": n_groups, "capacity": cap,
     }
 
 
@@ -7719,6 +7825,8 @@ KERNEL_ROWS = (
     ("ivf_union", "ivf_scan.cu", "super_rag_tpu/ops/pallas_ivf.py:93", "ivf_union", "ivf"),
     ("ivf_probe", "ivf_scan.cu", "super_rag_tpu/ops/pallas_ivf.py:48", "ivf_probe", "ivf"),
     ("ivf_union_f32", "ivf_scan.cu", "super_rag_tpu/ops/pallas_ivf.py:93", "ivf_union_f32",
+     "ivf"),
+    ("ivf_probe_f32", "ivf_scan.cu", "super_rag_tpu/ops/pallas_ivf.py:48", "ivf_probe_f32",
      "ivf"),
     ("dense_topk_deep", "dense_topk.cu", _DT, "dense_topk_deep", "http"),
     *((f"dense_topk_http_{t}", "dense_topk.cu", _DT, f"dense_topk_http_{t}", phase)

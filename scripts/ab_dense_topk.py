@@ -39,9 +39,10 @@ a JSON line.
 
 ``--only ivf`` times both IVF kernels at the smoke's [ivf] shapes
 (1,024 tiles of 1,024 rows, D = 768, 16 probes a query) with int8, bf16
-and f32 values: the union kernel at B = 32 (f32: three TF32 products on
-the tensor cores) and the per-query kernel at B = 512 (f32: CUDA cores),
-each beside its plain version, a library call on the tiles gathered
+and f32 values: the union kernel at B = 32 and the per-query kernel at
+B = 512 (both on the tensor cores; f32 as three TF32 products on the
+queries' planes, whose kernel the device time counts), each beside its
+plain version, a library call on the tiles gathered
 beforehand (``matmul`` / ``bmm`` in the queries' type, TF32 off) and its
 bound, with the launches each call made.  To compare two
 checkouts on one card, run it in turns in one command: parent, change,
@@ -268,7 +269,7 @@ def ivf_rows(card: str) -> dict:
     seeded tiles, each query's 16 probes drawn without repeats; the union
     kernel at B = 32 over the batch's probe union, the per-query kernel at
     B = 512.  The launches are counted over every counter the checkout has
-    (a parent's SIMT union counter too)."""
+    (a parent's SIMT per-query counter too)."""
     from super_rag_tpu_torch.ops import ivf_topk as it
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -317,8 +318,7 @@ def ivf_rows(card: str) -> dict:
             nbytes = (tiles * IVF_CAP * (IVF_D * values.element_size() + 4
                                          + (4 if scales is not None else 0))
                       + b * IVF_D * q.element_size() + got.numel() * 4)
-            rate = TF32_OPS_PER_S / 3 if dtype == torch.float32 and route == "union" else \
-                67e12 if dtype == torch.float32 else BF16_OPS_PER_S
+            rate = TF32_OPS_PER_S / 3 if dtype == torch.float32 else BF16_OPS_PER_S
             ops = 2.0 * work * IVF_D
             row = {"launches": launches, "max_abs_err": err, "tol": tol,
                    "ms": event_ms(lambda: fn(*args), reps=20),

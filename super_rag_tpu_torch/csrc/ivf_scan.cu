@@ -1,29 +1,31 @@
-// IVF cluster-tile scoring for Hopper (sm_90a): the two kernels of the IVF
+// IVF cluster-tile scoring for Hopper (sm_90a): the kernel of the IVF
 // dense tier, called by super_rag_tpu_torch/ops/ivf_topk.py.
 //
-// Both compute, for a query b and a slot c of a cluster tile t,
+// It computes, for a query b and a slot c of a cluster tile t,
 //
 //   s = dot(q[b], values[t, c, :])      f32 sum of exact products: bf16
 //                                       queries x int8 codes / bf16 values,
-//                                       or f32 x f32
+//                                       or f32 x f32 (three TF32 products)
 //   s = s * scales[t, c]                (int8 values)
 //   s = s + cs[b, t]                    (residual coding: the probe score)
 //   s = -inf  where row_ids[t, c] < 0 or mask[row_ids[t, c]] == 0
 //
 // with __fmul_rn / __fadd_rn in the reference's order, so a result differs
 // from the plain PyTorch version only in the dot product's summation
-// order (an FMA chain, or the tensor cores' own).  Each (query, slot) sum
-// runs in an order fixed by D alone, never by the batch, so a query scores
-// alike in any batch.  Top-k stays in the caller (stable_topk over the
-// candidate array).
+// order (the tensor cores' own).  Each (query, slot) sum runs in an order
+// fixed by D alone, never by the batch, so a query scores alike in any
+// batch.  Top-k stays in the caller (stable_topk over the candidate array).
 //
-// The union kernel replaces the TPU kernel of the JAX package's
-// ops/pallas_ivf.py:93 _make_union_kernel (driven by _union_scores, :163):
-// the whole query block against every tile of the batch's probe union,
-// out [B, U, C].  The per-query kernel replaces ops/pallas_ivf.py:48
-// _make_kernel (the per-query probe stream inside pallas_ivf_topk, :201):
-// each query against its own probed tiles, out [B, nprobe, C].  Mosaic
-// kept the epilogue out of both; here it is fused.
+// One kernel body, ivf_tc_kernel, serves both routes of the JAX package's
+// ops/pallas_ivf.py in every values mode (0 int8, 1 bf16, 2 f32), with a
+// query-list policy:
+//   - the union route replaces :93 _make_union_kernel (driven by
+//     _union_scores, :163): the whole query block against every tile of
+//     the batch's probe union, out [B, U, C];
+//   - the per-query route replaces :48 _make_kernel (the per-query probe
+//     stream inside pallas_ivf_topk, :201): each query against its own
+//     probed tiles, out [B, nprobe, C].
+// Mosaic kept the epilogue out of both; here it is fused.
 //
 // Both are bound by bytes on an H100.  The union reads its U tiles once
 // and writes [B, U, C] f32 (512 tiles of 1280 x 768 at B = 32: 0.59 GB,
@@ -33,15 +35,13 @@
 // grid of one block per (query, probe), as the TPU kernel's and the
 // first port's was, reads every query's own tiles instead: 8.05 GB, a
 // 2.40 ms floor, and L2 caught little of what neighbouring blocks shared
-// (that SIMT kernel took 6.3 ms).
+// (that SIMT kernel took 6.3 ms for int8 values, 8.5 ms for f32 ones).
 //
-// * ivf_tc_kernel (modes 0 and 1: int8 or bf16 values, bf16 queries; and
-//   on the union route mode 2, f32 values, below) is one kernel body for
-//   both routes, on the tensor cores: mma.sync.m16n8k16 bf16 with f32
-//   accumulators, tile rows as M and queries as N.  A block holds RB rows of one tile and QN queries (the union
-//   256 x 32, the per-query route 128 x 16).  A query-list policy says
-//   which queries a block takes and where each query's row of scores goes:
-//   - UnionList: queries z * 32 .. z * 32 + 31 against union tile u (at
+// The kernel runs the tensor cores: mma.sync.m16n8k16 bf16 (modes 0, 1)
+// or m16n8k8 tf32 (mode 2) with f32 accumulators, tile rows as M and
+// queries as N.  A block holds RB rows of one tile and QN queries (Cfg;
+// the shapes by timing, below).  The query lists:
+//   - UnionList: queries z * QN .. z * QN + QN - 1 against union tile u (at
 //     B = 32 the whole batch, so every union tile is read from HBM once);
 //     out[b, u, :];
 //   - GroupList: the per-query route turned tile-major.  The wrapper
@@ -59,47 +59,48 @@
 //     tile) it took 0.508 ms at 128 rows x 16 pairs against 0.541-0.704 ms
 //     at the other shapes of {128, 256} x {8, 16, 32} (tune_ivf_probe.py),
 //     where the one-block-per-(query, probe) SIMT kernel took 6.315 ms.
-//   64-byte slices of the rows, and the matching query slices, stream
-//   through a 4-stage cp.async ring; each row load asks L2 for the row's
-//   next 256 bytes, which later stages read.  int8 codes stay int8 in
-//   shared memory (ldmatrix) and are widened to bf16 in registers with
-//   integer and bf16x2 arithmetic, exactly (|code| <= 128; sm90_util.cuh
-//   s8x4_to_bf16x2).  The scores go through shared memory so each query's
-//   rows leave in 16-byte coalesced streaming stores, with the epilogue
-//   applied there; a row's scale and liveness are loaded before the main
-//   loop.  The MMA adds in its own order, not an FMA chain's, so the
-//   scores differ from the plain version's within the summation
-//   tolerance; that order is fixed by D alone (no split of D, no atomics,
-//   a column's sum independent of the other columns), so a query scores
-//   bit-alike alone, inside any batch, and on either route.  On an H100
-//   at the smoke's shapes an earlier union version that stored from the
-//   accumulators in 32-byte pieces took 0.42 ms; staging through shared
-//   memory, streaming stores and the L2 prefetch brought it to 0.34 ms.
-//   Deeper or wider rings, a persistent grid and bulk (TMA) copies per
-//   row were slower.
-//   The union's f32 mode (2), as dense_topk's: one TF32 product keeps 11
-//   significant bits, too few for the float tolerance D 2^-23 (max|s| +
-//   1); three keep it.  Each operand splits into round-to-nearest tf32
-//   planes, x = h + l (h = tf32_rna(x), l' = tf32_rna(x - h)), and each k8
-//   step runs mma.sync.m16n8k8 tf32 three times, h g + h m' + l' g: the
-//   products are exact and what is dropped is ~3 2^-22 |x||y| a product.
-//   The rows' planes are made in registers from the f32 ring stage; the
-//   queries' are a [2B, D] array made by ivf_tf32_planes first, a stage
-//   holding both planes' rows.  f32 rows are 4x the bytes of int8 ones, so
-//   the f32 stage has its own shape (UnionShape<float>, tuned by
-//   scripts/tune_ivf_union.py).  The first version, a SIMT kernel of f32
-//   FMAs (a 4 x 4 register tile a thread from padded shared memory),
-//   took 1.23 ms device at 512 tiles x 1,024 rows x 768, B 32 on an H100,
-//   against a 0.50 ms bytes bound (PERF.md §6).
-// * ivf_probe_kernel (the per-query route's mode 2, f32 x f32), the first
-//   version, on CUDA cores: one block per (query, probe); each warp scores
-//   one row at a time, its lanes reading the row's 16-byte vectors side by
-//   side with their slice of the query in registers (so D <= 1024),
-//   reduced by a fixed xor-shuffle tree; four rows in flight a warp.
+// Slices of the rows (KSB bytes), and the matching query slices, stream
+// through an NST-stage cp.async ring; each row load asks L2 for the row's
+// next 256 bytes, which later stages read.  int8 codes stay int8 in
+// shared memory (ldmatrix) and are widened to bf16 in registers with
+// integer and bf16x2 arithmetic, exactly (|code| <= 128; sm90_util.cuh
+// s8x4_to_bf16x2).  The scores go through shared memory so each query's
+// rows leave in 16-byte coalesced streaming stores, with the epilogue
+// applied there; a row's scale and liveness are loaded before the main
+// loop.  The MMA adds in its own order, not an FMA chain's, so the scores
+// differ from the plain version's within the summation tolerance; that
+// order is fixed by D alone (no split of D, no atomics, a column's sum
+// independent of the other columns, a block shape never changing it), so
+// a query scores bit-alike alone, inside any batch, and on either route.
+// On an H100 at the smoke's shapes an earlier union version that stored
+// from the accumulators in 32-byte pieces took 0.42 ms; staging through
+// shared memory, streaming stores and the L2 prefetch brought it to 0.34
+// ms.  Deeper or wider rings, a persistent grid and bulk (TMA) copies per
+// row were slower.
 //
-// Requirements checked by the Python wrapper: D % 16 == 0 (and D <= 1024
-// for the f32 per-query kernel), contiguous 16-byte aligned operands,
-// probe and union tile ids in [0, nlist).
+// The f32 mode (2), as dense_topk's: one TF32 product keeps 11
+// significant bits, too few for the float tolerance D 2^-23 (max|s| + 1);
+// three keep it.  Each operand splits into round-to-nearest tf32 planes,
+// x = h + l (h = tf32_rna(x), l' = tf32_rna(x - h)), and each k8 step
+// runs mma.sync.m16n8k8 tf32 three times, h g + h m' + l' g: the products
+// are exact and what is dropped is ~3 2^-22 |x||y| a product.  The rows'
+// planes are made in registers from the f32 ring stage; the queries' are
+// a [2B, D] array made by ivf_tf32_planes first (on either route), a
+// stage holding both planes' rows.  The three products stay far under the
+// bytes (~0.16 ms at 495 TFLOP/s for B = 512 x 16 probes of 1,024 x 768
+// tiles, against 0.97 ms of bytes), so the mode is bound by bytes too.
+// f32 rows are 4x the bytes of int8 ones, so the f32 stages have shapes of
+// their own: UnionShape<float> (scripts/tune_ivf_union.py) and
+// GroupShape<float> (tune_ivf_probe.py --f32).  The first versions were
+// SIMT kernels of f32 FMAs on the CUDA cores: the union's took 1.23 ms
+// device at 512 tiles x 1,024 rows x 768, B 32 on an H100, against a 0.50
+// ms bytes bound, the per-query one (a block per (query, probe), a warp a
+// row) 8.52 ms at 1,024 tiles x 1,024 x 768, B 512, 16 probes, against a
+// 0.97 ms bound, where the tensor-core body takes 1.13 ms
+// (tune_ivf_probe.py --f32; PERF.md §6).
+//
+// Requirements checked by the Python wrapper: D % 16 == 0, contiguous
+// 16-byte aligned operands, probe and union tile ids in [0, nlist).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -110,97 +111,7 @@
 
 namespace {
 
-// one 16-byte vector of f32
-__device__ __forceinline__ void load4(const float* src, float* dst) {
-  const float4 v = *reinterpret_cast<const float4*>(src);
-  dst[0] = v.x;
-  dst[1] = v.y;
-  dst[2] = v.z;
-  dst[3] = v.w;
-}
-
-__device__ __forceinline__ float epilogue(float s, long long slot, int b, long long tile,
-                                          int nlist, const float* scales, const float* cs,
-                                          const int* row_ids, const uint8_t* mask) {
-  const int rid = row_ids[slot];
-  const bool live = rid >= 0 && (mask == nullptr || mask[rid] != 0);
-  if (scales != nullptr) s = __fmul_rn(s, scales[slot]);
-  if (cs != nullptr) s = __fadd_rn(s, cs[static_cast<long long>(b) * nlist + tile]);
-  return live ? s : -INFINITY;
-}
-
-// ---- per-query kernel, SIMT variant (mode 2: f32 x f32) ------------------------
-
-constexpr int P_THREADS = 256;  // 8 warps, each scoring one row at a time
-constexpr int P_MAXD = 1024;
-constexpr int P_ROWS = 4;  // rows in flight per warp
-
-__global__ void __launch_bounds__(P_THREADS)
-ivf_probe_kernel(const float* __restrict__ q, const int* __restrict__ probes,
-                 const float* __restrict__ values, const float* __restrict__ scales,
-                 const float* __restrict__ cs, const int* __restrict__ row_ids,
-                 const uint8_t* __restrict__ mask, int B, int nprobe, int C, int D,
-                 int nlist, float* __restrict__ out) {
-  constexpr int NCH = P_MAXD / 4 / 32;  // 16-byte vectors per lane, at most
-  const int b = blockIdx.x;
-  const int j = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long tile = probes[static_cast<long long>(b) * nprobe + j];
-  const float* vt = values + tile * static_cast<long long>(C) * D;
-  const int nvec = D / 4;
-
-  // this lane's slice of the query: elements of vectors lane, lane + 32, ...
-  float qr[NCH][4];
-#pragma unroll
-  for (int ch = 0; ch < NCH; ++ch) {
-    const int v = lane + 32 * ch;
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      qr[ch][e] = v < nvec ? q[static_cast<long long>(b) * D + v * 4 + e] : 0.0f;
-  }
-
-  for (int c = warp * P_ROWS; c < C; c += 8 * P_ROWS) {
-    float part[P_ROWS];
-#pragma unroll
-    for (int r = 0; r < P_ROWS; ++r) part[r] = 0.0f;
-#pragma unroll
-    for (int ch = 0; ch < NCH; ++ch) {
-      const int v = lane + 32 * ch;
-      if (v >= nvec) continue;
-      float x[P_ROWS][4];
-#pragma unroll
-      for (int r = 0; r < P_ROWS; ++r) {
-        if (c + r < C) {
-          load4(vt + static_cast<long long>(c + r) * D + v * 4, x[r]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) x[r][e] = 0.0f;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < P_ROWS; ++r)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[r] = fmaf(qr[ch][e], x[r][e], part[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < P_ROWS; ++r) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        part[r] += __shfl_xor_sync(0xffffffffu, part[r], off);
-    }
-    if (lane < P_ROWS && c + lane < C) {
-      float s = part[0];
-#pragma unroll
-      for (int r = 1; r < P_ROWS; ++r)
-        if (lane == r) s = part[r];
-      out[(static_cast<long long>(b) * nprobe + j) * C + c + lane] =
-          epilogue(s, tile * C + c + lane, b, tile, nlist, scales, cs, row_ids, mask);
-    }
-  }
-}
-
-// ---- tensor-core kernel, both routes (int8 / bf16 values), and the union's f32 mode ----
+// ---- the tensor-core kernel: both routes, every values mode ----
 
 namespace utc {
 
@@ -237,7 +148,15 @@ template <typename TV> struct UnionShape { using type = Cfg<TV, 256, 32, 64, 4>;
 // 0.677-1.468 for the other shapes of scripts/tune_ivf_union.py (H100)
 template <> struct UnionShape<float> { using type = Cfg<float, 256, 32, 128, 2>; };
 template <typename TV> using UnionCfg = typename UnionShape<TV>::type;
-template <typename TV> using GroupCfg = Cfg<TV, 128, 16, 64, 4>;
+template <typename TV> struct GroupShape { using type = Cfg<TV, 128, 16, 64, 4>; };
+// f32: 128 rows x 16 pairs, 128-byte slices (32 f32), 2 stages (51 KB);
+// 1.131 ms at 1,024 tiles x 1,024 x 768, B 512, 16 probes against 1.140
+// (256 rows, the same slices), 1.146 (3 stages), 1.157-1.199 (64-byte
+// slices, 3 or 4 stages) and 1.202-1.526 for the other shapes of
+// tune_ivf_probe.py --f32 (H100): 8 pairs a group make 1.4x the groups,
+// 32 pad most groups of the ~8 pairs a tile has
+template <> struct GroupShape<float> { using type = Cfg<float, 128, 16, 128, 2>; };
+template <typename TV> using GroupCfg = typename GroupShape<TV>::type;
 
 // the operands both routes share; q: bf16 [B, D], or for f32 values the
 // queries' tf32 planes [2B, D] (sm90::tf32_planes)
@@ -582,29 +501,27 @@ int launch_groups(const Scan& a, const int* order, const int* pair_off, const in
   return launch<TV, L>(a, GroupList{order, pair_off, group_off, a.nlist, nprobe}, grid, stream);
 }
 
+// the per-query route in one values mode: the work list must have been cut
+// into groups of the mode's own QN
+template <typename TV>
+int launch_mode_groups(const Scan& a, const int* order, const int* pair_off,
+                       const int* group_off, int max_groups, int qg, int nprobe,
+                       cudaStream_t stream) {
+  if (qg != GroupCfg<TV>::QN) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_groups<TV, GroupCfg<TV>>(a, order, pair_off, group_off, nprobe, max_groups,
+                                         stream);
+}
+
 }  // namespace utc
 
 }  // namespace
 
 // mode: 0 = int8 values + bf16 queries, 1 = bf16 values + bf16 queries,
-//       2 = f32 values + f32 queries.  The union takes every mode on the
+//       2 = f32 values + f32 queries.  Both routes take every mode on the
 //       tensor cores (mode 2 as three tf32 products, its queries the tf32
-//       planes of ivf_tf32_planes); the per-query route takes modes 0 and
-//       1 on the tensor cores (ivf_probe_tc_launch) and mode 2 on CUDA
-//       cores (ivf_probe_launch).  Null scales / cs / mask pointers mean
+//       planes of ivf_tf32_planes).  Null scales / cs / mask pointers mean
 //       the step is absent.  Each returns the cudaError_t of its launch (0
 //       = success).
-extern "C" int ivf_probe_launch(int mode, const void* q, const int* probes,
-                                const void* values, const float* scales, const float* cs,
-                                const int* row_ids, const uint8_t* mask, int B, int nprobe,
-                                int C, int D, int nlist, float* out, void* stream) {
-  if (mode != 2 || D > P_MAXD) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(B, nprobe);
-  ivf_probe_kernel<<<grid, P_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), probes, static_cast<const float*>(values), scales, cs,
-      row_ids, mask, B, nprobe, C, D, nlist, out);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // The union route on the tensor cores, every mode, same operands (mode 2:
 // q the [2B, D] tf32 planes of the f32 queries, ivf_tf32_planes).
@@ -627,7 +544,7 @@ extern "C" int ivf_union_tc_launch(int mode, const void* q, const int* union_ids
   }
 }
 
-// The f32 union's query planes: q, a row-major [B, D] f32 array (count = B
+// The f32 mode's query planes: q, a row-major [B, D] f32 array (count = B
 // D elements, a multiple of 4, 16-byte aligned), into out [2B, D]: rows 0
 // .. B - 1 tf32_rna(q), rows B .. 2B - 1 tf32_rna(q - that).  Returns the
 // cudaError_t of the launch.
@@ -635,10 +552,10 @@ extern "C" int ivf_tf32_planes(const float* q, float* out, long long count, void
   return sm90::tf32_planes(q, out, count, static_cast<cudaStream_t>(stream));
 }
 
-// The per-query route on the tensor cores (modes 0 and 1): the union's
-// operands with the work list (ops/ivf_topk.py probe_groups) in place of
-// the union.  qg is the group size the list was cut with; it must equal
-// the kernel's QN.
+// The per-query route on the tensor cores, every mode: the union's
+// operands (mode 2: q the [2B, D] tf32 planes) with the work list
+// (ops/ivf_topk.py probe_groups) in place of the union.  qg is the group
+// size the list was cut with; it must equal the mode's QN.
 extern "C" int ivf_probe_tc_launch(int mode, const void* q, const int* order,
                                    const int* pair_off, const int* group_off, int max_groups,
                                    int qg, const void* values, const float* scales,
@@ -646,16 +563,18 @@ extern "C" int ivf_probe_tc_launch(int mode, const void* q, const int* order,
                                    int B, int nprobe, int C, int D, int nlist, float* out,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D % 16 != 0 || qg != utc::GroupCfg<int8_t>::QN)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (D % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const utc::Scan a{q, values, scales, cs, row_ids, mask, B, C, D, nlist, out};
   switch (mode) {
     case 0:
-      return utc::launch_groups<int8_t, utc::GroupCfg<int8_t>>(a, order, pair_off, group_off,
-                                                               nprobe, max_groups, s);
+      return utc::launch_mode_groups<int8_t>(a, order, pair_off, group_off, max_groups, qg,
+                                             nprobe, s);
     case 1:
-      return utc::launch_groups<__nv_bfloat16, utc::GroupCfg<__nv_bfloat16>>(
-          a, order, pair_off, group_off, nprobe, max_groups, s);
+      return utc::launch_mode_groups<__nv_bfloat16>(a, order, pair_off, group_off, max_groups,
+                                                    qg, nprobe, s);
+    case 2:
+      return utc::launch_mode_groups<float>(a, order, pair_off, group_off, max_groups, qg,
+                                            nprobe, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

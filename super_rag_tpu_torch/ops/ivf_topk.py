@@ -1,29 +1,29 @@
 """Probe-driven IVF top-k over the cluster tiles (port of the JAX
 package's ops/pallas_ivf.py).
 
-Two kernels score queries against cluster tiles, both in
-``csrc/ivf_scan.cu`` (CUDA C++ for sm_90a, built by ``_build.py``), each
-with its plain PyTorch version and a launch counter beside it:
+One kernel body scores queries against cluster tiles on the tensor cores
+(``csrc/ivf_scan.cu ivf_tc_kernel``, CUDA C++ for sm_90a, built by
+``_build.py``) for both routes and every values type: bf16 products for
+int8 / bf16 values, three TF32 products on the queries' tf32 planes
+(``dense_topk.tf32_planes``, made on the card first) for f32 values.  Each
+route has its plain PyTorch version and a launch counter beside it:
 
   * ``union_scores`` (TPU kernel: pallas_ivf.py:93 ``_make_union_kernel``)
     scores the whole query block against every tile of the batch's probe
-    union: ``[B, U, C]``; on the tensor cores for every values type (bf16
-    products for int8 / bf16 values, three TF32 products on the queries'
-    tf32 planes, ``dense_topk.tf32_planes``, for f32), counted;
+    union: ``[B, U, C]``;
   * ``probe_scores`` (TPU kernel: pallas_ivf.py:48 ``_make_kernel``)
-    scores each query against its own probed tiles: ``[B, nprobe, C]``;
-    for int8 / bf16 values the union's tensor-core kernel body run
-    tile-major over a work list of (query, probe) pairs grouped by tile
-    (``probe_groups``, built on the device), for f32 values on CUDA cores
-    (``probe_variant``), each variant counted.
+    scores each query against its own probed tiles: ``[B, nprobe, C]``,
+    the kernel run tile-major over a work list of (query, probe) pairs
+    grouped by tile (``probe_groups``, built on the device).
 
-Both fuse the epilogue the reference ran outside its kernels (dequant
-scale, residual add-back of the probe score, the empty-slot and keep-mask
--inf), in the reference's order.  A wrapper launches its kernel for CUDA
-tensors and runs the plain version only for CPU tensors.  ``ivf_topk`` is
-the glue of ``pallas_ivf_topk``: probe selection, the union-or-per-query
-choice, the exact top-k of the candidates and the shared overflow +
-sign-plane tail.
+A query's scores against a tile are the same bits on either route and in
+any batch.  Both fuse the epilogue the reference ran outside its kernels
+(dequant scale, residual add-back of the probe score, the empty-slot and
+keep-mask -inf), in the reference's order.  A wrapper launches its kernel
+for CUDA tensors and runs the plain version only for CPU tensors.
+``ivf_topk`` is the glue of ``pallas_ivf_topk``: probe selection, the
+union-or-per-query choice, the exact top-k of the candidates and the
+shared overflow + sign-plane tail.
 """
 
 from __future__ import annotations
@@ -45,8 +45,6 @@ UNION_OUT_BYTES_MAX = 400 << 20
 
 # kernel modes (csrc/ivf_scan.cu): values dtype, with bf16 or f32 queries
 MODES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
-# the SIMT per-query kernel (f32) keeps a lane's query slice in registers
-PROBE_SIMT_MAX_D = 1024
 # (query, probe) pairs a block of the tensor-core per-query kernel scores:
 # its N side, a compile-time constant of the kernel (csrc/ivf_scan.cu
 # GroupCfg), never chosen by B
@@ -65,8 +63,7 @@ class _Launches:
 
 
 union_tc_launches = _Launches()  # union kernel (tensor cores, every mode)
-probe_tc_launches = _Launches()  # per-query kernel, tensor-core variant
-probe_simt_launches = _Launches()  # per-query kernel, SIMT variant (f32)
+probe_tc_launches = _Launches()  # per-query kernel (tensor cores, every mode)
 
 
 @functools.cache
@@ -75,9 +72,8 @@ def _lib() -> ctypes.CDLL:
 
     lib = _build.load("ivf_scan")
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.ivf_union_tc_launch, lib.ivf_probe_launch):
-        fn.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, p, p]
-        fn.restype = i
+    lib.ivf_union_tc_launch.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, p, p]
+    lib.ivf_union_tc_launch.restype = i
     lib.ivf_tf32_planes.argtypes = [p, p, ctypes.c_longlong, p]
     lib.ivf_tf32_planes.restype = i
     lib.ivf_probe_tc_launch.argtypes = [i, p, p, p, p, i, i, p, p, p, p, p,
@@ -96,10 +92,12 @@ def union_variant(mode: int) -> str:
 
 
 def probe_variant(mode: int) -> str:
-    """Which per-query kernel takes a mode: ``"tc"`` (the tensor-core
-    kernel over the tile-major work list) for int8 or bf16 values,
-    ``"simt"`` (CUDA cores) for f32 values."""
-    return "simt" if mode == MODES[torch.float32] else "tc"
+    """Which per-query kernel takes a mode: ``"tc"``, the tensor-core
+    kernel over the tile-major work list, for every values type (f32 as
+    three TF32 products, as on the union route)."""
+    if mode not in MODES.values():
+        raise ValueError(f"no per-query kernel mode {mode}")
+    return "tc"
 
 
 class ProbeGroups(NamedTuple):
@@ -259,14 +257,7 @@ def union_scores(q, union, values, scales, cs, row_ids,
         return out
     lib = _lib()
     stream = torch.cuda.current_stream(values.device).cuda_stream
-    if mode == MODES[torch.float32]:
-        # the queries' tf32 planes [2B, D], a kernel of their own on the
-        # same stream (counted with the union's one launch)
-        planes = torch.empty((2 * b, d), dtype=torch.float32, device=q.device)
-        err = lib.ivf_tf32_planes(q.data_ptr(), planes.data_ptr(), b * d, stream)
-        if err != 0:
-            raise RuntimeError(f"ivf_union tf32 planes launch failed: cudaError {err}")
-        q = planes  # freed after the launch is queued: the stream orders reuse
+    q = _query_operand(lib, mode, q, stream)
     err = lib.ivf_union_tc_launch(
         mode, q.data_ptr(), union.data_ptr(), values.data_ptr(), _ptr(scales),
         _ptr(cs), row_ids.data_ptr(),
@@ -282,60 +273,61 @@ def probe_scores(q, probes, values, scales, cs, row_ids,
                  mask) -> torch.Tensor:
     """Scores of each query against its own probed tiles ``probes
     [B, nprobe]`` int32: ``[B, nprobe, C]`` f32, epilogue fused (same
-    operands as ``union_scores``).  The CUDA kernel for CUDA tensors (for
-    int8 / bf16 values over ``probe_groups``' work list), the plain
-    version for CPU tensors."""
+    operands as ``union_scores``).  The CUDA kernel over ``probe_groups``'
+    work list for CUDA tensors, the plain version for CPU tensors."""
     if values.device.type == "cpu":
         return probe_scores_plain(q, probes, values, scales, cs, row_ids, mask)
     if values.device.type != "cuda":
         raise ValueError(f"no ivf_scan path for device {values.device}")
-    mode = _check(q, probes, values, scales, cs, row_ids, mask)
-    variant = probe_variant(mode)
-    b, d = q.shape
+    _check(q, probes, values, scales, cs, row_ids, mask)
+    b = q.shape[0]
     nlist, cap, _ = values.shape
     nprobe = probes.shape[1]
     if tuple(probes.shape) != (b, nprobe):
         raise ValueError("probes must be [B, nprobe]")
-    if variant == "simt" and (nprobe > MAX_GRID_YZ or d > PROBE_SIMT_MAX_D):
-        raise ValueError(f"the SIMT per-query kernel takes nprobe <= "
-                         f"{MAX_GRID_YZ} and D <= {PROBE_SIMT_MAX_D}")
     if -(-cap // 128) > MAX_GRID_YZ:
         raise ValueError(f"per-query grid exceeds {MAX_GRID_YZ} row blocks")
     out = torch.empty((b, nprobe, cap), dtype=torch.float32,
                       device=values.device)
     if b == 0 or nprobe == 0 or cap == 0:
         return out
-    if variant == "tc":
-        _probe_tc(mode, q, probe_groups(probes, nlist, PROBE_QG), nprobe,
-                  values, scales, cs, row_ids, mask, out)
-        return out
-    err = _lib().ivf_probe_launch(
-        mode, q.data_ptr(), probes.data_ptr(), values.data_ptr(),
-        _ptr(scales), _ptr(cs), row_ids.data_ptr(),
-        _ptr(None if mask is None else mask.view(torch.uint8)),
-        b, nprobe, cap, d, nlist, out.data_ptr(),
-        torch.cuda.current_stream(values.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ivf_probe simt kernel launch failed: "
-                           f"cudaError {err}")
-    probe_simt_launches.count += 1
+    _probe_tc(q, probe_groups(probes, nlist, PROBE_QG), nprobe, values,
+              scales, cs, row_ids, mask, out)
     return out
 
 
-def _probe_tc(mode, q, groups: ProbeGroups, nprobe, values, scales, cs,
-              row_ids, mask, out) -> None:
+def _query_operand(lib, mode, q, stream) -> torch.Tensor:
+    """The kernel's query operand: ``q`` itself, or for f32 values its
+    tf32 planes ``[2B, D]``, made by a kernel of their own on the same
+    stream first (counted with the scoring kernel's one launch)."""
+    if mode != MODES[torch.float32]:
+        return q
+    b, d = q.shape
+    planes = torch.empty((2 * b, d), dtype=torch.float32, device=q.device)
+    err = lib.ivf_tf32_planes(q.data_ptr(), planes.data_ptr(), b * d, stream)
+    if err != 0:
+        raise RuntimeError(f"ivf tf32 planes launch failed: cudaError {err}")
+    return planes  # freed after the launch is queued: the stream orders reuse
+
+
+def _probe_tc(q, groups: ProbeGroups, nprobe, values, scales, cs, row_ids,
+              mask, out) -> None:
     """Launch the tensor-core per-query kernel over a work list into
-    ``out [B, nprobe, C]`` (operands checked by ``probe_scores``)."""
+    ``out [B, nprobe, C]`` (operands checked by ``probe_scores``; f32
+    queries are turned into their planes here)."""
     b, d = q.shape
     nlist, cap, _ = values.shape
-    err = _lib().ivf_probe_tc_launch(
-        mode, q.data_ptr(), groups.order.data_ptr(),
+    lib = _lib()
+    stream = torch.cuda.current_stream(values.device).cuda_stream
+    mode = MODES[values.dtype]
+    qk = _query_operand(lib, mode, q, stream)
+    err = lib.ivf_probe_tc_launch(
+        mode, qk.data_ptr(), groups.order.data_ptr(),
         groups.pair_off.data_ptr(), groups.group_off.data_ptr(),
         groups.max_groups, PROBE_QG, values.data_ptr(), _ptr(scales),
         _ptr(cs), row_ids.data_ptr(),
         _ptr(None if mask is None else mask.view(torch.uint8)),
-        b, nprobe, cap, d, nlist, out.data_ptr(),
-        torch.cuda.current_stream(values.device).cuda_stream)
+        b, nprobe, cap, d, nlist, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"ivf_probe tc kernel launch failed: "
                            f"cudaError {err}")

@@ -933,3 +933,94 @@ def test_three_pass_tf32_union_holds_the_f32_tolerance(d):
     tol = d * 2.0 ** -23 * (float(np.abs(ref).max()) + 1.0)
     assert np.abs(emu - ref).max() <= tol
     assert np.abs(emu - exact).max() <= tol
+
+
+def _three_pass_per_query_scores(q, probes, values, qg):
+    """[B, nprobe, C] raw per-query scores as the IVF per-query kernel's
+    f32 mode forms them: the (query, probe) pairs cut into groups of at
+    most ``qg`` pairs of one tile (``ivf_topk.probe_groups``), each group's
+    queries against its tile's rows, three products a k8 step on
+    round-to-nearest planes (``_three_pass_scores``)."""
+    from super_rag_tpu_torch.ops import ivf_topk as tit
+
+    b, nprobe = probes.shape
+    nlist, cap, _ = values.shape
+    groups = tit.probe_groups(t(probes), nlist, qg)
+    order, pair_off, group_off = (n(x).astype(np.int64) for x in groups[:3])
+    out = np.full((b * nprobe, cap), np.nan, np.float32)
+    for tile in range(nlist):
+        for g in range(group_off[tile], group_off[tile + 1]):
+            first = pair_off[tile] + (g - group_off[tile]) * qg
+            pairs = order[first:min(first + qg, pair_off[tile + 1])]
+            out[pairs] = _three_pass_scores(q[pairs // nprobe], values[tile])
+    return out.reshape(b, nprobe, cap)
+
+
+@pytest.mark.parametrize("d", [16, 96, 768, 1536])
+def test_three_pass_tf32_per_query_holds_the_f32_tolerance(d, monkeypatch):
+    """The IVF per-query kernel's f32 mode, emulated in numpy over its
+    tile-major work list (groups of ``PROBE_QG`` pairs; tf32 planes
+    rounded to nearest, three products a k8 step, f32 sums), on probe
+    lists with repeats: every pair scored once, within the float
+    tolerance D * 2^-23 * (max|score| + 1) of the exact (float64) score
+    and of ``probe_scores_plain``, and the same bits as the union's
+    emulation gathered at the probes.  Then against the JAX package's
+    per-query kernel (``pallas_ivf_topk`` on its per-query route,
+    interpret=True, UNION_OUT_BYTES_MAX 0, k = every candidate, so its
+    raw score of each probed row is read by row id): within that
+    tolerance, and its top-10 matched by the emulated one, at D from 16
+    to 1,536, with duplicate rows and a query equal to a row."""
+    from super_rag_tpu.ops import ivf as jivf
+    from super_rag_tpu_torch.ops import ivf_topk as tit
+
+    rng = np.random.default_rng(70 + d)
+    nlist, cap, b, nprobe = 6, 40, 5, 4
+    values = rng.standard_normal((nlist, cap, d)).astype(np.float32)
+    values[:, 20:25] = values[:, :5]
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    q[0] = values[3, 7]
+    probes = rng.integers(0, nlist, (b, nprobe)).astype(np.int32)
+    probes[:, 1] = probes[:, 0]
+    probes[0, 2] = 3
+    emu = _three_pass_per_query_scores(q, probes, values, tit.PROBE_QG)
+    exact = np.einsum("bd,bpcd->bpc", q.astype(np.float64),
+                      values[probes].astype(np.float64))
+    tol = d * 2.0 ** -23 * (float(np.abs(exact).max()) + 1.0)
+    assert not np.isnan(emu).any()
+    assert np.abs(emu - exact).max() <= tol
+    row_ids = np.arange(nlist * cap, dtype=np.int32).reshape(nlist, cap)
+    plain = n(tit.probe_scores_plain(t(q), t(probes), t(values), None, None, t(row_ids),
+                                     None))
+    assert np.abs(emu - plain).max() <= tol
+    gathered = np.take_along_axis(_three_pass_union_scores(q, values, np.arange(nlist)),
+                                  probes[:, :, None].astype(np.int64), 1)
+    assert np.array_equal(emu.view(np.uint32), gathered.view(np.uint32))
+
+    # the JAX per-query kernel, every candidate of its own probes
+    monkeypatch.setattr(jpivf, "UNION_OUT_BYTES_MAX", 0)
+    jpivf.pallas_ivf_topk.clear_cache()
+    try:
+        centroids = rng.standard_normal((nlist, d)).astype(np.float32)
+        j = jivf.IVFIndex(jnp.asarray(centroids), jnp.asarray(values), None,
+                          jnp.asarray(row_ids), None, None)
+        jv, ji = jpivf.pallas_ivf_topk(jnp.asarray(q), j, k=nprobe * cap, nprobe=nprobe,
+                                       metric=jdense.Metric.DOT, interpret=True)
+    finally:
+        jpivf.pallas_ivf_topk.clear_cache()
+    jv, ji = np.asarray(jv), np.asarray(ji).astype(np.int64)
+    emu_all = _three_pass_scores(q, values.reshape(nlist * cap, d))
+    exact_all = q.astype(np.float64) @ values.reshape(nlist * cap, d).astype(np.float64).T
+    tiles = np.argsort(-(q @ centroids.T), axis=1, kind="stable")[:, :nprobe]
+    want_rows = np.sort((tiles[:, :, None] * cap + np.arange(cap)).reshape(b, -1), 1)
+    assert np.array_equal(np.sort(ji, 1), want_rows)
+    assert np.isfinite(jv).all()
+    ref_tol = d * 2.0 ** -23 * (float(np.abs(jv).max()) + 1.0)
+    emu_at = np.take_along_axis(emu_all, ji, 1)
+    assert np.abs(emu_at - jv).max() <= ref_tol
+    assert np.abs(emu_at - np.take_along_axis(exact_all, ji, 1)).max() <= ref_tol
+    # the emulated per-query top-10 over the same probes against the JAX one
+    emu_pq = _three_pass_per_query_scores(q, tiles.astype(np.int32), values, tit.PROBE_QG)
+    ev, pos = torch.topk(t(emu_pq.reshape(b, -1)), 10)
+    ei = np.take_along_axis(tiles, n(pos) // cap, 1) * cap + n(pos) % cap
+    assert_topk_match(jv[:, :10], ji[:, :10], n(ev), ei, rtol=0.0, atol=ref_tol,
+                      scores=exact_all.astype(np.float32))

@@ -157,9 +157,15 @@ def test_scorer_from_work_list_equals_plain_version(kind, dtype, residual,
 
 @pytest.mark.parametrize("dtype,want", [(torch.int8, "tc"),
                                         (torch.bfloat16, "tc"),
-                                        (torch.float32, "simt")])
+                                        (torch.float32, "tc"),
+                                        (torch.float16, ValueError)])
 def test_probe_variant_by_mode(dtype, want):
-    """int8 / bf16 values take the tensor-core per-query kernel over the
-    work list, f32 values the SIMT one (TF32 would not keep the
-    summation tolerance)."""
+    """Every values type takes the tensor-core per-query kernel over the
+    work list (f32 values as three TF32 products, which keep the
+    summation tolerance); a mode the kernel does not have raises."""
+    if want is ValueError:
+        with pytest.raises(ValueError, match="no per-query kernel mode"):
+            tit.probe_variant(max(tit.MODES.values()) + 1)
+        assert dtype not in tit.MODES
+        return
     assert tit.probe_variant(tit.MODES[dtype]) == want

@@ -146,7 +146,7 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     _, p, q, _ = _index("int8")
     qb = t(q).to(torch.bfloat16)
     tiles = torch.tensor([1, 4], dtype=torch.int32)
-    counters = (tit.union_tc_launches, tit.probe_tc_launches, tit.probe_simt_launches)
+    counters = (tit.union_tc_launches, tit.probe_tc_launches)
     before = [c.count for c in counters]
     tit.union_scores(qb, tiles, p.values, p.scales, None, p.row_ids, None)
     tit.probe_scores(qb, tiles[None].expand(5, -1).contiguous(), p.values,
