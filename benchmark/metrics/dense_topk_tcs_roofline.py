@@ -1,0 +1,8 @@
+"""Share of its roofline that the sorted-selection kernel
+(``csrc/dense_topk.cu dense_topk_tcs_kernel``) reaches in the window, %."""
+
+from benchmark.readers import Run, kernel_roofline
+
+
+def read(run: Run):
+    return kernel_roofline(run, "dense_topk_tcs_kernel")
