@@ -12,8 +12,13 @@ batcher can exit.
 from __future__ import annotations
 
 import asyncio
+import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, Hashable
+from typing import Any, Callable, Hashable, Optional
+
+from super_rag_tpu_torch.trace.tracing import get_tracer
+
+_TRACE = get_tracer()
 
 
 def _freeze(v: Any) -> Hashable:
@@ -39,7 +44,8 @@ class QueryBatcher:
     def __init__(self, max_batch: int = 64, max_wait_ms: float = 0.0):
         self.max_batch = max_batch
         self.max_wait_ms = max_wait_ms
-        self._pending: dict[tuple, list[tuple[str, asyncio.Future]]] = {}
+        # (query, future, enqueue perf_counter while stage spans record)
+        self._pending: dict[tuple, list[tuple[str, asyncio.Future, Optional[float]]]] = {}
         self._engines: dict[tuple, tuple[Any, dict]] = {}
         self._executor = ThreadPoolExecutor(max_workers=1,
                                             thread_name_prefix="batcher")
@@ -54,7 +60,7 @@ class QueryBatcher:
         key = (id(engine), _freeze(params))
         fut: asyncio.Future = loop.create_future()
         bucket = self._pending.setdefault(key, [])
-        bucket.append((query, fut))
+        bucket.append((query, fut, time.perf_counter() if _TRACE.active() else None))
         self._engines[key] = (engine, params)
         if not self._busy:
             if len(bucket) >= self.max_batch or self.max_wait_ms <= 0:
@@ -89,15 +95,20 @@ class QueryBatcher:
         else:
             self._pending.pop(key, None)
             self._engines.pop(key, None)  # drop the ref so engines GC
-        queries = [q for q, _ in take]
-        futures = [f for _, f in take]
+        queries = [q for q, _, _ in take]
+        futures = [f for _, f, _ in take]
         self.dispatches += 1
         self.queries += len(queries)
         self._busy = True
         loop = asyncio.get_running_loop()
 
         def run():
-            return engine.search_batch(queries, **params)
+            with _TRACE.stage("batcher.dispatch") as span:
+                if span is not None:
+                    span.attrs = (("queries", len(take)),
+                                  ("wait_sum_s", sum(span.t0 - t for _, _, t in take
+                                                     if t is not None)))
+                return engine.search_batch(queries, **params)
 
         def done(task):
             self._busy = False

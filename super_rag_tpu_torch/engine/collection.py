@@ -18,6 +18,9 @@ from super_rag_tpu_torch.device import DeviceLike
 from super_rag_tpu_torch.engine.index import (
     INDEXER_CODES, DeviceIndex, FilterSpec, IndexSpec, _chat_hash)
 from super_rag_tpu_torch.models.hash_embedder import HashEmbedder
+from super_rag_tpu_torch.trace.tracing import get_tracer
+
+_TRACE = get_tracer()
 
 
 @dataclass
@@ -58,11 +61,12 @@ class CollectionEngine:
         # an embedder with ``embed_device`` leaves its rows on its device
         # (no host sync, no round trip through host memory), as the
         # reference's ingest takes it (engine/collection.py:75-76)
-        if hasattr(self.embedder, "embed_device"):
-            emb = self.embedder.embed_device(texts)
-        else:
-            emb = self.embedder.embed(texts)
-        return torch.as_tensor(emb, dtype=torch.float32).to(self.index.device)
+        with _TRACE.stage("embed"):
+            if hasattr(self.embedder, "embed_device"):
+                emb = self.embedder.embed_device(texts)
+            else:
+                emb = self.embedder.embed(texts)
+            return torch.as_tensor(emb, dtype=torch.float32).to(self.index.device)
 
     # -- ingest ---------------------------------------------------------------
 
@@ -166,39 +170,44 @@ class CollectionEngine:
         candidates: int = 100,
         rrf_k: int = 60,
     ) -> list[list[SearchHit]]:
-        if self.index.size == 0:
-            return [[] for _ in queries]
-        flt = self._filter(index_types, chat_id, doc_rows)
-        k_recall = max(top_k, candidates if (rerank or mode == "hybrid") else top_k)
-        k_recall = min(k_recall, self.index.size)
+        with _TRACE.stage("engine.search_batch"):
+            if self.index.size == 0:
+                return [[] for _ in queries]
+            flt = self._filter(index_types, chat_id, doc_rows)
+            k_recall = max(top_k, candidates if (rerank or mode == "hybrid") else top_k)
+            k_recall = min(k_recall, self.index.size)
 
-        # pad the batch to a power-of-two bucket so coalesced batches of
-        # any size reuse a few shapes
-        n_q = len(queries)
-        bucket = 1 << max(0, n_q - 1).bit_length()
-        padded = list(queries) + [""] * (bucket - n_q)
+            # pad the batch to a power-of-two bucket so coalesced batches of
+            # any size reuse a few shapes
+            n_q = len(queries)
+            bucket = 1 << max(0, n_q - 1).bit_length()
+            padded = list(queries) + [""] * (bucket - n_q)
 
-        if mode == "hybrid":
-            res = self.index.search_hybrid(
-                self._embed(padded), padded, k=k_recall, candidates=k_recall,
-                flt=flt, rrf_k=rrf_k, **self.hybrid_opts)
-            v, i = res.scores.cpu().numpy(), res.indices.cpu().numpy()
-            take = k_recall if rerank else top_k
-            results = [self._hits(v[b][:take], i[b][:take], "hybrid")
-                       for b in range(n_q)]
+            if mode == "hybrid":
+                res = self.index.search_hybrid(
+                    self._embed(padded), padded, k=k_recall, candidates=k_recall,
+                    flt=flt, rrf_k=rrf_k, **self.hybrid_opts)
+                with _TRACE.stage("engine.copy"):
+                    v, i = res.scores.cpu().numpy(), res.indices.cpu().numpy()
+                take = k_recall if rerank else top_k
+                with _TRACE.stage("engine.hits"):
+                    results = [self._hits(v[b][:take], i[b][:take], "hybrid")
+                               for b in range(n_q)]
+                return self._maybe_rerank(queries, results, rerank, top_k)
+
+            if mode == "dense":
+                dv, di = self.index.search_dense(self._embed(padded), k_recall, flt)
+                recall_type, min_score = "vector_search", similarity_threshold
+            else:
+                dv, di = self.index.search_bm25(padded, k_recall, flt)
+                recall_type, min_score = "fulltext_search", None
+            with _TRACE.stage("engine.copy"):
+                v, i = dv.cpu().numpy(), di.cpu().numpy()
+            i = np.where(np.isfinite(v), i, -1)
+            with _TRACE.stage("engine.hits"):
+                results = [self._hits(v[b][:top_k], i[b][:top_k], recall_type,
+                                      min_score) for b in range(n_q)]
             return self._maybe_rerank(queries, results, rerank, top_k)
-
-        if mode == "dense":
-            dv, di = self.index.search_dense(self._embed(padded), k_recall, flt)
-            recall_type, min_score = "vector_search", similarity_threshold
-        else:
-            dv, di = self.index.search_bm25(padded, k_recall, flt)
-            recall_type, min_score = "fulltext_search", None
-        v, i = dv.cpu().numpy(), di.cpu().numpy()
-        i = np.where(np.isfinite(v), i, -1)
-        results = [self._hits(v[b][:top_k], i[b][:top_k], recall_type,
-                              min_score) for b in range(n_q)]
-        return self._maybe_rerank(queries, results, rerank, top_k)
 
     def _maybe_rerank(self, queries, results, rerank: bool, top_k: int):
         """Fuse the given reranker's scores with the retrieval scores

@@ -38,6 +38,9 @@ from super_rag_tpu_torch.ops.ivf_topk import ivf_topk
 from super_rag_tpu_torch.ops.quant import quantize_int8
 from super_rag_tpu_torch.ops.topk import merge_topk
 from super_rag_tpu_torch.tokenize.analyzer import Analyzer, DocFrequency, fnv1a32
+from super_rag_tpu_torch.trace.tracing import get_tracer
+
+_TRACE = get_tracer()
 
 INDEXER_CODES = {"vector": 0, "summary": 1, "vision": 2, "graph": 3}
 
@@ -527,12 +530,13 @@ class DeviceIndex:
                                recall_target=self._ivf_recall_target)
 
     def _query_arrays(self, queries: Sequence[str], max_terms: int):
-        qt = np.full((len(queries), max_terms), self.analyzer.pad_id, np.int32)
-        qi = np.zeros((len(queries), max_terms), np.float32)
-        for i, q in enumerate(queries):
-            qt[i], qi[i] = self.analyzer.query_entry(q, self.df, max_terms)
-        return (torch.from_numpy(qt).to(self.device),
-                torch.from_numpy(qi).to(self.device))
+        with _TRACE.stage("index.analyze"):
+            qt = np.full((len(queries), max_terms), self.analyzer.pad_id, np.int32)
+            qi = np.zeros((len(queries), max_terms), np.float32)
+            for i, q in enumerate(queries):
+                qt[i], qi[i] = self.analyzer.query_entry(q, self.df, max_terms)
+            return (torch.from_numpy(qt).to(self.device),
+                    torch.from_numpy(qi).to(self.device))
 
     def _lexical(self) -> LexicalCorpus:
         return LexicalCorpus(terms=self.terms, tfs=self.tfs,
@@ -601,35 +605,36 @@ class DeviceIndex:
         ``lex_gen`` (default ``2 * candidates``, the reference's) is the
         lexical generation depth, which the reference's 10M configuration
         sets on ``hybrid_search`` itself."""
-        self._maybe_autocompact()
-        qt, qi = self._query_arrays(queries, max_terms)
-        if use_kernel is None:
-            use_kernel = self._kernel_default(2048)
-        mask = self._mask(flt)
-        tail_lex = tail_mask = None
-        tail_offset = 0
-        if self._inverted is not None and self._inverted_upto < self.size:
-            tail_offset, _, tail_lex, tail_mask = self._tail_slice(mask)
-        ivf = (self._ivf if self._ivf is not None
-               and self._ivf_upto == self.size else None)
-        return hybrid_search(
-            query_emb.to(self.device), qt, qi, self.dense_corpus(),
-            self._lexical(), self.df.avgdl,
-            inverted=self._inverted, tail_lexical=tail_lex,
-            tail_mask=tail_mask, tail_offset=tail_offset,
-            vocab_size=self.spec.vocab_size, k=k, candidates=candidates,
-            metric=self.spec.metric, mask=mask, rrf_k=rrf_k,
-            use_kernel=use_kernel,
-            per_tile_k=(self._per_tile_k
-                        if (use_kernel and candidates >= 32) else None),
-            ivf=ivf, nprobe=self._ivf_nprobe,
-            rescore=rescore, postings_per_query_term=postings_per_query_term,
-            lex_deep_terms=lex_deep_terms,
-            lex_deep_postings=lex_deep_postings,
-            lex_approx_topk=lex_approx_topk, lex_gen=lex_gen,
-            int8_queries=use_kernel and self.spec.dtype == torch.int8,
-            device=self.device,
-        )
+        with _TRACE.stage("index.search_hybrid"):
+            self._maybe_autocompact()
+            qt, qi = self._query_arrays(queries, max_terms)
+            if use_kernel is None:
+                use_kernel = self._kernel_default(2048)
+            mask = self._mask(flt)
+            tail_lex = tail_mask = None
+            tail_offset = 0
+            if self._inverted is not None and self._inverted_upto < self.size:
+                tail_offset, _, tail_lex, tail_mask = self._tail_slice(mask)
+            ivf = (self._ivf if self._ivf is not None
+                   and self._ivf_upto == self.size else None)
+            return hybrid_search(
+                query_emb.to(self.device), qt, qi, self.dense_corpus(),
+                self._lexical(), self.df.avgdl,
+                inverted=self._inverted, tail_lexical=tail_lex,
+                tail_mask=tail_mask, tail_offset=tail_offset,
+                vocab_size=self.spec.vocab_size, k=k, candidates=candidates,
+                metric=self.spec.metric, mask=mask, rrf_k=rrf_k,
+                use_kernel=use_kernel,
+                per_tile_k=(self._per_tile_k
+                            if (use_kernel and candidates >= 32) else None),
+                ivf=ivf, nprobe=self._ivf_nprobe,
+                rescore=rescore, postings_per_query_term=postings_per_query_term,
+                lex_deep_terms=lex_deep_terms,
+                lex_deep_postings=lex_deep_postings,
+                lex_approx_topk=lex_approx_topk, lex_gen=lex_gen,
+                int8_queries=use_kernel and self.spec.dtype == torch.int8,
+                device=self.device,
+            )
 
     # -- snapshot / restore --------------------------------------------------
 

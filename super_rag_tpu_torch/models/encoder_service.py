@@ -24,6 +24,9 @@ from super_rag_tpu_torch.models.encoder import (
     EncoderConfig, TextEncoder, dtype_from_name, dtype_name, flatten_tree,
     init_params, load_flax_params)
 from super_rag_tpu_torch.models.tokenization import HashTokenizer
+from super_rag_tpu_torch.trace.tracing import get_tracer
+
+_TRACE = get_tracer()
 
 # the JAX package's services default to this shape when given no config
 DEFAULT_CONFIG = EncoderConfig(vocab_size=30522, hidden_dim=256, num_layers=4,
@@ -140,10 +143,11 @@ class EncoderService:
         return self.cfg.out_dim
 
     def _forward(self, block: list[str]) -> torch.Tensor:
-        ids, mask = self.tokenizer.encode_batch(block, max_len=self.max_len)
-        # pad the batch dim to the fixed size: one shape per sequence bucket
-        ids, mask = pad_batch((ids, mask), self.batch_size)
-        with torch.inference_mode():
+        with _TRACE.stage("embed.tokenize"):
+            ids, mask = self.tokenizer.encode_batch(block, max_len=self.max_len)
+            # pad the batch dim to the fixed size: one shape per sequence bucket
+            ids, mask = pad_batch((ids, mask), self.batch_size)
+        with _TRACE.stage("embed.forward", self.device), torch.inference_mode():
             return self.model(torch.from_numpy(ids).to(self.device),
                               torch.from_numpy(mask).to(self.device))
 

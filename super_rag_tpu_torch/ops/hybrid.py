@@ -31,6 +31,9 @@ from super_rag_tpu_torch.ops.ivf import (
     IVFIndex, ivf_flat_topk, ivf_search, unpack_signs)
 from super_rag_tpu_torch.ops.ivf_topk import ivf_topk
 from super_rag_tpu_torch.ops.topk import NEG_INF, stable_topk
+from super_rag_tpu_torch.trace.tracing import get_tracer
+
+_TRACE = get_tracer()
 
 INT32_MAX = 2**31 - 1
 
@@ -205,74 +208,80 @@ def hybrid_search(
                  and metric in (Metric.COSINE, Metric.DOT))
     if do_refine:
         kd = min(max(kd, dense_refine), n)
-    if ivf is not None:
-        if query_emb.shape[0] * nprobe >= ivf.nlist:
-            dv, di = ivf_flat_topk(query_emb, ivf, k=kd, metric=metric,
-                                   mask=mask, int8_queries=int8_queries)
+    with _TRACE.stage("index.dense", dev):
+        if ivf is not None:
+            if query_emb.shape[0] * nprobe >= ivf.nlist:
+                dv, di = ivf_flat_topk(query_emb, ivf, k=kd, metric=metric,
+                                       mask=mask, int8_queries=int8_queries)
+            elif use_kernel:
+                dv, di = ivf_topk(query_emb, ivf, k=kd, nprobe=nprobe, mask=mask,
+                                  metric=metric, device=dev)
+            else:
+                dv, di = ivf_search(query_emb, ivf, k=kd, nprobe=nprobe,
+                                    mask=mask, metric=metric)
         elif use_kernel:
-            dv, di = ivf_topk(query_emb, ivf, k=kd, nprobe=nprobe, mask=mask,
-                              metric=metric, device=dev)
+            dv, di = dense_topk(query_emb, dense, k=kd, metric=metric, mask=mask,
+                                tile=dense_tile, int8_queries=int8_queries,
+                                per_tile_k=per_tile_k, device=dev)
         else:
-            dv, di = ivf_search(query_emb, ivf, k=kd, nprobe=nprobe,
-                                mask=mask, metric=metric)
-    elif use_kernel:
-        dv, di = dense_topk(query_emb, dense, k=kd, metric=metric, mask=mask,
-                            tile=dense_tile, int8_queries=int8_queries,
-                            per_tile_k=per_tile_k, device=dev)
-    else:
-        dv, di = dense_search(query_emb, dense, k=kd, metric=metric,
-                              mask=mask, block_size=block_size)
-    if do_refine:
-        # codes + 0.25 * sign at full f32 query precision (refine_candidates
-        # semantics): half the int8 quantization noise
-        qf = normalize_queries(query_emb, metric)
-        safe = di.clamp(min=0).long()
-        codes = dense.values[safe].to(torch.float32)
-        sgn = unpack_signs(dense.sign_plane[safe])
-        scl = dense.scales[safe].to(torch.float32)
-        dots = torch.einsum("bkd,bd->bk", codes + 0.25 * sgn, qf) * scl
-        refined = torch.where(torch.isfinite(dv), dots, NEG_INF)
-        dv, pos = stable_topk(refined, refined.shape[1])
-        di = torch.gather(di, -1, pos)
-    dv_pool, di_pool = dv, di
-    if kd > kc:
-        dv, di = dv[:, :kc], di[:, :kc]
+            dv, di = dense_search(query_emb, dense, k=kd, metric=metric,
+                                  mask=mask, block_size=block_size)
+        if do_refine:
+            # codes + 0.25 * sign at full f32 query precision
+            # (refine_candidates semantics): half the int8 quantization noise
+            qf = normalize_queries(query_emb, metric)
+            safe = di.clamp(min=0).long()
+            codes = dense.values[safe].to(torch.float32)
+            sgn = unpack_signs(dense.sign_plane[safe])
+            scl = dense.scales[safe].to(torch.float32)
+            dots = torch.einsum("bkd,bd->bk", codes + 0.25 * sgn, qf) * scl
+            refined = torch.where(torch.isfinite(dv), dots, NEG_INF)
+            dv, pos = stable_topk(refined, refined.shape[1])
+            di = torch.gather(di, -1, pos)
+        dv_pool, di_pool = dv, di
+        if kd > kc:
+            dv, di = dv[:, :kc], di[:, :kc]
 
     # `b` is the BM25 length-normalisation parameter throughout: the batch
     # size must never shadow it (the reference's IVF-rescore bug)
     if inverted is not None:
         kg = min(lex_gen if lex_gen is not None else 2 * kc, n)
-        lv, li = inverted_bm25_search(
-            query_terms, query_idf, inverted, k=kg, mask=mask,
-            postings_per_query_term=postings_per_query_term,
-            deep_terms=lex_deep_terms, deep_postings=lex_deep_postings,
-        )
-        if tail_lexical is not None:
-            table = _idf_table(query_terms, query_idf, vocab_size)
-            ts = _bm25_block(table, tail_lexical.terms, tail_lexical.tfs,
-                             tail_lexical.doc_len,
-                             clamp_avgdl(avgdl, query_terms.device), k1, b)
-            if tail_mask is not None:
-                ts = torch.where(tail_mask[None, :], ts, NEG_INF)
-            tv, ti = stable_topk(ts, min(kg, ts.shape[1]))
-            ti = (ti + tail_offset).to(torch.int32)
-            lv, pos = stable_topk(torch.cat([lv, tv], 1), kg)
-            li = torch.gather(torch.cat([li, ti], 1), -1, pos)
+        with _TRACE.stage("index.lexical", dev):
+            lv, li = inverted_bm25_search(
+                query_terms, query_idf, inverted, k=kg, mask=mask,
+                postings_per_query_term=postings_per_query_term,
+                deep_terms=lex_deep_terms, deep_postings=lex_deep_postings,
+            )
+            if tail_lexical is not None:
+                table = _idf_table(query_terms, query_idf, vocab_size)
+                ts = _bm25_block(table, tail_lexical.terms, tail_lexical.tfs,
+                                 tail_lexical.doc_len,
+                                 clamp_avgdl(avgdl, query_terms.device), k1, b)
+                if tail_mask is not None:
+                    ts = torch.where(tail_mask[None, :], ts, NEG_INF)
+                tv, ti = stable_topk(ts, min(kg, ts.shape[1]))
+                ti = (ti + tail_offset).to(torch.int32)
+                lv, pos = stable_topk(torch.cat([lv, tv], 1), kg)
+                li = torch.gather(torch.cat([li, ti], 1), -1, pos)
         if rescore and lexical is not None:
-            lv, li = _rescored_lexical_branch(
-                dv_pool, di_pool, lv, li.to(torch.int32), query_terms,
-                query_idf, lexical, avgdl, kc, k1, b)
+            with _TRACE.stage("index.rescore", dev):
+                lv, li = _rescored_lexical_branch(
+                    dv_pool, di_pool, lv, li.to(torch.int32), query_terms,
+                    query_idf, lexical, avgdl, kc, k1, b)
         elif lv.shape[1] > kc:
             lv, pos = stable_topk(lv, kc)
             li = torch.gather(li, -1, pos)
-        return _rrf_on_device(dv, di.to(torch.int32), lv,
-                              li.to(torch.int32), k, rrf_k)
+        with _TRACE.stage("index.rrf", dev):
+            return _rrf_on_device(dv, di.to(torch.int32), lv,
+                                  li.to(torch.int32), k, rrf_k)
 
     # doc-major fallback (small corpora and the un-compacted index); its
     # block is small because the idf gather is [B, block, slots] f32
-    table = _idf_table(query_terms, query_idf, vocab_size)
-    lv, li = _blocked_topk(table, lexical,
-                           clamp_avgdl(avgdl, query_terms.device), kc, mask,
-                           k1, b, bm25_block_size)
-    return _rrf_on_device(dv, di.to(torch.int32), lv, li.to(torch.int32), k,
-                          rrf_k)
+    with _TRACE.stage("index.lexical", dev):
+        table = _idf_table(query_terms, query_idf, vocab_size)
+        lv, li = _blocked_topk(table, lexical,
+                               clamp_avgdl(avgdl, query_terms.device), kc, mask,
+                               k1, b, bm25_block_size)
+    with _TRACE.stage("index.rrf", dev):
+        return _rrf_on_device(dv, di.to(torch.int32), lv, li.to(torch.int32), k,
+                              rrf_k)
